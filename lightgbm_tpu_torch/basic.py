@@ -1,0 +1,119 @@
+"""User-facing Dataset and Booster.
+
+Counterpart of lightgbm_tpu/basic.py (Dataset, Booster.predict :525,
+save_model :589, model_to_string :599), after the reference python
+package's basic.py.
+"""
+
+from __future__ import annotations
+
+import os
+import tempfile
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+
+from .config import Config
+from .core.dataset import TorchDataset
+from .models.gbdt import GBDT
+from .models.serialization import save_model_to_string
+from .objective import create_objective
+from .utils.log import LightGBMError, set_verbosity
+
+
+class Dataset:
+    """Lazily-constructed training dataset.  ``data`` is a raw [N, F]
+    float matrix, or an already-binned TorchDataset (convert.py)."""
+
+    def __init__(self, data, label=None,
+                 reference: Optional["Dataset"] = None,
+                 feature_name="auto",
+                 params: Optional[Dict[str, Any]] = None):
+        self.data = data
+        self.label = label
+        self.reference = reference
+        self.feature_name = feature_name
+        self.params = dict(params or {})
+        self._handle: Optional[TorchDataset] = (
+            data if isinstance(data, TorchDataset) else None)
+
+    def construct(self, config: Optional[Config] = None) -> "Dataset":
+        if self._handle is not None:
+            return self
+        cfg = config or Config.from_params(self.params, device_type="cpu")
+        ref = None
+        if self.reference is not None:
+            ref = self.reference.construct(cfg)._handle
+        names = (None if self.feature_name == "auto"
+                 else list(self.feature_name))
+        self._handle = TorchDataset.from_numpy(
+            np.asarray(self.data), label=self.label, config=cfg,
+            feature_names=names, reference=ref)
+        return self
+
+    def create_valid(self, data, label=None) -> "Dataset":
+        return Dataset(data, label=label, reference=self)
+
+
+class Booster:
+    """Training-capable model handle.  ``fused_route=False`` grows with
+    the unfused route/histogram kernel pair instead of the fused one."""
+
+    def __init__(self, params: Optional[Dict] = None,
+                 train_set: Optional[Dataset] = None,
+                 fused_route: bool = True):
+        self.params = dict(params or {})
+        self.config = Config.from_params(self.params)
+        set_verbosity(self.config.verbosity)
+        if train_set is None:
+            raise LightGBMError("Booster needs a train_set (loading a model "
+                                "file is not part of lightgbm_tpu_torch)")
+        train_set.construct(self.config)
+        self.train_set = train_set
+        self.gbdt = GBDT(self.config, train_set._handle,
+                         create_objective(self.config),
+                         fused_route=fused_route)
+
+    def add_valid(self, data: Dataset, name: str) -> "Booster":
+        data.reference = self.train_set
+        data.construct(self.config)
+        self.gbdt.add_valid(name, data._handle)
+        return self
+
+    def update(self) -> bool:
+        """One boosting iteration; True when training cannot continue."""
+        return self.gbdt.train_one_iter()
+
+    def eval_train(self) -> List:
+        return self.gbdt.eval_train()
+
+    def eval_valid(self) -> List:
+        return self.gbdt.eval_valid()
+
+    def predict(self, data, num_iteration: int = -1,
+                raw_score: bool = False) -> np.ndarray:
+        X = np.asarray(data, dtype=np.float64)
+        if X.ndim == 1:
+            X = X[None, :]
+        n_feat = self.gbdt.max_feature_idx + 1
+        if X.shape[1] != n_feat:
+            raise LightGBMError(
+                f"The number of features in data ({X.shape[1]}) is not the "
+                f"same as it was in training data ({n_feat})")
+        return self.gbdt.predict(X, num_iteration=num_iteration,
+                                 raw_score=raw_score)
+
+    def model_to_string(self, num_iteration: Optional[int] = None) -> str:
+        return save_model_to_string(self.gbdt, self.config,
+                                    num_iteration or -1)
+
+    def save_model(self, filename: str,
+                   num_iteration: Optional[int] = None) -> "Booster":
+        """Write the model text atomically (tmp file + os.replace)."""
+        text = self.model_to_string(num_iteration)
+        d = os.path.dirname(os.path.abspath(filename))
+        fd, tmp = tempfile.mkstemp(dir=d, prefix=".model.")
+        with os.fdopen(fd, "w") as fh:
+            fh.write(text)
+        os.replace(tmp, filename)
+        return self

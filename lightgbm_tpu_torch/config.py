@@ -1,0 +1,234 @@
+"""Training parameters of the port.
+
+The same registry shape as the reference's Config (include/LightGBM/
+config.h, src/io/config_auto.cpp): name, default, aliases.  The port runs
+one path — binary GBDT with the serial segment grower on dense numeric
+data — so the registry holds only the parameters that path honours.  A
+parameter of a feature the port does not have raises NotImplementedError
+unless it is given at the value that switches the feature off; an
+unknown parameter raises too.  Nothing is silently ignored.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+from .utils.log import LightGBMError
+
+
+class _P:
+    """One parameter spec: (default, aliases)."""
+
+    __slots__ = ("default", "aliases", "ptype")
+
+    def __init__(self, default, aliases=(), ptype=None):
+        self.default = default
+        self.aliases = tuple(aliases)
+        self.ptype = ptype if ptype is not None else type(default)
+
+
+# Parameters the port honours.
+_PARAMS: Dict[str, _P] = {
+    "objective": _P("binary", ["objective_type", "app", "application"]),
+    "num_iterations": _P(100, ["num_iteration", "n_iter", "num_tree",
+                               "num_trees", "num_round", "num_rounds",
+                               "num_boost_round", "n_estimators"]),
+    "learning_rate": _P(0.1, ["shrinkage_rate", "eta"]),
+    "num_leaves": _P(31, ["num_leaf", "max_leaves", "max_leaf"]),
+    # "cuda" or "cpu"; the card path never falls back to the CPU
+    "device_type": _P("cuda", ["device"]),
+    # the slice draws no random numbers; the seed is kept for the model text
+    "seed": _P(0, ["random_seed", "random_state"]),
+    "max_depth": _P(-1),
+    "min_data_in_leaf": _P(20, ["min_data_per_leaf", "min_data",
+                                "min_child_samples"]),
+    "min_sum_hessian_in_leaf": _P(1e-3, ["min_sum_hessian_per_leaf",
+                                         "min_sum_hessian", "min_hessian",
+                                         "min_child_weight"]),
+    "max_delta_step": _P(0.0, ["max_tree_output", "max_leaf_output"]),
+    "lambda_l1": _P(0.0, ["reg_alpha"]),
+    "lambda_l2": _P(0.0, ["reg_lambda", "lambda"]),
+    "min_gain_to_split": _P(0.0, ["min_split_gain"]),
+    "verbosity": _P(1, ["verbose"]),
+    "max_bin": _P(255),
+    "min_data_in_bin": _P(3),
+    "bin_construct_sample_cnt": _P(200000, ["subsample_for_bin"]),
+    "data_random_seed": _P(1, ["data_seed"]),
+    "use_missing": _P(True),
+    "zero_as_missing": _P(False),
+    "is_unbalance": _P(False, ["unbalance", "unbalanced_sets"]),
+    "scale_pos_weight": _P(1.0),
+    "sigmoid": _P(1.0),
+    "boost_from_average": _P(True),
+    "metric": _P([], ["metrics", "metric_types"], ptype=list),
+    # row block: the granularity of the segment grower's confinement
+    # intervals (0 = DEFAULT_BLOCK_ROWS, capped at the row count)
+    "tpu_row_chunk": _P(0),
+}
+
+# Parameters of features the port does not have, with the value that
+# switches each feature off.  Any other value raises NotImplementedError.
+_OFF_VALUES: Dict[str, Any] = {
+    "boosting": "gbdt",
+    "tree_learner": "serial",
+    "num_class": 1,
+    "num_machines": 1,
+    "num_threads": 0,
+    "bagging_fraction": 1.0,
+    "pos_bagging_fraction": 1.0,
+    "neg_bagging_fraction": 1.0,
+    "bagging_freq": 0,
+    "feature_fraction": 1.0,
+    "feature_fraction_bynode": 1.0,
+    "monotone_constraints": [],
+    "feature_contri": [],
+    "forcedsplits_filename": "",
+    "cegb_penalty_split": 0.0,
+    "cegb_penalty_feature_lazy": [],
+    "cegb_penalty_feature_coupled": [],
+    "enable_bundle": False,
+    "max_bin_by_feature": [],
+    "categorical_feature": "",
+    "early_stopping_round": 0,
+    "tpu_tree_impl": "segment",
+    "tpu_frontier_width": 0,
+    "tpu_double_precision": False,
+    "gpu_use_dp": False,
+}
+
+_OFF_ALIASES = {
+    "boosting_type": "boosting", "boost": "boosting",
+    "tree": "tree_learner", "tree_type": "tree_learner",
+    "tree_learner_type": "tree_learner",
+    "num_classes": "num_class", "num_machine": "num_machines",
+    "num_thread": "num_threads", "nthread": "num_threads",
+    "nthreads": "num_threads", "n_jobs": "num_threads",
+    "sub_row": "bagging_fraction", "subsample": "bagging_fraction",
+    "bagging": "bagging_fraction", "subsample_freq": "bagging_freq",
+    "sub_feature": "feature_fraction", "colsample_bytree": "feature_fraction",
+    "sub_feature_bynode": "feature_fraction_bynode",
+    "colsample_bynode": "feature_fraction_bynode",
+    "mc": "monotone_constraints", "monotone_constraint": "monotone_constraints",
+    "feature_contrib": "feature_contri", "fc": "feature_contri",
+    "fp": "feature_contri", "feature_penalty": "feature_contri",
+    "is_enable_bundle": "enable_bundle", "bundle": "enable_bundle",
+    "cat_feature": "categorical_feature",
+    "categorical_column": "categorical_feature",
+    "cat_column": "categorical_feature",
+    "early_stopping_rounds": "early_stopping_round",
+    "early_stopping": "early_stopping_round",
+}
+
+ALIAS_TABLE: Dict[str, str] = dict(_OFF_ALIASES)
+for _name, _spec in _PARAMS.items():
+    ALIAS_TABLE[_name] = _name
+    for _a in _spec.aliases:
+        ALIAS_TABLE[_a] = _name
+
+DEVICE_TYPES = ("cuda", "cpu")
+METRIC_ALIASES = {"auc": "auc", "binary_logloss": "binary_logloss",
+                  "binary": "binary_logloss"}
+_TRUE_SET = {"true", "1", "yes", "+", "on"}
+_FALSE_SET = {"false", "0", "no", "-", "off"}
+
+
+def resolve_alias(key: str) -> str:
+    k = key.strip().lower()
+    return ALIAS_TABLE.get(k, k)
+
+
+def _coerce(name: str, value: Any, ptype: type) -> Any:
+    if ptype is list:
+        if isinstance(value, (list, tuple)):
+            return list(value)
+        if isinstance(value, str):
+            return [v.strip() for v in value.replace(";", ",").split(",")
+                    if v.strip()]
+        return [value]
+    if ptype is bool:
+        if isinstance(value, (bool, int, float)):
+            return bool(value)
+        s = str(value).strip().lower()
+        if s in _TRUE_SET:
+            return True
+        if s in _FALSE_SET:
+            return False
+        raise ValueError(f"cannot parse bool parameter {name}={value!r}")
+    if ptype is int:
+        return int(float(value))
+    if ptype is float:
+        return float(value)
+    return str(value)
+
+
+def _is_off(name: str, value: Any) -> bool:
+    off = _OFF_VALUES[name]
+    if isinstance(off, list):
+        return not _coerce(name, value, list)
+    try:
+        return _coerce(name, value, type(off)) == off
+    except (TypeError, ValueError):
+        return False
+
+
+class Config:
+    """Resolved training configuration of the port."""
+
+    def __init__(self, **kwargs):
+        for name, spec in _PARAMS.items():
+            v = spec.default
+            setattr(self, name, list(v) if isinstance(v, list) else v)
+        self.raw: Dict[str, Any] = {}
+        self.update(kwargs)
+
+    @classmethod
+    def from_params(cls, params: Optional[Dict[str, Any]] = None,
+                    **kwargs) -> "Config":
+        merged = dict(params or {})
+        merged.update(kwargs)
+        return cls(**merged)
+
+    def update(self, params: Dict[str, Any]) -> None:
+        for k, v in params.items():
+            name = resolve_alias(k)
+            if name in _OFF_VALUES:
+                if not _is_off(name, v):
+                    raise NotImplementedError(
+                        f"parameter {k}={v!r} is not supported by "
+                        f"lightgbm_tpu_torch (only {name}="
+                        f"{_OFF_VALUES[name]!r})")
+            elif name in _PARAMS:
+                setattr(self, name, _coerce(name, v, _PARAMS[name].ptype))
+            else:
+                raise NotImplementedError(
+                    f"parameter {k!r} is not supported by lightgbm_tpu_torch")
+            self.raw[k] = v
+        self._post_process()
+
+    def _post_process(self) -> None:
+        self.objective = str(self.objective).strip().lower()
+        if self.objective != "binary":
+            raise NotImplementedError(
+                f"objective {self.objective!r} is not supported by "
+                "lightgbm_tpu_torch (only binary)")
+        self.device_type = str(self.device_type).strip().lower()
+        if self.device_type not in DEVICE_TYPES:
+            raise LightGBMError(
+                f"device_type must be one of {DEVICE_TYPES}, got "
+                f"{self.device_type!r}")
+        metrics = []
+        for m in self.metric:
+            m = str(m).strip().lower()
+            if m in ("", "none", "null", "na", "custom"):
+                continue
+            if m not in METRIC_ALIASES:
+                raise NotImplementedError(
+                    f"metric {m!r} is not supported by lightgbm_tpu_torch")
+            metrics.append(METRIC_ALIASES[m])
+        self.metric = metrics
+        if self.num_leaves < 2:
+            raise LightGBMError("num_leaves must be >= 2")
+        if not 2 <= self.max_bin <= 256:
+            raise LightGBMError("max_bin must be in [2, 256] (one byte a bin)")
+        if self.tpu_row_chunk < 0:
+            raise LightGBMError("tpu_row_chunk must be >= 0")

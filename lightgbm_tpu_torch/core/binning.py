@@ -1,0 +1,284 @@
+"""Feature quantization: value -> integer bin mapping, numerical features.
+
+Reimplements the reference's BinMapper (include/LightGBM/bin.h:78-246,
+src/io/bin.cpp:25-410) in numpy: greedy equal-ish-frequency bin-bound
+finding (``GreedyFindBin`` bin.cpp:74), the zero-aware split of the value
+range (``FindBinWithZeroAsOneBin`` bin.cpp:152) and missing handling
+(None/Zero/NaN).  Bin assignment (``ValueToBin`` bin.h:496-549) is one
+``np.searchsorted`` per column.  Categorical features are not part of the
+port yet.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Sequence
+
+import numpy as np
+
+from ..utils.log import check
+
+K_ZERO_THRESHOLD = 1e-35
+
+MISSING_NONE = 0
+MISSING_ZERO = 1
+MISSING_NAN = 2
+
+
+def _next_after_up(a: float) -> float:
+    """std::nextafter(a, +inf) (reference Common::GetDoubleUpperBound)."""
+    return math.nextafter(a, math.inf)
+
+
+def _double_equal_ordered(a: float, b: float) -> bool:
+    """b <= nextafter(a, inf) for ordered a<=b (Common::CheckDoubleEqualOrdered)."""
+    return b <= _next_after_up(a)
+
+
+def greedy_find_bin(distinct_values: np.ndarray, counts: np.ndarray,
+                    max_bin: int, total_cnt: int,
+                    min_data_in_bin: int) -> List[float]:
+    """Greedy equal-frequency-ish bin upper bounds (bin.cpp:74-150)."""
+    check(max_bin > 0, "max_bin must be positive")
+    num_distinct = len(distinct_values)
+    bounds: List[float] = []
+    if num_distinct <= max_bin:
+        cur_cnt = 0
+        for i in range(num_distinct - 1):
+            cur_cnt += int(counts[i])
+            if cur_cnt >= min_data_in_bin:
+                val = _next_after_up(
+                    (distinct_values[i] + distinct_values[i + 1]) / 2.0)
+                if not bounds or not _double_equal_ordered(bounds[-1], val):
+                    bounds.append(val)
+                    cur_cnt = 0
+        bounds.append(math.inf)
+        return bounds
+
+    if min_data_in_bin > 0:
+        max_bin = max(1, min(max_bin, total_cnt // min_data_in_bin))
+    mean_bin_size = total_cnt / max_bin
+    # values with huge counts get their own bin
+    is_big = counts >= mean_bin_size
+    rest_bin_cnt = max_bin - int(is_big.sum())
+    rest_sample_cnt = total_cnt - int(counts[is_big].sum())
+    mean_bin_size = rest_sample_cnt / max(rest_bin_cnt, 1)
+
+    upper_bounds = [math.inf] * max_bin
+    lower_bounds = [math.inf] * max_bin
+    bin_cnt = 0
+    lower_bounds[0] = float(distinct_values[0])
+    cur_cnt = 0
+    for i in range(num_distinct - 1):
+        if not is_big[i]:
+            rest_sample_cnt -= int(counts[i])
+        cur_cnt += int(counts[i])
+        if (is_big[i] or cur_cnt >= mean_bin_size or
+                (is_big[i + 1] and cur_cnt >= max(1.0, mean_bin_size * 0.5))):
+            upper_bounds[bin_cnt] = float(distinct_values[i])
+            bin_cnt += 1
+            lower_bounds[bin_cnt] = float(distinct_values[i + 1])
+            if bin_cnt >= max_bin - 1:
+                break
+            cur_cnt = 0
+            if not is_big[i]:
+                rest_bin_cnt -= 1
+                mean_bin_size = rest_sample_cnt / max(rest_bin_cnt, 1)
+    bin_cnt += 1
+    for i in range(bin_cnt - 1):
+        val = _next_after_up((upper_bounds[i] + lower_bounds[i + 1]) / 2.0)
+        if not bounds or not _double_equal_ordered(bounds[-1], val):
+            bounds.append(val)
+    bounds.append(math.inf)
+    return bounds
+
+
+def find_bin_with_zero_as_one_bin(distinct_values: np.ndarray,
+                                  counts: np.ndarray, max_bin: int,
+                                  total_sample_cnt: int,
+                                  min_data_in_bin: int) -> List[float]:
+    """Split the range at zero so one bin holds exactly zero (bin.cpp:152-208)."""
+    left_mask = distinct_values <= -K_ZERO_THRESHOLD
+    right_mask = distinct_values > K_ZERO_THRESHOLD
+    left_cnt_data = int(counts[left_mask].sum())
+    right_cnt_data = int(counts[right_mask].sum())
+    cnt_zero = int(total_sample_cnt) - left_cnt_data - right_cnt_data
+
+    nz = np.nonzero(distinct_values > -K_ZERO_THRESHOLD)[0]
+    left_cnt = int(nz[0]) if len(nz) else len(distinct_values)
+
+    bounds: List[float] = []
+    if left_cnt > 0 and max_bin > 1:
+        denom = max(total_sample_cnt - cnt_zero, 1)
+        left_max_bin = max(1, int(left_cnt_data / denom * (max_bin - 1)))
+        bounds = greedy_find_bin(distinct_values[:left_cnt], counts[:left_cnt],
+                                 left_max_bin, left_cnt_data, min_data_in_bin)
+        if bounds:
+            bounds[-1] = -K_ZERO_THRESHOLD
+
+    nz = np.nonzero(distinct_values[left_cnt:] > K_ZERO_THRESHOLD)[0]
+    right_start = left_cnt + int(nz[0]) if len(nz) else -1
+
+    right_max_bin = max_bin - 1 - len(bounds)
+    if right_start >= 0 and right_max_bin > 0:
+        right_bounds = greedy_find_bin(distinct_values[right_start:],
+                                       counts[right_start:], right_max_bin,
+                                       right_cnt_data, min_data_in_bin)
+        bounds.append(K_ZERO_THRESHOLD)
+        bounds.extend(right_bounds)
+    else:
+        bounds.append(math.inf)
+    check(len(bounds) <= max_bin, "bin bound count exceeds max_bin")
+    return bounds
+
+
+def _distinct_with_zero(values_sorted: np.ndarray, zero_cnt: int):
+    """Distinct values/counts from a sorted sample, zero block spliced in at
+    its ordered position (bin.cpp:236-270).  Adjacent float-equal values
+    merge, keeping the larger value; a new group starts wherever the next
+    value exceeds nextafter(previous)."""
+    n = len(values_sorted)
+    if n == 0:
+        return (np.asarray([0.0]), np.asarray([zero_cnt], dtype=np.int64))
+    v = np.asarray(values_sorted, dtype=np.float64)
+    boundary = v[1:] > np.nextafter(v[:-1], np.inf)
+    idx = np.flatnonzero(boundary) + 1
+    starts = np.concatenate([[0], idx]).astype(np.int64)
+    ends = np.concatenate([idx, [n]]).astype(np.int64)
+    dvals = v[ends - 1]
+    dcnts = ends - starts
+    firsts = v[starts]
+    if v[0] > 0.0 and zero_cnt > 0:
+        dvals = np.concatenate([[0.0], dvals])
+        dcnts = np.concatenate([[zero_cnt], dcnts])
+    elif v[n - 1] < 0.0 and zero_cnt > 0:
+        dvals = np.concatenate([dvals, [0.0]])
+        dcnts = np.concatenate([dcnts, [zero_cnt]])
+    else:
+        # a zero block (even with count 0) at the unique
+        # negative->positive group boundary
+        pos = np.flatnonzero((dvals[:-1] < 0.0) & (firsts[1:] > 0.0))
+        if len(pos):
+            p = int(pos[0]) + 1
+            dvals = np.insert(dvals, p, 0.0)
+            dcnts = np.insert(dcnts, p, zero_cnt)
+    return dvals, dcnts.astype(np.int64)
+
+
+def _need_filter(cnt_in_bin: Sequence[int], total_cnt: int,
+                 filter_cnt: int) -> bool:
+    """True when no split of this feature can satisfy min-data (bin.cpp:40-72)."""
+    left = 0
+    for i in range(len(cnt_in_bin) - 1):
+        left += int(cnt_in_bin[i])
+        if left >= filter_cnt and total_cnt - left >= filter_cnt:
+            return False
+    return True
+
+
+class BinMapper:
+    """Per-feature value->bin quantizer (reference BinMapper, bin.h:78-246),
+    numerical features only."""
+
+    def __init__(self):
+        self.num_bin: int = 1
+        self.missing_type: int = MISSING_NONE
+        self.is_trivial: bool = True
+        self.bin_upper_bound: np.ndarray = np.array([np.inf])
+        self.min_val: float = 0.0
+        self.max_val: float = 0.0
+        self.default_bin: int = 0
+
+    @classmethod
+    def from_bounds(cls, bin_upper_bound, missing_type: int,
+                    default_bin: int, min_val: float = 0.0,
+                    max_val: float = 0.0) -> "BinMapper":
+        """A mapper from already-found bounds (model and dataset hand-over)."""
+        m = cls()
+        m.bin_upper_bound = np.asarray(bin_upper_bound, dtype=np.float64)
+        m.num_bin = len(m.bin_upper_bound)
+        m.missing_type = int(missing_type)
+        m.default_bin = int(default_bin)
+        m.is_trivial = m.num_bin <= 1
+        m.min_val, m.max_val = float(min_val), float(max_val)
+        return m
+
+    def find_bin(self, values: np.ndarray, total_sample_cnt: int,
+                 max_bin: int, min_data_in_bin: int = 3,
+                 min_split_data: int = 20, use_missing: bool = True,
+                 zero_as_missing: bool = False) -> "BinMapper":
+        """Fit bin bounds from a (possibly subsampled) value sample;
+        ``total_sample_cnt - len(values)`` values are implicitly zero
+        (bin.cpp:210-235)."""
+        values = np.asarray(values, dtype=np.float64)
+        nan_mask = np.isnan(values)
+        values = values[~nan_mask]
+        na_cnt = int(nan_mask.sum())
+
+        if not use_missing:
+            self.missing_type = MISSING_NONE
+        elif zero_as_missing:
+            self.missing_type = MISSING_ZERO
+        else:
+            self.missing_type = MISSING_NONE if na_cnt == 0 else MISSING_NAN
+        if not use_missing:
+            na_cnt = 0
+
+        self.default_bin = 0
+        zero_cnt = int(total_sample_cnt - len(values) - na_cnt)
+        values_sorted = np.sort(values, kind="stable")
+        distinct, counts = _distinct_with_zero(values_sorted, zero_cnt)
+        if len(distinct) == 0:
+            self.is_trivial = True
+            return self
+        self.min_val = float(distinct[0])
+        self.max_val = float(distinct[-1])
+
+        if self.missing_type == MISSING_NAN:
+            bounds = find_bin_with_zero_as_one_bin(
+                distinct, counts, max_bin - 1, total_sample_cnt - na_cnt,
+                min_data_in_bin)
+            bounds.append(math.nan)  # trailing NaN bin
+        else:
+            bounds = find_bin_with_zero_as_one_bin(
+                distinct, counts, max_bin, total_sample_cnt, min_data_in_bin)
+            if self.missing_type == MISSING_ZERO and len(bounds) == 2:
+                self.missing_type = MISSING_NONE
+        self.bin_upper_bound = np.asarray(bounds, dtype=np.float64)
+        self.num_bin = len(bounds)
+        # count per bin for trivial-feature filtering
+        cnt_in_bin = [0] * self.num_bin
+        i_bin = 0
+        for v, c in zip(distinct, counts):
+            while v > self.bin_upper_bound[i_bin]:
+                i_bin += 1
+            cnt_in_bin[i_bin] += int(c)
+        if self.missing_type == MISSING_NAN:
+            cnt_in_bin[self.num_bin - 1] = na_cnt
+        check(self.num_bin <= max_bin, "num_bin exceeds max_bin")
+
+        self.is_trivial = self.num_bin <= 1
+        if not self.is_trivial and _need_filter(
+                cnt_in_bin, int(total_sample_cnt), min_split_data):
+            self.is_trivial = True
+        if not self.is_trivial:
+            self.default_bin = int(self.value_to_bin(np.array([0.0]))[0])
+        return self
+
+    def value_to_bin(self, values: np.ndarray) -> np.ndarray:
+        """Vectorized ValueToBin (bin.h:496-549)."""
+        values = np.asarray(values, dtype=np.float64)
+        nan_mask = np.isnan(values)
+        v = np.where(nan_mask, 0.0, values)
+        ub = self.bin_upper_bound
+        n_search = self.num_bin - (1 if self.missing_type == MISSING_NAN
+                                   else 0)
+        # first bin whose upper bound >= value  (value <= ub[bin])
+        bins = np.searchsorted(ub[:max(n_search - 1, 0)], v, side="left")
+        if self.missing_type == MISSING_NAN:
+            bins = np.where(nan_mask, self.num_bin - 1, bins)
+        return bins.astype(np.int32)
+
+    def bin_to_value(self, bin_idx: int) -> float:
+        """Real threshold of a bin: its upper bound (BinMapper::BinToValue)."""
+        return float(self.bin_upper_bound[bin_idx])

@@ -1,0 +1,64 @@
+"""Host-side metrics: binary log-loss and AUC.
+
+Reference: src/metric/binary_metric.hpp (binary_logloss:115, AUC:159).
+Metrics are numpy over the raw score; ``eval`` applies the objective's
+link where the reference does (Metric::Eval's ConvertOutput hook).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..utils.log import log_warning
+
+
+class Metric:
+    name: str = ""
+    higher_better = False
+
+    def init(self, metadata, num_data: int) -> None:
+        self.num_data = num_data
+        self.label = np.asarray(metadata.label, dtype=np.float64)
+
+    def eval(self, score: np.ndarray, objective=None) -> float:
+        raise NotImplementedError
+
+
+class BinaryLoglossMetric(Metric):
+    name = "binary_logloss"
+
+    def eval(self, score, objective=None):
+        p = score if objective is None else objective.convert_output(score)
+        p = np.clip(p, 1e-15, 1 - 1e-15)
+        y = (self.label > 0).astype(np.float64)
+        return float(np.mean(-(y * np.log(p) + (1 - y) * np.log(1 - p))))
+
+
+class AUCMetric(Metric):
+    name = "auc"
+    higher_better = True
+
+    def eval(self, score, objective=None):
+        """Rank-sum AUC with half credit inside tied-score groups
+        (binary_metric.hpp:159-240)."""
+        order = np.argsort(score, kind="stable")
+        y = self.label[order]
+        s = score[order]
+        pos = float(np.sum(y > 0))
+        neg = float(np.sum(y <= 0))
+        if pos <= 0 or neg <= 0:
+            log_warning("AUC is undefined with a single class")
+            return 1.0
+        _, first_idx, inv = np.unique(s, return_index=True,
+                                      return_inverse=True)
+        grp_neg = np.add.reduceat((y <= 0).astype(np.float64), first_idx)
+        cum_before = np.concatenate([[0], np.cumsum(grp_neg)[:-1]])
+        auc_sum = np.sum((cum_before[inv] + 0.5 * grp_neg[inv]) * (y > 0))
+        return float(auc_sum / (pos * neg))
+
+
+_METRICS = {"binary_logloss": BinaryLoglossMetric, "auc": AUCMetric}
+
+
+def create_metric(name: str) -> Metric:
+    return _METRICS[name]()

@@ -1,0 +1,224 @@
+"""GBDT: the boosting loop.
+
+Counterpart of the core of lightgbm_tpu/models/gbdt.py (reference
+src/boosting/gbdt.cpp: boost-from-average :420, TrainOneIter :450).  One
+iteration: gradients on the device, one tree grown by the segment
+grower, the training score updated through the score kernel (K4), the
+tree finalized on the host.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import List, Tuple
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..core.dataset import TorchDataset
+from ..metric import create_metric
+from ..ops.score import score_gather_add
+from ..ops.split import FeatureMeta, SplitParams
+from ..utils.log import LightGBMError, log_warning
+from .grower import GrowerParams
+from .grower_seg import SegmentGrower
+from .tree import Tree
+
+# Row block of the segment grower when tpu_row_chunk is 0: the
+# granularity of confinement windows.  The card's kernels have no block
+# shape of their own, so a block only needs to be large enough that
+# windows stay few blocks long.
+DEFAULT_BLOCK_ROWS = 8192
+
+
+def resolve_device(config: Config) -> torch.device:
+    """``device_type`` -> torch.device.  "cuda" without a card raises:
+    the card path never falls back to the CPU."""
+    if config.device_type == "cuda":
+        if not torch.cuda.is_available():
+            raise LightGBMError(
+                "device_type='cuda' but torch.cuda.is_available() is False; "
+                "pass device_type='cpu' to train on the CPU")
+        return torch.device("cuda")
+    return torch.device("cpu")
+
+
+def _round_up_pow2(x: int) -> int:
+    return 1 << max(0, (x - 1).bit_length())
+
+
+def block_rows(config: Config, num_data: int) -> int:
+    """Row block of the segment grower: ``tpu_row_chunk``, or
+    DEFAULT_BLOCK_ROWS capped at the row count rounded up to a power of
+    two."""
+    if config.tpu_row_chunk > 0:
+        return config.tpu_row_chunk
+    return min(DEFAULT_BLOCK_ROWS, _round_up_pow2(max(num_data, 1)))
+
+
+def build_feature_meta(dataset: TorchDataset,
+                       device: torch.device) -> FeatureMeta:
+    infos = dataset.feature_infos()
+
+    def col(name):
+        return torch.tensor([getattr(i, name) for i in infos],
+                            dtype=torch.int32, device=device)
+
+    return FeatureMeta(num_bin=col("num_bin"),
+                       missing_type=col("missing_type"),
+                       default_bin=col("default_bin"))
+
+
+class GBDT:
+    def __init__(self, config: Config, train_set: TorchDataset, objective,
+                 fused_route: bool = True):
+        self.config = config
+        self.device = resolve_device(config)
+        self.objective = objective
+        self.train_set = train_set
+        self.num_data = train_set.num_data
+        self.feature_names = list(train_set.feature_names)
+        self.max_feature_idx = train_set.num_total_features - 1
+        self.shrinkage_rate = config.learning_rate
+        self.models: List[Tree] = []
+        self.iter_ = 0
+        self.iter_seconds: List[float] = []   # wall time of each iteration
+        self.init_score = 0.0
+        self._boosted_from_average = False
+        self._stop = False
+        objective.init(train_set.metadata, self.num_data, self.device)
+
+        self.fmeta = build_feature_meta(train_set, self.device)
+        self.num_bins = _round_up_pow2(max(train_set.max_num_bin, 2))
+        rb = block_rows(config, self.num_data)
+        self.bins = train_set.device_bins(rb, self.device)
+        npad = self.bins.shape[1]
+        self.member = torch.zeros(npad, dtype=torch.float32,
+                                  device=self.device)
+        self.member[:self.num_data] = 1.0
+        self.grower = SegmentGrower(
+            self.num_bins,
+            GrowerParams(
+                num_leaves=config.num_leaves, max_depth=config.max_depth,
+                split=SplitParams(
+                    lambda_l1=config.lambda_l1, lambda_l2=config.lambda_l2,
+                    max_delta_step=config.max_delta_step,
+                    min_data_in_leaf=float(config.min_data_in_leaf),
+                    min_sum_hessian_in_leaf=config.min_sum_hessian_in_leaf,
+                    min_gain_to_split=config.min_gain_to_split)),
+            rb, fused_route=fused_route)
+        self.train_score = torch.zeros(self.num_data, dtype=torch.float32,
+                                       device=self.device)
+        self.valid_sets: List[Tuple[str, TorchDataset]] = []
+        self.valid_scores: List[np.ndarray] = []
+        names = config.metric or ["binary_logloss"]
+        self.metric_names = names
+        self.train_metrics = [create_metric(m) for m in names]
+        for m in self.train_metrics:
+            m.init(train_set.metadata, self.num_data)
+        self.valid_metrics = []
+
+    def add_valid(self, name: str, dataset: TorchDataset) -> None:
+        self.valid_sets.append((name, dataset))
+        self.valid_scores.append(np.full(dataset.num_data, self.init_score))
+        ms = [create_metric(m) for m in self.metric_names]
+        for m in ms:
+            m.init(dataset.metadata, dataset.num_data)
+        self.valid_metrics.append(ms)
+
+    # -------------------------------------------------------------- train
+    def _boost_from_average(self) -> None:
+        if self._boosted_from_average:
+            return
+        self._boosted_from_average = True
+        if not self.config.boost_from_average:
+            return
+        init = self.objective.boost_from_score()
+        if abs(init) > 1e-15:
+            self.init_score = init
+            self.train_score += init
+            for vs in self.valid_scores:
+                vs += init
+
+    def train_one_iter(self) -> bool:
+        """One boosting iteration; True when training should stop (no
+        split left, LGBM_BoosterUpdateOneIter semantics)."""
+        if self._stop:
+            return True
+        if self.train_set.num_used_features == 0:
+            # every feature is trivial: a constant model (gbdt.cpp:543-551)
+            self.models.append(Tree(1))
+            self.iter_ += 1
+            self._stop = True
+            return True
+        t0 = time.perf_counter()
+        self._boost_from_average()
+        grad, hess = self.objective.get_gradients(self.train_score)
+        pad = self.bins.shape[1] - self.num_data
+        if pad:
+            grad = torch.nn.functional.pad(grad, (0, pad))
+            hess = torch.nn.functional.pad(hess, (0, pad))
+        arrays, leaf_id = self.grower.grow(self.bins, grad, hess,
+                                           self.member, self.fmeta)
+        if arrays.num_leaves <= 1:
+            log_warning("Stopped training because there are no more leaves "
+                        "that meet the split requirements")
+            self._stop = True
+            return True
+        table = torch.from_numpy(
+            np.float32(self.shrinkage_rate) * arrays.leaf_value).to(
+                self.device)
+        self.train_score = score_gather_add(
+            self.train_score, leaf_id[:self.num_data], table)
+        tree = Tree.from_grown(arrays, self.train_set, self.shrinkage_rate)
+        infos = self.train_set.feature_infos()
+        for (_, vset), vscore in zip(self.valid_sets, self.valid_scores):
+            vscore += tree.predict_binned(vset.bins_t, infos)
+        self.models.append(tree)
+        self.iter_ += 1
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.iter_seconds.append(time.perf_counter() - t0)
+        return False
+
+    # ------------------------------------------------------------ predict
+    def raw_predict(self, X: np.ndarray, num_iteration: int = -1
+                    ) -> np.ndarray:
+        n_iter = (self.iter_ if num_iteration <= 0
+                  else min(num_iteration, self.iter_))
+        out = np.zeros(X.shape[0], dtype=np.float64)
+        out += self.init_score
+        for tree in self.models[:n_iter]:
+            out += tree.predict_raw(X)
+        return out
+
+    def predict(self, X: np.ndarray, num_iteration: int = -1,
+                raw_score: bool = False) -> np.ndarray:
+        raw = self.raw_predict(np.asarray(X, dtype=np.float64),
+                               num_iteration)
+        return raw if raw_score else self.objective.convert_output(raw)
+
+    def feature_importance(self, num_iteration: int = -1) -> np.ndarray:
+        """Split counts per original feature (gbdt.h FeatureImportance)."""
+        out = np.zeros(self.max_feature_idx + 1, dtype=np.float64)
+        n_iter = (self.iter_ if num_iteration <= 0
+                  else min(num_iteration, self.iter_))
+        for tree in self.models[:n_iter]:
+            for f in tree.split_feature[: tree.num_leaves - 1]:
+                out[int(f)] += 1
+        return out
+
+    # --------------------------------------------------------------- eval
+    def eval_train(self) -> List[Tuple[str, float, bool]]:
+        score = self.train_score.cpu().numpy().astype(np.float64)
+        return [(m.name, m.eval(score, self.objective), m.higher_better)
+                for m in self.train_metrics]
+
+    def eval_valid(self) -> List[Tuple[str, str, float, bool]]:
+        return [(name, m.name, m.eval(score, self.objective),
+                 m.higher_better)
+                for (name, _), score, ms in zip(self.valid_sets,
+                                                self.valid_scores,
+                                                self.valid_metrics)
+                for m in ms]

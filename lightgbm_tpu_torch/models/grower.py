@@ -1,0 +1,86 @@
+"""Shared pieces of the tree growers: parameters, the flat tree arrays and
+the routing rule.
+
+Counterpart of lightgbm_tpu/models/grower.py (GrowerParams :42,
+TreeArrays :81, routed_left :233).  The port's grower drives its split
+loop from the host, so TreeArrays are numpy arrays filled in place as the
+tree grows, in LightGBM's node numbering (Tree::Split, tree.h:407-445: new
+internal node = num_leaves-1, right child leaf = num_leaves, leaf refs
+stored as ~leaf).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..core.binning import MISSING_NAN, MISSING_ZERO
+from ..ops.split import SplitParams
+
+
+class GrowerParams(NamedTuple):
+    """Growth hyper-parameters."""
+    num_leaves: int = 31
+    max_depth: int = -1
+    split: SplitParams = SplitParams()
+
+
+@dataclass
+class TreeArrays:
+    """Flat-array tree on the host; mirrors reference Tree storage
+    (include/LightGBM/tree.h:330-404).  Internal nodes [L-1], leaves [L]."""
+    L: int
+    num_leaves: int = 1
+    split_feature: np.ndarray = field(init=False)
+    threshold_bin: np.ndarray = field(init=False)
+    default_left: np.ndarray = field(init=False)
+    left_child: np.ndarray = field(init=False)
+    right_child: np.ndarray = field(init=False)
+    split_gain: np.ndarray = field(init=False)
+    internal_value: np.ndarray = field(init=False)
+    internal_weight: np.ndarray = field(init=False)
+    internal_count: np.ndarray = field(init=False)
+    leaf_value: np.ndarray = field(init=False)
+    leaf_weight: np.ndarray = field(init=False)
+    leaf_count: np.ndarray = field(init=False)
+    leaf_parent: np.ndarray = field(init=False)
+    leaf_depth: np.ndarray = field(init=False)
+
+    def __post_init__(self):
+        n, L = self.L - 1, self.L
+        self.split_feature = np.zeros(n, np.int32)
+        self.threshold_bin = np.zeros(n, np.int32)
+        self.default_left = np.zeros(n, bool)
+        self.left_child = np.full(n, -1, np.int32)
+        self.right_child = np.full(n, -1, np.int32)
+        self.split_gain = np.zeros(n, np.float32)
+        self.internal_value = np.zeros(n, np.float32)
+        self.internal_weight = np.zeros(n, np.float32)
+        self.internal_count = np.zeros(n, np.float32)
+        self.leaf_value = np.zeros(L, np.float32)
+        self.leaf_weight = np.zeros(L, np.float32)
+        self.leaf_count = np.zeros(L, np.float32)
+        self.leaf_parent = np.full(L, -1, np.int32)
+        self.leaf_depth = np.zeros(L, np.int32)
+
+
+def routed_left(fcol: torch.Tensor, threshold: int, default_left: bool,
+                is_cat: bool, cat_bitset: torch.Tensor, missing_type: int,
+                default_bin: int, num_bin: int) -> torch.Tensor:
+    """Which side each row goes: numerical ``<= threshold`` with missing
+    routing, or categorical bitset membership (``cat_bitset``: 8 words of
+    32 bits as an int64 tensor)."""
+    fcol = fcol.to(torch.int64)
+    is_missing = (((missing_type == MISSING_ZERO) & (fcol == default_bin))
+                  | ((missing_type == MISSING_NAN) & (fcol == num_bin - 1)))
+    num_left = torch.where(is_missing, torch.full_like(fcol, default_left,
+                                                       dtype=torch.bool),
+                           fcol <= threshold)
+    if not is_cat:
+        return num_left
+    idx = torch.clamp(fcol, 0, 255)
+    word = cat_bitset[idx // 32]
+    return ((word >> (idx % 32)) & 1).to(torch.bool)

@@ -1,0 +1,274 @@
+"""Segment grower: leaf-wise growth with per-split cost proportional to
+leaf size.
+
+Counterpart of lightgbm_tpu/models/grower_seg.py (make_grow_tree_segment
+:449).  The reference pays O(leaf size) per split by keeping each leaf's
+rows contiguous (DataPartition, src/treelearner/data_partition.hpp:111).
+This grower uses *epoch compaction*, as the TPU one does:
+
+  * rows live in a permuted order (``order[pos] -> original row``); when
+    the histogram kernels have scanned more than COMPACT_WASTE x N rows
+    since the last compaction, the whole layout is stable-sorted by leaf
+    id (``compact_state``);
+  * between compactions rows never move, so each leaf's rows stay
+    confined to the block window ``[leaf_lo, leaf_hi)`` its nearest
+    compacted ancestor occupied;
+  * each split runs one kernel pass over the parent's window: K3 routes
+    the parent's rows and histograms the smaller child (``fused_route``),
+    or K2 routes and K1 histograms (``fused_route=False``); the larger
+    child is parent minus smaller.
+
+The split loop is driven from the host: a Python loop over splits, with
+the best-split records of every leaf kept on the host (one device->host
+fetch per split).  The reference's own GPU learner drives its splits the
+same way.  Histograms, routing, split search and compaction stay on the
+device.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from ..ops.histogram import (fixed_point_scales, histogram_segment,
+                             histogram_segment_routed, null_route,
+                             pack_channels, pack_route, route_window)
+from ..ops.split import NEG_INF, FeatureMeta, best_split
+from .grower import GrowerParams, TreeArrays
+
+# Re-sort the layout once the histogram kernels have scanned more than
+# COMPACT_WASTE x N rows of confinement windows since the last sort
+# (the TPU grower's default, grower_seg.py:74).
+COMPACT_WASTE = 9.0
+
+_NO_BITSET = np.zeros(8, dtype=np.uint32)
+
+
+class _SegState:
+    """Per-tree state: device tensors in permuted row order, host
+    bookkeeping of windows, leaf sums and best splits."""
+
+    def __init__(self, binsT, w8, L: int, max_blocks: int, G0, H0, C0,
+                 F: int, B: int):
+        dev = binsT.device
+        n = binsT.shape[1]
+        self.binsT = binsT                      # [F, Npad] u8, permuted
+        self.w8 = w8                            # [8, Npad] bf16, permuted
+        self.order = torch.arange(n, dtype=torch.int64, device=dev)
+        self.leaf_id = torch.zeros(n, dtype=torch.int32, device=dev)
+        self.leaf_lo = [0] * L                  # window start block
+        self.leaf_hi = [0] * L                  # window end block (excl.)
+        self.leaf_hi[0] = max_blocks
+        self.scanned_since = 0
+        self.scanned_total = 0
+        self.num_sorts = 0
+        self.num_leaves = 1
+        self.leaf_hist = torch.zeros((L, F, B, 3), dtype=torch.float32,
+                                     device=dev)
+        f32 = np.float32
+        self.leaf_g = np.zeros(L, f32)
+        self.leaf_h = np.zeros(L, f32)
+        self.leaf_c = np.zeros(L, f32)
+        self.leaf_g[0], self.leaf_h[0], self.leaf_c[0] = G0, H0, C0
+        # best-split cache (best_split_per_leaf_, serial_tree_learner.h:153)
+        self.best_gain = np.full(L, NEG_INF, f32)
+        self.best_feature = np.full(L, -1, np.int32)
+        self.best_threshold = np.zeros(L, np.int32)
+        self.best_dl = np.zeros(L, bool)
+        self.best_left = np.zeros((L, 3), f32)   # (left_g, left_h, left_c)
+        self.best_out = np.zeros((L, 2), f32)    # (left_out, right_out)
+        self.tree = TreeArrays(L)
+        self.tree.leaf_weight[0] = H0
+        self.tree.leaf_count[0] = C0
+
+
+def compact_state(st: _SegState, L: int, rb: int) -> None:
+    """Stable-sort the whole layout by leaf id; leaves become contiguous
+    segments and their windows reset to them."""
+    lid, perm = torch.sort(st.leaf_id, stable=True)
+    st.binsT = st.binsT.index_select(1, perm)
+    st.w8 = st.w8.index_select(1, perm)
+    st.order = st.order[perm]
+    st.leaf_id = lid
+    leaves = torch.arange(L, dtype=lid.dtype, device=lid.device)
+    starts = torch.searchsorted(lid, leaves, side="left")
+    ends = torch.searchsorted(lid, leaves, side="right")
+    # block-granular bounds; empty leaves get an empty window
+    nonempty = ends > starts
+    zero = torch.zeros_like(starts)
+    lo = torch.where(nonempty, starts // rb, zero)
+    hi = torch.where(nonempty, -(-ends // rb), zero)
+    st.leaf_lo = lo.tolist()
+    st.leaf_hi = hi.tolist()
+    st.scanned_since = 0
+    st.num_sorts += 1
+
+
+def _unpermute(order: torch.Tensor, leaf_id: torch.Tensor) -> torch.Tensor:
+    """leaf_id (permuted space) -> original row order: ``order`` is a
+    permutation, so one scatter inverts it."""
+    return torch.empty_like(leaf_id).index_copy_(0, order, leaf_id)
+
+
+class SegmentGrower:
+    """``grow(binsT, grad, hess, member, fmeta)`` takes feature-major bins
+    [F, Npad] (Npad a multiple of ``block_rows``; pad rows must carry
+    member == 0) and returns ``(TreeArrays, leaf_id)`` with leaf ids in
+    the original row order.
+
+    ``fused_route`` (default) runs each split's route and smaller-child
+    histogram as one kernel (K3); False runs the unfused pair (K2, K1).
+    """
+
+    def __init__(self, num_bins: int, params: GrowerParams,
+                 block_rows: int, fused_route: bool = True):
+        self.B = num_bins
+        self.p = params
+        self.rb = block_rows
+        self.fused_route = fused_route
+        self.last_stats = {}
+
+    # -------------------------------------------------------------- pieces
+    def _hist_leaf(self, st: _SegState, leaf: int, scales) -> torch.Tensor:
+        lo = st.leaf_lo[leaf]
+        n_blk = st.leaf_hi[leaf] - lo
+        if self.fused_route:
+            # the split path's kernel with a match-nothing route
+            _, out = histogram_segment_routed(
+                st.binsT, st.w8, st.leaf_id, lo, n_blk, leaf, null_route(),
+                self.B, self.rb, scales)
+            return out
+        return histogram_segment(st.binsT, st.w8, st.leaf_id, lo, n_blk,
+                                 leaf, self.B, self.rb, scales)
+
+    def _scan(self, st: _SegState, leaves, hists, g, h, c, depth: int,
+              fmeta: FeatureMeta) -> None:
+        """Best split of each leaf in ``leaves`` from its histogram; one
+        device->host fetch writes the host cache."""
+        dev = hists.device
+        g, h, c = (torch.tensor(np.asarray(v, np.float32), device=dev)
+                   for v in (g, h, c))
+        info = best_split(hists, g, h, c, fmeta, self.p.split)
+        rec = torch.stack([info.gain, info.feature.float(),
+                           info.threshold.float(),
+                           info.default_left.float(), info.left_g,
+                           info.left_h, info.left_c, info.left_out,
+                           info.right_out], dim=1).cpu().numpy()
+        for k, leaf in enumerate(leaves):
+            gain = rec[k, 0]
+            if self.p.max_depth > 0 and depth >= self.p.max_depth:
+                gain = np.float32(NEG_INF)
+            st.best_gain[leaf] = gain
+            st.best_feature[leaf] = int(rec[k, 1])
+            st.best_threshold[leaf] = int(rec[k, 2])
+            st.best_dl[leaf] = bool(rec[k, 3])
+            st.best_left[leaf] = rec[k, 4:7]
+            st.best_out[leaf] = rec[k, 7:9]
+
+    def _can_grow(self, st: _SegState) -> bool:
+        return (st.num_leaves < self.p.num_leaves
+                and float(st.best_gain.max()) > 0.0)
+
+    def _do_split(self, st: _SegState, fmeta: FeatureMeta, fm_host,
+                  scales) -> None:
+        leaf = int(np.argmax(st.best_gain))
+        new_leaf = st.num_leaves
+        node = st.num_leaves - 1
+        f = int(st.best_feature[leaf])
+        t = int(st.best_threshold[leaf])
+        dl = bool(st.best_dl[leaf])
+        # children inherit the parent's window; routing touches only it
+        lo, hi = st.leaf_lo[leaf], st.leaf_hi[leaf]
+        Gl, Hl, Cl = st.best_left[leaf]
+        Gp, Hp, Cp = st.leaf_g[leaf], st.leaf_h[leaf], st.leaf_c[leaf]
+        Gr, Hr, Cr = Gp - Gl, Hp - Hl, Cp - Cl
+        smaller_is_left = bool(Cl <= Cr)
+        smaller = leaf if smaller_is_left else new_leaf
+
+        route = pack_route(leaf, new_leaf, f, t, dl, False, _NO_BITSET,
+                           fm_host)
+        if self.fused_route:
+            # route + smaller-child histogram in ONE pass over the window;
+            # leaf_id is updated in place
+            _, hist_small = histogram_segment_routed(
+                st.binsT, st.w8, st.leaf_id, lo, hi - lo, smaller, route,
+                self.B, self.rb, scales)
+        else:
+            route_window(st.binsT, st.leaf_id, lo, hi - lo, route, self.rb)
+        st.leaf_lo[new_leaf], st.leaf_hi[new_leaf] = lo, hi
+        if not self.fused_route:
+            hist_small = self._hist_leaf(st, smaller, scales)
+        hist_large = st.leaf_hist[leaf] - hist_small
+        hist_left, hist_right = ((hist_small, hist_large) if smaller_is_left
+                                 else (hist_large, hist_small))
+        st.scanned_since += hi - lo
+        st.scanned_total += hi - lo
+        st.leaf_hist[leaf] = hist_left
+        st.leaf_hist[new_leaf] = hist_right
+
+        tr = st.tree
+        depth_child = int(tr.leaf_depth[leaf]) + 1
+        parent = int(tr.leaf_parent[leaf])
+        if parent >= 0:
+            if tr.left_child[parent] == ~leaf:
+                tr.left_child[parent] = node
+            if tr.right_child[parent] == ~leaf:
+                tr.right_child[parent] = node
+        tr.left_child[node] = ~leaf
+        tr.right_child[node] = ~new_leaf
+        tr.split_feature[node] = f
+        tr.threshold_bin[node] = t
+        tr.default_left[node] = dl
+        tr.split_gain[node] = st.best_gain[leaf]
+        tr.internal_value[node] = tr.leaf_value[leaf]
+        tr.internal_weight[node] = Hp
+        tr.internal_count[node] = Cp
+        tr.leaf_value[leaf], tr.leaf_value[new_leaf] = st.best_out[leaf]
+        tr.leaf_weight[leaf], tr.leaf_weight[new_leaf] = Hl, Hr
+        tr.leaf_count[leaf], tr.leaf_count[new_leaf] = Cl, Cr
+        tr.leaf_parent[leaf] = tr.leaf_parent[new_leaf] = node
+        tr.leaf_depth[leaf] = tr.leaf_depth[new_leaf] = depth_child
+        st.num_leaves += 1
+        tr.num_leaves = st.num_leaves
+
+        st.leaf_g[leaf], st.leaf_g[new_leaf] = Gl, Gr
+        st.leaf_h[leaf], st.leaf_h[new_leaf] = Hl, Hr
+        st.leaf_c[leaf], st.leaf_c[new_leaf] = Cl, Cr
+        self._scan(st, [leaf, new_leaf],
+                   torch.stack([hist_left, hist_right]),
+                   [Gl, Gr], [Hl, Hr], [Cl, Cr], depth_child, fmeta)
+
+    # ---------------------------------------------------------------- grow
+    def grow(self, binsT: torch.Tensor, grad: torch.Tensor,
+             hess: torch.Tensor, member: torch.Tensor,
+             fmeta: FeatureMeta) -> Tuple[TreeArrays, torch.Tensor]:
+        F, n = binsT.shape
+        L, rb = self.p.num_leaves, self.rb
+        if n % rb:
+            raise ValueError(f"Npad {n} is not a multiple of {rb}")
+        max_blocks = n // rb
+        fm_host = FeatureMeta(*(t.cpu().numpy() for t in fmeta))
+        w8 = pack_channels(grad, hess, member)
+        scales = fixed_point_scales(w8)
+        G0, H0, C0 = torch.stack([torch.sum(grad * member),
+                                  torch.sum(hess * member),
+                                  torch.sum(member)]).cpu().numpy()
+        st = _SegState(binsT, w8, L, max_blocks, G0, H0, C0, F, self.B)
+        root_hist = self._hist_leaf(st, 0, scales)
+        st.leaf_hist[0] = root_hist
+        st.scanned_since = st.scanned_total = max_blocks
+        self._scan(st, [0], root_hist[None], [G0], [H0], [C0], 0, fmeta)
+
+        # adaptive compaction: amortize the sort against the scans it saves
+        limit_blocks = min(max(1, int(COMPACT_WASTE * max_blocks)),
+                           2**31 - 1)
+        while self._can_grow(st):
+            if st.scanned_since >= limit_blocks:
+                compact_state(st, L, rb)
+            self._do_split(st, fmeta, fm_host, scales)
+        self.last_stats = {"scanned_blocks": st.scanned_total,
+                           "compactions": st.num_sorts,
+                           "max_blocks": max_blocks}
+        return st.tree, _unpermute(st.order, st.leaf_id)

@@ -1,0 +1,277 @@
+"""Leaf histograms and split routing of the segment grower: kernels K1, K2
+and K3, their plain PyTorch versions, and the host-side helpers.
+
+Counterpart of lightgbm_tpu/ops/pallas_histogram.py.  The TPU kernels
+there become hand-written CUDA kernels in ``csrc/histogram.cu``:
+
+  * ``histogram_segment`` (K1): per-(feature, bin) sums of gradient,
+    hessian and count over the rows of one leaf inside its confinement
+    window (whole row blocks ``[start_block, start_block + n_blocks)``);
+  * ``route_window`` (K2): one split's leaf-id update over the parent's
+    window;
+  * ``histogram_segment_routed`` (K3): K2 then K1 on the updated ids, in
+    one pass; with ``null_route()`` it is K1.
+
+Each wrapper takes tensors on one device.  A CPU tensor goes to the plain
+version (``*_plain``, index_add_ and where), which is also what the card
+run compares each kernel with; a CUDA tensor goes to the kernel, or the
+wrapper raises.  The kernels update ``leaf_id`` in place (the TPU kernels
+aliased it as an input/output), and so do the plain versions.
+
+The weight stream is ``pack_channels``'s [8, Npad] bf16 layout
+``[g_hi, g_lo, h_hi, h_lo, member, 0, 0, 0]``; the kernels read the five
+live channels.  A histogram is ``[F, B, 3]`` f32 (sum_grad, sum_hess,
+count).  The card kernels sum in 64-bit fixed point, so their sums do not
+depend on the order of the rows; ``fixed_point_scales`` picks the scale.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..models.grower import routed_left
+from . import kernels
+
+NUM_CHANNELS = 8
+# pack_route's layout: leaf, new_leaf, row, col, thr, dl, cat, mt, dbin,
+# nbf, off + 8 bitset words
+ROUTE_WORDS = 19
+
+
+def pack_channels(grad: torch.Tensor, hess: torch.Tensor,
+                  member: torch.Tensor) -> torch.Tensor:
+    """[N] f32 grad/hess/member -> [8, N] bf16 weight channels.  hi is
+    the round-to-nearest-even bf16 of the value, lo the bf16 of what is
+    left, so hi + lo carries ~16 mantissa bits."""
+    gm = grad * member
+    hm = hess * member
+    g_hi = gm.to(torch.bfloat16)
+    h_hi = hm.to(torch.bfloat16)
+    g_lo = (gm - g_hi.float()).to(torch.bfloat16)
+    h_lo = (hm - h_hi.float()).to(torch.bfloat16)
+    z = torch.zeros_like(g_hi)
+    return torch.stack([g_hi, g_lo, h_hi, h_lo, member.to(torch.bfloat16),
+                        z, z, z])
+
+
+def unpack_hist(out: torch.Tensor) -> torch.Tensor:
+    """[..., 8] channel sums -> [..., 3] (sum_grad, sum_hess, count)."""
+    return torch.stack([out[..., 0] + out[..., 1],
+                        out[..., 2] + out[..., 3], out[..., 4]], dim=-1)
+
+
+def fixed_point_scales(w8: torch.Tensor) -> torch.Tensor:
+    """[2] f32 powers of two (gradient, hessian) for the card kernels'
+    64-bit fixed-point sums: the largest scale at which the whole array's
+    absolute sum stays below 2^62, so no leaf's sum can overflow.  At the
+    HIGGS shape the quantum is ~2^-39 for gradients of magnitude <= 1,
+    finer than the bf16 lo channel, so the sums are exact in practice."""
+    n = max(int(w8.shape[1]), 1)
+    mags = torch.stack([(w8[0].float().abs() + w8[1].float().abs()).max(),
+                        (w8[2].float().abs() + w8[3].float().abs()).max()])
+    mags = torch.clamp(mags.double() * n, min=1e-30)
+    exps = torch.clamp(61.0 - torch.ceil(torch.log2(mags)), -126.0, 126.0)
+    return torch.exp2(exps).float()
+
+
+def pack_route(leaf: int, new_leaf: int, f: int, t: int, dl: bool,
+               cat: bool, bitset, fmeta) -> torch.Tensor:
+    """[ROUTE_WORDS] int32 route descriptor, on the host (the kernels take
+    it as launch arguments).  ``fmeta`` is a FeatureMeta whose fields can
+    be indexed on the host.  Without EFB the physical bin row and the
+    group column are the feature itself and the bin offset is 0; the
+    words stay in the layout so the kernels reproduce the TPU route,
+    EFB reconstruction and nibble parity included."""
+    head = [int(leaf), int(new_leaf), int(f), int(f), int(t), int(bool(dl)),
+            int(bool(cat)), int(fmeta.missing_type[f]),
+            int(fmeta.default_bin[f]), int(fmeta.num_bin[f]), 0]
+    words = np.asarray(bitset, dtype=np.uint32).reshape(8).view(np.int32)
+    return torch.tensor(head + words.tolist(), dtype=torch.int32)
+
+
+def null_route() -> torch.Tensor:
+    """Route that matches nothing (leaf == -1): the root-histogram case."""
+    r = torch.zeros(ROUTE_WORDS, dtype=torch.int32)
+    r[0] = -1
+    return r
+
+
+# ------------------------------------------------------------------ helpers
+def _window(npad: int, start_block: int, n_blocks: int,
+            block_rows: int):
+    if npad % block_rows:
+        raise ValueError(f"Npad {npad} is not a multiple of the row block "
+                         f"{block_rows}")
+    lo = min(max(int(start_block), 0) * block_rows, npad)
+    hi = min(lo + max(int(n_blocks), 0) * block_rows, npad)
+    return lo, hi
+
+
+def _check_cuda(device, **tensors) -> None:
+    for name, (t, dtype) in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _check_route(route: torch.Tensor) -> None:
+    if (route.device.type != "cpu" or route.dtype != torch.int32
+            or route.shape != (ROUTE_WORDS,) or not route.is_contiguous()):
+        raise ValueError("route must be a contiguous host int32 tensor of "
+                         f"{ROUTE_WORDS} words (pack_route / null_route)")
+
+
+def _device_kind(t: torch.Tensor) -> str:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t.device}")
+    return t.device.type
+
+
+# -------------------------------------------------------------- plain twins
+def routed_ids_plain(fcol_raw: torch.Tensor, lid: torch.Tensor,
+                     route) -> torch.Tensor:
+    """Leaf ids after one split from the descriptor ``route`` (list of
+    ROUTE_WORDS ints): EFB column reconstruction, then routed_left."""
+    r = [int(x) for x in route]
+    off, nbf, dbin = r[10], r[9], r[8]
+    g = fcol_raw.to(torch.int32)
+    fcol = torch.where((g >= off) & (g < off + nbf), g - off,
+                       torch.full_like(g, dbin))
+    bitset = torch.tensor(np.asarray(r[11:19], dtype=np.int32)
+                          .view(np.uint32).astype(np.int64),
+                          device=lid.device)
+    go_left = routed_left(fcol, r[4], bool(r[5]), bool(r[6]), bitset,
+                          r[7], dbin, nbf)
+    return torch.where((lid == r[0]) & ~go_left,
+                       torch.full_like(lid, r[1]), lid)
+
+
+def route_window_plain(binsT, leaf_id, start_block, n_blocks, route,
+                       block_rows):
+    """Plain K2: updates ``leaf_id`` in place over the window."""
+    lo, hi = _window(leaf_id.shape[0], start_block, n_blocks, block_rows)
+    r = route.tolist()
+    if hi > lo:
+        leaf_id[lo:hi] = routed_ids_plain(binsT[r[2], lo:hi],
+                                          leaf_id[lo:hi], r)
+    return leaf_id
+
+
+def histogram_segment_plain(binsT, w8, leaf_id, start_block, n_blocks,
+                            target, num_bins, block_rows):
+    """Plain K1: the five channel sums by index_add_ in float64 (so the
+    order the rows arrive in moves no bit that survives the cast), then
+    unpack_hist -> [F, B, 3] float32."""
+    F = binsT.shape[0]
+    lo, hi = _window(leaf_id.shape[0], start_block, n_blocks, block_rows)
+    sums = torch.zeros((F, num_bins, 5), dtype=torch.float64,
+                       device=binsT.device)
+    if hi > lo:
+        sel = (leaf_id[lo:hi] == int(target)).to(torch.float64)
+        w = (w8[:5, lo:hi].double() * sel).T.contiguous()     # [rows, 5]
+        for f in range(F):
+            sums[f].index_add_(0, binsT[f, lo:hi].long(), w)
+    return unpack_hist(sums).float()
+
+
+def histogram_segment_routed_plain(binsT, w8, leaf_id, start_block,
+                                   n_blocks, target, route, num_bins,
+                                   block_rows):
+    """Plain K3: plain K2, then plain K1 on the updated ids."""
+    route_window_plain(binsT, leaf_id, start_block, n_blocks, route,
+                       block_rows)
+    return leaf_id, histogram_segment_plain(binsT, w8, leaf_id, start_block,
+                                            n_blocks, target, num_bins,
+                                            block_rows)
+
+
+# ----------------------------------------------------------------- wrappers
+def _launch_hist(name, binsT, w8, leaf_id, start_block, n_blocks, target,
+                 route, num_bins, block_rows, scales):
+    F, npad = binsT.shape
+    dev = binsT.device
+    _check_cuda(dev, binsT=(binsT, torch.uint8), w8=(w8, torch.bfloat16),
+                leaf_id=(leaf_id, torch.int32), scales=(scales, torch.float32))
+    if w8.shape != (NUM_CHANNELS, npad) or leaf_id.shape != (npad,):
+        raise ValueError("w8 must be [8, Npad] and leaf_id [Npad]")
+    if not 1 <= num_bins <= 256 or scales.shape != (2,):
+        raise ValueError("num_bins must be in [1, 256] and scales [2]")
+    lib = kernels.library()
+    if lib.lgbt_histogram_tile_features(F, num_bins) < 1:
+        raise ValueError(f"{num_bins} bins do not fit the kernel's tile")
+    lo, hi = _window(npad, start_block, n_blocks, block_rows)
+    acc = torch.empty((F * num_bins * 3,), dtype=torch.int64, device=dev)
+    out = torch.empty((F, num_bins, 3), dtype=torch.float32, device=dev)
+    route_ptr = None
+    if route is not None:
+        _check_route(route)
+        route_ptr = route.data_ptr()
+    rc = lib.lgbt_histogram_segment(
+        binsT.data_ptr(), w8.data_ptr(), leaf_id.data_ptr(), npad, F,
+        num_bins, lo, hi, int(target), scales.data_ptr(), route_ptr,
+        acc.data_ptr(), out.data_ptr(), kernels.stream_ptr(dev))
+    kernels.check_launch(name, rc)
+    return out
+
+
+def histogram_segment(binsT: torch.Tensor, w8: torch.Tensor,
+                      leaf_id: torch.Tensor, start_block: int,
+                      n_blocks: int, target: int, num_bins: int,
+                      block_rows: int,
+                      scales: torch.Tensor) -> torch.Tensor:
+    """K1: histogram of leaf ``target`` over its confinement window ->
+    [F, B, 3] f32.  ``scales`` is fixed_point_scales(w8) (the plain
+    version sums in float64 and does not use it)."""
+    if _device_kind(binsT) == "cpu":
+        return histogram_segment_plain(binsT, w8, leaf_id, start_block,
+                                       n_blocks, target, num_bins,
+                                       block_rows)
+    return _launch_hist("histogram_segment", binsT, w8, leaf_id,
+                        start_block, n_blocks, target, None, num_bins,
+                        block_rows, scales)
+
+
+def histogram_segment_routed(binsT: torch.Tensor, w8: torch.Tensor,
+                             leaf_id: torch.Tensor, start_block: int,
+                             n_blocks: int, target: int,
+                             route: torch.Tensor, num_bins: int,
+                             block_rows: int, scales: torch.Tensor):
+    """K3: apply ``route`` to ``leaf_id`` in place over the window AND
+    histogram ``target`` from the updated ids, in one pass.  Returns
+    ``(leaf_id, [F, B, 3] hist)``."""
+    if _device_kind(binsT) == "cpu":
+        return histogram_segment_routed_plain(binsT, w8, leaf_id,
+                                              start_block, n_blocks, target,
+                                              route, num_bins, block_rows)
+    hist = _launch_hist("histogram_segment_routed", binsT, w8, leaf_id,
+                        start_block, n_blocks, target, route, num_bins,
+                        block_rows, scales)
+    return leaf_id, hist
+
+
+def route_window(binsT: torch.Tensor, leaf_id: torch.Tensor,
+                 start_block: int, n_blocks: int, route: torch.Tensor,
+                 block_rows: int) -> torch.Tensor:
+    """K2: apply one split's route to ``leaf_id`` in place over the
+    parent's window; returns ``leaf_id``."""
+    if _device_kind(binsT) == "cpu":
+        return route_window_plain(binsT, leaf_id, start_block, n_blocks,
+                                  route, block_rows)
+    F, npad = binsT.shape
+    _check_cuda(binsT.device, binsT=(binsT, torch.uint8),
+                leaf_id=(leaf_id, torch.int32))
+    _check_route(route)
+    if leaf_id.shape != (npad,) or not 0 <= int(route[2]) < F:
+        raise ValueError("leaf_id must be [Npad] and the route's bin row "
+                         "inside binsT")
+    lo, hi = _window(npad, start_block, n_blocks, block_rows)
+    rc = kernels.library().lgbt_route_window(
+        binsT.data_ptr(), leaf_id.data_ptr(), npad, lo, hi,
+        route.data_ptr(), kernels.stream_ptr(binsT.device))
+    kernels.check_launch("route_window", rc)
+    return leaf_id
+

@@ -1,0 +1,156 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+The sources in ``lightgbm_tpu_torch/csrc/*.cu`` have a plain C interface.
+On first use they are compiled with ``nvcc`` for ``sm_90a`` — one
+``nvcc -c`` per source, all started together — and linked into one shared
+library, loaded with ctypes.  The library lives in
+``lightgbm_tpu_torch/_build/<hash>/`` (git-ignored), keyed by a hash of the
+sources and flags, so an edited source is rebuilt and an unchanged one is
+reused.  A failed build raises.
+
+``LAUNCHES`` counts, per kernel, the launches its wrapper made; a run
+resets it with ``reset_launches()`` and reads it after, to show which
+kernels a path went through.  Nothing here runs at import time: the CPU
+tests import every module of the package without a compiler or a card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Dict, Optional
+
+from ..utils.log import LightGBMError
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG / "_build"
+LIB_NAME = "liblgbt_kernels.so"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-Xptxas", "-v")
+
+KERNEL_NAMES = ("histogram_segment", "route_window",
+                "histogram_segment_routed", "score_gather_add")
+LAUNCHES: Dict[str, int] = {k: 0 for k in KERNEL_NAMES}
+
+_LIB: Optional[ctypes.CDLL] = None
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_SIGNATURES = {
+    "lgbt_histogram_segment": [_P, _P, _P, _LL, _I, _I, _LL, _LL, _I, _P,
+                               _P, _P, _P, _P],
+    "lgbt_route_window": [_P, _P, _LL, _LL, _LL, _P, _P],
+    "lgbt_score_gather_add": [_P, _P, _P, _P, _LL, _I, _P],
+    "lgbt_histogram_tile_features": [_I, _I],
+}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    for env in ("CUDA_HOME", "CUDA_PATH"):
+        root = os.environ.get(env)
+        if root and (Path(root) / "bin" / "nvcc").exists():
+            return str(Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise LightGBMError("nvcc not found (set CUDA_HOME): the CUDA kernels "
+                        "of lightgbm_tpu_torch cannot be built")
+
+
+def _source_hash(sources) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_library() -> Path:
+    """Compile the kernels (once per source hash); returns the .so path."""
+    sources = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+    out_dir = BUILD_ROOT / _source_hash(sources)
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    stage = Path(tempfile.mkdtemp(dir=out_dir))
+    cu = [s for s in sources if s.suffix == ".cu"]
+    procs = [(src, subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, "-c", str(src), "-o",
+         str(stage / (src.stem + ".o"))],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for src in cu]
+    log, failed = [], []
+    for src, proc in procs:
+        out, _ = proc.communicate()
+        log.append(f"== {src.name} (rc={proc.returncode})\n{out}")
+        if proc.returncode != 0:
+            failed.append(src.name)
+    if not failed:
+        link = subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", "-o", str(stage / LIB_NAME)]
+            + [str(stage / (s.stem + ".o")) for s in cu],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        log.append(f"== link (rc={link.returncode})\n{link.stdout}")
+        if link.returncode != 0:
+            failed.append("link")
+    (out_dir / "build.log").write_text("\n".join(log))
+    if failed:
+        shutil.rmtree(stage, ignore_errors=True)
+        raise LightGBMError(f"nvcc failed on {failed}:\n" + "\n".join(log))
+    os.replace(stage / LIB_NAME, lib)
+    shutil.rmtree(stage, ignore_errors=True)
+    return lib
+
+
+def build_log() -> str:
+    """The compiler's output of the current build (ptxas register and
+    shared-memory lines included)."""
+    sources = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+    path = BUILD_ROOT / _source_hash(sources) / "build.log"
+    return path.read_text() if path.exists() else ""
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build_library()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.lgbt_error_string.argtypes = [ctypes.c_int]
+        lib.lgbt_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def check_launch(name: str, rc: int) -> None:
+    """Raise on a launch the card refused; count it otherwise."""
+    if rc != 0:
+        msg = library().lgbt_error_string(rc).decode()
+        raise LightGBMError(f"CUDA kernel {name} failed: {msg} ({rc})")
+    LAUNCHES[name] += 1
+
+
+def stream_ptr(device) -> int:
+    import torch
+    return torch.cuda.current_stream(device).cuda_stream

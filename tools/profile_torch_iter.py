@@ -1,0 +1,162 @@
+#!/usr/bin/env python3
+"""Where one training iteration of lightgbm_tpu_torch spends its time, on
+one NVIDIA card.
+
+    python3 tools/profile_torch_iter.py [--rows 10500000] [--out FILE]
+
+Trains chip_smoke.py's HIGGS-shaped main path (28 features, max_bin 63,
+255 leaves, fused route) for four iterations:
+
+  1. warm-up (kernel build, first launches);
+  2. untraced: its wall time is the end-to-end number;
+  3. host spans only: inclusive wall clock of the grower's pieces,
+     measured by wrapping them in this script (gradients, the whole grow,
+     the best-split scans with their device-to-host fetch, the K3 wrapper
+     calls, compaction, the score update, the tree's finalisation);
+  4. host spans and ``torch.profiler`` (CPU and CUDA activities): the
+     device's busy time (the union of kernel intervals), its idle share,
+     and device time and launch count by kernel name, the port's four
+     kernels and PyTorch's own.
+
+The wall times of 2, 3 and 4 show what the spans and the profiler cost.
+The summary goes to stdout and, with ``--out FILE``, the full record
+(every kernel name) to FILE as JSON.  Needs a card; exits non-zero
+without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import functools
+import json
+import os
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+
+def _wrap(owner, attr, spans, label):
+    fn = getattr(owner, attr)
+
+    @functools.wraps(fn)
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            spans[label][0] += time.perf_counter() - t0
+            spans[label][1] += 1
+
+    setattr(owner, attr, timed)
+
+
+def _busy_us(intervals):
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e <= end:
+            continue
+        total += e - max(s, end)
+        end = e
+    return total
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--rows", type=int, default=10_500_000)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("profile_torch_iter: no CUDA device", file=sys.stderr)
+        return 2
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.models import gbdt, grower_seg
+    from lightgbm_tpu_torch.models.tree import Tree
+
+    X, y = chip_smoke.higgs_like(args.rows, 42)
+    params = dict(chip_smoke.TRAIN_PARAMS, metric=[])
+    bst = lt.Booster(params, lt.Dataset(X, y))
+    g = bst.gbdt
+
+    def iteration_ms():
+        t0 = time.perf_counter()
+        bst.update()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    iteration_ms()                                  # 1: warm-up (and build)
+    untraced_ms = iteration_ms()                    # 2: untraced
+
+    spans = collections.defaultdict(lambda: [0.0, 0])
+    _wrap(g.objective, "get_gradients", spans, "gradients")
+    _wrap(g.grower, "grow", spans, "grow (whole tree)")
+    _wrap(g.grower, "_scan", spans, "best-split scans + fetch")
+    _wrap(grower_seg, "histogram_segment_routed", spans,
+          "K3 wrapper calls")
+    _wrap(grower_seg, "compact_state", spans, "compaction")
+    _wrap(gbdt, "score_gather_add", spans, "score update (K4)")
+    _wrap(Tree, "from_grown", spans, "tree to host")
+    spans_ms = iteration_ms()                       # 3: host spans only
+    host = {k: {"ms": v[0] * 1e3, "calls": v[1]} for k, v in spans.items()}
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        profiled_ms = iteration_ms()                # 4: spans + profiler
+
+    kernels = collections.defaultdict(lambda: [0.0, 0])
+    intervals = []
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        s, e = evt.time_range.start, evt.time_range.end
+        intervals.append((s, e))
+        kernels[evt.name][0] += (e - s) / 1e3
+        kernels[evt.name][1] += 1
+    busy_ms = _busy_us(intervals) / 1e3
+    record = {
+        "device": torch.cuda.get_device_name(0),
+        "rows": args.rows,
+        "leaves": [t.num_leaves for t in g.models],
+        "untraced_ms": untraced_ms, "spans_ms": spans_ms,
+        "profiled_ms": profiled_ms, "device_busy_ms": busy_ms,
+        "idle_share": 1.0 - busy_ms / profiled_ms,
+        "device_ops": len(intervals),
+        "grower_stats": dict(g.grower.last_stats),
+        "kernels_ms": {k: {"ms": v[0], "count": v[1]} for k, v in sorted(
+            kernels.items(), key=lambda kv: -kv[1][0])},
+        "host_ms": host,
+    }
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        with open(args.out, "w") as fh:
+            json.dump(record, fh, indent=1)
+
+    print(f"iteration wall: untraced {untraced_ms:.1f} ms, with host spans "
+          f"{spans_ms:.1f} ms, with spans and profiler {profiled_ms:.1f} ms; "
+          f"leaves {record['leaves']}")
+    print(f"profiled iteration: device busy {busy_ms:.1f} ms, idle share "
+          f"{record['idle_share']:.3f}, {len(intervals)} device ops, "
+          f"grower {record['grower_stats']}")
+    print("host, iteration 3 (inclusive):")
+    for k, v in host.items():
+        print(f"  {k:28s} {v['ms']:9.1f} ms  {v['calls']:5d} calls")
+    print("device by kernel, iteration 4 (top 15):")
+    for k, v in list(record["kernels_ms"].items())[:15]:
+        print(f"  {v['ms']:9.2f} ms  {v['count']:6d}  {k[:90]}")
+    print(json.dumps({k: record[k] for k in (
+        "device", "rows", "untraced_ms", "spans_ms", "profiled_ms",
+        "device_busy_ms", "idle_share", "device_ops")}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
