@@ -6,7 +6,7 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``lightgbm_tpu_torch/csrc`` and runs
-five phases; any failure exits non-zero:
+eight phases; any failure exits non-zero:
 
   1. build    nvcc for sm_90a; prints ptxas's register/shared-memory lines
               and the card's name and power limit.
@@ -16,9 +16,12 @@ five phases; any failure exits non-zero:
               1e-5 x the bin's sum of |value|, a second launch bit-identical
               to the first; route descriptors cover numeric, NaN-missing,
               zero-missing and categorical-bitset splits and a partial
-              window.  Times each kernel, its plain version and, for the
-              score update, the one PyTorch expression that computes it.
-  3. train    the main path: ``lightgbm_tpu_torch.train`` on synthetic
+              window.  K5 (histogram_all) with C = 5 channel sets at these
+              rows too, each class slice bit-identical to a K1 root of that
+              class.  Times each kernel, its plain version and the one
+              PyTorch call that computes the same function (index_add_ for
+              the histograms, with its flat keys made before the clock).
+  3. train    the binary path: ``lightgbm_tpu_torch.train`` on synthetic
               HIGGS-shaped data (as bench.py makes it), 255 leaves,
               3 iterations, fused route (K3 + K4).  Train AUC must rise,
               held-out predictions must match the in-training valid
@@ -28,6 +31,22 @@ five phases; any failure exits non-zero:
   5. parity   200k rows, 31 leaves, 3 iterations on the card and on the
               CPU: the same split features and bin thresholds for splits
               with gain > 1e-2, raw predictions within 1e-3.
+  6. mc kernels  at the multiclass_cat shape (1M rows x 28 features, 8 of
+              them categorical, 256 bins, 5 classes): K5 against its plain
+              version and the K1 roots of its classes; K1 and K3 at 256
+              bins, K3 with the categorical route of a real best_split;
+              K4 in place into one row of a [5, 1M] score with a 31-leaf
+              table, as the multiclass loop calls it.
+  7. mc train the multiclass path: 5-class softmax with categorical
+              features as bench_suite.py makes it, 1M rows, 31 leaves,
+              25 iterations, fused: K5 once per iteration, K3 on every
+              split, K4 once per class tree; held-out multi_logloss under
+              bench_suite.py's gate of 0.9; held-out predictions match the
+              in-training valid scores; the model text holds num_class=5
+              and categorical nodes.
+  8. mc parity  200k rows, 3 iterations on the card and on the CPU: the
+              same split features, thresholds and category bitsets for
+              splits with gain > 1e-2, raw predictions within 1e-3.
 
 Output: one JSON line per kernel, one ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Without a
@@ -55,6 +74,16 @@ MAX_BIN = 63
 TRAIN_PARAMS = dict(objective="binary", num_leaves=255, max_bin=MAX_BIN,
                     learning_rate=0.1, min_sum_hessian_in_leaf=100.0,
                     metric=["auc"], verbosity=-1, device_type="cuda")
+# bench_suite.py's multiclass_cat: 1M rows x 28 features, 20-27
+# categorical of cardinality 16, 5 classes, 31 leaves, default max_bin
+MC_ROWS = 1_000_000
+MC_CLASSES = 5
+MC_CAT = list(range(20, 28))
+MC_ITERS = 25
+MC_PARAMS = dict(objective="multiclass", num_class=MC_CLASSES,
+                 num_leaves=31, metric=["multi_logloss"], verbosity=-1,
+                 device_type="cuda")
+MC_LOGLOSS_GATE = 0.9       # bench_suite.py:282-289
 # H100 SXM data sheet: HBM3 rate, and the float32 rate outside the tensor
 # cores (the fastest non-tensor rate the sheet lists; the kernels' integer
 # adds run on the same units)
@@ -71,6 +100,8 @@ SOURCES = {
                                  "lightgbm_tpu/ops/pallas_histogram.py:1126"),
     "score_gather_add": ("lightgbm_tpu_torch/csrc/score.cu",
                          "lightgbm_tpu/ops/pallas_score.py:106"),
+    "histogram_all": ("lightgbm_tpu_torch/csrc/histogram.cu",
+                      "lightgbm_tpu/ops/pallas_histogram.py:460"),
 }
 
 
@@ -96,6 +127,21 @@ def higgs_like(n: int, seed: int):
              + 0.5 * np.sin(3 * X[:, 4]))
     y = (logit + rng.normal(size=n) * 0.5 > 0).astype(np.float64)
     return X, y
+
+
+def multiclass_cat(n: int, seed: int):
+    """bench_suite.py's _gen_multiclass (multiclass_cat)."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    X = rng.normal(size=(n, N_FEATURES)).astype(np.float32)
+    cats = rng.randint(0, 16, size=(n, 8))
+    X[:, 20:28] = cats
+    logits = np.stack([
+        X[:, 0] + (cats[:, 0] % 5 == k) * 1.5
+        + 0.5 * X[:, k % 4] * (1 if k % 2 else -1)
+        for k in range(MC_CLASSES)], axis=1)
+    y = np.argmax(2.0 * logits + rng.gumbel(size=(n, MC_CLASSES)), axis=1)
+    return X, y.astype(np.float64)
 
 
 def time_ms(fn, reps: int) -> float:
@@ -143,13 +189,8 @@ def card_line() -> str:
 def hist_abs_sums(th, binsT, w8, lid, lo_blk, n_blk, target, B, rb):
     """Per-bin sums of |gradient| and |hessian| (the tolerance's scale),
     by the plain histogram over absolute-valued channels."""
-    import torch
-    g = (w8[0].float() + w8[1].float()).abs()
-    h = (w8[2].float() + w8[3].float()).abs()
-    z = torch.zeros_like(g)
-    wabs = torch.stack([g, z, h, z, w8[4].float(), z, z, z])
-    return th.histogram_segment_plain(binsT, wabs, lid, lo_blk, n_blk,
-                                      target, B, rb)
+    return th.histogram_segment_plain(binsT, abs_channel_sets(w8), lid,
+                                      lo_blk, n_blk, target, B, rb)
 
 
 def check_hist(name, got, want, abs_sums) -> float:
@@ -163,6 +204,72 @@ def check_hist(name, got, want, abs_sums) -> float:
     bad = (diff[..., :2] > tol[..., :2]).sum().item()
     require(bad == 0, f"{name}: {bad} sums outside {HIST_RTOL} x sum|value|")
     return float(diff.max().item())
+
+
+def abs_channel_sets(w8C):
+    """[8C, N] channel sets -> float32 sets of |g|, |h| and member: the
+    tolerance's scale, through the plain histograms."""
+    import torch
+    out = []
+    for c in range(w8C.shape[0] // 8):
+        w = w8C[8 * c:8 * c + 8]
+        g = (w[0].float() + w[1].float()).abs()
+        h = (w[2].float() + w[3].float()).abs()
+        z = torch.zeros_like(g)
+        out.append(torch.stack([g, z, h, z, w[4].float(), z, z, z]))
+    return torch.cat(out)
+
+
+def check_histogram_all(th, binsT, w8C, B, rb, tag):
+    """K5 against its plain version: counts exact, sums in tolerance, a
+    relaunch bit-identical, and class c's slice bit-identical to K1 on a
+    root of class c at the class's scale.  Returns (max |diff|, scales)."""
+    import torch
+    F, npad = binsT.shape
+    C = w8C.shape[0] // 8
+    scales = th.class_scales(w8C)
+    want = th.histogram_all_plain(binsT, w8C, B)
+    a = th.histogram_all(binsT, w8C, B, scales)
+    b = th.histogram_all(binsT, w8C, B, scales)
+    torch.cuda.synchronize()
+    require(torch.equal(a, b), f"histogram_all {tag}: a second launch "
+            "differs from the first")
+    abs_sums = th.histogram_all_plain(binsT, abs_channel_sets(w8C), B)
+    err = check_hist(f"histogram_all {tag}", a, want, abs_sums)
+    lid0 = torch.zeros(npad, dtype=torch.int32, device=binsT.device)
+    for c in range(C):
+        root = th.histogram_segment(binsT, w8C[8 * c:8 * c + 8], lid0, 0,
+                                    npad // rb, 0, B, rb, scales[c])
+        require(torch.equal(a[c], root), f"histogram_all {tag}: class {c} "
+                "differs from the K1 root of that class")
+    log(f"histogram_all {tag}: {C} sets, counts exact, max |diff| "
+        f"{err:.3g}, class slices equal the K1 roots")
+    return err, scales
+
+
+def library_hist_ms(binsT, w8s, rows, B, reps):
+    """One torch index_add_ of (g, h, member) into [C*F*B, 3] computing
+    what a histogram kernel computes over ``rows`` for each of the
+    channel sets ``w8s``; the flat keys and values are made before the
+    clock starts."""
+    import torch
+    F = binsT.shape[0]
+    b = binsT[:, rows].long()
+    f_off = torch.arange(F, device=b.device)[:, None]
+    keys, vals = [], []
+    for c, w8 in enumerate(w8s):
+        w = w8[:, rows].float()
+        v = torch.stack([w[0] + w[1], w[2] + w[3], w[4]], dim=1)
+        keys.append(((c * F + f_off) * B + b).reshape(-1))
+        vals.append(v[None].expand(F, -1, -1).reshape(-1, 3))
+    del b
+    keys, vals = torch.cat(keys), torch.cat(vals)
+    out = torch.zeros((len(w8s) * F * B, 3), dtype=torch.float32,
+                      device=binsT.device)
+    ms = time_ms(lambda i: out.index_add_(0, keys, vals), reps)
+    del keys, vals, out
+    torch.cuda.empty_cache()
+    return ms
 
 
 def kernel_phase(handle, config, device):
@@ -201,7 +308,7 @@ def kernel_phase(handle, config, device):
     log(f"kernels: F={F} B={B} Npad={npad} rb={rb}")
 
     def with_missing(f, mt):
-        m = FeatureMeta(*(a.copy() for a in fm))
+        m = FeatureMeta(*(a.copy() for a in fm[:3]))
         m.missing_type[f] = mt
         return m
 
@@ -303,7 +410,9 @@ def kernel_phase(handle, config, device):
     table = torch.from_numpy(rng.normal(size=L).astype(np.float32)).to(device)
     want = ts.score_gather_add_plain(score, lid_score, table)
     a = ts.score_gather_add(score, lid_score, table)
-    b = ts.score_gather_add(score, lid_score, table)
+    # in place, as the boosting loop calls it
+    b = score.clone()
+    ts.score_gather_add(b, lid_score, table, out=b)
     lid_oob = lid_score[:4096] + torch.tensor(8, dtype=torch.int32,
                                               device=device)
     oob = ts.score_gather_add(score[:4096], lid_oob, table)
@@ -317,6 +426,20 @@ def kernel_phase(handle, config, device):
     results["score_gather_add"] = {
         "max_abs_err": float((a - want).abs().max().item())}
     log("score_gather_add: bit-identical")
+
+    # K5 histogram_all: C = 5 channel sets over the HIGGS rows, gradients
+    # of a 5-class softmax at random scores (made from a seed)
+    gen = torch.Generator(device=device).manual_seed(5)
+    mc_score = torch.randn((MC_CLASSES, npad), generator=gen, device=device)
+    p = torch.softmax(mc_score, dim=0)
+    mc_label = torch.randint(0, MC_CLASSES, (npad,), generator=gen,
+                             device=device)
+    mc_grad = (p - torch.nn.functional.one_hot(mc_label, MC_CLASSES).T) \
+        * member
+    mc_hess = 2.0 * p * (1.0 - p) * member
+    w8C = th.pack_channel_sets(mc_grad, mc_hess, member)
+    del mc_score, p, mc_label, mc_grad, mc_hess
+    err5, scales5 = check_histogram_all(th, binsT, w8C, B, rb, "HIGGS rows")
 
     # ---- times at the main path's shapes
     # K2 and K3 rewrite leaf ids in place: every timed call gets a fresh
@@ -348,7 +471,8 @@ def kernel_phase(handle, config, device):
     t["plain_ms"] = time_ms(lambda i: th.histogram_segment_plain(
         binsT, w8, lid0, 0, nblk, 0, B, rb), plain_reps)
     t["bound_ms"], t["bound_by"] = bound_ms(k1_bytes, k1_ops)
-    t["library_ms"] = None
+    t["library_ms"] = library_hist_ms(binsT, [w8], torch.arange(
+        n, device=device), B, reps)
     t["shape"] = f"root: {W} rows x {F} features, all of leaf 0"
 
     t = results["histogram_segment_routed"]
@@ -359,7 +483,8 @@ def kernel_phase(handle, config, device):
     t["plain_ms"] = time_ms(lambda i: th.histogram_segment_routed_plain(
         binsT, w8, ids[i], 0, nblk, 1, route, B, rb), plain_reps)
     t["bound_ms"], t["bound_by"] = bound_ms(k3_bytes, k3_ops)
-    t["library_ms"] = None
+    t["library_ms"] = library_hist_ms(
+        binsT, [w8], torch.nonzero(lid_split == 1)[:, 0], B, reps)
     t["shape"] = (f"first split: {W} rows, {moved} routed to the target "
                   "child")
     # the root case of the fused path (null route)
@@ -385,6 +510,20 @@ def kernel_phase(handle, config, device):
     t["library_ms"] = time_ms(lambda i: score + table[lid_score], reps)
     t["bound_ms"], t["bound_by"] = bound_ms(k4_bytes, k4_ops)
     t["shape"] = f"{n} rows, {L} leaves"
+
+    # K5 at the HIGGS rows: bins once per set and five channels a set
+    C = MC_CLASSES
+    k5_bytes = W * C * (F + 10) + C * out_bytes
+    t = {"max_abs_err": err5}
+    t["ms"] = time_ms(lambda i: th.histogram_all(binsT, w8C, B, scales5),
+                      reps)
+    t["plain_ms"] = time_ms(lambda i: th.histogram_all_plain(
+        binsT, w8C, B), plain_reps)
+    t["bound_ms"], t["bound_by"] = bound_ms(W * (F + 10 * C)
+                                            + C * out_bytes, W * F * C * 3)
+    t["per_set_bytes_ms"] = bound_ms(k5_bytes, 0)[0]
+    t["shape"] = f"{W} rows x {F} features x {C} sets, {B} bins"
+    results["histogram_all_higgs"] = t
     return results
 
 
@@ -524,6 +663,282 @@ def parity_phase():
         f"model text identical: {same}")
 
 
+# ---------------------------------------------------------------- phase 6
+def mc_kernel_phase(handle, config, device):
+    """K5 at the multiclass_cat shape against its plain version and the K1
+    roots of its classes; K1 and K3 at 256 bins, K3 with the categorical
+    route of a real best_split.  Returns {name: measurement dict}."""
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.models.gbdt import block_rows, build_feature_meta
+    from lightgbm_tpu_torch.objective import create_objective
+    from lightgbm_tpu_torch.ops import histogram as th
+    from lightgbm_tpu_torch.ops import score as ts
+    from lightgbm_tpu_torch.ops.split import (FeatureMeta, SplitParams,
+                                              best_split)
+
+    n = handle.num_data
+    rb = block_rows(config, n)
+    binsT = handle.device_bins(rb, device)
+    F, npad = binsT.shape
+    nblk = npad // rb
+    B = 1 << max(0, (handle.max_num_bin - 1).bit_length())
+    C = MC_CLASSES
+    require(B == 256, f"multiclass_cat gives {B} bins, expected 256")
+    log(f"mc kernels: F={F} B={B} C={C} Npad={npad} rb={rb}")
+    # the first iteration's gradients, from the boost-from-average scores
+    obj = create_objective(config)
+    obj.init(handle.metadata, n, device)
+    score0 = torch.tensor([obj.boost_from_score(k) for k in range(C)],
+                          dtype=torch.float32, device=device)[:, None]
+    grad, hess = obj.get_gradients(score0.expand(C, n).contiguous())
+    grad = torch.nn.functional.pad(grad, (0, npad - n))
+    hess = torch.nn.functional.pad(hess, (0, npad - n))
+    member = torch.zeros(npad, dtype=torch.float32, device=device)
+    member[:n] = 1.0
+    w8C = th.pack_channel_sets(grad, hess, member)
+    err5, scales = check_histogram_all(th, binsT, w8C, B, rb,
+                                       "multiclass_cat")
+
+    # a categorical split of class 0's root: best_split over the root
+    # histogram with the numeric features' histograms emptied
+    fmeta = build_feature_meta(handle, device)
+    root = th.histogram_all(binsT, w8C, B, scales)[0]
+    cat_only = root * fmeta.is_cat[:, None, None].to(root.dtype)
+    info = best_split(cat_only[None], grad[0].sum()[None],
+                      hess[0].sum()[None], member.sum()[None], fmeta,
+                      SplitParams(has_cat=True))
+    require(bool(info.is_cat[0].item()), "no categorical split at the root")
+    f_cat = int(info.feature[0].item())
+    bitset = info.cat_bitset[0].cpu().numpy().astype(np.uint32)
+    fm = FeatureMeta(*(t.cpu().numpy() for t in fmeta[:3]))
+    routes = {
+        "categorical": th.pack_route(0, 1, f_cat, int(info.threshold[0]),
+                                     False, True, bitset, fm),
+        "numeric": th.pack_route(0, 1, 0, int(fm.num_bin[0]) // 2, False,
+                                 False, np.zeros(8, np.uint32), fm),
+    }
+    log(f"mc kernels: categorical split of feature {f_cat}, bitset "
+        f"{[hex(int(w)) for w in bitset]}")
+    w8 = w8C[:8]
+    lid0 = torch.zeros(npad, dtype=torch.int32, device=device)
+    want = th.histogram_segment_plain(binsT, w8, lid0, 0, nblk, 0, B, rb)
+    a = th.histogram_segment(binsT, w8, lid0, 0, nblk, 0, B, rb, scales[0])
+    b = th.histogram_segment(binsT, w8, lid0, 0, nblk, 0, B, rb, scales[0])
+    torch.cuda.synchronize()
+    require(torch.equal(a, b), "histogram_segment 256 bins: a second launch "
+            "differs")
+    err1 = check_hist("histogram_segment 256 bins", a, want, hist_abs_sums(
+        th, binsT, w8, lid0, 0, nblk, 0, B, rb))
+    err3 = 0.0
+    for rname, route in routes.items():
+        want_lid, want = th.histogram_segment_routed_plain(
+            binsT, w8, lid0.clone(), 0, nblk, 1, route, B, rb)
+        runs = [th.histogram_segment_routed(binsT, w8, lid0.clone(), 0, nblk,
+                                            1, route, B, rb, scales[0])
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        require(torch.equal(runs[0][1], runs[1][1]),
+                f"histogram_segment_routed 256 bins {rname}: a second "
+                "launch differs")
+        for got_lid, _ in runs:
+            require(torch.equal(got_lid, want_lid),
+                    f"histogram_segment_routed 256 bins {rname}: leaf ids "
+                    "differ from the plain version")
+        moved = int((want_lid == 1).sum().item())
+        require(0 < moved < n, f"the {rname} route moved {moved} rows")
+        err3 = max(err3, check_hist(
+            f"histogram_segment_routed 256 bins {rname}", runs[0][1], want,
+            hist_abs_sums(th, binsT, w8, want_lid, 0, nblk, 1, B, rb)))
+        log(f"histogram_segment_routed 256 bins {rname}: ids identical, "
+            f"{moved} rows routed, counts exact, max |diff| {err3:.3g}")
+
+    # K4 as the multiclass loop calls it: in place into one row (not the
+    # first) of the [C, N] train score, with a 31-leaf table
+    L = MC_PARAMS["num_leaves"]
+    rng = np.random.RandomState(4)
+    score_cn = torch.from_numpy(
+        rng.normal(size=(C, n)).astype(np.float32)).to(device)
+    lid_score = torch.from_numpy(
+        rng.randint(0, L, size=n).astype(np.int32)).to(device)
+    table = torch.from_numpy(rng.normal(size=L).astype(np.float32)).to(device)
+    k = C - 1
+    want = ts.score_gather_add_plain(score_cn[k], lid_score, table)
+    runs = []
+    for _ in range(2):
+        s = score_cn.clone()
+        row = s[k]
+        ret = ts.score_gather_add(row, lid_score, table, out=row)
+        require(ret.data_ptr() == row.data_ptr(),
+                "score_gather_add: out= was not written in place")
+        runs.append(s)
+    torch.cuda.synchronize()
+    for s in runs:
+        require(torch.equal(s[k].view(torch.int32), want.view(torch.int32)),
+                f"score_gather_add [{C}, {n}] row: not bit-identical to the "
+                "plain version")
+        require(torch.equal(s[:k], score_cn[:k]),
+                f"score_gather_add [{C}, {n}] row: other rows changed")
+    err4 = float((runs[0][k] - want).abs().max().item())
+    log(f"score_gather_add [{C}, {n}] row {k}, {L} leaves: bit-identical, "
+        "other rows unchanged")
+
+    reps, plain_reps = 20, 3
+    W = npad
+    out_bytes = F * B * 3 * 4
+    t = {"max_abs_err": err5}
+    t["ms"] = time_ms(lambda i: th.histogram_all(binsT, w8C, B, scales),
+                      reps)
+    t["plain_ms"] = time_ms(lambda i: th.histogram_all_plain(
+        binsT, w8C, B), plain_reps)
+    # one pass over all sets: the bins once, five bf16 channels a set
+    t["bound_ms"], t["bound_by"] = bound_ms(W * (F + 10 * C)
+                                            + C * out_bytes, W * F * C * 3)
+    t["library_ms"] = library_hist_ms(
+        binsT, [w8C[8 * c:8 * c + 8] for c in range(C)],
+        torch.arange(n, device=device), B, reps)
+    t["shape"] = f"{W} rows x {F} features x {C} sets, {B} bins"
+    ids = [lid0.clone() for _ in range(reps + 1)]
+    k3_ms = time_ms(lambda i: th.histogram_segment_routed(
+        binsT, w8, ids[i], 0, nblk, 1, routes["categorical"], B, rb,
+        scales[0]), reps)
+    k1_ms = time_ms(lambda i: th.histogram_segment(
+        binsT, w8, lid0, 0, nblk, 0, B, rb, scales[0]), reps)
+    row = runs[0][k]
+    k4 = {"mc_max_abs_err": err4}
+    k4["mc_ms"] = time_ms(lambda i: ts.score_gather_add(
+        row, lid_score, table, out=row), reps)
+    k4["mc_plain_ms"] = time_ms(lambda i: ts.score_gather_add_plain(
+        row, lid_score, table, out=row), reps)
+    k4["mc_library_ms"] = time_ms(lambda i: torch.add(
+        row, table[lid_score], out=row), reps)
+    k4["mc_bound_ms"], k4["mc_bound_by"] = bound_ms(n * 12 + L * 4, n)
+    k4["mc_shape"] = f"row {k} of a [{C}, {n}] score in place, {L} leaves"
+    return {"histogram_all": t, "score_gather_add": k4,
+            "histogram_segment": {"b256_ms": k1_ms, "b256_max_abs_err": err1},
+            "histogram_segment_routed": {"b256_cat_ms": k3_ms,
+                                         "b256_max_abs_err": err3}}
+
+
+# ---------------------------------------------------------------- phase 7
+def mc_train_phase(ds, Xh, yh):
+    """The multiclass path: lightgbm_tpu_torch.train, 5-class softmax with
+    categorical features, fused route."""
+    import numpy as np
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import kernels
+
+    C = MC_CLASSES
+    valid = ds.create_valid(Xh, yh)
+    evals = {}
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    bst = lt.train(MC_PARAMS, ds, MC_ITERS, valid_sets=[valid],
+                   valid_names=["holdout"], evals_result=evals)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    trees = bst.gbdt.models
+    ll = evals["holdout"]["multi_logloss"]
+    it_s = bst.gbdt.iter_seconds
+    log(f"mc train: {len(trees)} trees in {wall:.2f} s, per iteration "
+        f"{[round(x, 3) for x in it_s]} s")
+    log(f"mc train: holdout multi_logloss {[round(x, 5) for x in ll]}")
+    log(f"mc train: launches {launches}")
+    require(len(trees) == MC_ITERS * C, f"{len(trees)} trees, expected "
+            f"{MC_ITERS * C}")
+    require(all(t.num_leaves > 1 for t in trees), "a class tree did not split")
+    splits = sum(t.num_leaves - 1 for t in trees)
+    require(launches["histogram_all"] == MC_ITERS,
+            f"histogram_all launched {launches['histogram_all']} times, "
+            f"expected once per iteration ({MC_ITERS})")
+    require(launches["histogram_segment_routed"] == splits,
+            f"histogram_segment_routed launched "
+            f"{launches['histogram_segment_routed']} times, expected one "
+            f"per split ({splits})")
+    require(launches["score_gather_add"] == MC_ITERS * C,
+            "score_gather_add did not run once per class tree")
+    require(launches["histogram_segment"] == 0
+            and launches["route_window"] == 0,
+            "the fused path launched the unfused kernels")
+    require(ll[-1] < MC_LOGLOSS_GATE, f"held-out multi_logloss {ll[-1]} is "
+            f"not under {MC_LOGLOSS_GATE}")
+    raw = bst.predict(Xh, raw_score=True)
+    prob = bst.predict(Xh)
+    require(raw.shape == (len(Xh), C) and prob.shape == (len(Xh), C)
+            and np.all(np.isfinite(prob)), "held-out predictions are not "
+            "finite [N, C] arrays")
+    vdiff = float(np.abs(raw.T - bst.gbdt.valid_scores[0]).max())
+    require(vdiff <= 1e-9, f"Booster.predict differs from the in-training "
+            f"valid scores by {vdiff}")
+    hll = float(-np.mean(np.log(np.clip(
+        prob[np.arange(len(yh)), yh.astype(int)], 1e-15, 1.0))))
+    require(abs(hll - ll[-1]) < 1e-9, f"held-out multi_logloss from "
+            f"Booster.predict {hll} differs from the valid metric {ll[-1]}")
+    n_cat = sum(t.num_cat for t in trees)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "model.txt")
+        bst.save_model(path)
+        with open(path) as fh:
+            text = fh.read()
+    require(f"num_class={C}" in text and "cat_threshold=" in text
+            and f"Tree={MC_ITERS * C - 1}" in text, "saved model text lacks "
+            "num_class, categorical nodes or trees")
+    log(f"mc train: {splits} splits, {n_cat} categorical, holdout predict "
+        f"ok (multi_logloss {hll:.5f}, |raw - valid score| {vdiff:.3g}), "
+        f"model text {len(text)} bytes")
+    return launches, {"wall_s": wall, "iter_s": it_s,
+                      "holdout_multi_logloss": ll, "splits": splits,
+                      "categorical_splits": n_cat}
+
+
+# ---------------------------------------------------------------- phase 8
+def mc_parity_phase():
+    import numpy as np
+    import lightgbm_tpu_torch as lt
+
+    X, y = multiclass_cat(PARITY_ROWS, 11)
+    ds = lt.Dataset(X, y, categorical_feature=MC_CAT)
+    params = dict(MC_PARAMS, metric=[])
+    out = {}
+    for dev in ("cuda", "cpu"):
+        bst = lt.Booster(dict(params, device_type=dev), ds)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            bst.update()
+        log(f"mc parity: {dev} 3 iterations in "
+            f"{time.perf_counter() - t0:.1f} s")
+        out[dev] = bst
+    compared = cats = 0
+    for i, (a, b) in enumerate(zip(out["cuda"].gbdt.models,
+                                   out["cpu"].gbdt.models)):
+        nf = min(a.num_leaves, b.num_leaves) - 1
+        k = 0
+        while k < nf and a.split_gain[k] > 1e-2 and b.split_gain[k] > 1e-2:
+            k += 1
+        same = (np.array_equal(a.split_feature[:k], b.split_feature[:k])
+                and np.array_equal(a.threshold_in_bin[:k],
+                                   b.threshold_in_bin[:k])
+                and np.array_equal(a.decision_type[:k] & 1,
+                                   b.decision_type[:k] & 1))
+        for j in range(k):
+            if same and a.decision_type[j] & 1:
+                c = int(a.threshold_in_bin[j])
+                same = np.array_equal(a.cat_threshold_inner[c],
+                                      b.cat_threshold_inner[c])
+                cats += 1
+        require(same, f"tree {i}: card and CPU split differently")
+        compared += k
+    require(compared >= 60 and cats > 0, f"only {compared} splits ({cats} "
+            "categorical) compared")
+    diff = float(np.abs(out["cuda"].predict(X, raw_score=True)
+                        - out["cpu"].predict(X, raw_score=True)).max())
+    require(diff < 1e-3, f"card and CPU raw predictions differ by {diff}")
+    log(f"mc parity: {compared} splits identical ({cats} categorical), "
+        f"max |raw diff| {diff:.3g}")
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     import torch
@@ -570,27 +985,45 @@ def main() -> int:
     main_launches, train_stats = train_phase(ds, Xh, yh)
     unfused_launches = unfused_phase()
     parity_phase()
+    del ds, X, y, Xh, yh
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    X, y = multiclass_cat(MC_ROWS + HOLDOUT_ROWS, 7)
+    Xh, yh = X[MC_ROWS:], y[MC_ROWS:]
+    X, y = X[:MC_ROWS], y[:MC_ROWS]
+    mc_config = Config.from_params(MC_PARAMS)
+    ds = lightgbm_tpu_torch.Dataset(X, y, categorical_feature=MC_CAT)
+    ds.construct(mc_config)
+    log(f"mc data: {MC_ROWS} x {N_FEATURES} generated and binned in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mc_results = mc_kernel_phase(ds._handle, mc_config, device)
+    torch.cuda.empty_cache()
+    log(f"mc kernels: phase took {time.perf_counter() - t0:.1f} s")
+    mc_launches, mc_stats = mc_train_phase(ds, Xh, yh)
+    mc_parity_phase()
 
     records = []
     for name in kernels.KERNEL_NAMES:
-        r = results[name]
-        on_unfused = name in ("histogram_segment", "route_window")
+        r = dict(results.get(name, {}))
+        r.update(mc_results.get(name, {}))
+        path = {"histogram_segment": "unfused", "route_window": "unfused",
+                "histogram_all": "multiclass"}.get(name, "fused")
+        launches = {"unfused": unfused_launches, "fused": main_launches,
+                    "multiclass": mc_launches}[path]
         src, replaces = SOURCES[name]
         rec = {"name": name, "route": "cuda", "source": src,
-               "replaces": replaces,
-               "launches": (unfused_launches if on_unfused
-                            else main_launches)[name],
-               "path": "unfused" if on_unfused else "fused",
-               "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-               "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-               "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-               "shape": r["shape"]}
-        if "root_ms" in r:
-            rec["root_ms"] = r["root_ms"]
+               "replaces": replaces, "launches": launches[name],
+               "path": path, "launches_multiclass": mc_launches[name]}
+        rec.update(r)
+        if name == "histogram_all":
+            rec["higgs"] = results["histogram_all_higgs"]
         records.append(rec)
         require(rec["launches"] > 0, f"{name} was not launched on its path")
         log(json.dumps(rec))
     log(json.dumps({"train": train_stats}))
+    log(json.dumps({"mc_train": mc_stats}))
     log(json.dumps({"kernels": records}))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import os
 import tempfile
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 
@@ -23,16 +23,21 @@ from .utils.log import LightGBMError, set_verbosity
 
 class Dataset:
     """Lazily-constructed training dataset.  ``data`` is a raw [N, F]
-    float matrix, or an already-binned TorchDataset (convert.py)."""
+    float matrix, or an already-binned TorchDataset (convert.py).
+    ``categorical_feature`` lists the categorical columns by index or
+    feature name; "auto" takes the ``categorical_feature`` parameter."""
 
     def __init__(self, data, label=None,
                  reference: Optional["Dataset"] = None,
                  feature_name="auto",
+                 categorical_feature: Union[str, List[int], List[str]] =
+                 "auto",
                  params: Optional[Dict[str, Any]] = None):
         self.data = data
         self.label = label
         self.reference = reference
         self.feature_name = feature_name
+        self.categorical_feature = categorical_feature
         self.params = dict(params or {})
         self._handle: Optional[TorchDataset] = (
             data if isinstance(data, TorchDataset) else None)
@@ -48,8 +53,34 @@ class Dataset:
                  else list(self.feature_name))
         self._handle = TorchDataset.from_numpy(
             np.asarray(self.data), label=self.label, config=cfg,
-            feature_names=names, reference=ref)
+            feature_names=names, reference=ref,
+            categorical_features=self._categorical_indices(cfg, names))
         return self
+
+    def _categorical_indices(self, cfg: Config,
+                             names: Optional[List[str]]) -> List[int]:
+        spec = self.categorical_feature
+        if isinstance(spec, str):
+            if spec != "auto":
+                raise LightGBMError("categorical_feature must be 'auto' or "
+                                    "a list of column indices or names")
+            spec = [t.strip() for t in
+                    str(cfg.categorical_feature).strip("[]() ").split(",")
+                    if t.strip()]
+        out = []
+        for c in spec:
+            name = c[5:] if isinstance(c, str) and c.startswith("name:") \
+                else c
+            if names and name in names:
+                out.append(names.index(name))
+            else:
+                try:
+                    out.append(int(name))
+                except ValueError:
+                    raise LightGBMError(
+                        f"categorical_feature entry {c!r} is neither a "
+                        "column index nor a feature name")
+        return out
 
     def create_valid(self, data, label=None) -> "Dataset":
         return Dataset(data, label=label, reference=self)

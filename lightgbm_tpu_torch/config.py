@@ -2,8 +2,9 @@
 
 The same registry shape as the reference's Config (include/LightGBM/
 config.h, src/io/config_auto.cpp): name, default, aliases.  The port runs
-one path — binary GBDT with the serial segment grower on dense numeric
-data — so the registry holds only the parameters that path honours.  A
+one path — binary or multiclass-softmax GBDT with the serial segment
+grower on dense data, numeric or categorical — so the registry holds only
+the parameters that path honours.  A
 parameter of a feature the port does not have raises NotImplementedError
 unless it is given at the value that switches the feature off; an
 unknown parameter raises too.  Nothing is silently ignored.
@@ -30,6 +31,7 @@ class _P:
 # Parameters the port honours.
 _PARAMS: Dict[str, _P] = {
     "objective": _P("binary", ["objective_type", "app", "application"]),
+    "num_class": _P(1, ["num_classes"]),
     "num_iterations": _P(100, ["num_iteration", "n_iter", "num_tree",
                                "num_trees", "num_round", "num_rounds",
                                "num_boost_round", "n_estimators"]),
@@ -59,6 +61,17 @@ _PARAMS: Dict[str, _P] = {
     "is_unbalance": _P(False, ["unbalance", "unbalanced_sets"]),
     "scale_pos_weight": _P(1.0),
     "sigmoid": _P(1.0),
+    # categorical columns, as indices or feature names ("0,3" or a list);
+    # Dataset(categorical_feature=...) takes precedence
+    "categorical_feature": _P("", ["cat_feature", "categorical_column",
+                                   "cat_column"], ptype=str),
+    # categorical split search (lightgbm_tpu/ops/split.py SplitParams)
+    "max_cat_threshold": _P(32),
+    "cat_smooth": _P(10.0),
+    "cat_l2": _P(10.0),
+    "max_cat_to_onehot": _P(4),
+    "min_data_per_group": _P(100),
+    "multi_error_top_k": _P(1),
     "boost_from_average": _P(True),
     "metric": _P([], ["metrics", "metric_types"], ptype=list),
     # row block: the granularity of the segment grower's confinement
@@ -71,7 +84,6 @@ _PARAMS: Dict[str, _P] = {
 _OFF_VALUES: Dict[str, Any] = {
     "boosting": "gbdt",
     "tree_learner": "serial",
-    "num_class": 1,
     "num_machines": 1,
     "num_threads": 0,
     "bagging_fraction": 1.0,
@@ -88,7 +100,6 @@ _OFF_VALUES: Dict[str, Any] = {
     "cegb_penalty_feature_coupled": [],
     "enable_bundle": False,
     "max_bin_by_feature": [],
-    "categorical_feature": "",
     "early_stopping_round": 0,
     "tpu_tree_impl": "segment",
     "tpu_frontier_width": 0,
@@ -100,7 +111,7 @@ _OFF_ALIASES = {
     "boosting_type": "boosting", "boost": "boosting",
     "tree": "tree_learner", "tree_type": "tree_learner",
     "tree_learner_type": "tree_learner",
-    "num_classes": "num_class", "num_machine": "num_machines",
+    "num_machine": "num_machines",
     "num_thread": "num_threads", "nthread": "num_threads",
     "nthreads": "num_threads", "n_jobs": "num_threads",
     "sub_row": "bagging_fraction", "subsample": "bagging_fraction",
@@ -112,9 +123,6 @@ _OFF_ALIASES = {
     "feature_contrib": "feature_contri", "fc": "feature_contri",
     "fp": "feature_contri", "feature_penalty": "feature_contri",
     "is_enable_bundle": "enable_bundle", "bundle": "enable_bundle",
-    "cat_feature": "categorical_feature",
-    "categorical_column": "categorical_feature",
-    "cat_column": "categorical_feature",
     "early_stopping_rounds": "early_stopping_round",
     "early_stopping": "early_stopping_round",
 }
@@ -126,8 +134,14 @@ for _name, _spec in _PARAMS.items():
         ALIAS_TABLE[_a] = _name
 
 DEVICE_TYPES = ("cuda", "cpu")
+OBJECTIVE_ALIASES = {"binary": "binary", "multiclass": "multiclass",
+                     "softmax": "multiclass"}
 METRIC_ALIASES = {"auc": "auc", "binary_logloss": "binary_logloss",
-                  "binary": "binary_logloss"}
+                  "binary": "binary_logloss",
+                  "multi_logloss": "multi_logloss",
+                  "multiclass": "multi_logloss", "softmax": "multi_logloss",
+                  "multi_error": "multi_error"}
+DEFAULT_METRIC = {"binary": "binary_logloss", "multiclass": "multi_logloss"}
 _TRUE_SET = {"true", "1", "yes", "+", "on"}
 _FALSE_SET = {"false", "0", "no", "-", "off"}
 
@@ -138,6 +152,8 @@ def resolve_alias(key: str) -> str:
 
 
 def _coerce(name: str, value: Any, ptype: type) -> Any:
+    if ptype is str and isinstance(value, (list, tuple)):
+        return ",".join(str(v) for v in value)
     if ptype is list:
         if isinstance(value, (list, tuple)):
             return list(value)
@@ -206,11 +222,17 @@ class Config:
         self._post_process()
 
     def _post_process(self) -> None:
-        self.objective = str(self.objective).strip().lower()
-        if self.objective != "binary":
+        obj = str(self.objective).strip().lower()
+        if obj not in OBJECTIVE_ALIASES:
             raise NotImplementedError(
-                f"objective {self.objective!r} is not supported by "
-                "lightgbm_tpu_torch (only binary)")
+                f"objective {obj!r} is not supported by lightgbm_tpu_torch "
+                "(only binary and multiclass)")
+        self.objective = OBJECTIVE_ALIASES[obj]
+        if self.objective == "multiclass" and self.num_class <= 1:
+            raise LightGBMError("num_class must be > 1 for multiclass")
+        if self.objective != "multiclass" and self.num_class != 1:
+            raise LightGBMError("num_class must be 1 for non-multiclass "
+                                "objectives")
         self.device_type = str(self.device_type).strip().lower()
         if self.device_type not in DEVICE_TYPES:
             raise LightGBMError(

@@ -9,7 +9,8 @@ inputs:
   * ``trees_from_arrays``: trained trees, each given as its numpy fields
     (``vars(tree)``) -> port Trees.
 
-Only numerical, unbundled state converts; anything else raises.
+Numerical and categorical features convert; bundled (EFB) state has no
+counterpart in the port and raises.
 """
 
 from __future__ import annotations
@@ -28,15 +29,7 @@ def dataset_from_arrays(binned: np.ndarray, bin_mappers: Sequence[Dict],
                         label: Optional[np.ndarray] = None,
                         feature_names: Optional[List[str]] = None
                         ) -> Dataset:
-    mappers = []
-    for d in bin_mappers:
-        if int(d.get("bin_type", 0)) != 0:
-            raise NotImplementedError("categorical features do not convert")
-        m = BinMapper.from_bounds(d["bin_upper_bound"], d["missing_type"],
-                                  d["default_bin"], d["min_val"],
-                                  d["max_val"])
-        m.is_trivial = bool(d["is_trivial"])
-        mappers.append(m)
+    mappers = [BinMapper.from_dict(d) for d in bin_mappers]
     ds = TorchDataset.from_bins(np.asarray(binned).T, mappers, label,
                                 feature_names)
     return Dataset(ds)
@@ -52,11 +45,18 @@ _TREE_FIELDS = ("split_feature_inner", "split_feature", "threshold_in_bin",
 def trees_from_arrays(fields: Sequence[Dict]) -> List[Tree]:
     out = []
     for f in fields:
-        if int(f.get("num_cat", 0)) > 0:
-            raise NotImplementedError("categorical splits do not convert")
         t = Tree(int(f["num_leaves"]))
         t.shrinkage = float(f.get("shrinkage", 1.0))
         for name in _TREE_FIELDS:
             setattr(t, name, np.array(f[name], dtype=getattr(t, name).dtype))
+        t.num_cat = int(f.get("num_cat", 0))
+        if t.num_cat:
+            t.cat_boundaries = [int(x) for x in f["cat_boundaries"]]
+            t.cat_boundaries_inner = [int(x)
+                                      for x in f["cat_boundaries_inner"]]
+            t.cat_threshold = [np.array(w, dtype=np.uint32)
+                               for w in f["cat_threshold"]]
+            t.cat_threshold_inner = [np.array(w, dtype=np.uint32)
+                                     for w in f["cat_threshold_inner"]]
         out.append(t)
     return out

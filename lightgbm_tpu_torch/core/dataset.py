@@ -5,31 +5,34 @@ Reference: include/LightGBM/dataset.h:283-637 + src/io/dataset_loader.cpp
 matrix, stored feature-major ``[F_used, N]`` uint8 on the host: each
 feature is a contiguous row, which is the layout the histogram kernels
 read on the card.  Every used feature is its own column: there is no
-exclusive feature bundling (EFB) in the port yet.
+exclusive feature bundling (EFB) in the port yet.  Categorical columns
+are named at construction (``categorical_features``) and binned by
+category (core/binning.py).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..config import Config
 from ..utils.log import check, log_warning
-from .binning import BinMapper
+from .binning import BIN_TYPE_CATEGORICAL, BIN_TYPE_NUMERICAL, BinMapper
 from .metadata import Metadata
 
 
 class FeatureInfo:
     """Per-used-feature metadata consumed by the tree learner."""
 
-    __slots__ = ("num_bin", "missing_type", "default_bin")
+    __slots__ = ("num_bin", "missing_type", "default_bin", "is_cat")
 
-    def __init__(self, num_bin, missing_type, default_bin):
+    def __init__(self, num_bin, missing_type, default_bin, is_cat=False):
         self.num_bin = num_bin
         self.missing_type = missing_type
         self.default_bin = default_bin
+        self.is_cat = is_cat
 
 
 class TorchDataset:
@@ -50,10 +53,12 @@ class TorchDataset:
     def from_numpy(cls, data: np.ndarray, label: Optional[np.ndarray] = None,
                    config: Optional[Config] = None,
                    feature_names: Optional[List[str]] = None,
-                   reference: Optional["TorchDataset"] = None
+                   reference: Optional["TorchDataset"] = None,
+                   categorical_features: Sequence[int] = ()
                    ) -> "TorchDataset":
         """Build a dataset from a raw [N, F] float matrix
         (DatasetLoader::CostructFromSampleData, dataset_loader.cpp:553).
+        ``categorical_features`` are column indices binned by category.
         With ``reference`` its bin mappers are reused, so validation data
         aligns with the training bins (Dataset::CreateValid)."""
         cfg = config or Config(device_type="cpu")
@@ -75,14 +80,16 @@ class TorchDataset:
             ds.max_num_bin = reference.max_num_bin
             ds.feature_names = list(reference.feature_names)
         else:
-            ds._fit_bin_mappers(data, cfg)
+            ds._fit_bin_mappers(data, cfg,
+                                set(int(c) for c in categorical_features))
         ds._quantize(data)
         ds.metadata.init(n)
         if label is not None:
             ds.metadata.set_label(label)
         return ds
 
-    def _fit_bin_mappers(self, data: np.ndarray, cfg: Config) -> None:
+    def _fit_bin_mappers(self, data: np.ndarray, cfg: Config,
+                         categorical: set) -> None:
         rng = np.random.RandomState(cfg.data_random_seed)
         n = data.shape[0]
         sample_cnt = min(n, cfg.bin_construct_sample_cnt)
@@ -94,6 +101,8 @@ class TorchDataset:
                 total_sample_cnt=len(sample_idx), max_bin=cfg.max_bin,
                 min_data_in_bin=cfg.min_data_in_bin,
                 min_split_data=cfg.min_data_in_leaf,
+                bin_type=(BIN_TYPE_CATEGORICAL if f in categorical
+                          else BIN_TYPE_NUMERICAL),
                 use_missing=cfg.use_missing,
                 zero_as_missing=cfg.zero_as_missing)
             for f in range(data.shape[1])]
@@ -107,6 +116,11 @@ class TorchDataset:
         self.used_feature_indices = np.asarray(used, dtype=np.int32)
         self.max_num_bin = max((self.bin_mappers[f].num_bin for f in used),
                                default=1)
+        # a categorical feature may hold more bins than max_bin (99% mass
+        # rule); the port's bins are one byte
+        check(self.max_num_bin <= 256,
+              f"a feature has {self.max_num_bin} bins; lightgbm_tpu_torch "
+              "stores one byte a bin (at most 256 bins)")
 
     def _quantize(self, data: np.ndarray) -> None:
         used = self.used_feature_indices
@@ -148,11 +162,18 @@ class TorchDataset:
     def feature_infos(self) -> List[FeatureInfo]:
         return [FeatureInfo(self.bin_mappers[f].num_bin,
                             self.bin_mappers[f].missing_type,
-                            self.bin_mappers[f].default_bin)
+                            self.bin_mappers[f].default_bin,
+                            self.bin_mappers[f].is_categorical)
                 for f in self.used_feature_indices]
 
+    @property
+    def has_categorical(self) -> bool:
+        return any(self.bin_mappers[f].is_categorical
+                   for f in self.used_feature_indices)
+
     def real_threshold(self, used_feature: int, bin_threshold: int) -> float:
-        """Bin threshold -> real-valued threshold (Dataset::RealThreshold)."""
+        """Numerical bin threshold -> real-valued threshold
+        (Dataset::RealThreshold)."""
         f = int(self.used_feature_indices[used_feature])
         return self.bin_mappers[f].bin_to_value(int(bin_threshold))
 

@@ -1,6 +1,6 @@
-// Leaf histograms and split routing of the segment grower, for Hopper
-// (sm_90a).  Three entry points with a plain C interface, loaded through
-// ctypes by lightgbm_tpu_torch/ops/kernels.py:
+// Histograms and split routing of the segment grower, for Hopper
+// (sm_90a).  Entry points with a plain C interface, loaded through ctypes
+// by lightgbm_tpu_torch/ops/kernels.py:
 //
 //   lgbt_histogram_segment  — K1, replaces the TPU kernel
 //       lightgbm_tpu/ops/pallas_histogram.py:histogram_segment
@@ -9,10 +9,18 @@
 //       pallas_histogram.py:histogram_segment_routed
 //       (_kernel_segment_routed);
 //   lgbt_route_window       — K2, replaces pallas_histogram.py:route_window
-//       (_kernel_route_window / _route_block_ids).
+//       (_kernel_route_window / _route_block_ids);
+//   lgbt_histogram_all      — K5, replaces pallas_histogram.py:
+//       histogram_all (_kernel_all) for C stacked bf16 channel sets: the
+//       root histograms of all C class trees of a multiclass iteration.
 //
 // K1/K3 compute, over the rows [row_lo, row_hi) whose leaf id equals
 // `target`, the per-(feature, bin) sums of gradient, hessian and row count.
+// K5 computes the same sums over every row, once per channel set: the
+// class set is gridDim.z, so each block reads one set's five channels and
+// the bin rows of its feature tile.  It is the K1 body without the leaf-id
+// test, and sums in the same fixed point at the set's own scale, so class
+// c's slice equals K1 on a root of class c at that scale, bit for bit.
 // The TPU kernel contracted a one-hot [F*B, chunk] matrix against the
 // weight channels on the matrix unit; here a histogram is a scatter into
 // shared memory, as in the reference's OpenCL kernels
@@ -41,7 +49,9 @@
 // Features are tiled across gridDim.y so a tile fits the 48 KB a block
 // gets without opting in (37 features at 64 bins, 9 at 256 bins); each
 // tile re-reads the leaf ids and weights, which costs bytes only on
-// shapes wider than the HIGGS one.
+// shapes wider than the HIGGS one.  K5 adds the class sets as gridDim.z,
+// so its bin rows are read once per set: (F + 10) bytes a row and set
+// against the (F + 10 C) bytes a row of one pass over all sets.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -88,9 +98,13 @@ __device__ __forceinline__ double bf16_bits_to_double(uint16_t b) {
   return (double)__uint_as_float(((uint32_t)b) << 16);
 }
 
-// One launch covers rows [row_lo, row_hi) x the feature tile blockIdx.y.
-// w8 is [8, npad] bf16 (as raw bits): g_hi, g_lo, h_hi, h_lo, member, 0...
-template <bool kRouted>
+enum HistMode { kSegment = 0, kRouted = 1, kAll = 2 };
+
+// One launch covers rows [row_lo, row_hi) x the feature tile blockIdx.y x
+// the channel set blockIdx.z (K5; K1/K3 launch one set).  w8 is
+// [8 * sets, npad] bf16 (as raw bits): g_hi, g_lo, h_hi, h_lo, member, 0...
+// per set; scales [sets, 2]; acc [sets, F * B, 3].  kAll reads no leaf ids.
+template <int kMode>
 __global__ void __launch_bounds__(kThreads)
 segment_hist_kernel(const uint8_t* __restrict__ bins,
                     const uint16_t* __restrict__ w8, int* leaf_id,
@@ -99,6 +113,10 @@ segment_hist_kernel(const uint8_t* __restrict__ bins,
                     int target, const float* __restrict__ scales,
                     RouteDesc route, unsigned long long* __restrict__ acc) {
   extern __shared__ unsigned long long smem[];
+  const long long set = blockIdx.z;
+  w8 += set * 8 * npad;
+  scales += 2 * set;
+  acc += set * 3ll * num_features * num_bins;
   const int f0 = blockIdx.y * tile_features;
   const int nf = min(tile_features, num_features - f0);
   const int cells = nf * num_bins;
@@ -119,15 +137,17 @@ segment_hist_kernel(const uint8_t* __restrict__ bins,
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = row_lo + (long long)blockIdx.x * blockDim.x + threadIdx.x;
        i < row_hi; i += stride) {
-    int lid = leaf_id[i];
-    if (kRouted) {
-      const int moved = routed_leaf(route, frow[i], lid);
-      // the route is idempotent (moved rows stop matching route.w[0]), so
-      // a tile reading an id another tile already rewrote agrees with it
-      if (moved != lid && blockIdx.y == 0) leaf_id[i] = moved;
-      lid = moved;
+    if (kMode != kAll) {
+      int lid = leaf_id[i];
+      if (kMode == kRouted) {
+        const int moved = routed_leaf(route, frow[i], lid);
+        // the route is idempotent (moved rows stop matching route.w[0]),
+        // so a tile reading an id another tile already rewrote agrees
+        if (moved != lid && blockIdx.y == 0) leaf_id[i] = moved;
+        lid = moved;
+      }
+      if (lid != target) continue;
     }
-    if (lid != target) continue;
     // member is 0 (pad rows) or 1: the port has no bagging weights
     if (w8[4 * npad + i] == 0) continue;
     const long long qg = __double2ll_rn(
@@ -155,14 +175,18 @@ segment_hist_kernel(const uint8_t* __restrict__ bins,
   }
 }
 
-// acc [F*B, 3] fixed point -> out [F*B, 3] f32 (sum_grad, sum_hess, count)
+// acc [sets, F*B, 3] fixed point -> out [sets, F*B, 3] f32 (sum_grad,
+// sum_hess, count), each set at its own scales [sets, 2]
 __global__ void finalize_kernel(const long long* __restrict__ acc,
                                 const float* __restrict__ scales,
-                                float* __restrict__ out, int cells) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= cells) return;
-  out[3 * k + 0] = (float)((double)acc[3 * k + 0] / (double)scales[0]);
-  out[3 * k + 1] = (float)((double)acc[3 * k + 1] / (double)scales[1]);
+                                float* __restrict__ out, int cells,
+                                long long total) {
+  const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= total) return;
+  const long long set = k / cells;
+  out[3 * k + 0] = (float)((double)acc[3 * k + 0] / (double)scales[2 * set]);
+  out[3 * k + 1] = (float)((double)acc[3 * k + 1]
+                           / (double)scales[2 * set + 1]);
   out[3 * k + 2] = (float)acc[3 * k + 2];
 }
 
@@ -231,19 +255,51 @@ int lgbt_histogram_segment(const uint8_t* bins, const uint16_t* w8,
     RouteDesc desc = {};
     if (route != nullptr) {
       for (int k = 0; k < kRouteWords; ++k) desc.w[k] = route[k];
-      segment_hist_kernel<true><<<grid, kThreads, smem, s>>>(
+      segment_hist_kernel<kRouted><<<grid, kThreads, smem, s>>>(
           bins, w8, leaf_id, npad, num_features, num_bins, ft, row_lo,
           row_hi, target, scales, desc,
           reinterpret_cast<unsigned long long*>(acc));
     } else {
-      segment_hist_kernel<false><<<grid, kThreads, smem, s>>>(
+      segment_hist_kernel<kSegment><<<grid, kThreads, smem, s>>>(
           bins, w8, leaf_id, npad, num_features, num_bins, ft, row_lo,
           row_hi, target, scales, desc,
           reinterpret_cast<unsigned long long*>(acc));
     }
   }
   finalize_kernel<<<(unsigned)div_up(cells_all, kThreads), kThreads, 0, s>>>(
-      acc, scales, out, cells_all);
+      acc, scales, out, cells_all, cells_all);
+  return (int)cudaGetLastError();
+}
+
+// K5: bins [F, npad] u8, w8 [8 * sets, npad] bf16 bits (pad rows carry
+// member 0), scales [sets, 2] f32 on the device, acc scratch
+// [sets * F*B*3] i64, out [sets, F, B, 3] f32.  Returns cudaGetLastError().
+int lgbt_histogram_all(const uint8_t* bins, const uint16_t* w8,
+                       long long npad, int num_features, int num_bins,
+                       int sets, const float* scales, long long* acc,
+                       float* out, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int cells_all = num_features * num_bins;
+  const long long total = (long long)sets * cells_all;
+  cudaMemsetAsync(acc, 0, sizeof(long long) * 3 * (size_t)total, s);
+  if (npad > 0 && sets > 0) {
+    const int ft = lgbt_histogram_tile_features(num_features, num_bins);
+    if (ft < 1) return (int)cudaErrorInvalidValue;
+    const int tiles = (int)div_up(num_features, ft);
+    long long bx = div_up(npad, 4ll * kThreads);
+    const long long cap = div_up(4ll * sm_count(), (long long)tiles * sets);
+    if (bx > cap) bx = cap;
+    dim3 grid((unsigned)bx, (unsigned)tiles, (unsigned)sets);
+    const size_t smem = (size_t)ft * num_bins * kBytesPerBin;
+    RouteDesc desc = {};
+    segment_hist_kernel<kAll><<<grid, kThreads, smem, s>>>(
+        bins, w8, nullptr, npad, num_features, num_bins, ft, 0, npad, 0,
+        scales, desc, reinterpret_cast<unsigned long long*>(acc));
+  }
+  if (total > 0) {
+    finalize_kernel<<<(unsigned)div_up(total, kThreads), kThreads, 0, s>>>(
+        acc, scales, out, cells_all, total);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -14,6 +14,10 @@
 // multiply, so the result is bit-identical to score + table[leaf_id] in
 // float32.  Leaf ids outside [0, L) add 0, as the TPU kernel's all-zero
 // one-hot column did.
+//
+// In place: out may be score (the boosting loop updates a row of its
+// [C, N] score this way), so those two pointers carry no __restrict__;
+// each row is read and then written by the same thread.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -22,10 +26,10 @@ namespace {
 
 constexpr int kThreads = 256;
 
-__global__ void score_gather_add_kernel(const float* __restrict__ score,
+__global__ void score_gather_add_kernel(const float* score,
                                         const int* __restrict__ leaf_id,
                                         const float* __restrict__ table,
-                                        float* __restrict__ out, long long n,
+                                        float* out, long long n,
                                         int num_leaves) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;

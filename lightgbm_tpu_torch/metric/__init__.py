@@ -1,8 +1,10 @@
-"""Host-side metrics: binary log-loss and AUC.
+"""Host-side metrics: binary log-loss, AUC, multiclass log-loss and error.
 
-Reference: src/metric/binary_metric.hpp (binary_logloss:115, AUC:159).
-Metrics are numpy over the raw score; ``eval`` applies the objective's
-link where the reference does (Metric::Eval's ConvertOutput hook).
+Reference: src/metric/binary_metric.hpp (binary_logloss:115, AUC:159),
+src/metric/multiclass_metric.hpp (multi_logloss, multi_error with top-k).
+Metrics are numpy over the raw score ([N], or [C, N] for multiclass);
+``eval`` applies the objective's link where the reference does
+(Metric::Eval's ConvertOutput hook).
 """
 
 from __future__ import annotations
@@ -15,6 +17,9 @@ from ..utils.log import log_warning
 class Metric:
     name: str = ""
     higher_better = False
+
+    def __init__(self, config=None):
+        self.config = config
 
     def init(self, metadata, num_data: int) -> None:
         self.num_data = num_data
@@ -57,8 +62,38 @@ class AUCMetric(Metric):
         return float(auc_sum / (pos * neg))
 
 
-_METRICS = {"binary_logloss": BinaryLoglossMetric, "auc": AUCMetric}
+class MultiLoglossMetric(Metric):
+    name = "multi_logloss"
+
+    def eval(self, score, objective=None):
+        """score [C, N]; softmax through the objective's link."""
+        p = score if objective is None else objective.convert_output(score)
+        p = np.clip(p, 1e-15, 1 - 1e-15)
+        lab = self.label.astype(np.int64)
+        return float(np.mean(-np.log(p[lab, np.arange(self.num_data)])))
 
 
-def create_metric(name: str) -> Metric:
-    return _METRICS[name]()
+class MultiErrorMetric(Metric):
+    name = "multi_error"
+
+    def eval(self, score, objective=None):
+        """Share of rows whose label is not among the top
+        ``multi_error_top_k`` raw scores."""
+        lab = self.label.astype(np.int64)
+        k = max(1, int(getattr(self.config, "multi_error_top_k", 1)))
+        if k == 1:
+            err = (np.argmax(score, axis=0) != lab).astype(np.float64)
+        else:
+            target = score[lab, np.arange(self.num_data)]
+            rank = np.sum(score > target[None, :], axis=0)
+            err = (rank >= k).astype(np.float64)
+        return float(np.mean(err))
+
+
+_METRICS = {"binary_logloss": BinaryLoglossMetric, "auc": AUCMetric,
+            "multi_logloss": MultiLoglossMetric,
+            "multi_error": MultiErrorMetric}
+
+
+def create_metric(name: str, config=None) -> Metric:
+    return _METRICS[name](config)

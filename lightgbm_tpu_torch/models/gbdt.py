@@ -2,9 +2,13 @@
 
 Counterpart of the core of lightgbm_tpu/models/gbdt.py (reference
 src/boosting/gbdt.cpp: boost-from-average :420, TrainOneIter :450).  One
-iteration: gradients on the device, one tree grown by the segment
-grower, the training score updated through the score kernel (K4), the
-tree finalized on the host.
+iteration grows C trees (C = num_class for multiclass softmax, else 1):
+gradients [C, N] on the device; for C > 1 the C class roots' histograms
+in one K5 launch (``histogram_all``, as the JAX loop does, gbdt.py:
+1116-1154); then per class one tree grown by the segment grower from its
+root, the class's training score updated through the score kernel (K4),
+the tree finalized on the host.  Trees are kept class by class within
+each iteration (tree i is class i % C).
 """
 
 from __future__ import annotations
@@ -15,9 +19,10 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from ..config import Config
+from ..config import DEFAULT_METRIC, Config
 from ..core.dataset import TorchDataset
 from ..metric import create_metric
+from ..ops.histogram import class_scales, histogram_all, pack_channel_sets
 from ..ops.score import score_gather_add
 from ..ops.split import FeatureMeta, SplitParams
 from ..utils.log import LightGBMError, log_warning
@@ -65,9 +70,13 @@ def build_feature_meta(dataset: TorchDataset,
         return torch.tensor([getattr(i, name) for i in infos],
                             dtype=torch.int32, device=device)
 
+    is_cat = None
+    if dataset.has_categorical:
+        is_cat = torch.tensor([bool(i.is_cat) for i in infos],
+                              dtype=torch.bool, device=device)
     return FeatureMeta(num_bin=col("num_bin"),
                        missing_type=col("missing_type"),
-                       default_bin=col("default_bin"))
+                       default_bin=col("default_bin"), is_cat=is_cat)
 
 
 class GBDT:
@@ -76,6 +85,7 @@ class GBDT:
         self.config = config
         self.device = resolve_device(config)
         self.objective = objective
+        self.num_tree_per_iteration = objective.num_tree_per_iteration
         self.train_set = train_set
         self.num_data = train_set.num_data
         self.feature_names = list(train_set.feature_names)
@@ -84,7 +94,7 @@ class GBDT:
         self.models: List[Tree] = []
         self.iter_ = 0
         self.iter_seconds: List[float] = []   # wall time of each iteration
-        self.init_score = 0.0
+        self.init_scores = [0.0] * self.num_tree_per_iteration
         self._boosted_from_average = False
         self._stop = False
         objective.init(train_set.metadata, self.num_data, self.device)
@@ -106,23 +116,36 @@ class GBDT:
                     max_delta_step=config.max_delta_step,
                     min_data_in_leaf=float(config.min_data_in_leaf),
                     min_sum_hessian_in_leaf=config.min_sum_hessian_in_leaf,
-                    min_gain_to_split=config.min_gain_to_split)),
+                    min_gain_to_split=config.min_gain_to_split,
+                    cat_smooth=config.cat_smooth, cat_l2=config.cat_l2,
+                    max_cat_threshold=config.max_cat_threshold,
+                    max_cat_to_onehot=config.max_cat_to_onehot,
+                    min_data_per_group=config.min_data_per_group,
+                    has_cat=train_set.has_categorical)),
             rb, fused_route=fused_route)
-        self.train_score = torch.zeros(self.num_data, dtype=torch.float32,
-                                       device=self.device)
+        self.train_score = torch.zeros(
+            (self.num_tree_per_iteration, self.num_data),
+            dtype=torch.float32, device=self.device)
         self.valid_sets: List[Tuple[str, TorchDataset]] = []
+        # raw scores of each valid set, [N] (C = 1) or [C, N]
         self.valid_scores: List[np.ndarray] = []
-        names = config.metric or ["binary_logloss"]
+        names = config.metric or [DEFAULT_METRIC[config.objective]]
         self.metric_names = names
-        self.train_metrics = [create_metric(m) for m in names]
+        self.train_metrics = [create_metric(m, config) for m in names]
         for m in self.train_metrics:
             m.init(train_set.metadata, self.num_data)
         self.valid_metrics = []
 
+    def _layout(self, score: np.ndarray) -> np.ndarray:
+        """[C, N] -> the objective's score layout: [N] when C == 1."""
+        return score[0] if self.num_tree_per_iteration == 1 else score
+
     def add_valid(self, name: str, dataset: TorchDataset) -> None:
         self.valid_sets.append((name, dataset))
-        self.valid_scores.append(np.full(dataset.num_data, self.init_score))
-        ms = [create_metric(m) for m in self.metric_names]
+        score = np.repeat(np.asarray(self.init_scores, np.float64)[:, None],
+                          dataset.num_data, axis=1)
+        self.valid_scores.append(self._layout(score))
+        ms = [create_metric(m, self.config) for m in self.metric_names]
         for m in ms:
             m.init(dataset.metadata, dataset.num_data)
         self.valid_metrics.append(ms)
@@ -134,48 +157,81 @@ class GBDT:
         self._boosted_from_average = True
         if not self.config.boost_from_average:
             return
-        init = self.objective.boost_from_score()
-        if abs(init) > 1e-15:
-            self.init_score = init
-            self.train_score += init
-            for vs in self.valid_scores:
-                vs += init
+        C = self.num_tree_per_iteration
+        for k in range(C):
+            init = self.objective.boost_from_score(k)
+            if abs(init) > 1e-15:
+                self.init_scores[k] = init
+                self.train_score[k] += init
+                for vs in self.valid_scores:
+                    vs.reshape(C, -1)[k] += init
+
+    def _gradients(self):
+        """[C, Npad] gradients and hessians; pad rows are 0."""
+        C = self.num_tree_per_iteration
+        if C == 1:
+            grad, hess = self.objective.get_gradients(self.train_score[0])
+            grad, hess = grad[None], hess[None]
+        else:
+            grad, hess = self.objective.get_gradients(self.train_score)
+        pad = self.bins.shape[1] - self.num_data
+        if pad:
+            grad = torch.nn.functional.pad(grad, (0, pad))
+            hess = torch.nn.functional.pad(hess, (0, pad))
+        return grad, hess
 
     def train_one_iter(self) -> bool:
-        """One boosting iteration; True when training should stop (no
-        split left, LGBM_BoosterUpdateOneIter semantics)."""
+        """One boosting iteration, C trees; True when training should stop
+        (no tree could split, LGBM_BoosterUpdateOneIter semantics)."""
         if self._stop:
             return True
+        C = self.num_tree_per_iteration
         if self.train_set.num_used_features == 0:
             # every feature is trivial: a constant model (gbdt.cpp:543-551)
-            self.models.append(Tree(1))
+            self.models.extend(Tree(1) for _ in range(C))
             self.iter_ += 1
             self._stop = True
             return True
         t0 = time.perf_counter()
         self._boost_from_average()
-        grad, hess = self.objective.get_gradients(self.train_score)
-        pad = self.bins.shape[1] - self.num_data
-        if pad:
-            grad = torch.nn.functional.pad(grad, (0, pad))
-            hess = torch.nn.functional.pad(hess, (0, pad))
-        arrays, leaf_id = self.grower.grow(self.bins, grad, hess,
-                                           self.member, self.fmeta)
-        if arrays.num_leaves <= 1:
+        grad, hess = self._gradients()
+        roots = [None] * C
+        if C > 1:
+            # every class tree's root histogram in one K5 launch; each
+            # class's packed channels and fixed-point scales go on to its
+            # tree's kernels, so the root and the splits share one scale
+            w8C = pack_channel_sets(grad, hess, self.member)
+            scales = class_scales(w8C)
+            hists = histogram_all(self.bins, w8C, self.num_bins, scales)
+            roots = [(w8C[8 * k:8 * k + 8], scales[k], hists[k])
+                     for k in range(C)]
+        trees = []
+        for k in range(C):
+            arrays, leaf_id = self.grower.grow(
+                self.bins, grad[k], hess[k], self.member, self.fmeta,
+                root=roots[k])
+            if arrays.num_leaves <= 1:
+                trees.append(Tree(1))
+                continue
+            table = torch.from_numpy(
+                np.float32(self.shrinkage_rate) * arrays.leaf_value).to(
+                    self.device)
+            row = self.train_score[k]
+            score_gather_add(row, leaf_id[:self.num_data], table, out=row)
+            trees.append(Tree.from_grown(arrays, self.train_set,
+                                         self.shrinkage_rate))
+        if all(t.num_leaves <= 1 for t in trees):
             log_warning("Stopped training because there are no more leaves "
                         "that meet the split requirements")
             self._stop = True
             return True
-        table = torch.from_numpy(
-            np.float32(self.shrinkage_rate) * arrays.leaf_value).to(
-                self.device)
-        self.train_score = score_gather_add(
-            self.train_score, leaf_id[:self.num_data], table)
-        tree = Tree.from_grown(arrays, self.train_set, self.shrinkage_rate)
         infos = self.train_set.feature_infos()
         for (_, vset), vscore in zip(self.valid_sets, self.valid_scores):
-            vscore += tree.predict_binned(vset.bins_t, infos)
-        self.models.append(tree)
+            v2 = vscore.reshape(C, -1)
+            for k, tree in enumerate(trees):
+                if tree.num_leaves > 1:
+                    v2[k] += tree.predict_binned(vset.bins_t, infos)
+        self.models.extend(trees)
         self.iter_ += 1
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -183,35 +239,37 @@ class GBDT:
         return False
 
     # ------------------------------------------------------------ predict
-    def raw_predict(self, X: np.ndarray, num_iteration: int = -1
-                    ) -> np.ndarray:
-        n_iter = (self.iter_ if num_iteration <= 0
-                  else min(num_iteration, self.iter_))
-        out = np.zeros(X.shape[0], dtype=np.float64)
-        out += self.init_score
-        for tree in self.models[:n_iter]:
-            out += tree.predict_raw(X)
-        return out
-
     def predict(self, X: np.ndarray, num_iteration: int = -1,
                 raw_score: bool = False) -> np.ndarray:
-        raw = self.raw_predict(np.asarray(X, dtype=np.float64),
-                               num_iteration)
-        return raw if raw_score else self.objective.convert_output(raw)
+        """Raw scores or the objective's output (probabilities) of a raw
+        feature matrix, [N] or [N, C]."""
+        X = np.asarray(X, dtype=np.float64)
+        C = self.num_tree_per_iteration
+        n_iter = (self.iter_ if num_iteration <= 0
+                  else min(num_iteration, self.iter_))
+        raw = np.zeros((C, X.shape[0]), dtype=np.float64)
+        for k in range(C):
+            raw[k] += self.init_scores[k]
+        for i, tree in enumerate(self.models[:n_iter * C]):
+            raw[i % C] += tree.predict_raw(X)
+        raw = self._layout(raw)
+        out = raw if raw_score else self.objective.convert_output(raw)
+        return out.T
 
     def feature_importance(self, num_iteration: int = -1) -> np.ndarray:
         """Split counts per original feature (gbdt.h FeatureImportance)."""
         out = np.zeros(self.max_feature_idx + 1, dtype=np.float64)
         n_iter = (self.iter_ if num_iteration <= 0
                   else min(num_iteration, self.iter_))
-        for tree in self.models[:n_iter]:
+        for tree in self.models[:n_iter * self.num_tree_per_iteration]:
             for f in tree.split_feature[: tree.num_leaves - 1]:
                 out[int(f)] += 1
         return out
 
     # --------------------------------------------------------------- eval
     def eval_train(self) -> List[Tuple[str, float, bool]]:
-        score = self.train_score.cpu().numpy().astype(np.float64)
+        score = self._layout(
+            self.train_score.cpu().numpy().astype(np.float64))
         return [(m.name, m.eval(score, self.objective), m.higher_better)
                 for m in self.train_metrics]
 

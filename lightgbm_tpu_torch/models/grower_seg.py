@@ -16,7 +16,11 @@ This grower uses *epoch compaction*, as the TPU one does:
   * each split runs one kernel pass over the parent's window: K3 routes
     the parent's rows and histograms the smaller child (``fused_route``),
     or K2 routes and K1 histograms (``fused_route=False``); the larger
-    child is parent minus smaller.
+    child is parent minus smaller.  A categorical split routes by the
+    bitset of its left-going bins, in the same kernels;
+  * the root's histogram is one full-window pass, unless the caller gives
+    it (``root``: the multiclass loop packs all C class trees' channels
+    and histograms their roots in one K5 launch).
 
 The split loop is driven from the host: a Python loop over splits, with
 the best-split records of every leaf kept on the host (one device->host
@@ -27,7 +31,7 @@ device.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,9 +46,6 @@ from .grower import GrowerParams, TreeArrays
 # COMPACT_WASTE x N rows of confinement windows since the last sort
 # (the TPU grower's default, grower_seg.py:74).
 COMPACT_WASTE = 9.0
-
-_NO_BITSET = np.zeros(8, dtype=np.uint32)
-
 
 class _SegState:
     """Per-tree state: device tensors in permuted row order, host
@@ -77,6 +78,8 @@ class _SegState:
         self.best_feature = np.full(L, -1, np.int32)
         self.best_threshold = np.zeros(L, np.int32)
         self.best_dl = np.zeros(L, bool)
+        self.best_is_cat = np.zeros(L, bool)
+        self.best_bitset = np.zeros((L, 8), np.uint32)
         self.best_left = np.zeros((L, 3), f32)   # (left_g, left_h, left_c)
         self.best_out = np.zeros((L, 2), f32)    # (left_out, right_out)
         self.tree = TreeArrays(L)
@@ -146,16 +149,21 @@ class SegmentGrower:
     def _scan(self, st: _SegState, leaves, hists, g, h, c, depth: int,
               fmeta: FeatureMeta) -> None:
         """Best split of each leaf in ``leaves`` from its histogram; one
-        device->host fetch writes the host cache."""
+        device->host fetch writes the host cache (in float64 when it
+        carries categorical bitsets, whose 32-bit words float32 would
+        round)."""
         dev = hists.device
         g, h, c = (torch.tensor(np.asarray(v, np.float32), device=dev)
                    for v in (g, h, c))
         info = best_split(hists, g, h, c, fmeta, self.p.split)
-        rec = torch.stack([info.gain, info.feature.float(),
-                           info.threshold.float(),
-                           info.default_left.float(), info.left_g,
-                           info.left_h, info.left_c, info.left_out,
-                           info.right_out], dim=1).cpu().numpy()
+        cols = [info.gain, info.feature, info.threshold, info.default_left,
+                info.left_g, info.left_h, info.left_c, info.left_out,
+                info.right_out]
+        dtype = torch.float32
+        if info.is_cat is not None:
+            cols += [info.is_cat, *info.cat_bitset.unbind(1)]
+            dtype = torch.float64
+        rec = torch.stack([x.to(dtype) for x in cols], dim=1).cpu().numpy()
         for k, leaf in enumerate(leaves):
             gain = rec[k, 0]
             if self.p.max_depth > 0 and depth >= self.p.max_depth:
@@ -166,6 +174,9 @@ class SegmentGrower:
             st.best_dl[leaf] = bool(rec[k, 3])
             st.best_left[leaf] = rec[k, 4:7]
             st.best_out[leaf] = rec[k, 7:9]
+            if info.is_cat is not None:
+                st.best_is_cat[leaf] = bool(rec[k, 9])
+                st.best_bitset[leaf] = rec[k, 10:18].astype(np.uint32)
 
     def _can_grow(self, st: _SegState) -> bool:
         return (st.num_leaves < self.p.num_leaves
@@ -179,6 +190,8 @@ class SegmentGrower:
         f = int(st.best_feature[leaf])
         t = int(st.best_threshold[leaf])
         dl = bool(st.best_dl[leaf])
+        is_cat = bool(st.best_is_cat[leaf])
+        bitset = st.best_bitset[leaf]
         # children inherit the parent's window; routing touches only it
         lo, hi = st.leaf_lo[leaf], st.leaf_hi[leaf]
         Gl, Hl, Cl = st.best_left[leaf]
@@ -187,8 +200,7 @@ class SegmentGrower:
         smaller_is_left = bool(Cl <= Cr)
         smaller = leaf if smaller_is_left else new_leaf
 
-        route = pack_route(leaf, new_leaf, f, t, dl, False, _NO_BITSET,
-                           fm_host)
+        route = pack_route(leaf, new_leaf, f, t, dl, is_cat, bitset, fm_host)
         if self.fused_route:
             # route + smaller-child histogram in ONE pass over the window;
             # leaf_id is updated in place
@@ -221,6 +233,8 @@ class SegmentGrower:
         tr.split_feature[node] = f
         tr.threshold_bin[node] = t
         tr.default_left[node] = dl
+        tr.is_cat[node] = is_cat
+        tr.cat_bitset[node] = bitset
         tr.split_gain[node] = st.best_gain[leaf]
         tr.internal_value[node] = tr.leaf_value[leaf]
         tr.internal_weight[node] = Hp
@@ -242,21 +256,34 @@ class SegmentGrower:
 
     # ---------------------------------------------------------------- grow
     def grow(self, binsT: torch.Tensor, grad: torch.Tensor,
-             hess: torch.Tensor, member: torch.Tensor,
-             fmeta: FeatureMeta) -> Tuple[TreeArrays, torch.Tensor]:
+             hess: torch.Tensor, member: torch.Tensor, fmeta: FeatureMeta,
+             root: Optional[Tuple[torch.Tensor, torch.Tensor,
+                                  torch.Tensor]] = None
+             ) -> Tuple[TreeArrays, torch.Tensor]:
+        """``root``, when given, is ``(w8, scales, root_hist)``: this
+        tree's channels as pack_channels packs them, their
+        fixed_point_scales, and the root histogram [F, B, 3] at those
+        scales, which takes the place of the root's own full-window pass
+        (K5's slice of this class is, bit for bit, what that pass gives).
+        The splits' kernels use the same ``w8`` and ``scales``."""
         F, n = binsT.shape
         L, rb = self.p.num_leaves, self.rb
         if n % rb:
             raise ValueError(f"Npad {n} is not a multiple of {rb}")
         max_blocks = n // rb
-        fm_host = FeatureMeta(*(t.cpu().numpy() for t in fmeta))
-        w8 = pack_channels(grad, hess, member)
-        scales = fixed_point_scales(w8)
+        fm_host = FeatureMeta(*(t.cpu().numpy() for t in fmeta[:3]))
+        if root is None:
+            w8 = pack_channels(grad, hess, member)
+            scales = fixed_point_scales(w8)
+            root_hist = None
+        else:
+            w8, scales, root_hist = root
         G0, H0, C0 = torch.stack([torch.sum(grad * member),
                                   torch.sum(hess * member),
                                   torch.sum(member)]).cpu().numpy()
         st = _SegState(binsT, w8, L, max_blocks, G0, H0, C0, F, self.B)
-        root_hist = self._hist_leaf(st, 0, scales)
+        if root_hist is None:
+            root_hist = self._hist_leaf(st, 0, scales)
         st.leaf_hist[0] = root_hist
         st.scanned_since = st.scanned_total = max_blocks
         self._scan(st, [0], root_hist[None], [G0], [H0], [C0], 0, fmeta)

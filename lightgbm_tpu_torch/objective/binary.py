@@ -54,7 +54,7 @@ class BinaryLogloss(ObjectiveFunction):
         hess = abs_response * (s - abs_response) * self.label_weight
         return grad, hess
 
-    def boost_from_score(self):
+    def boost_from_score(self, class_id: int = 0):
         """log-odds of the positive rate / sigmoid
         (binary_objective.hpp:131-150)."""
         pavg = min(max(self.cnt_pos / max(float(self.num_data), 1e-10),

@@ -1,5 +1,5 @@
-"""Leaf histograms and split routing of the segment grower: kernels K1, K2
-and K3, their plain PyTorch versions, and the host-side helpers.
+"""Histograms and split routing of the segment grower: kernels K1, K2, K3
+and K5, their plain PyTorch versions, and the host-side helpers.
 
 Counterpart of lightgbm_tpu/ops/pallas_histogram.py.  The TPU kernels
 there become hand-written CUDA kernels in ``csrc/histogram.cu``:
@@ -10,10 +10,13 @@ there become hand-written CUDA kernels in ``csrc/histogram.cu``:
   * ``route_window`` (K2): one split's leaf-id update over the parent's
     window;
   * ``histogram_segment_routed`` (K3): K2 then K1 on the updated ids, in
-    one pass; with ``null_route()`` it is K1.
+    one pass; with ``null_route()`` it is K1;
+  * ``histogram_all`` (K5): the histogram of every row for each of C
+    stacked channel sets (``pack_channel_sets``) — the C class-tree roots
+    of a multiclass iteration in one launch.
 
 Each wrapper takes tensors on one device.  A CPU tensor goes to the plain
-version (``*_plain``, index_add_ and where), which is also what the card
+version (``*_plain``, bincount and where), which is also what the card
 run compares each kernel with; a CUDA tensor goes to the kernel, or the
 wrapper raises.  The kernels update ``leaf_id`` in place (the TPU kernels
 aliased it as an input/output), and so do the plain versions.
@@ -22,7 +25,8 @@ The weight stream is ``pack_channels``'s [8, Npad] bf16 layout
 ``[g_hi, g_lo, h_hi, h_lo, member, 0, 0, 0]``; the kernels read the five
 live channels.  A histogram is ``[F, B, 3]`` f32 (sum_grad, sum_hess,
 count).  The card kernels sum in 64-bit fixed point, so their sums do not
-depend on the order of the rows; ``fixed_point_scales`` picks the scale.
+depend on the order of the rows; ``fixed_point_scales`` picks the scale
+(``class_scales``: one pair per channel set, each as for that set alone).
 """
 
 from __future__ import annotations
@@ -55,6 +59,14 @@ def pack_channels(grad: torch.Tensor, hess: torch.Tensor,
                         z, z, z])
 
 
+def pack_channel_sets(grads: torch.Tensor, hess: torch.Tensor,
+                      member: torch.Tensor) -> torch.Tensor:
+    """[C, N] grad/hess and [N] member -> [8C, N] bf16: C stacked
+    pack_channels sets, class c's at rows [8c, 8c + 8)."""
+    return torch.cat([pack_channels(grads[c], hess[c], member)
+                      for c in range(grads.shape[0])])
+
+
 def unpack_hist(out: torch.Tensor) -> torch.Tensor:
     """[..., 8] channel sums -> [..., 3] (sum_grad, sum_hess, count)."""
     return torch.stack([out[..., 0] + out[..., 1],
@@ -73,6 +85,13 @@ def fixed_point_scales(w8: torch.Tensor) -> torch.Tensor:
     mags = torch.clamp(mags.double() * n, min=1e-30)
     exps = torch.clamp(61.0 - torch.ceil(torch.log2(mags)), -126.0, 126.0)
     return torch.exp2(exps).float()
+
+
+def class_scales(w8C: torch.Tensor) -> torch.Tensor:
+    """[C, 2] f32: fixed_point_scales of each 8-channel set of ``w8C``, so
+    class c's sums use the scale its tree's own kernels use."""
+    return torch.stack([fixed_point_scales(w8C[8 * c:8 * c + 8])
+                        for c in range(w8C.shape[0] // NUM_CHANNELS)])
 
 
 def pack_route(leaf: int, new_leaf: int, f: int, t: int, dl: bool,
@@ -161,21 +180,37 @@ def route_window_plain(binsT, leaf_id, start_block, n_blocks, route,
     return leaf_id
 
 
+def _plain_sums(bins, w, num_bins):
+    """[F, rows] bins and [5, rows] float64 channels -> [F, B, 3] float32:
+    the five channel sums by bincount in float64 (so the order the rows
+    arrive in moves no bit that survives the cast), then unpack_hist.
+    Bins >= num_bins are dropped, as the kernels drop them."""
+    F = bins.shape[0]
+    cells = F * num_bins
+    b = bins.long()
+    keys = b + torch.arange(F, device=bins.device)[:, None] * num_bins
+    keys = torch.where(b < num_bins, keys, cells).reshape(-1)
+    sums = torch.stack([torch.bincount(keys, weights=w[c].repeat(F),
+                                       minlength=cells + 1)[:cells]
+                        for c in range(5)], dim=-1)
+    return unpack_hist(sums.reshape(F, num_bins, 5)).float()
+
+
 def histogram_segment_plain(binsT, w8, leaf_id, start_block, n_blocks,
                             target, num_bins, block_rows):
-    """Plain K1: the five channel sums by index_add_ in float64 (so the
-    order the rows arrive in moves no bit that survives the cast), then
-    unpack_hist -> [F, B, 3] float32."""
-    F = binsT.shape[0]
+    """Plain K1 -> [F, B, 3] float32."""
     lo, hi = _window(leaf_id.shape[0], start_block, n_blocks, block_rows)
-    sums = torch.zeros((F, num_bins, 5), dtype=torch.float64,
-                       device=binsT.device)
-    if hi > lo:
-        sel = (leaf_id[lo:hi] == int(target)).to(torch.float64)
-        w = (w8[:5, lo:hi].double() * sel).T.contiguous()     # [rows, 5]
-        for f in range(F):
-            sums[f].index_add_(0, binsT[f, lo:hi].long(), w)
-    return unpack_hist(sums).float()
+    sel = (leaf_id[lo:hi] == int(target)).to(torch.float64)
+    return _plain_sums(binsT[:, lo:hi], w8[:5, lo:hi].double() * sel,
+                       num_bins)
+
+
+def histogram_all_plain(binsT, w8C, num_bins):
+    """Plain K5 -> [C, F, B, 3] float32; class c's slice is plain K1 of a
+    root whose every row is in leaf 0, on set c (same float64 sums)."""
+    return torch.stack([_plain_sums(binsT, w8C[8 * c:8 * c + 5].double(),
+                                    num_bins)
+                        for c in range(w8C.shape[0] // NUM_CHANNELS)])
 
 
 def histogram_segment_routed_plain(binsT, w8, leaf_id, start_block,
@@ -251,6 +286,37 @@ def histogram_segment_routed(binsT: torch.Tensor, w8: torch.Tensor,
                         start_block, n_blocks, target, route, num_bins,
                         block_rows, scales)
     return leaf_id, hist
+
+
+def histogram_all(binsT: torch.Tensor, w8C: torch.Tensor, num_bins: int,
+                  scales: torch.Tensor) -> torch.Tensor:
+    """K5: the histogram of every row for each of the C channel sets of
+    ``w8C`` ([8C, Npad] bf16, pack_channel_sets; pad rows carry member
+    0) -> [C, F, B, 3] f32.  ``scales`` is class_scales(w8C) (the plain
+    version does not use it)."""
+    if _device_kind(binsT) == "cpu":
+        return histogram_all_plain(binsT, w8C, num_bins)
+    F, npad = binsT.shape
+    dev = binsT.device
+    _check_cuda(dev, binsT=(binsT, torch.uint8), w8C=(w8C, torch.bfloat16),
+                scales=(scales, torch.float32))
+    C = w8C.shape[0] // NUM_CHANNELS
+    if (C < 1 or w8C.shape != (NUM_CHANNELS * C, npad)
+            or scales.shape != (C, 2)):
+        raise ValueError("w8C must be [8C, Npad] and scales [C, 2]")
+    if not 1 <= num_bins <= 256:
+        raise ValueError("num_bins must be in [1, 256]")
+    lib = kernels.library()
+    if lib.lgbt_histogram_tile_features(F, num_bins) < 1:
+        raise ValueError(f"{num_bins} bins do not fit the kernel's tile")
+    acc = torch.empty((C * F * num_bins * 3,), dtype=torch.int64, device=dev)
+    out = torch.empty((C, F, num_bins, 3), dtype=torch.float32, device=dev)
+    rc = lib.lgbt_histogram_all(
+        binsT.data_ptr(), w8C.data_ptr(), npad, F, num_bins, C,
+        scales.data_ptr(), acc.data_ptr(), out.data_ptr(),
+        kernels.stream_ptr(dev))
+    kernels.check_launch("histogram_all", rc)
+    return out
 
 
 def route_window(binsT: torch.Tensor, leaf_id: torch.Tensor,

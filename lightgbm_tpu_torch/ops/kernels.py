@@ -36,7 +36,8 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
 
 KERNEL_NAMES = ("histogram_segment", "route_window",
-                "histogram_segment_routed", "score_gather_add")
+                "histogram_segment_routed", "score_gather_add",
+                "histogram_all")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNEL_NAMES}
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -47,6 +48,7 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     "lgbt_histogram_segment": [_P, _P, _P, _LL, _I, _I, _LL, _LL, _I, _P,
                                _P, _P, _P, _P],
+    "lgbt_histogram_all": [_P, _P, _LL, _I, _I, _I, _P, _P, _P, _P],
     "lgbt_route_window": [_P, _P, _LL, _LL, _LL, _P, _P],
     "lgbt_score_gather_add": [_P, _P, _P, _P, _LL, _I, _P],
     "lgbt_histogram_tile_features": [_I, _I],

@@ -1,5 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
+K1-K5 at small shapes, a categorical route taken from a real categorical
+split, and binary and multiclass training with their launch counts.
+
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips where
 ``torch.cuda.is_available()`` is false.  The file imports neither JAX nor
 the JAX package, so it runs on a machine that has only PyTorch:
@@ -20,7 +23,7 @@ import lightgbm_tpu_torch as lt
 from lightgbm_tpu_torch.ops import histogram as th
 from lightgbm_tpu_torch.ops import kernels
 from lightgbm_tpu_torch.ops import score as ts
-from lightgbm_tpu_torch.ops.split import FeatureMeta
+from lightgbm_tpu_torch.ops.split import FeatureMeta, SplitParams, best_split
 
 RB = 256
 
@@ -140,6 +143,25 @@ def test_score_gather_add_bit_identical(dev):
 
 
 @pytest.mark.cuda
+def test_score_gather_add_in_place_row(dev):
+    """K4 in place into one row of a [C, N] score, as the multiclass loop
+    calls it; the other rows stay as they were."""
+    rng = np.random.RandomState(6)
+    C, n, L = 5, 100_003, 31
+    score = torch.from_numpy(rng.normal(size=(C, n)).astype(np.float32))
+    lid = torch.from_numpy(rng.randint(0, L, size=n).astype(np.int32))
+    table = torch.from_numpy(rng.normal(size=L).astype(np.float32))
+    want = ts.score_gather_add_plain(score[3], lid, table)
+    got = score.to(dev)
+    row = got[3]
+    ret = ts.score_gather_add(row, lid.to(dev), table.to(dev), out=row)
+    assert ret.data_ptr() == row.data_ptr()
+    got = got.cpu()
+    assert torch.equal(got[3].view(torch.int32), want.view(torch.int32))
+    assert torch.equal(got[[0, 1, 2, 4]], score[[0, 1, 2, 4]])
+
+
+@pytest.mark.cuda
 def test_wrappers_reject_bad_inputs(dev):
     fm, binsT, w8, lid = _inputs(4, 64, 4 * RB, 1)
     d_bins, d_w8 = binsT.to(dev), w8.to(dev)
@@ -186,3 +208,108 @@ def test_training_on_card_counts_launches_and_matches_cpu(dev):
         raws[(device, fused)] = bst.predict(X, raw_score=True)
     assert texts[("cuda", True)] == texts[("cuda", False)]
     assert np.abs(raws[("cuda", True)] - raws[("cpu", True)]).max() < 1e-3
+
+
+@pytest.mark.cuda
+def test_histogram_all_matches_plain_and_k1_roots(dev):
+    """K5 with C = 3 sets at 256 bins (4 feature tiles): counts exact,
+    sums within tolerance, a relaunch bit-identical, and each class slice
+    bit-identical to K1 and to K3 with the null route on a root of that
+    class at the class's scale."""
+    F, B, C, npad = 30, 256, 3, 8 * RB
+    rng = np.random.RandomState(11)
+    binsT = torch.from_numpy(rng.randint(0, B, size=(F, npad)).astype(
+        np.uint8))
+    grads = torch.from_numpy(rng.normal(size=(C, npad)).astype(np.float32))
+    hess = torch.from_numpy(rng.uniform(0.01, 0.25, size=(C, npad)).astype(
+        np.float32))
+    member = torch.ones(npad)
+    member[-77:] = 0.0
+    w8C = th.pack_channel_sets(grads, hess, member)
+    scales = th.class_scales(w8C)
+    want = th.histogram_all_plain(binsT, w8C, B)
+    d_bins, d_w8C, d_scales = binsT.to(dev), w8C.to(dev), scales.to(dev)
+    runs = [th.histogram_all(d_bins, d_w8C, B, d_scales) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+    lid0 = torch.zeros(npad, dtype=torch.int32)
+    for c in range(C):
+        w8 = w8C[8 * c:8 * c + 8].contiguous()
+        _assert_hist(runs[0][c], want[c], w8, binsT, lid0, 0, 8, 0, B)
+        k1 = th.histogram_segment(d_bins, w8.to(dev), lid0.to(dev), 0, 8, 0,
+                                  B, RB, d_scales[c].contiguous())
+        _, k3 = th.histogram_segment_routed(
+            d_bins, w8.to(dev), lid0.to(dev), 0, 8, 0, th.null_route(), B,
+            RB, d_scales[c].contiguous())
+        assert torch.equal(runs[0][c], k1) and torch.equal(runs[0][c], k3)
+
+
+@pytest.mark.cuda
+def test_categorical_route_from_best_split(dev):
+    """K3 routes by the bitset a categorical best_split chose, at 256
+    bins."""
+    F, B, npad = 4, 256, 8 * RB
+    rng = np.random.RandomState(2)
+    num_bin = np.array([256, 40, 200, 3], np.int32)
+    fm = FeatureMeta(num_bin, np.array([0, 2, 0, 0], np.int32),
+                     np.array([0, 1, 1, 1], np.int32))
+    binsT = torch.from_numpy(np.stack(
+        [rng.randint(0, nb, size=npad) for nb in num_bin]).astype(np.uint8))
+    effect = rng.normal(size=256).astype(np.float32)
+    grad = torch.from_numpy(effect[binsT[2].numpy()]
+                            + 0.1 * rng.normal(size=npad).astype(np.float32))
+    hess = torch.ones(npad)
+    member = torch.ones(npad)
+    w8 = th.pack_channels(grad, hess, member)
+    lid = torch.zeros(npad, dtype=torch.int32)
+    root = th.histogram_segment_plain(binsT, w8, lid, 0, 8, 0, B, RB)
+    tfm = FeatureMeta(*(torch.from_numpy(a) for a in fm[:3]),
+                      torch.tensor([False, True, True, True]))
+    info = best_split(root[None], grad.sum()[None], hess.sum()[None],
+                      member.sum()[None], tfm, SplitParams(has_cat=True))
+    assert bool(info.is_cat[0]) and int(info.feature[0]) == 2
+    bitset = info.cat_bitset[0].numpy().astype(np.uint32)
+    route = th.pack_route(0, 1, 2, int(info.threshold[0]), False, True,
+                          bitset, fm)
+    want_lid, want = th.histogram_segment_routed_plain(
+        binsT, w8, lid.clone(), 0, 8, 1, route, B, RB)
+    d_lid = lid.to(dev)
+    got_lid, got = th.histogram_segment_routed(
+        binsT.to(dev), w8.to(dev), d_lid, 0, 8, 1, route, B, RB,
+        th.fixed_point_scales(w8).to(dev))
+    assert torch.equal(got_lid.cpu(), want_lid)
+    assert 0 < int((want_lid == 1).sum()) < npad
+    _assert_hist(got.cpu(), want, w8, binsT, want_lid, 0, 8, 1, B)
+
+
+@pytest.mark.cuda
+def test_multiclass_training_on_card_counts_launches_and_matches_cpu(dev):
+    rng = np.random.RandomState(1)
+    n, C = 20_000, 3
+    X = rng.normal(size=(n, 6))
+    X[:, 5] = rng.randint(0, 10, size=n)
+    logits = np.stack([X[:, 0] * (k - 1) + (X[:, 5] % 3 == k)
+                       for k in range(C)], axis=1)
+    y = np.argmax(2 * logits + rng.gumbel(size=(n, C)), axis=1)
+    params = dict(objective="multiclass", num_class=C, num_leaves=15,
+                  verbosity=-1)
+    raws = {}
+    for device in ("cuda", "cpu"):
+        bst = lt.Booster(dict(params, device_type=device),
+                         lt.Dataset(X, y, categorical_feature=[5]))
+        kernels.reset_launches()
+        for _ in range(3):
+            bst.update()
+        n_l = dict(kernels.LAUNCHES)
+        trees = bst.gbdt.models
+        assert len(trees) == 3 * C and any(t.num_cat for t in trees)
+        if device == "cuda":
+            assert n_l["histogram_all"] == 3
+            assert n_l["histogram_segment_routed"] == sum(
+                t.num_leaves - 1 for t in trees)
+            assert n_l["score_gather_add"] == sum(
+                t.num_leaves > 1 for t in trees)
+        else:
+            assert sum(n_l.values()) == 0
+        raws[device] = bst.predict(X, raw_score=True)
+    assert np.abs(raws["cuda"] - raws["cpu"]).max() < 1e-3

@@ -223,6 +223,28 @@ def test_score_gather_add_bit_identical():
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
 
+def test_score_gather_add_in_place_row():
+    """K4 as the boosting loop calls it: in place into one row of a
+    [C, N] score; the other rows stay as they were."""
+    rng = np.random.RandomState(6)
+    C, n, L = 3, 5000, 31
+    score = rng.normal(size=(C, n)).astype(np.float32)
+    lid = rng.randint(0, L, size=n).astype(np.int32)
+    table = rng.normal(size=L).astype(np.float32)
+    want = np.asarray(jps.score_gather_add(jnp.asarray(score[1]),
+                                           jnp.asarray(lid),
+                                           jnp.asarray(table),
+                                           interpret=True))
+    got = torch.from_numpy(score.copy())
+    row = got[1]
+    ret = ts.score_gather_add(row, torch.from_numpy(lid),
+                              torch.from_numpy(table), out=row)
+    assert ret.data_ptr() == row.data_ptr()
+    np.testing.assert_array_equal(got[1].numpy().view(np.int32),
+                                  want.view(np.int32))
+    np.testing.assert_array_equal(got[[0, 2]].numpy(), score[[0, 2]])
+
+
 def test_fixed_point_scales_bound_the_sums():
     _, grad, hess, member, _ = _inputs()
     w8 = _w8(grad * 1e3, hess, member)

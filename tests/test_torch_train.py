@@ -160,9 +160,9 @@ def test_default_device_without_cuda_raises(monkeypatch):
 @pytest.mark.parametrize("params", [
     {"bagging_fraction": 0.5, "bagging_freq": 1},
     {"feature_fraction": 0.8},
-    {"categorical_feature": "0"},
+    {"max_bin_by_feature": [3, 4]},
     {"objective": "regression"},
-    {"num_class": 3},
+    {"objective": "multiclassova", "num_class": 3},
     {"tpu_tree_impl": "frontier"},
     {"no_such_parameter": 1},
     {"metric": "ndcg"},

@@ -2,20 +2,25 @@
 """Where one training iteration of lightgbm_tpu_torch spends its time, on
 one NVIDIA card.
 
-    python3 tools/profile_torch_iter.py [--rows 10500000] [--out FILE]
+    python3 tools/profile_torch_iter.py [--config higgs|multiclass_cat]
+                                        [--rows N] [--out FILE]
 
-Trains chip_smoke.py's HIGGS-shaped main path (28 features, max_bin 63,
-255 leaves, fused route) for four iterations:
+Trains one of chip_smoke.py's configurations, fused route, for four
+iterations: ``higgs`` (the default) is the HIGGS-shaped binary path (28
+features, max_bin 63, 255 leaves, 10.5M rows); ``multiclass_cat`` is the
+5-class softmax path with 8 categorical features (31 leaves, 256 bins, 1M
+rows, five trees and one K5 launch an iteration).  The iterations:
 
   1. warm-up (kernel build, first launches);
   2. untraced: its wall time is the end-to-end number;
   3. host spans only: inclusive wall clock of the grower's pieces,
-     measured by wrapping them in this script (gradients, the whole grow,
-     the best-split scans with their device-to-host fetch, the K3 wrapper
-     calls, compaction, the score update, the tree's finalisation);
+     measured by wrapping them in this script (gradients, the class
+     roots' K5 call, the whole grow, the best-split scans with their
+     device-to-host fetch, the K3 wrapper calls, compaction, the score
+     update, the tree's finalisation);
   4. host spans and ``torch.profiler`` (CPU and CUDA activities): the
      device's busy time (the union of kernel intervals), its idle share,
-     and device time and launch count by kernel name, the port's four
+     and device time and launch count by kernel name, the port's
      kernels and PyTorch's own.
 
 The wall times of 2, 3 and 4 show what the spans and the profiler cost.
@@ -65,7 +70,10 @@ def _busy_us(intervals):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--rows", type=int, default=10_500_000)
+    ap.add_argument("--config", choices=("higgs", "multiclass_cat"),
+                    default="higgs")
+    ap.add_argument("--rows", type=int, default=None,
+                    help="default 10500000 (higgs) or 1000000")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
@@ -81,9 +89,17 @@ def main() -> int:
     from lightgbm_tpu_torch.models import gbdt, grower_seg
     from lightgbm_tpu_torch.models.tree import Tree
 
-    X, y = chip_smoke.higgs_like(args.rows, 42)
-    params = dict(chip_smoke.TRAIN_PARAMS, metric=[])
-    bst = lt.Booster(params, lt.Dataset(X, y))
+    if args.config == "higgs":
+        rows = args.rows or chip_smoke.HIGGS_ROWS
+        X, y = chip_smoke.higgs_like(rows, 42)
+        params = dict(chip_smoke.TRAIN_PARAMS, metric=[])
+        ds = lt.Dataset(X, y)
+    else:
+        rows = args.rows or chip_smoke.MC_ROWS
+        X, y = chip_smoke.multiclass_cat(rows, 7)
+        params = dict(chip_smoke.MC_PARAMS, metric=[])
+        ds = lt.Dataset(X, y, categorical_feature=chip_smoke.MC_CAT)
+    bst = lt.Booster(params, ds)
     g = bst.gbdt
 
     def iteration_ms():
@@ -97,6 +113,7 @@ def main() -> int:
 
     spans = collections.defaultdict(lambda: [0.0, 0])
     _wrap(g.objective, "get_gradients", spans, "gradients")
+    _wrap(gbdt, "histogram_all", spans, "class roots (K5)")
     _wrap(g.grower, "grow", spans, "grow (whole tree)")
     _wrap(g.grower, "_scan", spans, "best-split scans + fetch")
     _wrap(grower_seg, "histogram_segment_routed", spans,
@@ -123,7 +140,8 @@ def main() -> int:
     busy_ms = _busy_us(intervals) / 1e3
     record = {
         "device": torch.cuda.get_device_name(0),
-        "rows": args.rows,
+        "config": args.config,
+        "rows": rows,
         "leaves": [t.num_leaves for t in g.models],
         "untraced_ms": untraced_ms, "spans_ms": spans_ms,
         "profiled_ms": profiled_ms, "device_busy_ms": busy_ms,
@@ -153,7 +171,7 @@ def main() -> int:
     for k, v in list(record["kernels_ms"].items())[:15]:
         print(f"  {v['ms']:9.2f} ms  {v['count']:6d}  {k[:90]}")
     print(json.dumps({k: record[k] for k in (
-        "device", "rows", "untraced_ms", "spans_ms", "profiled_ms",
+        "device", "config", "rows", "untraced_ms", "spans_ms", "profiled_ms",
         "device_busy_ms", "idle_share", "device_ops")}))
     return 0
 
