@@ -6,7 +6,7 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``lightgbm_tpu_torch/csrc`` and runs
-eight phases; any failure exits non-zero:
+thirteen phases; any failure exits non-zero:
 
   1. build    nvcc for sm_90a; prints ptxas's register/shared-memory lines
               and the card's name and power limit.
@@ -47,6 +47,27 @@ eight phases; any failure exits non-zero:
   8. mc parity  200k rows, 3 iterations on the card and on the CPU: the
               same split features, thresholds and category bitsets for
               splits with gain > 1e-2, raw predictions within 1e-3.
+  9. frontier kernels  K6 (histogram_frontier) and K7 (histogram_frontier_
+              routed, KT = K; histogram_frontier_fusedk, KT = 2K) against
+              their plain versions in a frontier round: K = 16 leaves of a
+              32-leaf layout of the HIGGS rows split over the union of their
+              windows, and a K = 2 round (plus a K = 16 one, whose 32 slots
+              at 256 bins tile across the grid) at the multiclass_cat rows.
+              Leaf ids bit for bit, counts exact, sums within tolerance,
+              relaunches bit-identical; times, bounds and library calls as
+              in phase 2, and the shared-memory tiling each launch chose.
+ 10. frontier train  the HIGGS rows through ``tpu_tree_impl=frontier``,
+              255 leaves, auto width K = 16, the default tier ("off": K2 a
+              split, K6 a round), 3 iterations: train AUC rises, held-out
+              AUC within 0.005 of phase 3's; K6 once a round and a tree
+              root, K2 once a split, K1 and K3 never.
+ 11. frontier tiers  1M rows, 2 iterations each of the tiers "off", "k1"
+              (K7 routed a round) and "fusedk" (K7 fused-K a round): each
+              kernel launches on its tier; "k1" grows "off"'s model text.
+ 12. frontier parity  200k rows, 31 leaves, ``tpu_frontier_width=4`` on the
+              card and on the CPU: the same splits at gain > 1e-2.
+ 13. frontier K=1  ``tpu_frontier_width=1`` on the card grows phase 5's
+              segment model text.
 
 Output: one JSON line per kernel, one ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Without a
@@ -102,7 +123,17 @@ SOURCES = {
                          "lightgbm_tpu/ops/pallas_score.py:106"),
     "histogram_all": ("lightgbm_tpu_torch/csrc/histogram.cu",
                       "lightgbm_tpu/ops/pallas_histogram.py:460"),
+    "histogram_frontier": ("lightgbm_tpu_torch/csrc/histogram.cu",
+                           "lightgbm_tpu/ops/pallas_histogram.py:842"),
+    "histogram_frontier_routed": ("lightgbm_tpu_torch/csrc/histogram.cu",
+                                  "lightgbm_tpu/ops/pallas_histogram.py:1279"),
+    "histogram_frontier_fusedk": ("lightgbm_tpu_torch/csrc/histogram.cu",
+                                  "lightgbm_tpu/ops/pallas_histogram.py:1279"),
 }
+FRONTIER_PARAMS = dict(TRAIN_PARAMS, tpu_tree_impl="frontier")
+FRONTIER_TIER_KERNEL = {"off": "histogram_frontier",
+                        "k1": "histogram_frontier_routed",
+                        "fusedk": "histogram_frontier_fusedk"}
 
 
 class SmokeError(RuntimeError):
@@ -247,11 +278,12 @@ def check_histogram_all(th, binsT, w8C, B, rb, tag):
     return err, scales
 
 
-def library_hist_ms(binsT, w8s, rows, B, reps):
+def library_hist_ms(binsT, w8s, rows, B, reps, slots=None, n_slots=1):
     """One torch index_add_ of (g, h, member) into [C*F*B, 3] computing
     what a histogram kernel computes over ``rows`` for each of the
-    channel sets ``w8s``; the flat keys and values are made before the
-    clock starts."""
+    channel sets ``w8s``; with ``slots`` (one w8, the target slot of each
+    row) into [n_slots*F*B, 3], what a frontier kernel computes.  The flat
+    keys and values are made before the clock starts."""
     import torch
     F = binsT.shape[0]
     b = binsT[:, rows].long()
@@ -260,11 +292,13 @@ def library_hist_ms(binsT, w8s, rows, B, reps):
     for c, w8 in enumerate(w8s):
         w = w8[:, rows].float()
         v = torch.stack([w[0] + w[1], w[2] + w[3], w[4]], dim=1)
-        keys.append(((c * F + f_off) * B + b).reshape(-1))
+        first = c if slots is None else slots.long()[None, :]
+        keys.append(((first * F + f_off) * B + b).reshape(-1))
         vals.append(v[None].expand(F, -1, -1).reshape(-1, 3))
     del b
     keys, vals = torch.cat(keys), torch.cat(vals)
-    out = torch.zeros((len(w8s) * F * B, 3), dtype=torch.float32,
+    n_out = len(w8s) if slots is None else n_slots
+    out = torch.zeros((n_out * F * B, 3), dtype=torch.float32,
                       device=binsT.device)
     ms = time_ms(lambda i: out.index_add_(0, keys, vals), reps)
     del keys, vals, out
@@ -626,7 +660,7 @@ def unfused_phase():
     require(models[False] == models[True],
             "fused and unfused paths grew different models")
     log("unfused: same model text as the fused path")
-    return launches
+    return launches, ds
 
 
 # ---------------------------------------------------------------- phase 5
@@ -661,6 +695,7 @@ def parity_phase():
     same = (out["cuda"].model_to_string() == out["cpu"].model_to_string())
     log(f"parity: {compared} splits identical, max |raw diff| {diff:.3g}, "
         f"model text identical: {same}")
+    return out["cuda"].model_to_string().split("parameters:")[0]
 
 
 # ---------------------------------------------------------------- phase 6
@@ -939,6 +974,383 @@ def mc_parity_phase():
         f"max |raw diff| {diff:.3g}")
 
 
+# ---------------------------------------------------------------- phase 9
+def leaf_layout(th, binsT, fm, rb, levels):
+    """2^levels leaves of the rows, each a split of every leaf on feature
+    (level) at its middle bin, then the rows sorted by leaf as compaction
+    leaves them.  Returns (perm, leaf_id, lo, hi) in the sorted order, lo
+    and hi each leaf's window in blocks."""
+    import numpy as np
+    import torch
+    F, npad = binsT.shape
+    lid = torch.zeros(npad, dtype=torch.int32, device=binsT.device)
+    none = np.zeros(8, np.uint32)
+    for lvl in range(levels):
+        f = lvl % F
+        for leaf in range(1 << lvl):
+            route = th.pack_route(leaf, leaf + (1 << lvl), f,
+                                  int(fm.num_bin[f]) // 2, False, False,
+                                  none, fm)
+            th.route_window(binsT, lid, 0, npad // rb, route, rb)
+    lid, perm = torch.sort(lid, stable=True)
+    leaves = torch.arange(1 << levels, dtype=lid.dtype, device=lid.device)
+    starts = torch.searchsorted(lid, leaves).tolist()
+    ends = torch.searchsorted(lid, leaves, side="right").tolist()
+    lo = [a // rb for a in starts]
+    hi = [-(-b // rb) for b in ends]
+    return perm, lid, lo, hi
+
+
+def frontier_round(th, binsT, w8, scales, fm, feats, rb, K, levels, B, tag,
+                   reps, plain_reps, timed=True):
+    """One frontier round at this shape: leaves 0..K-1 of a 2^levels-leaf
+    layout split into new leaves 2^levels + k, leaf k on feature
+    feats[k % len(feats)] = (f, categorical): a numeric split at its middle
+    bin, or a categorical one by a bitset of every other bin.  K6 on the
+    routed ids (targets: the smaller children), K7 routed (the same
+    targets) and K7 fused-K (parents then new leaves) against their plain
+    versions.  Returns {kernel: measurement dict}."""
+    import numpy as np
+    import torch
+    F, npad = binsT.shape
+    perm, lid, lo, hi = leaf_layout(th, binsT, fm, rb, levels)
+    binsT = binsT.index_select(1, perm)
+    w8 = w8.index_select(1, perm)
+    n_leaves = 1 << levels
+    every_other = np.full(8, 0x55555555, np.uint32)
+    routes, new = [], []
+    for k in range(K):
+        f, cat = feats[k % len(feats)]
+        routes.append(th.pack_route(k, n_leaves + k, f,
+                                    int(fm.num_bin[f]) // 2, k % 2 == 1,
+                                    cat, every_other * cat, fm))
+        new.append(n_leaves + k)
+    routes = torch.stack(routes)
+    bl, n = th.union_block_list(lo[:K], hi[:K], [True] * K)
+    bl = bl.to(binsT.device)
+    routed_lid, _ = th.histogram_frontier_routed_plain(
+        binsT, w8, lid.clone(), bl, n, torch.tensor(new, dtype=torch.int32),
+        routes, B, rb)
+    counts = torch.bincount(routed_lid.long(), minlength=n_leaves + K)
+    smaller = torch.tensor(
+        [k if counts[k] <= counts[n_leaves + k] else n_leaves + k
+         for k in range(K)], dtype=torch.int32)
+    targets2 = torch.tensor(list(range(K)) + new, dtype=torch.int32)
+    U = n * rb
+    out = {}
+    cases = (("histogram_frontier", smaller, None),
+             ("histogram_frontier_routed", smaller, routes),
+             ("histogram_frontier_fusedk", targets2, routes))
+    for name, targets, rts in cases:
+        KT = int(targets.shape[0])
+        if rts is None:
+            want_lid = routed_lid
+            want = th.histogram_frontier_plain(binsT, w8, routed_lid, bl, n,
+                                               targets, B, rb)
+            runs = [(routed_lid, th.histogram_frontier(
+                binsT, w8, routed_lid, bl, n, targets, B, rb, scales))
+                for _ in range(2)]
+        else:
+            fn = getattr(th, name)
+            want_lid, want = th.histogram_frontier_routed_plain(
+                binsT, w8, lid.clone(), bl, n, targets, rts, B, rb)
+            runs = []
+            for _ in range(2):
+                ids = lid.clone()
+                got_lid, got = fn(binsT, w8, ids, bl, n, targets, rts, B, rb,
+                                  scales)
+                require(got_lid.data_ptr() == ids.data_ptr(),
+                        f"{name}: leaf_id not updated in place")
+                runs.append((got_lid, got))
+        torch.cuda.synchronize()
+        for got_lid, _ in runs:
+            require(torch.equal(got_lid, want_lid), f"{name} {tag}: leaf ids "
+                    "differ from the plain version")
+        require(torch.equal(runs[0][1], runs[1][1]),
+                f"{name} {tag}: a second launch differs from the first")
+        abs_sums = th.histogram_frontier_plain(
+            binsT, abs_channel_sets(w8), want_lid, bl, n, targets, B, rb)
+        err = check_hist(f"{name} {tag}", runs[0][1], want, abs_sums)
+        tiling = th.frontier_tiling(F, B, KT, 0 if rts is None else K)
+        moved = int((want_lid != lid).sum().item())
+        log(f"{name} {tag}: K={K} KT={KT}, {n} blocks ({U} rows) listed, "
+            f"{moved} routed, ids identical, counts exact, max |diff| "
+            f"{err:.3g}, tiling {tiling}")
+        rec = {"max_abs_err": err, "tiling": tiling, "K": K, "KT": KT}
+        if timed:
+            # bytes: every listed row's leaf id, the split bin of each row a
+            # route matches and the id of each row it moves, bins and five
+            # weight channels of each row a target matches, the output
+            sel = torch.isin(want_lid[_rows(bl, n, rb)],
+                             targets.to(lid.device))
+            M = int(sel.sum().item())
+            R = 0 if rts is None else int(torch.isin(
+                lid[_rows(bl, n, rb)], torch.arange(K, device=lid.device,
+                                                    dtype=lid.dtype)
+            ).sum().item())
+            nbytes = (U * 4 + 4 * n + R + moved * 4 * (rts is not None)
+                      + M * (F + 10) + KT * F * B * 12)
+            nops = U * (KT + (0 if rts is None else K)) + R * 20 + M * F * 3
+            rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, nops)
+            if rts is None:
+                rec["ms"] = time_ms(lambda i: th.histogram_frontier(
+                    binsT, w8, routed_lid, bl, n, targets, B, rb, scales),
+                    reps)
+                rec["plain_ms"] = time_ms(lambda i: th.histogram_frontier_plain(
+                    binsT, w8, routed_lid, bl, n, targets, B, rb),
+                    plain_reps)
+            else:
+                fn = getattr(th, name)
+                ids = [lid.clone() for _ in range(reps + 1)]
+                rec["ms"] = time_ms(lambda i: fn(
+                    binsT, w8, ids[i], bl, n, targets, rts, B, rb, scales),
+                    reps)
+                ids = [lid.clone() for _ in range(plain_reps + 1)]
+                rec["plain_ms"] = time_ms(
+                    lambda i: th.histogram_frontier_routed_plain(
+                        binsT, w8, ids[i], bl, n, targets, rts, B, rb),
+                    plain_reps)
+                del ids
+            rows = _rows(bl, n, rb)[sel]
+            slot_of = torch.full((n_leaves + K,), -1, dtype=torch.int64,
+                                 device=lid.device)
+            slot_of[targets.long().to(lid.device)] = torch.arange(
+                KT, device=lid.device)
+            rec["library_ms"] = library_hist_ms(
+                binsT, [w8], rows, B, reps, slots=slot_of[want_lid[rows].long()],
+                n_slots=KT)
+            rec["shape"] = (f"{tag}: {U} listed rows of {npad}, {M} in the "
+                            f"{KT} targets, {moved} routed, {F} x {B} bins")
+        out[name] = rec
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rows(bl, n, rb):
+    import torch
+    blk = bl[:n].long()
+    return (blk[:, None] * rb + torch.arange(rb, device=bl.device)).reshape(-1)
+
+
+def frontier_kernel_phase(handle, config, device, tag, rounds):
+    """K6 and K7 against their plain versions in frontier rounds of
+    ``rounds`` ((K, layout levels, timed), ...) on the dataset's rows.
+    Returns {kernel name: measurement dict} of the timed rounds, and the
+    checked-only rounds under "<name>_k<K>"."""
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.models.gbdt import block_rows
+    from lightgbm_tpu_torch.ops import histogram as th
+    from lightgbm_tpu_torch.ops.split import FeatureMeta
+
+    n = handle.num_data
+    rb = block_rows(config, n)
+    binsT = handle.device_bins(rb, device)
+    F, npad = binsT.shape
+    B = 1 << max(0, (handle.max_num_bin - 1).bit_length())
+    infos = handle.feature_infos()
+    fm = FeatureMeta(*(np.array([getattr(i, k) for i in infos], np.int32)
+                       for k in ("num_bin", "missing_type", "default_bin")))
+    # the round's split features: categorical ones first where there are
+    # any, numeric ones after the layout's
+    cats = [(f, True) for f, i in enumerate(infos) if i.is_cat]
+    nums = [(f, False) for f, i in enumerate(infos) if not i.is_cat][5:]
+    feats = [x for pair in zip(cats, nums) for x in pair] or nums
+    gen = torch.Generator(device=device).manual_seed(9)
+    grad = torch.randn(npad, generator=gen, device=device)
+    hess = torch.rand(npad, generator=gen, device=device) * 0.25
+    member = torch.zeros(npad, device=device)
+    member[:n] = 1.0
+    w8 = th.pack_channels(grad, hess, member)
+    del grad, hess
+    scales = th.fixed_point_scales(w8)
+    log(f"frontier kernels {tag}: F={F} B={B} Npad={npad} rb={rb}")
+    out = {}
+    for K, levels, timed in rounds:
+        res = frontier_round(th, binsT, w8, scales, fm, feats, rb, K, levels,
+                             B, f"{tag} K={K}", 20, 3, timed=timed)
+        for name, rec in res.items():
+            out[name if timed else f"{name}_k{K}"] = rec
+    del binsT, w8
+    torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------- phase 10
+def count_rounds(bst):
+    """Wraps the booster's frontier grower to sum its rounds over trees."""
+    g = bst.gbdt.grower
+    grow, total = g.grow, {"rounds": 0, "trees": 0}
+
+    def counted(*a, **k):
+        res = grow(*a, **k)
+        total["rounds"] += g.last_stats["rounds"]
+        total["trees"] += 1
+        return res
+
+    g.grow = counted
+    return total
+
+
+def frontier_train_phase(ds, Xh, yh, seg_stats):
+    """The HIGGS rows through the frontier grower, default tier."""
+    import numpy as np
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.metric import AUCMetric
+    from lightgbm_tpu_torch.ops import kernels
+
+    bst = lt.Booster(FRONTIER_PARAMS, ds)
+    bst.add_valid(ds.create_valid(Xh, yh), "holdout")
+    g = bst.gbdt.grower
+    require(g.K == 16 and g.tier == "off", f"frontier K={g.K} tier="
+            f"{g.tier}, expected 16 and off")
+    total = count_rounds(bst)
+    auc = []
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        bst.update()
+        auc.append(bst.eval_train()[0][1])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    trees = bst.gbdt.models
+    splits = sum(t.num_leaves - 1 for t in trees)
+    it_s = bst.gbdt.iter_seconds
+    hauc = bst.eval_valid()[0][2]
+    log(f"frontier train: {len(trees)} iterations in {wall:.2f} s, per "
+        f"iteration {[round(x, 3) for x in it_s]} s (segment "
+        f"{[round(x, 3) for x in seg_stats['iter_s']]}), "
+        f"{total['rounds']} rounds for {splits} splits")
+    log(f"frontier train: leaves per tree {[t.num_leaves for t in trees]}, "
+        f"train AUC {auc}, holdout AUC {hauc} (segment "
+        f"{seg_stats['holdout_auc']})")
+    log(f"frontier train: launches {launches}")
+    require(len(trees) == 3 and all(t.num_leaves == 255 for t in trees),
+            "frontier training stopped early or grew short trees")
+    require(all(b > a for a, b in zip(auc, auc[1:])),
+            "train AUC did not rise every iteration")
+    require(abs(hauc - seg_stats["holdout_auc"]) <= 0.005,
+            f"held-out AUC {hauc} is not within 0.005 of the segment run's "
+            f"{seg_stats['holdout_auc']}")
+    require(launches["histogram_frontier"] == total["rounds"] + 3,
+            f"histogram_frontier launched {launches['histogram_frontier']} "
+            f"times, expected once a round and a root "
+            f"({total['rounds']} + 3)")
+    require(launches["route_window"] == splits,
+            f"route_window launched {launches['route_window']} times, "
+            f"expected once a split ({splits})")
+    require(launches["histogram_segment"] == 0
+            and launches["histogram_segment_routed"] == 0
+            and launches["histogram_frontier_routed"] == 0
+            and launches["histogram_frontier_fusedk"] == 0,
+            "the default frontier tier launched another histogram kernel")
+    require(launches["score_gather_add"] == 3,
+            "score_gather_add did not run once per iteration")
+    raw = bst.predict(Xh, raw_score=True)
+    m = AUCMetric()
+    m.label = np.asarray(yh, np.float64)
+    require(abs(m.eval(raw) - hauc) < 1e-9 and np.all(np.isfinite(raw)),
+            "held-out predictions disagree with the valid metric")
+    return launches, {"wall_s": wall, "iter_s": it_s, "train_auc": auc,
+                      "holdout_auc": hauc, "rounds": total["rounds"],
+                      "splits": splits, "K": g.K, "tier": g.tier,
+                      "grower_stats": dict(g.last_stats)}
+
+
+# --------------------------------------------------------------- phase 11
+def frontier_tiers_phase(ds):
+    """1M rows, 2 iterations on each tier: each launches its kernel."""
+    import numpy as np
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import kernels
+
+    out, texts, raws = {}, {}, {}
+    for tier, kname in FRONTIER_TIER_KERNEL.items():
+        bst = lt.Booster(FRONTIER_PARAMS, ds, frontier_tier=tier)
+        total = count_rounds(bst)
+        kernels.reset_launches()
+        for _ in range(2):
+            bst.update()
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        trees = bst.gbdt.models
+        splits = sum(t.num_leaves - 1 for t in trees)
+        log(f"frontier tier {tier}: leaves {[t.num_leaves for t in trees]}, "
+            f"{total['rounds']} rounds, per iteration "
+            f"{[round(x, 3) for x in bst.gbdt.iter_seconds]} s, launches "
+            f"{launches}")
+        require(len(trees) == 2, f"tier {tier}: training stopped early")
+        require(launches[kname] == total["rounds"] + 2,
+                f"tier {tier}: {kname} launched {launches[kname]} times, "
+                f"expected {total['rounds'] + 2}")
+        others = sum(v for k, v in launches.items()
+                     if k not in (kname, "route_window", "score_gather_add"))
+        require(others == 0, f"tier {tier} launched other histogram kernels")
+        require(launches["route_window"] == (splits if tier == "off" else 0),
+                f"tier {tier}: route_window launched "
+                f"{launches['route_window']} times")
+        out[tier] = launches
+        texts[tier] = bst.model_to_string().split("parameters:")[0]
+        raws[tier] = bst.predict(ds.data[:100_000], raw_score=True)
+    require(texts["off"] == texts["k1"], "tiers off and k1 grew different "
+            "models")
+    diff = float(np.abs(raws["fusedk"] - raws["off"]).max())
+    log(f"frontier tiers: k1 grew off's model text; fusedk max |raw diff| "
+        f"{diff:.3g} on 100k rows")
+    require(diff < 1e-2, f"fusedk and off raw predictions differ by {diff}")
+    return out
+
+
+# --------------------------------------------------------------- phase 12
+def frontier_parity_phase(seg_text):
+    """Card against CPU at width 4; width 1 on the card against the
+    segment grower's model text (phase 5's card run)."""
+    import numpy as np
+    import lightgbm_tpu_torch as lt
+
+    X, y = higgs_like(PARITY_ROWS, 11)
+    params = dict(FRONTIER_PARAMS, num_leaves=31, metric=[],
+                  tpu_frontier_width=4)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        bst = lt.Booster(dict(params, device_type=dev), lt.Dataset(X, y))
+        for _ in range(3):
+            bst.update()
+        out[dev] = bst
+    compared = 0
+    for i, (a, b) in enumerate(zip(out["cuda"].gbdt.models,
+                                   out["cpu"].gbdt.models)):
+        nf = min(a.num_leaves, b.num_leaves) - 1
+        k = 0
+        while k < nf and a.split_gain[k] > 1e-2 and b.split_gain[k] > 1e-2:
+            k += 1
+        require(np.array_equal(a.split_feature[:k], b.split_feature[:k])
+                and np.array_equal(a.threshold_in_bin[:k],
+                                   b.threshold_in_bin[:k]),
+                f"frontier tree {i}: card and CPU split differently")
+        compared += k
+    require(compared >= 60, f"only {compared} frontier splits compared")
+    diff = float(np.abs(out["cuda"].predict(X, raw_score=True)
+                        - out["cpu"].predict(X, raw_score=True)).max())
+    require(diff < 1e-3, f"frontier card and CPU raw predictions differ by "
+            f"{diff}")
+    log(f"frontier parity: {compared} splits identical, max |raw diff| "
+        f"{diff:.3g}")
+    # phase 13
+    bst = lt.Booster(dict(params, tpu_frontier_width=1), lt.Dataset(X, y))
+    for _ in range(3):
+        bst.update()
+    require(bst.gbdt.grower.K == 1, "width 1 did not give K = 1")
+    require(bst.model_to_string().split("parameters:")[0] == seg_text,
+            "tpu_frontier_width=1 on the card grew another model than the "
+            "segment grower")
+    log("frontier K=1: the segment grower's model text")
+    return {"splits_compared": compared, "max_raw_diff": diff}
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     import torch
@@ -982,9 +1394,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"kernels: phase took {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    fk_results = frontier_kernel_phase(
+        ds._handle, Config.from_params(TRAIN_PARAMS), device, "HIGGS",
+        ((16, 5, True),))
+    log(f"frontier kernels: HIGGS took {time.perf_counter() - t0:.1f} s")
+
     main_launches, train_stats = train_phase(ds, Xh, yh)
-    unfused_launches = unfused_phase()
-    parity_phase()
+    fr_launches, fr_stats = frontier_train_phase(ds, Xh, yh, train_stats)
+    unfused_launches, ds_1m = unfused_phase()
+    tier_launches = frontier_tiers_phase(ds_1m)
+    del ds_1m
+    seg_text = parity_phase()
+    fr_parity = frontier_parity_phase(seg_text)
     del ds, X, y, Xh, yh
     torch.cuda.empty_cache()
 
@@ -1001,27 +1423,46 @@ def main() -> int:
     mc_results = mc_kernel_phase(ds._handle, mc_config, device)
     torch.cuda.empty_cache()
     log(f"mc kernels: phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    fk_mc = frontier_kernel_phase(ds._handle, mc_config, device,
+                                  "multiclass_cat",
+                                  ((2, 5, True), (16, 5, False)))
+    log(f"frontier kernels: multiclass_cat took "
+        f"{time.perf_counter() - t0:.1f} s")
     mc_launches, mc_stats = mc_train_phase(ds, Xh, yh)
     mc_parity_phase()
 
+    paths = {"unfused": unfused_launches, "fused": main_launches,
+             "multiclass": mc_launches, "frontier": fr_launches,
+             "frontier_k1": tier_launches["k1"],
+             "frontier_fusedk": tier_launches["fusedk"]}
     records = []
     for name in kernels.KERNEL_NAMES:
         r = dict(results.get(name, {}))
         r.update(mc_results.get(name, {}))
+        r.update(fk_results.get(name, {}))
         path = {"histogram_segment": "unfused", "route_window": "unfused",
-                "histogram_all": "multiclass"}.get(name, "fused")
-        launches = {"unfused": unfused_launches, "fused": main_launches,
-                    "multiclass": mc_launches}[path]
+                "histogram_all": "multiclass",
+                "histogram_frontier": "frontier",
+                "histogram_frontier_routed": "frontier_k1",
+                "histogram_frontier_fusedk": "frontier_fusedk"}.get(
+                    name, "fused")
         src, replaces = SOURCES[name]
         rec = {"name": name, "route": "cuda", "source": src,
-               "replaces": replaces, "launches": launches[name],
-               "path": path, "launches_multiclass": mc_launches[name]}
+               "replaces": replaces, "launches": paths[path][name],
+               "path": path, "launches_by_path": {
+                   k: v[name] for k, v in paths.items()}}
         rec.update(r)
         if name == "histogram_all":
             rec["higgs"] = results["histogram_all_higgs"]
+        if name in fk_mc:
+            rec["mc"] = fk_mc[name]
+            rec["mc_k16"] = fk_mc[f"{name}_k16"]
         records.append(rec)
         require(rec["launches"] > 0, f"{name} was not launched on its path")
         log(json.dumps(rec))
+    log(json.dumps({"frontier_train": fr_stats,
+                    "frontier_parity": fr_parity}))
     log(json.dumps({"train": train_stats}))
     log(json.dumps({"mc_train": mc_stats}))
     log(json.dumps({"kernels": records}))

@@ -88,11 +88,15 @@ class Dataset:
 
 class Booster:
     """Training-capable model handle.  ``fused_route=False`` grows with
-    the unfused route/histogram kernel pair instead of the fused one."""
+    the segment grower's unfused route/histogram kernel pair instead of
+    the fused one; ``frontier_tier`` ("off", "k1" or "fusedk"; None = the
+    default for the frontier width) picks the frontier grower's histogram
+    launch under ``tpu_tree_impl=frontier``."""
 
     def __init__(self, params: Optional[Dict] = None,
                  train_set: Optional[Dataset] = None,
-                 fused_route: bool = True):
+                 fused_route: bool = True,
+                 frontier_tier: Optional[str] = None):
         self.params = dict(params or {})
         self.config = Config.from_params(self.params)
         set_verbosity(self.config.verbosity)
@@ -103,7 +107,8 @@ class Booster:
         self.train_set = train_set
         self.gbdt = GBDT(self.config, train_set._handle,
                          create_objective(self.config),
-                         fused_route=fused_route)
+                         fused_route=fused_route,
+                         frontier_tier=frontier_tier)
 
     def add_valid(self, data: Dataset, name: str) -> "Booster":
         data.reference = self.train_set

@@ -2,9 +2,9 @@
 
 The same registry shape as the reference's Config (include/LightGBM/
 config.h, src/io/config_auto.cpp): name, default, aliases.  The port runs
-one path — binary or multiclass-softmax GBDT with the serial segment
-grower on dense data, numeric or categorical — so the registry holds only
-the parameters that path honours.  A
+one path — binary or multiclass-softmax GBDT with the serial segment or
+frontier grower on dense data, numeric or categorical — so the registry
+holds only the parameters that path honours.  A
 parameter of a feature the port does not have raises NotImplementedError
 unless it is given at the value that switches the feature off; an
 unknown parameter raises too.  Nothing is silently ignored.
@@ -74,9 +74,19 @@ _PARAMS: Dict[str, _P] = {
     "multi_error_top_k": _P(1),
     "boost_from_average": _P(True),
     "metric": _P([], ["metrics", "metric_types"], ptype=list),
-    # row block: the granularity of the segment grower's confinement
-    # intervals (0 = DEFAULT_BLOCK_ROWS, capped at the row count)
+    # row block: the granularity of the growers' confinement intervals
+    # (0 = DEFAULT_BLOCK_ROWS, capped at the row count)
     "tpu_row_chunk": _P(0),
+    # tree grower: "auto" (= "segment", as the JAX package grows on an
+    # accelerator), "segment" (strict best-first) or "frontier" (the
+    # top-K leaves a round); the JAX package's "fused" grower is not
+    # ported
+    "tpu_tree_impl": _P("auto"),
+    # frontier width K (0 = auto: models/gbdt.py _auto_frontier_k)
+    "tpu_frontier_width": _P(0),
+    # a frontier round splits only leaves whose gain is at least this
+    # share of the round's best (0 = no gate)
+    "tpu_frontier_gain_ratio": _P(0.0),
 }
 
 # Parameters of features the port does not have, with the value that
@@ -101,8 +111,6 @@ _OFF_VALUES: Dict[str, Any] = {
     "enable_bundle": False,
     "max_bin_by_feature": [],
     "early_stopping_round": 0,
-    "tpu_tree_impl": "segment",
-    "tpu_frontier_width": 0,
     "tpu_double_precision": False,
     "gpu_use_dp": False,
 }
@@ -134,6 +142,8 @@ for _name, _spec in _PARAMS.items():
         ALIAS_TABLE[_a] = _name
 
 DEVICE_TYPES = ("cuda", "cpu")
+TREE_IMPLS = {"auto": "segment", "segment": "segment",
+              "frontier": "frontier"}
 OBJECTIVE_ALIASES = {"binary": "binary", "multiclass": "multiclass",
                      "softmax": "multiclass"}
 METRIC_ALIASES = {"auc": "auc", "binary_logloss": "binary_logloss",
@@ -254,3 +264,19 @@ class Config:
             raise LightGBMError("max_bin must be in [2, 256] (one byte a bin)")
         if self.tpu_row_chunk < 0:
             raise LightGBMError("tpu_row_chunk must be >= 0")
+        impl = str(self.tpu_tree_impl).strip().lower()
+        if impl == "fused":
+            raise NotImplementedError(
+                "tpu_tree_impl='fused' is not supported by lightgbm_tpu_torch "
+                "(only auto, segment and frontier)")
+        if impl not in TREE_IMPLS:
+            raise LightGBMError(f"tpu_tree_impl must be one of "
+                                f"{sorted(TREE_IMPLS)}, got {impl!r}")
+        # "auto" resolves to the grower it names, so the model text and
+        # the growers see one spelling
+        self.tpu_tree_impl = TREE_IMPLS[impl]
+        if self.tpu_frontier_width < 0:
+            raise LightGBMError("tpu_frontier_width must be >= 0")
+        if not 0.0 <= self.tpu_frontier_gain_ratio <= 1.0:
+            # above 1 no leaf, not even the round's best, could split
+            raise LightGBMError("tpu_frontier_gain_ratio must be in [0, 1]")

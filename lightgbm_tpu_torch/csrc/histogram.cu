@@ -1,4 +1,4 @@
-// Histograms and split routing of the segment grower, for Hopper
+// Histograms and split routing of the segment and frontier growers, for Hopper
 // (sm_90a).  Entry points with a plain C interface, loaded through ctypes
 // by lightgbm_tpu_torch/ops/kernels.py:
 //
@@ -12,7 +12,11 @@
 //       (_kernel_route_window / _route_block_ids);
 //   lgbt_histogram_all      — K5, replaces pallas_histogram.py:
 //       histogram_all (_kernel_all) for C stacked bf16 channel sets: the
-//       root histograms of all C class trees of a multiclass iteration.
+//       root histograms of all C class trees of a multiclass iteration;
+//   lgbt_histogram_frontier — K6 without routes, replaces
+//       pallas_histogram.py:histogram_frontier (_kernel_frontier); with K
+//       routes, K7, replaces histogram_frontier_routed (KT = K targets)
+//       and histogram_frontier_fusedk (KT = 2K) (_kernel_frontier_routed).
 //
 // K1/K3 compute, over the rows [row_lo, row_hi) whose leaf id equals
 // `target`, the per-(feature, bin) sums of gradient, hessian and row count.
@@ -45,13 +49,30 @@
 // sum can overflow) and added as integers, so every launch gives the same
 // bits whatever the scheduling.  Counts are integers too.
 //
+// K6/K7 (the frontier grower's batched kernels) walk the rows of a list of
+// whole row blocks, the union of the round's confinement windows, not one
+// window; K7 first applies the round's K split routes to each row's leaf
+// id (at most one route matches a row, since the routed leaves are
+// distinct and no new id is a routed leaf), then each row adds to the
+// histogram of the target slot its leaf id matches (targets are distinct;
+// -1 matches nothing).  Same fixed-point sums as K1: slot k of a launch is,
+// bit for bit, K1 of target k over the same rows at the same scale.
+//
 // Shared memory: a histogram of ft features x B bins x (8 + 8 + 4) bytes.
 // Features are tiled across gridDim.y so a tile fits the 48 KB a block
 // gets without opting in (37 features at 64 bins, 9 at 256 bins); each
 // tile re-reads the leaf ids and weights, which costs bytes only on
 // shapes wider than the HIGGS one.  K5 adds the class sets as gridDim.z,
 // so its bin rows are read once per set: (F + 10) bytes a row and set
-// against the (F + 10 C) bytes a row of one pass over all sets.
+// against the (F + 10 C) bytes a row of one pass over all sets.  K6/K7
+// hold ft features x tt target slots per block: a slot of one feature is
+// 20 B a bin, so 16 slots at 64 bins take 20 KB a feature and 32 slots at
+// 256 bins 160 KB.  They opt in to kFrontierSmemBudget (above the 48 KB
+// default; two such blocks of 512 threads fit an SM, one wave of them
+// covers the grid) and tile features across gridDim.y
+// and, when one feature's KT slots do not fit, target slots across
+// gridDim.z (lgbt_frontier_tiling).  Every tile re-reads its rows' leaf
+// ids and weights; K7's route is rewritten by tile (0, 0) only.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -63,6 +84,11 @@ constexpr int kMissingZero = 1;   // core/binning.py MISSING_ZERO
 constexpr int kMissingNan = 2;    // core/binning.py MISSING_NAN
 constexpr int kThreads = 256;
 constexpr int kSmemBudget = 48 * 1024;
+constexpr int kFrontierSmemBudget = 100 * 1024;
+// two frontier blocks of at most kFrontierSmemBudget fit an SM; at 512
+// threads each they keep 32 warps resident to hide the shared atomics'
+// latency (at 256, the first version, 16)
+constexpr int kFrontierThreads = 512;
 constexpr int kBytesPerBin = 8 + 8 + 4;
 
 // pack_route's layout: leaf, new_leaf, row, col, thr, dl, cat, mt, dbin,
@@ -176,18 +202,131 @@ segment_hist_kernel(const uint8_t* __restrict__ bins,
 }
 
 // acc [sets, F*B, 3] fixed point -> out [sets, F*B, 3] f32 (sum_grad,
-// sum_hess, count), each set at its own scales [sets, 2]
+// sum_hess, count), set s at scales[scale_step * s : + 2] (scale_step 2:
+// K5's one pair per set; 0: the frontier kernels' target slots, which
+// share the tree's one pair)
 __global__ void finalize_kernel(const long long* __restrict__ acc,
                                 const float* __restrict__ scales,
                                 float* __restrict__ out, int cells,
-                                long long total) {
+                                long long total, int scale_step) {
   const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= total) return;
-  const long long set = k / cells;
-  out[3 * k + 0] = (float)((double)acc[3 * k + 0] / (double)scales[2 * set]);
-  out[3 * k + 1] = (float)((double)acc[3 * k + 1]
-                           / (double)scales[2 * set + 1]);
+  const float* sc = scales + scale_step * (k / cells);
+  out[3 * k + 0] = (float)((double)acc[3 * k + 0] / (double)sc[0]);
+  out[3 * k + 1] = (float)((double)acc[3 * k + 1] / (double)sc[1]);
   out[3 * k + 2] = (float)acc[3 * k + 2];
+}
+
+// K6 (kRouted false) and K7 (true).  One launch covers the rows of
+// block_list[:n_blocks] (n_rows = n_blocks * block_rows) x the feature
+// tile blockIdx.y x the target tile blockIdx.z.  params (device memory):
+// targets[n_targets], then n_routes route descriptors of kRouteWords.
+// acc [n_targets, F * B, 3]: slot k's histogram at offset k * F * B * 3.
+template <bool kRouted>
+__global__ void __launch_bounds__(kFrontierThreads, 2)
+frontier_hist_kernel(const uint8_t* __restrict__ bins,
+                     const uint16_t* __restrict__ w8, int* leaf_id,
+                     long long npad, int num_features, int num_bins,
+                     int tile_features, int tile_targets,
+                     const int* __restrict__ block_list, long long n_rows,
+                     int block_rows, const int* __restrict__ params,
+                     int n_targets, int n_routes,
+                     const float* __restrict__ scales,
+                     unsigned long long* __restrict__ acc) {
+  extern __shared__ unsigned long long smem[];
+  const int f0 = blockIdx.y * tile_features;
+  const int nf = min(tile_features, num_features - f0);
+  const int s0 = blockIdx.z * tile_targets;
+  const int ns = min(tile_targets, n_targets - s0);
+  const int slot_cells = nf * num_bins;
+  const int cells = ns * slot_cells;
+  unsigned long long* sg = smem;
+  unsigned long long* sh = smem + cells;
+  unsigned int* sc = reinterpret_cast<unsigned int*>(smem + 2 * cells);
+  int* s_target = reinterpret_cast<int*>(sc + cells);     // [ns]
+  int* s_route_leaf = s_target + ns;                       // [n_routes]
+  const int* routes = params + n_targets;
+  for (int k = threadIdx.x; k < cells; k += blockDim.x) {
+    sg[k] = 0ull;
+    sh[k] = 0ull;
+    sc[k] = 0u;
+  }
+  for (int k = threadIdx.x; k < ns; k += blockDim.x)
+    s_target[k] = params[s0 + k];
+  for (int k = threadIdx.x; k < n_routes; k += blockDim.x)
+    s_route_leaf[k] = routes[k * kRouteWords];
+  __syncthreads();
+
+  const double scale_g = (double)scales[0];
+  const double scale_h = (double)scales[1];
+  const uint8_t* tile = bins + (long long)f0 * npad;
+  const bool writer = blockIdx.y == 0 && blockIdx.z == 0;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < n_rows; i += stride) {
+    const long long pos = i / block_rows;
+    const long long row = (long long)block_list[pos] * block_rows
+                          + (i - pos * block_rows);
+    if (row < 0 || row >= npad) continue;   // a block outside the layout
+    int lid = leaf_id[row];
+    if (kRouted) {
+      int r = -1;
+      for (int k = 0; k < n_routes; ++k) {
+        if (s_route_leaf[k] == lid) {
+          r = k;
+          break;
+        }
+      }
+      if (r >= 0) {
+        RouteDesc desc;
+#pragma unroll
+        for (int k = 0; k < kRouteWords; ++k)
+          desc.w[k] = routes[r * kRouteWords + k];
+        const int moved = routed_leaf(
+            desc, bins[(long long)desc.w[2] * npad + row], lid);
+        // idempotent (a moved row matches no route), so a tile that reads
+        // an id tile (0, 0) already rewrote computes the same id
+        if (moved != lid && writer) leaf_id[row] = moved;
+        lid = moved;
+      }
+    }
+    int s = -1;
+    for (int k = 0; k < ns; ++k) {
+      if (s_target[k] == lid) {
+        s = k;
+        break;
+      }
+    }
+    if (s < 0) continue;
+    if (w8[4 * npad + row] == 0) continue;   // member 0: a pad row
+    const long long qg = __double2ll_rn(
+        (bf16_bits_to_double(w8[row]) + bf16_bits_to_double(w8[npad + row]))
+        * scale_g);
+    const long long qh = __double2ll_rn(
+        (bf16_bits_to_double(w8[2 * npad + row])
+         + bf16_bits_to_double(w8[3 * npad + row])) * scale_h);
+    const int base = s * slot_cells;
+    for (int f = 0; f < nf; ++f) {
+      const int b = tile[(long long)f * npad + row];
+      if (b >= num_bins) continue;
+      const int k = base + f * num_bins + b;
+      atomicAdd(&sg[k], (unsigned long long)qg);
+      atomicAdd(&sh[k], (unsigned long long)qh);
+      atomicAdd(&sc[k], 1u);
+    }
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < cells; k += blockDim.x) {
+    if (sc[k] == 0u) continue;
+    const int s = k / slot_cells;
+    const int fb = k - s * slot_cells;
+    unsigned long long* dst =
+        acc + 3ll * ((long long)(s0 + s) * num_features * num_bins
+                     + (long long)f0 * num_bins + fb);
+    atomicAdd(dst + 0, sg[k]);
+    atomicAdd(dst + 1, sh[k]);
+    atomicAdd(dst + 2, (unsigned long long)sc[k]);
+  }
 }
 
 __global__ void route_window_kernel(const uint8_t* __restrict__ frow,
@@ -215,6 +354,41 @@ int sm_count() {
 }
 
 long long div_up(long long a, long long b) { return (a + b - 1) / b; }
+
+// Opts the kernel in to `smem` bytes of dynamic shared memory when that is
+// above the default, then launches one wave: as many blocks as fit the
+// card at once, split over the tiles (fewer when the rows are few), so
+// each block flushes its shared histogram once.  Returns a CUDA error.
+template <bool kRouted>
+int launch_frontier(int tiles_y, int tiles_z, size_t smem, cudaStream_t s,
+                    const uint8_t* bins, const uint16_t* w8, int* leaf_id,
+                    long long npad, int num_features, int num_bins, int ft,
+                    int tt, const int* block_list, long long n_rows,
+                    int block_rows, const int* params, int n_targets,
+                    int n_routes, const float* scales, long long* acc) {
+  cudaError_t e = cudaSuccess;
+  if (smem > (size_t)kSmemBudget) {
+    e = cudaFuncSetAttribute(frontier_hist_kernel<kRouted>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, frontier_hist_kernel<kRouted>, kFrontierThreads, smem);
+  if (e != cudaSuccess) return (int)e;
+  const long long tiles = (long long)tiles_y * tiles_z;
+  long long bx = div_up(n_rows, 4ll * kFrontierThreads);
+  const long long wave = (long long)(per_sm > 0 ? per_sm : 1) * sm_count();
+  const long long cap = wave / tiles > 0 ? wave / tiles : 1;
+  if (bx > cap) bx = cap;
+  dim3 grid((unsigned)bx, (unsigned)tiles_y, (unsigned)tiles_z);
+  frontier_hist_kernel<kRouted><<<grid, kFrontierThreads, smem, s>>>(
+      bins, w8, leaf_id, npad, num_features, num_bins, ft, tt, block_list,
+      n_rows, block_rows, params, n_targets, n_routes, scales,
+      reinterpret_cast<unsigned long long*>(acc));
+  return 0;
+}
 
 }  // namespace
 
@@ -267,7 +441,7 @@ int lgbt_histogram_segment(const uint8_t* bins, const uint16_t* w8,
     }
   }
   finalize_kernel<<<(unsigned)div_up(cells_all, kThreads), kThreads, 0, s>>>(
-      acc, scales, out, cells_all, cells_all);
+      acc, scales, out, cells_all, cells_all, 2);
   return (int)cudaGetLastError();
 }
 
@@ -298,8 +472,80 @@ int lgbt_histogram_all(const uint8_t* bins, const uint16_t* w8,
   }
   if (total > 0) {
     finalize_kernel<<<(unsigned)div_up(total, kThreads), kThreads, 0, s>>>(
-        acc, scales, out, cells_all, total);
+        acc, scales, out, cells_all, total, 2);
   }
+  return (int)cudaGetLastError();
+}
+
+// K6/K7 tiling: out[0] features per tile, out[1] target slots per tile,
+// out[2] dynamic shared memory a block (bytes).  All n_targets slots of
+// as many features as fit kFrontierSmemBudget; when one feature's slots
+// do not fit, one feature a tile and as many slots as fit.  Returns 0, or
+// cudaErrorInvalidValue when not even one slot of one feature fits.
+int lgbt_frontier_tiling(int num_features, int num_bins, int n_targets,
+                         int n_routes, int* out) {
+  const int slot_bytes = num_bins * kBytesPerBin;
+  const int budget =
+      kFrontierSmemBudget - 4 * (n_routes + n_targets) - 8;
+  if (num_features < 1 || n_targets < 1 || budget < slot_bytes)
+    return (int)cudaErrorInvalidValue;
+  int ft, tt;
+  if ((long long)n_targets * slot_bytes <= budget) {
+    tt = n_targets;
+    ft = budget / (n_targets * slot_bytes);
+    if (ft > num_features) ft = num_features;
+  } else {
+    ft = 1;
+    tt = budget / slot_bytes;
+  }
+  out[0] = ft;
+  out[1] = tt;
+  out[2] = ft * tt * slot_bytes + 4 * (tt + n_routes);
+  return 0;
+}
+
+// K6 (n_routes == 0) or K7 (n_routes > 0, KT = n_targets = K or 2K).
+// bins [F, npad] u8, w8 [8, npad] bf16 bits, leaf_id [npad] i32 (K7
+// updates it in place over the listed blocks), block_list [>= n_blocks]
+// i32 on the device, params on the device: targets [n_targets] then
+// routes [n_routes, 19]; scales [2] f32 on the device, acc scratch
+// [n_targets * F*B*3] i64, out [n_targets, F, B, 3] f32.  n_blocks == 0
+// writes zero histograms and leaves leaf_id alone.  Returns a CUDA error
+// code (0 on success).
+int lgbt_histogram_frontier(const uint8_t* bins, const uint16_t* w8,
+                            int* leaf_id, long long npad, int num_features,
+                            int num_bins, int block_rows,
+                            const int* block_list, long long n_blocks,
+                            const int* params, int n_targets, int n_routes,
+                            const float* scales, long long* acc, float* out,
+                            void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  int tiling[3];
+  int rc = lgbt_frontier_tiling(num_features, num_bins, n_targets, n_routes,
+                                tiling);
+  if (rc != 0) return rc;
+  const int ft = tiling[0], tt = tiling[1];
+  const size_t smem = (size_t)tiling[2];
+  const long long total = (long long)n_targets * num_features * num_bins;
+  cudaMemsetAsync(acc, 0, sizeof(long long) * 3 * (size_t)total, s);
+  const long long n_rows = n_blocks * (long long)block_rows;
+  if (n_rows > 0) {
+    const int tiles_y = (int)div_up(num_features, ft);
+    const int tiles_z = (int)div_up(n_targets, tt);
+    rc = n_routes > 0
+             ? launch_frontier<true>(tiles_y, tiles_z, smem, s, bins, w8,
+                                     leaf_id, npad, num_features, num_bins,
+                                     ft, tt, block_list, n_rows, block_rows,
+                                     params, n_targets, n_routes, scales, acc)
+             : launch_frontier<false>(tiles_y, tiles_z, smem, s, bins, w8,
+                                      leaf_id, npad, num_features, num_bins,
+                                      ft, tt, block_list, n_rows, block_rows,
+                                      params, n_targets, n_routes, scales,
+                                      acc);
+    if (rc != 0) return rc;
+  }
+  finalize_kernel<<<(unsigned)div_up(total, kThreads), kThreads, 0, s>>>(
+      acc, scales, out, num_features * num_bins, total, 0);
   return (int)cudaGetLastError();
 }
 

@@ -5,9 +5,10 @@ src/boosting/gbdt.cpp: boost-from-average :420, TrainOneIter :450).  One
 iteration grows C trees (C = num_class for multiclass softmax, else 1):
 gradients [C, N] on the device; for C > 1 the C class roots' histograms
 in one K5 launch (``histogram_all``, as the JAX loop does, gbdt.py:
-1116-1154); then per class one tree grown by the segment grower from its
-root, the class's training score updated through the score kernel (K4),
-the tree finalized on the host.  Trees are kept class by class within
+1116-1154); then per class one tree grown from its root by the segment
+grower or, with ``tpu_tree_impl=frontier``, the frontier grower, the
+class's training score updated through the score kernel (K4), the tree
+finalized on the host.  Trees are kept class by class within
 each iteration (tree i is class i % C).
 """
 
@@ -22,11 +23,13 @@ import torch
 from ..config import DEFAULT_METRIC, Config
 from ..core.dataset import TorchDataset
 from ..metric import create_metric
-from ..ops.histogram import class_scales, histogram_all, pack_channel_sets
+from ..ops.histogram import (class_scales, frontier_width, histogram_all,
+                             pack_channel_sets)
 from ..ops.score import score_gather_add
 from ..ops.split import FeatureMeta, SplitParams
 from ..utils.log import LightGBMError, log_warning
 from .grower import GrowerParams
+from .grower_frontier import FrontierGrower
 from .grower_seg import SegmentGrower
 from .tree import Tree
 
@@ -62,6 +65,17 @@ def block_rows(config: Config, num_data: int) -> int:
     return min(DEFAULT_BLOCK_ROWS, _round_up_pow2(max(num_data, 1)))
 
 
+def _auto_frontier_k(config: Config, num_columns: int, num_bins: int) -> int:
+    """Frontier width K (lightgbm_tpu/models/gbdt.py:109-124): an explicit
+    tpu_frontier_width wins; else frontier_width's K, capped at
+    ceil(num_leaves / 16) so that small trees stay near strict best-first.
+    ``num_columns`` is the bin matrix's row count (the port has no EFB)."""
+    if config.tpu_frontier_width > 0:
+        return config.tpu_frontier_width
+    return min(frontier_width(num_columns, num_bins),
+               max(1, -(-max(2, config.num_leaves) // 16)))
+
+
 def build_feature_meta(dataset: TorchDataset,
                        device: torch.device) -> FeatureMeta:
     infos = dataset.feature_infos()
@@ -80,8 +94,13 @@ def build_feature_meta(dataset: TorchDataset,
 
 
 class GBDT:
+    """``fused_route`` picks the segment grower's kernels (K3, or K2 + K1
+    when False); ``frontier_tier`` the frontier grower's (None, "off",
+    "k1" or "fusedk": FrontierGrower), and is given only with
+    ``tpu_tree_impl=frontier``."""
+
     def __init__(self, config: Config, train_set: TorchDataset, objective,
-                 fused_route: bool = True):
+                 fused_route: bool = True, frontier_tier=None):
         self.config = config
         self.device = resolve_device(config)
         self.objective = objective
@@ -107,22 +126,30 @@ class GBDT:
         self.member = torch.zeros(npad, dtype=torch.float32,
                                   device=self.device)
         self.member[:self.num_data] = 1.0
-        self.grower = SegmentGrower(
-            self.num_bins,
-            GrowerParams(
-                num_leaves=config.num_leaves, max_depth=config.max_depth,
-                split=SplitParams(
-                    lambda_l1=config.lambda_l1, lambda_l2=config.lambda_l2,
-                    max_delta_step=config.max_delta_step,
-                    min_data_in_leaf=float(config.min_data_in_leaf),
-                    min_sum_hessian_in_leaf=config.min_sum_hessian_in_leaf,
-                    min_gain_to_split=config.min_gain_to_split,
-                    cat_smooth=config.cat_smooth, cat_l2=config.cat_l2,
-                    max_cat_threshold=config.max_cat_threshold,
-                    max_cat_to_onehot=config.max_cat_to_onehot,
-                    min_data_per_group=config.min_data_per_group,
-                    has_cat=train_set.has_categorical)),
-            rb, fused_route=fused_route)
+        params = GrowerParams(
+            num_leaves=config.num_leaves, max_depth=config.max_depth,
+            split=SplitParams(
+                lambda_l1=config.lambda_l1, lambda_l2=config.lambda_l2,
+                max_delta_step=config.max_delta_step,
+                min_data_in_leaf=float(config.min_data_in_leaf),
+                min_sum_hessian_in_leaf=config.min_sum_hessian_in_leaf,
+                min_gain_to_split=config.min_gain_to_split,
+                cat_smooth=config.cat_smooth, cat_l2=config.cat_l2,
+                max_cat_threshold=config.max_cat_threshold,
+                max_cat_to_onehot=config.max_cat_to_onehot,
+                min_data_per_group=config.min_data_per_group,
+                has_cat=train_set.has_categorical))
+        if config.tpu_tree_impl == "frontier":
+            self.grower = FrontierGrower(
+                self.num_bins, params, rb,
+                _auto_frontier_k(config, self.bins.shape[0], self.num_bins),
+                config.tpu_frontier_gain_ratio, tier=frontier_tier)
+        elif frontier_tier is not None:
+            raise LightGBMError("frontier_tier is given, but "
+                                "tpu_tree_impl is not 'frontier'")
+        else:
+            self.grower = SegmentGrower(self.num_bins, params, rb,
+                                        fused_route=fused_route)
         self.train_score = torch.zeros(
             (self.num_tree_per_iteration, self.num_data),
             dtype=torch.float32, device=self.device)

@@ -26,7 +26,9 @@ The split loop is driven from the host: a Python loop over splits, with
 the best-split records of every leaf kept on the host (one device->host
 fetch per split).  The reference's own GPU learner drives its splits the
 same way.  Histograms, routing, split search and compaction stay on the
-device.
+device.  The per-tree state, a split's host bookkeeping
+(``record_split``) and the batched scan (``HostGrower``) are shared with
+the frontier grower (grower_frontier.py).
 """
 
 from __future__ import annotations
@@ -115,46 +117,102 @@ def _unpermute(order: torch.Tensor, leaf_id: torch.Tensor) -> torch.Tensor:
     return torch.empty_like(leaf_id).index_copy_(0, order, leaf_id)
 
 
-class SegmentGrower:
-    """``grow(binsT, grad, hess, member, fmeta)`` takes feature-major bins
-    [F, Npad] (Npad a multiple of ``block_rows``; pad rows must carry
-    member == 0) and returns ``(TreeArrays, leaf_id)`` with leaf ids in
-    the original row order.
+def split_route(st: _SegState, leaf: int, new_leaf: int,
+                fm_host: FeatureMeta) -> torch.Tensor:
+    """The route descriptor of the cached best split of ``leaf``."""
+    return pack_route(leaf, new_leaf, int(st.best_feature[leaf]),
+                      int(st.best_threshold[leaf]), bool(st.best_dl[leaf]),
+                      bool(st.best_is_cat[leaf]), st.best_bitset[leaf],
+                      fm_host)
 
-    ``fused_route`` (default) runs each split's route and smaller-child
-    histogram as one kernel (K3); False runs the unfused pair (K2, K1).
-    """
+
+def record_split(st: _SegState, leaf: int, new_leaf: int, node: int) -> None:
+    """Host bookkeeping of the cached best split of ``leaf`` (Tree::Split,
+    tree.h:407-445): the new leaf inherits the parent's window (routing
+    touches only it), the tree arrays and the two children's sums."""
+    st.leaf_lo[new_leaf], st.leaf_hi[new_leaf] = (st.leaf_lo[leaf],
+                                                  st.leaf_hi[leaf])
+    Gl, Hl, Cl = st.best_left[leaf]
+    Gp, Hp, Cp = st.leaf_g[leaf], st.leaf_h[leaf], st.leaf_c[leaf]
+    Gr, Hr, Cr = Gp - Gl, Hp - Hl, Cp - Cl
+    tr = st.tree
+    parent = int(tr.leaf_parent[leaf])
+    if parent >= 0:
+        if tr.left_child[parent] == ~leaf:
+            tr.left_child[parent] = node
+        if tr.right_child[parent] == ~leaf:
+            tr.right_child[parent] = node
+    tr.left_child[node] = ~leaf
+    tr.right_child[node] = ~new_leaf
+    tr.split_feature[node] = st.best_feature[leaf]
+    tr.threshold_bin[node] = st.best_threshold[leaf]
+    tr.default_left[node] = st.best_dl[leaf]
+    tr.is_cat[node] = st.best_is_cat[leaf]
+    tr.cat_bitset[node] = st.best_bitset[leaf]
+    tr.split_gain[node] = st.best_gain[leaf]
+    tr.internal_value[node] = tr.leaf_value[leaf]
+    tr.internal_weight[node] = Hp
+    tr.internal_count[node] = Cp
+    tr.leaf_value[leaf], tr.leaf_value[new_leaf] = st.best_out[leaf]
+    tr.leaf_weight[leaf], tr.leaf_weight[new_leaf] = Hl, Hr
+    tr.leaf_count[leaf], tr.leaf_count[new_leaf] = Cl, Cr
+    tr.leaf_parent[leaf] = tr.leaf_parent[new_leaf] = node
+    tr.leaf_depth[leaf] = tr.leaf_depth[new_leaf] = tr.leaf_depth[leaf] + 1
+    st.num_leaves += 1
+    tr.num_leaves = st.num_leaves
+    st.leaf_g[leaf], st.leaf_g[new_leaf] = Gl, Gr
+    st.leaf_h[leaf], st.leaf_h[new_leaf] = Hl, Hr
+    st.leaf_c[leaf], st.leaf_c[new_leaf] = Cl, Cr
+
+
+class HostGrower:
+    """What the segment and frontier growers share: the per-tree state,
+    the batched best-split scan into the host cache, the stop rule.
+    ``grow(binsT, grad, hess, member, fmeta, root=None)`` takes
+    feature-major bins [F, Npad] (Npad a multiple of ``block_rows``; pad
+    rows must carry member == 0) and returns ``(TreeArrays, leaf_id)``
+    with leaf ids in the original row order.
+
+    ``root``, when given, is ``(w8, scales, root_hist)``: this tree's
+    channels as pack_channels packs them, their fixed_point_scales, and
+    the root histogram [F, B, 3] at those scales, which takes the place of
+    the root's own pass (K5's slice of this class is, bit for bit, what
+    that pass gives).  The splits' kernels use the same ``w8`` and
+    ``scales``."""
 
     def __init__(self, num_bins: int, params: GrowerParams,
-                 block_rows: int, fused_route: bool = True):
+                 block_rows: int):
         self.B = num_bins
         self.p = params
         self.rb = block_rows
-        self.fused_route = fused_route
         self.last_stats = {}
 
-    # -------------------------------------------------------------- pieces
-    def _hist_leaf(self, st: _SegState, leaf: int, scales) -> torch.Tensor:
-        lo = st.leaf_lo[leaf]
-        n_blk = st.leaf_hi[leaf] - lo
-        if self.fused_route:
-            # the split path's kernel with a match-nothing route
-            _, out = histogram_segment_routed(
-                st.binsT, st.w8, st.leaf_id, lo, n_blk, leaf, null_route(),
-                self.B, self.rb, scales)
-            return out
-        return histogram_segment(st.binsT, st.w8, st.leaf_id, lo, n_blk,
-                                 leaf, self.B, self.rb, scales)
+    def _start(self, binsT, grad, hess, member, root):
+        """-> (state, scales, root histogram or None)."""
+        F, n = binsT.shape
+        if n % self.rb:
+            raise ValueError(f"Npad {n} is not a multiple of {self.rb}")
+        if root is None:
+            w8 = pack_channels(grad, hess, member)
+            scales = fixed_point_scales(w8)
+            root_hist = None
+        else:
+            w8, scales, root_hist = root
+        G0, H0, C0 = torch.stack([torch.sum(grad * member),
+                                  torch.sum(hess * member),
+                                  torch.sum(member)]).cpu().numpy()
+        st = _SegState(binsT, w8, self.p.num_leaves, n // self.rb, G0, H0,
+                       C0, F, self.B)
+        return st, scales, root_hist
 
-    def _scan(self, st: _SegState, leaves, hists, g, h, c, depth: int,
-              fmeta: FeatureMeta) -> None:
-        """Best split of each leaf in ``leaves`` from its histogram; one
-        device->host fetch writes the host cache (in float64 when it
-        carries categorical bitsets, whose 32-bit words float32 would
-        round)."""
+    def _scan(self, st: _SegState, leaves, hists, fmeta: FeatureMeta) -> None:
+        """Best split of each leaf in ``leaves`` from its histogram and its
+        sums; one device->host fetch writes the host cache (in float64
+        when it carries categorical bitsets, whose 32-bit words float32
+        would round).  A leaf at max_depth gets gain -inf."""
         dev = hists.device
-        g, h, c = (torch.tensor(np.asarray(v, np.float32), device=dev)
-                   for v in (g, h, c))
+        g, h, c = (torch.from_numpy(v[leaves]).to(dev)
+                   for v in (st.leaf_g, st.leaf_h, st.leaf_c))
         info = best_split(hists, g, h, c, fmeta, self.p.split)
         cols = [info.gain, info.feature, info.threshold, info.default_left,
                 info.left_g, info.left_h, info.left_c, info.left_out,
@@ -166,7 +224,8 @@ class SegmentGrower:
         rec = torch.stack([x.to(dtype) for x in cols], dim=1).cpu().numpy()
         for k, leaf in enumerate(leaves):
             gain = rec[k, 0]
-            if self.p.max_depth > 0 and depth >= self.p.max_depth:
+            if (self.p.max_depth > 0
+                    and st.tree.leaf_depth[leaf] >= self.p.max_depth):
                 gain = np.float32(NEG_INF)
             st.best_gain[leaf] = gain
             st.best_feature[leaf] = int(rec[k, 1])
@@ -182,25 +241,39 @@ class SegmentGrower:
         return (st.num_leaves < self.p.num_leaves
                 and float(st.best_gain.max()) > 0.0)
 
+
+class SegmentGrower(HostGrower):
+    """Strict best-first: one split at a time (HostGrower has the call
+    contract).  ``fused_route`` (default) runs each split's route and
+    smaller-child histogram as one kernel (K3); False runs the unfused
+    pair (K2, K1)."""
+
+    def __init__(self, num_bins: int, params: GrowerParams,
+                 block_rows: int, fused_route: bool = True):
+        super().__init__(num_bins, params, block_rows)
+        self.fused_route = fused_route
+
+    def _hist_leaf(self, st: _SegState, leaf: int, scales) -> torch.Tensor:
+        lo = st.leaf_lo[leaf]
+        n_blk = st.leaf_hi[leaf] - lo
+        if self.fused_route:
+            # the split path's kernel with a match-nothing route
+            _, out = histogram_segment_routed(
+                st.binsT, st.w8, st.leaf_id, lo, n_blk, leaf, null_route(),
+                self.B, self.rb, scales)
+            return out
+        return histogram_segment(st.binsT, st.w8, st.leaf_id, lo, n_blk,
+                                 leaf, self.B, self.rb, scales)
+
     def _do_split(self, st: _SegState, fmeta: FeatureMeta, fm_host,
                   scales) -> None:
         leaf = int(np.argmax(st.best_gain))
         new_leaf = st.num_leaves
-        node = st.num_leaves - 1
-        f = int(st.best_feature[leaf])
-        t = int(st.best_threshold[leaf])
-        dl = bool(st.best_dl[leaf])
-        is_cat = bool(st.best_is_cat[leaf])
-        bitset = st.best_bitset[leaf]
-        # children inherit the parent's window; routing touches only it
         lo, hi = st.leaf_lo[leaf], st.leaf_hi[leaf]
-        Gl, Hl, Cl = st.best_left[leaf]
-        Gp, Hp, Cp = st.leaf_g[leaf], st.leaf_h[leaf], st.leaf_c[leaf]
-        Gr, Hr, Cr = Gp - Gl, Hp - Hl, Cp - Cl
-        smaller_is_left = bool(Cl <= Cr)
+        Cl, Cp = st.best_left[leaf, 2], st.leaf_c[leaf]
+        smaller_is_left = bool(Cl <= Cp - Cl)
         smaller = leaf if smaller_is_left else new_leaf
-
-        route = pack_route(leaf, new_leaf, f, t, dl, is_cat, bitset, fm_host)
+        route = split_route(st, leaf, new_leaf, fm_host)
         if self.fused_route:
             # route + smaller-child histogram in ONE pass over the window;
             # leaf_id is updated in place
@@ -209,7 +282,7 @@ class SegmentGrower:
                 self.B, self.rb, scales)
         else:
             route_window(st.binsT, st.leaf_id, lo, hi - lo, route, self.rb)
-        st.leaf_lo[new_leaf], st.leaf_hi[new_leaf] = lo, hi
+        record_split(st, leaf, new_leaf, new_leaf - 1)
         if not self.fused_route:
             hist_small = self._hist_leaf(st, smaller, scales)
         hist_large = st.leaf_hist[leaf] - hist_small
@@ -219,40 +292,8 @@ class SegmentGrower:
         st.scanned_total += hi - lo
         st.leaf_hist[leaf] = hist_left
         st.leaf_hist[new_leaf] = hist_right
-
-        tr = st.tree
-        depth_child = int(tr.leaf_depth[leaf]) + 1
-        parent = int(tr.leaf_parent[leaf])
-        if parent >= 0:
-            if tr.left_child[parent] == ~leaf:
-                tr.left_child[parent] = node
-            if tr.right_child[parent] == ~leaf:
-                tr.right_child[parent] = node
-        tr.left_child[node] = ~leaf
-        tr.right_child[node] = ~new_leaf
-        tr.split_feature[node] = f
-        tr.threshold_bin[node] = t
-        tr.default_left[node] = dl
-        tr.is_cat[node] = is_cat
-        tr.cat_bitset[node] = bitset
-        tr.split_gain[node] = st.best_gain[leaf]
-        tr.internal_value[node] = tr.leaf_value[leaf]
-        tr.internal_weight[node] = Hp
-        tr.internal_count[node] = Cp
-        tr.leaf_value[leaf], tr.leaf_value[new_leaf] = st.best_out[leaf]
-        tr.leaf_weight[leaf], tr.leaf_weight[new_leaf] = Hl, Hr
-        tr.leaf_count[leaf], tr.leaf_count[new_leaf] = Cl, Cr
-        tr.leaf_parent[leaf] = tr.leaf_parent[new_leaf] = node
-        tr.leaf_depth[leaf] = tr.leaf_depth[new_leaf] = depth_child
-        st.num_leaves += 1
-        tr.num_leaves = st.num_leaves
-
-        st.leaf_g[leaf], st.leaf_g[new_leaf] = Gl, Gr
-        st.leaf_h[leaf], st.leaf_h[new_leaf] = Hl, Hr
-        st.leaf_c[leaf], st.leaf_c[new_leaf] = Cl, Cr
-        self._scan(st, [leaf, new_leaf],
-                   torch.stack([hist_left, hist_right]),
-                   [Gl, Gr], [Hl, Hr], [Cl, Cr], depth_child, fmeta)
+        self._scan(st, [leaf, new_leaf], torch.stack([hist_left, hist_right]),
+                   fmeta)
 
     # ---------------------------------------------------------------- grow
     def grow(self, binsT: torch.Tensor, grad: torch.Tensor,
@@ -260,33 +301,15 @@ class SegmentGrower:
              root: Optional[Tuple[torch.Tensor, torch.Tensor,
                                   torch.Tensor]] = None
              ) -> Tuple[TreeArrays, torch.Tensor]:
-        """``root``, when given, is ``(w8, scales, root_hist)``: this
-        tree's channels as pack_channels packs them, their
-        fixed_point_scales, and the root histogram [F, B, 3] at those
-        scales, which takes the place of the root's own full-window pass
-        (K5's slice of this class is, bit for bit, what that pass gives).
-        The splits' kernels use the same ``w8`` and ``scales``."""
-        F, n = binsT.shape
         L, rb = self.p.num_leaves, self.rb
-        if n % rb:
-            raise ValueError(f"Npad {n} is not a multiple of {rb}")
-        max_blocks = n // rb
+        st, scales, root_hist = self._start(binsT, grad, hess, member, root)
+        max_blocks = binsT.shape[1] // rb
         fm_host = FeatureMeta(*(t.cpu().numpy() for t in fmeta[:3]))
-        if root is None:
-            w8 = pack_channels(grad, hess, member)
-            scales = fixed_point_scales(w8)
-            root_hist = None
-        else:
-            w8, scales, root_hist = root
-        G0, H0, C0 = torch.stack([torch.sum(grad * member),
-                                  torch.sum(hess * member),
-                                  torch.sum(member)]).cpu().numpy()
-        st = _SegState(binsT, w8, L, max_blocks, G0, H0, C0, F, self.B)
         if root_hist is None:
             root_hist = self._hist_leaf(st, 0, scales)
         st.leaf_hist[0] = root_hist
         st.scanned_since = st.scanned_total = max_blocks
-        self._scan(st, [0], root_hist[None], [G0], [H0], [C0], 0, fmeta)
+        self._scan(st, [0], root_hist[None], fmeta)
 
         # adaptive compaction: amortize the sort against the scans it saves
         limit_blocks = min(max(1, int(COMPACT_WASTE * max_blocks)),

@@ -1,5 +1,5 @@
-"""Histograms and split routing of the segment grower: kernels K1, K2, K3
-and K5, their plain PyTorch versions, and the host-side helpers.
+"""Histograms and split routing of the growers: kernels K1, K2, K3, K5, K6
+and K7, their plain PyTorch versions, and the host-side helpers.
 
 Counterpart of lightgbm_tpu/ops/pallas_histogram.py.  The TPU kernels
 there become hand-written CUDA kernels in ``csrc/histogram.cu``:
@@ -13,7 +13,14 @@ there become hand-written CUDA kernels in ``csrc/histogram.cu``:
     one pass; with ``null_route()`` it is K1;
   * ``histogram_all`` (K5): the histogram of every row for each of C
     stacked channel sets (``pack_channel_sets``) — the C class-tree roots
-    of a multiclass iteration in one launch.
+    of a multiclass iteration in one launch;
+  * ``histogram_frontier`` (K6): the histograms of KT target leaves in
+    one pass over a list of whole row blocks (``union_block_list``: the
+    union of the frontier round's confinement windows) -> [KT, F, B, 3];
+  * ``histogram_frontier_routed`` / ``histogram_frontier_fusedk`` (K7):
+    the round's K split routes applied to ``leaf_id`` over the listed
+    blocks, then K6 from the updated ids, for KT = K (the smaller
+    children) or KT = 2K targets (both children of every split).
 
 Each wrapper takes tensors on one device.  A CPU tensor goes to the plain
 version (``*_plain``, bincount and where), which is also what the card
@@ -31,6 +38,8 @@ depend on the order of the rows; ``fixed_point_scales`` picks the scale
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -41,6 +50,10 @@ NUM_CHANNELS = 8
 # pack_route's layout: leaf, new_leaf, row, col, thr, dl, cat, mt, dbin,
 # nbf, off + 8 bitset words
 ROUTE_WORDS = 19
+# frontier_width's constants, as lightgbm_tpu/ops/pallas_histogram.py has
+# them (_FRONTIER_K and its 6 MB accumulator budget)
+_FRONTIER_K = 16
+_FRONTIER_ACC_BYTES = 6 * 1024 * 1024
 
 
 def pack_channels(grad: torch.Tensor, hess: torch.Tensor,
@@ -116,6 +129,31 @@ def null_route() -> torch.Tensor:
     return r
 
 
+def frontier_width(num_features: int, num_bins: int) -> int:
+    """Frontier width K of the frontier grower for this shape, verbatim
+    from lightgbm_tpu/ops/pallas_histogram.py:frontier_width.  Its budget
+    was sized for a TPU's VMEM and has no meaning on this card, but K
+    decides which leaves a round splits, so the port keeps it to grow the
+    same trees as the JAX package."""
+    F4 = -(-num_features // 4) * 4
+    k = _FRONTIER_K
+    while k > 1 and F4 * num_bins * NUM_CHANNELS * k * 4 > _FRONTIER_ACC_BYTES:
+        k //= 2
+    return k
+
+
+def union_block_list(lo, hi, valid):
+    """The frontier round's union of the confinement windows
+    ``[lo[j], hi[j])`` (in row blocks) of the slots with ``valid[j]``:
+    ``(block_list, n)``, a sorted host int32 tensor of the n distinct
+    blocks (lightgbm_tpu/models/grower_frontier.py:498-508)."""
+    spans = [np.arange(int(a), int(b), dtype=np.int32)
+             for a, b, v in zip(lo, hi, valid) if v and int(b) > int(a)]
+    blocks = (np.unique(np.concatenate(spans)) if spans
+              else np.zeros(0, np.int32))
+    return torch.from_numpy(blocks.astype(np.int32)), int(blocks.shape[0])
+
+
 # ------------------------------------------------------------------ helpers
 def _window(npad: int, start_block: int, n_blocks: int,
             block_rows: int):
@@ -142,6 +180,27 @@ def _check_route(route: torch.Tensor) -> None:
             or route.shape != (ROUTE_WORDS,) or not route.is_contiguous()):
         raise ValueError("route must be a contiguous host int32 tensor of "
                          f"{ROUTE_WORDS} words (pack_route / null_route)")
+
+
+def _check_frontier_args(targets, routes, targets_per_route: int) -> None:
+    """``routes``: None or a host int32 tensor [K, ROUTE_WORDS] (rows of
+    pack_route / null_route); ``targets``: a host int32 tensor of leaf ids
+    (-1 = an empty slot), ``targets_per_route`` x K of them when there are
+    routes."""
+    if routes is not None and (
+            not isinstance(routes, torch.Tensor)
+            or routes.device.type != "cpu" or routes.dtype != torch.int32
+            or routes.dim() != 2 or routes.shape[1] != ROUTE_WORDS
+            or routes.shape[0] < 1):
+        raise ValueError(f"routes must be a host int32 tensor [K, "
+                         f"{ROUTE_WORDS}] (pack_route / null_route rows)")
+    if (not isinstance(targets, torch.Tensor)
+            or targets.device.type != "cpu" or targets.dtype != torch.int32
+            or targets.dim() != 1 or targets.shape[0] < 1
+            or (routes is not None and targets.shape[0]
+                != targets_per_route * routes.shape[0])):
+        raise ValueError("targets must be a 1-D host int32 tensor of leaf "
+                         f"ids ({targets_per_route} per route)")
 
 
 def _device_kind(t: torch.Tensor) -> str:
@@ -180,20 +239,28 @@ def route_window_plain(binsT, leaf_id, start_block, n_blocks, route,
     return leaf_id
 
 
-def _plain_sums(bins, w, num_bins):
+def _plain_sums(bins, w, num_bins, slot=None, n_slots=1):
     """[F, rows] bins and [5, rows] float64 channels -> [F, B, 3] float32:
     the five channel sums by bincount in float64 (so the order the rows
     arrive in moves no bit that survives the cast), then unpack_hist.
-    Bins >= num_bins are dropped, as the kernels drop them."""
+    Bins >= num_bins are dropped, as the kernels drop them.  With
+    ``slot`` ([rows] int64, -1 = no slot) each row adds to the histogram
+    of its slot: -> [n_slots, F, B, 3]."""
     F = bins.shape[0]
     cells = F * num_bins
+    total = n_slots * cells
     b = bins.long()
     keys = b + torch.arange(F, device=bins.device)[:, None] * num_bins
-    keys = torch.where(b < num_bins, keys, cells).reshape(-1)
+    keep = b < num_bins
+    if slot is not None:
+        keys = keys + slot[None, :] * cells
+        keep = keep & (slot >= 0)[None, :]
+    keys = torch.where(keep, keys, total).reshape(-1)
     sums = torch.stack([torch.bincount(keys, weights=w[c].repeat(F),
-                                       minlength=cells + 1)[:cells]
+                                       minlength=total + 1)[:total]
                         for c in range(5)], dim=-1)
-    return unpack_hist(sums.reshape(F, num_bins, 5)).float()
+    out = unpack_hist(sums.reshape(n_slots, F, num_bins, 5)).float()
+    return out if slot is not None else out[0]
 
 
 def histogram_segment_plain(binsT, w8, leaf_id, start_block, n_blocks,
@@ -222,6 +289,52 @@ def histogram_segment_routed_plain(binsT, w8, leaf_id, start_block,
     return leaf_id, histogram_segment_plain(binsT, w8, leaf_id, start_block,
                                             n_blocks, target, num_bins,
                                             block_rows)
+
+
+def _union_rows(block_list, n_blocks, block_rows, device):
+    blk = block_list[:int(n_blocks)].to(device=device, dtype=torch.int64)
+    return (blk[:, None] * block_rows
+            + torch.arange(block_rows, device=device)).reshape(-1)
+
+
+def histogram_frontier_plain(binsT, w8, leaf_id, block_list, n_blocks,
+                             targets, num_bins, block_rows):
+    """Plain K6 -> [KT, F, B, 3] float32: slot k is plain K1 of leaf
+    ``targets[k]`` over the listed blocks' rows (the same float64 sums);
+    a -1 slot is zeros.  Targets are distinct (the first match wins)."""
+    F = binsT.shape[0]
+    KT = int(targets.shape[0])
+    rows = _union_rows(block_list, n_blocks, block_rows, binsT.device)
+    if rows.numel() == 0:
+        return torch.zeros((KT, F, num_bins, 3), dtype=torch.float32,
+                           device=binsT.device)
+    lid = leaf_id[rows]
+    slot = torch.full(lid.shape, -1, dtype=torch.int64, device=lid.device)
+    for k in reversed(range(KT)):
+        t = int(targets[k])
+        if t >= 0:
+            slot = torch.where(lid == t, k, slot)
+    return _plain_sums(binsT[:, rows], w8[:5, rows].double(), num_bins,
+                       slot, KT)
+
+
+def histogram_frontier_routed_plain(binsT, w8, leaf_id, block_list,
+                                    n_blocks, targets, routes, num_bins,
+                                    block_rows):
+    """Plain K7: each route of ``routes`` [K, 19] applied to ``leaf_id``
+    in place over the listed blocks (at most one matches a row, so their
+    order does not matter), then plain K6 on the updated ids.  Returns
+    ``(leaf_id, [KT, F, B, 3])`` for any KT (K or 2K)."""
+    rows = _union_rows(block_list, n_blocks, block_rows, binsT.device)
+    if rows.numel():
+        lid = leaf_id[rows]
+        for r in routes.tolist():
+            if r[0] >= 0:
+                lid = routed_ids_plain(binsT[r[2], rows], lid, r)
+        leaf_id[rows] = lid
+    return leaf_id, histogram_frontier_plain(
+        binsT, w8, leaf_id, block_list, n_blocks, targets, num_bins,
+        block_rows)
 
 
 # ----------------------------------------------------------------- wrappers
@@ -341,3 +454,123 @@ def route_window(binsT: torch.Tensor, leaf_id: torch.Tensor,
     kernels.check_launch("route_window", rc)
     return leaf_id
 
+
+def frontier_tiling(num_features: int, num_bins: int, n_targets: int,
+                    n_routes: int) -> dict:
+    """The card kernel's tiling of K6/K7 at this shape: features and
+    target slots a block holds, its shared memory, and the feature and
+    target tiles of the grid (csrc/histogram.cu lgbt_frontier_tiling)."""
+    out = (ctypes.c_int * 3)()
+    rc = kernels.library().lgbt_frontier_tiling(
+        int(num_features), int(num_bins), int(n_targets), int(n_routes),
+        ctypes.addressof(out))
+    if rc != 0:
+        raise ValueError(f"{n_targets} target slots at {num_bins} bins do "
+                         "not fit the frontier kernel's shared memory")
+    ft, tt, smem = out
+    return {"tile_features": ft, "tile_targets": tt, "smem_bytes": smem,
+            "feature_tiles": -(-num_features // ft),
+            "target_tiles": -(-n_targets // tt)}
+
+
+def _launch_frontier(name, binsT, w8, leaf_id, block_list, n_blocks,
+                     targets, routes, num_bins, block_rows, scales):
+    F, npad = binsT.shape
+    dev = binsT.device
+    _check_cuda(dev, binsT=(binsT, torch.uint8), w8=(w8, torch.bfloat16),
+                leaf_id=(leaf_id, torch.int32),
+                block_list=(block_list, torch.int32),
+                scales=(scales, torch.float32))
+    if w8.shape != (NUM_CHANNELS, npad) or leaf_id.shape != (npad,):
+        raise ValueError("w8 must be [8, Npad] and leaf_id [Npad]")
+    if not 1 <= num_bins <= 256 or scales.shape != (2,):
+        raise ValueError("num_bins must be in [1, 256] and scales [2]")
+    if npad % block_rows:
+        raise ValueError(f"Npad {npad} is not a multiple of the row block "
+                         f"{block_rows}")
+    if (block_list.dim() != 1
+            or not 0 <= int(n_blocks) <= block_list.shape[0]):
+        raise ValueError("block_list must be 1-D with n_blocks <= its "
+                         "length")
+    KT = int(targets.shape[0])
+    K = 0 if routes is None else int(routes.shape[0])
+    frontier_tiling(F, num_bins, KT, K)       # raises where it cannot fit
+    words = targets if routes is None else torch.cat(
+        [targets, routes.reshape(-1)])
+    params = words.to(dev)
+    acc = torch.empty((KT * F * num_bins * 3,), dtype=torch.int64,
+                      device=dev)
+    out = torch.empty((KT, F, num_bins, 3), dtype=torch.float32, device=dev)
+    rc = kernels.library().lgbt_histogram_frontier(
+        binsT.data_ptr(), w8.data_ptr(), leaf_id.data_ptr(), npad, F,
+        num_bins, int(block_rows), block_list.data_ptr(), int(n_blocks),
+        params.data_ptr(), KT, K, scales.data_ptr(), acc.data_ptr(),
+        out.data_ptr(), kernels.stream_ptr(dev))
+    kernels.check_launch(name, rc)
+    return out
+
+
+def histogram_frontier(binsT: torch.Tensor, w8: torch.Tensor,
+                       leaf_id: torch.Tensor, block_list: torch.Tensor,
+                       n_blocks: int, targets: torch.Tensor, num_bins: int,
+                       block_rows: int, scales: torch.Tensor) -> torch.Tensor:
+    """K6: the histograms of the leaves ``targets`` (a host int32 tensor
+    [KT]; -1 = an empty slot, zeros) over the rows of the blocks
+    ``block_list[:n_blocks]`` (an int32 tensor on binsT's device) ->
+    [KT, F, B, 3] f32, in target order.  ``scales`` is
+    fixed_point_scales(w8)."""
+    _check_frontier_args(targets, None, 0)
+    if _device_kind(binsT) == "cpu":
+        return histogram_frontier_plain(binsT, w8, leaf_id, block_list,
+                                        n_blocks, targets, num_bins,
+                                        block_rows)
+    return _launch_frontier("histogram_frontier", binsT, w8, leaf_id,
+                            block_list, n_blocks, targets, None, num_bins,
+                            block_rows, scales)
+
+
+def histogram_frontier_routed(binsT: torch.Tensor, w8: torch.Tensor,
+                              leaf_id: torch.Tensor,
+                              block_list: torch.Tensor, n_blocks: int,
+                              targets: torch.Tensor, routes: torch.Tensor,
+                              num_bins: int, block_rows: int,
+                              scales: torch.Tensor):
+    """K7 with KT = K: apply the K routes ``routes`` [K, 19] (null_route()
+    rows for empty slots) to ``leaf_id`` in place over the listed blocks
+    AND histogram the K ``targets`` from the updated ids, in one pass.
+    Returns ``(leaf_id, [K, F, B, 3])``."""
+    _check_frontier_args(targets, routes, 1)
+    return _frontier_routed("histogram_frontier_routed", binsT, w8, leaf_id,
+                            block_list, n_blocks, targets, routes, num_bins,
+                            block_rows, scales)
+
+
+def histogram_frontier_fusedk(binsT: torch.Tensor, w8: torch.Tensor,
+                              leaf_id: torch.Tensor,
+                              block_list: torch.Tensor, n_blocks: int,
+                              targets2: torch.Tensor, routes: torch.Tensor,
+                              num_bins: int, block_rows: int,
+                              scales: torch.Tensor):
+    """K7 with KT = 2K: apply the K routes and histogram all 2K children
+    in one pass; ``targets2`` is [left children = the routed parents,
+    which keep their ids, then right children = the new leaves], -1 for
+    an empty slot.  Returns ``(leaf_id, [2K, F, B, 3])`` in that order,
+    so the round needs no parent histogram and no subtraction."""
+    _check_frontier_args(targets2, routes, 2)
+    return _frontier_routed("histogram_frontier_fusedk", binsT, w8,
+                            leaf_id, block_list, n_blocks, targets2, routes,
+                            num_bins, block_rows, scales)
+
+
+def _frontier_routed(name, binsT, w8, leaf_id, block_list, n_blocks,
+                     targets, routes, num_bins, block_rows, scales):
+    if _device_kind(binsT) == "cpu":
+        return histogram_frontier_routed_plain(
+            binsT, w8, leaf_id, block_list, n_blocks, targets, routes,
+            num_bins, block_rows)
+    if not bool(((routes[:, 2] >= 0) & (routes[:, 2] < binsT.shape[0]))
+                .all()):
+        raise ValueError("a route's bin row is outside binsT")
+    hist = _launch_frontier(name, binsT, w8, leaf_id, block_list, n_blocks,
+                            targets, routes, num_bins, block_rows, scales)
+    return leaf_id, hist

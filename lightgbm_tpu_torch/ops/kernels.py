@@ -37,7 +37,8 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 KERNEL_NAMES = ("histogram_segment", "route_window",
                 "histogram_segment_routed", "score_gather_add",
-                "histogram_all")
+                "histogram_all", "histogram_frontier",
+                "histogram_frontier_routed", "histogram_frontier_fusedk")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNEL_NAMES}
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -52,6 +53,9 @@ _SIGNATURES = {
     "lgbt_route_window": [_P, _P, _LL, _LL, _LL, _P, _P],
     "lgbt_score_gather_add": [_P, _P, _P, _P, _LL, _I, _P],
     "lgbt_histogram_tile_features": [_I, _I],
+    "lgbt_histogram_frontier": [_P, _P, _P, _LL, _I, _I, _I, _P, _LL, _P,
+                                _I, _I, _P, _P, _P, _P],
+    "lgbt_frontier_tiling": [_I, _I, _I, _I, _P],
 }
 
 

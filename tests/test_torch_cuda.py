@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
-K1-K5 at small shapes, a categorical route taken from a real categorical
-split, and binary and multiclass training with their launch counts.
+K1-K7 at small shapes (K6/K7 with 16 routes and 32 target slots, at 64
+and 256 bins), a categorical route taken from a real categorical split,
+and binary and multiclass training, segment and frontier, with their
+launch counts.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips where
 ``torch.cuda.is_available()`` is false.  The file imports neither JAX nor
@@ -313,3 +315,199 @@ def test_multiclass_training_on_card_counts_launches_and_matches_cpu(dev):
             assert sum(n_l.values()) == 0
         raws[device] = bst.predict(X, raw_score=True)
     assert np.abs(raws["cuda"] - raws["cpu"]).max() < 1e-3
+
+
+def _frontier_round(F, B, K, npad, seed):
+    """A frontier round's inputs: leaf ids 0..2K-1 laid out in runs, the
+    K routes of leaves 0..K-1 (new leaves 2K..3K-1; numeric, NaN- and
+    zero-missing, categorical, and a null route in the last slot), and
+    the union of a few block windows."""
+    fm, binsT, w8, _ = _inputs(F, B, npad, seed)
+    rng = np.random.RandomState(seed)
+    lid = torch.from_numpy(np.sort(rng.randint(0, 2 * K, size=npad)).astype(
+        np.int32))
+    routes = []
+    for k in range(K):
+        f = k % F
+        cat = k % 4 == 3
+        bitset = rng.randint(0, 2**32, size=8, dtype=np.uint64).astype(
+            np.uint32)
+        routes.append(th.pack_route(k, 2 * K + k, f, int(fm.num_bin[f]) // 2,
+                                    k % 2 == 1, cat, bitset, fm)
+                      if k < K - 1 else th.null_route())
+    nblk = npad // RB
+    bl, n = th.union_block_list([0, 2, nblk // 2, nblk - 3],
+                                [3, 5, nblk // 2 + 2, nblk],
+                                [True] * 4)
+    return binsT, w8, lid, torch.stack(routes), bl, n
+
+
+def _assert_frontier(got, want, w8, binsT, lid, bl, n, targets, B):
+    g = (w8[0].float() + w8[1].float()).abs()
+    h = (w8[2].float() + w8[3].float()).abs()
+    z = torch.zeros_like(g)
+    scale = th.histogram_frontier_plain(
+        binsT, torch.stack([g, z, h, z, w8[4].float(), z, z, z]), lid, bl, n,
+        targets, B, RB).double()
+    got, want = got.cpu().double(), want.double()
+    assert torch.equal(got[..., 2], want[..., 2])
+    assert ((got - want).abs()[..., :2]
+            <= 1e-5 * scale[..., :2] + 1e-30).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [64, 256])
+def test_frontier_kernels_match_plain(dev, B):
+    """K6, K7 routed (KT = K = 16) and K7 fused-K (KT = 32) against their
+    plain versions; at 256 bins 32 slots of one feature (160 KB) do not fit
+    a block, so the targets tile across the grid."""
+    F, K, npad = 6, 16, 16 * RB
+    binsT, w8, lid, routes, bl, n = _frontier_round(F, B, K, npad, B)
+    tiling = th.frontier_tiling(F, B, 2 * K, K)
+    assert tiling["target_tiles"] == (2 if B == 256 else 1)
+    assert tiling["smem_bytes"] > 48 * 1024
+    scales = th.fixed_point_scales(w8)
+    d = dict(binsT=binsT.to(dev), w8=w8.to(dev), bl=bl.to(dev),
+             scales=scales.to(dev))
+    smaller = torch.tensor([k if k % 3 else 2 * K + k for k in range(K - 1)]
+                           + [-1], dtype=torch.int32)
+    targets2 = torch.tensor(list(range(K - 1)) + [-1]
+                            + list(range(2 * K, 3 * K - 1)) + [-1],
+                            dtype=torch.int32)
+    # K6 on ids already routed (the "off" tier's K2 ran first)
+    routed_lid, _ = th.histogram_frontier_routed_plain(
+        binsT, w8, lid.clone(), bl, n, smaller, routes, B, RB)
+    want = th.histogram_frontier_plain(binsT, w8, routed_lid, bl, n, smaller,
+                                       B, RB)
+    runs = [th.histogram_frontier(d["binsT"], d["w8"], routed_lid.to(dev),
+                                  d["bl"], n, smaller, B, RB, d["scales"])
+            for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+    _assert_frontier(runs[0], want, w8, binsT, routed_lid, bl, n, smaller, B)
+    assert not runs[0][K - 1].any()
+    for fn, targets in ((th.histogram_frontier_routed, smaller),
+                        (th.histogram_frontier_fusedk, targets2)):
+        want_lid, want = th.histogram_frontier_routed_plain(
+            binsT, w8, lid.clone(), bl, n, targets, routes, B, RB)
+        assert not torch.equal(want_lid, lid)
+        runs = []
+        for _ in range(2):
+            d_lid = lid.to(dev)
+            got_lid, got = fn(d["binsT"], d["w8"], d_lid, d["bl"], n,
+                              targets, routes, B, RB, d["scales"])
+            assert got_lid.data_ptr() == d_lid.data_ptr()
+            runs.append((got_lid.cpu(), got.cpu()))
+        for got_lid, _ in runs:
+            assert torch.equal(got_lid, want_lid)
+        assert torch.equal(runs[0][1], runs[1][1])
+        _assert_frontier(runs[0][1], want, w8, binsT, want_lid, bl, n,
+                         targets, B)
+    # n_blocks == 0: zero histograms, leaf ids untouched
+    d_lid = lid.to(dev)
+    _, empty = th.histogram_frontier_fusedk(
+        d["binsT"], d["w8"], d_lid, d["bl"], 0, targets2, routes, B, RB,
+        d["scales"])
+    assert not empty.any() and torch.equal(d_lid.cpu(), lid)
+
+
+@pytest.mark.cuda
+def test_frontier_wrappers_reject_bad_inputs(dev):
+    binsT, w8, lid, routes, bl, n = _frontier_round(4, 64, 4, 8 * RB, 2)
+    d_bins, d_w8, d_lid, d_bl = (binsT.to(dev), w8.to(dev), lid.to(dev),
+                                 bl.to(dev))
+    scales = th.fixed_point_scales(w8).to(dev)
+    t4 = torch.tensor([0, 1, 2, 3], dtype=torch.int32)
+    with pytest.raises(TypeError):
+        th.histogram_frontier(d_bins, d_w8, lid.long().to(dev), d_bl, n, t4,
+                              64, RB, scales)
+    with pytest.raises(TypeError):
+        th.histogram_frontier(d_bins, d_w8, d_lid, bl.long().to(dev), n, t4,
+                              64, RB, scales)
+    with pytest.raises(ValueError):       # block list on the host
+        th.histogram_frontier(d_bins, d_w8, d_lid, bl, n, t4, 64, RB, scales)
+    with pytest.raises(ValueError):       # more blocks than listed
+        th.histogram_frontier(d_bins, d_w8, d_lid, d_bl, n + 1, t4, 64, RB,
+                              scales)
+    with pytest.raises(ValueError):       # fused-K takes 2K targets
+        th.histogram_frontier_fusedk(d_bins, d_w8, d_lid, d_bl, n, t4,
+                                     routes, 64, RB, scales)
+    with pytest.raises(ValueError):       # w8 [8, Npad]
+        th.histogram_frontier_routed(d_bins, d_w8[:5].contiguous(), d_lid,
+                                     d_bl, n, t4, routes, 64, RB, scales)
+
+
+def _count_rounds(bst):
+    """Wraps the booster's frontier grower to sum its rounds over trees."""
+    g = bst.gbdt.grower
+    grow, total = g.grow, {"rounds": 0, "trees": 0}
+
+    def counted(*a, **k):
+        out = grow(*a, **k)
+        total["rounds"] += g.last_stats["rounds"]
+        total["trees"] += 1
+        return out
+
+    g.grow = counted
+    return total
+
+
+@pytest.mark.cuda
+def test_frontier_training_on_card_counts_launches_and_matches_cpu(dev):
+    """Binary training through the frontier grower on each tier (K = 4),
+    and multiclass through it from K5 roots: launch counts, card against
+    CPU, and "off" against "k1" (the same sums, the same bits)."""
+    rng = np.random.RandomState(0)
+    X = rng.normal(size=(20_000, 8))
+    y = (X[:, 0] + 0.5 * X[:, 1] * X[:, 2] + 0.3 * rng.normal(size=20_000)
+         > 0).astype(np.float64)
+    params = dict(objective="binary", num_leaves=31, max_bin=63,
+                  verbosity=-1, tpu_tree_impl="frontier",
+                  tpu_frontier_width=4)
+    kernel = {"off": "histogram_frontier", "k1": "histogram_frontier_routed",
+              "fusedk": "histogram_frontier_fusedk"}
+    texts, raws = {}, {}
+    for device, tier in (("cuda", "off"), ("cuda", "k1"), ("cuda", "fusedk"),
+                         ("cpu", "off")):
+        bst = lt.Booster(dict(params, device_type=device), lt.Dataset(X, y),
+                         frontier_tier=tier)
+        total = _count_rounds(bst)
+        kernels.reset_launches()
+        for _ in range(3):
+            bst.update()
+        n = dict(kernels.LAUNCHES)
+        splits = sum(t.num_leaves - 1 for t in bst.gbdt.models)
+        if device == "cuda":
+            assert n[kernel[tier]] == total["rounds"] + total["trees"]
+            assert n["route_window"] == (splits if tier == "off" else 0)
+            assert n["score_gather_add"] == 3
+            assert sum(n.values()) == (n[kernel[tier]] + n["route_window"]
+                                       + 3)
+        else:
+            assert sum(n.values()) == 0
+        texts[(device, tier)] = bst.model_to_string().split("parameters:")[0]
+        raws[(device, tier)] = bst.predict(X, raw_score=True)
+    assert texts[("cuda", "off")] == texts[("cuda", "k1")]
+    for key in (("cuda", "off"), ("cuda", "fusedk")):
+        assert np.abs(raws[key] - raws[("cpu", "off")]).max() < 1e-3
+
+    X[:, 5] = rng.randint(0, 10, size=len(X))
+    yc = np.argmax(np.stack([X[:, 0] * (k - 1) + (X[:, 5] % 3 == k)
+                             for k in range(3)], axis=1)
+                   + rng.gumbel(size=(len(X), 3)), axis=1)
+    mc = dict(objective="multiclass", num_class=3, num_leaves=15,
+              verbosity=-1, tpu_tree_impl="frontier", tpu_frontier_width=2)
+    mraws = {}
+    for device in ("cuda", "cpu"):
+        bst = lt.Booster(dict(mc, device_type=device),
+                         lt.Dataset(X, yc, categorical_feature=[5]))
+        total = _count_rounds(bst)
+        kernels.reset_launches()
+        for _ in range(2):
+            bst.update()
+        n = dict(kernels.LAUNCHES)
+        if device == "cuda":
+            # the roots come from K5, so K6 runs once a round
+            assert n["histogram_all"] == 2
+            assert n["histogram_frontier"] == total["rounds"]
+        mraws[device] = bst.predict(X, raw_score=True)
+    assert np.abs(mraws["cuda"] - mraws["cpu"]).max() < 1e-3

@@ -163,7 +163,7 @@ def test_default_device_without_cuda_raises(monkeypatch):
     {"max_bin_by_feature": [3, 4]},
     {"objective": "regression"},
     {"objective": "multiclassova", "num_class": 3},
-    {"tpu_tree_impl": "frontier"},
+    {"tpu_tree_impl": "fused"},
     {"no_such_parameter": 1},
     {"metric": "ndcg"},
 ])

@@ -2,22 +2,26 @@
 """Where one training iteration of lightgbm_tpu_torch spends its time, on
 one NVIDIA card.
 
-    python3 tools/profile_torch_iter.py [--config higgs|multiclass_cat]
-                                        [--rows N] [--out FILE]
+    python3 tools/profile_torch_iter.py
+        [--config higgs|higgs_frontier|multiclass_cat] [--rows N] [--out FILE]
 
-Trains one of chip_smoke.py's configurations, fused route, for four
-iterations: ``higgs`` (the default) is the HIGGS-shaped binary path (28
-features, max_bin 63, 255 leaves, 10.5M rows); ``multiclass_cat`` is the
-5-class softmax path with 8 categorical features (31 leaves, 256 bins, 1M
-rows, five trees and one K5 launch an iteration).  The iterations:
+Trains one of chip_smoke.py's configurations for four iterations:
+``higgs`` (the default) is the HIGGS-shaped binary path (28 features,
+max_bin 63, 255 leaves, 10.5M rows) through the segment grower, fused
+route; ``higgs_frontier`` the same through the frontier grower
+(``tpu_tree_impl=frontier``, K = 16, default tier: K2 a split, K6 a
+round); ``multiclass_cat`` is the 5-class softmax path with 8 categorical
+features (31 leaves, 256 bins, 1M rows, five trees and one K5 launch an
+iteration).  The iterations:
 
   1. warm-up (kernel build, first launches);
   2. untraced: its wall time is the end-to-end number;
   3. host spans only: inclusive wall clock of the grower's pieces,
      measured by wrapping them in this script (gradients, the class
      roots' K5 call, the whole grow, the best-split scans with their
-     device-to-host fetch, the K3 wrapper calls, compaction, the score
-     update, the tree's finalisation);
+     device-to-host fetch, the K3 wrapper calls, or the frontier grower's
+     rounds and its K2 and K6 wrapper calls, compaction, the score update,
+     the tree's finalisation);
   4. host spans and ``torch.profiler`` (CPU and CUDA activities): the
      device's busy time (the union of kernel intervals), its idle share,
      and device time and launch count by kernel name, the port's
@@ -70,7 +74,8 @@ def _busy_us(intervals):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--config", choices=("higgs", "multiclass_cat"),
+    ap.add_argument("--config",
+                    choices=("higgs", "higgs_frontier", "multiclass_cat"),
                     default="higgs")
     ap.add_argument("--rows", type=int, default=None,
                     help="default 10500000 (higgs) or 1000000")
@@ -86,13 +91,14 @@ def main() -> int:
 
     import chip_smoke
     import lightgbm_tpu_torch as lt
-    from lightgbm_tpu_torch.models import gbdt, grower_seg
+    from lightgbm_tpu_torch.models import gbdt, grower_frontier, grower_seg
     from lightgbm_tpu_torch.models.tree import Tree
 
-    if args.config == "higgs":
+    if args.config in ("higgs", "higgs_frontier"):
         rows = args.rows or chip_smoke.HIGGS_ROWS
         X, y = chip_smoke.higgs_like(rows, 42)
-        params = dict(chip_smoke.TRAIN_PARAMS, metric=[])
+        params = dict(chip_smoke.TRAIN_PARAMS if args.config == "higgs"
+                      else chip_smoke.FRONTIER_PARAMS, metric=[])
         ds = lt.Dataset(X, y)
     else:
         rows = args.rows or chip_smoke.MC_ROWS
@@ -119,6 +125,12 @@ def main() -> int:
     _wrap(grower_seg, "histogram_segment_routed", spans,
           "K3 wrapper calls")
     _wrap(grower_seg, "compact_state", spans, "compaction")
+    if args.config == "higgs_frontier":
+        _wrap(g.grower, "_round", spans, "frontier rounds")
+        _wrap(grower_frontier, "route_window", spans, "K2 wrapper calls")
+        _wrap(grower_frontier, "histogram_frontier", spans,
+              "K6 wrapper calls")
+        _wrap(grower_frontier, "compact_state", spans, "compaction")
     _wrap(gbdt, "score_gather_add", spans, "score update (K4)")
     _wrap(Tree, "from_grown", spans, "tree to host")
     spans_ms = iteration_ms()                       # 3: host spans only
