@@ -51,11 +51,20 @@ thirteen phases; any failure exits non-zero:
               routed, KT = K; histogram_frontier_fusedk, KT = 2K) against
               their plain versions in a frontier round: K = 16 leaves of a
               32-leaf layout of the HIGGS rows split over the union of their
-              windows, and a K = 2 round (plus a K = 16 one, whose 32 slots
-              at 256 bins tile across the grid) at the multiclass_cat rows.
+              windows, and a K = 2 round (plus a K = 16 one: 32 slots at
+              256 bins, one feature a block) at the multiclass_cat rows.
               Leaf ids bit for bit, counts exact, sums within tolerance,
-              relaunches bit-identical; times, bounds and library calls as
-              in phase 2, and the shared-memory tiling each launch chose.
+              relaunches bit-identical, every slot bit-identical to K1 of
+              its leaf over its parent's window; times, bounds and library
+              calls as in phase 2, and the shared-memory tiling each launch
+              chose.
+              In the timed rounds each call is also captured in a CUDA
+              graph and replayed (identical), its device operations
+              counted with torch.profiler (one kernel, no memcpy or
+              memset), and timed in a replayed graph of 20 (the device's
+              time) and on the host (enqueue).  Phase 1 prints the
+              frontier kernel's ptxas registers and spills and its atomic
+              SASS opcodes (no ATOMS.CAS loop).
  10. frontier train  the HIGGS rows through ``tpu_tree_impl=frontier``,
               255 leaves, auto width K = 16, the default tier ("off": K2 a
               split, K6 a round), 3 iterations: train AUC rises, held-out
@@ -199,6 +208,10 @@ def bound_ms(nbytes: float, nops: float):
 
 # ---------------------------------------------------------------- phase 1
 def build_phase():
+    """Builds the kernels; returns K6's and K7's build report: ptxas's
+    stack, spill and register lines and the atomic SASS opcodes of each
+    frontier_hist_kernel instantiation (a 64-bit shared add that sm_90a
+    lacks shows as an ATOMS.CAS loop)."""
     from lightgbm_tpu_torch.ops import kernels
     t0 = time.perf_counter()
     kernels.library()
@@ -206,6 +219,21 @@ def build_phase():
     for line in kernels.build_log().splitlines():
         if "registers" in line or "Compiling entry" in line:
             log("ptxas: " + line.strip())
+    ptxas = kernels.ptxas_lines("frontier_hist_kernel")
+    sass = kernels.sass_opcodes("frontier_hist_kernel")
+    report = {}
+    for fn in sorted(set(ptxas) | set(sass)):
+        ops = sass.get(fn, {})
+        report["K7" if "ILb1E" in fn else "K6"] = {
+            "ptxas": ptxas.get(fn, []),
+            "atomics": {k: v for k, v in sorted(ops.items())
+                        if k.startswith(("ATOMS", "ATOM", "RED"))},
+            "atoms_cas": sum(v for k, v in ops.items()
+                             if k.startswith("ATOMS.CAS"))}
+    log(f"frontier_hist_kernel build: {json.dumps(report)}")
+    require(set(report) == {"K6", "K7"}, "frontier_hist_kernel's two "
+            "instantiations are missing from the build")
+    return report
 
 
 def card_line() -> str:
@@ -283,20 +311,27 @@ def library_hist_ms(binsT, w8s, rows, B, reps, slots=None, n_slots=1):
     what a histogram kernel computes over ``rows`` for each of the
     channel sets ``w8s``; with ``slots`` (one w8, the target slot of each
     row) into [n_slots*F*B, 3], what a frontier kernel computes.  The flat
-    keys and values are made before the clock starts."""
+    keys and values are made before the clock starts, set by set into
+    buffers of their final size."""
     import torch
     F = binsT.shape[0]
     b = binsT[:, rows].long()
     f_off = torch.arange(F, device=b.device)[:, None]
-    keys, vals = [], []
+    per_set = F * b.shape[1]
+    keys = torch.empty(len(w8s) * per_set, dtype=torch.int64,
+                       device=b.device)
+    vals = torch.empty((len(w8s) * per_set, 3), dtype=torch.float32,
+                       device=b.device)
     for c, w8 in enumerate(w8s):
         w = w8[:, rows].float()
         v = torch.stack([w[0] + w[1], w[2] + w[3], w[4]], dim=1)
         first = c if slots is None else slots.long()[None, :]
-        keys.append(((first * F + f_off) * B + b).reshape(-1))
-        vals.append(v[None].expand(F, -1, -1).reshape(-1, 3))
+        keys[c * per_set:(c + 1) * per_set] = ((first * F + f_off) * B
+                                                + b).reshape(-1)
+        vals[c * per_set:(c + 1) * per_set].view(F, -1, 3).copy_(
+            v[None].expand(F, -1, -1))
+        del w, v
     del b
-    keys, vals = torch.cat(keys), torch.cat(vals)
     n_out = len(w8s) if slots is None else n_slots
     out = torch.zeros((n_out * F * B, 3), dtype=torch.float32,
                       device=binsT.device)
@@ -556,6 +591,9 @@ def kernel_phase(handle, config, device):
     t["bound_ms"], t["bound_by"] = bound_ms(W * (F + 10 * C)
                                             + C * out_bytes, W * F * C * 3)
     t["per_set_bytes_ms"] = bound_ms(k5_bytes, 0)[0]
+    t["library_ms"] = library_hist_ms(
+        binsT, [w8C[8 * c:8 * c + 8] for c in range(C)],
+        torch.arange(n, device=device), B, reps)
     t["shape"] = f"{W} rows x {F} features x {C} sets, {B} bins"
     results["histogram_all_higgs"] = t
     return results
@@ -839,6 +877,13 @@ def mc_kernel_phase(handle, config, device):
         scales[0]), reps)
     k1_ms = time_ms(lambda i: th.histogram_segment(
         binsT, w8, lid0, 0, nblk, 0, B, rb, scales[0]), reps)
+    k1_lib = library_hist_ms(binsT, [w8], torch.arange(n, device=device), B,
+                             reps)
+    cat_lid, _ = th.histogram_segment_routed_plain(
+        binsT, w8, lid0.clone(), 0, nblk, 1, routes["categorical"], B, rb)
+    k3_lib = library_hist_ms(binsT, [w8], torch.nonzero(cat_lid == 1)[:, 0],
+                             B, reps)
+    del cat_lid
     row = runs[0][k]
     k4 = {"mc_max_abs_err": err4}
     k4["mc_ms"] = time_ms(lambda i: ts.score_gather_add(
@@ -850,9 +895,11 @@ def mc_kernel_phase(handle, config, device):
     k4["mc_bound_ms"], k4["mc_bound_by"] = bound_ms(n * 12 + L * 4, n)
     k4["mc_shape"] = f"row {k} of a [{C}, {n}] score in place, {L} leaves"
     return {"histogram_all": t, "score_gather_add": k4,
-            "histogram_segment": {"b256_ms": k1_ms, "b256_max_abs_err": err1},
+            "histogram_segment": {"b256_ms": k1_ms, "b256_max_abs_err": err1,
+                                  "b256_library_ms": k1_lib},
             "histogram_segment_routed": {"b256_cat_ms": k3_ms,
-                                         "b256_max_abs_err": err3}}
+                                         "b256_max_abs_err": err3,
+                                         "b256_cat_library_ms": k3_lib}}
 
 
 # ---------------------------------------------------------------- phase 7
@@ -1071,11 +1118,20 @@ def frontier_round(th, binsT, w8, scales, fm, feats, rb, K, levels, B, tag,
         abs_sums = th.histogram_frontier_plain(
             binsT, abs_channel_sets(w8), want_lid, bl, n, targets, B, rb)
         err = check_hist(f"{name} {tag}", runs[0][1], want, abs_sums)
-        tiling = th.frontier_tiling(F, B, KT, 0 if rts is None else K)
+        # slot j is K1 of its target over the window of the parent it came
+        # from (split k = j mod K), bit for bit
+        for j, t in enumerate(targets.tolist()):
+            k = j % K
+            k1 = th.histogram_segment(binsT, w8, want_lid, lo[k],
+                                      hi[k] - lo[k], t, B, rb, scales)
+            require(torch.equal(runs[0][1][j], k1), f"{name} {tag}: slot {j} "
+                    f"differs from K1 of leaf {t}")
+        tiling = th.frontier_tiling(F, B, KT, 0 if rts is None else K,
+                                    int(th.frontier_params(targets, rts)[2]))
         moved = int((want_lid != lid).sum().item())
         log(f"{name} {tag}: K={K} KT={KT}, {n} blocks ({U} rows) listed, "
             f"{moved} routed, ids identical, counts exact, max |diff| "
-            f"{err:.3g}, tiling {tiling}")
+            f"{err:.3g}, every slot = K1 of its leaf, tiling {tiling}")
         rec = {"max_abs_err": err, "tiling": tiling, "K": K, "KT": KT}
         if timed:
             # bytes: every listed row's leaf id, the split bin of each row a
@@ -1121,9 +1177,99 @@ def frontier_round(th, binsT, w8, scales, fm, feats, rb, K, levels, B, tag,
                 n_slots=KT)
             rec["shape"] = (f"{tag}: {U} listed rows of {npad}, {M} in the "
                             f"{KT} targets, {moved} routed, {F} x {B} bins")
+            # one call is one launch: what the profiler sees on the card,
+            # and a CUDA graph's capture and replay (a stream sync or a
+            # pageable copy in the call would fail the capture)
+            start = routed_lid if rts is None else lid
+            call = ((lambda ids: th.histogram_frontier(
+                binsT, w8, ids, bl, n, targets, B, rb, scales))
+                if rts is None else (lambda ids: getattr(th, name)(
+                    binsT, w8, ids, bl, n, targets, rts, B, rb, scales)[1]))
+            fresh = iter([start.clone() for _ in range(2)])
+            rec["device_ops_per_call"] = device_ops_per_call(
+                lambda: call(next(fresh)))
+            rec["graph_ms"], rec["host_us"] = graph_and_host_times(
+                call, start, reps)
+            ids = start.clone()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                replayed = call(ids)
+            ids.copy_(start)
+            graph.replay()
+            torch.cuda.synchronize()
+            require(torch.equal(replayed, runs[0][1])
+                    and torch.equal(ids, want_lid),
+                    f"{name} {tag}: a CUDA graph's replay differs from the "
+                    "eager call")
+            del graph, replayed, ids
+            log(f"{name} {tag}: device ops a call "
+                f"{rec['device_ops_per_call']}, CUDA graph replay identical; "
+                f"{rec['ms']:.4f} ms a call eager, {rec['graph_ms']:.4f} ms "
+                f"in a graph, {rec['host_us']:.1f} us of host a call")
         out[name] = rec
     torch.cuda.empty_cache()
     return out
+
+
+def device_ops_per_call(fn):
+    """The device operations one call of ``fn`` puts on the stream, by
+    kind, from torch.profiler (after a warm-up call); None where the
+    profiler records no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kinds = {"kernel": 0, "memcpy": 0, "memset": 0}
+    names = []
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        low = evt.name.lower()
+        kind = ("memcpy" if low.startswith("memcpy") else
+                "memset" if low.startswith("memset") else "kernel")
+        kinds[kind] += 1
+        names.append(evt.name[:60])
+    if not names:
+        return None
+    kinds["names"] = names
+    return kinds
+
+
+def graph_and_host_times(call, start, reps):
+    """(ms, us): the device time of one ``call(ids)`` when ``reps`` calls,
+    each on its own copy of ``start``, run as one replayed CUDA graph (no
+    host between them), and the host's time to enqueue one eager call."""
+    import torch
+    ids = [start.clone() for _ in range(reps)]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for x in ids:
+            call(x)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    for timed in (False, True):
+        for x in ids:
+            x.copy_(start)
+        a.record()
+        graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+    device_ms = a.elapsed_time(b) / reps
+    del graph
+    for x in ids:
+        x.copy_(start)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for x in ids:
+        call(x)
+    host_us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return device_ms, host_us
 
 
 def _rows(bl, n, rb):
@@ -1376,7 +1522,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
     t_start = time.perf_counter()
-    build_phase()
+    frontier_build = build_phase()
     card = card_line()
 
     t0 = time.perf_counter()
@@ -1458,6 +1604,8 @@ def main() -> int:
         if name in fk_mc:
             rec["mc"] = fk_mc[name]
             rec["mc_k16"] = fk_mc[f"{name}_k16"]
+            rec["build"] = frontier_build[
+                "K6" if name == "histogram_frontier" else "K7"]
         records.append(rec)
         require(rec["launches"] > 0, f"{name} was not launched on its path")
         log(json.dumps(rec))

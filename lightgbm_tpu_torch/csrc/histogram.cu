@@ -49,33 +49,62 @@
 // sum can overflow) and added as integers, so every launch gives the same
 // bits whatever the scheduling.  Counts are integers too.
 //
+// Shared memory (K1/K3/K5): a histogram of ft features x B bins x (8 + 8 +
+// 4) bytes.  Features are tiled across gridDim.y so a tile fits the 48 KB
+// a block gets without opting in (37 features at 64 bins, 9 at 256 bins);
+// each tile re-reads the leaf ids and weights, which costs bytes only on
+// shapes wider than the HIGGS one.  K5 adds the class sets as gridDim.z,
+// so its bin rows are read once per set: (F + 10) bytes a row and set
+// against the (F + 10 C) bytes a row of one pass over all sets.
+//
 // K6/K7 (the frontier grower's batched kernels) walk the rows of a list of
 // whole row blocks, the union of the round's confinement windows, not one
 // window; K7 first applies the round's K split routes to each row's leaf
 // id (at most one route matches a row, since the routed leaves are
 // distinct and no new id is a routed leaf), then each row adds to the
-// histogram of the target slot its leaf id matches (targets are distinct;
-// -1 matches nothing).  Same fixed-point sums as K1: slot k of a launch is,
-// bit for bit, K1 of target k over the same rows at the same scale.
+// histogram of the target slot its leaf id matches (-1 matches nothing).
+// Same fixed-point sums as K1: slot k of a launch is, bit for bit, K1 of
+// target k over the same rows at the same scale.
 //
-// Shared memory: a histogram of ft features x B bins x (8 + 8 + 4) bytes.
-// Features are tiled across gridDim.y so a tile fits the 48 KB a block
-// gets without opting in (37 features at 64 bins, 9 at 256 bins); each
-// tile re-reads the leaf ids and weights, which costs bytes only on
-// shapes wider than the HIGGS one.  K5 adds the class sets as gridDim.z,
-// so its bin rows are read once per set: (F + 10) bytes a row and set
-// against the (F + 10 C) bytes a row of one pass over all sets.  K6/K7
-// hold ft features x tt target slots per block: a slot of one feature is
-// 20 B a bin, so 16 slots at 64 bins take 20 KB a feature and 32 slots at
-// 256 bins 160 KB.  They opt in to kFrontierSmemBudget (above the 48 KB
-// default; two such blocks of 512 threads fit an SM, one wave of them
-// covers the grid) and tile features across gridDim.y
-// and, when one feature's KT slots do not fit, target slots across
-// gridDim.z (lgbt_frontier_tiling).  Every tile re-reads its rows' leaf
-// ids and weights; K7's route is rewritten by tile (0, 0) only.
+// What bounds K6/K7, and what held the first version back.  The bytes are
+// few (4 B of leaf id a listed row, F + 10 B a row in a target: 0.035 ms
+// at the HIGGS round), so the time is instructions and shared-memory
+// atomics.  The first version spent it around the sums: four device
+// operations a call (a blocking upload of targets and routes, a memset of
+// the i64 scratch, the kernel, a finalize kernel); a 64-bit division and
+// linear searches over the KT targets and K routes on every row, repeated
+// by each of 7-14 feature tiles of 100 KB blocks; each route's 19 words
+// reloaded from device memory; two 64-bit shared atomics per (row,
+// feature), for which sm_90 has no native add (PERF.md has the SASS).
+//
+// The design.  One launch a call, with nothing else on the stream:
+//   * targets and routes travel by value in the kernel's parameter block
+//     (FrontierParams, 21.5 KB; CUDA 12.1+ takes up to 32,764 bytes), so
+//     no host-to-device copy;
+//   * each block builds leaf -> slot and leaf -> route tables (16-bit, as
+//     long as the largest id the host found) and the route descriptors in
+//     shared memory, so a row's bookkeeping is two table reads;
+//   * one block an SM, of 1024 threads and the SM's whole shared memory
+//     (227 KB), so a tile holds 2-3x the features of two 100 KB blocks
+//     and fewer tiles re-walk the rows (HIGGS: 3 instead of 7; fused-K 6
+//     instead of 14); a step of the block is 1024 rows of one listed row
+//     block, so no row pays a division;
+//   * a 64-bit sum is two 32-bit planes in shared memory: the low word's
+//     atomic add returns the old value, whose carry goes into the high
+//     word's add (XGBoost's AtomicAdd64As32).  Integer adds commute, so
+//     the sums are exact and the same in any order;
+//   * a block flushes its tile's non-empty cells to a persistent i64
+//     scratch with global atomics, then counts itself in the tile's
+//     arrival counter; the last block of the tile converts the tile to
+//     f32 (finalize_kernel's arithmetic), and zeroes the scratch cells and
+//     the counter for the next launch.
+// Features tile across gridDim.y and, when one feature's KT slots do not
+// fit, target slots across gridDim.z (lgbt_frontier_tiling).  Every tile
+// re-reads its rows' leaf ids; K7's ids are rewritten by tile (0, 0) only.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -84,18 +113,50 @@ constexpr int kMissingZero = 1;   // core/binning.py MISSING_ZERO
 constexpr int kMissingNan = 2;    // core/binning.py MISSING_NAN
 constexpr int kThreads = 256;
 constexpr int kSmemBudget = 48 * 1024;
-constexpr int kFrontierSmemBudget = 100 * 1024;
-// two frontier blocks of at most kFrontierSmemBudget fit an SM; at 512
-// threads each they keep 32 warps resident to hide the shared atomics'
-// latency (at 256, the first version, 16)
-constexpr int kFrontierThreads = 512;
 constexpr int kBytesPerBin = 8 + 8 + 4;
+// K6/K7: blocks an SM, each of 1024 / kFrontierBlocksPerSm threads and an
+// equal share of the SM's shared memory (32 warps an SM either way)
+constexpr int kFrontierBlocksPerSm = 1;
+constexpr int kFrontierThreads = 1024 / kFrontierBlocksPerSm;
+// a (slot, feature, bin) cell: g lo, g hi, h lo, h hi, count, u32 planes
+constexpr int kFrontierCellBytes = 5 * 4;
+// the parameter block's capacity: every frontier the grower asks at
+// num_leaves <= 257 (K <= 256 routes, KT = 2K targets);
+// ops/histogram.py:FRONTIER_MAX_ROUTES / _TARGETS
+constexpr int kFrontierMaxRoutes = 256;
+constexpr int kFrontierMaxTargets = 512;
 
 // pack_route's layout: leaf, new_leaf, row, col, thr, dl, cat, mt, dbin,
 // nbf, off, bitset[8]
 struct RouteDesc {
   int w[kRouteWords];
 };
+
+// K6/K7's parameter block, passed by value (ops/histogram.py:
+// frontier_params packs it): the target leaf of each slot (-1 = none; an
+// id repeated by a later slot or route is -1 there, so the first wins),
+// the route descriptors, and n_ids = 1 + the largest leaf id among the
+// targets and the routed leaves (the length of the shared leaf tables).
+struct FrontierParams {
+  int n_targets, n_routes, n_ids, pad;
+  int targets[kFrontierMaxTargets];
+  int routes[kFrontierMaxRoutes * kRouteWords];
+};
+
+// shared-memory layout of a K6/K7 block: leaf -> slot and leaf -> route
+// tables (int16, n_ids each), the route descriptors (K7), the queue of
+// matching rows, then the five u32 planes of the histogram; each part
+// 16-byte aligned
+__host__ __device__ inline int frontier_table_bytes(int n_ids) {
+  return (n_ids * 4 + 15) / 16 * 16;
+}
+__host__ __device__ inline int frontier_route_bytes(int n_routes) {
+  return (n_routes * kRouteWords * 4 + 15) / 16 * 16;
+}
+// the warps' queues of matching rows: 64 (row i32, slot i16) a warp
+constexpr int kFrontierQueueBytes = 2 * kFrontierThreads * (4 + 2);
+// the kernel's static shared memory (the last-block flag), rounded up
+constexpr int kFrontierStaticSmem = 16;
 
 // One row's leaf id after the split: _route_block_ids
 // (pallas_histogram.py:1007-1042) for one row, in the same 0/1 integer
@@ -202,131 +263,251 @@ segment_hist_kernel(const uint8_t* __restrict__ bins,
 }
 
 // acc [sets, F*B, 3] fixed point -> out [sets, F*B, 3] f32 (sum_grad,
-// sum_hess, count), set s at scales[scale_step * s : + 2] (scale_step 2:
-// K5's one pair per set; 0: the frontier kernels' target slots, which
-// share the tree's one pair)
+// sum_hess, count), set s at scales[2 * s : + 2] (K5's one pair per set;
+// K1/K3 convert one set)
 __global__ void finalize_kernel(const long long* __restrict__ acc,
                                 const float* __restrict__ scales,
                                 float* __restrict__ out, int cells,
-                                long long total, int scale_step) {
+                                long long total) {
   const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= total) return;
-  const float* sc = scales + scale_step * (k / cells);
+  const float* sc = scales + 2 * (k / cells);
   out[3 * k + 0] = (float)((double)acc[3 * k + 0] / (double)sc[0]);
   out[3 * k + 1] = (float)((double)acc[3 * k + 1] / (double)sc[1]);
   out[3 * k + 2] = (float)acc[3 * k + 2];
 }
 
+// K6/K7 add a 64-bit value into a shared word pair (lo, hi) with two
+// 32-bit atomics: the low word's add returns what the word held, whose
+// carry_of the add goes, with the value's high half, into the high word.
+// Every wrap of the low word adds exactly one carry, so (hi, lo) is the
+// 64-bit sum modulo 2^64 whatever the order of the adds.
+__device__ __forceinline__ unsigned carry_of(unsigned old, unsigned add) {
+  return old + add < old ? 1u : 0u;
+}
+
 // K6 (kRouted false) and K7 (true).  One launch covers the rows of
-// block_list[:n_blocks] (n_rows = n_blocks * block_rows) x the feature
-// tile blockIdx.y x the target tile blockIdx.z.  params (device memory):
-// targets[n_targets], then n_routes route descriptors of kRouteWords.
-// acc [n_targets, F * B, 3]: slot k's histogram at offset k * F * B * 3.
+// block_list[:n_blocks] x the feature tile blockIdx.y x the target tile
+// blockIdx.z, and writes out [n_targets, F, B, 3] f32.  acc
+// [n_targets, F * B, 3] i64 and arrivals [tiles] u32 are the wrapper's
+// scratch, zero on entry and left zero: each block adds its tile's cells
+// into acc, and the last block of a tile to arrive converts the tile into
+// out and zeroes it again.
+//
+// A block step looks at kFrontierThreads rows of one listed block, one a
+// thread: the row's route and slot, from the leaf tables.  Each warp
+// queues its rows that match a slot in its own 64 entries of shared
+// memory (a ballot and its prefix), and whenever its queue holds 32 rows,
+// adds their features, a row a lane.  So the adds run with full warps
+// however sparse the matches are (half the listed rows at the HIGGS
+// round's K6), and no warp waits for another; the order of the adds moves
+// no bit.
 template <bool kRouted>
-__global__ void __launch_bounds__(kFrontierThreads, 2)
+__global__ void __launch_bounds__(kFrontierThreads, kFrontierBlocksPerSm)
 frontier_hist_kernel(const uint8_t* __restrict__ bins,
                      const uint16_t* __restrict__ w8, int* leaf_id,
                      long long npad, int num_features, int num_bins,
                      int tile_features, int tile_targets,
-                     const int* __restrict__ block_list, long long n_rows,
-                     int block_rows, const int* __restrict__ params,
-                     int n_targets, int n_routes,
-                     const float* __restrict__ scales,
-                     unsigned long long* __restrict__ acc) {
-  extern __shared__ unsigned long long smem[];
+                     const int* __restrict__ block_list, long long n_blocks,
+                     int block_rows, const float* __restrict__ scales,
+                     unsigned long long* __restrict__ acc,
+                     unsigned int* __restrict__ arrivals,
+                     float* __restrict__ out,
+                     const __grid_constant__ FrontierParams p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ bool s_last;
   const int f0 = blockIdx.y * tile_features;
   const int nf = min(tile_features, num_features - f0);
   const int s0 = blockIdx.z * tile_targets;
-  const int ns = min(tile_targets, n_targets - s0);
+  const int ns = min(tile_targets, p.n_targets - s0);
   const int slot_cells = nf * num_bins;
   const int cells = ns * slot_cells;
-  unsigned long long* sg = smem;
-  unsigned long long* sh = smem + cells;
-  unsigned int* sc = reinterpret_cast<unsigned int*>(smem + 2 * cells);
-  int* s_target = reinterpret_cast<int*>(sc + cells);     // [ns]
-  int* s_route_leaf = s_target + ns;                       // [n_routes]
-  const int* routes = params + n_targets;
-  for (int k = threadIdx.x; k < cells; k += blockDim.x) {
-    sg[k] = 0ull;
-    sh[k] = 0ull;
-    sc[k] = 0u;
+  const int n_ids = p.n_ids;
+  short* s_slot = reinterpret_cast<short*>(smem_raw);
+  short* s_route = s_slot + n_ids;
+  unsigned char* at = smem_raw + frontier_table_bytes(n_ids);
+  int* s_routes = reinterpret_cast<int*>(at);
+  at += frontier_route_bytes(p.n_routes);
+  const unsigned lane = threadIdx.x & 31u;
+  // this warp's queue: 64 (row, slot) entries
+  int* q_row = reinterpret_cast<int*>(at) + 2 * (threadIdx.x - lane);
+  short* q_slot = reinterpret_cast<short*>(
+      reinterpret_cast<int*>(at) + 2 * kFrontierThreads)
+      + 2 * (threadIdx.x - lane);
+  unsigned* g_lo = reinterpret_cast<unsigned*>(at + kFrontierQueueBytes);
+  unsigned* g_hi = g_lo + cells;
+  unsigned* h_lo = g_hi + cells;
+  unsigned* h_hi = h_lo + cells;
+  unsigned* cnt = h_hi + cells;
+  for (int k = threadIdx.x; k < 5 * cells; k += blockDim.x) g_lo[k] = 0u;
+  for (int k = threadIdx.x; k < n_ids; k += blockDim.x) {
+    s_slot[k] = -1;
+    s_route[k] = -1;
   }
-  for (int k = threadIdx.x; k < ns; k += blockDim.x)
-    s_target[k] = params[s0 + k];
-  for (int k = threadIdx.x; k < n_routes; k += blockDim.x)
-    s_route_leaf[k] = routes[k * kRouteWords];
+  if (kRouted) {
+    for (int k = threadIdx.x; k < p.n_routes * kRouteWords; k += blockDim.x)
+      s_routes[k] = p.routes[k];
+  }
+  __syncthreads();
+  // the host made the ids distinct and below n_ids, so no two writes meet
+  for (int k = threadIdx.x; k < ns; k += blockDim.x) {
+    const int t = p.targets[s0 + k];
+    if (t >= 0) s_slot[t] = (short)k;
+  }
+  if (kRouted) {
+    for (int k = threadIdx.x; k < p.n_routes; k += blockDim.x) {
+      const int leaf = p.routes[k * kRouteWords];
+      if (leaf >= 0) s_route[leaf] = (short)k;
+    }
+  }
   __syncthreads();
 
   const double scale_g = (double)scales[0];
   const double scale_h = (double)scales[1];
   const uint8_t* tile = bins + (long long)f0 * npad;
-  const bool writer = blockIdx.y == 0 && blockIdx.z == 0;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < n_rows; i += stride) {
-    const long long pos = i / block_rows;
-    const long long row = (long long)block_list[pos] * block_rows
-                          + (i - pos * block_rows);
-    if (row < 0 || row >= npad) continue;   // a block outside the layout
-    int lid = leaf_id[row];
-    if (kRouted) {
-      int r = -1;
-      for (int k = 0; k < n_routes; ++k) {
-        if (s_route_leaf[k] == lid) {
-          r = k;
-          break;
+  // adds queued row q's features into the shared histogram; four features
+  // at a time: their bins loaded together, their low adds issued before
+  // the high adds that wait on them
+  auto add_row = [&](int q) {
+    const long long row = q_row[q];
+    const unsigned long long qg = (unsigned long long)__double2ll_rn(
+        (bf16_bits_to_double(w8[row]) + bf16_bits_to_double(w8[npad + row]))
+        * scale_g);
+    const unsigned long long qh = (unsigned long long)__double2ll_rn(
+        (bf16_bits_to_double(w8[2 * npad + row])
+         + bf16_bits_to_double(w8[3 * npad + row])) * scale_h);
+    const unsigned glo = (unsigned)qg, ghi = (unsigned)(qg >> 32);
+    const unsigned hlo = (unsigned)qh, hhi = (unsigned)(qh >> 32);
+    const uint8_t* brow = tile + row;
+    const int base = q_slot[q] * slot_cells;
+    for (int f = 0; f < nf; f += 4) {
+      int k[4];
+      unsigned og[4], oh[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        k[j] = -1;
+        if (f + j < nf) {
+          const int b = brow[(long long)(f + j) * npad];
+          // the TPU one-hot drops bins >= num_bins too
+          if (b < num_bins) k[j] = base + (f + j) * num_bins + b;
         }
       }
-      if (r >= 0) {
-        RouteDesc desc;
 #pragma unroll
-        for (int k = 0; k < kRouteWords; ++k)
-          desc.w[k] = routes[r * kRouteWords + k];
-        const int moved = routed_leaf(
-            desc, bins[(long long)desc.w[2] * npad + row], lid);
-        // idempotent (a moved row matches no route), so a tile that reads
-        // an id tile (0, 0) already rewrote computes the same id
+      for (int j = 0; j < 4; ++j) {
+        if (k[j] < 0) continue;
+        og[j] = atomicAdd(g_lo + k[j], glo);
+        oh[j] = atomicAdd(h_lo + k[j], hlo);
+        atomicAdd(cnt + k[j], 1u);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (k[j] < 0) continue;
+        atomicAdd(g_hi + k[j], ghi + carry_of(og[j], glo));
+        atomicAdd(h_hi + k[j], hhi + carry_of(oh[j], hlo));
+      }
+    }
+  };
+
+  const bool writer = blockIdx.y == 0 && blockIdx.z == 0;
+  int queued = 0;   // the same in every lane of the warp
+  const int steps_per_block = (block_rows + kFrontierThreads - 1)
+                              / kFrontierThreads;
+  const long long n_steps = n_blocks * steps_per_block;
+  for (long long c = blockIdx.x; c < n_steps; c += gridDim.x) {
+    const long long pos = c / steps_per_block;
+    const int off = (int)(c - pos * steps_per_block) * kFrontierThreads
+                    + (int)threadIdx.x;
+    const long long row = (long long)block_list[pos] * block_rows + off;
+    int slot = -1;
+    // a row past the block's end, or of a block outside the layout,
+    // matches nothing
+    if (off < block_rows && row >= 0 && row < npad) {
+      int lid = leaf_id[row];
+      if (kRouted && (unsigned)lid < (unsigned)n_ids && s_route[lid] >= 0) {
+        const RouteDesc& desc = *reinterpret_cast<const RouteDesc*>(
+            s_routes + s_route[lid] * kRouteWords);
+        const int moved = routed_leaf(desc, bins[(long long)desc.w[2] * npad
+                                                 + row], lid);
+        // idempotent (a moved row matches no route), so a tile that
+        // reads an id tile (0, 0) already rewrote computes the same id
         if (moved != lid && writer) leaf_id[row] = moved;
         lid = moved;
       }
+      // member 0: a pad row
+      if ((unsigned)lid < (unsigned)n_ids && w8[4 * npad + row] != 0)
+        slot = s_slot[lid];
     }
-    int s = -1;
-    for (int k = 0; k < ns; ++k) {
-      if (s_target[k] == lid) {
-        s = k;
-        break;
+    const unsigned match = __ballot_sync(0xffffffffu, slot >= 0);
+    if (slot >= 0) {
+      // fewer than 32 rows wait at a step's start, so 64 entries hold
+      // the step's matches too
+      const int q = queued + __popc(match & ((1u << lane) - 1u));
+      q_row[q] = (int)row;
+      q_slot[q] = (short)slot;
+    }
+    queued += __popc(match);
+    __syncwarp();
+    if (queued >= 32) {
+      add_row(lane);
+      __syncwarp();
+      queued -= 32;
+      if ((int)lane < queued) {
+        q_row[lane] = q_row[32 + lane];
+        q_slot[lane] = q_slot[32 + lane];
       }
-    }
-    if (s < 0) continue;
-    if (w8[4 * npad + row] == 0) continue;   // member 0: a pad row
-    const long long qg = __double2ll_rn(
-        (bf16_bits_to_double(w8[row]) + bf16_bits_to_double(w8[npad + row]))
-        * scale_g);
-    const long long qh = __double2ll_rn(
-        (bf16_bits_to_double(w8[2 * npad + row])
-         + bf16_bits_to_double(w8[3 * npad + row])) * scale_h);
-    const int base = s * slot_cells;
-    for (int f = 0; f < nf; ++f) {
-      const int b = tile[(long long)f * npad + row];
-      if (b >= num_bins) continue;
-      const int k = base + f * num_bins + b;
-      atomicAdd(&sg[k], (unsigned long long)qg);
-      atomicAdd(&sh[k], (unsigned long long)qh);
-      atomicAdd(&sc[k], 1u);
+      __syncwarp();
     }
   }
+  if ((int)lane < queued) add_row(lane);
   __syncthreads();
+
+  const long long cells_all = (long long)num_features * num_bins;
   for (int k = threadIdx.x; k < cells; k += blockDim.x) {
-    if (sc[k] == 0u) continue;
+    if (cnt[k] == 0u) continue;
     const int s = k / slot_cells;
     const int fb = k - s * slot_cells;
     unsigned long long* dst =
-        acc + 3ll * ((long long)(s0 + s) * num_features * num_bins
-                     + (long long)f0 * num_bins + fb);
-    atomicAdd(dst + 0, sg[k]);
-    atomicAdd(dst + 1, sh[k]);
-    atomicAdd(dst + 2, (unsigned long long)sc[k]);
+        acc + 3ll * ((s0 + s) * cells_all + (long long)f0 * num_bins + fb);
+    atomicAdd(dst + 0, ((unsigned long long)g_hi[k] << 32) | g_lo[k]);
+    atomicAdd(dst + 1, ((unsigned long long)h_hi[k] << 32) | h_lo[k]);
+    atomicAdd(dst + 2, (unsigned long long)cnt[k]);
   }
+  // the last block of the tile to arrive sees every block's adds
+  __threadfence();
+  __syncthreads();
+  const unsigned tile_id = blockIdx.z * gridDim.y + blockIdx.y;
+  if (threadIdx.x == 0)
+    s_last = atomicAdd(arrivals + tile_id, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  // four cells a thread at a time, their loads in flight together; as
+  // finalize_kernel converts, then the cells are zeroed
+  for (int k0 = threadIdx.x; k0 < cells; k0 += 4 * blockDim.x) {
+    long long cell[4], a[4][3];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int k = k0 + j * blockDim.x;
+      cell[j] = -1;
+      if (k >= cells) continue;
+      const int s = k / slot_cells;
+      cell[j] = (s0 + s) * cells_all + (long long)f0 * num_bins
+                + (k - s * slot_cells);
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+        a[j][i] = (long long)__ldcg(acc + 3 * cell[j] + i);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (cell[j] < 0) continue;
+      out[3 * cell[j] + 0] = (float)((double)a[j][0] / (double)scales[0]);
+      out[3 * cell[j] + 1] = (float)((double)a[j][1] / (double)scales[1]);
+      out[3 * cell[j] + 2] = (float)a[j][2];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) acc[3 * cell[j] + i] = 0ull;
+    }
+  }
+  if (threadIdx.x == 0) arrivals[tile_id] = 0u;
 }
 
 __global__ void route_window_kernel(const uint8_t* __restrict__ frow,
@@ -355,38 +536,62 @@ int sm_count() {
 
 long long div_up(long long a, long long b) { return (a + b - 1) / b; }
 
-// Opts the kernel in to `smem` bytes of dynamic shared memory when that is
-// above the default, then launches one wave: as many blocks as fit the
-// card at once, split over the tiles (fewer when the rows are few), so
-// each block flushes its shared histogram once.  Returns a CUDA error.
+// Dynamic shared memory a K6/K7 block may take: an equal share of the
+// SM's (less the 1 KB the card reserves for each block), at most the
+// block opt-in limit, less the kernel's static shared memory.
+int frontier_smem_budget() {
+  static int budget = 0;
+  if (budget == 0) {
+    int dev = 0, per_sm = 0, optin = 0, reserved = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&per_sm,
+                           cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                           dev);
+    cudaDeviceGetAttribute(&reserved,
+                           cudaDevAttrReservedSharedMemoryPerBlock, dev);
+    int b = per_sm / kFrontierBlocksPerSm - reserved;
+    if (b > optin) b = optin;
+    budget = b - kFrontierStaticSmem;
+  }
+  return budget;
+}
+
+// Opts the kernel in to the budget of dynamic shared memory (once), then
+// launches one wave: kFrontierBlocksPerSm blocks an SM (the budget and
+// the launch bounds let that many in), split over the tiles (fewer when
+// the rows are few), so each block flushes its shared histogram once.
+// Makes no call that a CUDA graph's capture refuses.  Returns a CUDA
+// error.
 template <bool kRouted>
 int launch_frontier(int tiles_y, int tiles_z, size_t smem, cudaStream_t s,
                     const uint8_t* bins, const uint16_t* w8, int* leaf_id,
                     long long npad, int num_features, int num_bins, int ft,
-                    int tt, const int* block_list, long long n_rows,
-                    int block_rows, const int* params, int n_targets,
-                    int n_routes, const float* scales, long long* acc) {
-  cudaError_t e = cudaSuccess;
-  if (smem > (size_t)kSmemBudget) {
-    e = cudaFuncSetAttribute(frontier_hist_kernel<kRouted>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+                    int tt, const int* block_list, long long n_blocks,
+                    int block_rows, const float* scales, long long* acc,
+                    const FrontierParams& p, float* out) {
+  static bool opted_in = false;
+  if (!opted_in) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        frontier_hist_kernel<kRouted>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, frontier_smem_budget());
     if (e != cudaSuccess) return (int)e;
+    opted_in = true;
   }
-  int per_sm = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, frontier_hist_kernel<kRouted>, kFrontierThreads, smem);
-  if (e != cudaSuccess) return (int)e;
   const long long tiles = (long long)tiles_y * tiles_z;
-  long long bx = div_up(n_rows, 4ll * kFrontierThreads);
-  const long long wave = (long long)(per_sm > 0 ? per_sm : 1) * sm_count();
+  long long bx = n_blocks * div_up(block_rows, kFrontierThreads);
+  const long long wave = (long long)kFrontierBlocksPerSm * sm_count();
   const long long cap = wave / tiles > 0 ? wave / tiles : 1;
   if (bx > cap) bx = cap;
+  if (bx < 1) bx = 1;   // no rows: one block a tile writes the zeros
+  // the tiles' arrival counters follow the histogram cells in the scratch
+  const long long cells3 = 3ll * p.n_targets * num_features * num_bins;
   dim3 grid((unsigned)bx, (unsigned)tiles_y, (unsigned)tiles_z);
   frontier_hist_kernel<kRouted><<<grid, kFrontierThreads, smem, s>>>(
       bins, w8, leaf_id, npad, num_features, num_bins, ft, tt, block_list,
-      n_rows, block_rows, params, n_targets, n_routes, scales,
-      reinterpret_cast<unsigned long long*>(acc));
+      n_blocks, block_rows, scales,
+      reinterpret_cast<unsigned long long*>(acc),
+      reinterpret_cast<unsigned int*>(acc + cells3), out, p);
   return 0;
 }
 
@@ -441,7 +646,7 @@ int lgbt_histogram_segment(const uint8_t* bins, const uint16_t* w8,
     }
   }
   finalize_kernel<<<(unsigned)div_up(cells_all, kThreads), kThreads, 0, s>>>(
-      acc, scales, out, cells_all, cells_all, 2);
+      acc, scales, out, cells_all, cells_all);
   return (int)cudaGetLastError();
 }
 
@@ -472,80 +677,93 @@ int lgbt_histogram_all(const uint8_t* bins, const uint16_t* w8,
   }
   if (total > 0) {
     finalize_kernel<<<(unsigned)div_up(total, kThreads), kThreads, 0, s>>>(
-        acc, scales, out, cells_all, total, 2);
+        acc, scales, out, cells_all, total);
   }
   return (int)cudaGetLastError();
 }
 
 // K6/K7 tiling: out[0] features per tile, out[1] target slots per tile,
-// out[2] dynamic shared memory a block (bytes).  All n_targets slots of
-// as many features as fit kFrontierSmemBudget; when one feature's slots
-// do not fit, one feature a tile and as many slots as fit.  Returns 0, or
-// cudaErrorInvalidValue when not even one slot of one feature fits.
+// out[2] dynamic shared memory a block (bytes), for leaf tables of n_ids
+// entries.  All n_targets slots of as many features as fit the budget,
+// spread evenly over the fewest feature tiles; when one feature's slots do
+// not fit, one feature a tile and the slots spread evenly over the fewest
+// target tiles.  Returns 0, or cudaErrorInvalidValue when not even one
+// slot of one feature fits beside the tables.
 int lgbt_frontier_tiling(int num_features, int num_bins, int n_targets,
-                         int n_routes, int* out) {
-  const int slot_bytes = num_bins * kBytesPerBin;
-  const int budget =
-      kFrontierSmemBudget - 4 * (n_routes + n_targets) - 8;
-  if (num_features < 1 || n_targets < 1 || budget < slot_bytes)
+                         int n_routes, int n_ids, int* out) {
+  const int slot_bytes = num_bins * kFrontierCellBytes;
+  // ids that could not fit, checked before the table's size is computed
+  if (n_ids < 0 || n_ids > frontier_smem_budget() / 4)
+    return (int)cudaErrorInvalidValue;
+  const long long fixed = (long long)frontier_table_bytes(n_ids)
+                          + frontier_route_bytes(n_routes)
+                          + kFrontierQueueBytes;
+  const long long budget = frontier_smem_budget() - fixed;
+  if (num_features < 1 || n_targets < 1 || n_routes < 0
+      || budget < slot_bytes)
     return (int)cudaErrorInvalidValue;
   int ft, tt;
   if ((long long)n_targets * slot_bytes <= budget) {
     tt = n_targets;
-    ft = budget / (n_targets * slot_bytes);
-    if (ft > num_features) ft = num_features;
+    long long most = budget / ((long long)n_targets * slot_bytes);
+    if (most > num_features) most = num_features;
+    ft = (int)div_up(num_features, div_up(num_features, most));
   } else {
     ft = 1;
-    tt = budget / slot_bytes;
+    const long long most = budget / slot_bytes;
+    tt = (int)div_up(n_targets, div_up(n_targets, most));
   }
   out[0] = ft;
   out[1] = tt;
-  out[2] = ft * tt * slot_bytes + 4 * (tt + n_routes);
+  out[2] = (int)(fixed + (long long)ft * tt * slot_bytes);
   return 0;
 }
 
-// K6 (n_routes == 0) or K7 (n_routes > 0, KT = n_targets = K or 2K).
-// bins [F, npad] u8, w8 [8, npad] bf16 bits, leaf_id [npad] i32 (K7
-// updates it in place over the listed blocks), block_list [>= n_blocks]
-// i32 on the device, params on the device: targets [n_targets] then
-// routes [n_routes, 19]; scales [2] f32 on the device, acc scratch
-// [n_targets * F*B*3] i64, out [n_targets, F, B, 3] f32.  n_blocks == 0
-// writes zero histograms and leaves leaf_id alone.  Returns a CUDA error
-// code (0 on success).
+// K6 (n_routes == 0) or K7 (n_routes > 0, KT = n_targets = K or 2K), one
+// kernel launch and no other operation on the stream.  bins [F, npad] u8,
+// w8 [8, npad] bf16 bits, leaf_id [npad] i32 (K7 updates it in place over
+// the listed blocks), block_list [>= n_blocks] i32 on the device; params
+// = host pointer to a FrontierParams of params_bytes bytes
+// (ops/histogram.py:frontier_params), copied into the launch; scales [2]
+// f32 on the device; scratch = the wrapper's persistent i64 buffer, all
+// zero, of n_targets*F*B*3 words plus one u32 a tile, left all zero; out
+// [n_targets, F, B, 3] f32.  n_blocks == 0 writes zero histograms and
+// leaves leaf_id alone.  Returns a CUDA error code (0 on success).
 int lgbt_histogram_frontier(const uint8_t* bins, const uint16_t* w8,
                             int* leaf_id, long long npad, int num_features,
                             int num_bins, int block_rows,
                             const int* block_list, long long n_blocks,
-                            const int* params, int n_targets, int n_routes,
-                            const float* scales, long long* acc, float* out,
-                            void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
+                            const void* params, long long params_bytes,
+                            const float* scales, long long* scratch,
+                            float* out, void* stream) {
+  if (params_bytes != (long long)sizeof(FrontierParams))
+    return (int)cudaErrorInvalidValue;
+  FrontierParams p;
+  memcpy(&p, params, sizeof p);
+  // the queue holds a row as an i32
+  if (p.n_targets < 1 || p.n_targets > kFrontierMaxTargets
+      || p.n_routes < 0 || p.n_routes > kFrontierMaxRoutes || p.n_ids < 0
+      || block_rows < 1 || n_blocks < 0 || npad > 0x7fffffffll)
+    return (int)cudaErrorInvalidValue;
   int tiling[3];
-  int rc = lgbt_frontier_tiling(num_features, num_bins, n_targets, n_routes,
-                                tiling);
+  const int rc = lgbt_frontier_tiling(num_features, num_bins, p.n_targets,
+                                      p.n_routes, p.n_ids, tiling);
   if (rc != 0) return rc;
   const int ft = tiling[0], tt = tiling[1];
   const size_t smem = (size_t)tiling[2];
-  const long long total = (long long)n_targets * num_features * num_bins;
-  cudaMemsetAsync(acc, 0, sizeof(long long) * 3 * (size_t)total, s);
-  const long long n_rows = n_blocks * (long long)block_rows;
-  if (n_rows > 0) {
-    const int tiles_y = (int)div_up(num_features, ft);
-    const int tiles_z = (int)div_up(n_targets, tt);
-    rc = n_routes > 0
-             ? launch_frontier<true>(tiles_y, tiles_z, smem, s, bins, w8,
-                                     leaf_id, npad, num_features, num_bins,
-                                     ft, tt, block_list, n_rows, block_rows,
-                                     params, n_targets, n_routes, scales, acc)
-             : launch_frontier<false>(tiles_y, tiles_z, smem, s, bins, w8,
-                                      leaf_id, npad, num_features, num_bins,
-                                      ft, tt, block_list, n_rows, block_rows,
-                                      params, n_targets, n_routes, scales,
-                                      acc);
-    if (rc != 0) return rc;
-  }
-  finalize_kernel<<<(unsigned)div_up(total, kThreads), kThreads, 0, s>>>(
-      acc, scales, out, num_features * num_bins, total, 0);
+  const int tiles_y = (int)div_up(num_features, ft);
+  const int tiles_z = (int)div_up(p.n_targets, tt);
+  cudaStream_t s = (cudaStream_t)stream;
+  const int e = p.n_routes > 0
+      ? launch_frontier<true>(tiles_y, tiles_z, smem, s, bins, w8, leaf_id,
+                              npad, num_features, num_bins, ft, tt,
+                              block_list, n_blocks, block_rows, scales,
+                              scratch, p, out)
+      : launch_frontier<false>(tiles_y, tiles_z, smem, s, bins, w8, leaf_id,
+                               npad, num_features, num_bins, ft, tt,
+                               block_list, n_blocks, block_rows, scales,
+                               scratch, p, out);
+  if (e != 0) return e;
   return (int)cudaGetLastError();
 }
 

@@ -28,6 +28,11 @@ run compares each kernel with; a CUDA tensor goes to the kernel, or the
 wrapper raises.  The kernels update ``leaf_id`` in place (the TPU kernels
 aliased it as an input/output), and so do the plain versions.
 
+A K6/K7 call is one kernel launch and nothing else on the stream, so it
+can be captured in a CUDA graph: its host targets and routes travel in
+the launch's parameter block (``frontier_params``), and it sums into a
+per-device scratch that every launch leaves zero.
+
 The weight stream is ``pack_channels``'s [8, Npad] bf16 layout
 ``[g_hi, g_lo, h_hi, h_lo, member, 0, 0, 0]``; the kernels read the five
 live channels.  A histogram is ``[F, B, 3]`` f32 (sum_grad, sum_hess,
@@ -39,6 +44,7 @@ depend on the order of the rows; ``fixed_point_scales`` picks the scale
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -54,6 +60,12 @@ ROUTE_WORDS = 19
 # them (_FRONTIER_K and its 6 MB accumulator budget)
 _FRONTIER_K = 16
 _FRONTIER_ACC_BYTES = 6 * 1024 * 1024
+# K6/K7's parameter block (csrc/histogram.cu FrontierParams): a head of
+# [n_targets, n_routes, n_ids, 0], then room for this many targets and
+# routes, every frontier the grower asks at num_leaves <= 257
+FRONTIER_MAX_ROUTES = 256
+FRONTIER_MAX_TARGETS = 512
+_PARAM_HEAD = 4
 
 
 def pack_channels(grad: torch.Tensor, hess: torch.Tensor,
@@ -455,22 +467,85 @@ def route_window(binsT: torch.Tensor, leaf_id: torch.Tensor,
     return leaf_id
 
 
+def _first_only(ids: np.ndarray) -> np.ndarray:
+    """``ids`` with every repeat of an earlier id set to -1."""
+    if len(set(ids.tolist())) == len(ids):
+        return ids
+    out = np.full_like(ids, -1)
+    _, first = np.unique(ids, return_index=True)
+    out[first] = ids[first]
+    return out
+
+
+def frontier_params(targets: torch.Tensor, routes) -> np.ndarray:
+    """K6/K7's parameter block, as csrc/histogram.cu's FrontierParams lays
+    it out: int32 [n_targets, n_routes, n_ids, 0], the targets padded to
+    FRONTIER_MAX_TARGETS, the routes' words padded to FRONTIER_MAX_ROUTES
+    x ROUTE_WORDS; a host array the launch takes by value.  A target that
+    repeats an earlier one, or a route whose leaf repeats an earlier
+    route's, is -1 there, so the first wins as the plain versions' first
+    match does.  n_ids = 1 + the largest leaf id among the targets and the
+    routed leaves (0 when there is none), the length of the kernel's leaf
+    tables.  Raises on a frontier wider than the block holds."""
+    t = targets.numpy().astype(np.int32)
+    r = (np.zeros((0, ROUTE_WORDS), np.int32) if routes is None
+         else routes.numpy().astype(np.int32))
+    if len(t) > FRONTIER_MAX_TARGETS or len(r) > FRONTIER_MAX_ROUTES:
+        raise ValueError(
+            f"a frontier of {len(r)} routes and {len(t)} targets exceeds "
+            f"the frontier kernel's parameter block ({FRONTIER_MAX_ROUTES} "
+            f"routes, {FRONTIER_MAX_TARGETS} targets)")
+    t = _first_only(t)
+    r[:, 0] = _first_only(r[:, 0])
+    n_ids = max(int(t.max(initial=-1)), int(r[:, 0].max(initial=-1))) + 1
+    block = np.zeros(_PARAM_HEAD + FRONTIER_MAX_TARGETS
+                     + FRONTIER_MAX_ROUTES * ROUTE_WORDS, np.int32)
+    block[:3] = (len(t), len(r), n_ids)
+    block[_PARAM_HEAD:_PARAM_HEAD + len(t)] = t
+    off = _PARAM_HEAD + FRONTIER_MAX_TARGETS
+    block[off:off + r.size] = r.reshape(-1)
+    return block
+
+
 def frontier_tiling(num_features: int, num_bins: int, n_targets: int,
-                    n_routes: int) -> dict:
-    """The card kernel's tiling of K6/K7 at this shape: features and
-    target slots a block holds, its shared memory, and the feature and
-    target tiles of the grid (csrc/histogram.cu lgbt_frontier_tiling)."""
-    out = (ctypes.c_int * 3)()
-    rc = kernels.library().lgbt_frontier_tiling(
-        int(num_features), int(num_bins), int(n_targets), int(n_routes),
-        ctypes.addressof(out))
-    if rc != 0:
-        raise ValueError(f"{n_targets} target slots at {num_bins} bins do "
-                         "not fit the frontier kernel's shared memory")
-    ft, tt, smem = out
+                    n_routes: int, n_ids: int) -> dict:
+    """The card kernel's tiling of K6/K7 at this shape, with leaf tables
+    of ``n_ids`` entries: features and target slots a block holds, its
+    shared memory, and the feature and target tiles of the grid
+    (csrc/histogram.cu lgbt_frontier_tiling)."""
+    ft, tt, smem = _tiling(int(num_features), int(num_bins),
+                           int(n_targets), int(n_routes), int(n_ids))
     return {"tile_features": ft, "tile_targets": tt, "smem_bytes": smem,
             "feature_tiles": -(-num_features // ft),
             "target_tiles": -(-n_targets // tt)}
+
+
+@functools.lru_cache(maxsize=256)
+def _tiling(num_features, num_bins, n_targets, n_routes, n_ids):
+    out = (ctypes.c_int * 3)()
+    rc = kernels.library().lgbt_frontier_tiling(
+        num_features, num_bins, n_targets, n_routes, n_ids,
+        ctypes.addressof(out))
+    if rc != 0:
+        raise ValueError(f"{n_targets} target slots at {num_bins} bins, with "
+                         f"leaf tables of {n_ids} ids, do not fit the "
+                         "frontier kernel's shared memory")
+    return tuple(out)
+
+
+# per device: K6/K7's scratch buffers, all zero between launches (a
+# launch's last blocks re-zero what it used).  None is ever freed, so a
+# CUDA graph that captured one stays valid after a wider launch grew the
+# next.
+_FRONTIER_SCRATCH: dict = {}
+
+
+def _frontier_scratch(dev, words: int) -> torch.Tensor:
+    held = _FRONTIER_SCRATCH.setdefault(dev, [])
+    if not held or held[-1].numel() < words:
+        size = max(words, 2 * held[-1].numel() if held else 1 << 16)
+        held.append(torch.zeros(size, dtype=torch.int64, device=dev))
+    return held[-1]
 
 
 def _launch_frontier(name, binsT, w8, leaf_id, block_list, n_blocks,
@@ -492,20 +567,23 @@ def _launch_frontier(name, binsT, w8, leaf_id, block_list, n_blocks,
             or not 0 <= int(n_blocks) <= block_list.shape[0]):
         raise ValueError("block_list must be 1-D with n_blocks <= its "
                          "length")
-    KT = int(targets.shape[0])
-    K = 0 if routes is None else int(routes.shape[0])
-    frontier_tiling(F, num_bins, KT, K)       # raises where it cannot fit
-    words = targets if routes is None else torch.cat(
-        [targets, routes.reshape(-1)])
-    params = words.to(dev)
-    acc = torch.empty((KT * F * num_bins * 3,), dtype=torch.int64,
-                      device=dev)
+    params = frontier_params(targets, routes)
+    KT, K, n_ids = (int(x) for x in params[:3])
+    off = _PARAM_HEAD + FRONTIER_MAX_TARGETS
+    bin_rows = params[off + 2:off + K * ROUTE_WORDS:ROUTE_WORDS]
+    if ((bin_rows < 0) | (bin_rows >= F)).any():
+        raise ValueError("a route's bin row is outside binsT")
+    # raises where the slots and leaf tables do not fit
+    tiling = frontier_tiling(F, num_bins, KT, K, n_ids)
+    tiles = tiling["feature_tiles"] * tiling["target_tiles"]
+    # the cells' i64 sums, then one u32 arrival counter a tile
+    scratch = _frontier_scratch(dev, KT * F * num_bins * 3 + (tiles + 1) // 2)
     out = torch.empty((KT, F, num_bins, 3), dtype=torch.float32, device=dev)
     rc = kernels.library().lgbt_histogram_frontier(
         binsT.data_ptr(), w8.data_ptr(), leaf_id.data_ptr(), npad, F,
         num_bins, int(block_rows), block_list.data_ptr(), int(n_blocks),
-        params.data_ptr(), KT, K, scales.data_ptr(), acc.data_ptr(),
-        out.data_ptr(), kernels.stream_ptr(dev))
+        params.ctypes.data, params.nbytes, scales.data_ptr(),
+        scratch.data_ptr(), out.data_ptr(), kernels.stream_ptr(dev))
     kernels.check_launch(name, rc)
     return out
 
@@ -568,9 +646,6 @@ def _frontier_routed(name, binsT, w8, leaf_id, block_list, n_blocks,
         return histogram_frontier_routed_plain(
             binsT, w8, leaf_id, block_list, n_blocks, targets, routes,
             num_bins, block_rows)
-    if not bool(((routes[:, 2] >= 0) & (routes[:, 2] < binsT.shape[0]))
-                .all()):
-        raise ValueError("a route's bin row is outside binsT")
     hist = _launch_frontier(name, binsT, w8, leaf_id, block_list, n_blocks,
                             targets, routes, num_bins, block_rows, scales)
     return leaf_id, hist

@@ -19,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -54,8 +55,8 @@ _SIGNATURES = {
     "lgbt_score_gather_add": [_P, _P, _P, _P, _LL, _I, _P],
     "lgbt_histogram_tile_features": [_I, _I],
     "lgbt_histogram_frontier": [_P, _P, _P, _LL, _I, _I, _I, _P, _LL, _P,
-                                _I, _I, _P, _P, _P, _P],
-    "lgbt_frontier_tiling": [_I, _I, _I, _I, _P],
+                                _LL, _P, _P, _P, _P],
+    "lgbt_frontier_tiling": [_I, _I, _I, _I, _I, _P],
 }
 
 
@@ -132,6 +133,49 @@ def build_log() -> str:
     sources = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
     path = BUILD_ROOT / _source_hash(sources) / "build.log"
     return path.read_text() if path.exists() else ""
+
+
+def ptxas_lines(name_part: str, log: Optional[str] = None
+                ) -> Dict[str, list]:
+    """Per kernel entry whose mangled name contains ``name_part``: ptxas's
+    stack, spill and register lines from ``log`` (default: the current
+    build's, ``build_log()``)."""
+    out: Dict[str, list] = {}
+    cur = None
+    for line in (build_log() if log is None else log).splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = m.group(1) if name_part in m.group(1) else None
+            if cur is not None:
+                out[cur] = []
+        elif cur is not None and ("registers" in line or "spill" in line):
+            out[cur].append(line.split("info    :")[-1].strip())
+    return out
+
+
+def sass_opcodes(name_part: str, lib: Optional[Path] = None
+                 ) -> Dict[str, Dict[str, int]]:
+    """Per function of the built library (or ``lib``) whose mangled name
+    contains ``name_part``: how often each SASS opcode occurs, from
+    ``cuobjdump -sass`` (the toolkit beside nvcc)."""
+    lib = Path(lib) if lib is not None else build_library()
+    dump = subprocess.run(
+        [str(Path(_nvcc()).parent / "cuobjdump"), "-sass", str(lib)],
+        capture_output=True, text=True, check=True).stdout
+    counts: Dict[str, Dict[str, int]] = {}
+    cur = None
+    for line in dump.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = m.group(1) if name_part in m.group(1) else None
+            if cur is not None:
+                counts[cur] = {}
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)",
+                     line)
+        if cur is not None and m:
+            counts[cur][m.group(1)] = counts[cur].get(m.group(1), 0) + 1
+    return counts
 
 
 def library() -> ctypes.CDLL:

@@ -3,7 +3,10 @@
 K1-K7 at small shapes (K6/K7 with 16 routes and 32 target slots, at 64
 and 256 bins), a categorical route taken from a real categorical split,
 and binary and multiclass training, segment and frontier, with their
-launch counts.
+launch counts.  K6/K7 also: each call captured in a CUDA graph and
+replayed (one launch, no synchronising copy), calls back to back at other
+widths and shapes (the scratch they share is left zero), a frontier whose
+slots tile across the grid, and the raises past the kernel's capacity.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips where
 ``torch.cuda.is_available()`` is false.  The file imports neither JAX nor
@@ -359,12 +362,12 @@ def _assert_frontier(got, want, w8, binsT, lid, bl, n, targets, B):
 @pytest.mark.parametrize("B", [64, 256])
 def test_frontier_kernels_match_plain(dev, B):
     """K6, K7 routed (KT = K = 16) and K7 fused-K (KT = 32) against their
-    plain versions; at 256 bins 32 slots of one feature (160 KB) do not fit
-    a block, so the targets tile across the grid."""
+    plain versions; at 256 bins the 32 slots of one feature (160 KB) fill
+    most of a block's shared memory, one feature a tile."""
     F, K, npad = 6, 16, 16 * RB
     binsT, w8, lid, routes, bl, n = _frontier_round(F, B, K, npad, B)
-    tiling = th.frontier_tiling(F, B, 2 * K, K)
-    assert tiling["target_tiles"] == (2 if B == 256 else 1)
+    tiling = th.frontier_tiling(F, B, 2 * K, K, 3 * K)
+    assert tiling["target_tiles"] == 1
     assert tiling["smem_bytes"] > 48 * 1024
     scales = th.fixed_point_scales(w8)
     d = dict(binsT=binsT.to(dev), w8=w8.to(dev), bl=bl.to(dev),
@@ -434,6 +437,123 @@ def test_frontier_wrappers_reject_bad_inputs(dev):
     with pytest.raises(ValueError):       # w8 [8, Npad]
         th.histogram_frontier_routed(d_bins, d_w8[:5].contiguous(), d_lid,
                                      d_bl, n, t4, routes, 64, RB, scales)
+
+
+def _frontier_targets(K):
+    """The smaller children of _frontier_round's K splits (the last slot
+    empty), and all 2K children for fused-K."""
+    smaller = torch.tensor([k if k % 3 else 2 * K + k for k in range(K - 1)]
+                           + [-1], dtype=torch.int32)
+    targets2 = torch.tensor(list(range(K - 1)) + [-1]
+                            + list(range(2 * K, 3 * K - 1)) + [-1],
+                            dtype=torch.int32)
+    return smaller, targets2
+
+
+@pytest.mark.cuda
+def test_frontier_kernels_replay_in_a_cuda_graph(dev):
+    """A K6 call and a K7 call (routed and fused-K) are each one kernel
+    launch with no synchronising copy: each is captured in a CUDA graph
+    (a stream sync or a pageable copy would make the capture fail), and
+    its replays equal the eager call, leaf ids included."""
+    F, B, K, npad = 6, 64, 8, 16 * RB
+    binsT, w8, lid, routes, bl, n = _frontier_round(F, B, K, npad, 5)
+    smaller, targets2 = _frontier_targets(K)
+    d_bins, d_w8, d_bl = binsT.to(dev), w8.to(dev), bl.to(dev)
+    scales = th.fixed_point_scales(w8).to(dev)
+    routed_lid, _ = th.histogram_frontier_routed_plain(
+        binsT, w8, lid.clone(), bl, n, smaller, routes, B, RB)
+    calls = {
+        "histogram_frontier": (routed_lid, lambda ids: th.histogram_frontier(
+            d_bins, d_w8, ids, d_bl, n, smaller, B, RB, scales)),
+        "histogram_frontier_routed": (lid, lambda ids: (
+            th.histogram_frontier_routed(d_bins, d_w8, ids, d_bl, n, smaller,
+                                         routes, B, RB, scales)[1])),
+        "histogram_frontier_fusedk": (lid, lambda ids: (
+            th.histogram_frontier_fusedk(d_bins, d_w8, ids, d_bl, n, targets2,
+                                         routes, B, RB, scales)[1])),
+    }
+    for name, (start, call) in calls.items():
+        start = start.to(dev)
+        eager_ids = start.clone()
+        eager = call(eager_ids)   # first use: build, scratch, opt-in
+        ids = start.clone()
+        graph = torch.cuda.CUDAGraph()
+        kernels.reset_launches()
+        with torch.cuda.graph(graph):
+            got = call(ids)
+        assert kernels.LAUNCHES[name] == 1
+        for _ in range(2):
+            ids.copy_(start)
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(got, eager), name
+            assert torch.equal(ids, eager_ids), name
+
+
+@pytest.mark.cuda
+def test_frontier_back_to_back_calls_match_plain(dev):
+    """Launches one after another at other widths, shapes and block lists
+    share the scratch: each equals its plain version, so the scratch and
+    the tiles' arrival counters are zero again after every launch.  The
+    widths include K = 16 at 256 bins (32 slots of 160 KB in one block)
+    and 48 routes, whose 96 slots at 256 bins tile across the grid; after
+    each width a launch over no blocks writes zeros and leaves the leaf
+    ids alone."""
+    cases = ((6, 64, 16, 0), (5, 256, 16, 1), (3, 256, 48, 2),
+             (9, 16, 4, 3), (6, 64, 16, 4))
+    for F, B, K, seed in cases:
+        binsT, w8, lid, routes, bl, n = _frontier_round(F, B, K, 16 * RB,
+                                                        seed)
+        smaller, targets2 = _frontier_targets(K)
+        tiling = th.frontier_tiling(F, B, 2 * K, K, 3 * K)
+        assert (tiling["target_tiles"] > 1) == (K == 48)
+        d = dict(binsT=binsT.to(dev), w8=w8.to(dev), bl=bl.to(dev),
+                 scales=th.fixed_point_scales(w8).to(dev))
+        routed_lid, _ = th.histogram_frontier_routed_plain(
+            binsT, w8, lid.clone(), bl, n, smaller, routes, B, RB)
+        want = th.histogram_frontier_plain(binsT, w8, routed_lid, bl, n,
+                                           smaller, B, RB)
+        got = th.histogram_frontier(d["binsT"], d["w8"], routed_lid.to(dev),
+                                    d["bl"], n, smaller, B, RB, d["scales"])
+        _assert_frontier(got, want, w8, binsT, routed_lid, bl, n, smaller, B)
+        for fn, targets in ((th.histogram_frontier_routed, smaller),
+                            (th.histogram_frontier_fusedk, targets2)):
+            want_lid, want = th.histogram_frontier_routed_plain(
+                binsT, w8, lid.clone(), bl, n, targets, routes, B, RB)
+            got_lid, got = fn(d["binsT"], d["w8"], lid.to(dev), d["bl"], n,
+                              targets, routes, B, RB, d["scales"])
+            assert torch.equal(got_lid.cpu(), want_lid)
+            _assert_frontier(got, want, w8, binsT, want_lid, bl, n, targets,
+                             B)
+            d_lid = lid.to(dev)
+            _, empty = fn(d["binsT"], d["w8"], d_lid, d["bl"], 0, targets,
+                          routes, B, RB, d["scales"])
+            assert not empty.any() and torch.equal(d_lid.cpu(), lid)
+
+
+@pytest.mark.cuda
+def test_frontier_wrappers_raise_past_their_capacity(dev):
+    """More routes or targets than the launch's parameter block holds, or
+    leaf ids whose tables leave no room for a slot, raise with the
+    reason."""
+    binsT, w8, lid, routes, bl, n = _frontier_round(4, 64, 4, 8 * RB, 2)
+    d_bins, d_w8, d_lid, d_bl = (binsT.to(dev), w8.to(dev), lid.to(dev),
+                                 bl.to(dev))
+    scales = th.fixed_point_scales(w8).to(dev)
+    K = th.FRONTIER_MAX_ROUTES + 1
+    wide = torch.stack([th.null_route()] * K)
+    with pytest.raises(ValueError, match="parameter block"):
+        th.histogram_frontier_routed(d_bins, d_w8, d_lid, d_bl, n,
+                                     torch.arange(K, dtype=torch.int32),
+                                     wide, 64, RB, scales)
+    with pytest.raises(ValueError, match="parameter block"):
+        th.histogram_frontier(d_bins, d_w8, d_lid, d_bl, n, torch.arange(
+            th.FRONTIER_MAX_TARGETS + 1, dtype=torch.int32), 64, RB, scales)
+    with pytest.raises(ValueError, match="leaf tables"):
+        th.histogram_frontier(d_bins, d_w8, d_lid, d_bl, n, torch.tensor(
+            [0, 1 << 20], dtype=torch.int32), 64, RB, scales)
+    assert torch.equal(d_lid.cpu(), lid)
 
 
 def _count_rounds(bst):

@@ -228,6 +228,112 @@ def test_frontier_wrappers_check_arguments():
             [0], dtype=torch.int32), th.null_route(), B, RB, s)
 
 
+# ------------------------------------------ the card launch's parameters
+PARAM_WORDS = 4 + th.FRONTIER_MAX_TARGETS + th.FRONTIER_MAX_ROUTES * 19
+ROUTES_AT = 4 + th.FRONTIER_MAX_TARGETS
+
+
+@pytest.mark.parametrize("variant", ["k6", "routed", "fusedk"])
+def test_frontier_params_layout(variant):
+    """K6/K7's parameter block holds the head, the targets and the JAX
+    package's pack_route words where csrc/histogram.cu's FrontierParams
+    reads them, zeros after each, and n_ids one past the largest target
+    or routed leaf."""
+    jroutes = np.array(_jax_routes())            # leaves 1, 3 and -1
+    targets = {"k6": [5, -1, 0, 2], "routed": [6, 3, -1],
+               "fusedk": [1, 3, -1, 6, 7, 0]}[variant]
+    routes = None if variant == "k6" else torch.from_numpy(jroutes)
+    block = th.frontier_params(torch.tensor(targets, dtype=torch.int32),
+                               routes)
+    K = 0 if routes is None else len(jroutes)
+    ids = [t for t in targets if t >= 0] + ([1, 3] if K else [])
+    assert block.dtype == np.int32 and block.shape == (PARAM_WORDS,)
+    assert block[:4].tolist() == [len(targets), K, max(ids) + 1, 0]
+    np.testing.assert_array_equal(block[4:4 + len(targets)], targets)
+    assert not block[4 + len(targets):ROUTES_AT].any()
+    np.testing.assert_array_equal(
+        block[ROUTES_AT:ROUTES_AT + K * 19].reshape(K, 19), jroutes[:K])
+    assert not block[ROUTES_AT + K * 19:].any()
+
+
+def test_frontier_params_first_match_wins():
+    """A repeated target, or a route whose leaf repeats, is -1 in the
+    block, so the kernel's leaf tables keep the first: what the plain
+    version's first match gives (a repeated slot is zeros)."""
+    bins, w8, lid = _inputs(3)
+    targets = torch.tensor([2, 0, 2, -1, 0, 4], dtype=torch.int32)
+    block = th.frontier_params(targets, None)
+    assert block[4:10].tolist() == [2, 0, -1, -1, -1, 4] and block[2] == 5
+    args = (torch.from_numpy(bins), w8, torch.from_numpy(lid),
+            torch.tensor([0, 2, 5], dtype=torch.int32), 3)
+    a = th.histogram_frontier_plain(*args, targets, B, RB)
+    b = th.histogram_frontier_plain(*args, torch.from_numpy(
+        block[4:10].copy()), B, RB)
+    assert torch.equal(a, b) and a[0].any() and not a[2].any()
+    routes = torch.stack([th.null_route()] * 3)
+    routes[:, 0] = torch.tensor([1, 3, 1])
+    routes[:, 1] = torch.tensor([6, 7, 8])
+    block = th.frontier_params(torch.tensor([6, 7, 8], dtype=torch.int32),
+                               routes)
+    words = block[ROUTES_AT:ROUTES_AT + 3 * 19].reshape(3, 19)
+    assert words[:, 0].tolist() == [1, 3, -1] and block[2] == 9
+    np.testing.assert_array_equal(words[:, 1:], routes.numpy()[:, 1:])
+
+
+@pytest.mark.parametrize("K,KT,fits", [(256, 512, True), (257, 257, False),
+                                       (1, 513, False), (0, 513, False)])
+def test_frontier_params_capacity(K, KT, fits):
+    """The block holds 256 routes and 512 targets; a wider frontier
+    raises with the reason."""
+    routes = torch.stack([th.null_route()] * K) if K else None
+    targets = torch.arange(KT, dtype=torch.int32)
+    if fits:
+        assert th.frontier_params(targets, routes)[:3].tolist() == [KT, K,
+                                                                    KT]
+    else:
+        with pytest.raises(ValueError, match="parameter block"):
+            th.frontier_params(targets, routes)
+
+
+@pytest.mark.parametrize("tier", ["off", "k1", "fusedk"])
+def test_frontier_params_of_the_grower_rounds(grower_data, monkeypatch,
+                                              tier):
+    """Every launch the frontier grower asks (K = 4, 15 leaves) packs with
+    its targets in slot order, its routes' words as pack_route wrote
+    them, and n_ids one past its largest leaf id, within num_leaves."""
+    import lightgbm_tpu_torch.models.grower_frontier as gf
+    calls = []
+    for name in ("histogram_frontier", "histogram_frontier_routed",
+                 "histogram_frontier_fusedk"):
+        def spy(*a, _fn=getattr(gf, name)):
+            routes = a[6] if isinstance(a[6], torch.Tensor) else None
+            calls.append((a[5].clone(), routes,
+                          th.frontier_params(a[5], routes)))
+            return _fn(*a)
+        monkeypatch.setattr(gf, name, spy)
+    bins, grad, hess, member = grower_data
+    pfm = ts.FeatureMeta(torch.full((GF,), GB, dtype=torch.int32),
+                         torch.zeros(GF, dtype=torch.int32),
+                         torch.zeros(GF, dtype=torch.int32))
+    g = FrontierGrower(GB, GrowerParams(
+        num_leaves=15, split=ts.SplitParams(min_data_in_leaf=5.0)),
+        GRB, 4, tier=tier)
+    g.grow(torch.from_numpy(bins), torch.from_numpy(grad),
+           torch.from_numpy(hess), torch.from_numpy(member), pfm)
+    assert len(calls) == g.last_stats["rounds"] + 1
+    for targets, routes, block in calls:
+        t = targets.numpy()
+        K = 0 if routes is None else routes.shape[0]
+        np.testing.assert_array_equal(block[4:4 + len(t)], t)
+        if K:
+            np.testing.assert_array_equal(
+                block[ROUTES_AT:ROUTES_AT + K * 19].reshape(K, 19),
+                routes.numpy())
+        leaves = np.concatenate([t, routes.numpy()[:, 0] if K else []])
+        assert block[:3].tolist() == [len(t), K, int(leaves.max()) + 1]
+        assert block[2] <= 15
+
+
 # ------------------------------------------------------------ the width
 @pytest.mark.parametrize("nf", [1, 5, 28, 130, 700])
 def test_frontier_width_matches_jax(nf):
