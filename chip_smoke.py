@@ -9,14 +9,19 @@ It builds the port's CUDA kernels from ``lightgbm_tpu_torch/csrc`` and runs
 thirteen phases; any failure exits non-zero:
 
   1. build    nvcc for sm_90a; prints ptxas's register/shared-memory lines
-              and the card's name and power limit.
+              and the card's name and power limit, and for the K1/K3 and
+              K6/K7 bodies their registers, spills and atomic SASS opcodes
+              (no ATOMS.CAS loop allowed).
   2. kernels  at the HIGGS shape (10.5M rows x 28 features, 64 bins), every
               kernel against its plain PyTorch version on the card: counts,
               leaf ids and scores exact, gradient/hessian sums within
               1e-5 x the bin's sum of |value|, a second launch bit-identical
               to the first; route descriptors cover numeric, NaN-missing,
               zero-missing and categorical-bitset splits and a partial
-              window.  K5 (histogram_all) with C = 5 channel sets at these
+              window; K1 bit-identical to K6's single slot over the same
+              blocks; K1 and K3 each one kernel a call (torch.profiler),
+              replayed identically from a CUDA graph, timed there and on
+              the host.  K5 (histogram_all) with C = 5 channel sets at these
               rows too, each class slice bit-identical to a K1 root of that
               class.  Times each kernel, its plain version and the one
               PyTorch call that computes the same function (index_add_ for
@@ -25,7 +30,10 @@ thirteen phases; any failure exits non-zero:
               HIGGS-shaped data (as bench.py makes it), 255 leaves,
               3 iterations, fused route (K3 + K4).  Train AUC must rise,
               held-out predictions must match the in-training valid
-              scores, the model text is saved.
+              scores, the model text is saved.  Then one more iteration
+              records the grower's K3 calls; its last split (a compacted
+              window of a few row blocks) is replayed from the grower's
+              inputs against the plain version and timed as in phase 2.
   4. unfused  1M rows, 2 iterations, ``fused_route=False`` (K1 + K2); the
               same data through the fused path must give the same model.
   5. parity   200k rows, 31 leaves, 3 iterations on the card and on the
@@ -36,7 +44,8 @@ thirteen phases; any failure exits non-zero:
               version and the K1 roots of its classes; K1 and K3 at 256
               bins, K3 with the categorical route of a real best_split;
               K4 in place into one row of a [5, 1M] score with a 31-leaf
-              table, as the multiclass loop calls it.
+              table, as the multiclass loop calls it; K1/K3 launch reports
+              as in phase 2.
   7. mc train the multiclass path: 5-class softmax with categorical
               features as bench_suite.py makes it, 1M rows, 31 leaves,
               25 iterations, fused: K5 once per iteration, K3 on every
@@ -62,9 +71,7 @@ thirteen phases; any failure exits non-zero:
               graph and replayed (identical), its device operations
               counted with torch.profiler (one kernel, no memcpy or
               memset), and timed in a replayed graph of 20 (the device's
-              time) and on the host (enqueue).  Phase 1 prints the
-              frontier kernel's ptxas registers and spills and its atomic
-              SASS opcodes (no ATOMS.CAS loop).
+              time) and on the host (enqueue).
  10. frontier train  the HIGGS rows through ``tpu_tree_impl=frontier``,
               255 leaves, auto width K = 16, the default tier ("off": K2 a
               split, K6 a round), 3 iterations: train AUC rises, held-out
@@ -208,10 +215,11 @@ def bound_ms(nbytes: float, nops: float):
 
 # ---------------------------------------------------------------- phase 1
 def build_phase():
-    """Builds the kernels; returns K6's and K7's build report: ptxas's
+    """Builds the kernels; returns the build report of K1/K3
+    (segment_window_kernel) and K6/K7 (frontier_hist_kernel): ptxas's
     stack, spill and register lines and the atomic SASS opcodes of each
-    frontier_hist_kernel instantiation (a 64-bit shared add that sm_90a
-    lacks shows as an ATOMS.CAS loop)."""
+    instantiation.  A 64-bit shared add, which sm_90a lacks, would show as
+    an ATOMS.CAS loop: each body must have none."""
     from lightgbm_tpu_torch.ops import kernels
     t0 = time.perf_counter()
     kernels.library()
@@ -219,20 +227,27 @@ def build_phase():
     for line in kernels.build_log().splitlines():
         if "registers" in line or "Compiling entry" in line:
             log("ptxas: " + line.strip())
-    ptxas = kernels.ptxas_lines("frontier_hist_kernel")
-    sass = kernels.sass_opcodes("frontier_hist_kernel")
     report = {}
-    for fn in sorted(set(ptxas) | set(sass)):
-        ops = sass.get(fn, {})
-        report["K7" if "ILb1E" in fn else "K6"] = {
-            "ptxas": ptxas.get(fn, []),
-            "atomics": {k: v for k, v in sorted(ops.items())
-                        if k.startswith(("ATOMS", "ATOM", "RED"))},
-            "atoms_cas": sum(v for k, v in ops.items()
-                             if k.startswith("ATOMS.CAS"))}
-    log(f"frontier_hist_kernel build: {json.dumps(report)}")
-    require(set(report) == {"K6", "K7"}, "frontier_hist_kernel's two "
-            "instantiations are missing from the build")
+    for body, names in (("segment_window_kernel", ("K1", "K3")),
+                        ("frontier_hist_kernel", ("K6", "K7"))):
+        ptxas = kernels.ptxas_lines(body)
+        sass = kernels.sass_opcodes(body)
+        part = {}
+        for fn in sorted(set(ptxas) | set(sass)):
+            ops = sass.get(fn, {})
+            part[names[1] if "ILb1E" in fn else names[0]] = {
+                "ptxas": ptxas.get(fn, []),
+                "atomics": {k: v for k, v in sorted(ops.items())
+                            if k.startswith(("ATOMS", "ATOM", "RED"))},
+                "atoms_cas": sum(v for k, v in ops.items()
+                                 if k.startswith("ATOMS.CAS"))}
+        log(f"{body} build: {json.dumps(part)}")
+        require(set(part) == set(names), f"{body}'s two instantiations are "
+                "missing from the build")
+        for name, rec in part.items():
+            require(rec["atoms_cas"] == 0, f"{name} ({body}) has "
+                    f"{rec['atoms_cas']} ATOMS.CAS loops")
+        report.update(part)
     return report
 
 
@@ -471,6 +486,23 @@ def kernel_phase(handle, config, device):
             f"exact, max |diff| {err:.3g}")
     results["histogram_segment_routed"] = {"max_abs_err": err}
 
+    # K1 of target t is K6's single slot [t] over the same blocks, bit for
+    # bit: the root, the numeric split's child, and a partial window
+    blocks = torch.arange(nblk, dtype=torch.int32, device=device)
+    for cname, lid, target, lo, nb in (
+            ("root", lid0, 0, 0, nblk), ("child", lid_split, 1, 0, nblk),
+            ("partial child", lid_split, 1, nblk // 4, nblk // 4)):
+        k1 = th.histogram_segment(binsT, w8, lid, lo, nb, target, B, rb,
+                                  scales)
+        k6 = th.histogram_frontier(binsT, w8, lid, blocks[lo:lo + nb].clone(),
+                                   nb, torch.tensor([target],
+                                                    dtype=torch.int32),
+                                   B, rb, scales)
+        require(torch.equal(k1, k6[0]), f"histogram_segment {cname}: "
+                "differs from K6's single slot over the same blocks")
+    log("histogram_segment: root, child and partial window each equal "
+        "K6's single slot, bit for bit")
+
     # K4 score_gather_add: leaf ids of a 255-leaf tree; ids >= L add 0
     L = 255
     lid_score = torch.from_numpy(
@@ -543,6 +575,11 @@ def kernel_phase(handle, config, device):
     t["library_ms"] = library_hist_ms(binsT, [w8], torch.arange(
         n, device=device), B, reps)
     t["shape"] = f"root: {W} rows x {F} features, all of leaf 0"
+    t["tiling"] = th.segment_tiling(F, B)
+    want = th.histogram_segment(binsT, w8, lid0, 0, nblk, 0, B, rb, scales)
+    t.update(launch_report("histogram_segment root", lambda ids: (
+        th.histogram_segment(binsT, w8, ids, 0, nblk, 0, B, rb, scales)),
+        lid0, want, lid0, reps))
 
     t = results["histogram_segment_routed"]
     ids = fresh_ids(reps)
@@ -559,6 +596,14 @@ def kernel_phase(handle, config, device):
     # the root case of the fused path (null route)
     t["root_ms"] = time_ms(lambda i: th.histogram_segment_routed(
         binsT, w8, lid0, 0, nblk, 0, th.null_route(), B, rb, scales), reps)
+    want_lid = lid0.clone()
+    want = th.histogram_segment_routed(binsT, w8, want_lid, 0, nblk, 1, route,
+                                       B, rb, scales)[1]
+    t.update(launch_report("histogram_segment_routed first split",
+                           lambda ids: th.histogram_segment_routed(
+                               binsT, w8, ids, 0, nblk, 1, route, B, rb,
+                               scales)[1], lid0, want, want_lid, reps))
+    del want_lid
 
     t = results["route_window"]
     ids = fresh_ids(reps)
@@ -661,7 +706,94 @@ def train_phase(ds, Xh, yh):
         f"{vdiff:.3g}), model text {len(text)} bytes")
     return launches, {"wall_s": wall, "iter_s": bst.gbdt.iter_seconds,
                       "train_auc": auc, "holdout_auc": hauc,
-                      "leaves": [t.num_leaves for t in trees]}
+                      "leaves": [t.num_leaves for t in trees]}, bst
+
+
+# ---------------------------------------------------------- phase 3b
+def late_split_phase(bst):
+    """K3 at a late split of the main path: one more iteration of phase
+    3's booster, recording the grower's K3 calls; its last split (a leaf's
+    compacted window of a few row blocks, the smaller child as target) is
+    replayed from the grower's own inputs against the plain version, and
+    timed as phase 2 times K3.  Returns the measurement dict."""
+    import torch
+    from lightgbm_tpu_torch.models import grower_seg
+    from lightgbm_tpu_torch.ops import histogram as th
+
+    fn = grower_seg.histogram_segment_routed
+    blocks, last = [], {}
+
+    def recorded(binsT, w8, leaf_id, start_block, n_blocks, target, route,
+                 num_bins, block_rows, scales):
+        blocks.append(int(n_blocks))
+        if int(route[0]) >= 0:
+            last.update(args=(binsT, w8), ids=leaf_id.clone(),
+                        rest=(int(start_block), int(n_blocks), int(target),
+                              route.clone(), num_bins, block_rows),
+                        scales=scales)
+        return fn(binsT, w8, leaf_id, start_block, n_blocks, target, route,
+                  num_bins, block_rows, scales)
+
+    grower_seg.histogram_segment_routed = recorded
+    try:
+        bst.update()
+    finally:
+        grower_seg.histogram_segment_routed = fn
+    binsT, w8 = last["args"]
+    lo, nb, target, route, B, rb = last["rest"]
+    scales, lid = last["scales"], last["ids"]
+    F = binsT.shape[0]
+    want_lid, want = th.histogram_segment_routed_plain(
+        binsT, w8, lid.clone(), lo, nb, target, route, B, rb)
+    runs = [th.histogram_segment_routed(binsT, w8, lid.clone(), lo, nb,
+                                        target, route, B, rb, scales)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for got_lid, _ in runs:
+        require(torch.equal(got_lid, want_lid), "late split: leaf ids differ "
+                "from the plain version")
+    require(torch.equal(runs[0][1], runs[1][1]), "late split: a second "
+            "launch differs from the first")
+    rows = slice(lo * rb, (lo + nb) * rb)
+    err = check_hist("histogram_segment_routed late split", runs[0][1], want,
+                     hist_abs_sums(th, binsT, w8, want_lid, lo, nb, target, B,
+                                   rb))
+    W = nb * rb
+    moved = int((want_lid[rows] != lid[rows]).sum().item())
+    M = int(((want_lid[rows] == target) & (w8[4, rows] != 0)).sum().item())
+    rec = {"max_abs_err": err, "window_blocks": nb, "window_rows": W,
+           "target_rows": M, "moved_rows": moved,
+           "calls": len(blocks), "blocks_a_call": {
+               "min": min(blocks), "median": sorted(blocks)[len(blocks) // 2],
+               "max": max(blocks)}}
+    reps = 20
+    ids = [lid.clone() for _ in range(reps + 1)]
+    rec["ms"] = time_ms(lambda i: th.histogram_segment_routed(
+        binsT, w8, ids[i], lo, nb, target, route, B, rb, scales), reps)
+    ids = [lid.clone() for _ in range(4)]
+    rec["plain_ms"] = time_ms(lambda i: th.histogram_segment_routed_plain(
+        binsT, w8, ids[i], lo, nb, target, route, B, rb), 3)
+    del ids
+    rec["bound_ms"], rec["bound_by"] = bound_ms(
+        W * 5 + moved * 4 + M * (F - 1 + 10) + F * B * 12,
+        W * 20 + M * F * 3)
+    rec["library_ms"] = library_hist_ms(
+        binsT, [w8], lo * rb + torch.nonzero(
+            (want_lid[rows] == target) & (w8[4, rows] != 0))[:, 0], B, reps)
+    rec.update(launch_report(
+        "histogram_segment_routed late split",
+        lambda ids: th.histogram_segment_routed(
+            binsT, w8, ids, lo, nb, target, route, B, rb, scales)[1],
+        lid, runs[0][1], want_lid, reps))
+    rec["shape"] = (f"late split: window of {nb} blocks ({W} rows), {M} "
+                    f"in the target, {moved} routed")
+    log(f"histogram_segment_routed late split: {rec['shape']}, ids "
+        f"identical, counts exact, max |diff| {err:.3g}; {rec['ms']:.4f} ms "
+        f"eager; the iteration's {len(blocks)} calls walked "
+        f"{rec['blocks_a_call']} blocks")
+    del last, runs
+    torch.cuda.empty_cache()
+    return rec
 
 
 # ---------------------------------------------------------------- phase 4
@@ -883,6 +1015,25 @@ def mc_kernel_phase(handle, config, device):
         binsT, w8, lid0.clone(), 0, nblk, 1, routes["categorical"], B, rb)
     k3_lib = library_hist_ms(binsT, [w8], torch.nonzero(cat_lid == 1)[:, 0],
                              B, reps)
+    # bytes as in phase 2: the root reads every row; the split reads ids
+    # and split bins of every row, writes the moved ids, and reads bins
+    # and weights of the target's rows
+    moved = int((cat_lid == 1).sum().item())
+    k1_bound = bound_ms(W * 4 + W * (F + 10) + out_bytes, W * F * 3)
+    k3_bound = bound_ms(W * 5 + moved * 4 + moved * (F - 1 + 10) + out_bytes,
+                        W * 20 + moved * F * 3)
+    k1_report = launch_report(
+        "histogram_segment 256 bins root", lambda ids: th.histogram_segment(
+            binsT, w8, ids, 0, nblk, 0, B, rb, scales[0]), lid0, a, lid0,
+        reps)
+    k3_want = th.histogram_segment_routed(binsT, w8, lid0.clone(), 0, nblk, 1,
+                                          routes["categorical"], B, rb,
+                                          scales[0])[1]
+    k3_report = launch_report(
+        "histogram_segment_routed 256 bins categorical",
+        lambda ids: th.histogram_segment_routed(
+            binsT, w8, ids, 0, nblk, 1, routes["categorical"], B, rb,
+            scales[0])[1], lid0, k3_want, cat_lid, reps)
     del cat_lid
     row = runs[0][k]
     k4 = {"mc_max_abs_err": err4}
@@ -896,10 +1047,17 @@ def mc_kernel_phase(handle, config, device):
     k4["mc_shape"] = f"row {k} of a [{C}, {n}] score in place, {L} leaves"
     return {"histogram_all": t, "score_gather_add": k4,
             "histogram_segment": {"b256_ms": k1_ms, "b256_max_abs_err": err1,
-                                  "b256_library_ms": k1_lib},
+                                  "b256_library_ms": k1_lib,
+                                  "b256_tiling": th.segment_tiling(F, B),
+                                  "b256_bound_ms": k1_bound[0],
+                                  **{"b256_" + k: v
+                                     for k, v in k1_report.items()}},
             "histogram_segment_routed": {"b256_cat_ms": k3_ms,
                                          "b256_max_abs_err": err3,
-                                         "b256_cat_library_ms": k3_lib}}
+                                         "b256_cat_library_ms": k3_lib,
+                                         "b256_cat_bound_ms": k3_bound[0],
+                                         **{"b256_cat_" + k: v
+                                            for k, v in k3_report.items()}}}
 
 
 # ---------------------------------------------------------------- phase 7
@@ -1185,30 +1343,44 @@ def frontier_round(th, binsT, w8, scales, fm, feats, rb, K, levels, B, tag,
                 binsT, w8, ids, bl, n, targets, B, rb, scales))
                 if rts is None else (lambda ids: getattr(th, name)(
                     binsT, w8, ids, bl, n, targets, rts, B, rb, scales)[1]))
-            fresh = iter([start.clone() for _ in range(2)])
-            rec["device_ops_per_call"] = device_ops_per_call(
-                lambda: call(next(fresh)))
-            rec["graph_ms"], rec["host_us"] = graph_and_host_times(
-                call, start, reps)
-            ids = start.clone()
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                replayed = call(ids)
-            ids.copy_(start)
-            graph.replay()
-            torch.cuda.synchronize()
-            require(torch.equal(replayed, runs[0][1])
-                    and torch.equal(ids, want_lid),
-                    f"{name} {tag}: a CUDA graph's replay differs from the "
-                    "eager call")
-            del graph, replayed, ids
-            log(f"{name} {tag}: device ops a call "
-                f"{rec['device_ops_per_call']}, CUDA graph replay identical; "
-                f"{rec['ms']:.4f} ms a call eager, {rec['graph_ms']:.4f} ms "
-                f"in a graph, {rec['host_us']:.1f} us of host a call")
+            rec.update(launch_report(f"{name} {tag}", call, start,
+                                     runs[0][1], want_lid, reps))
+            log(f"{name} {tag}: {rec['ms']:.4f} ms a call eager")
         out[name] = rec
     torch.cuda.empty_cache()
     return out
+
+
+def launch_report(tag, call, start, want, want_ids, reps):
+    """One call is one launch: the device operations torch.profiler sees
+    for ``call(ids)`` on a copy of ``start``, a CUDA graph's capture and
+    replay (a stream sync or a pageable copy in the call would fail the
+    capture; the replay must give ``want`` and leave ``want_ids``), and
+    its device time in a replayed graph and host time a call.  Returns
+    {device_ops_per_call, graph_ms, host_us}."""
+    import torch
+    fresh = iter([start.clone() for _ in range(2)])
+    rec = {"device_ops_per_call": device_ops_per_call(
+        lambda: call(next(fresh)))}
+    rec["graph_ms"], rec["host_us"] = graph_and_host_times(call, start, reps)
+    ids = start.clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = call(ids)
+    ids.copy_(start)
+    graph.replay()
+    torch.cuda.synchronize()
+    require(torch.equal(replayed, want) and torch.equal(ids, want_ids),
+            f"{tag}: a CUDA graph's replay differs from the eager call")
+    del graph, replayed, ids
+    ops = rec["device_ops_per_call"]
+    require(ops is None or (ops["kernel"] == 1 and ops["memcpy"] == 0
+                            and ops["memset"] == 0),
+            f"{tag}: a call put {ops} on the stream, not one kernel")
+    log(f"{tag}: device ops a call {ops}, CUDA graph replay identical; "
+        f"{rec['graph_ms']:.4f} ms in a graph, {rec['host_us']:.1f} us of "
+        "host a call")
+    return rec
 
 
 def device_ops_per_call(fn):
@@ -1522,7 +1694,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
     t_start = time.perf_counter()
-    frontier_build = build_phase()
+    build = build_phase()
     card = card_line()
 
     t0 = time.perf_counter()
@@ -1546,7 +1718,9 @@ def main() -> int:
         ((16, 5, True),))
     log(f"frontier kernels: HIGGS took {time.perf_counter() - t0:.1f} s")
 
-    main_launches, train_stats = train_phase(ds, Xh, yh)
+    main_launches, train_stats, bst = train_phase(ds, Xh, yh)
+    results["histogram_segment_routed"]["late_split"] = late_split_phase(bst)
+    del bst
     fr_launches, fr_stats = frontier_train_phase(ds, Xh, yh, train_stats)
     unfused_launches, ds_1m = unfused_phase()
     tier_launches = frontier_tiers_phase(ds_1m)
@@ -1601,10 +1775,13 @@ def main() -> int:
         rec.update(r)
         if name == "histogram_all":
             rec["higgs"] = results["histogram_all_higgs"]
+        if name in ("histogram_segment", "histogram_segment_routed"):
+            rec["build"] = build[
+                "K1" if name == "histogram_segment" else "K3"]
         if name in fk_mc:
             rec["mc"] = fk_mc[name]
             rec["mc_k16"] = fk_mc[f"{name}_k16"]
-            rec["build"] = frontier_build[
+            rec["build"] = build[
                 "K6" if name == "histogram_frontier" else "K7"]
         records.append(rec)
         require(rec["launches"] > 0, f"{name} was not launched on its path")

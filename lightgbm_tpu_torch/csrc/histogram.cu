@@ -22,26 +22,23 @@
 // `target`, the per-(feature, bin) sums of gradient, hessian and row count.
 // K5 computes the same sums over every row, once per channel set: the
 // class set is gridDim.z, so each block reads one set's five channels and
-// the bin rows of its feature tile.  It is the K1 body without the leaf-id
-// test, and sums in the same fixed point at the set's own scale, so class
-// c's slice equals K1 on a root of class c at that scale, bit for bit.
-// The TPU kernel contracted a one-hot [F*B, chunk] matrix against the
-// weight channels on the matrix unit; here a histogram is a scatter into
-// shared memory, as in the reference's OpenCL kernels
-// (src/treelearner/ocl/histogram{16,64,256}.cl).
+// the bin rows of its feature tile.  It is the first K1 body without the
+// leaf-id test (segment_hist_kernel<kAll>), and sums in the same fixed
+// point at the set's own scale, so class c's slice equals K1 on a root of
+// class c at that scale, bit for bit.  The TPU kernel contracted a one-hot
+// [F*B, chunk] matrix against the weight channels on the matrix unit; here
+// a histogram is a scatter into shared memory, as in the reference's OpenCL
+// kernels (src/treelearner/ocl/histogram{16,64,256}.cl).
 //
 // What bounds it.  The least time is set by bytes: one pass reads, per row
 // of the window, the leaf id (4 B), the five live bf16 weight channels
 // (10 B) and one bin byte per feature; at the HIGGS shape (28 features)
 // about 42 B a row against a handful of integer operations, far below the
-// card's ratio of operations to bytes.  This first version does not reach
-// that bound: each (row, feature) pair costs three shared-memory atomics,
-// two of them 64-bit, and the lanes of a warp that hit one bin serialise,
-// so the atomics set its time (PERF.md has the measurements).  The design
-// keeps the data streamed once: each block walks a strided share of the
-// window, one row a thread, so a warp reads 32 neighbouring bytes of each
-// feature row; it accumulates into its own shared-memory histogram and
-// flushes that to device memory once, with atomics.
+// card's ratio of operations to bytes.  What sets the time instead is the
+// shared-memory adds and the chain of loads that feeds them (PERF.md has
+// the measurements): K1/K3 spend five 32-bit atomics per (row, feature)
+// pair; K5's body three, two of them 64-bit adds that sm_90 runs as
+// compare-and-swap loops.
 //
 // Determinism: float atomics would make the sums depend on the order in
 // which threads arrive.  Gradients and hessians are converted to 64-bit
@@ -49,13 +46,37 @@
 // sum can overflow) and added as integers, so every launch gives the same
 // bits whatever the scheduling.  Counts are integers too.
 //
-// Shared memory (K1/K3/K5): a histogram of ft features x B bins x (8 + 8 +
-// 4) bytes.  Features are tiled across gridDim.y so a tile fits the 48 KB
-// a block gets without opting in (37 features at 64 bins, 9 at 256 bins);
-// each tile re-reads the leaf ids and weights, which costs bytes only on
-// shapes wider than the HIGGS one.  K5 adds the class sets as gridDim.z,
-// so its bin rows are read once per set: (F + 10) bytes a row and set
-// against the (F + 10 C) bytes a row of one pass over all sets.
+// K1/K3's body (segment_window_kernel) is the K6/K7 scheme for one target
+// over one window:
+//   * one launch a call, nothing else on the stream: blocks flush into a
+//     persistent i64 scratch kept zero, and the last block of a feature
+//     tile converts it to f32 and zeroes it again;
+//   * one 1024-thread block an SM with up to 227 KB of shared memory, so
+//     28 features fit one tile at 256 bins (the first body's 48 KB blocks
+//     took 4 tiles there, each re-reading leaf ids and weights); one block
+//     a 1024-row step of the window, at most one wave, so a late split's
+//     window of a few row blocks still spreads over several SMs;
+//   * each warp queues the rows that match (a ballot and its prefix) and
+//     adds 32 at a time, a row a lane, however sparse the matches;
+//   * a 64-bit sum is two 32-bit shared planes with the low word's carry
+//     (carry_of); no compare-and-swap loop;
+//   * every lane of a warp adds the same feature at once, four features
+//     at a time, while the next four features' bins load: without that
+//     prefetch each group of adds waited on its loads (1.7x the time at
+//     the HIGGS root).
+// Lanes that add different features at once into a bin-major histogram
+// (a feature a bank), copies of the histogram by warp, and staging the
+// bins in shared memory were each slower (tools/segment_candidates.py,
+// PERF.md).  Features tile across gridDim.y where they do not fit one
+// block (lgbt_segment_tiling); only tile 0 writes K3's ids back (the
+// route is idempotent).
+//
+// K5's shared memory: a histogram of ft features x B bins x (8 + 8 + 4)
+// bytes, features tiled across gridDim.y so a tile fits the 48 KB a block
+// gets without opting in (37 features at 64 bins, 9 at 256 bins), and the
+// class sets across gridDim.z, so its bin rows are read once per set: (F +
+// 10) bytes a row and set against the (F + 10 C) bytes a row of one pass
+// over all sets.
 //
 // K6/K7 (the frontier grower's batched kernels) walk the rows of a list of
 // whole row blocks, the union of the round's confinement windows, not one
@@ -114,6 +135,15 @@ constexpr int kMissingNan = 2;    // core/binning.py MISSING_NAN
 constexpr int kThreads = 256;
 constexpr int kSmemBudget = 48 * 1024;
 constexpr int kBytesPerBin = 8 + 8 + 4;
+// K1/K3: one block an SM of 1024 threads
+constexpr int kSegThreads = 1024;
+// the warps' queues of matching rows: 64 rows (i32) a warp
+constexpr int kSegQueueBytes = kSegThreads * 2 * 4;
+// a (feature, bin) cell: g lo, g hi, h lo, h hi, count, u32 planes
+constexpr int kSegCellBytes = 5 * 4;
+// rows a block walks at least (one step of the block): a window of a
+// few row blocks still spreads over as many SMs as it has steps
+constexpr int kSegMinRows = kSegThreads;
 // K6/K7: blocks an SM, each of 1024 / kFrontierBlocksPerSm threads and an
 // equal share of the SM's shared memory (32 warps an SM either way)
 constexpr int kFrontierBlocksPerSm = 1;
@@ -187,7 +217,9 @@ __device__ __forceinline__ double bf16_bits_to_double(uint16_t b) {
 
 enum HistMode { kSegment = 0, kRouted = 1, kAll = 2 };
 
-// One launch covers rows [row_lo, row_hi) x the feature tile blockIdx.y x
+// K5's body (kAll), and the first K1/K3 body (kSegment, kRouted), which
+// only tools/segment_candidates.py still launches, as the baseline.  One
+// launch covers rows [row_lo, row_hi) x the feature tile blockIdx.y x
 // the channel set blockIdx.z (K5; K1/K3 launch one set).  w8 is
 // [8 * sets, npad] bf16 (as raw bits): g_hi, g_lo, h_hi, h_lo, member, 0...
 // per set; scales [sets, 2]; acc [sets, F * B, 3].  kAll reads no leaf ids.
@@ -510,6 +542,172 @@ frontier_hist_kernel(const uint8_t* __restrict__ bins,
   if (threadIdx.x == 0) arrivals[tile_id] = 0u;
 }
 
+// K1 (kRouted false) and K3 (true).  One launch covers the rows
+// [row_lo, row_hi) x the feature tile blockIdx.y, and writes out [F, B, 3]
+// f32.  acc [F * B, 3] i64 and arrivals [tiles] u32 are the wrapper's
+// scratch, zero on entry and left zero: each block adds its tile's cells
+// into acc, and the last block of a tile to arrive converts the tile into
+// out and zeroes it again.
+//
+// Shared memory: the warps' row queues, then five u32 planes (g lo, g hi,
+// h lo, h hi, count) of the tile's nf x num_bins cells, feature-major.
+template <bool kRouted>
+__global__ void __launch_bounds__(kSegThreads, 1)
+segment_window_kernel(const uint8_t* __restrict__ bins,
+                      const uint16_t* __restrict__ w8, int* leaf_id,
+                      long long npad, int num_features, int num_bins,
+                      int tile_features, long long row_lo, long long row_hi,
+                      int target, const float* __restrict__ scales,
+                      RouteDesc route, unsigned long long* __restrict__ acc,
+                      unsigned int* __restrict__ arrivals,
+                      float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ bool s_last;
+  const int f0 = blockIdx.y * tile_features;
+  const int nf = min(tile_features, num_features - f0);
+  const int cells = nf * num_bins;
+  const unsigned lane = threadIdx.x & 31u;
+  // this warp's queue: 64 rows
+  int* q_row = reinterpret_cast<int*>(smem_raw) + 2 * (threadIdx.x - lane);
+  unsigned* g_lo = reinterpret_cast<unsigned*>(smem_raw + kSegQueueBytes);
+  unsigned* g_hi = g_lo + cells;
+  unsigned* h_lo = g_hi + cells;
+  unsigned* h_hi = h_lo + cells;
+  unsigned* cnt = h_hi + cells;
+  for (int k = threadIdx.x; k < 5 * cells; k += blockDim.x) g_lo[k] = 0u;
+  __syncthreads();
+
+  const double scale_g = (double)scales[0];
+  const double scale_h = (double)scales[1];
+  const uint8_t* tile = bins + (long long)f0 * npad;
+  // adds the features of queued rows [0, n), a row a lane, so the lanes
+  // of a warp add one feature at a time; four features at a time, their
+  // low adds issued before the high adds that wait on them, while the
+  // next four features' bins load
+  auto add_rows = [&](int n) {
+    if ((int)lane >= n) return;
+    const long long row = q_row[lane];
+    const unsigned long long qg = (unsigned long long)__double2ll_rn(
+        (bf16_bits_to_double(w8[row]) + bf16_bits_to_double(w8[npad + row]))
+        * scale_g);
+    const unsigned long long qh = (unsigned long long)__double2ll_rn(
+        (bf16_bits_to_double(w8[2 * npad + row])
+         + bf16_bits_to_double(w8[3 * npad + row])) * scale_h);
+    const unsigned glo = (unsigned)qg, ghi = (unsigned)(qg >> 32);
+    const unsigned hlo = (unsigned)qh, hhi = (unsigned)(qh >> 32);
+    const uint8_t* brow = tile + row;
+    // past the tile, a bin of num_bins: no cell
+    int nb[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      nb[j] = j < nf ? brow[(long long)j * npad] : num_bins;
+    for (int f = 0; f < nf; f += 4) {
+      int k[4];
+      unsigned og[4], oh[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        // the TPU one-hot drops bins >= num_bins too
+        k[j] = nb[j] < num_bins ? (f + j) * num_bins + nb[j] : -1;
+        nb[j] = f + 4 + j < nf ? brow[(long long)(f + 4 + j) * npad]
+                               : num_bins;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (k[j] < 0) continue;
+        og[j] = atomicAdd(g_lo + k[j], glo);
+        oh[j] = atomicAdd(h_lo + k[j], hlo);
+        atomicAdd(cnt + k[j], 1u);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (k[j] < 0) continue;
+        atomicAdd(g_hi + k[j], ghi + carry_of(og[j], glo));
+        atomicAdd(h_hi + k[j], hhi + carry_of(oh[j], hlo));
+      }
+    }
+  };
+
+  const uint8_t* frow = bins + (long long)route.w[2] * npad;
+  const bool writer = blockIdx.y == 0;
+  int queued = 0;   // the same in every lane of the warp
+  const long long n_steps = (row_hi - row_lo + kSegThreads - 1) / kSegThreads;
+  for (long long c = blockIdx.x; c < n_steps; c += gridDim.x) {
+    const long long row = row_lo + c * kSegThreads + threadIdx.x;
+    bool match = false;
+    if (row < row_hi) {
+      int lid = leaf_id[row];
+      if (kRouted) {
+        const int moved = routed_leaf(route, frow[row], lid);
+        // the route is idempotent (moved rows stop matching route.w[0]),
+        // so a tile reading an id tile 0 already rewrote agrees
+        if (moved != lid && writer) leaf_id[row] = moved;
+        lid = moved;
+      }
+      // member is 0 (pad rows) or 1: the port has no bagging weights
+      match = lid == target && w8[4 * npad + row] != 0;
+    }
+    const unsigned m = __ballot_sync(0xffffffffu, match);
+    // fewer than 32 rows wait at a step's start, so 64 entries hold the
+    // step's matches too
+    if (match) q_row[queued + __popc(m & ((1u << lane) - 1u))] = (int)row;
+    queued += __popc(m);
+    __syncwarp();
+    if (queued >= 32) {
+      add_rows(32);
+      __syncwarp();
+      queued -= 32;
+      if ((int)lane < queued) q_row[lane] = q_row[32 + lane];
+      __syncwarp();
+    }
+  }
+  add_rows(queued);
+  __syncthreads();
+
+  // the block's non-empty cells into acc; the tile's cells are contiguous
+  // there and in out
+  const long long tile_base = (long long)f0 * num_bins;
+  for (int k = threadIdx.x; k < cells; k += blockDim.x) {
+    if (cnt[k] == 0u) continue;
+    unsigned long long* dst = acc + 3 * (tile_base + k);
+    atomicAdd(dst + 0, ((unsigned long long)g_hi[k] << 32) | g_lo[k]);
+    atomicAdd(dst + 1, ((unsigned long long)h_hi[k] << 32) | h_lo[k]);
+    atomicAdd(dst + 2, (unsigned long long)cnt[k]);
+  }
+  // the last block of the tile to arrive sees every block's adds
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    s_last = atomicAdd(arrivals + blockIdx.y, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  // four cells a thread at a time, their loads in flight together; as
+  // finalize_kernel converts, then the cells are zeroed
+  for (int k0 = threadIdx.x; k0 < cells; k0 += 4 * blockDim.x) {
+    long long a[4][3];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int k = k0 + j * blockDim.x;
+      if (k >= cells) continue;
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+        a[j][i] = (long long)__ldcg(acc + 3 * (tile_base + k) + i);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int k = k0 + j * blockDim.x;
+      if (k >= cells) continue;
+      const long long cell = tile_base + k;
+      out[3 * cell + 0] = (float)((double)a[j][0] / (double)scales[0]);
+      out[3 * cell + 1] = (float)((double)a[j][1] / (double)scales[1]);
+      out[3 * cell + 2] = (float)a[j][2];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) acc[3 * cell + i] = 0ull;
+    }
+  }
+  if (threadIdx.x == 0) arrivals[blockIdx.y] = 0u;
+}
+
 __global__ void route_window_kernel(const uint8_t* __restrict__ frow,
                                     int* __restrict__ leaf_id,
                                     long long row_lo, long long row_hi,
@@ -595,6 +793,40 @@ int launch_frontier(int tiles_y, int tiles_z, size_t smem, cudaStream_t s,
   return 0;
 }
 
+// Opts K1's or K3's kernel in to the shared-memory budget (once), then
+// launches, for each feature tile, one block per kSegMinRows rows of the
+// window, at most one wave over the tiles (one block a tile when the
+// window is empty: it writes the zeros).  Makes no call that a CUDA
+// graph's capture refuses.  Returns a CUDA error.
+template <bool kRouted>
+int launch_segment(int tiles, int ft, size_t smem, cudaStream_t s, const uint8_t* bins, const uint16_t* w8,
+                   int* leaf_id, long long npad, int num_features,
+                   int num_bins, long long row_lo, long long row_hi,
+                   int target, const float* scales, const RouteDesc& route,
+                   long long* scratch, float* out) {
+  static bool opted_in = false;
+  if (!opted_in) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        segment_window_kernel<kRouted>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, frontier_smem_budget());
+    if (e != cudaSuccess) return (int)e;
+    opted_in = true;
+  }
+  long long bx = div_up(row_hi - row_lo, kSegMinRows);
+  const long long cap = sm_count() / tiles > 0 ? sm_count() / tiles : 1;
+  if (bx > cap) bx = cap;
+  if (bx < 1) bx = 1;
+  // the tiles' arrival counters follow the histogram cells in the scratch
+  const long long cells3 = 3ll * num_features * num_bins;
+  dim3 grid((unsigned)bx, (unsigned)tiles);
+  segment_window_kernel<kRouted><<<grid, kSegThreads, smem, s>>>(
+      bins, w8, leaf_id, npad, num_features, num_bins, ft, row_lo, row_hi,
+      target, scales, route,
+      reinterpret_cast<unsigned long long*>(scratch),
+      reinterpret_cast<unsigned int*>(scratch + cells3), out);
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -603,50 +835,65 @@ const char* lgbt_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Largest feature tile whose shared histogram fits the default 48 KB.
+// K5: largest feature tile whose shared histogram fits the default 48 KB.
 int lgbt_histogram_tile_features(int num_features, int num_bins) {
   const int ft = kSmemBudget / (num_bins * kBytesPerBin);
   return ft < 1 ? 0 : (ft < num_features ? ft : num_features);
 }
 
-// K1 (route == NULL) or K3 (route = host pointer to 19 ints).
-// bins [F, npad] u8, w8 [8, npad] bf16 bits, leaf_id [npad] i32 (updated in
-// place by K3), scales [2] f32 on the device, acc scratch [F*B*3] i64,
-// out [F, B, 3] f32.  Returns cudaGetLastError().
+// K1/K3 tiling: out[0] features a tile, out[1] dynamic shared memory a
+// block (bytes): as many features as fit the budget (K6/K7's: one block
+// an SM), spread evenly over the fewest tiles.  Returns 0, or
+// cudaErrorInvalidValue when not even one feature fits.
+int lgbt_segment_tiling(int num_features, int num_bins, int* out) {
+  const long long per_feature = (long long)num_bins * kSegCellBytes;
+  const long long budget = frontier_smem_budget() - kSegQueueBytes;
+  if (num_features < 1 || num_bins < 1 || budget < per_feature)
+    return (int)cudaErrorInvalidValue;
+  long long most = budget / per_feature;
+  if (most > num_features) most = num_features;
+  const int ft = (int)div_up(num_features, div_up(num_features, most));
+  out[0] = ft;
+  out[1] = (int)(kSegQueueBytes + ft * per_feature);
+  return 0;
+}
+
+// K1 (route == NULL) or K3 (route = host pointer to 19 ints), one kernel
+// launch and no other operation on the stream.  bins [F, npad] u8, w8 [8,
+// npad] bf16 bits, leaf_id [npad] i32 (updated in place by K3 over the
+// window), scales [2] f32 on the device; scratch = the wrapper's
+// persistent i64 buffer, all zero, of F*B*3 words plus one u32 a feature
+// tile, left all zero; out [F, B, 3] f32.  An empty window writes zeros.
+// Returns a CUDA error code (0 on success).
 int lgbt_histogram_segment(const uint8_t* bins, const uint16_t* w8,
                            int* leaf_id, long long npad, int num_features,
                            int num_bins, long long row_lo, long long row_hi,
                            int target, const float* scales, const int* route,
-                           long long* acc, float* out, void* stream) {
+                           long long* scratch, float* out, void* stream) {
+  // the queue holds a row as an i32
+  if (npad > 0x7fffffffll || row_lo < 0 || row_hi > npad)
+    return (int)cudaErrorInvalidValue;
+  int tiling[2];
+  const int rc = lgbt_segment_tiling(num_features, num_bins, tiling);
+  if (rc != 0) return rc;
+  const int tiles = (int)div_up(num_features, tiling[0]);
+  if (row_hi < row_lo) row_hi = row_lo;
   cudaStream_t s = (cudaStream_t)stream;
-  const int cells_all = num_features * num_bins;
-  cudaMemsetAsync(acc, 0, sizeof(long long) * 3 * (size_t)cells_all, s);
-  const long long rows = row_hi - row_lo;
-  if (rows > 0) {
-    const int ft = lgbt_histogram_tile_features(num_features, num_bins);
-    if (ft < 1) return (int)cudaErrorInvalidValue;
-    const int tiles = (int)div_up(num_features, ft);
-    long long bx = div_up(rows, 4ll * kThreads);
-    const long long cap = div_up(4ll * sm_count(), tiles);
-    if (bx > cap) bx = cap;
-    dim3 grid((unsigned)bx, (unsigned)tiles);
-    const size_t smem = (size_t)ft * num_bins * kBytesPerBin;
-    RouteDesc desc = {};
-    if (route != nullptr) {
-      for (int k = 0; k < kRouteWords; ++k) desc.w[k] = route[k];
-      segment_hist_kernel<kRouted><<<grid, kThreads, smem, s>>>(
-          bins, w8, leaf_id, npad, num_features, num_bins, ft, row_lo,
-          row_hi, target, scales, desc,
-          reinterpret_cast<unsigned long long*>(acc));
-    } else {
-      segment_hist_kernel<kSegment><<<grid, kThreads, smem, s>>>(
-          bins, w8, leaf_id, npad, num_features, num_bins, ft, row_lo,
-          row_hi, target, scales, desc,
-          reinterpret_cast<unsigned long long*>(acc));
-    }
+  RouteDesc desc = {};
+  int e;
+  if (route != nullptr) {
+    for (int k = 0; k < kRouteWords; ++k) desc.w[k] = route[k];
+    e = launch_segment<true>(tiles, tiling[0], (size_t)tiling[1], s, bins,
+                             w8, leaf_id, npad, num_features, num_bins,
+                             row_lo, row_hi, target, scales, desc, scratch,
+                             out);
+  } else {
+    e = launch_segment<false>(tiles, tiling[0], (size_t)tiling[1], s, bins,
+                              w8, leaf_id, npad, num_features, num_bins,
+                              row_lo, row_hi, target, scales, desc, scratch,
+                              out);
   }
-  finalize_kernel<<<(unsigned)div_up(cells_all, kThreads), kThreads, 0, s>>>(
-      acc, scales, out, cells_all, cells_all);
+  if (e != 0) return e;
   return (int)cudaGetLastError();
 }
 

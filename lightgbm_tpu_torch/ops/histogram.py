@@ -28,10 +28,11 @@ run compares each kernel with; a CUDA tensor goes to the kernel, or the
 wrapper raises.  The kernels update ``leaf_id`` in place (the TPU kernels
 aliased it as an input/output), and so do the plain versions.
 
-A K6/K7 call is one kernel launch and nothing else on the stream, so it
-can be captured in a CUDA graph: its host targets and routes travel in
-the launch's parameter block (``frontier_params``), and it sums into a
-per-device scratch that every launch leaves zero.
+A K1/K3 or K6/K7 call is one kernel launch and nothing else on the
+stream, so it can be captured in a CUDA graph: K3's route and K6/K7's
+targets and routes travel in the launch's parameters
+(``frontier_params``), and each sums into a per-device scratch that every
+launch leaves zero (``_kernel_scratch``).
 
 The weight stream is ``pack_channels``'s [8, Npad] bf16 layout
 ``[g_hi, g_lo, h_hi, h_lo, member, 0, 0, 0]``; the kernels read the five
@@ -350,6 +351,27 @@ def histogram_frontier_routed_plain(binsT, w8, leaf_id, block_list,
 
 
 # ----------------------------------------------------------------- wrappers
+def segment_tiling(num_features: int, num_bins: int) -> dict:
+    """The card kernel's tiling of K1/K3 at this shape: features a block
+    holds, its shared memory, and the feature tiles of the grid
+    (csrc/histogram.cu lgbt_segment_tiling).  Raises where not even one
+    feature fits."""
+    ft, smem = _seg_tiling(int(num_features), int(num_bins))
+    return {"tile_features": ft, "smem_bytes": smem,
+            "feature_tiles": -(-num_features // ft)}
+
+
+@functools.lru_cache(maxsize=64)
+def _seg_tiling(num_features, num_bins):
+    out = (ctypes.c_int * 2)()
+    rc = kernels.library().lgbt_segment_tiling(num_features, num_bins,
+                                               ctypes.addressof(out))
+    if rc != 0:
+        raise ValueError(f"{num_bins} bins do not fit the segment kernel's "
+                         "shared memory")
+    return tuple(out)
+
+
 def _launch_hist(name, binsT, w8, leaf_id, start_block, n_blocks, target,
                  route, num_bins, block_rows, scales):
     F, npad = binsT.shape
@@ -360,20 +382,21 @@ def _launch_hist(name, binsT, w8, leaf_id, start_block, n_blocks, target,
         raise ValueError("w8 must be [8, Npad] and leaf_id [Npad]")
     if not 1 <= num_bins <= 256 or scales.shape != (2,):
         raise ValueError("num_bins must be in [1, 256] and scales [2]")
-    lib = kernels.library()
-    if lib.lgbt_histogram_tile_features(F, num_bins) < 1:
-        raise ValueError(f"{num_bins} bins do not fit the kernel's tile")
-    lo, hi = _window(npad, start_block, n_blocks, block_rows)
-    acc = torch.empty((F * num_bins * 3,), dtype=torch.int64, device=dev)
-    out = torch.empty((F, num_bins, 3), dtype=torch.float32, device=dev)
     route_ptr = None
     if route is not None:
         _check_route(route)
+        if not 0 <= int(route[2]) < F:
+            raise ValueError("the route's bin row is outside binsT")
         route_ptr = route.data_ptr()
-    rc = lib.lgbt_histogram_segment(
+    tiles = segment_tiling(F, num_bins)["feature_tiles"]
+    lo, hi = _window(npad, start_block, n_blocks, block_rows)
+    # the cells' i64 sums, then one u32 arrival counter a tile
+    scratch = _kernel_scratch(dev, F * num_bins * 3 + (tiles + 1) // 2)
+    out = torch.empty((F, num_bins, 3), dtype=torch.float32, device=dev)
+    rc = kernels.library().lgbt_histogram_segment(
         binsT.data_ptr(), w8.data_ptr(), leaf_id.data_ptr(), npad, F,
         num_bins, lo, hi, int(target), scales.data_ptr(), route_ptr,
-        acc.data_ptr(), out.data_ptr(), kernels.stream_ptr(dev))
+        scratch.data_ptr(), out.data_ptr(), kernels.stream_ptr(dev))
     kernels.check_launch(name, rc)
     return out
 
@@ -533,15 +556,15 @@ def _tiling(num_features, num_bins, n_targets, n_routes, n_ids):
     return tuple(out)
 
 
-# per device: K6/K7's scratch buffers, all zero between launches (a
-# launch's last blocks re-zero what it used).  None is ever freed, so a
-# CUDA graph that captured one stays valid after a wider launch grew the
-# next.
-_FRONTIER_SCRATCH: dict = {}
+# per device: the scratch buffers of K1/K3 and K6/K7, all zero between
+# launches (a launch's last blocks re-zero what it used; the launches of
+# a stream run one after another).  None is ever freed, so a CUDA graph
+# that captured one stays valid after a wider launch grew the next.
+_SCRATCH: dict = {}
 
 
-def _frontier_scratch(dev, words: int) -> torch.Tensor:
-    held = _FRONTIER_SCRATCH.setdefault(dev, [])
+def _kernel_scratch(dev, words: int) -> torch.Tensor:
+    held = _SCRATCH.setdefault(dev, [])
     if not held or held[-1].numel() < words:
         size = max(words, 2 * held[-1].numel() if held else 1 << 16)
         held.append(torch.zeros(size, dtype=torch.int64, device=dev))
@@ -577,7 +600,7 @@ def _launch_frontier(name, binsT, w8, leaf_id, block_list, n_blocks,
     tiling = frontier_tiling(F, num_bins, KT, K, n_ids)
     tiles = tiling["feature_tiles"] * tiling["target_tiles"]
     # the cells' i64 sums, then one u32 arrival counter a tile
-    scratch = _frontier_scratch(dev, KT * F * num_bins * 3 + (tiles + 1) // 2)
+    scratch = _kernel_scratch(dev, KT * F * num_bins * 3 + (tiles + 1) // 2)
     out = torch.empty((KT, F, num_bins, 3), dtype=torch.float32, device=dev)
     rc = kernels.library().lgbt_histogram_frontier(
         binsT.data_ptr(), w8.data_ptr(), leaf_id.data_ptr(), npad, F,

@@ -57,6 +57,7 @@ _SIGNATURES = {
     "lgbt_histogram_frontier": [_P, _P, _P, _LL, _I, _I, _I, _P, _LL, _P,
                                 _LL, _P, _P, _P, _P],
     "lgbt_frontier_tiling": [_I, _I, _I, _I, _I, _P],
+    "lgbt_segment_tiling": [_I, _I, _P],
 }
 
 

@@ -3,7 +3,10 @@
 K1-K7 at small shapes (K6/K7 with 16 routes and 32 target slots, at 64
 and 256 bins), a categorical route taken from a real categorical split,
 and binary and multiclass training, segment and frontier, with their
-launch counts.  K6/K7 also: each call captured in a CUDA graph and
+launch counts.  K1/K3 also over whole, short and empty windows with
+targets that all, half, a few or no rows match, each K1 bit-identical to
+K6's single slot, back to back at other shapes, and in a CUDA graph.
+K6/K7 also: each call captured in a CUDA graph and
 replayed (one launch, no synchronising copy), calls back to back at other
 widths and shapes (the scratch they share is left zero), a frontier whose
 slots tile across the grid, and the raises past the kernel's capacity.
@@ -117,6 +120,134 @@ def test_histogram_kernels_match_plain(dev, F, B):
         assert torch.equal(runs[1][0], want_lid)
         assert torch.equal(runs[0][1], runs[1][1])
         _assert_hist(runs[0][1], want, w8, binsT, want_lid, 1, 6, 6, B)
+
+
+def _segment_layout(F, B, seed):
+    """16 row blocks: leaf 0 in blocks 0-7 (a target every row matches),
+    then leaf 1 in about half the rows, leaf 2 in about 2% and leaf 3 in
+    the rest; leaf 9 in none."""
+    fm, binsT, w8, _ = _inputs(F, B, 16 * RB, seed)
+    rng = np.random.RandomState(seed + 1)
+    u = rng.uniform(size=8 * RB)
+    tail = np.where(u < 0.5, 1, np.where(u < 0.52, 2, 3))
+    lid = torch.from_numpy(np.concatenate(
+        [np.zeros(8 * RB), tail]).astype(np.int32))
+    return fm, binsT, w8, lid
+
+
+# (start block, blocks): all of leaf 0, the mixed half, the whole layout,
+# a few blocks, none
+_SEG_WINDOWS = ((0, 8), (8, 8), (0, 16), (10, 3), (4, 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F,B", [(6, 64), (28, 64), (28, 256), (50, 256)])
+def test_segment_kernels_windows_and_targets(dev, F, B):
+    """K1 over windows of the whole layout, a few blocks and none, for
+    targets that every row, half the rows, a sparse few or no row match;
+    K3 on every route kind over the whole layout and a few blocks.  Each
+    against its plain version, a relaunch bit-identical, and K1 of target
+    t bit-identical to K6's single slot [t] over the same blocks.  40
+    features at 256 bins take two feature tiles, 28 one."""
+    fm, binsT, w8, lid = _segment_layout(F, B, F + B)
+    tiling = th.segment_tiling(F, B)
+    assert tiling["feature_tiles"] == (2 if F == 50 else 1)
+    scales = th.fixed_point_scales(w8)
+    d_bins, d_w8, d_lid = binsT.to(dev), w8.to(dev), lid.to(dev)
+    d_scales = scales.to(dev)
+    for lo, nblk in _SEG_WINDOWS:
+        for target in (0, 1, 2, 9):
+            want = th.histogram_segment_plain(binsT, w8, lid, lo, nblk,
+                                              target, B, RB)
+            runs = [th.histogram_segment(d_bins, d_w8, d_lid, lo, nblk,
+                                         target, B, RB, d_scales)
+                    for _ in range(2)]
+            assert torch.equal(runs[0], runs[1])
+            _assert_hist(runs[0], want, w8, binsT, lid, lo, nblk, target, B)
+            blocks = torch.arange(lo, lo + nblk, dtype=torch.int32,
+                                  device=dev)
+            k6 = th.histogram_frontier(
+                d_bins, d_w8, d_lid, blocks, nblk,
+                torch.tensor([target], dtype=torch.int32), B, RB, d_scales)
+            assert torch.equal(k6[0], runs[0]), (lo, nblk, target)
+    for route in _routes(fm, F):
+        for lo, nblk in ((0, 16), (10, 3)):
+            for target in (6, int(route[0])):
+                want_lid, want = th.histogram_segment_routed_plain(
+                    binsT, w8, lid.clone(), lo, nblk, target, route, B, RB)
+                runs = []
+                for _ in range(2):
+                    ids = d_lid.clone()
+                    got_lid, got = th.histogram_segment_routed(
+                        d_bins, d_w8, ids, lo, nblk, target, route, B, RB,
+                        d_scales)
+                    assert got_lid.data_ptr() == ids.data_ptr()
+                    runs.append((got_lid.cpu(), got.cpu()))
+                for got_lid, _ in runs:
+                    assert torch.equal(got_lid, want_lid)
+                assert torch.equal(runs[0][1], runs[1][1])
+                _assert_hist(runs[0][1], want, w8, binsT, want_lid, lo, nblk,
+                             target, B)
+
+
+@pytest.mark.cuda
+def test_segment_back_to_back_calls_and_cuda_graph(dev):
+    """K1 and K3 one after another at other shapes (one and two feature
+    tiles, 16 to 256 bins) share the scratch with K6: each equals its
+    plain version and an empty window writes zeros, so the scratch and
+    the arrival counters are zero again after every launch.  Then a K1
+    and a K3 call are each captured in a CUDA graph (one launch, nothing
+    that synchronises) and replayed bit for bit, leaf ids included."""
+    for F, B in ((28, 64), (50, 256), (3, 16), (28, 256), (28, 64)):
+        fm, binsT, w8, lid = _segment_layout(F, B, 7 * F + B)
+        scales = th.fixed_point_scales(w8)
+        d_bins, d_w8, d_lid = binsT.to(dev), w8.to(dev), lid.to(dev)
+        d_scales = scales.to(dev)
+        for lo, nblk in ((0, 16), (9, 2)):
+            got = th.histogram_segment(d_bins, d_w8, d_lid, lo, nblk, 1, B,
+                                       RB, d_scales)
+            want = th.histogram_segment_plain(binsT, w8, lid, lo, nblk, 1, B,
+                                              RB)
+            _assert_hist(got, want, w8, binsT, lid, lo, nblk, 1, B)
+            route = _routes(fm, F)[0]
+            want_lid, want = th.histogram_segment_routed_plain(
+                binsT, w8, lid.clone(), lo, nblk, 6, route, B, RB)
+            got_lid, got = th.histogram_segment_routed(
+                d_bins, d_w8, d_lid.clone(), lo, nblk, 6, route, B, RB,
+                d_scales)
+            assert torch.equal(got_lid.cpu(), want_lid)
+            _assert_hist(got, want, w8, binsT, want_lid, lo, nblk, 6, B)
+            empty = th.histogram_segment(d_bins, d_w8, d_lid, lo, 0, 1, B,
+                                         RB, d_scales)
+            assert empty.shape == (F, B, 3) and not empty.any()
+
+    F, B = 28, 64
+    fm, binsT, w8, lid = _segment_layout(F, B, 3)
+    d_bins, d_w8 = binsT.to(dev), w8.to(dev)
+    scales = th.fixed_point_scales(w8).to(dev)
+    route = _routes(fm, F)[3]
+    calls = {
+        "histogram_segment": lambda ids: th.histogram_segment(
+            d_bins, d_w8, ids, 0, 16, 1, B, RB, scales),
+        "histogram_segment_routed": lambda ids: th.histogram_segment_routed(
+            d_bins, d_w8, ids, 2, 12, 6, route, B, RB, scales)[1],
+    }
+    for name, call in calls.items():
+        start = lid.to(dev)
+        eager_ids = start.clone()
+        eager = call(eager_ids)
+        ids = start.clone()
+        graph = torch.cuda.CUDAGraph()
+        kernels.reset_launches()
+        with torch.cuda.graph(graph):
+            got = call(ids)
+        assert kernels.LAUNCHES[name] == 1
+        for _ in range(2):
+            ids.copy_(start)
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(got, eager), name
+            assert torch.equal(ids, eager_ids), name
 
 
 @pytest.mark.cuda

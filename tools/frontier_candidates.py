@@ -419,7 +419,7 @@ def host_main(reps: int, out_path) -> int:
                     (binsT, w8, ids, bl, n, targets, rts))
             block = th.frontier_params(targets, rts)
             KT = int(block[0])
-            scratch = th._frontier_scratch(dev, KT * F * B * 3 + 64)
+            scratch = th._kernel_scratch(dev, KT * F * B * 3 + 64)
             out = torch.empty((KT, F, B, 3), dtype=torch.float32,
                               device=dev)
             stream = torch.cuda.current_stream().cuda_stream
