@@ -9,9 +9,9 @@ It builds the port's CUDA kernels from ``lightgbm_tpu_torch/csrc`` and runs
 thirteen phases; any failure exits non-zero:
 
   1. build    nvcc for sm_90a; prints ptxas's register/shared-memory lines
-              and the card's name and power limit, and for the K1/K3 and
-              K6/K7 bodies their registers, spills and atomic SASS opcodes
-              (no ATOMS.CAS loop allowed).
+              and the card's name and power limit, and for the K1/K3,
+              K5, K6/K7 and K2 bodies their registers, spills and atomic
+              SASS opcodes (no ATOMS.CAS loop allowed).
   2. kernels  at the HIGGS shape (10.5M rows x 28 features, 64 bins), every
               kernel against its plain PyTorch version on the card: counts,
               leaf ids and scores exact, gradient/hessian sums within
@@ -19,11 +19,11 @@ thirteen phases; any failure exits non-zero:
               to the first; route descriptors cover numeric, NaN-missing,
               zero-missing and categorical-bitset splits and a partial
               window; K1 bit-identical to K6's single slot over the same
-              blocks; K1 and K3 each one kernel a call (torch.profiler),
-              replayed identically from a CUDA graph, timed there and on
-              the host.  K5 (histogram_all) with C = 5 channel sets at these
-              rows too, each class slice bit-identical to a K1 root of that
-              class.  Times each kernel, its plain version and the one
+              blocks; K1, K2, K3 and K5 each one kernel a call
+              (torch.profiler), replayed identically from a CUDA graph,
+              timed there and on the host.  K5 (histogram_all) with C = 5
+              channel sets at these rows too, each class slice
+              bit-identical to a K1 root of that class.  Times each kernel, its plain version and the one
               PyTorch call that computes the same function (index_add_ for
               the histograms, with its flat keys made before the clock).
   3. train    the binary path: ``lightgbm_tpu_torch.train`` on synthetic
@@ -44,8 +44,8 @@ thirteen phases; any failure exits non-zero:
               version and the K1 roots of its classes; K1 and K3 at 256
               bins, K3 with the categorical route of a real best_split;
               K4 in place into one row of a [5, 1M] score with a 31-leaf
-              table, as the multiclass loop calls it; K1/K3 launch reports
-              as in phase 2.
+              table, as the multiclass loop calls it; K1/K3/K5 launch
+              reports as in phase 2.
   7. mc train the multiclass path: 5-class softmax with categorical
               features as bench_suite.py makes it, 1M rows, 31 leaves,
               25 iterations, fused: K5 once per iteration, K3 on every
@@ -76,7 +76,11 @@ thirteen phases; any failure exits non-zero:
               255 leaves, auto width K = 16, the default tier ("off": K2 a
               split, K6 a round), 3 iterations: train AUC rises, held-out
               AUC within 0.005 of phase 3's; K6 once a round and a tree
-              root, K2 once a split, K1 and K3 never.
+              root, K2 once a split, K1 and K3 never.  Then one more
+              iteration records the grower's K2 calls: the bound summed
+              over their windows, and the last call (a late split's
+              window) replayed against the plain version and timed as in
+              phase 2.
  11. frontier tiers  1M rows, 2 iterations each of the tiers "off", "k1"
               (K7 routed a round) and "fusedk" (K7 fused-K a round): each
               kernel launches on its tier; "k1" grows "off"'s model text.
@@ -215,11 +219,11 @@ def bound_ms(nbytes: float, nops: float):
 
 # ---------------------------------------------------------------- phase 1
 def build_phase():
-    """Builds the kernels; returns the build report of K1/K3
-    (segment_window_kernel) and K6/K7 (frontier_hist_kernel): ptxas's
-    stack, spill and register lines and the atomic SASS opcodes of each
-    instantiation.  A 64-bit shared add, which sm_90a lacks, would show as
-    an ATOMS.CAS loop: each body must have none."""
+    """Builds the kernels; returns the build report of each hand-written
+    histogram and route body: ptxas's stack, spill and register lines and
+    the atomic SASS opcodes of each instantiation.  A 64-bit shared add,
+    which sm_90a lacks, would show as an ATOMS.CAS loop: each histogram
+    body must have none."""
     from lightgbm_tpu_torch.ops import kernels
     t0 = time.perf_counter()
     kernels.library()
@@ -228,8 +232,11 @@ def build_phase():
         if "registers" in line or "Compiling entry" in line:
             log("ptxas: " + line.strip())
     report = {}
+    # body -> (name of the instantiation without, with a route)
     for body, names in (("segment_window_kernel", ("K1", "K3")),
-                        ("frontier_hist_kernel", ("K6", "K7"))):
+                        ("frontier_hist_kernel", ("K6", "K7")),
+                        ("all_hist_kernel", ("K5", "K5")),
+                        ("route_window_kernel", ("K2", "K2"))):
         ptxas = kernels.ptxas_lines(body)
         sass = kernels.sass_opcodes(body)
         part = {}
@@ -242,8 +249,8 @@ def build_phase():
                 "atoms_cas": sum(v for k, v in ops.items()
                                  if k.startswith("ATOMS.CAS"))}
         log(f"{body} build: {json.dumps(part)}")
-        require(set(part) == set(names), f"{body}'s two instantiations are "
-                "missing from the build")
+        require(set(part) == set(names) and len(ptxas) == len(set(names)),
+                f"{body}'s instantiations are missing from the build")
         for name, rec in part.items():
             require(rec["atoms_cas"] == 0, f"{name} ({body}) has "
                     f"{rec['atoms_cas']} ATOMS.CAS loops")
@@ -615,6 +622,9 @@ def kernel_phase(handle, config, device):
     t["bound_ms"], t["bound_by"] = bound_ms(k2_bytes, k2_ops)
     t["library_ms"] = None
     t["shape"] = f"first split: {W} rows, {moved} routed"
+    t.update(launch_report("route_window first split", lambda ids: (
+        th.route_window(binsT, ids, 0, nblk, route, rb)), lid0, lid_split,
+        lid_split, reps))
 
     t = results["score_gather_add"]
     t["ms"] = time_ms(lambda i: ts.score_gather_add(score, lid_score, table),
@@ -640,6 +650,10 @@ def kernel_phase(handle, config, device):
         binsT, [w8C[8 * c:8 * c + 8] for c in range(C)],
         torch.arange(n, device=device), B, reps)
     t["shape"] = f"{W} rows x {F} features x {C} sets, {B} bins"
+    t["tiling"] = th.all_tiling(F, B, C)
+    want = th.histogram_all(binsT, w8C, B, scales5)
+    t.update(launch_report("histogram_all HIGGS rows", lambda ids: (
+        th.histogram_all(binsT, w8C, B, scales5)), lid0, want, lid0, reps))
     results["histogram_all_higgs"] = t
     return results
 
@@ -1003,6 +1017,10 @@ def mc_kernel_phase(handle, config, device):
         binsT, [w8C[8 * c:8 * c + 8] for c in range(C)],
         torch.arange(n, device=device), B, reps)
     t["shape"] = f"{W} rows x {F} features x {C} sets, {B} bins"
+    t["tiling"] = th.all_tiling(F, B, C)
+    want = th.histogram_all(binsT, w8C, B, scales)
+    t.update(launch_report("histogram_all multiclass_cat", lambda ids: (
+        th.histogram_all(binsT, w8C, B, scales)), lid0, want, lid0, reps))
     ids = [lid0.clone() for _ in range(reps + 1)]
     k3_ms = time_ms(lambda i: th.histogram_segment_routed(
         binsT, w8, ids[i], 0, nblk, 1, routes["categorical"], B, rb,
@@ -1574,7 +1592,80 @@ def frontier_train_phase(ds, Xh, yh, seg_stats):
     return launches, {"wall_s": wall, "iter_s": it_s, "train_auc": auc,
                       "holdout_auc": hauc, "rounds": total["rounds"],
                       "splits": splits, "K": g.K, "tier": g.tier,
-                      "grower_stats": dict(g.last_stats)}
+                      "grower_stats": dict(g.last_stats)}, bst
+
+
+# -------------------------------------------------------------- phase 10b
+def route_late_phase(bst):
+    """K2 at the windows the main path gives it: one more iteration of
+    phase 10's booster (the frontier grower's tier "off", a K2 call a
+    split), recording each call's window and the rows it moved.  The
+    bound summed over the iteration's real windows; the last call (a late
+    split's window of a few row blocks) replayed from the grower's own
+    inputs against the plain version, timed eager, in a CUDA graph and on
+    the host.  Returns the measurement dict."""
+    import torch
+    from lightgbm_tpu_torch.models import grower_frontier
+    from lightgbm_tpu_torch.ops import histogram as th
+
+    fn = grower_frontier.route_window
+    calls, last = [], {}
+
+    def recorded(binsT, leaf_id, start_block, n_blocks, route, block_rows):
+        before = leaf_id.clone()
+        out = fn(binsT, leaf_id, start_block, n_blocks, route, block_rows)
+        calls.append((int(n_blocks) * block_rows,
+                      int((leaf_id != before).sum().item())))
+        last.update(binsT=binsT, ids=before, args=(
+            int(start_block), int(n_blocks), route.clone(), block_rows))
+        return out
+
+    grower_frontier.route_window = recorded
+    try:
+        bst.update()
+    finally:
+        grower_frontier.route_window = fn
+    binsT, lid = last["binsT"], last["ids"]
+    lo, nb, route, rb = last["args"]
+    want = th.route_window_plain(binsT, lid.clone(), lo, nb, route, rb)
+    runs = [th.route_window(binsT, lid.clone(), lo, nb, route, rb)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for got in runs:
+        require(torch.equal(got, want), "route_window late window: leaf ids "
+                "differ from the plain version")
+    W = nb * rb
+    moved = int((want != lid).sum().item())
+    reps = 20
+    ids = [lid.clone() for _ in range(reps + 1)]
+    rec = {"window_blocks": nb, "window_rows": W, "moved_rows": moved}
+    rec["ms"] = time_ms(lambda i: th.route_window(binsT, ids[i], lo, nb,
+                                                  route, rb), reps)
+    ids = [lid.clone() for _ in range(4)]
+    rec["plain_ms"] = time_ms(lambda i: th.route_window_plain(
+        binsT, ids[i], lo, nb, route, rb), 3)
+    del ids
+    rec["bound_ms"], rec["bound_by"] = bound_ms(W * 5 + moved * 4, W * 20)
+    rec.update(launch_report("route_window late window", lambda ids: (
+        th.route_window(binsT, ids, lo, nb, route, rb)), lid, want, want,
+        reps))
+    # the bound of the iteration's calls, each at its own window
+    rows = sorted(w for w, _ in calls)
+    rec["iteration"] = {
+        "calls": len(calls),
+        "bound_ms": sum(bound_ms(w * 5 + m * 4, w * 20)[0]
+                        for w, m in calls),
+        "window_rows": {"min": rows[0], "median": rows[len(rows) // 2],
+                        "max": rows[-1], "sum": sum(rows)},
+        "moved_rows": sum(m for _, m in calls)}
+    rec["shape"] = (f"late window: {nb} blocks ({W} rows), {moved} routed")
+    log(f"route_window late window: {rec['shape']}, ids identical; "
+        f"{rec['ms']:.4f} ms eager; the iteration's {len(calls)} calls "
+        f"walked {rec['iteration']['window_rows']} rows, bound summed "
+        f"{rec['iteration']['bound_ms']:.3f} ms")
+    del last
+    torch.cuda.empty_cache()
+    return rec
 
 
 # --------------------------------------------------------------- phase 11
@@ -1721,7 +1812,10 @@ def main() -> int:
     main_launches, train_stats, bst = train_phase(ds, Xh, yh)
     results["histogram_segment_routed"]["late_split"] = late_split_phase(bst)
     del bst
-    fr_launches, fr_stats = frontier_train_phase(ds, Xh, yh, train_stats)
+    fr_launches, fr_stats, bst = frontier_train_phase(ds, Xh, yh,
+                                                      train_stats)
+    results["route_window"]["late_window"] = route_late_phase(bst)
+    del bst
     unfused_launches, ds_1m = unfused_phase()
     tier_launches = frontier_tiers_phase(ds_1m)
     del ds_1m

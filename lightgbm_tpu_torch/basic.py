@@ -98,6 +98,9 @@ class Booster:
                  fused_route: bool = True,
                  frontier_tier: Optional[str] = None):
         self.params = dict(params or {})
+        # the iteration predict uses by default; 0 = none set (the port
+        # has no early stopping, so only a caller sets it)
+        self.best_iteration = 0
         self.config = Config.from_params(self.params)
         set_verbosity(self.config.verbosity)
         if train_set is None:
@@ -126,8 +129,15 @@ class Booster:
     def eval_valid(self) -> List:
         return self.gbdt.eval_valid()
 
-    def predict(self, data, num_iteration: int = -1,
+    def predict(self, data, num_iteration: Optional[int] = -1,
                 raw_score: bool = False) -> np.ndarray:
+        """Raw scores or the objective's output of a raw feature matrix.
+        ``num_iteration`` None or negative means ``best_iteration`` when
+        one is set, else every iteration (lightgbm_tpu/basic.py:528); 0
+        means every iteration too."""
+        if num_iteration is None or num_iteration < 0:
+            num_iteration = (self.best_iteration if self.best_iteration > 0
+                             else -1)
         X = np.asarray(data, dtype=np.float64)
         if X.ndim == 1:
             X = X[None, :]

@@ -2,9 +2,10 @@
 
 The same registry shape as the reference's Config (include/LightGBM/
 config.h, src/io/config_auto.cpp): name, default, aliases.  The port runs
-one path — binary or multiclass-softmax GBDT with the serial segment or
-frontier grower on dense data, numeric or categorical — so the registry
-holds only the parameters that path honours.  A
+one path — L2 regression (the default objective, as in the JAX package),
+binary or multiclass-softmax GBDT with the serial segment or frontier
+grower on dense data, numeric or categorical — so the registry holds only
+the parameters that path honours.  A
 parameter of a feature the port does not have raises NotImplementedError
 unless it is given at the value that switches the feature off; an
 unknown parameter raises too.  Nothing is silently ignored.
@@ -30,7 +31,7 @@ class _P:
 
 # Parameters the port honours.
 _PARAMS: Dict[str, _P] = {
-    "objective": _P("binary", ["objective_type", "app", "application"]),
+    "objective": _P("regression", ["objective_type", "app", "application"]),
     "num_class": _P(1, ["num_classes"]),
     "num_iterations": _P(100, ["num_iteration", "n_iter", "num_tree",
                                "num_trees", "num_round", "num_rounds",
@@ -61,6 +62,8 @@ _PARAMS: Dict[str, _P] = {
     "is_unbalance": _P(False, ["unbalance", "unbalanced_sets"]),
     "scale_pos_weight": _P(1.0),
     "sigmoid": _P(1.0),
+    # L2 regression on sign(y) sqrt(|y|), predictions squared back
+    "reg_sqrt": _P(False),
     # categorical columns, as indices or feature names ("0,3" or a list);
     # Dataset(categorical_feature=...) takes precedence
     "categorical_feature": _P("", ["cat_feature", "categorical_column",
@@ -73,6 +76,12 @@ _PARAMS: Dict[str, _P] = {
     "min_data_per_group": _P(100),
     "multi_error_top_k": _P(1),
     "boost_from_average": _P(True),
+    # exclusive feature bundling (core/bundle.py): the grouping is
+    # computed; a multi-feature group raises until its histogram expansion
+    # is ported
+    "enable_bundle": _P(True, ["is_enable_bundle", "bundle"]),
+    "max_conflict_rate": _P(0.0),
+    "sparse_threshold": _P(0.8),
     "metric": _P([], ["metrics", "metric_types"], ptype=list),
     # row block: the granularity of the growers' confinement intervals
     # (0 = DEFAULT_BLOCK_ROWS, capped at the row count)
@@ -108,7 +117,6 @@ _OFF_VALUES: Dict[str, Any] = {
     "cegb_penalty_split": 0.0,
     "cegb_penalty_feature_lazy": [],
     "cegb_penalty_feature_coupled": [],
-    "enable_bundle": False,
     "max_bin_by_feature": [],
     "early_stopping_round": 0,
     "tpu_double_precision": False,
@@ -130,7 +138,6 @@ _OFF_ALIASES = {
     "mc": "monotone_constraints", "monotone_constraint": "monotone_constraints",
     "feature_contrib": "feature_contri", "fc": "feature_contri",
     "fp": "feature_contri", "feature_penalty": "feature_contri",
-    "is_enable_bundle": "enable_bundle", "bundle": "enable_bundle",
     "early_stopping_rounds": "early_stopping_round",
     "early_stopping": "early_stopping_round",
 }
@@ -144,14 +151,21 @@ for _name, _spec in _PARAMS.items():
 DEVICE_TYPES = ("cuda", "cpu")
 TREE_IMPLS = {"auto": "segment", "segment": "segment",
               "frontier": "frontier"}
-OBJECTIVE_ALIASES = {"binary": "binary", "multiclass": "multiclass",
-                     "softmax": "multiclass"}
-METRIC_ALIASES = {"auc": "auc", "binary_logloss": "binary_logloss",
+OBJECTIVE_ALIASES = {
+    "regression": "regression", "regression_l2": "regression",
+    "l2": "regression", "mean_squared_error": "regression",
+    "mse": "regression", "l2_root": "regression",
+    "root_mean_squared_error": "regression", "rmse": "regression",
+    "binary": "binary", "multiclass": "multiclass", "softmax": "multiclass"}
+METRIC_ALIASES = {"l2": "l2", "mean_squared_error": "l2", "mse": "l2",
+                  "regression": "l2", "regression_l2": "l2",
+                  "auc": "auc", "binary_logloss": "binary_logloss",
                   "binary": "binary_logloss",
                   "multi_logloss": "multi_logloss",
                   "multiclass": "multi_logloss", "softmax": "multi_logloss",
                   "multi_error": "multi_error"}
-DEFAULT_METRIC = {"binary": "binary_logloss", "multiclass": "multi_logloss"}
+DEFAULT_METRIC = {"regression": "l2", "binary": "binary_logloss",
+                  "multiclass": "multi_logloss"}
 _TRUE_SET = {"true", "1", "yes", "+", "on"}
 _FALSE_SET = {"false", "0", "no", "-", "off"}
 
@@ -236,7 +250,7 @@ class Config:
         if obj not in OBJECTIVE_ALIASES:
             raise NotImplementedError(
                 f"objective {obj!r} is not supported by lightgbm_tpu_torch "
-                "(only binary and multiclass)")
+                "(only regression, binary and multiclass)")
         self.objective = OBJECTIVE_ALIASES[obj]
         if self.objective == "multiclass" and self.num_class <= 1:
             raise LightGBMError("num_class must be > 1 for multiclass")

@@ -204,6 +204,8 @@ class BinMapper:
         self.min_val: float = 0.0
         self.max_val: float = 0.0
         self.default_bin: int = 0
+        # share of the binning sample in the default bin (EFB's sparsity)
+        self.sparse_rate: float = 1.0
 
     @property
     def is_categorical(self) -> bool:
@@ -261,6 +263,8 @@ class BinMapper:
             if bin_type == BIN_TYPE_CATEGORICAL:
                 check(self.default_bin > 0,
                       "categorical default_bin must be > 0")
+            self.sparse_rate = (cnt_in_bin[self.default_bin]
+                                / max(total_sample_cnt, 1))
         return self
 
     def _find_bin_numerical(self, distinct, counts, max_bin: int,

@@ -4,10 +4,13 @@ Reference: include/LightGBM/dataset.h:283-637 + src/io/dataset_loader.cpp
 (sample -> FindBin -> quantize all rows).  The port keeps ONE dense bin
 matrix, stored feature-major ``[F_used, N]`` uint8 on the host: each
 feature is a contiguous row, which is the layout the histogram kernels
-read on the card.  Every used feature is its own column: there is no
-exclusive feature bundling (EFB) in the port yet.  Categorical columns
-are named at construction (``categorical_features``) and binned by
-category (core/binning.py).
+read on the card.  Every used feature is its own column: exclusive
+feature bundling (EFB, core/bundle.py) computes the JAX package's
+grouping and raises where a multi-feature group forms, since storing and
+expanding a group is not ported yet; on data where none forms (dense
+data) the matrix is the unbundled one.  Categorical columns are named at
+construction (``categorical_features``) and binned by category
+(core/binning.py).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 from ..config import Config
 from ..utils.log import check, log_warning
 from .binning import BIN_TYPE_CATEGORICAL, BIN_TYPE_NUMERICAL, BinMapper
+from .bundle import build_bundle
 from .metadata import Metadata
 
 
@@ -82,19 +86,33 @@ class TorchDataset:
         else:
             ds._fit_bin_mappers(data, cfg,
                                 set(int(c) for c in categorical_features))
+            if cfg.enable_bundle:
+                groups = ds.find_bundle(data, cfg)
+                if groups is not None:
+                    raise NotImplementedError(
+                        f"EFB groups {len(ds.used_feature_indices)} features "
+                        f"into {len(groups)} bin columns here, but the "
+                        "expansion of a group's histogram into its features' "
+                        "is not ported to lightgbm_tpu_torch yet; pass "
+                        "enable_bundle=False")
         ds._quantize(data)
         ds.metadata.init(n)
         if label is not None:
             ds.metadata.set_label(label)
         return ds
 
+    @staticmethod
+    def _sample_indices(n: int, cfg: Config) -> np.ndarray:
+        """The rows of the binning sample (the JAX Dataset's
+        _pick_sample)."""
+        rng = np.random.RandomState(cfg.data_random_seed)
+        sample_cnt = min(n, cfg.bin_construct_sample_cnt)
+        return (np.arange(n) if sample_cnt >= n
+                else rng.choice(n, sample_cnt, replace=False))
+
     def _fit_bin_mappers(self, data: np.ndarray, cfg: Config,
                          categorical: set) -> None:
-        rng = np.random.RandomState(cfg.data_random_seed)
-        n = data.shape[0]
-        sample_cnt = min(n, cfg.bin_construct_sample_cnt)
-        sample_idx = (np.arange(n) if sample_cnt >= n
-                      else rng.choice(n, sample_cnt, replace=False))
+        sample_idx = self._sample_indices(data.shape[0], cfg)
         self.bin_mappers = [
             BinMapper().find_bin(
                 np.asarray(data[sample_idx, f], dtype=np.float64),
@@ -121,6 +139,27 @@ class TorchDataset:
         check(self.max_num_bin <= 256,
               f"a feature has {self.max_num_bin} bins; lightgbm_tpu_torch "
               "stores one byte a bin (at most 256 bins)")
+
+    def find_bundle(self, data: np.ndarray, cfg: Config):
+        """EFB's grouping of the used features on the binning sample of
+        ``data`` (the JAX Dataset's _build_bundle): a list of groups of
+        used-feature indices, or None when no multi-feature group
+        forms."""
+        used = self.used_feature_indices
+        if len(used) <= 1:
+            return None
+        sample_idx = self._sample_indices(data.shape[0], cfg)
+        mappers = [self.bin_mappers[f] for f in used]
+
+        def nonzero(j):
+            col = np.asarray(data[sample_idx, used[j]], dtype=np.float64)
+            return mappers[j].value_to_bin(col) != mappers[j].default_bin
+
+        return build_bundle(
+            nonzero, len(used), len(sample_idx),
+            np.asarray([m.num_bin for m in mappers], dtype=np.int64),
+            np.asarray([m.sparse_rate for m in mappers]),
+            cfg.sparse_threshold, cfg.max_conflict_rate)
 
     def _quantize(self, data: np.ndarray) -> None:
         used = self.used_feature_indices

@@ -20,15 +20,12 @@
 //
 // K1/K3 compute, over the rows [row_lo, row_hi) whose leaf id equals
 // `target`, the per-(feature, bin) sums of gradient, hessian and row count.
-// K5 computes the same sums over every row, once per channel set: the
-// class set is gridDim.z, so each block reads one set's five channels and
-// the bin rows of its feature tile.  It is the first K1 body without the
-// leaf-id test (segment_hist_kernel<kAll>), and sums in the same fixed
-// point at the set's own scale, so class c's slice equals K1 on a root of
-// class c at that scale, bit for bit.  The TPU kernel contracted a one-hot
-// [F*B, chunk] matrix against the weight channels on the matrix unit; here
-// a histogram is a scatter into shared memory, as in the reference's OpenCL
-// kernels (src/treelearner/ocl/histogram{16,64,256}.cl).
+// K5 computes the same sums over every row, once per channel set, in the
+// same fixed point at the set's own scale, so class c's slice equals K1 on
+// a root of class c at that scale, bit for bit.  The TPU kernel contracted
+// a one-hot [F*B, chunk] matrix against the weight channels on the matrix
+// unit; here a histogram is a scatter into shared memory, as in the
+// reference's OpenCL kernels (src/treelearner/ocl/histogram{16,64,256}.cl).
 //
 // What bounds it.  The least time is set by bytes: one pass reads, per row
 // of the window, the leaf id (4 B), the five live bf16 weight channels
@@ -36,9 +33,8 @@
 // about 42 B a row against a handful of integer operations, far below the
 // card's ratio of operations to bytes.  What sets the time instead is the
 // shared-memory adds and the chain of loads that feeds them (PERF.md has
-// the measurements): K1/K3 spend five 32-bit atomics per (row, feature)
-// pair; K5's body three, two of them 64-bit adds that sm_90 runs as
-// compare-and-swap loops.
+// the measurements): five 32-bit atomics per (row, feature) pair, and per
+// (row, feature, set) in K5.
 //
 // Determinism: float atomics would make the sums depend on the order in
 // which threads arrive.  Gradients and hessians are converted to 64-bit
@@ -71,12 +67,28 @@
 // block (lgbt_segment_tiling); only tile 0 writes K3's ids back (the
 // route is idempotent).
 //
-// K5's shared memory: a histogram of ft features x B bins x (8 + 8 + 4)
-// bytes, features tiled across gridDim.y so a tile fits the 48 KB a block
-// gets without opting in (37 features at 64 bins, 9 at 256 bins), and the
-// class sets across gridDim.z, so its bin rows are read once per set: (F +
-// 10) bytes a row and set against the (F + 10 C) bytes a row of one pass
-// over all sets.
+// K5 (all_hist_kernel) is K1's body over every row and C channel sets:
+// the same block, scratch, carry adds and prefetching add loop, but no
+// leaf-id test and so no queue (every row but the pad rows is in the
+// root: a lane adds its own row, one set after another).  A block holds
+// the cells of a tile of (feature, set) pairs, features across gridDim.y
+// and sets across gridDim.z.  One tile of every pair would read (F + 10 C)
+// bytes a row, the bound and what the TPU kernel's one pass over all sets
+// read (pallas_histogram.py:482-505); but the adds, not the bytes, set
+// the time, and lgbt_all_tiling gives a block one set and its features,
+// which measured fastest.
+//
+// K2 (route_window_kernel) rewrites the leaf ids of one window.  Its bound
+// is 5 B a row plus 4 B a moved row; what held its first version at a
+// third of it was one row a thread (a one-byte and a four-byte load in
+// flight) and the route's arithmetic on every row.  Each block now first
+// turns the route into a table of the 256 bin values (a row with bin g of
+// the routed leaf goes right or not: one ballot a warp), and each thread
+// routes 4 consecutive rows a step, its bins in one 4-byte load and its
+// ids in one 16-byte load, writing back the ids only where one changed;
+// the grid is sized to the window, so a late split's few row blocks
+// spread over many SMs (16 rows a thread was slower: fewer threads, more
+// registers).
 //
 // K6/K7 (the frontier grower's batched kernels) walk the rows of a list of
 // whole row blocks, the union of the round's confinement windows, not one
@@ -117,8 +129,8 @@
 //   * a block flushes its tile's non-empty cells to a persistent i64
 //     scratch with global atomics, then counts itself in the tile's
 //     arrival counter; the last block of the tile converts the tile to
-//     f32 (finalize_kernel's arithmetic), and zeroes the scratch cells and
-//     the counter for the next launch.
+//     f32 (each sum over its scale, in double), and zeroes the scratch
+//     cells and the counter for the next launch.
 // Features tile across gridDim.y and, when one feature's KT slots do not
 // fit, target slots across gridDim.z (lgbt_frontier_tiling).  Every tile
 // re-reads its rows' leaf ids; K7's ids are rewritten by tile (0, 0) only.
@@ -132,10 +144,13 @@ namespace {
 constexpr int kRouteWords = 19;   // pallas_histogram.py:_ROUTE_WORDS
 constexpr int kMissingZero = 1;   // core/binning.py MISSING_ZERO
 constexpr int kMissingNan = 2;    // core/binning.py MISSING_NAN
-constexpr int kThreads = 256;
-constexpr int kSmemBudget = 48 * 1024;
-constexpr int kBytesPerBin = 8 + 8 + 4;
-// K1/K3: one block an SM of 1024 threads
+// K2: threads a block (one bin value of the route table each), rows a
+// thread a step (1, 4 or 16), and the route by the table (true) or by
+// routed_leaf on every row (false)
+constexpr int kRouteThreads = 256;
+constexpr int kRouteRows = 4;
+constexpr bool kRouteTable = true;
+// K1/K3 and K5: one block an SM of 1024 threads
 constexpr int kSegThreads = 1024;
 // the warps' queues of matching rows: 64 rows (i32) a warp
 constexpr int kSegQueueBytes = kSegThreads * 2 * 4;
@@ -188,11 +203,11 @@ constexpr int kFrontierQueueBytes = 2 * kFrontierThreads * (4 + 2);
 // the kernel's static shared memory (the last-block flag), rounded up
 constexpr int kFrontierStaticSmem = 16;
 
-// One row's leaf id after the split: _route_block_ids
+// Whether a row of the routed leaf whose value in the split feature's bin
+// row is `g` goes right (takes new_leaf): _route_block_ids
 // (pallas_histogram.py:1007-1042) for one row, in the same 0/1 integer
-// arithmetic.  `g` is the row's value in the split feature's bin row.
-__device__ __forceinline__ int routed_leaf(const RouteDesc& r, int g,
-                                           int lid) {
+// arithmetic.
+__device__ __forceinline__ int goes_right(const RouteDesc& r, int g) {
   const int thr = r.w[4], dl = r.w[5], cat = r.w[6], mt = r.w[7];
   const int dbin = r.w[8], nbf = r.w[9], off = r.w[10];
   const int in_range = int(g >= off) * int(g < off + nbf);
@@ -207,106 +222,17 @@ __device__ __forceinline__ int routed_leaf(const RouteDesc& r, int g,
   for (int k = 0; k < 8; ++k) word = (idx / 32 == k) ? r.w[11 + k] : word;
   const int cat_left = (word >> (idx % 32)) & 1;
   const int go_left = cat * cat_left + (1 - cat) * num_left;
-  const int take = int(lid == r.w[0]) * (1 - go_left);
-  return take == 1 ? r.w[1] : lid;
+  return 1 - go_left;
+}
+
+// One row's leaf id after the split (K3, K7, and K2 without its table).
+__device__ __forceinline__ int routed_leaf(const RouteDesc& r, int g,
+                                           int lid) {
+  return lid == r.w[0] && goes_right(r, g) == 1 ? r.w[1] : lid;
 }
 
 __device__ __forceinline__ double bf16_bits_to_double(uint16_t b) {
   return (double)__uint_as_float(((uint32_t)b) << 16);
-}
-
-enum HistMode { kSegment = 0, kRouted = 1, kAll = 2 };
-
-// K5's body (kAll), and the first K1/K3 body (kSegment, kRouted), which
-// only tools/segment_candidates.py still launches, as the baseline.  One
-// launch covers rows [row_lo, row_hi) x the feature tile blockIdx.y x
-// the channel set blockIdx.z (K5; K1/K3 launch one set).  w8 is
-// [8 * sets, npad] bf16 (as raw bits): g_hi, g_lo, h_hi, h_lo, member, 0...
-// per set; scales [sets, 2]; acc [sets, F * B, 3].  kAll reads no leaf ids.
-template <int kMode>
-__global__ void __launch_bounds__(kThreads)
-segment_hist_kernel(const uint8_t* __restrict__ bins,
-                    const uint16_t* __restrict__ w8, int* leaf_id,
-                    long long npad, int num_features, int num_bins,
-                    int tile_features, long long row_lo, long long row_hi,
-                    int target, const float* __restrict__ scales,
-                    RouteDesc route, unsigned long long* __restrict__ acc) {
-  extern __shared__ unsigned long long smem[];
-  const long long set = blockIdx.z;
-  w8 += set * 8 * npad;
-  scales += 2 * set;
-  acc += set * 3ll * num_features * num_bins;
-  const int f0 = blockIdx.y * tile_features;
-  const int nf = min(tile_features, num_features - f0);
-  const int cells = nf * num_bins;
-  unsigned long long* sg = smem;
-  unsigned long long* sh = smem + cells;
-  unsigned int* sc = reinterpret_cast<unsigned int*>(smem + 2 * cells);
-  for (int k = threadIdx.x; k < cells; k += blockDim.x) {
-    sg[k] = 0ull;
-    sh[k] = 0ull;
-    sc[k] = 0u;
-  }
-  __syncthreads();
-
-  const double scale_g = (double)scales[0];
-  const double scale_h = (double)scales[1];
-  const uint8_t* frow = bins + (long long)route.w[2] * npad;
-  const uint8_t* tile = bins + (long long)f0 * npad;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = row_lo + (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < row_hi; i += stride) {
-    if (kMode != kAll) {
-      int lid = leaf_id[i];
-      if (kMode == kRouted) {
-        const int moved = routed_leaf(route, frow[i], lid);
-        // the route is idempotent (moved rows stop matching route.w[0]),
-        // so a tile reading an id another tile already rewrote agrees
-        if (moved != lid && blockIdx.y == 0) leaf_id[i] = moved;
-        lid = moved;
-      }
-      if (lid != target) continue;
-    }
-    // member is 0 (pad rows) or 1: the port has no bagging weights
-    if (w8[4 * npad + i] == 0) continue;
-    const long long qg = __double2ll_rn(
-        (bf16_bits_to_double(w8[i]) + bf16_bits_to_double(w8[npad + i]))
-        * scale_g);
-    const long long qh = __double2ll_rn(
-        (bf16_bits_to_double(w8[2 * npad + i])
-         + bf16_bits_to_double(w8[3 * npad + i])) * scale_h);
-    for (int f = 0; f < nf; ++f) {
-      const int b = tile[(long long)f * npad + i];
-      if (b >= num_bins) continue;   // the TPU one-hot drops such bins too
-      const int k = f * num_bins + b;
-      atomicAdd(&sg[k], (unsigned long long)qg);
-      atomicAdd(&sh[k], (unsigned long long)qh);
-      atomicAdd(&sc[k], 1u);
-    }
-  }
-  __syncthreads();
-  for (int k = threadIdx.x; k < cells; k += blockDim.x) {
-    if (sc[k] == 0u) continue;
-    unsigned long long* dst = acc + 3ll * ((long long)f0 * num_bins + k);
-    atomicAdd(dst + 0, sg[k]);
-    atomicAdd(dst + 1, sh[k]);
-    atomicAdd(dst + 2, (unsigned long long)sc[k]);
-  }
-}
-
-// acc [sets, F*B, 3] fixed point -> out [sets, F*B, 3] f32 (sum_grad,
-// sum_hess, count), set s at scales[2 * s : + 2] (K5's one pair per set;
-// K1/K3 convert one set)
-__global__ void finalize_kernel(const long long* __restrict__ acc,
-                                const float* __restrict__ scales,
-                                float* __restrict__ out, int cells,
-                                long long total) {
-  const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= total) return;
-  const float* sc = scales + 2 * (k / cells);
-  out[3 * k + 0] = (float)((double)acc[3 * k + 0] / (double)sc[0]);
-  out[3 * k + 1] = (float)((double)acc[3 * k + 1] / (double)sc[1]);
-  out[3 * k + 2] = (float)acc[3 * k + 2];
 }
 
 // K6/K7 add a 64-bit value into a shared word pair (lo, hi) with two
@@ -513,8 +439,8 @@ frontier_hist_kernel(const uint8_t* __restrict__ bins,
   __syncthreads();
   if (!s_last) return;
   __threadfence();
-  // four cells a thread at a time, their loads in flight together; as
-  // finalize_kernel converts, then the cells are zeroed
+  // four cells a thread at a time, their loads in flight together; each
+  // sum over its scale in double, rounded to f32, then the cells zeroed
   for (int k0 = threadIdx.x; k0 < cells; k0 += 4 * blockDim.x) {
     long long cell[4], a[4][3];
 #pragma unroll
@@ -681,8 +607,8 @@ segment_window_kernel(const uint8_t* __restrict__ bins,
   __syncthreads();
   if (!s_last) return;
   __threadfence();
-  // four cells a thread at a time, their loads in flight together; as
-  // finalize_kernel converts, then the cells are zeroed
+  // four cells a thread at a time, their loads in flight together; each
+  // sum over its scale in double, rounded to f32, then the cells zeroed
   for (int k0 = threadIdx.x; k0 < cells; k0 += 4 * blockDim.x) {
     long long a[4][3];
 #pragma unroll
@@ -708,15 +634,225 @@ segment_window_kernel(const uint8_t* __restrict__ bins,
   if (threadIdx.x == 0) arrivals[blockIdx.y] = 0u;
 }
 
-__global__ void route_window_kernel(const uint8_t* __restrict__ frow,
-                                    int* __restrict__ leaf_id,
-                                    long long row_lo, long long row_hi,
-                                    RouteDesc route) {
+// K5.  One launch covers every row x the feature tile blockIdx.y x the set
+// tile blockIdx.z, and writes out [C, F, B, 3] f32.  w8 is [8 C, npad] bf16
+// bits (set c's g_hi, g_lo, h_hi, h_lo, member, 0, 0, 0 at rows 8c..8c+7),
+// scales [C, 2]; acc [C, F * B, 3] i64 and arrivals [tiles] u32 are the
+// wrapper's scratch, zero on entry and left zero, as K1's.
+//
+// Shared memory: five u32 planes (g lo, g hi, h lo, h hi, count) of the
+// tile's ns x nf x num_bins cells, set-major then feature-major.  A lane
+// adds its own row's features into each set of the tile in turn, with
+// K1's add loop (segment_window_kernel: four features at a time, their
+// low adds before the high adds that wait on them, while the next four
+// features' bins load); a row's bins come from device memory for the
+// first set and from the cache for the others.
+__global__ void __launch_bounds__(kSegThreads, 1)
+all_hist_kernel(const uint8_t* __restrict__ bins,
+                const uint16_t* __restrict__ w8, long long npad,
+                int num_features, int num_bins, int num_sets,
+                int tile_features, int tile_sets,
+                const float* __restrict__ scales,
+                unsigned long long* __restrict__ acc,
+                unsigned int* __restrict__ arrivals,
+                float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ bool s_last;
+  const int f0 = blockIdx.y * tile_features;
+  const int nf = min(tile_features, num_features - f0);
+  const int c0 = blockIdx.z * tile_sets;
+  const int ns = min(tile_sets, num_sets - c0);
+  const int set_cells = nf * num_bins;
+  const int cells = ns * set_cells;
+  unsigned* g_lo = reinterpret_cast<unsigned*>(smem_raw);
+  unsigned* g_hi = g_lo + cells;
+  unsigned* h_lo = g_hi + cells;
+  unsigned* h_hi = h_lo + cells;
+  unsigned* cnt = h_hi + cells;
+  for (int k = threadIdx.x; k < 5 * cells; k += blockDim.x) g_lo[k] = 0u;
+  __syncthreads();
+
+  const uint8_t* tile = bins + (long long)f0 * npad;
+  const long long n_steps = (npad + kSegThreads - 1) / kSegThreads;
+  for (long long c = blockIdx.x; c < n_steps; c += gridDim.x) {
+    const long long row = c * kSegThreads + threadIdx.x;
+    if (row >= npad) break;
+    const uint8_t* brow = tile + row;
+    for (int s = 0; s < ns; ++s) {
+      const uint16_t* w = w8 + (long long)(c0 + s) * 8 * npad + row;
+      // member is 0 (pad rows) or 1: the port has no bagging weights
+      if (w[4 * npad] == 0) continue;
+      const unsigned long long qg = (unsigned long long)__double2ll_rn(
+          (bf16_bits_to_double(w[0]) + bf16_bits_to_double(w[npad]))
+          * (double)scales[2 * (c0 + s)]);
+      const unsigned long long qh = (unsigned long long)__double2ll_rn(
+          (bf16_bits_to_double(w[2 * npad]) + bf16_bits_to_double(w[3 * npad]))
+          * (double)scales[2 * (c0 + s) + 1]);
+      const unsigned glo = (unsigned)qg, ghi = (unsigned)(qg >> 32);
+      const unsigned hlo = (unsigned)qh, hhi = (unsigned)(qh >> 32);
+      const int base = s * set_cells;
+      // past the tile, a bin of num_bins: no cell
+      int nb[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        nb[j] = j < nf ? brow[(long long)j * npad] : num_bins;
+      for (int f = 0; f < nf; f += 4) {
+        int k[4];
+        unsigned og[4], oh[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          // the TPU one-hot drops bins >= num_bins too
+          k[j] = nb[j] < num_bins ? base + (f + j) * num_bins + nb[j] : -1;
+          nb[j] = f + 4 + j < nf ? brow[(long long)(f + 4 + j) * npad]
+                                 : num_bins;
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (k[j] < 0) continue;
+          og[j] = atomicAdd(g_lo + k[j], glo);
+          oh[j] = atomicAdd(h_lo + k[j], hlo);
+          atomicAdd(cnt + k[j], 1u);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (k[j] < 0) continue;
+          atomicAdd(g_hi + k[j], ghi + carry_of(og[j], glo));
+          atomicAdd(h_hi + k[j], hhi + carry_of(oh[j], hlo));
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // cell k of the tile: set c0 + k / set_cells, (feature, bin) f0 * B +
+  // k % set_cells of that set's [F * B] cells in acc and out
+  const long long cells_all = (long long)num_features * num_bins;
+  auto cell_of = [&](int k) {
+    const int s = k / set_cells;
+    return (c0 + s) * cells_all + (long long)f0 * num_bins
+           + (k - s * set_cells);
+  };
+  for (int k = threadIdx.x; k < cells; k += blockDim.x) {
+    if (cnt[k] == 0u) continue;
+    unsigned long long* dst = acc + 3 * cell_of(k);
+    atomicAdd(dst + 0, ((unsigned long long)g_hi[k] << 32) | g_lo[k]);
+    atomicAdd(dst + 1, ((unsigned long long)h_hi[k] << 32) | h_lo[k]);
+    atomicAdd(dst + 2, (unsigned long long)cnt[k]);
+  }
+  // the last block of the tile to arrive sees every block's adds
+  __threadfence();
+  __syncthreads();
+  const unsigned tile_id = blockIdx.z * gridDim.y + blockIdx.y;
+  if (threadIdx.x == 0)
+    s_last = atomicAdd(arrivals + tile_id, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  // four cells a thread at a time, their loads in flight together; each
+  // sum over its set's scale in double, rounded to f32, then the cells
+  // zeroed
+  for (int k0 = threadIdx.x; k0 < cells; k0 += 4 * blockDim.x) {
+    long long cell[4], a[4][3];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int k = k0 + j * blockDim.x;
+      cell[j] = -1;
+      if (k >= cells) continue;
+      cell[j] = cell_of(k);
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+        a[j][i] = (long long)__ldcg(acc + 3 * cell[j] + i);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (cell[j] < 0) continue;
+      const float* sc = scales + 2 * (cell[j] / cells_all);
+      out[3 * cell[j] + 0] = (float)((double)a[j][0] / (double)sc[0]);
+      out[3 * cell[j] + 1] = (float)((double)a[j][1] / (double)sc[1]);
+      out[3 * cell[j] + 2] = (float)a[j][2];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) acc[3 * cell[j] + i] = 0ull;
+    }
+  }
+  if (threadIdx.x == 0) arrivals[tile_id] = 0u;
+}
+
+// K2.  One launch covers the rows [row_lo, row_hi) of one window.  With
+// kTable, each block first turns the route into s_right, a table of the
+// 256 bin values (bit g: a row of the routed leaf whose bin is g goes
+// right), one value a thread and one ballot a warp; a row then costs a
+// table read and a compare with the routed leaf.  Each thread routes kRows
+// consecutive rows of [vec_lo, vec_hi) a step: their bins in one load of
+// kRows bytes and their ids in 16-byte loads, all in flight together, and
+// writes back only the 16-byte groups in which an id changed.  The host
+// picks vec_lo and vec_hi so that both arrays are aligned there and the
+// span is a whole number of steps; the rows outside it (fewer than
+// 2 kRows, or the whole window where the two arrays cannot be aligned
+// together) are routed one a thread.
+template <int kRows, bool kTable>
+__global__ void __launch_bounds__(kRouteThreads)
+route_window_kernel(const uint8_t* __restrict__ frow,
+                    int* __restrict__ leaf_id, long long row_lo,
+                    long long row_hi, long long vec_lo, long long vec_hi,
+                    RouteDesc route) {
+  static_assert(kRouteThreads == 256, "one route-table entry a thread");
+  static_assert(kRows == 1 || kRows == 4 || kRows == 16, "rows a thread");
+  __shared__ unsigned s_right[8];
+  if (kTable) {
+    const unsigned word = __ballot_sync(
+        0xffffffffu, goes_right(route, (int)threadIdx.x) == 1);
+    if ((threadIdx.x & 31u) == 0) s_right[threadIdx.x >> 5] = word;
+    __syncthreads();
+  }
+  const int leaf = route.w[0], new_leaf = route.w[1];
+  auto route_row = [&](int g, int lid) {
+    if (!kTable) return routed_leaf(route, g, lid);
+    return lid == leaf && ((s_right[g >> 5] >> (g & 31)) & 1u) ? new_leaf
+                                                              : lid;
+  };
+  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = row_lo + (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < row_hi; i += stride) {
+  const long long steps = (vec_hi - vec_lo) / kRows;
+  for (long long q = first; q < steps; q += stride) {
+    const long long r0 = vec_lo + q * kRows;
+    if constexpr (kRows == 1) {
+      const int lid = leaf_id[r0];
+      const int moved = route_row(frow[r0], lid);
+      if (moved != lid) leaf_id[r0] = moved;
+    } else {
+      unsigned g[kRows / 4];
+      if constexpr (kRows == 16) {
+        const uint4 v = *reinterpret_cast<const uint4*>(frow + r0);
+        g[0] = v.x;
+        g[1] = v.y;
+        g[2] = v.z;
+        g[3] = v.w;
+      } else {
+        g[0] = *reinterpret_cast<const unsigned*>(frow + r0);
+      }
+      int4 ids[kRows / 4];
+#pragma unroll
+      for (int j = 0; j < kRows / 4; ++j)
+        ids[j] = reinterpret_cast<const int4*>(leaf_id + r0)[j];
+#pragma unroll
+      for (int j = 0; j < kRows / 4; ++j) {
+        // row r0 + 4j + k has byte k of word j (little-endian)
+        const int4 n = make_int4(route_row(g[j] & 255u, ids[j].x),
+                                 route_row((g[j] >> 8) & 255u, ids[j].y),
+                                 route_row((g[j] >> 16) & 255u, ids[j].z),
+                                 route_row(g[j] >> 24, ids[j].w));
+        if (n.x != ids[j].x || n.y != ids[j].y || n.z != ids[j].z
+            || n.w != ids[j].w)
+          reinterpret_cast<int4*>(leaf_id + r0)[j] = n;
+      }
+    }
+  }
+  const long long head = vec_lo - row_lo;
+  const long long edge = head + (row_hi - vec_hi);
+  for (long long e = first; e < edge; e += stride) {
+    const long long i = e < head ? row_lo + e : vec_hi + (e - head);
     const int lid = leaf_id[i];
-    const int moved = routed_leaf(route, frow[i], lid);
+    const int moved = route_row(frow[i], lid);
     if (moved != lid) leaf_id[i] = moved;
   }
 }
@@ -827,18 +963,60 @@ int launch_segment(int tiles, int ft, size_t smem, cudaStream_t s, const uint8_t
   return 0;
 }
 
+// The aligned span [vec_lo, vec_hi) of K2's window for kRows rows a step:
+// from the first row at or after row_lo where frow is kRows-byte aligned
+// and leaf_id 16-byte aligned (kRows >= 4), a whole number of steps.
+// Where the two cannot be aligned together the span is empty.
+template <int kRows>
+void route_span(const uint8_t* frow, const int* leaf_id, long long row_lo,
+                long long row_hi, long long* vec_lo, long long* vec_hi) {
+  *vec_lo = *vec_hi = row_hi;
+  long long lo = row_lo;
+  if (kRows > 1) {
+    const long long fa = (long long)(reinterpret_cast<uintptr_t>(frow + lo)
+                                     % kRows);
+    lo += (kRows - fa) % kRows;
+    if (reinterpret_cast<uintptr_t>(leaf_id + lo) % 16 != 0) return;
+  }
+  if (lo >= row_hi) return;
+  *vec_lo = lo;
+  *vec_hi = lo + (row_hi - lo) / kRows * kRows;
+}
+
+// Launches K2: the threads the window's steps and edge rows need, at most
+// one wave (the blocks an SM that fit, once asked, on every SM), and one
+// block for an empty window, so a call is always one launch.  Makes no
+// call that a CUDA graph's capture refuses.  Returns a CUDA error.
+template <int kRows, bool kTable>
+int launch_route(const uint8_t* frow, int* leaf_id, long long row_lo,
+                 long long row_hi, const RouteDesc& route, cudaStream_t s) {
+  static int per_sm = 0;
+  if (per_sm == 0) {
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, route_window_kernel<kRows, kTable>, kRouteThreads, 0);
+    if (e != cudaSuccess) return (int)e;
+    if (per_sm < 1) per_sm = 1;
+  }
+  long long vec_lo, vec_hi;
+  route_span<kRows>(frow, leaf_id, row_lo, row_hi, &vec_lo, &vec_hi);
+  const long long steps = (vec_hi - vec_lo) / kRows;
+  const long long edge = (vec_lo - row_lo) + (row_hi - vec_hi);
+  long long blocks = div_up(steps > edge ? steps : edge, kRouteThreads);
+  const long long wave = (long long)per_sm * sm_count();
+  if (blocks > wave) blocks = wave;
+  if (blocks < 1) blocks = 1;
+  route_window_kernel<kRows, kTable><<<(unsigned)blocks, kRouteThreads, 0,
+                                       s>>>(frow, leaf_id, row_lo, row_hi,
+                                            vec_lo, vec_hi, route);
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
 
 const char* lgbt_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
-}
-
-// K5: largest feature tile whose shared histogram fits the default 48 KB.
-int lgbt_histogram_tile_features(int num_features, int num_bins) {
-  const int ft = kSmemBudget / (num_bins * kBytesPerBin);
-  return ft < 1 ? 0 : (ft < num_features ? ft : num_features);
 }
 
 // K1/K3 tiling: out[0] features a tile, out[1] dynamic shared memory a
@@ -897,35 +1075,67 @@ int lgbt_histogram_segment(const uint8_t* bins, const uint16_t* w8,
   return (int)cudaGetLastError();
 }
 
-// K5: bins [F, npad] u8, w8 [8 * sets, npad] bf16 bits (pad rows carry
-// member 0), scales [sets, 2] f32 on the device, acc scratch
-// [sets * F*B*3] i64, out [sets, F, B, 3] f32.  Returns cudaGetLastError().
+// K5 tiling: out[0] features a tile, out[1] sets a tile, out[2] dynamic
+// shared memory a block (bytes).  One set a block (the sets across
+// gridDim.z) and as many of its features as fit the budget (K1's: one
+// block an SM), spread evenly over the fewest tiles.  Blocks of several
+// sets read fewer bytes (a row's bins once for all their sets) but were
+// slower: each set's adds take a row's bins from the cache again
+// (tools/route_candidates.py, PERF.md).  Returns 0, or
+// cudaErrorInvalidValue when not even one feature fits.
+int lgbt_all_tiling(int num_features, int num_bins, int num_sets, int* out) {
+  const long long per_feature = (long long)num_bins * kSegCellBytes;
+  const long long budget = frontier_smem_budget();
+  if (num_features < 1 || num_bins < 1 || num_sets < 1
+      || budget < per_feature)
+    return (int)cudaErrorInvalidValue;
+  // one set a block, its features spread evenly over the fewest tiles
+  long long most = budget / per_feature;
+  if (most > num_features) most = num_features;
+  out[0] = (int)div_up(num_features, div_up(num_features, most));
+  out[1] = 1;
+  out[2] = (int)(per_feature * out[0]);
+  return 0;
+}
+
+// K5, one kernel launch and no other operation on the stream.  bins [F,
+// npad] u8, w8 [8 * sets, npad] bf16 bits (pad rows carry member 0),
+// scales [sets, 2] f32 on the device; scratch = the wrapper's persistent
+// i64 buffer, all zero, of sets*F*B*3 words plus one u32 a tile, left all
+// zero; out [sets, F, B, 3] f32.  Returns a CUDA error code (0 on
+// success).
 int lgbt_histogram_all(const uint8_t* bins, const uint16_t* w8,
                        long long npad, int num_features, int num_bins,
-                       int sets, const float* scales, long long* acc,
+                       int sets, const float* scales, long long* scratch,
                        float* out, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const int cells_all = num_features * num_bins;
-  const long long total = (long long)sets * cells_all;
-  cudaMemsetAsync(acc, 0, sizeof(long long) * 3 * (size_t)total, s);
-  if (npad > 0 && sets > 0) {
-    const int ft = lgbt_histogram_tile_features(num_features, num_bins);
-    if (ft < 1) return (int)cudaErrorInvalidValue;
-    const int tiles = (int)div_up(num_features, ft);
-    long long bx = div_up(npad, 4ll * kThreads);
-    const long long cap = div_up(4ll * sm_count(), (long long)tiles * sets);
-    if (bx > cap) bx = cap;
-    dim3 grid((unsigned)bx, (unsigned)tiles, (unsigned)sets);
-    const size_t smem = (size_t)ft * num_bins * kBytesPerBin;
-    RouteDesc desc = {};
-    segment_hist_kernel<kAll><<<grid, kThreads, smem, s>>>(
-        bins, w8, nullptr, npad, num_features, num_bins, ft, 0, npad, 0,
-        scales, desc, reinterpret_cast<unsigned long long*>(acc));
+  int tiling[3];
+  const int rc = lgbt_all_tiling(num_features, num_bins, sets, tiling);
+  if (rc != 0) return rc;
+  static bool opted_in = false;
+  if (!opted_in) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        all_hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        frontier_smem_budget());
+    if (e != cudaSuccess) return (int)e;
+    opted_in = true;
   }
-  if (total > 0) {
-    finalize_kernel<<<(unsigned)div_up(total, kThreads), kThreads, 0, s>>>(
-        acc, scales, out, cells_all, total);
-  }
+  const int tiles_y = (int)div_up(num_features, tiling[0]);
+  const int tiles_z = (int)div_up(sets, tiling[1]);
+  const long long tiles = (long long)tiles_y * tiles_z;
+  // one block per 1,024-row step, at most one wave over the tiles (one
+  // block a tile when there are no rows: it writes the zeros)
+  long long bx = div_up(npad, kSegMinRows);
+  const long long cap = sm_count() / tiles > 0 ? sm_count() / tiles : 1;
+  if (bx > cap) bx = cap;
+  if (bx < 1) bx = 1;
+  // the tiles' arrival counters follow the histogram cells in the scratch
+  const long long cells3 = 3ll * sets * num_features * num_bins;
+  dim3 grid((unsigned)bx, (unsigned)tiles_y, (unsigned)tiles_z);
+  all_hist_kernel<<<grid, kSegThreads, (size_t)tiling[2],
+                    (cudaStream_t)stream>>>(
+      bins, w8, npad, num_features, num_bins, sets, tiling[0], tiling[1],
+      scales, reinterpret_cast<unsigned long long*>(scratch),
+      reinterpret_cast<unsigned int*>(scratch + cells3), out);
   return (int)cudaGetLastError();
 }
 
@@ -1014,21 +1224,21 @@ int lgbt_histogram_frontier(const uint8_t* bins, const uint16_t* w8,
   return (int)cudaGetLastError();
 }
 
-// K2: route = host pointer to 19 ints; frow = the split feature's bin row.
+// K2, one kernel launch and no other operation on the stream.  bins [F,
+// npad] u8, leaf_id [npad] i32 (updated in place over [row_lo, row_hi)),
+// route = host pointer to 19 ints (its bin row w[2] is the split
+// feature's).  Returns a CUDA error code (0 on success).
 int lgbt_route_window(const uint8_t* bins, int* leaf_id, long long npad,
                       long long row_lo, long long row_hi, const int* route,
                       void* stream) {
+  if (row_lo < 0 || row_hi > npad) return (int)cudaErrorInvalidValue;
+  if (row_hi < row_lo) row_hi = row_lo;
   RouteDesc desc;
   for (int k = 0; k < kRouteWords; ++k) desc.w[k] = route[k];
-  const long long rows = row_hi - row_lo;
-  if (rows > 0) {
-    long long blocks = div_up(rows, kThreads);
-    const long long cap = 16ll * sm_count();
-    if (blocks > cap) blocks = cap;
-    route_window_kernel<<<(unsigned)blocks, kThreads, 0,
-                          (cudaStream_t)stream>>>(
-        bins + (long long)desc.w[2] * npad, leaf_id, row_lo, row_hi, desc);
-  }
+  const int e = launch_route<kRouteRows, kRouteTable>(
+      bins + (long long)desc.w[2] * npad, leaf_id, row_lo, row_hi, desc,
+      (cudaStream_t)stream);
+  if (e != 0) return e;
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,8 @@
-"""Host-side metrics: binary log-loss, AUC, multiclass log-loss and error.
+"""Host-side metrics: l2, binary log-loss, AUC, multiclass log-loss and
+error.
 
-Reference: src/metric/binary_metric.hpp (binary_logloss:115, AUC:159),
+Reference: src/metric/regression_metric.hpp (l2), binary_metric.hpp
+(binary_logloss:115, AUC:159),
 src/metric/multiclass_metric.hpp (multi_logloss, multi_error with top-k).
 Metrics are numpy over the raw score ([N], or [C, N] for multiclass);
 ``eval`` applies the objective's link where the reference does
@@ -27,6 +29,16 @@ class Metric:
 
     def eval(self, score: np.ndarray, objective=None) -> float:
         raise NotImplementedError
+
+
+class L2Metric(Metric):
+    name = "l2"
+
+    def eval(self, score, objective=None):
+        """Mean squared error of the objective's output (the port has no
+        sample weights)."""
+        p = score if objective is None else objective.convert_output(score)
+        return float(np.mean((self.label - p) ** 2))
 
 
 class BinaryLoglossMetric(Metric):
@@ -90,7 +102,8 @@ class MultiErrorMetric(Metric):
         return float(np.mean(err))
 
 
-_METRICS = {"binary_logloss": BinaryLoglossMetric, "auc": AUCMetric,
+_METRICS = {"l2": L2Metric, "binary_logloss": BinaryLoglossMetric,
+            "auc": AUCMetric,
             "multi_logloss": MultiLoglossMetric,
             "multi_error": MultiErrorMetric}
 

@@ -38,6 +38,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops import histogram
 from ..ops.histogram import (histogram_frontier, histogram_frontier_fusedk,
                              histogram_frontier_routed, null_route,
                              route_window, union_block_list)
@@ -70,17 +71,45 @@ class FrontierGrower(HostGrower):
                              f"{tier!r}")
         self.tier = tier
 
-    def _hist_batch(self, st: _SegState, targets, block_list, n_blocks,
-                    routes, scales) -> torch.Tensor:
-        """One launch of the tier's kernel: [len(targets), F, B, 3]."""
-        targets = torch.tensor(targets, dtype=torch.int32)
-        args = (st.binsT, st.w8, st.leaf_id, block_list, n_blocks, targets)
-        tail = (self.B, self.rb, scales)
-        if self.tier == "off":
-            return histogram_frontier(*args, *tail)
-        fn = (histogram_frontier_fusedk if self.tier == "fusedk"
-              else histogram_frontier_routed)
-        return fn(*args, torch.stack(routes), *tail)[1]
+    def _hist_batch(self, st: _SegState, targets, windows, routes,
+                    scales) -> Tuple[torch.Tensor, int]:
+        """The tier's kernel for the round's K splits: ([len(targets), F,
+        B, 3] with the targets in order, the number of distinct blocks in
+        the splits' windows).  ``windows`` are the splits' (lo, hi)
+        windows in blocks; "fusedk" has two targets a split (all left
+        children, then all right ones), the other tiers one.  A launch
+        takes at most FRONTIER_MAX_ROUTES splits with their targets, over
+        the union of their own windows (a leaf's rows lie in its window),
+        so a wider round is several launches."""
+        K = len(windows)
+        per = 2 if self.tier == "fusedk" else 1
+        cap = histogram.FRONTIER_MAX_ROUTES
+        out = []
+        for a in range(0, K, cap):
+            b = min(a + cap, K)
+            tgt = targets[a:b] + (targets[K + a:K + b] if per == 2 else [])
+            block_list, n_blocks = union_block_list(
+                [w[0] for w in windows[a:b]], [w[1] for w in windows[a:b]],
+                [True] * (b - a))
+            args = (st.binsT, st.w8, st.leaf_id,
+                    block_list.to(st.binsT.device), n_blocks,
+                    torch.tensor(tgt, dtype=torch.int32))
+            tail = (self.B, self.rb, scales)
+            if self.tier == "off":
+                out.append(histogram_frontier(*args, *tail))
+                continue
+            fn = (histogram_frontier_fusedk if self.tier == "fusedk"
+                  else histogram_frontier_routed)
+            out.append(fn(*args, torch.stack(routes[a:b]), *tail)[1])
+        if len(out) == 1:
+            return out[0], n_blocks
+        n_blocks = union_block_list([w[0] for w in windows],
+                                    [w[1] for w in windows], [True] * K)[1]
+        if per == 1:
+            return torch.cat(out), n_blocks
+        # each launch holds its left children, then its right ones
+        return torch.cat([h[:len(h) // 2] for h in out]
+                         + [h[len(h) // 2:] for h in out]), n_blocks
 
     def _round(self, st: _SegState, fmeta: FeatureMeta, fm_host,
                scales) -> None:
@@ -109,19 +138,16 @@ class FrontierGrower(HostGrower):
                 route_window(st.binsT, st.leaf_id, lo, hi - lo, routes[j],
                              self.rb)
             record_split(st, leaves[j], new[j], base - 1 + j)
-        block_list, n_un = union_block_list(
-            [st.leaf_lo[x] for x in leaves], [st.leaf_hi[x] for x in leaves],
-            [True] * nv)
-        block_list = block_list.to(dev)
+        windows = [(st.leaf_lo[x], st.leaf_hi[x]) for x in leaves]
         if self.tier == "fusedk":
             # left children keep the parents' ids, right ones take the new
-            children = self._hist_batch(st, leaves + new, block_list, n_un,
-                                        routes, scales)
+            children, n_un = self._hist_batch(st, leaves + new, windows,
+                                              routes, scales)
         else:
             smaller = [a if s else b
                        for a, b, s in zip(leaves, new, smaller_is_left)]
-            small = self._hist_batch(st, smaller, block_list, n_un, routes,
-                                     scales)
+            small, n_un = self._hist_batch(st, smaller, windows, routes,
+                                           scales)
             large = parents - small
             sel = torch.tensor(smaller_is_left, device=dev)[:, None, None,
                                                              None]
@@ -145,12 +171,9 @@ class FrontierGrower(HostGrower):
         if root_hist is None:
             # the round kernel with one target (and a null route on the
             # fused tiers) over every block
-            all_blocks = torch.arange(max_blocks, dtype=torch.int32,
-                                      device=binsT.device)
             targets = [0, -1] if self.tier == "fusedk" else [0]
-            root_hist = self._hist_batch(st, targets, all_blocks,
-                                         max_blocks, [null_route()],
-                                         scales)[0]
+            root_hist = self._hist_batch(st, targets, [(0, max_blocks)],
+                                         [null_route()], scales)[0][0]
         st.leaf_hist[0] = root_hist
         st.scanned_since = st.scanned_total = max_blocks
         self._scan(st, [0], root_hist[None], fmeta)

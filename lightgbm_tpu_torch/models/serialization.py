@@ -32,7 +32,9 @@ def _join(arr, fmt=str) -> str:
 def _objective_to_string(config) -> str:
     if config.objective == "multiclass":
         return f"multiclass num_class:{config.num_class}"
-    return f"binary sigmoid:{_fmt(config.sigmoid)}"
+    if config.objective == "binary":
+        return f"binary sigmoid:{_fmt(config.sigmoid)}"
+    return config.objective
 
 
 def tree_to_string(tree: Tree) -> str:

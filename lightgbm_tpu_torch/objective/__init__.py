@@ -1,9 +1,10 @@
-"""Objective functions of the port: binary log-loss and multiclass
-softmax."""
+"""Objective functions of the port: L2 regression (the default), binary
+log-loss and multiclass softmax."""
 
 from .base import ObjectiveFunction
 from .binary import BinaryLogloss
 from .multiclass import MulticlassSoftmax
+from .regression import RegressionL2Loss
 
 
 def create_objective(config) -> ObjectiveFunction:
@@ -11,8 +12,10 @@ def create_objective(config) -> ObjectiveFunction:
     Config already refuses every other objective."""
     if config.objective == "multiclass":
         return MulticlassSoftmax(config)
-    return BinaryLogloss(config)
+    if config.objective == "binary":
+        return BinaryLogloss(config)
+    return RegressionL2Loss(config)
 
 
 __all__ = ["ObjectiveFunction", "BinaryLogloss", "MulticlassSoftmax",
-           "create_objective"]
+           "RegressionL2Loss", "create_objective"]

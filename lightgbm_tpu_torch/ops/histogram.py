@@ -28,11 +28,11 @@ run compares each kernel with; a CUDA tensor goes to the kernel, or the
 wrapper raises.  The kernels update ``leaf_id`` in place (the TPU kernels
 aliased it as an input/output), and so do the plain versions.
 
-A K1/K3 or K6/K7 call is one kernel launch and nothing else on the
-stream, so it can be captured in a CUDA graph: K3's route and K6/K7's
-targets and routes travel in the launch's parameters
-(``frontier_params``), and each sums into a per-device scratch that every
-launch leaves zero (``_kernel_scratch``).
+Every call of a card kernel is one kernel launch and nothing else on
+the stream, so it can be captured in a CUDA graph: K2's and K3's route
+and K6/K7's targets and routes travel in the launch's parameters
+(``frontier_params``), and the histogram kernels sum into a per-device
+scratch that every launch leaves zero (``_kernel_scratch``).
 
 The weight stream is ``pack_channels``'s [8, Npad] bf16 layout
 ``[g_hi, g_lo, h_hi, h_lo, member, 0, 0, 0]``; the kernels read the five
@@ -454,17 +454,39 @@ def histogram_all(binsT: torch.Tensor, w8C: torch.Tensor, num_bins: int,
         raise ValueError("w8C must be [8C, Npad] and scales [C, 2]")
     if not 1 <= num_bins <= 256:
         raise ValueError("num_bins must be in [1, 256]")
-    lib = kernels.library()
-    if lib.lgbt_histogram_tile_features(F, num_bins) < 1:
-        raise ValueError(f"{num_bins} bins do not fit the kernel's tile")
-    acc = torch.empty((C * F * num_bins * 3,), dtype=torch.int64, device=dev)
+    tiling = all_tiling(F, num_bins, C)
+    tiles = tiling["feature_tiles"] * tiling["set_tiles"]
+    # the cells' i64 sums, then one u32 arrival counter a tile
+    scratch = _kernel_scratch(dev, C * F * num_bins * 3 + (tiles + 1) // 2)
     out = torch.empty((C, F, num_bins, 3), dtype=torch.float32, device=dev)
-    rc = lib.lgbt_histogram_all(
+    rc = kernels.library().lgbt_histogram_all(
         binsT.data_ptr(), w8C.data_ptr(), npad, F, num_bins, C,
-        scales.data_ptr(), acc.data_ptr(), out.data_ptr(),
+        scales.data_ptr(), scratch.data_ptr(), out.data_ptr(),
         kernels.stream_ptr(dev))
     kernels.check_launch("histogram_all", rc)
     return out
+
+
+def all_tiling(num_features: int, num_bins: int, num_sets: int) -> dict:
+    """The card kernel's tiling of K5 at this shape: the features and
+    channel sets a block holds, its shared memory, and the feature and set
+    tiles of the grid (csrc/histogram.cu lgbt_all_tiling).  Raises where
+    not even one feature of one set fits."""
+    ft, st, smem = _all_tiling(int(num_features), int(num_bins),
+                               int(num_sets))
+    return {"tile_features": ft, "tile_sets": st, "smem_bytes": smem,
+            "feature_tiles": -(-num_features // ft),
+            "set_tiles": -(-num_sets // st)}
+
+
+@functools.lru_cache(maxsize=64)
+def _all_tiling(num_features, num_bins, num_sets):
+    out = (ctypes.c_int * 3)()
+    rc = kernels.library().lgbt_all_tiling(num_features, num_bins, num_sets,
+                                           ctypes.addressof(out))
+    if rc != 0:
+        raise ValueError(f"{num_bins} bins do not fit the kernel's tile")
+    return tuple(out)
 
 
 def route_window(binsT: torch.Tensor, leaf_id: torch.Tensor,
@@ -556,7 +578,7 @@ def _tiling(num_features, num_bins, n_targets, n_routes, n_ids):
     return tuple(out)
 
 
-# per device: the scratch buffers of K1/K3 and K6/K7, all zero between
+# per device: the scratch buffers of K1/K3, K5 and K6/K7, all zero between
 # launches (a launch's last blocks re-zero what it used; the launches of
 # a stream run one after another).  None is ever freed, so a CUDA graph
 # that captured one stays valid after a wider launch grew the next.

@@ -53,7 +53,7 @@ _SIGNATURES = {
     "lgbt_histogram_all": [_P, _P, _LL, _I, _I, _I, _P, _P, _P, _P],
     "lgbt_route_window": [_P, _P, _LL, _LL, _LL, _P, _P],
     "lgbt_score_gather_add": [_P, _P, _P, _P, _LL, _I, _P],
-    "lgbt_histogram_tile_features": [_I, _I],
+    "lgbt_all_tiling": [_I, _I, _I, _P],
     "lgbt_histogram_frontier": [_P, _P, _P, _LL, _I, _I, _I, _P, _LL, _P,
                                 _LL, _P, _P, _P, _P],
     "lgbt_frontier_tiling": [_I, _I, _I, _I, _I, _P],

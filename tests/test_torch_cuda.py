@@ -266,6 +266,182 @@ def test_route_window_matches_plain(dev):
             assert torch.equal(got[outside], lid[outside])
 
 
+def _offset_copy(t, offset, dev):
+    """``t`` on the card as a contiguous view that starts ``offset``
+    elements into a larger buffer (a data pointer off 16-byte
+    alignment)."""
+    flat = torch.zeros(t.numel() + offset, dtype=t.dtype, device=dev)
+    flat[offset:] = t.reshape(-1).to(dev)
+    return flat[offset:].view(t.shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rb,offsets", [(256, (0, 0)), (20, (0, 0)),
+                                        (256, (3, 1)), (20, (5, 2))])
+def test_route_window_windows_and_alignments(dev, rb, offsets):
+    """K2 bit for bit against the plain version on every route kind over
+    whole, partial, single-block and empty windows, at row blocks whose
+    windows start 16-byte aligned (256) or not (20), and with bins and
+    leaf ids whose data starts off alignment (the rows before the aligned
+    span, or every row when the two cannot align together, go one a
+    thread); rows outside the window unchanged; one launch a call, even
+    for an empty window, replayed identically from a CUDA graph."""
+    F, B = 6, 64
+    npad = 37 * rb
+    fm, binsT, _, lid = _inputs(F, B, npad, 7)
+    d_bins = _offset_copy(binsT, offsets[0], dev)
+    nblk = npad // rb
+    for route in _routes(fm, F):
+        for lo, nb in ((0, nblk), (3, 17), (nblk - 1, 1), (5, 0),
+                       (nblk - 2, 9)):
+            want = th.route_window_plain(binsT, lid.clone(), lo, nb, route,
+                                         rb)
+            d_lid = _offset_copy(lid, offsets[1], dev)
+            kernels.reset_launches()
+            got = th.route_window(d_bins, d_lid, lo, nb, route, rb)
+            assert kernels.LAUNCHES["route_window"] == 1
+            assert got.data_ptr() == d_lid.data_ptr()
+            assert torch.equal(got.cpu(), want), (route.tolist(), lo, nb)
+    route = _routes(fm, F)[0]
+    want = th.route_window_plain(binsT, lid.clone(), 2, 20, route, rb)
+    d_lid = _offset_copy(lid, offsets[1], dev)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        th.route_window(d_bins, d_lid, 2, 20, route, rb)
+    for _ in range(2):
+        d_lid.copy_(lid.to(dev))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(d_lid.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_route_table_equals_routed_leaf_on_every_bin_value(dev):
+    """K2's route table against routed_leaf (K3's per-row route) on all
+    256 bin values, for numeric, zero- and NaN-missing and categorical
+    routes, split features of 256 bins and of fewer (values past a
+    feature's bins map to its default bin): rows of every value, half of
+    them in the routed leaf, give the same ids through K2, through K3 and
+    through the plain version."""
+    F, B, npad = 4, 256, 8 * RB
+    rng = np.random.RandomState(12)
+    num_bin = np.array([256, 40, 200, 17], np.int32)
+    for missing in (0, 1, 2):
+        fm = FeatureMeta(num_bin, np.full(F, missing, np.int32),
+                         np.array([0, 7, 100, 16], np.int32))
+        binsT = torch.from_numpy(np.tile(np.arange(256, dtype=np.uint8),
+                                         (F, npad // 256)))
+        w8 = th.pack_channels(torch.ones(npad), torch.ones(npad),
+                              torch.ones(npad))
+        lid = torch.from_numpy((np.arange(npad) // 256 % 2 * 3).astype(
+            np.int32))
+        d_bins, d_w8 = binsT.to(dev), w8.to(dev)
+        scales = th.fixed_point_scales(w8).to(dev)
+        for f in range(F):
+            bitset = rng.randint(0, 2**32, size=8,
+                                 dtype=np.uint64).astype(np.uint32)
+            for cat, thr, dl in ((False, int(num_bin[f]) // 2, True),
+                                 (False, 0, False), (True, 0, False)):
+                route = th.pack_route(0, 9, f, thr, dl, cat, bitset, fm)
+                want = th.route_window_plain(binsT, lid.clone(), 0, 8, route,
+                                             RB)
+                k2 = th.route_window(d_bins, lid.to(dev), 0, 8, route, RB)
+                k3, _ = th.histogram_segment_routed(
+                    d_bins, d_w8, lid.to(dev), 0, 8, -5, route, B, RB,
+                    scales)
+                assert torch.equal(k2.cpu(), want)
+                assert torch.equal(k3.cpu(), want)
+                assert int((want == 9).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F,B,C", [(28, 256, 5), (30, 256, 3), (3, 16, 1),
+                                   (50, 64, 12), (7, 256, 40)])
+def test_histogram_all_tilings_and_cuda_graph(dev, F, B, C):
+    """K5 at shapes that take one tile, several feature tiles, several
+    set tiles or both (all_tiling): each class slice bit-identical to K1
+    on a root of that class, the plain version within tolerance, a
+    relaunch and a CUDA graph's replay bit-identical, one launch a call,
+    and K1 after it unchanged (the scratch they share is left zero)."""
+    npad = 5 * RB
+    rng = np.random.RandomState(F + B + C)
+    binsT = torch.from_numpy(rng.randint(0, B, size=(F, npad)).astype(
+        np.uint8))
+    grads = torch.from_numpy(rng.normal(size=(C, npad)).astype(np.float32))
+    hess = torch.from_numpy(rng.uniform(0.01, 0.25, size=(C, npad)).astype(
+        np.float32))
+    member = torch.ones(npad)
+    member[-77:] = 0.0
+    w8C = th.pack_channel_sets(grads, hess, member)
+    scales = th.class_scales(w8C)
+    d_bins, d_w8C, d_scales = binsT.to(dev), w8C.to(dev), scales.to(dev)
+    tiling = th.all_tiling(F, B, C)
+    assert tiling["smem_bytes"] == 20 * B * tiling["tile_features"] \
+        * tiling["tile_sets"]
+    kernels.reset_launches()
+    a = th.histogram_all(d_bins, d_w8C, B, d_scales)
+    assert kernels.LAUNCHES["histogram_all"] == 1
+    lid0 = torch.zeros(npad, dtype=torch.int32, device=dev)
+    roots = [th.histogram_segment(d_bins, d_w8C[8 * c:8 * c + 8], lid0, 0,
+                                  5, 0, B, RB, d_scales[c].contiguous())
+             for c in range(C)]
+    out = torch.empty_like(a)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out.copy_(th.histogram_all(d_bins, d_w8C, B, d_scales))
+    graph.replay()
+    b = th.histogram_all(d_bins, d_w8C, B, d_scales)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(a, out)
+    for c in range(C):
+        assert torch.equal(a[c], roots[c]), c
+    want = th.histogram_all_plain(binsT, w8C, B)
+    for c in range(0, C, max(1, C // 4)):
+        _assert_hist(a[c].cpu(), want[c], w8C[8 * c:8 * c + 8], binsT,
+                     lid0.cpu(), 0, 5, 0, B)
+    again = th.histogram_segment(d_bins, d_w8C[:8], lid0, 0, 5, 0, B, RB,
+                                 d_scales[0].contiguous())
+    assert torch.equal(again, roots[0])
+
+
+@pytest.mark.cuda
+def test_frontier_wider_than_a_launch_trains_and_matches_cpu(dev):
+    """Rounds of more splits than one launch takes (FRONTIER_MAX_ROUTES
+    routes, FRONTIER_MAX_TARGETS targets) go out as several launches:
+    num_leaves=600 at tpu_frontier_width=300, and 1100 leaves, whose tenth
+    round splits 300 leaves (fused-K: 600 targets).  The card grows the
+    CPU path's tree, model text for model text: L2 regression on integer
+    labels from a zero start, so every gradient sum is an exact integer on
+    both paths and no split is decided by rounding."""
+    rng = np.random.RandomState(3)
+    n = 60_000
+    X = rng.normal(size=(n, 8))
+    y = np.clip(np.round(4 * X[:, 0] + 3 * X[:, 1] * X[:, 2]
+                         + rng.normal(size=n)), -20, 20)
+    kernel = {"off": "histogram_frontier",
+              "fusedk": "histogram_frontier_fusedk"}
+    for leaves, tier in ((600, "off"), (1100, "off"), (1100, "fusedk")):
+        params = dict(objective="regression", boost_from_average=False,
+                      num_leaves=leaves, max_bin=63, min_data_in_leaf=5,
+                      verbosity=-1, tpu_tree_impl="frontier",
+                      tpu_frontier_width=300)
+        texts = {}
+        for device in ("cuda", "cpu"):
+            bst = lt.Booster(dict(params, device_type=device),
+                             lt.Dataset(X, y), frontier_tier=tier)
+            total = _count_rounds(bst)
+            kernels.reset_launches()
+            bst.update()
+            assert bst.gbdt.models[0].num_leaves == leaves
+            texts[device] = bst.model_to_string().split("parameters:")[0]
+            if device == "cuda":
+                launched = kernels.LAUNCHES[kernel[tier]]
+                assert launched >= total["rounds"] + 1
+                if leaves == 1100:
+                    assert launched > total["rounds"] + 1
+        assert texts["cuda"] == texts["cpu"], (leaves, tier)
+
+
 @pytest.mark.cuda
 def test_score_gather_add_bit_identical(dev):
     rng = np.random.RandomState(5)
@@ -348,7 +524,7 @@ def test_training_on_card_counts_launches_and_matches_cpu(dev):
 
 @pytest.mark.cuda
 def test_histogram_all_matches_plain_and_k1_roots(dev):
-    """K5 with C = 3 sets at 256 bins (4 feature tiles): counts exact,
+    """K5 with C = 3 sets at 256 bins: counts exact,
     sums within tolerance, a relaunch bit-identical, and each class slice
     bit-identical to K1 and to K3 with the null route on a root of that
     class at the class's scale."""

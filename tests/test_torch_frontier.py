@@ -504,6 +504,32 @@ def test_tree_impl_auto_is_segment():
     assert _model(auto) == _model(seg)
 
 
+@pytest.mark.parametrize("tier", ["off", "k1", "fusedk"])
+def test_rounds_wider_than_a_launch_grow_the_same_model(monkeypatch, tier):
+    """A round of more splits than one launch takes goes out as several
+    launches, each over its own splits' windows, and grows the same model
+    text: the capacity patched to 2 routes, width 4."""
+    from lightgbm_tpu_torch.models import grower_frontier
+    X, y = _binary_data(6)
+    params = dict(PARAMS, tpu_tree_impl="frontier", tpu_frontier_width=4)
+    whole = _trained(params, lt.Dataset(X, y), 2, frontier_tier=tier)
+    kname = {"off": "histogram_frontier", "k1": "histogram_frontier_routed",
+             "fusedk": "histogram_frontier_fusedk"}[tier]
+    widths = []
+    fn = getattr(grower_frontier, kname)
+
+    def counted(*a, **k):
+        widths.append(int(a[5].shape[0]))
+        return fn(*a, **k)
+
+    monkeypatch.setattr(grower_frontier.histogram, "FRONTIER_MAX_ROUTES", 2)
+    monkeypatch.setattr(grower_frontier, kname, counted)
+    chunked = _trained(params, lt.Dataset(X, y), 2, frontier_tier=tier)
+    per = 2 if tier == "fusedk" else 1
+    assert max(widths) == 2 * per and widths.count(2 * per) > 2
+    assert _model(chunked) == _model(whole)
+
+
 @pytest.mark.parametrize("params", [{"tpu_frontier_gain_ratio": 1.5},
                                     {"tpu_frontier_gain_ratio": -0.1},
                                     {"tpu_frontier_width": -1},

@@ -104,6 +104,88 @@ def test_port_predicts_jax_grown_trees(pair):
     np.testing.assert_array_equal(raw, jgb._raw_predict(X)[0])
 
 
+def test_predict_num_iteration_none_matches_jax(pair, tmp_path):
+    """num_iteration None or negative means best_iteration when one is
+    set, else every iteration; 0 means every iteration: the port's
+    predictions equal the JAX booster's on the same model text."""
+    X, _, bst = pair
+    path = str(tmp_path / "model.txt")
+    bst.save_model(path)
+    loaded = lightgbm_tpu.Booster(model_file=path)
+    try:
+        for best in (0, 2):
+            bst.best_iteration = loaded.best_iteration = best
+            for it in (None, -1, 0, 1, ITERS):
+                np.testing.assert_array_equal(
+                    bst.predict(X, num_iteration=it, raw_score=True),
+                    loaded.predict(X, num_iteration=it, raw_score=True))
+        bst.best_iteration = 1
+        np.testing.assert_array_equal(bst.predict(X, num_iteration=None),
+                                      bst.predict(X, num_iteration=1))
+    finally:
+        bst.best_iteration = 0
+
+
+def test_objective_omitted_is_regression_in_both_packages():
+    assert JaxConfig().objective == "regression"
+    assert lt.Config(device_type="cpu").objective == "regression"
+    X, y = _data(8)
+    bst = lt.Booster({"device_type": "cpu", "verbosity": -1,
+                      "num_leaves": 4}, lt.Dataset(X, y))
+    assert type(bst.gbdt.objective).__name__ == "RegressionL2Loss"
+    assert bst.gbdt.metric_names == ["l2"]
+
+
+@pytest.mark.parametrize("reg_sqrt", [False, True])
+def test_regression_trees_match_jax(reg_sqrt):
+    """L2 regression (the default objective) from identical bins: the
+    same trees, split for split, and predictions within 1e-5; with
+    reg_sqrt the label is sign(y) sqrt(|y|) and predictions square back.
+    The l2 metric agrees with the JAX package's."""
+    from lightgbm_tpu.metric import L2Metric as JaxL2
+    X, _ = _data(9)
+    Xn = np.nan_to_num(X)
+    rng = np.random.RandomState(9)
+    y = 3.0 * Xn[:, 0] + Xn[:, 1] - Xn[:, 2] ** 2 + 0.1 * rng.normal(size=N)
+    params = dict(num_leaves=7, max_bin=63, tpu_row_chunk=256, verbosity=-1,
+                  reg_sqrt=reg_sqrt)
+    cfg = JaxConfig(tpu_histogram_backend="pallas", tpu_tree_impl="segment",
+                    **params)
+    jds = TpuDataset.from_numpy(X, y, config=cfg)
+    jobj = jax_objective(cfg)
+    jobj.init(jds.metadata, jds.num_data)
+    jgb = JaxGBDT(cfg, jds, jobj)
+    for _ in range(ITERS):
+        jgb.train_one_iter()
+    jgb._flush_pending()
+    ds = convert.dataset_from_arrays(
+        jds.binned, [m.to_dict() for m in jds.bin_mappers], y)
+    bst = lt.Booster(dict(params, device_type="cpu"), ds)
+    for _ in range(ITERS):
+        bst.update()
+    assert bst.config.objective == cfg.objective == "regression"
+    assert bst.gbdt.init_scores[0] == pytest.approx(jgb.init_scores[0],
+                                                    abs=1e-6)
+    for a, b in zip(jgb.models, bst.gbdt.models, strict=True):
+        assert a.num_leaves == b.num_leaves
+        n = a.num_leaves - 1
+        for f in ("split_feature", "threshold_in_bin", "left_child",
+                  "right_child"):
+            np.testing.assert_array_equal(getattr(a, f)[:n],
+                                          getattr(b, f)[:n], f)
+    jraw = jgb._raw_predict(X)[0]
+    np.testing.assert_allclose(bst.predict(X, raw_score=True), jraw,
+                               rtol=0, atol=1e-5)
+    np.testing.assert_allclose(bst.predict(X), jobj.convert_output(jraw),
+                               rtol=0, atol=1e-4 if reg_sqrt else 1e-5)
+    jm = JaxL2(cfg)
+    jm.init(jds.metadata, jds.num_data)
+    assert bst.eval_train()[0][0] == "l2"
+    assert bst.eval_train()[0][1] == pytest.approx(
+        jm.eval(np.asarray(jgb.train_score[0], dtype=np.float64), jobj),
+        rel=1e-5)
+
+
 def test_binning_matches_jax():
     X, y = _data(7)
     jds = TpuDataset.from_numpy(X, y, config=JaxConfig(max_bin=63,
@@ -161,7 +243,7 @@ def test_default_device_without_cuda_raises(monkeypatch):
     {"bagging_fraction": 0.5, "bagging_freq": 1},
     {"feature_fraction": 0.8},
     {"max_bin_by_feature": [3, 4]},
-    {"objective": "regression"},
+    {"objective": "huber"},
     {"objective": "multiclassova", "num_class": 3},
     {"tpu_tree_impl": "fused"},
     {"no_such_parameter": 1},

@@ -49,9 +49,6 @@ Candidates:
                      of the window (one 1,024-row step shipped);
   * ``k6_body``      the frontier kernel (K6, and K7 for K3) unchanged,
                      called with one target slot over the window's blocks;
-  * ``first_body``   the first K1/K3 body (``segment_hist_kernel``, still
-                     K5's): 256-thread blocks of 48 KB, 64-bit shared adds,
-                     a memset and a finalize kernel around each launch;
   * ``no_hi``, ``count_only``  diagnostics, not exact and not checked: the
                      shipped body without the two high-word adds (three
                      shared atomics a pair), or with the count alone (one).
@@ -81,51 +78,10 @@ sys.path.insert(0, ROOT)
 
 SOURCE = os.path.join(ROOT, "lightgbm_tpu_torch", "csrc", "histogram.cu")
 
-# the first K1/K3 entry point, verbatim but for its name: a memset of the
-# i64 sums, segment_hist_kernel, finalize_kernel
-_FIRST_ENTRY = r'''
-extern "C" int lgbt_histogram_segment_first(
-    const uint8_t* bins, const uint16_t* w8, int* leaf_id, long long npad,
-    int num_features, int num_bins, long long row_lo, long long row_hi,
-    int target, const float* scales, const int* route, long long* acc,
-    float* out, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const int cells_all = num_features * num_bins;
-  cudaMemsetAsync(acc, 0, sizeof(long long) * 3 * (size_t)cells_all, s);
-  const long long rows = row_hi - row_lo;
-  if (rows > 0) {
-    const int ft = lgbt_histogram_tile_features(num_features, num_bins);
-    if (ft < 1) return (int)cudaErrorInvalidValue;
-    const int tiles = (int)div_up(num_features, ft);
-    long long bx = div_up(rows, 4ll * kThreads);
-    const long long cap = div_up(4ll * sm_count(), tiles);
-    if (bx > cap) bx = cap;
-    dim3 grid((unsigned)bx, (unsigned)tiles);
-    const size_t smem = (size_t)ft * num_bins * kBytesPerBin;
-    RouteDesc desc = {};
-    if (route != nullptr) {
-      for (int k = 0; k < kRouteWords; ++k) desc.w[k] = route[k];
-      segment_hist_kernel<kRouted><<<grid, kThreads, smem, s>>>(
-          bins, w8, leaf_id, npad, num_features, num_bins, ft, row_lo,
-          row_hi, target, scales, desc,
-          reinterpret_cast<unsigned long long*>(acc));
-    } else {
-      segment_hist_kernel<kSegment><<<grid, kThreads, smem, s>>>(
-          bins, w8, leaf_id, npad, num_features, num_bins, ft, row_lo,
-          row_hi, target, scales, desc,
-          reinterpret_cast<unsigned long long*>(acc));
-    }
-  }
-  finalize_kernel<<<(unsigned)div_up(cells_all, kThreads), kThreads, 0, s>>>(
-      acc, scales, out, cells_all, cells_all);
-  return (int)cudaGetLastError();
-}
-'''
-
 # the shipped kernel's span in histogram.cu, which EXPLORE replaces
 _KERNEL_FROM = "template <bool kRouted>\n__global__ void __launch_bounds__(" \
                "kSegThreads, 1)\nsegment_window_kernel("
-_KERNEL_TO = "__global__ void route_window_kernel("
+_KERNEL_TO = "// K5.  One launch covers every row x the feature tile"
 _TILING_FROM = "int lgbt_segment_tiling(int num_features, int num_bins, " \
                "int* out) {"
 _TILING_TO = "// K1 (route == NULL) or K3 (route = host pointer to 19 ints)"
@@ -509,7 +465,6 @@ CANDIDATES = {
                       "      match = lid == target && member;\n")],
     "min_rows_4k": [(_MIN_ROWS,
                      "constexpr int kSegMinRows = 4 * kSegThreads;")],
-    "first_body": [("APPEND", _FIRST_ENTRY)],
     # diagnostics, not exact: the shipped body with fewer shared atomics
     "no_hi": [(("KERNEL", _HI_ADDS), "        (void)og[j]; (void)oh[j];\n")],
     "count_only": [(("KERNEL", _HI_ADDS),
@@ -565,15 +520,12 @@ def _build(src_text: str, out_dir: str, name: str):
 
 class _Lib:
     """One build of histogram.cu, called as ops/histogram.py calls K1/K3,
-    with a zeroed scratch of its own (``first_body``: its own entry point
-    and a sum buffer that entry clears)."""
+    with a zeroed scratch of its own."""
 
-    def __init__(self, path, name, torch, dev):
+    def __init__(self, path, torch, dev):
         from lightgbm_tpu_torch.ops import kernels
         self.lib = ctypes.CDLL(path)
-        self.entry = (self.lib.lgbt_histogram_segment_first
-                      if name == "first_body"
-                      else self.lib.lgbt_histogram_segment)
+        self.entry = self.lib.lgbt_histogram_segment
         self.entry.argtypes = kernels._SIGNATURES["lgbt_histogram_segment"]
         self.entry.restype = ctypes.c_int
         self.lib.lgbt_segment_tiling.argtypes = kernels._SIGNATURES[
@@ -685,9 +637,8 @@ def main() -> int:
     libs = {}
     for name, edits in CANDIDATES.items():
         path, log = _build(_variant(base, edits), work, name)
-        libs[name] = _Lib(path, name, torch, dev)
-        body = "segment_hist_kernel" if name == "first_body" else \
-            "segment_window_kernel"
+        libs[name] = _Lib(path, torch, dev)
+        body = "segment_window_kernel"
         sass = kernels.sass_opcodes(body, path)
         print(json.dumps({"candidate": name, "ptxas": kernels.ptxas_lines(
             body, log), "atomics": {fn: {k: v for k, v in sorted(ops.items())
