@@ -10,8 +10,9 @@ thirteen phases; any failure exits non-zero:
 
   1. build    nvcc for sm_90a; prints ptxas's register/shared-memory lines
               and the card's name and power limit, and for the K1/K3,
-              K5, K6/K7 and K2 bodies their registers, spills and atomic
-              SASS opcodes (no ATOMS.CAS loop allowed).
+              K5, K6/K7 and K2 kernels (their by-value and step entries)
+              their registers, spills and atomic SASS opcodes (no
+              ATOMS.CAS loop allowed).
   2. kernels  at the HIGGS shape (10.5M rows x 28 features, 64 bins), every
               kernel against its plain PyTorch version on the card: counts,
               leaf ids and scores exact, gradient/hessian sums within
@@ -23,19 +24,33 @@ thirteen phases; any failure exits non-zero:
               (torch.profiler), replayed identically from a CUDA graph,
               timed there and on the host.  K5 (histogram_all) with C = 5
               channel sets at these rows too, each class slice
-              bit-identical to a K1 root of that class.  Times each kernel, its plain version and the one
+              bit-identical to a K1 root of that class.  The step entries
+              of K1, K2 and K3 (window, target and route read from a step
+              block in device memory, as the device loop calls them) bit
+              for bit their by-value entries at the first split, a late
+              window, an empty window and a categorical route, and timed
+              as those.  Times each kernel, its plain version and the one
               PyTorch call that computes the same function (index_add_ for
               the histograms, with its flat keys made before the clock).
   3. train    the binary path: ``lightgbm_tpu_torch.train`` on synthetic
               HIGGS-shaped data (as bench.py makes it), 255 leaves,
-              3 iterations, fused route (K3 + K4).  Train AUC must rise,
+              3 iterations, fused route (K3 at the roots, the K3 step entry
+              in the device loop's CUDA graph, K4).  Train AUC must rise,
               held-out predictions must match the in-training valid
-              scores, the model text is saved.  Then one more iteration
-              records the grower's K3 calls; its last split (a compacted
-              window of a few row blocks) is replayed from the grower's
-              inputs against the plain version and timed as in phase 2.
-  4. unfused  1M rows, 2 iterations, ``fused_route=False`` (K1 + K2); the
-              same data through the fused path must give the same model.
+              scores, the model text is saved.  The device loop: every
+              tree grown by graph replays, at most ceil((L - 1) / steps) +
+              compactions + 2 host fetches a tree, the step kernel
+              launched steps x replays times (+ the capture's warm-up
+              step); the graph's capture time, steps, fetches a tree and
+              the iteration walls are logged.  Then one more iteration:
+              its tree's last split (a compacted window of a few row
+              blocks), rebuilt from the grower's device state, through
+              the by-value and step entries against the plain version,
+              timed as in phase 2.
+  4. unfused  1M rows, 2 iterations, ``fused_route=False`` (K1 at the
+              roots, K2 + K1 step entries in the graph; the device loop
+              checked as in phase 3); the same data through the fused
+              path must give the same model.
   5. parity   200k rows, 31 leaves, 3 iterations on the card and on the
               CPU: the same split features and bin thresholds for splits
               with gain > 1e-2, raw predictions within 1e-3.
@@ -48,8 +63,9 @@ thirteen phases; any failure exits non-zero:
               reports as in phase 2.
   7. mc train the multiclass path: 5-class softmax with categorical
               features as bench_suite.py makes it, 1M rows, 31 leaves,
-              25 iterations, fused: K5 once per iteration, K3 on every
-              split, K4 once per class tree; held-out multi_logloss under
+              25 iterations, fused: K5 once per iteration, the K3 step
+              entry in the device loop (checked as in phase 3), K4 once
+              per class tree; held-out multi_logloss under
               bench_suite.py's gate of 0.9; held-out predictions match the
               in-training valid scores; the model text holds num_class=5
               and categorical nodes.
@@ -89,7 +105,11 @@ thirteen phases; any failure exits non-zero:
  13. frontier K=1  ``tpu_frontier_width=1`` on the card grows phase 5's
               segment model text.
 
-Output: one JSON line per kernel, one ``{"kernels": [...]}`` line, the
+Launch counts: a kernel captured into a CUDA graph counts at each replay
+(ops/kernels.py count_replay), when the card runs it.
+
+Output: one JSON line per kernel, a ``{"device_loop": ...}`` line (phases
+3, 4 and 7), one ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Without a
 card, or run from a directory that does not hold the package, it exits
 non-zero and prints no result.
@@ -139,6 +159,13 @@ SOURCES = {
                      "lightgbm_tpu/ops/pallas_histogram.py:1590"),
     "histogram_segment_routed": ("lightgbm_tpu_torch/csrc/histogram.cu",
                                  "lightgbm_tpu/ops/pallas_histogram.py:1126"),
+    "histogram_segment_step": ("lightgbm_tpu_torch/csrc/histogram.cu",
+                               "lightgbm_tpu/ops/pallas_histogram.py:668"),
+    "route_window_step": ("lightgbm_tpu_torch/csrc/histogram.cu",
+                          "lightgbm_tpu/ops/pallas_histogram.py:1590"),
+    "histogram_segment_routed_step": (
+        "lightgbm_tpu_torch/csrc/histogram.cu",
+        "lightgbm_tpu/ops/pallas_histogram.py:1126"),
     "score_gather_add": ("lightgbm_tpu_torch/csrc/score.cu",
                          "lightgbm_tpu/ops/pallas_score.py:106"),
     "histogram_all": ("lightgbm_tpu_torch/csrc/histogram.cu",
@@ -234,9 +261,11 @@ def build_phase():
     report = {}
     # body -> (name of the instantiation without, with a route)
     for body, names in (("segment_window_kernel", ("K1", "K3")),
+                        ("segment_step_kernel", ("K1 step", "K3 step")),
                         ("frontier_hist_kernel", ("K6", "K7")),
                         ("all_hist_kernel", ("K5", "K5")),
-                        ("route_window_kernel", ("K2", "K2"))):
+                        ("route_window_kernel", ("K2", "K2")),
+                        ("route_step_kernel", ("K2 step", "K2 step"))):
         ptxas = kernels.ptxas_lines(body)
         sass = kernels.sass_opcodes(body)
         part = {}
@@ -326,6 +355,67 @@ def check_histogram_all(th, binsT, w8C, B, rb, tag):
     log(f"histogram_all {tag}: {C} sets, counts exact, max |diff| "
         f"{err:.3g}, class slices equal the K1 roots")
     return err, scales
+
+
+def check_step_entries(th, binsT, w8, scales, lid, B, rb, cases, tag):
+    """The step entries (K1, K2 and K3 reading their window, target and
+    route from a step block in device memory) against their by-value
+    entries, bit for bit (histograms and leaf ids), and each against its
+    own plain version on the same block (ids exact, counts exact, sums in
+    tolerance), for each case (name, start block, blocks, target, route).
+    Returns each step entry's largest |diff| from its plain version (K2:
+    the leaf ids that differ)."""
+    import torch
+    err = dict.fromkeys(("histogram_segment_step", "route_window_step",
+                         "histogram_segment_routed_step"), 0.0)
+    for name, lo, nb, target, route in cases:
+        step = th.pack_step(lo, nb, target, route).to(binsT.device)
+        want_ids = lid.clone()
+        _, want = th.histogram_segment_routed(binsT, w8, want_ids, lo, nb,
+                                              target, route, B, rb, scales)
+        ids = lid.clone()
+        _, got = th.histogram_segment_routed_step(binsT, w8, ids, step, B,
+                                                  rb, scales)
+        k2 = th.route_window_step(binsT, lid.clone(), step, rb)
+        k1 = th.histogram_segment_step(binsT, w8, want_ids, step, B, rb,
+                                       scales)
+        k1_by = th.histogram_segment(binsT, w8, want_ids, lo, nb, target, B,
+                                     rb, scales)
+        torch.cuda.synchronize()
+        require(torch.equal(ids, want_ids) and torch.equal(got, want),
+                f"histogram_segment_routed_step {tag} {name}: differs from "
+                "the by-value entry")
+        require(torch.equal(k2, want_ids), f"route_window_step {tag} {name}: "
+                "differs from the by-value entry")
+        require(torch.equal(k1, k1_by), f"histogram_segment_step {tag} "
+                f"{name}: differs from the by-value entry")
+        plain_ids, plain = th.histogram_segment_routed_step_plain(
+            binsT, w8, lid.clone(), step, B, rb)
+        require(torch.equal(plain_ids, ids), f"histogram_segment_routed_step "
+                f"{tag} {name}: leaf ids differ from the plain version")
+        abs_sums = hist_abs_sums(th, binsT, w8, ids, lo, nb, target, B, rb)
+        key = "histogram_segment_routed_step"
+        err[key] = max(err[key], check_hist(f"{key} {tag} {name}", got,
+                                            plain, abs_sums))
+        plain_k2 = th.route_window_step_plain(binsT, lid.clone(), step, rb)
+        moved = int((k2 != plain_k2).sum().item())
+        require(moved == 0, f"route_window_step {tag} {name}: {moved} leaf "
+                "ids differ from the plain version")
+        err["route_window_step"] = max(err["route_window_step"], moved)
+        # K1 over the routed ids, as the unfused split runs it after K2
+        plain_k1 = th.histogram_segment_step_plain(binsT, w8, want_ids, step,
+                                                   B, rb)
+        key = "histogram_segment_step"
+        err[key] = max(err[key], check_hist(f"{key} {tag} {name}", k1,
+                                            plain_k1, abs_sums))
+        if nb == 0:
+            require(not got.any() and not k1.any(), f"step entries {tag} "
+                    f"{name}: an empty window wrote a non-zero histogram")
+        log(f"step entries {tag} {name} ({nb} blocks): K1, K2 and K3 bit "
+            f"for bit their by-value entries; max |diff| from their plain "
+            f"versions: K1 {err['histogram_segment_step']:.3g}, K2 "
+            f"{moved} ids, K3 {err['histogram_segment_routed_step']:.3g}")
+    return err
 
 
 def library_hist_ms(binsT, w8s, rows, B, reps, slots=None, n_slots=1):
@@ -493,6 +583,17 @@ def kernel_phase(handle, config, device):
             f"exact, max |diff| {err:.3g}")
     results["histogram_segment_routed"] = {"max_abs_err": err}
 
+    # the step entries: the first split, a late window, an empty window
+    # and a categorical route over a partial window
+    step_errs = check_step_entries(th, binsT, w8, scales, lid0, B, rb, (
+        ("first split", 0, nblk, 1, routes["numeric"]),
+        ("late window", nblk - 3, 2, 1, routes["numeric"]),
+        ("empty window", nblk // 2, 0, 1, routes["numeric"]),
+        ("categorical", nblk // 4, nblk // 4, 1, routes["categorical"])),
+        "HIGGS")
+    for name, e in step_errs.items():
+        results[name] = {"max_abs_err": e}
+
     # K1 of target t is K6's single slot [t] over the same blocks, bit for
     # bit: the root, the numeric split's child, and a partial window
     blocks = torch.arange(nblk, dtype=torch.int32, device=device)
@@ -655,7 +756,111 @@ def kernel_phase(handle, config, device):
     t.update(launch_report("histogram_all HIGGS rows", lambda ids: (
         th.histogram_all(binsT, w8C, B, scales5)), lid0, want, lid0, reps))
     results["histogram_all_higgs"] = t
+
+    # the step entries at the same calls as their by-value entries: K1 at
+    # the root, K3 and K2 at the first split; same bounds and library calls
+    root_step = th.pack_step(0, nblk, 0, th.null_route()).to(device)
+    split_step = th.pack_step(0, nblk, 1, route).to(device)
+    t = results["histogram_segment_step"]
+    t["ms"] = time_ms(lambda i: th.histogram_segment_step(
+        binsT, w8, lid0, root_step, B, rb, scales), reps)
+    t["plain_ms"] = time_ms(lambda i: th.histogram_segment_step_plain(
+        binsT, w8, lid0, root_step, B, rb), plain_reps)
+    for k in ("bound_ms", "bound_by", "library_ms", "shape"):
+        t[k] = results["histogram_segment"][k]
+    want = th.histogram_segment(binsT, w8, lid0, 0, nblk, 0, B, rb, scales)
+    t.update(launch_report("histogram_segment_step root", lambda ids: (
+        th.histogram_segment_step(binsT, w8, ids, root_step, B, rb,
+                                  scales)), lid0, want, lid0, reps))
+
+    t = results["histogram_segment_routed_step"]
+    ids = fresh_ids(reps)
+    t["ms"] = time_ms(lambda i: th.histogram_segment_routed_step(
+        binsT, w8, ids[i], split_step, B, rb, scales), reps)
+    ids = fresh_ids(plain_reps)
+    t["plain_ms"] = time_ms(
+        lambda i: th.histogram_segment_routed_step_plain(
+            binsT, w8, ids[i], split_step, B, rb), plain_reps)
+    for k in ("bound_ms", "bound_by", "library_ms", "shape"):
+        t[k] = results["histogram_segment_routed"][k]
+    want_lid = lid0.clone()
+    want = th.histogram_segment_routed(binsT, w8, want_lid, 0, nblk, 1, route,
+                                       B, rb, scales)[1]
+    t.update(launch_report(
+        "histogram_segment_routed_step first split",
+        lambda ids: th.histogram_segment_routed_step(
+            binsT, w8, ids, split_step, B, rb, scales)[1], lid0, want,
+        want_lid, reps))
+
+    t = results["route_window_step"]
+    ids = fresh_ids(reps)
+    t["ms"] = time_ms(lambda i: th.route_window_step(
+        binsT, ids[i], split_step, rb), reps)
+    ids = fresh_ids(plain_reps)
+    t["plain_ms"] = time_ms(lambda i: th.route_window_step_plain(
+        binsT, ids[i], split_step, rb), plain_reps)
+    for k in ("bound_ms", "bound_by", "library_ms", "shape"):
+        t[k] = results["route_window"][k]
+    t.update(launch_report("route_window_step first split", lambda ids: (
+        th.route_window_step(binsT, ids, split_step, rb)), lid0, lid_split,
+        lid_split, reps))
+    del ids, want_lid
     return results
+
+
+class record_trees:
+    """Context: every SegmentGrower.grow inside it appends its tree's
+    ``last_stats`` to ``self.stats``."""
+
+    def __enter__(self):
+        from lightgbm_tpu_torch.models import grower_seg
+        self.cls = grower_seg.SegmentGrower
+        self.grow, self.stats = self.cls.grow, []
+        grow, stats = self.grow, self.stats
+
+        def recorded(g, *a, **k):
+            out = grow(g, *a, **k)
+            stats.append(dict(g.last_stats))
+            return out
+
+        self.cls.grow = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.grow = self.grow
+
+
+def device_loop_report(tag, bst, stats, launches, kname, wall_s):
+    """The segment grower's device loop on one path: every tree grown by
+    graph replays of its ``steps`` split steps, at most ceil((L - 1) /
+    steps) + compactions + 2 host fetches a tree, and the step kernel
+    launched steps x replays times plus the capture's one warm-up step.
+    Logs and returns the graph's capture time, steps, fetches a tree and
+    the iteration walls."""
+    g = bst.gbdt.grower
+    L, S = g.p.num_leaves, g.steps
+    require(stats and all(st["graph"] for st in stats),
+            f"device loop {tag}: a tree did not grow from the CUDA graph")
+    for st in stats:
+        bound = -(-(L - 1) // S) + st["compactions"] + 2
+        require(st["fetches"] <= bound, f"device loop {tag}: "
+                f"{st['fetches']} host fetches in a tree, bound {bound}")
+    replays = sum(st["replays"] for st in stats)
+    require(launches[kname] == S * replays + 1, f"device loop {tag}: "
+            f"{kname} launched {launches[kname]} times, expected {S} x "
+            f"{replays} replays + 1")
+    rec = {"steps": S, "capture_s": g.last_stats["capture_s"],
+           "trees": len(stats), "replays": replays,
+           "fetches_a_tree": [st["fetches"] for st in stats],
+           "compactions_a_tree": [st["compactions"] for st in stats],
+           "splits_a_tree": [st["splits"] for st in stats],
+           "iter_s": list(bst.gbdt.iter_seconds), "wall_s": wall_s}
+    log(f"device loop {tag}: steps {S}, graph captured in "
+        f"{rec['capture_s']:.3f} s, {replays} replays for {len(stats)} "
+        f"trees, fetches a tree {sorted(set(rec['fetches_a_tree']))}, "
+        f"compactions {sorted(set(rec['compactions_a_tree']))}, iteration "
+        f"wall {[round(x, 4) for x in rec['iter_s']]} s")
+    return rec
 
 
 # ---------------------------------------------------------------- phase 3
@@ -671,9 +876,10 @@ def train_phase(ds, Xh, yh):
     evals = {}
     kernels.reset_launches()
     t0 = time.perf_counter()
-    bst = lt.train(TRAIN_PARAMS, ds, 3, valid_sets=[ds, valid],
-                   valid_names=["train", "holdout"], evals_result=evals)
-    torch.cuda.synchronize()
+    with record_trees() as rec:
+        bst = lt.train(TRAIN_PARAMS, ds, 3, valid_sets=[ds, valid],
+                       valid_names=["train", "holdout"], evals_result=evals)
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     trees = bst.gbdt.models
@@ -686,15 +892,17 @@ def train_phase(ds, Xh, yh):
     require(len(trees) == 3, "training stopped early")
     require(all(b > a for a, b in zip(auc, auc[1:])),
             "train AUC did not rise every iteration")
-    leaves = sum(t.num_leaves for t in trees)
-    require(launches["histogram_segment_routed"] == leaves,
+    require(launches["histogram_segment_routed"] == 3,
             f"histogram_segment_routed launched "
             f"{launches['histogram_segment_routed']} times, expected one "
-            f"per leaf ({leaves})")
+            "a tree root (3)")
+    loop = device_loop_report("HIGGS fused", bst, rec.stats, launches,
+                              "histogram_segment_routed_step", wall)
     require(launches["score_gather_add"] == 3,
             "score_gather_add did not run once per iteration")
-    require(launches["histogram_segment"] == 0
-            and launches["route_window"] == 0,
+    require(launches["histogram_segment"] == launches["route_window"]
+            == launches["histogram_segment_step"]
+            == launches["route_window_step"] == 0,
             "the fused path launched the unfused kernels")
 
     pred = bst.predict(Xh)
@@ -720,94 +928,110 @@ def train_phase(ds, Xh, yh):
         f"{vdiff:.3g}), model text {len(text)} bytes")
     return launches, {"wall_s": wall, "iter_s": bst.gbdt.iter_seconds,
                       "train_auc": auc, "holdout_auc": hauc,
-                      "leaves": [t.num_leaves for t in trees]}, bst
+                      "leaves": [t.num_leaves for t in trees],
+                      "device_loop": loop}, bst
 
 
 # ---------------------------------------------------------- phase 3b
 def late_split_phase(bst):
     """K3 at a late split of the main path: one more iteration of phase
-    3's booster, recording the grower's K3 calls; its last split (a leaf's
-    compacted window of a few row blocks, the smaller child as target) is
-    replayed from the grower's own inputs against the plain version, and
-    timed as phase 2 times K3.  Returns the measurement dict."""
+    3's booster, whose tree's last split (a compacted window of a few row
+    blocks) is rebuilt from the grower's device state after the tree: the
+    route from the tree's last node, the window its new leaf inherited,
+    the leaf ids before the split (the rows of the last new leaf back in
+    its parent) and the smaller child as target.  The step entry (which
+    the device loop ran there) and the by-value entry replay it bit for
+    bit, against the plain version, timed as phase 2 times K3.  Returns
+    {"by_value": ..., "step": ...} measurement dicts."""
+    import numpy as np
     import torch
-    from lightgbm_tpu_torch.models import grower_seg
     from lightgbm_tpu_torch.ops import histogram as th
+    from lightgbm_tpu_torch.ops.split import FeatureMeta
 
-    fn = grower_seg.histogram_segment_routed
-    blocks, last = [], {}
-
-    def recorded(binsT, w8, leaf_id, start_block, n_blocks, target, route,
-                 num_bins, block_rows, scales):
-        blocks.append(int(n_blocks))
-        if int(route[0]) >= 0:
-            last.update(args=(binsT, w8), ids=leaf_id.clone(),
-                        rest=(int(start_block), int(n_blocks), int(target),
-                              route.clone(), num_bins, block_rows),
-                        scales=scales)
-        return fn(binsT, w8, leaf_id, start_block, n_blocks, target, route,
-                  num_bins, block_rows, scales)
-
-    grower_seg.histogram_segment_routed = recorded
-    try:
-        bst.update()
-    finally:
-        grower_seg.histogram_segment_routed = fn
-    binsT, w8 = last["args"]
-    lo, nb, target, route, B, rb = last["rest"]
-    scales, lid = last["scales"], last["ids"]
+    bst.update()
+    g = bst.gbdt.grower
+    s = g.s
+    tree, _ = s.tree()
+    n = tree.num_leaves
+    require(n >= 2, "the fourth tree did not split")
+    node, new_leaf = n - 2, n - 1
+    leaf = int(~tree.left_child[node])
+    fm = FeatureMeta(*(t.cpu().numpy() for t in s.fmeta[:3]))
+    route = th.pack_route(leaf, new_leaf, int(tree.split_feature[node]),
+                          int(tree.threshold_bin[node]),
+                          bool(tree.default_left[node]),
+                          bool(tree.is_cat[node]), tree.cat_bitset[node], fm)
+    lo, hi = (int(x) for x in s.window[new_leaf].tolist())
+    nb = hi - lo
+    target = (leaf if tree.leaf_count[leaf] <= tree.leaf_count[new_leaf]
+              else new_leaf)
+    binsT, w8, scales, rb, B = s.binsT, s.w8, s.scales, g.rb, g.B
+    lid = torch.where(s.leaf_id == new_leaf, leaf, s.leaf_id)
     F = binsT.shape[0]
+    step = th.pack_step(lo, nb, target, route).to(binsT.device)
     want_lid, want = th.histogram_segment_routed_plain(
         binsT, w8, lid.clone(), lo, nb, target, route, B, rb)
+    require(torch.equal(want_lid, s.leaf_id), "late split: the rebuilt "
+            "split does not route the rows the tree routed")
     runs = [th.histogram_segment_routed(binsT, w8, lid.clone(), lo, nb,
                                         target, route, B, rb, scales)
             for _ in range(2)]
+    steps = [th.histogram_segment_routed_step(binsT, w8, lid.clone(), step,
+                                              B, rb, scales)
+             for _ in range(2)]
     torch.cuda.synchronize()
-    for got_lid, _ in runs:
+    for got_lid, _ in runs + steps:
         require(torch.equal(got_lid, want_lid), "late split: leaf ids differ "
                 "from the plain version")
-    require(torch.equal(runs[0][1], runs[1][1]), "late split: a second "
-            "launch differs from the first")
+    require(torch.equal(runs[0][1], runs[1][1])
+            and torch.equal(runs[0][1], steps[0][1])
+            and torch.equal(steps[0][1], steps[1][1]),
+            "late split: a relaunch, or the step entry, differs from the "
+            "by-value entry")
     rows = slice(lo * rb, (lo + nb) * rb)
     err = check_hist("histogram_segment_routed late split", runs[0][1], want,
                      hist_abs_sums(th, binsT, w8, want_lid, lo, nb, target, B,
                                    rb))
     W = nb * rb
     moved = int((want_lid[rows] != lid[rows]).sum().item())
-    M = int(((want_lid[rows] == target) & (w8[4, rows] != 0)).sum().item())
-    rec = {"max_abs_err": err, "window_blocks": nb, "window_rows": W,
-           "target_rows": M, "moved_rows": moved,
-           "calls": len(blocks), "blocks_a_call": {
-               "min": min(blocks), "median": sorted(blocks)[len(blocks) // 2],
-               "max": max(blocks)}}
+    in_target = (want_lid[rows] == target) & (w8[4, rows] != 0)
+    M = int(in_target.sum().item())
+    bound = bound_ms(W * 5 + moved * 4 + M * (F - 1 + 10) + F * B * 12,
+                     W * 20 + M * F * 3)
+    library = library_hist_ms(binsT, [w8], lo * rb + torch.nonzero(
+        in_target)[:, 0], B, 20)
+    shape = (f"late split: window of {nb} blocks ({W} rows), {M} in the "
+             f"target, {moved} routed")
     reps = 20
-    ids = [lid.clone() for _ in range(reps + 1)]
-    rec["ms"] = time_ms(lambda i: th.histogram_segment_routed(
-        binsT, w8, ids[i], lo, nb, target, route, B, rb, scales), reps)
-    ids = [lid.clone() for _ in range(4)]
-    rec["plain_ms"] = time_ms(lambda i: th.histogram_segment_routed_plain(
-        binsT, w8, ids[i], lo, nb, target, route, B, rb), 3)
-    del ids
-    rec["bound_ms"], rec["bound_by"] = bound_ms(
-        W * 5 + moved * 4 + M * (F - 1 + 10) + F * B * 12,
-        W * 20 + M * F * 3)
-    rec["library_ms"] = library_hist_ms(
-        binsT, [w8], lo * rb + torch.nonzero(
-            (want_lid[rows] == target) & (w8[4, rows] != 0))[:, 0], B, reps)
-    rec.update(launch_report(
-        "histogram_segment_routed late split",
-        lambda ids: th.histogram_segment_routed(
-            binsT, w8, ids, lo, nb, target, route, B, rb, scales)[1],
-        lid, runs[0][1], want_lid, reps))
-    rec["shape"] = (f"late split: window of {nb} blocks ({W} rows), {M} "
-                    f"in the target, {moved} routed")
-    log(f"histogram_segment_routed late split: {rec['shape']}, ids "
-        f"identical, counts exact, max |diff| {err:.3g}; {rec['ms']:.4f} ms "
-        f"eager; the iteration's {len(blocks)} calls walked "
-        f"{rec['blocks_a_call']} blocks")
-    del last, runs
+    out = {}
+    for name, call, plain in (
+            ("by_value", lambda ids: th.histogram_segment_routed(
+                binsT, w8, ids, lo, nb, target, route, B, rb, scales),
+             lambda ids: th.histogram_segment_routed_plain(
+                 binsT, w8, ids, lo, nb, target, route, B, rb)),
+            ("step", lambda ids: th.histogram_segment_routed_step(
+                binsT, w8, ids, step, B, rb, scales),
+             lambda ids: th.histogram_segment_routed_step_plain(
+                 binsT, w8, ids, step, B, rb))):
+        rec = {"max_abs_err": err, "window_blocks": nb, "window_rows": W,
+               "target_rows": M, "moved_rows": moved, "shape": shape,
+               "bound_ms": bound[0], "bound_by": bound[1],
+               "library_ms": library, "grower": dict(g.last_stats)}
+        ids = [lid.clone() for _ in range(reps + 1)]
+        rec["ms"] = time_ms(lambda i: call(ids[i]), reps)
+        ids = [lid.clone() for _ in range(4)]
+        rec["plain_ms"] = time_ms(lambda i: plain(ids[i]), 3)
+        del ids
+        rec.update(launch_report(f"histogram_segment_routed {name} late "
+                                 "split", lambda ids: call(ids)[1], lid,
+                                 runs[0][1], want_lid, reps))
+        log(f"histogram_segment_routed {name} late split: {shape}, ids "
+            f"identical, counts exact, max |diff| {err:.3g}; "
+            f"{rec['ms']:.4f} ms eager, {rec['graph_ms']:.4f} ms in a graph")
+        out[name] = rec
+    del runs, steps, lid
     torch.cuda.empty_cache()
-    return rec
+    return out
 
 
 # ---------------------------------------------------------------- phase 4
@@ -820,31 +1044,41 @@ def unfused_phase():
     ds = lt.Dataset(X, y)
     models = {}
     launches = None
+    loop = None
     for fused in (False, True):
         bst = lt.Booster(TRAIN_PARAMS, ds, fused_route=fused)
         kernels.reset_launches()
-        for _ in range(2):
-            bst.update()
-        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with record_trees() as rec:
+            for _ in range(2):
+                bst.update()
+            torch.cuda.synchronize()
         if not fused:
             launches = dict(kernels.LAUNCHES)
             trees = bst.gbdt.models
-            leaves = sum(t.num_leaves for t in trees)
             log(f"unfused: leaves per tree {[t.num_leaves for t in trees]}, "
                 f"per iteration {[round(s, 3) for s in bst.gbdt.iter_seconds]}"
                 f" s, launches {launches}")
             require(len(trees) == 2, "unfused training stopped early")
-            require(launches["histogram_segment"] == leaves
-                    and launches["route_window"] == leaves - len(trees),
-                    "unfused path: histogram_segment must launch once per "
-                    "leaf and route_window once per split")
-            require(launches["histogram_segment_routed"] == 0,
+            require(launches["histogram_segment"] == len(trees),
+                    "unfused path: histogram_segment must launch once a "
+                    "tree root")
+            loop = device_loop_report("HIGGS 1M unfused", bst, rec.stats,
+                                      launches, "histogram_segment_step",
+                                      time.perf_counter() - t0)
+            require(launches["route_window_step"]
+                    == launches["histogram_segment_step"],
+                    "unfused path: route_window_step must launch once a "
+                    "step")
+            require(launches["histogram_segment_routed"]
+                    == launches["histogram_segment_routed_step"]
+                    == launches["route_window"] == 0,
                     "unfused path launched the fused kernel")
         models[fused] = bst.model_to_string()
     require(models[False] == models[True],
             "fused and unfused paths grew different models")
     log("unfused: same model text as the fused path")
-    return launches, ds
+    return launches, ds, loop
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1092,9 +1326,10 @@ def mc_train_phase(ds, Xh, yh):
     evals = {}
     kernels.reset_launches()
     t0 = time.perf_counter()
-    bst = lt.train(MC_PARAMS, ds, MC_ITERS, valid_sets=[valid],
-                   valid_names=["holdout"], evals_result=evals)
-    torch.cuda.synchronize()
+    with record_trees() as rec:
+        bst = lt.train(MC_PARAMS, ds, MC_ITERS, valid_sets=[valid],
+                       valid_names=["holdout"], evals_result=evals)
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     trees = bst.gbdt.models
@@ -1111,14 +1346,15 @@ def mc_train_phase(ds, Xh, yh):
     require(launches["histogram_all"] == MC_ITERS,
             f"histogram_all launched {launches['histogram_all']} times, "
             f"expected once per iteration ({MC_ITERS})")
-    require(launches["histogram_segment_routed"] == splits,
-            f"histogram_segment_routed launched "
-            f"{launches['histogram_segment_routed']} times, expected one "
-            f"per split ({splits})")
+    require(launches["histogram_segment_routed"] == 0,
+            "the class roots must come from K5, not histogram_segment_routed")
+    loop = device_loop_report("multiclass_cat", bst, rec.stats, launches,
+                              "histogram_segment_routed_step", wall)
     require(launches["score_gather_add"] == MC_ITERS * C,
             "score_gather_add did not run once per class tree")
-    require(launches["histogram_segment"] == 0
-            and launches["route_window"] == 0,
+    require(launches["histogram_segment"] == launches["route_window"]
+            == launches["histogram_segment_step"]
+            == launches["route_window_step"] == 0,
             "the fused path launched the unfused kernels")
     require(ll[-1] < MC_LOGLOSS_GATE, f"held-out multi_logloss {ll[-1]} is "
             f"not under {MC_LOGLOSS_GATE}")
@@ -1148,7 +1384,7 @@ def mc_train_phase(ds, Xh, yh):
         f"model text {len(text)} bytes")
     return launches, {"wall_s": wall, "iter_s": it_s,
                       "holdout_multi_logloss": ll, "splits": splits,
-                      "categorical_splits": n_cat}
+                      "categorical_splits": n_cat, "device_loop": loop}
 
 
 # ---------------------------------------------------------------- phase 8
@@ -1810,13 +2046,15 @@ def main() -> int:
     log(f"frontier kernels: HIGGS took {time.perf_counter() - t0:.1f} s")
 
     main_launches, train_stats, bst = train_phase(ds, Xh, yh)
-    results["histogram_segment_routed"]["late_split"] = late_split_phase(bst)
+    late = late_split_phase(bst)
+    results["histogram_segment_routed"]["late_split"] = late["by_value"]
+    results["histogram_segment_routed_step"]["late_split"] = late["step"]
     del bst
     fr_launches, fr_stats, bst = frontier_train_phase(ds, Xh, yh,
                                                       train_stats)
     results["route_window"]["late_window"] = route_late_phase(bst)
     del bst
-    unfused_launches, ds_1m = unfused_phase()
+    unfused_launches, ds_1m, unfused_loop = unfused_phase()
     tier_launches = frontier_tiers_phase(ds_1m)
     del ds_1m
     seg_text = parity_phase()
@@ -1855,7 +2093,10 @@ def main() -> int:
         r = dict(results.get(name, {}))
         r.update(mc_results.get(name, {}))
         r.update(fk_results.get(name, {}))
-        path = {"histogram_segment": "unfused", "route_window": "unfused",
+        path = {"histogram_segment": "unfused",
+                "histogram_segment_step": "unfused",
+                "route_window_step": "unfused",
+                "route_window": "frontier",
                 "histogram_all": "multiclass",
                 "histogram_frontier": "frontier",
                 "histogram_frontier_routed": "frontier_k1",
@@ -1869,9 +2110,14 @@ def main() -> int:
         rec.update(r)
         if name == "histogram_all":
             rec["higgs"] = results["histogram_all_higgs"]
-        if name in ("histogram_segment", "histogram_segment_routed"):
-            rec["build"] = build[
-                "K1" if name == "histogram_segment" else "K3"]
+        if name in ("histogram_segment", "histogram_segment_routed",
+                    "histogram_segment_step", "histogram_segment_routed_step",
+                    "route_window", "route_window_step"):
+            rec["build"] = build[{
+                "histogram_segment": "K1", "histogram_segment_routed": "K3",
+                "histogram_segment_step": "K1 step",
+                "histogram_segment_routed_step": "K3 step",
+                "route_window": "K2", "route_window_step": "K2 step"}[name]]
         if name in fk_mc:
             rec["mc"] = fk_mc[name]
             rec["mc_k16"] = fk_mc[f"{name}_k16"]
@@ -1882,6 +2128,10 @@ def main() -> int:
         log(json.dumps(rec))
     log(json.dumps({"frontier_train": fr_stats,
                     "frontier_parity": fr_parity}))
+    log(json.dumps({"device_loop": {
+        "higgs_fused": train_stats["device_loop"],
+        "higgs_1m_unfused": unfused_loop,
+        "multiclass_cat": mc_stats["device_loop"]}}))
     log(json.dumps({"train": train_stats}))
     log(json.dumps({"mc_train": mc_stats}))
     log(json.dumps({"kernels": records}))

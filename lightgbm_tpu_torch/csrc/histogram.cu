@@ -10,6 +10,12 @@
 //       (_kernel_segment_routed);
 //   lgbt_route_window       — K2, replaces pallas_histogram.py:route_window
 //       (_kernel_route_window / _route_block_ids);
+//   lgbt_histogram_segment_step, lgbt_route_window_step — K1/K3 and K2
+//       with their window, target and route read from a step block in
+//       device memory, as the TPU kernels read their scalar-prefetch
+//       operand (pallas_histogram.py:1100-1110, :1583): the segment
+//       grower's split step, replayed in a CUDA graph, asks the host for
+//       nothing;
 //   lgbt_histogram_all      — K5, replaces pallas_histogram.py:
 //       histogram_all (_kernel_all) for C stacked bf16 channel sets: the
 //       root histograms of all C class trees of a multiclass iteration;
@@ -229,6 +235,36 @@ __device__ __forceinline__ int goes_right(const RouteDesc& r, int g) {
 __device__ __forceinline__ int routed_leaf(const RouteDesc& r, int g,
                                            int lid) {
   return lid == r.w[0] && goes_right(r, g) == 1 ? r.w[1] : lid;
+}
+
+// A split's step block, as the segment grower's device loop writes it
+// (ops/histogram.py:pack_step): [start_block, n_blocks, target, route[19]]
+// int32 in device memory, the TPU kernels' scalar-prefetch operand
+// (pallas_histogram.py:1100-1102).  The window is rows [row_lo, row_hi):
+// whole row blocks, clipped to the layout, as the by-value entries' hosts
+// clip it (ops/histogram.py:_window).  A route whose bin row lies outside
+// the bin matrix routes nothing (its leaf becomes -1).
+struct StepArgs {
+  long long row_lo, row_hi;
+  int target;
+  RouteDesc route;
+};
+
+__device__ __forceinline__ StepArgs read_step(const int* __restrict__ step,
+                                              long long npad, int block_rows,
+                                              int num_features) {
+  StepArgs a;
+  const long long start = __ldg(step), n_blocks = __ldg(step + 1);
+  a.row_lo = min(max(start, 0ll) * block_rows, npad);
+  a.row_hi = min(a.row_lo + max(n_blocks, 0ll) * block_rows, npad);
+  a.target = __ldg(step + 2);
+#pragma unroll
+  for (int k = 0; k < kRouteWords; ++k) a.route.w[k] = __ldg(step + 3 + k);
+  if (a.route.w[2] < 0 || a.route.w[2] >= num_features) {
+    a.route.w[0] = -1;
+    a.route.w[2] = 0;
+  }
+  return a;
 }
 
 __device__ __forceinline__ double bf16_bits_to_double(uint16_t b) {
@@ -478,15 +514,15 @@ frontier_hist_kernel(const uint8_t* __restrict__ bins,
 // Shared memory: the warps' row queues, then five u32 planes (g lo, g hi,
 // h lo, h hi, count) of the tile's nf x num_bins cells, feature-major.
 template <bool kRouted>
-__global__ void __launch_bounds__(kSegThreads, 1)
-segment_window_kernel(const uint8_t* __restrict__ bins,
-                      const uint16_t* __restrict__ w8, int* leaf_id,
-                      long long npad, int num_features, int num_bins,
-                      int tile_features, long long row_lo, long long row_hi,
-                      int target, const float* __restrict__ scales,
-                      RouteDesc route, unsigned long long* __restrict__ acc,
-                      unsigned int* __restrict__ arrivals,
-                      float* __restrict__ out) {
+__device__ __forceinline__ void
+segment_window(const uint8_t* __restrict__ bins,
+               const uint16_t* __restrict__ w8, int* leaf_id,
+               long long npad, int num_features, int num_bins,
+               int tile_features, long long row_lo, long long row_hi,
+               int target, const float* __restrict__ scales,
+               const RouteDesc& route, unsigned long long* __restrict__ acc,
+               unsigned int* __restrict__ arrivals,
+               float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ bool s_last;
   const int f0 = blockIdx.y * tile_features;
@@ -632,6 +668,43 @@ segment_window_kernel(const uint8_t* __restrict__ bins,
     }
   }
   if (threadIdx.x == 0) arrivals[blockIdx.y] = 0u;
+}
+
+// K1's and K3's kernels: the window, target and route as launch
+// parameters (segment_window_kernel), or read by every block at entry from
+// a step block in device memory (segment_step_kernel), so that a split's
+// step needs no value from the host (read_step).  The same body, so the
+// two give the same bits on the same window and route.
+template <bool kRouted>
+__global__ void __launch_bounds__(kSegThreads, 1)
+segment_window_kernel(const uint8_t* __restrict__ bins,
+                      const uint16_t* __restrict__ w8, int* leaf_id,
+                      long long npad, int num_features, int num_bins,
+                      int tile_features, long long row_lo, long long row_hi,
+                      int target, const float* __restrict__ scales,
+                      RouteDesc route, unsigned long long* __restrict__ acc,
+                      unsigned int* __restrict__ arrivals,
+                      float* __restrict__ out) {
+  segment_window<kRouted>(bins, w8, leaf_id, npad, num_features, num_bins,
+                          tile_features, row_lo, row_hi, target, scales,
+                          route, acc, arrivals, out);
+}
+
+template <bool kRouted>
+__global__ void __launch_bounds__(kSegThreads, 1)
+segment_step_kernel(const uint8_t* __restrict__ bins,
+                    const uint16_t* __restrict__ w8, int* leaf_id,
+                    long long npad, int num_features, int num_bins,
+                    int tile_features, int block_rows,
+                    const int* __restrict__ step,
+                    const float* __restrict__ scales,
+                    unsigned long long* __restrict__ acc,
+                    unsigned int* __restrict__ arrivals,
+                    float* __restrict__ out) {
+  const StepArgs a = read_step(step, npad, block_rows, num_features);
+  segment_window<kRouted>(bins, w8, leaf_id, npad, num_features, num_bins,
+                          tile_features, a.row_lo, a.row_hi, a.target, scales,
+                          a.route, acc, arrivals, out);
 }
 
 // K5.  One launch covers every row x the feature tile blockIdx.y x the set
@@ -790,11 +863,10 @@ all_hist_kernel(const uint8_t* __restrict__ bins,
 // 2 kRows, or the whole window where the two arrays cannot be aligned
 // together) are routed one a thread.
 template <int kRows, bool kTable>
-__global__ void __launch_bounds__(kRouteThreads)
-route_window_kernel(const uint8_t* __restrict__ frow,
-                    int* __restrict__ leaf_id, long long row_lo,
-                    long long row_hi, long long vec_lo, long long vec_hi,
-                    RouteDesc route) {
+__device__ __forceinline__ void
+route_window(const uint8_t* __restrict__ frow, int* __restrict__ leaf_id,
+             long long row_lo, long long row_hi, long long vec_lo,
+             long long vec_hi, const RouteDesc& route) {
   static_assert(kRouteThreads == 256, "one route-table entry a thread");
   static_assert(kRows == 1 || kRows == 4 || kRows == 16, "rows a thread");
   __shared__ unsigned s_right[8];
@@ -855,6 +927,56 @@ route_window_kernel(const uint8_t* __restrict__ frow,
     const int moved = route_row(frow[i], lid);
     if (moved != lid) leaf_id[i] = moved;
   }
+}
+
+// The aligned span [vec_lo, vec_hi) of K2's window for kRows rows a step:
+// from the first row at or after row_lo where frow is kRows-byte aligned
+// and leaf_id 16-byte aligned (kRows >= 4), a whole number of steps.
+// Where the two cannot be aligned together the span is empty.
+template <int kRows>
+__host__ __device__ inline void route_span(const uint8_t* frow,
+                                           const int* leaf_id,
+                                           long long row_lo, long long row_hi,
+                                           long long* vec_lo,
+                                           long long* vec_hi) {
+  *vec_lo = *vec_hi = row_hi;
+  long long lo = row_lo;
+  if (kRows > 1) {
+    const long long fa = (long long)(reinterpret_cast<uintptr_t>(frow + lo)
+                                     % kRows);
+    lo += (kRows - fa) % kRows;
+    if (reinterpret_cast<uintptr_t>(leaf_id + lo) % 16 != 0) return;
+  }
+  if (lo >= row_hi) return;
+  *vec_lo = lo;
+  *vec_hi = lo + (row_hi - lo) / kRows * kRows;
+}
+
+// K2's kernels: the window and route as launch parameters, the aligned
+// span picked by the host (route_window_kernel), or read by every block at
+// entry from a split's step block in device memory, the span computed from
+// the row_lo read there (route_step_kernel).
+template <int kRows, bool kTable>
+__global__ void __launch_bounds__(kRouteThreads)
+route_window_kernel(const uint8_t* __restrict__ frow,
+                    int* __restrict__ leaf_id, long long row_lo,
+                    long long row_hi, long long vec_lo, long long vec_hi,
+                    RouteDesc route) {
+  route_window<kRows, kTable>(frow, leaf_id, row_lo, row_hi, vec_lo, vec_hi,
+                              route);
+}
+
+template <int kRows, bool kTable>
+__global__ void __launch_bounds__(kRouteThreads)
+route_step_kernel(const uint8_t* __restrict__ bins, int* __restrict__ leaf_id,
+                  long long npad, int num_features, int block_rows,
+                  const int* __restrict__ step) {
+  const StepArgs a = read_step(step, npad, block_rows, num_features);
+  const uint8_t* frow = bins + (long long)a.route.w[2] * npad;
+  long long vec_lo, vec_hi;
+  route_span<kRows>(frow, leaf_id, a.row_lo, a.row_hi, &vec_lo, &vec_hi);
+  route_window<kRows, kTable>(frow, leaf_id, a.row_lo, a.row_hi, vec_lo,
+                              vec_hi, a.route);
 }
 
 int sm_count() {
@@ -963,26 +1085,6 @@ int launch_segment(int tiles, int ft, size_t smem, cudaStream_t s, const uint8_t
   return 0;
 }
 
-// The aligned span [vec_lo, vec_hi) of K2's window for kRows rows a step:
-// from the first row at or after row_lo where frow is kRows-byte aligned
-// and leaf_id 16-byte aligned (kRows >= 4), a whole number of steps.
-// Where the two cannot be aligned together the span is empty.
-template <int kRows>
-void route_span(const uint8_t* frow, const int* leaf_id, long long row_lo,
-                long long row_hi, long long* vec_lo, long long* vec_hi) {
-  *vec_lo = *vec_hi = row_hi;
-  long long lo = row_lo;
-  if (kRows > 1) {
-    const long long fa = (long long)(reinterpret_cast<uintptr_t>(frow + lo)
-                                     % kRows);
-    lo += (kRows - fa) % kRows;
-    if (reinterpret_cast<uintptr_t>(leaf_id + lo) % 16 != 0) return;
-  }
-  if (lo >= row_hi) return;
-  *vec_lo = lo;
-  *vec_hi = lo + (row_hi - lo) / kRows * kRows;
-}
-
 // Launches K2: the threads the window's steps and edge rows need, at most
 // one wave (the blocks an SM that fit, once asked, on every SM), and one
 // block for an empty window, so a call is always one launch.  Makes no
@@ -1008,6 +1110,55 @@ int launch_route(const uint8_t* frow, int* leaf_id, long long row_lo,
   route_window_kernel<kRows, kTable><<<(unsigned)blocks, kRouteThreads, 0,
                                        s>>>(frow, leaf_id, row_lo, row_hi,
                                             vec_lo, vec_hi, route);
+  return 0;
+}
+
+// Launches K1's or K3's step kernel: the grid does not depend on the
+// window, which only the device knows, so it is the wave cap of
+// launch_segment (sm_count() / tiles blocks a tile) at every window.  The
+// blocks stride over the window they read; one with no rows flushes
+// nothing and still arrives at its tile's counter, so an empty window
+// writes zeros.  Makes no call that a CUDA graph's capture refuses.
+template <bool kRouted>
+int launch_segment_step(int tiles, int ft, size_t smem, cudaStream_t s,
+                        const uint8_t* bins, const uint16_t* w8,
+                        int* leaf_id, long long npad, int num_features,
+                        int num_bins, int block_rows, const int* step,
+                        const float* scales, long long* scratch, float* out) {
+  static bool opted_in = false;
+  if (!opted_in) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        segment_step_kernel<kRouted>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, frontier_smem_budget());
+    if (e != cudaSuccess) return (int)e;
+    opted_in = true;
+  }
+  const long long cap = sm_count() / tiles > 0 ? sm_count() / tiles : 1;
+  const long long cells3 = 3ll * num_features * num_bins;
+  dim3 grid((unsigned)cap, (unsigned)tiles);
+  segment_step_kernel<kRouted><<<grid, kSegThreads, smem, s>>>(
+      bins, w8, leaf_id, npad, num_features, num_bins, ft, block_rows, step,
+      scales, reinterpret_cast<unsigned long long*>(scratch),
+      reinterpret_cast<unsigned int*>(scratch + cells3), out);
+  return 0;
+}
+
+// Launches K2's step kernel over the occupancy wave (launch_route's cap),
+// whatever the window.
+template <int kRows, bool kTable>
+int launch_route_step(const uint8_t* bins, int* leaf_id, long long npad,
+                      int num_features, int block_rows, const int* step,
+                      cudaStream_t s) {
+  static int per_sm = 0;
+  if (per_sm == 0) {
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, route_step_kernel<kRows, kTable>, kRouteThreads, 0);
+    if (e != cudaSuccess) return (int)e;
+    if (per_sm < 1) per_sm = 1;
+  }
+  const long long wave = (long long)per_sm * sm_count();
+  route_step_kernel<kRows, kTable><<<(unsigned)wave, kRouteThreads, 0, s>>>(
+      bins, leaf_id, npad, num_features, block_rows, step);
   return 0;
 }
 
@@ -1071,6 +1222,39 @@ int lgbt_histogram_segment(const uint8_t* bins, const uint16_t* w8,
                               row_lo, row_hi, target, scales, desc, scratch,
                               out);
   }
+  if (e != 0) return e;
+  return (int)cudaGetLastError();
+}
+
+// K1 (routed == 0) or K3 (routed != 0) with the window, target and route
+// read from step, a device pointer to a step block of 22 int32 words
+// (read_step: [start_block, n_blocks, target, route[19]]), one kernel
+// launch and no other operation on the stream; the host reads none of it.
+// The other arguments as lgbt_histogram_segment's; block_rows is the
+// window's row block.  Bit for bit lgbt_histogram_segment's output and
+// leaf ids on the same window, target and route.  Returns a CUDA error
+// code (0 on success).
+int lgbt_histogram_segment_step(const uint8_t* bins, const uint16_t* w8,
+                                int* leaf_id, long long npad,
+                                int num_features, int num_bins,
+                                int block_rows, const int* step, int routed,
+                                const float* scales, long long* scratch,
+                                float* out, void* stream) {
+  if (npad > 0x7fffffffll || block_rows < 1) return (int)cudaErrorInvalidValue;
+  int tiling[2];
+  const int rc = lgbt_segment_tiling(num_features, num_bins, tiling);
+  if (rc != 0) return rc;
+  const int tiles = (int)div_up(num_features, tiling[0]);
+  cudaStream_t s = (cudaStream_t)stream;
+  const int e = routed != 0
+      ? launch_segment_step<true>(tiles, tiling[0], (size_t)tiling[1], s,
+                                  bins, w8, leaf_id, npad, num_features,
+                                  num_bins, block_rows, step, scales,
+                                  scratch, out)
+      : launch_segment_step<false>(tiles, tiling[0], (size_t)tiling[1], s,
+                                   bins, w8, leaf_id, npad, num_features,
+                                   num_bins, block_rows, step, scales,
+                                   scratch, out);
   if (e != 0) return e;
   return (int)cudaGetLastError();
 }
@@ -1237,6 +1421,21 @@ int lgbt_route_window(const uint8_t* bins, int* leaf_id, long long npad,
   for (int k = 0; k < kRouteWords; ++k) desc.w[k] = route[k];
   const int e = launch_route<kRouteRows, kRouteTable>(
       bins + (long long)desc.w[2] * npad, leaf_id, row_lo, row_hi, desc,
+      (cudaStream_t)stream);
+  if (e != 0) return e;
+  return (int)cudaGetLastError();
+}
+
+// K2 with the window and route read from step, a device pointer to a step
+// block (lgbt_histogram_segment_step's), one kernel launch and no other
+// operation on the stream.  Bit for bit lgbt_route_window's leaf ids on the
+// same window and route.  Returns a CUDA error code (0 on success).
+int lgbt_route_window_step(const uint8_t* bins, int* leaf_id, long long npad,
+                           int num_features, int block_rows, const int* step,
+                           void* stream) {
+  if (num_features < 1 || block_rows < 1) return (int)cudaErrorInvalidValue;
+  const int e = launch_route_step<kRouteRows, kRouteTable>(
+      bins, leaf_id, npad, num_features, block_rows, step,
       (cudaStream_t)stream);
   if (e != 0) return e;
   return (int)cudaGetLastError();

@@ -29,6 +29,13 @@ epoch-compacted layout (``compact_state``), compacted after a round once
 the kernels have scanned COMPACT_WASTE x the layout since the last sort.
 The JAX grower's round-carry staging (``hist_stage``) is not ported: it
 removes an XLA carry copy that a host-driven loop does not make.
+
+The round loop is driven from the host: the best-split records of every
+leaf are kept on the host (one device-to-host fetch a round), and each
+round's targets and routes go to the kernels by value
+(``frontier_params``).  The per-tree state (``_SegState``), a split's host
+bookkeeping (``record_split``) and the batched scan (``HostGrower``) are
+this loop's; the segment grower grows on the device (grower_seg.py).
 """
 
 from __future__ import annotations
@@ -39,15 +46,203 @@ import numpy as np
 import torch
 
 from ..ops import histogram
-from ..ops.histogram import (histogram_frontier, histogram_frontier_fusedk,
+from ..ops.histogram import (fixed_point_scales, histogram_frontier,
+                             histogram_frontier_fusedk,
                              histogram_frontier_routed, null_route,
-                             route_window, union_block_list)
-from ..ops.split import FeatureMeta
+                             pack_channels, pack_route, route_window,
+                             union_block_list)
+from ..ops.split import NEG_INF, FeatureMeta, best_split
 from .grower import GrowerParams, TreeArrays
-from .grower_seg import (COMPACT_WASTE, HostGrower, _SegState, _unpermute,
-                         compact_state, record_split, split_route)
+from .grower_seg import COMPACT_WASTE, _unpermute
 
 TIERS = ("off", "k1", "fusedk")
+
+
+class _SegState:
+    """Per-tree state of the host-driven loop: device tensors in permuted
+    row order, host bookkeeping of windows, leaf sums and best splits."""
+
+    def __init__(self, binsT, w8, L: int, max_blocks: int, G0, H0, C0,
+                 F: int, B: int):
+        dev = binsT.device
+        n = binsT.shape[1]
+        self.binsT = binsT                      # [F, Npad] u8, permuted
+        self.w8 = w8                            # [8, Npad] bf16, permuted
+        self.order = torch.arange(n, dtype=torch.int64, device=dev)
+        self.leaf_id = torch.zeros(n, dtype=torch.int32, device=dev)
+        self.leaf_lo = [0] * L                  # window start block
+        self.leaf_hi = [0] * L                  # window end block (excl.)
+        self.leaf_hi[0] = max_blocks
+        self.scanned_since = 0
+        self.scanned_total = 0
+        self.num_sorts = 0
+        self.num_leaves = 1
+        self.leaf_hist = torch.zeros((L, F, B, 3), dtype=torch.float32,
+                                     device=dev)
+        f32 = np.float32
+        self.leaf_g = np.zeros(L, f32)
+        self.leaf_h = np.zeros(L, f32)
+        self.leaf_c = np.zeros(L, f32)
+        self.leaf_g[0], self.leaf_h[0], self.leaf_c[0] = G0, H0, C0
+        # best-split cache (best_split_per_leaf_, serial_tree_learner.h:153)
+        self.best_gain = np.full(L, NEG_INF, f32)
+        self.best_feature = np.full(L, -1, np.int32)
+        self.best_threshold = np.zeros(L, np.int32)
+        self.best_dl = np.zeros(L, bool)
+        self.best_is_cat = np.zeros(L, bool)
+        self.best_bitset = np.zeros((L, 8), np.uint32)
+        self.best_left = np.zeros((L, 3), f32)   # (left_g, left_h, left_c)
+        self.best_out = np.zeros((L, 2), f32)    # (left_out, right_out)
+        self.tree = TreeArrays(L)
+        self.tree.leaf_weight[0] = H0
+        self.tree.leaf_count[0] = C0
+
+
+def compact_state(st: _SegState, L: int, rb: int) -> None:
+    """Stable-sort the whole layout by leaf id; leaves become contiguous
+    segments and their windows reset to them."""
+    lid, perm = torch.sort(st.leaf_id, stable=True)
+    st.binsT = st.binsT.index_select(1, perm)
+    st.w8 = st.w8.index_select(1, perm)
+    st.order = st.order[perm]
+    st.leaf_id = lid
+    leaves = torch.arange(L, dtype=lid.dtype, device=lid.device)
+    starts = torch.searchsorted(lid, leaves, side="left")
+    ends = torch.searchsorted(lid, leaves, side="right")
+    # block-granular bounds; empty leaves get an empty window
+    nonempty = ends > starts
+    zero = torch.zeros_like(starts)
+    lo = torch.where(nonempty, starts // rb, zero)
+    hi = torch.where(nonempty, -(-ends // rb), zero)
+    st.leaf_lo = lo.tolist()
+    st.leaf_hi = hi.tolist()
+    st.scanned_since = 0
+    st.num_sorts += 1
+
+
+def split_route(st: _SegState, leaf: int, new_leaf: int,
+                fm_host: FeatureMeta) -> torch.Tensor:
+    """The route descriptor of the cached best split of ``leaf``."""
+    return pack_route(leaf, new_leaf, int(st.best_feature[leaf]),
+                      int(st.best_threshold[leaf]), bool(st.best_dl[leaf]),
+                      bool(st.best_is_cat[leaf]), st.best_bitset[leaf],
+                      fm_host)
+
+
+def record_split(st: _SegState, leaf: int, new_leaf: int, node: int) -> None:
+    """Host bookkeeping of the cached best split of ``leaf`` (Tree::Split,
+    tree.h:407-445): the new leaf inherits the parent's window (routing
+    touches only it), the tree arrays and the two children's sums."""
+    st.leaf_lo[new_leaf], st.leaf_hi[new_leaf] = (st.leaf_lo[leaf],
+                                                  st.leaf_hi[leaf])
+    Gl, Hl, Cl = st.best_left[leaf]
+    Gp, Hp, Cp = st.leaf_g[leaf], st.leaf_h[leaf], st.leaf_c[leaf]
+    Gr, Hr, Cr = Gp - Gl, Hp - Hl, Cp - Cl
+    tr = st.tree
+    parent = int(tr.leaf_parent[leaf])
+    if parent >= 0:
+        if tr.left_child[parent] == ~leaf:
+            tr.left_child[parent] = node
+        if tr.right_child[parent] == ~leaf:
+            tr.right_child[parent] = node
+    tr.left_child[node] = ~leaf
+    tr.right_child[node] = ~new_leaf
+    tr.split_feature[node] = st.best_feature[leaf]
+    tr.threshold_bin[node] = st.best_threshold[leaf]
+    tr.default_left[node] = st.best_dl[leaf]
+    tr.is_cat[node] = st.best_is_cat[leaf]
+    tr.cat_bitset[node] = st.best_bitset[leaf]
+    tr.split_gain[node] = st.best_gain[leaf]
+    tr.internal_value[node] = tr.leaf_value[leaf]
+    tr.internal_weight[node] = Hp
+    tr.internal_count[node] = Cp
+    tr.leaf_value[leaf], tr.leaf_value[new_leaf] = st.best_out[leaf]
+    tr.leaf_weight[leaf], tr.leaf_weight[new_leaf] = Hl, Hr
+    tr.leaf_count[leaf], tr.leaf_count[new_leaf] = Cl, Cr
+    tr.leaf_parent[leaf] = tr.leaf_parent[new_leaf] = node
+    tr.leaf_depth[leaf] = tr.leaf_depth[new_leaf] = tr.leaf_depth[leaf] + 1
+    st.num_leaves += 1
+    tr.num_leaves = st.num_leaves
+    st.leaf_g[leaf], st.leaf_g[new_leaf] = Gl, Gr
+    st.leaf_h[leaf], st.leaf_h[new_leaf] = Hl, Hr
+    st.leaf_c[leaf], st.leaf_c[new_leaf] = Cl, Cr
+
+
+class HostGrower:
+    """The host-driven loop's pieces: the per-tree state, the batched
+    best-split scan into the host cache, the stop rule.
+    ``grow(binsT, grad, hess, member, fmeta, root=None)`` takes
+    feature-major bins [F, Npad] (Npad a multiple of ``block_rows``; pad
+    rows must carry member == 0) and returns ``(TreeArrays, leaf_id)``
+    with leaf ids in the original row order.
+
+    ``root``, when given, is ``(w8, scales, root_hist)``: this tree's
+    channels as pack_channels packs them, their fixed_point_scales, and
+    the root histogram [F, B, 3] at those scales, which takes the place of
+    the root's own pass (K5's slice of this class is, bit for bit, what
+    that pass gives).  The splits' kernels use the same ``w8`` and
+    ``scales``."""
+
+    def __init__(self, num_bins: int, params: GrowerParams,
+                 block_rows: int):
+        self.B = num_bins
+        self.p = params
+        self.rb = block_rows
+        self.last_stats = {}
+
+    def _start(self, binsT, grad, hess, member, root):
+        """-> (state, scales, root histogram or None)."""
+        F, n = binsT.shape
+        if n % self.rb:
+            raise ValueError(f"Npad {n} is not a multiple of {self.rb}")
+        if root is None:
+            w8 = pack_channels(grad, hess, member)
+            scales = fixed_point_scales(w8)
+            root_hist = None
+        else:
+            w8, scales, root_hist = root
+        G0, H0, C0 = torch.stack([torch.sum(grad * member),
+                                  torch.sum(hess * member),
+                                  torch.sum(member)]).cpu().numpy()
+        st = _SegState(binsT, w8, self.p.num_leaves, n // self.rb, G0, H0,
+                       C0, F, self.B)
+        return st, scales, root_hist
+
+    def _scan(self, st: _SegState, leaves, hists, fmeta: FeatureMeta) -> None:
+        """Best split of each leaf in ``leaves`` from its histogram and its
+        sums; one device->host fetch writes the host cache (in float64
+        when it carries categorical bitsets, whose 32-bit words float32
+        would round).  A leaf at max_depth gets gain -inf."""
+        dev = hists.device
+        g, h, c = (torch.from_numpy(v[leaves]).to(dev)
+                   for v in (st.leaf_g, st.leaf_h, st.leaf_c))
+        info = best_split(hists, g, h, c, fmeta, self.p.split)
+        cols = [info.gain, info.feature, info.threshold, info.default_left,
+                info.left_g, info.left_h, info.left_c, info.left_out,
+                info.right_out]
+        dtype = torch.float32
+        if info.is_cat is not None:
+            cols += [info.is_cat, *info.cat_bitset.unbind(1)]
+            dtype = torch.float64
+        rec = torch.stack([x.to(dtype) for x in cols], dim=1).cpu().numpy()
+        for k, leaf in enumerate(leaves):
+            gain = rec[k, 0]
+            if (self.p.max_depth > 0
+                    and st.tree.leaf_depth[leaf] >= self.p.max_depth):
+                gain = np.float32(NEG_INF)
+            st.best_gain[leaf] = gain
+            st.best_feature[leaf] = int(rec[k, 1])
+            st.best_threshold[leaf] = int(rec[k, 2])
+            st.best_dl[leaf] = bool(rec[k, 3])
+            st.best_left[leaf] = rec[k, 4:7]
+            st.best_out[leaf] = rec[k, 7:9]
+            if info.is_cat is not None:
+                st.best_is_cat[leaf] = bool(rec[k, 9])
+                st.best_bitset[leaf] = rec[k, 10:18].astype(np.uint32)
+
+    def _can_grow(self, st: _SegState) -> bool:
+        return (st.num_leaves < self.p.num_leaves
+                and float(st.best_gain.max()) > 0.0)
 
 
 class FrontierGrower(HostGrower):

@@ -11,6 +11,13 @@ there become hand-written CUDA kernels in ``csrc/histogram.cu``:
     window;
   * ``histogram_segment_routed`` (K3): K2 then K1 on the updated ids, in
     one pass; with ``null_route()`` it is K1;
+  * ``histogram_segment_step``, ``route_window_step`` and
+    ``histogram_segment_routed_step``: K1, K2 and K3 with their window,
+    target and route read from a step block in device memory
+    (``pack_step``: [start_block, n_blocks, target, route]), as the TPU
+    kernels read their scalar-prefetch operand; the segment grower's
+    split step builds the block on the device (``pack_route_device``), so
+    the host reads no value of a split;
   * ``histogram_all`` (K5): the histogram of every row for each of C
     stacked channel sets (``pack_channel_sets``) — the C class-tree roots
     of a multiclass iteration in one launch;
@@ -31,8 +38,9 @@ aliased it as an input/output), and so do the plain versions.
 Every call of a card kernel is one kernel launch and nothing else on
 the stream, so it can be captured in a CUDA graph: K2's and K3's route
 and K6/K7's targets and routes travel in the launch's parameters
-(``frontier_params``), and the histogram kernels sum into a per-device
-scratch that every launch leaves zero (``_kernel_scratch``).
+(``frontier_params``) or, for the step entries, in a device tensor, and
+the histogram kernels sum into a per-device scratch that every launch
+leaves zero (``_kernel_scratch``).
 
 The weight stream is ``pack_channels``'s [8, Npad] bf16 layout
 ``[g_hi, g_lo, h_hi, h_lo, member, 0, 0, 0]``; the kernels read the five
@@ -57,6 +65,12 @@ NUM_CHANNELS = 8
 # pack_route's layout: leaf, new_leaf, row, col, thr, dl, cat, mt, dbin,
 # nbf, off + 8 bitset words
 ROUTE_WORDS = 19
+# pack_step's layout: start_block, n_blocks, target, then a route
+STEP_WORDS = 3 + ROUTE_WORDS
+# the best-split cache's int32 row, which pack_route_device reads: feature,
+# threshold, default_left, is_cat, then the categorical bitset as 8 int32
+# words (the 32-bit words pack_route views as int32)
+SPLIT_WORDS = 12
 # frontier_width's constants, as lightgbm_tpu/ops/pallas_histogram.py has
 # them (_FRONTIER_K and its 6 MB accumulator budget)
 _FRONTIER_K = 16
@@ -133,6 +147,35 @@ def pack_route(leaf: int, new_leaf: int, f: int, t: int, dl: bool,
             int(fmeta.default_bin[f]), int(fmeta.num_bin[f]), 0]
     words = np.asarray(bitset, dtype=np.uint32).reshape(8).view(np.int32)
     return torch.tensor(head + words.tolist(), dtype=torch.int32)
+
+
+def pack_route_device(leaf: torch.Tensor, new_leaf: torch.Tensor,
+                      split: torch.Tensor, fmeta) -> torch.Tensor:
+    """pack_route on the device: [ROUTE_WORDS] int32 on ``split``'s
+    device, equal to pack_route's words for the same split, built without
+    reading a value on the host.  ``leaf`` and ``new_leaf`` are [1]
+    integer tensors; ``split`` is a best-split cache row, int32
+    [SPLIT_WORDS]; ``fmeta`` a FeatureMeta of tensors on the same device.
+    A feature of -1 (no split) reads feature 0's metadata, so the words
+    stay a valid route (the caller gives such a route the leaf -1, which
+    no row matches)."""
+    f = split[:1].clamp(min=0)
+    meta = torch.stack([fmeta.missing_type, fmeta.default_bin,
+                        fmeta.num_bin], dim=1).index_select(0, f.long())[0]
+    return torch.cat([leaf.to(torch.int32), new_leaf.to(torch.int32), f, f,
+                      split[1:4], meta.to(torch.int32), torch.zeros_like(f),
+                      split[4:SPLIT_WORDS]])
+
+
+def pack_step(start_block, n_blocks, target,
+              route: torch.Tensor) -> torch.Tensor:
+    """[STEP_WORDS] int32 step block on ``route``'s device: the window
+    ``[start_block, start_block + n_blocks)`` in row blocks, the target
+    leaf, then the route's words.  The first three are ints or [1]
+    integer tensors on that device."""
+    head = [torch.as_tensor(x, device=route.device).reshape(1).to(
+        torch.int32) for x in (start_block, n_blocks, target)]
+    return torch.cat(head + [route])
 
 
 def null_route() -> torch.Tensor:
@@ -216,6 +259,13 @@ def _check_frontier_args(targets, routes, targets_per_route: int) -> None:
                          f"ids ({targets_per_route} per route)")
 
 
+def _check_step(step: torch.Tensor, device) -> None:
+    if (step.device != device or step.dtype != torch.int32
+            or step.shape != (STEP_WORDS,) or not step.is_contiguous()):
+        raise ValueError(f"step must be a contiguous int32 tensor of "
+                         f"{STEP_WORDS} words on {device} (pack_step)")
+
+
 def _device_kind(t: torch.Tensor) -> str:
     if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {t.device}")
@@ -250,6 +300,40 @@ def route_window_plain(binsT, leaf_id, start_block, n_blocks, route,
         leaf_id[lo:hi] = routed_ids_plain(binsT[r[2], lo:hi],
                                           leaf_id[lo:hi], r)
     return leaf_id
+
+
+def _read_step_plain(step, num_features):
+    """A step block's window, target and route (host ints), as the
+    kernels read it (csrc/histogram.cu read_step): a route whose bin row
+    lies outside the bin matrix routes nothing."""
+    s = [int(x) for x in step.tolist()]
+    route = s[3:]
+    if not 0 <= route[2] < num_features:
+        route[0], route[2] = -1, 0
+    return s[0], s[1], s[2], torch.tensor(route, dtype=torch.int32)
+
+
+def route_window_step_plain(binsT, leaf_id, step, block_rows):
+    """Plain K2 from a step block: updates ``leaf_id`` in place."""
+    lo, nb, _, route = _read_step_plain(step, binsT.shape[0])
+    return route_window_plain(binsT, leaf_id, lo, nb, route, block_rows)
+
+
+def histogram_segment_step_plain(binsT, w8, leaf_id, step, num_bins,
+                                 block_rows):
+    """Plain K1 from a step block -> [F, B, 3] float32."""
+    lo, nb, target, _ = _read_step_plain(step, binsT.shape[0])
+    return histogram_segment_plain(binsT, w8, leaf_id, lo, nb, target,
+                                   num_bins, block_rows)
+
+
+def histogram_segment_routed_step_plain(binsT, w8, leaf_id, step, num_bins,
+                                        block_rows):
+    """Plain K3 from a step block -> (leaf_id, [F, B, 3] float32)."""
+    lo, nb, target, route = _read_step_plain(step, binsT.shape[0])
+    return histogram_segment_routed_plain(binsT, w8, leaf_id, lo, nb,
+                                          target, route, num_bins,
+                                          block_rows)
 
 
 def _plain_sums(bins, w, num_bins, slot=None, n_slots=1):
@@ -436,6 +520,78 @@ def histogram_segment_routed(binsT: torch.Tensor, w8: torch.Tensor,
     return leaf_id, hist
 
 
+def _launch_hist_step(name, binsT, w8, leaf_id, step, routed, num_bins,
+                      block_rows, scales, out):
+    F, npad = binsT.shape
+    dev = binsT.device
+    _check_cuda(dev, binsT=(binsT, torch.uint8), w8=(w8, torch.bfloat16),
+                leaf_id=(leaf_id, torch.int32), scales=(scales, torch.float32))
+    _check_step(step, dev)
+    if w8.shape != (NUM_CHANNELS, npad) or leaf_id.shape != (npad,):
+        raise ValueError("w8 must be [8, Npad] and leaf_id [Npad]")
+    if not 1 <= num_bins <= 256 or scales.shape != (2,):
+        raise ValueError("num_bins must be in [1, 256] and scales [2]")
+    if block_rows < 1 or npad % block_rows:
+        raise ValueError(f"Npad {npad} is not a multiple of the row block "
+                         f"{block_rows}")
+    if out is None:
+        out = torch.empty((F, num_bins, 3), dtype=torch.float32, device=dev)
+    else:
+        _check_cuda(dev, out=(out, torch.float32))
+        if out.shape != (F, num_bins, 3):
+            raise ValueError("out must be [F, num_bins, 3]")
+    tiles = segment_tiling(F, num_bins)["feature_tiles"]
+    scratch = _kernel_scratch(dev, F * num_bins * 3 + (tiles + 1) // 2)
+    rc = kernels.library().lgbt_histogram_segment_step(
+        binsT.data_ptr(), w8.data_ptr(), leaf_id.data_ptr(), npad, F,
+        num_bins, int(block_rows), step.data_ptr(), int(routed),
+        scales.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+        kernels.stream_ptr(dev))
+    kernels.check_launch(name, rc)
+    return out
+
+
+def _into(out, hist):
+    return hist if out is None else out.copy_(hist)
+
+
+def histogram_segment_step(binsT: torch.Tensor, w8: torch.Tensor,
+                           leaf_id: torch.Tensor, step: torch.Tensor,
+                           num_bins: int, block_rows: int,
+                           scales: torch.Tensor,
+                           out: torch.Tensor = None) -> torch.Tensor:
+    """K1 over the window of ``step`` for its target leaf (a pack_step
+    block on binsT's device; the host reads none of it) -> [F, B, 3] f32,
+    written into ``out`` when given.  Bit for bit histogram_segment on
+    the same window and target."""
+    if _device_kind(binsT) == "cpu":
+        _check_step(step, binsT.device)
+        return _into(out, histogram_segment_step_plain(
+            binsT, w8, leaf_id, step, num_bins, block_rows))
+    return _launch_hist_step("histogram_segment_step", binsT, w8, leaf_id,
+                             step, False, num_bins, block_rows, scales, out)
+
+
+def histogram_segment_routed_step(binsT: torch.Tensor, w8: torch.Tensor,
+                                  leaf_id: torch.Tensor, step: torch.Tensor,
+                                  num_bins: int, block_rows: int,
+                                  scales: torch.Tensor,
+                                  out: torch.Tensor = None):
+    """K3 from a step block: its route applied to ``leaf_id`` in place over
+    its window AND its target histogrammed from the updated ids, in one
+    pass.  Returns ``(leaf_id, [F, B, 3] hist)`` (into ``out`` when
+    given); bit for bit histogram_segment_routed on the same block."""
+    if _device_kind(binsT) == "cpu":
+        _check_step(step, binsT.device)
+        _, hist = histogram_segment_routed_step_plain(
+            binsT, w8, leaf_id, step, num_bins, block_rows)
+        return leaf_id, _into(out, hist)
+    hist = _launch_hist_step("histogram_segment_routed_step", binsT, w8,
+                             leaf_id, step, True, num_bins, block_rows,
+                             scales, out)
+    return leaf_id, hist
+
+
 def histogram_all(binsT: torch.Tensor, w8C: torch.Tensor, num_bins: int,
                   scales: torch.Tensor) -> torch.Tensor:
     """K5: the histogram of every row for each of the C channel sets of
@@ -509,6 +665,26 @@ def route_window(binsT: torch.Tensor, leaf_id: torch.Tensor,
         binsT.data_ptr(), leaf_id.data_ptr(), npad, lo, hi,
         route.data_ptr(), kernels.stream_ptr(binsT.device))
     kernels.check_launch("route_window", rc)
+    return leaf_id
+
+
+def route_window_step(binsT: torch.Tensor, leaf_id: torch.Tensor,
+                      step: torch.Tensor, block_rows: int) -> torch.Tensor:
+    """K2 from a step block: its route applied to ``leaf_id`` in place over
+    its window; returns ``leaf_id``, bit for bit route_window's."""
+    _check_step(step, binsT.device)
+    if _device_kind(binsT) == "cpu":
+        return route_window_step_plain(binsT, leaf_id, step, block_rows)
+    F, npad = binsT.shape
+    _check_cuda(binsT.device, binsT=(binsT, torch.uint8),
+                leaf_id=(leaf_id, torch.int32))
+    if leaf_id.shape != (npad,) or block_rows < 1 or npad % block_rows:
+        raise ValueError("leaf_id must be [Npad], Npad a multiple of the "
+                         "row block")
+    rc = kernels.library().lgbt_route_window_step(
+        binsT.data_ptr(), leaf_id.data_ptr(), npad, F, int(block_rows),
+        step.data_ptr(), kernels.stream_ptr(binsT.device))
+    kernels.check_launch("route_window_step", rc)
     return leaf_id
 
 

@@ -10,8 +10,12 @@ reused.  A failed build raises.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made; a run
 resets it with ``reset_launches()`` and reads it after, to show which
-kernels a path went through.  Nothing here runs at import time: the CPU
-tests import every module of the package without a compiler or a card.
+kernels a path went through.  A call made while a CUDA graph is being
+captured launches nothing then: it is counted in ``CAPTURED``, which the
+capturing code keeps as the graph's launches and adds to ``LAUNCHES`` at
+every replay (``count_replay``), when the card runs them.  Nothing here
+runs at import time: the CPU tests import every module of the package
+without a compiler or a card.
 """
 
 from __future__ import annotations
@@ -37,10 +41,13 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
 
 KERNEL_NAMES = ("histogram_segment", "route_window",
-                "histogram_segment_routed", "score_gather_add",
-                "histogram_all", "histogram_frontier",
+                "histogram_segment_routed", "histogram_segment_step",
+                "route_window_step", "histogram_segment_routed_step",
+                "score_gather_add", "histogram_all", "histogram_frontier",
                 "histogram_frontier_routed", "histogram_frontier_fusedk")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNEL_NAMES}
+# the launches recorded into the CUDA graph under capture, by kernel
+CAPTURED: Dict[str, int] = {}
 
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -52,6 +59,9 @@ _SIGNATURES = {
                                _P, _P, _P, _P],
     "lgbt_histogram_all": [_P, _P, _LL, _I, _I, _I, _P, _P, _P, _P],
     "lgbt_route_window": [_P, _P, _LL, _LL, _LL, _P, _P],
+    "lgbt_histogram_segment_step": [_P, _P, _P, _LL, _I, _I, _I, _P, _I,
+                                    _P, _P, _P, _P],
+    "lgbt_route_window_step": [_P, _P, _LL, _I, _I, _P, _P],
     "lgbt_score_gather_add": [_P, _P, _P, _P, _LL, _I, _P],
     "lgbt_all_tiling": [_I, _I, _I, _P],
     "lgbt_histogram_frontier": [_P, _P, _P, _LL, _I, _I, _I, _P, _LL, _P,
@@ -64,6 +74,13 @@ _SIGNATURES = {
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def count_replay(graph_launches: Dict[str, int]) -> None:
+    """Count the kernel launches of one replay of a CUDA graph whose
+    capture recorded ``graph_launches`` (a copy of ``CAPTURED``)."""
+    for k, v in graph_launches.items():
+        LAUNCHES[k] += v
 
 
 def _nvcc() -> str:
@@ -199,7 +216,11 @@ def check_launch(name: str, rc: int) -> None:
     if rc != 0:
         msg = library().lgbt_error_string(rc).decode()
         raise LightGBMError(f"CUDA kernel {name} failed: {msg} ({rc})")
-    LAUNCHES[name] += 1
+    import torch
+    if torch.cuda.is_current_stream_capturing():
+        CAPTURED[name] = CAPTURED.get(name, 0) + 1
+    else:
+        LAUNCHES[name] += 1
 
 
 def stream_ptr(device) -> int:

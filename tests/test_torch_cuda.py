@@ -239,9 +239,12 @@ def test_segment_back_to_back_calls_and_cuda_graph(dev):
         ids = start.clone()
         graph = torch.cuda.CUDAGraph()
         kernels.reset_launches()
+        kernels.CAPTURED.clear()
         with torch.cuda.graph(graph):
             got = call(ids)
-        assert kernels.LAUNCHES[name] == 1
+        # a capture records one launch, which the card runs at a replay
+        assert kernels.CAPTURED == {name: 1}
+        assert kernels.LAUNCHES[name] == 0
         for _ in range(2):
             ids.copy_(start)
             graph.replay()
@@ -488,6 +491,22 @@ def test_wrappers_reject_bad_inputs(dev):
                         RB)
 
 
+def _count_replays(bst):
+    """Wraps the booster's segment grower to sum its replays over trees
+    and keep each tree's stats."""
+    g = bst.gbdt.grower
+    grow, total = g.grow, {"replays": 0, "stats": []}
+
+    def counted(*a, **k):
+        out = grow(*a, **k)
+        total["replays"] += g.last_stats["replays"]
+        total["stats"].append(dict(g.last_stats))
+        return out
+
+    g.grow = counted
+    return total
+
+
 @pytest.mark.cuda
 def test_training_on_card_counts_launches_and_matches_cpu(dev):
     rng = np.random.RandomState(0)
@@ -500,18 +519,26 @@ def test_training_on_card_counts_launches_and_matches_cpu(dev):
     for device, fused in (("cuda", True), ("cuda", False), ("cpu", True)):
         bst = lt.Booster(dict(params, device_type=device), lt.Dataset(X, y),
                          fused_route=fused)
+        total = _count_replays(bst)
         kernels.reset_launches()
         for _ in range(3):
             bst.update()
-        leaves = sum(t.num_leaves for t in bst.gbdt.models)
         n = dict(kernels.LAUNCHES)
+        # the roots by value; the splits' steps in graph replays, and the
+        # one step the capture runs first
+        steps = bst.gbdt.grower.steps * total["replays"] + 1
         if device == "cuda" and fused:
-            assert n["histogram_segment_routed"] == leaves
-            assert n["histogram_segment"] == n["route_window"] == 0
+            assert n["histogram_segment_routed"] == 3
+            assert n["histogram_segment_routed_step"] == steps
+            assert (n["histogram_segment"] == n["route_window"]
+                    == n["histogram_segment_step"]
+                    == n["route_window_step"] == 0)
         elif device == "cuda":
-            assert n["histogram_segment"] == leaves
-            assert n["route_window"] == leaves - 3
-            assert n["histogram_segment_routed"] == 0
+            assert n["histogram_segment"] == 3
+            assert n["route_window_step"] == n["histogram_segment_step"] \
+                == steps
+            assert (n["histogram_segment_routed"] == n["route_window"]
+                    == n["histogram_segment_routed_step"] == 0)
         else:
             assert sum(n.values()) == 0
         if device == "cuda":
@@ -609,6 +636,7 @@ def test_multiclass_training_on_card_counts_launches_and_matches_cpu(dev):
     for device in ("cuda", "cpu"):
         bst = lt.Booster(dict(params, device_type=device),
                          lt.Dataset(X, y, categorical_feature=[5]))
+        total = _count_replays(bst)
         kernels.reset_launches()
         for _ in range(3):
             bst.update()
@@ -616,9 +644,11 @@ def test_multiclass_training_on_card_counts_launches_and_matches_cpu(dev):
         trees = bst.gbdt.models
         assert len(trees) == 3 * C and any(t.num_cat for t in trees)
         if device == "cuda":
+            # the roots come from K5; the splits are graph-replayed steps
             assert n_l["histogram_all"] == 3
-            assert n_l["histogram_segment_routed"] == sum(
-                t.num_leaves - 1 for t in trees)
+            assert n_l["histogram_segment_routed"] == 0
+            assert n_l["histogram_segment_routed_step"] == (
+                bst.gbdt.grower.steps * total["replays"] + 1)
             assert n_l["score_gather_add"] == sum(
                 t.num_leaves > 1 for t in trees)
         else:
@@ -787,9 +817,12 @@ def test_frontier_kernels_replay_in_a_cuda_graph(dev):
         ids = start.clone()
         graph = torch.cuda.CUDAGraph()
         kernels.reset_launches()
+        kernels.CAPTURED.clear()
         with torch.cuda.graph(graph):
             got = call(ids)
-        assert kernels.LAUNCHES[name] == 1
+        # a capture records one launch, which the card runs at a replay
+        assert kernels.CAPTURED == {name: 1}
+        assert kernels.LAUNCHES[name] == 0
         for _ in range(2):
             ids.copy_(start)
             graph.replay()
@@ -938,3 +971,243 @@ def test_frontier_training_on_card_counts_launches_and_matches_cpu(dev):
             assert n["histogram_frontier"] == total["rounds"]
         mraws[device] = bst.predict(X, raw_score=True)
     assert np.abs(mraws["cuda"] - mraws["cpu"]).max() < 1e-3
+
+
+# ------------------------------------------------ the device loop (K1-K3)
+# the layout's windows: whole (a first split), a late window of a few
+# blocks, the last block, none
+_STEP_WINDOWS = ((0, 16), (10, 3), (15, 1), (4, 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F,B", [(28, 64), (28, 256), (50, 256)])
+def test_step_entries_equal_by_value_entries(dev, F, B):
+    """K1, K2 and K3 reading their window, target and route from a step
+    block in device memory give their by-value entries' histograms and
+    leaf ids bit for bit, over whole, late, one-block and empty windows,
+    on every route kind (a categorical bitset included) and a route whose
+    bin row lies outside binsT (it routes nothing); and the plain
+    versions' ids, counts and sums within tolerance."""
+    fm, binsT, w8, lid = _segment_layout(F, B, 3 * F + B)
+    scales = th.fixed_point_scales(w8)
+    d_bins, d_w8, d_lid = binsT.to(dev), w8.to(dev), lid.to(dev)
+    d_scales = scales.to(dev)
+    outside = _routes(fm, F)[0].clone()
+    outside[2] = F
+    for route in _routes(fm, F) + [outside]:
+        for lo, nblk in _STEP_WINDOWS:
+            for target in (6, int(route[0]), 9):
+                step = th.pack_step(lo, nblk, target, route).to(dev)
+                by_ids = d_lid.clone()
+                if int(route[2]) < F:
+                    _, by_hist = th.histogram_segment_routed(
+                        d_bins, d_w8, by_ids, lo, nblk, target, route, B,
+                        RB, d_scales)
+                else:
+                    by_hist = th.histogram_segment(
+                        d_bins, d_w8, by_ids, lo, nblk, target, B, RB,
+                        d_scales)
+                ids = d_lid.clone()
+                out = torch.full((F, B, 3), 7.0, device=dev)
+                got_ids, got = th.histogram_segment_routed_step(
+                    d_bins, d_w8, ids, step, B, RB, d_scales, out=out)
+                assert got_ids is ids and got is out
+                assert torch.equal(ids, by_ids) and torch.equal(got, by_hist)
+                k2 = th.route_window_step(d_bins, d_lid.clone(), step, RB)
+                assert torch.equal(k2, by_ids)
+                k1 = th.histogram_segment_step(d_bins, d_w8, by_ids, step, B,
+                                               RB, d_scales)
+                assert torch.equal(k1, th.histogram_segment(
+                    d_bins, d_w8, by_ids, lo, nblk, target, B, RB, d_scales))
+                want_ids, want = th.histogram_segment_routed_step_plain(
+                    binsT, w8, lid.clone(), step.cpu(), B, RB)
+                assert torch.equal(ids.cpu(), want_ids)
+                _assert_hist(got, want, w8, binsT, want_ids, lo, nblk,
+                             target, B)
+                if nblk == 0:
+                    assert not got.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rb,offsets", [(256, (0, 0)), (20, (0, 0)),
+                                        (256, (1, 0)), (256, (3, 2)),
+                                        (20, (5, 1))])
+def test_route_window_step_windows_and_alignments(dev, rb, offsets):
+    """K2 from a step block computes its aligned span on the card from the
+    row it read, over bins and ids at any alignment: bit for bit
+    route_window's ids."""
+    F, B = 6, 64
+    npad = 37 * rb
+    fm, binsT, _, lid = _inputs(F, B, npad, 7)
+    d_bins = _offset_copy(binsT, offsets[0], dev)
+    nblk = npad // rb
+    for route in _routes(fm, F):
+        for lo, nb in ((0, nblk), (3, 17), (nblk - 1, 1), (5, 0),
+                       (nblk - 2, 9)):
+            want = th.route_window(d_bins, _offset_copy(lid, offsets[1], dev),
+                                   lo, nb, route, rb)
+            d_lid = _offset_copy(lid, offsets[1], dev)
+            step = th.pack_step(lo, nb, 0, route).to(dev)
+            kernels.reset_launches()
+            got = th.route_window_step(d_bins, d_lid, step, rb)
+            assert kernels.LAUNCHES["route_window_step"] == 1
+            assert got.data_ptr() == d_lid.data_ptr()
+            assert torch.equal(got, want), (route.tolist(), lo, nb)
+
+
+@pytest.mark.cuda
+def test_step_entries_read_the_block_at_every_replay(dev):
+    """A CUDA graph of K3 and K2 + K1 step calls, replayed after the step
+    block is rewritten on the card: each replay follows the block it
+    finds (another window, target and route), bit for bit the by-value
+    entries."""
+    F, B = 28, 64
+    fm, binsT, w8, lid = _segment_layout(F, B, 5)
+    d_bins, d_w8, d_lid = binsT.to(dev), w8.to(dev), lid.to(dev)
+    scales = th.fixed_point_scales(w8).to(dev)
+    routes = _routes(fm, F)
+    step = torch.zeros(th.STEP_WORDS, dtype=torch.int32, device=dev)
+    ids = d_lid.clone()
+    out = torch.empty((2, F, B, 3), device=dev)
+    th.histogram_segment_routed_step(d_bins, d_w8, ids, step, B, RB, scales,
+                                     out=out[0])
+    graph = torch.cuda.CUDAGraph()
+    kernels.CAPTURED.clear()
+    with torch.cuda.graph(graph):
+        th.histogram_segment_routed_step(d_bins, d_w8, ids, step, B, RB,
+                                         scales, out=out[0])
+        th.route_window_step(d_bins, ids, step, RB)
+        th.histogram_segment_step(d_bins, d_w8, ids, step, B, RB, scales,
+                                  out=out[1])
+    assert kernels.CAPTURED == {"histogram_segment_routed_step": 1,
+                                "route_window_step": 1,
+                                "histogram_segment_step": 1}
+    for lo, nblk, target, route in ((0, 16, 6, routes[0]),
+                                    (10, 3, 1, routes[3]),
+                                    (4, 0, 0, routes[1])):
+        step.copy_(th.pack_step(lo, nblk, target, route).to(dev))
+        ids.copy_(d_lid)
+        graph.replay()
+        want_ids = d_lid.clone()
+        _, want = th.histogram_segment_routed(d_bins, d_w8, want_ids, lo,
+                                              nblk, target, route, B, RB,
+                                              scales)
+        torch.cuda.synchronize()
+        assert torch.equal(ids, want_ids)
+        assert torch.equal(out[0], want) and torch.equal(out[1], want)
+
+
+def _loop_data(n=20_000, seed=0):
+    rng = np.random.RandomState(seed)
+    X = rng.normal(size=(n, 8))
+    X[rng.uniform(size=X.shape) < 0.03] = np.nan
+    Xn = np.nan_to_num(X)
+    y = (Xn[:, 0] + 0.5 * Xn[:, 1] * Xn[:, 2] + 0.3 * rng.normal(size=n)
+         > 0).astype(np.float64)
+    return X, y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [True, False])
+def test_device_loop_grows_the_cpu_splits(dev, fused):
+    """The graph-driven grower on the card: the CPU's splits (gain > 1e-2)
+    and raw predictions within 1e-3; one model text for steps 1, 5 and
+    L - 1, on a row block small enough that trees compact; each tree at
+    most ceil((L - 1) / steps) + compactions + 2 host fetches."""
+    X, y = _loop_data()
+    params = dict(objective="binary", num_leaves=31, max_bin=63,
+                  tpu_row_chunk=1024, verbosity=-1)
+    texts, models, raws = {}, {}, {}
+    compactions = 0
+    for device, steps in (("cpu", 16), ("cuda", 1), ("cuda", 5),
+                          ("cuda", 30)):
+        bst = lt.Booster(dict(params, device_type=device), lt.Dataset(X, y),
+                         fused_route=fused)
+        bst.gbdt.grower.steps = steps
+        total = _count_replays(bst)
+        for _ in range(3):
+            bst.update()
+        for st in total["stats"]:
+            assert st["fetches"] <= -(-30 // steps) + st["compactions"] + 2
+            assert st["graph"] == (device == "cuda")
+            compactions = max(compactions, st["compactions"])
+        texts[device, steps] = bst.model_to_string().split("parameters:")[0]
+        models[device, steps] = bst.gbdt.models
+        raws[device, steps] = bst.predict(X, raw_score=True)
+    assert compactions >= 1
+    assert texts["cuda", 1] == texts["cuda", 5] == texts["cuda", 30]
+    compared = 0
+    for a, b in zip(models["cuda", 5], models["cpu", 16]):
+        nf = min(a.num_leaves, b.num_leaves) - 1
+        k = 0
+        while k < nf and a.split_gain[k] > 1e-2 and b.split_gain[k] > 1e-2:
+            k += 1
+        np.testing.assert_array_equal(a.split_feature[:k],
+                                      b.split_feature[:k])
+        np.testing.assert_array_equal(a.threshold_in_bin[:k],
+                                      b.threshold_in_bin[:k])
+        compared += k
+    assert compared >= 40
+    assert np.abs(raws["cuda", 5] - raws["cpu", 16]).max() < 1e-3
+
+
+@pytest.mark.cuda
+def test_split_step_makes_no_synchronising_call(dev):
+    """A tree's start (its state reset, the root's pass and scan), the
+    split step, the status it writes and the compaction run under
+    torch.cuda.set_sync_debug_mode("error"): none of them waits for the
+    card, reads a device value on the host or copies from the host."""
+    from lightgbm_tpu_torch.models.grower import GrowerParams
+    from lightgbm_tpu_torch.models.grower_seg import SegmentGrower
+    X, y = _loop_data(8192, 1)
+    bst = lt.Booster(dict(objective="binary", num_leaves=31, max_bin=63,
+                          tpu_row_chunk=512, verbosity=-1,
+                          device_type="cuda"), lt.Dataset(X, y))
+    gb = bst.gbdt
+    gb._boost_from_average()
+    grad, hess = gb._gradients()
+    g = SegmentGrower(gb.num_bins, GrowerParams(
+        num_leaves=31, split=gb.grower.p.split), gb.grower.rb, steps=4)
+    g.grow(gb.bins, grad[0], hess[0], gb.member, gb.fmeta)
+    w8 = th.pack_channels(grad[0], hess[0], gb.member)
+    s = g._state_for(gb.bins, gb.fmeta)
+    g._src = (gb.bins, w8)
+    scales = th.fixed_point_scales(w8)
+    sums = torch.stack([grad[0].sum(), hess[0].sum(), gb.member.sum()])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        s.load(gb.bins, w8, scales, gb.fmeta, sums)
+        g._start(False, gb.bins.shape[1] // g.rb)
+        for _ in range(6):
+            g._step()
+        g._write_status()
+        g._compact()
+        g._step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert int(s.counters[0]) == 8 and int(s.counters[3]) == 1
+
+
+@pytest.mark.cuda
+def test_capture_failure_raises(dev, monkeypatch):
+    """A step that cannot be captured (here one that reads a device value
+    on the host) makes grow raise, and again on the next call: nothing
+    falls back to eager steps."""
+    from lightgbm_tpu_torch.models import grower_seg
+    X, y = _loop_data(4096, 2)
+    bst = lt.Booster(dict(objective="binary", num_leaves=7, verbosity=-1,
+                          device_type="cuda"), lt.Dataset(X, y))
+    write = grower_seg.SegmentGrower._write_status
+
+    def syncing(self):
+        write(self)
+        self.s.status.tolist()
+
+    monkeypatch.setattr(grower_seg.SegmentGrower, "_write_status", syncing)
+    for _ in range(2):
+        with pytest.raises(Exception):
+            bst.update()
+        assert bst.gbdt.grower._graph is None
+    torch.cuda.synchronize()

@@ -79,9 +79,9 @@ sys.path.insert(0, ROOT)
 SOURCE = os.path.join(ROOT, "lightgbm_tpu_torch", "csrc", "histogram.cu")
 
 # the shipped kernel's span in histogram.cu, which EXPLORE replaces
-_KERNEL_FROM = "template <bool kRouted>\n__global__ void __launch_bounds__(" \
-               "kSegThreads, 1)\nsegment_window_kernel("
-_KERNEL_TO = "// K5.  One launch covers every row x the feature tile"
+_KERNEL_FROM = "template <bool kRouted>\n__device__ __forceinline__ void" \
+               "\nsegment_window("
+_KERNEL_TO = "// K1's and K3's kernels: the window, target and route"
 _TILING_FROM = "int lgbt_segment_tiling(int num_features, int num_bins, " \
                "int* out) {"
 _TILING_TO = "// K1 (route == NULL) or K3 (route = host pointer to 19 ints)"
@@ -93,15 +93,15 @@ _TILING_TO = "// K1 (route == NULL) or K3 (route = host pointer to 19 ints)"
 # histogram whose rows are 32 features wide, so a slot is a bank; warp w
 # adds to copy w mod @REPLICAS@ of the histogram, and the flush sums them
 EXPLORE_KERNEL = r"""template <bool kRouted>
-__global__ void __launch_bounds__(kSegThreads, 1)
-segment_window_kernel(const uint8_t* __restrict__ bins,
-                      const uint16_t* __restrict__ w8, int* leaf_id,
-                      long long npad, int num_features, int num_bins,
-                      int tile_features, long long row_lo, long long row_hi,
-                      int target, const float* __restrict__ scales,
-                      RouteDesc route, unsigned long long* __restrict__ acc,
-                      unsigned int* __restrict__ arrivals,
-                      float* __restrict__ out) {
+__device__ __forceinline__ void
+segment_window(const uint8_t* __restrict__ bins,
+               const uint16_t* __restrict__ w8, int* leaf_id,
+               long long npad, int num_features, int num_bins,
+               int tile_features, long long row_lo, long long row_hi,
+               int target, const float* __restrict__ scales,
+               const RouteDesc& route, unsigned long long* __restrict__ acc,
+               unsigned int* __restrict__ arrivals,
+               float* __restrict__ out) {
   constexpr bool kRotate = @ROTATE@;
   constexpr int kReplicas = @REPLICAS@;
   extern __shared__ __align__(16) unsigned char smem_raw[];
