@@ -6,7 +6,7 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``lightgbm_tpu_torch/csrc`` and runs
-thirteen phases; any failure exits non-zero:
+sixteen phases; any failure exits non-zero:
 
   1. build    nvcc for sm_90a; prints ptxas's register/shared-memory lines
               and the card's name and power limit, and for the K1/K3,
@@ -104,12 +104,33 @@ thirteen phases; any failure exits non-zero:
               card and on the CPU: the same splits at gain > 1e-2.
  13. frontier K=1  ``tpu_frontier_width=1`` on the card grows phase 5's
               segment model text.
+ 14. session  the session around ``train`` on the HIGGS rows (255 leaves,
+              lr 1.0): ``train`` with the 100k holdout as valid set and
+              ``early_stopping_rounds`` (the stop must fire); save_model ->
+              ``Booster(model_file=)`` -> holdout predictions bit for bit;
+              ``init_model`` continued training for 5 rounds (seeding
+              timed: the host walk and the device adds); rollback_one_iter
+              and the next update; ``cv`` with nfold=3 for 5 rounds (peak
+              device memory).  One early-stopping iteration's wall against
+              ``iter_seconds``, and eval_valid, eval_train and one tree's
+              holdout walk timed alone.
+ 15. session parity  the same calls at 200k rows (31 leaves; 2 continued
+              rounds, cv nfold=3 for 2 rounds) on the card and on the CPU:
+              the same best iteration, the same splits at gain > 1e-2
+              (early stop, continued + rolled back, cv folds), cv means
+              within 1e-4; cv's fold boosters, updated in turns on the
+              card, grow bit for bit the model text each fold grows alone.
+ 16. session mc  at multiclass_cat (after phase 8): ``cv`` with nfold=2
+              for 3 rounds (K5 once an iteration a fold) and a save -> load
+              round trip with categorical splits, bit for bit.
 
 Launch counts: a kernel captured into a CUDA graph counts at each replay
 (ops/kernels.py count_replay), when the card runs it.
 
 Output: one JSON line per kernel, a ``{"device_loop": ...}`` line (phases
-3, 4 and 7), one ``{"kernels": [...]}`` line, the
+3, 4 and 7), a ``{"session": ...}`` line (phases 14-16: walls, seeding
+times, peak memory, launches by kernel; the kernels' ``launches_by_path``
+holds them as "session"), one ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Without a
 card, or run from a directory that does not hold the package, it exits
 non-zero and prints no result.
@@ -178,6 +199,16 @@ SOURCES = {
                                   "lightgbm_tpu/ops/pallas_histogram.py:1279"),
 }
 FRONTIER_PARAMS = dict(TRAIN_PARAMS, tpu_tree_impl="frontier")
+# the session phase: a learning rate and stop at which the holdout's
+# binary_logloss turns within SESSION_ROUNDS (the run is deterministic:
+# the same data and kernels stop at the same iteration)
+SESSION_PARAMS = dict(TRAIN_PARAMS, learning_rate=1.0,
+                      metric=["binary_logloss"])
+SESSION_PARITY_PARAMS = dict(SESSION_PARAMS, num_leaves=31)
+SESSION_ROUNDS = 40
+SESSION_STOP = 2
+# cv rounds at 200k rows (the CPU's share of the session phase's wall)
+SESSION_PARITY_CV_ROUNDS = 2
 FRONTIER_TIER_KERNEL = {"off": "histogram_frontier",
                         "k1": "histogram_frontier_routed",
                         "fusedk": "histogram_frontier_fusedk"}
@@ -1783,7 +1814,7 @@ def frontier_train_phase(ds, Xh, yh, seg_stats):
     t0 = time.perf_counter()
     for _ in range(3):
         bst.update()
-        auc.append(bst.eval_train()[0][1])
+        auc.append(bst.eval_train()[0][2])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
@@ -1997,6 +2028,272 @@ def frontier_parity_phase(seg_text):
 
 
 # ------------------------------------------------------------------ main
+# --------------------------------------------------------------- phase 14
+def _same_splits(a_trees, b_trees, tag):
+    """Card = CPU: the same split feature, bin and categorical bitset at
+    gain > 1e-2; returns the splits compared."""
+    import numpy as np
+    require(len(a_trees) == len(b_trees), f"{tag}: {len(a_trees)} against "
+            f"{len(b_trees)} trees")
+    compared = 0
+    for i, (a, b) in enumerate(zip(a_trees, b_trees)):
+        nf = min(a.num_leaves, b.num_leaves) - 1
+        k = 0
+        while k < nf and a.split_gain[k] > 1e-2 and b.split_gain[k] > 1e-2:
+            k += 1
+        same = (np.array_equal(a.split_feature[:k], b.split_feature[:k])
+                and np.array_equal(a.threshold_in_bin[:k],
+                                   b.threshold_in_bin[:k]))
+        for j in range(k):
+            if same and a.decision_type[j] & 1:
+                c = int(a.threshold_in_bin[j])
+                same = np.array_equal(a.cat_threshold_inner[c],
+                                      b.cat_threshold_inner[c])
+        require(same, f"{tag}: tree {i} split differently")
+        compared += k
+    return compared
+
+
+def _timed(fn):
+    import torch
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def session_phase(ds, Xh, yh):
+    """The session around train at HIGGS scale: early stopping on the
+    holdout, save -> load -> predict, init_model continued training,
+    rollback, cv.  Returns (launches, stats)."""
+    import numpy as np
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import kernels
+
+    rec = {"params": {k: SESSION_PARAMS[k] for k in
+                      ("learning_rate", "num_leaves", "metric")},
+           "max_rounds": SESSION_ROUNDS,
+           "early_stopping_rounds": SESSION_STOP}
+    valid = ds.create_valid(Xh, yh)
+    kernels.reset_launches()
+    evals = {}
+    bst, wall = _timed(lambda: lt.train(
+        SESSION_PARAMS, ds, SESSION_ROUNDS, valid_sets=[valid],
+        valid_names=["holdout"], early_stopping_rounds=SESSION_STOP,
+        evals_result=evals, verbose_eval=False))
+    iters = bst.current_iteration()
+    it_s = list(bst.gbdt.iter_seconds)
+    curve = evals["holdout"][SESSION_PARAMS["metric"][0]]
+    log(f"session: early stopping at lr {SESSION_PARAMS['learning_rate']}: "
+        f"best iteration {bst.best_iteration} of {iters} run "
+        f"(max {SESSION_ROUNDS}, stop after {SESSION_STOP}) in {wall:.2f} "
+        f"s; holdout {SESSION_PARAMS['metric'][0]} "
+        f"{[round(x, 6) for x in curve]}")
+    require(0 < bst.best_iteration < iters < SESSION_ROUNDS,
+            "the early stop did not fire")
+    require(iters - bst.best_iteration == SESSION_STOP,
+            f"stopped {iters - bst.best_iteration} rounds after the best")
+    require(all(np.isfinite(curve)) and min(curve) == curve[
+        bst.best_iteration - 1], "the best iteration is not the curve's "
+            "minimum")
+    # one early-stopping iteration: the wall against the bare iteration
+    # (grow + score + the valid walk), and its parts timed alone
+    ev_valid, ev_valid_s = _timed(bst.eval_valid)
+    _, ev_train_s = _timed(bst.gbdt.eval_train)
+    vh = valid._handle
+    last = bst.gbdt.models[-1]
+    _, walk_s = _timed(lambda: last.predict_binned(vh.bins_t,
+                                                   vh.feature_infos()))
+    rec.update(best_iteration=bst.best_iteration, iterations=iters,
+               wall_s=wall, iter_s=it_s, curve=curve,
+               es_iteration_wall_s=wall / iters,
+               iter_s_median=float(np.median(it_s)),
+               eval_valid_s=ev_valid_s, eval_train_s=ev_train_s,
+               valid_walk_tree_s=walk_s)
+    log(f"session: an early-stopping iteration {wall / iters:.4f} s wall "
+        f"against iter_seconds median {np.median(it_s):.4f} s; eval_valid "
+        f"{ev_valid_s:.4f} s, eval_train {ev_train_s:.4f} s, one tree's "
+        f"valid walk ({len(Xh)} rows) {walk_s:.4f} s")
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "model.txt")
+        _, save_s = _timed(lambda: bst.save_model(path))
+        loaded, load_s = _timed(lambda: lt.Booster(model_file=path))
+    want, pred_s = _timed(lambda: bst.predict(Xh))
+    got = loaded.predict(Xh, num_iteration=bst.best_iteration)
+    require(np.array_equal(got, want), "the loaded model's holdout "
+            "predictions differ from the trained Booster's")
+    allraw = loaded.predict(Xh, raw_score=True)
+    vdiff = float(np.abs(allraw - bst.gbdt.valid_scores[0]).max())
+    require(vdiff <= 1e-9, f"the loaded model differs from the in-training "
+            f"valid scores by {vdiff}")
+    rec.update(save_s=save_s, load_s=load_s, predict_holdout_s=pred_s)
+    log(f"session: save {save_s:.3f} s, load {load_s:.3f} s, holdout "
+        f"predict {pred_s:.3f} s: bit for bit")
+
+    cont_evals = {}
+    cont, cont_s = _timed(lambda: lt.train(
+        SESSION_PARAMS, ds, 5, valid_sets=[valid], valid_names=["holdout"],
+        init_model=bst, evals_result=cont_evals, verbose_eval=False))
+    require(cont.current_iteration() == iters + 5, "continued training "
+            "did not add 5 iterations")
+    require(np.array_equal(cont.predict(Xh, raw_score=True,
+                                        num_iteration=iters), allraw),
+            "the continued model's first trees predict differently")
+    seed = cont.gbdt.init_model_seconds
+    cc = cont_evals["holdout"][SESSION_PARAMS["metric"][0]]
+    rec.update(continue_wall_s=cont_s, seed_host_walk_s=seed["host_walk"],
+               seed_device_add_s=seed["device_add"],
+               continue_iter_s=list(cont.gbdt.iter_seconds),
+               continue_curve=cc)
+    log(f"session: init_model + 5 rounds in {cont_s:.2f} s: seeding "
+        f"{seed['host_walk']:.2f} s host walk of {iters} trees over "
+        f"{ds.num_data()} raw rows, {seed['device_add']:.4f} s device adds; "
+        f"holdout {[round(x, 6) for x in cc]}")
+
+    _, rb_s = _timed(cont.rollback_one_iter)
+    require(cont.current_iteration() == iters + 4, "rollback did not remove "
+            "an iteration")
+    rdiff = float(np.abs(cont.gbdt.valid_scores[0] - cont.predict(
+        Xh, raw_score=True, num_iteration=0)).max())
+    require(rdiff <= 1e-9, f"rolled-back valid scores differ from the model "
+            f"by {rdiff}")
+    _, up_s = _timed(cont.update)
+    require(cont.current_iteration() == iters + 5
+            and cont.gbdt.models[-1].num_leaves > 1,
+            "no tree grew after the rollback")
+    rec.update(rollback_s=rb_s, update_after_rollback_s=up_s)
+    log(f"session: rollback_one_iter {rb_s:.3f} s (a host walk of the "
+        f"training bins), the next update {up_s:.3f} s")
+    del bst, cont, loaded
+
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    res, cv_s = _timed(lambda: lt.cv(SESSION_PARAMS, ds, 5, nfold=3,
+                                     return_cvbooster=True))
+    peak = torch.cuda.max_memory_allocated()
+    key = f"valid {SESSION_PARAMS['metric'][0]}-mean"
+    require(len(res[key]) == 5 and all(np.isfinite(res[key]))
+            and res[key][-1] < res[key][0], f"cv curve {res[key]}")
+    rec.update(cv_wall_s=cv_s, cv_mean=res[key],
+               cv_stdv=res[key.replace("mean", "stdv")],
+               cv_peak_device_bytes=peak, cv_base_device_bytes=base)
+    log(f"session: cv nfold=3 x 5 rounds in {cv_s:.2f} s, {key} "
+        f"{[round(x, 6) for x in res[key]]}, peak device memory "
+        f"{peak / 2**30:.2f} GiB ({base / 2**30:.2f} GiB before)")
+    del res
+    return dict(kernels.LAUNCHES), rec
+
+
+def session_parity_phase():
+    """The session's calls at 200k rows on the card and on the CPU: the
+    same early stop and splits, the same continued and rolled-back trees,
+    cv means within 1e-4; on the card, cv's fold boosters (updated in
+    turns) grow the model text each fold grows alone."""
+    import numpy as np
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.engine import _make_n_folds
+
+    X, y = higgs_like(PARITY_ROWS + HOLDOUT_ROWS, 13)
+    Xh, yh = X[PARITY_ROWS:], y[PARITY_ROWS:]
+    X, y = X[:PARITY_ROWS], y[:PARITY_ROWS]
+    out, times = {}, {}
+    key = f"valid {SESSION_PARAMS['metric'][0]}-mean"
+    with tempfile.TemporaryDirectory() as d:
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            params = dict(SESSION_PARITY_PARAMS, device_type=dev)
+            ds = lt.Dataset(X, y)
+            va = ds.create_valid(Xh, yh)
+            es = lt.train(params, ds, SESSION_ROUNDS, valid_sets=[va],
+                          early_stopping_rounds=SESSION_STOP,
+                          verbose_eval=False)
+            path = os.path.join(d, f"{dev}.txt")
+            es.save_model(path)
+            cont = lt.train(params, ds, 2, valid_sets=[va], init_model=path,
+                            verbose_eval=False)
+            cont.rollback_one_iter()
+            cont.update()
+            cvr = lt.cv(params, ds, SESSION_PARITY_CV_ROUNDS, nfold=3,
+                        return_cvbooster=True)
+            out[dev] = (ds, es, cont, cvr)
+            times[dev] = time.perf_counter() - t0
+    (ds, es_g, cont_g, cv_g), (_, es_c, cont_c, cv_c) = out["cuda"], out["cpu"]
+    require(es_g.best_iteration == es_c.best_iteration
+            and es_g.current_iteration() == es_c.current_iteration()
+            and es_g.best_iteration < es_g.current_iteration(),
+            f"early stop: card {es_g.best_iteration}/"
+            f"{es_g.current_iteration()}, CPU {es_c.best_iteration}/"
+            f"{es_c.current_iteration()}")
+    n_es = _same_splits(es_g.gbdt.models, es_c.gbdt.models, "early stop")
+    n_cont = _same_splits(cont_g.gbdt.models, cont_c.gbdt.models,
+                          "continued + rolled back")
+    mean_g, mean_c = np.asarray(cv_g[key]), np.asarray(cv_c[key])
+    cv_diff = float(np.max(np.abs(mean_g - mean_c) / np.abs(mean_c)))
+    require(cv_diff <= 1e-4, f"cv means differ by {cv_diff} (relative)")
+    n_cv = sum(_same_splits(a.gbdt.models, b.gbdt.models, f"cv fold {i}")
+               for i, (a, b) in enumerate(zip(cv_g["cvbooster"].boosters,
+                                              cv_c["cvbooster"].boosters)))
+    # the folds one by one, alone on the card
+    params = dict(SESSION_PARITY_PARAMS, device_type="cuda")
+    for i, (tr, te) in enumerate(_make_n_folds(ds, 3, 0, True, True)):
+        solo = lt.Booster(params, ds.subset(tr))
+        solo.add_valid(ds.subset(te), "valid")
+        for _ in range(SESSION_PARITY_CV_ROUNDS):
+            solo.update()
+        require(solo.model_to_string()
+                == cv_g["cvbooster"].boosters[i].model_to_string(),
+                f"cv fold {i}: the booster updated in turns grew another "
+                "model than the fold alone")
+        del solo
+    rec = {"best_iteration": es_g.best_iteration,
+           "iterations": es_g.current_iteration(),
+           "splits_compared": {"early_stop": n_es, "continued": n_cont,
+                               "cv": n_cv},
+           "cv_mean_rel_diff": cv_diff, "wall_s": times}
+    log(f"session parity: best iteration {es_g.best_iteration} of "
+        f"{es_g.current_iteration()} on both; splits identical: {n_es} "
+        f"early stop, {n_cont} continued, {n_cv} cv; cv means within "
+        f"{cv_diff:.3g}; 3 cv folds in turns = alone, bit for bit; "
+        f"card {times['cuda']:.1f} s, CPU {times['cpu']:.1f} s")
+    return rec
+
+
+def session_mc_phase(ds, Xh, yh):
+    """The session at multiclass_cat: cv nfold=2 x 3 rounds, and a save ->
+    load round trip with categorical splits."""
+    import numpy as np
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import kernels
+
+    kernels.reset_launches()
+    res, cv_s = _timed(lambda: lt.cv(MC_PARAMS, ds, 3, nfold=2,
+                                     return_cvbooster=True))
+    launches = dict(kernels.LAUNCHES)
+    key = "valid multi_logloss-mean"
+    require(len(res[key]) == 3 and res[key][-1] < res[key][0],
+            f"mc cv curve {res[key]}")
+    require(launches["histogram_all"] == 3 * 2, "histogram_all did not run "
+            "once an iteration a fold")
+    bst = res["cvbooster"].boosters[0]
+    text = bst.model_to_string()
+    require("cat_threshold=" in text, "no categorical split to round-trip")
+    loaded, load_s = _timed(lambda: lt.Booster(model_str=text))
+    for raw in (True, False):
+        require(np.array_equal(loaded.predict(Xh, raw_score=raw),
+                               bst.predict(Xh, raw_score=raw)),
+                "the loaded multiclass model predicts differently")
+    rec = {"cv_wall_s": cv_s, "cv_mean": res[key],
+           "cv_stdv": res[key.replace("mean", "stdv")], "load_s": load_s,
+           "categorical_splits": sum(t.num_cat for t in bst.gbdt.models)}
+    log(f"session mc: cv nfold=2 x 3 rounds in {cv_s:.2f} s, {key} "
+        f"{[round(x, 6) for x in res[key]]}; save/load with "
+        f"{rec['categorical_splits']} categorical splits: bit for bit")
+    return launches, rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2059,6 +2356,10 @@ def main() -> int:
     del ds_1m
     seg_text = parity_phase()
     fr_parity = frontier_parity_phase(seg_text)
+    t_session = time.perf_counter()
+    session_launches, session = session_phase(ds, Xh, yh)
+    session["parity"] = session_parity_phase()
+    t_session = time.perf_counter() - t_session
     del ds, X, y, Xh, yh
     torch.cuda.empty_cache()
 
@@ -2083,11 +2384,24 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     mc_launches, mc_stats = mc_train_phase(ds, Xh, yh)
     mc_parity_phase()
+    t0 = time.perf_counter()
+    mc_session_launches, session["multiclass_cat"] = session_mc_phase(
+        ds, Xh, yh)
+    t_session += time.perf_counter() - t0
+    for k, v in mc_session_launches.items():
+        session_launches[k] += v
+    session["launches"] = session_launches
+    session["phase_wall_s"] = t_session
+    require(session_launches["histogram_segment_routed_step"] > 0
+            and session_launches["score_gather_add"] > 0
+            and session_launches["histogram_all"] > 0,
+            f"the session did not run the path's kernels: {session_launches}")
 
     paths = {"unfused": unfused_launches, "fused": main_launches,
              "multiclass": mc_launches, "frontier": fr_launches,
              "frontier_k1": tier_launches["k1"],
-             "frontier_fusedk": tier_launches["fusedk"]}
+             "frontier_fusedk": tier_launches["fusedk"],
+             "session": session_launches}
     records = []
     for name in kernels.KERNEL_NAMES:
         r = dict(results.get(name, {}))
@@ -2134,6 +2448,7 @@ def main() -> int:
         "multiclass_cat": mc_stats["device_loop"]}}))
     log(json.dumps({"train": train_stats}))
     log(json.dumps({"mc_train": mc_stats}))
+    log(json.dumps({"session": session}))
     log(json.dumps({"kernels": records}))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(card)

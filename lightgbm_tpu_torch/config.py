@@ -3,9 +3,10 @@
 The same registry shape as the reference's Config (include/LightGBM/
 config.h, src/io/config_auto.cpp): name, default, aliases.  The port runs
 one path — L2 regression (the default objective, as in the JAX package),
-binary or multiclass-softmax GBDT with the serial segment or frontier
-grower on dense data, numeric or categorical — so the registry holds only
-the parameters that path honours.  A
+binary or multiclass-softmax GBDT, or a caller's own gradients (objective
+"none", ``train(fobj=...)``), with the serial segment or frontier grower
+on dense data, numeric or categorical — so the registry holds only the
+parameters that path honours.  A
 parameter of a feature the port does not have raises NotImplementedError
 unless it is given at the value that switches the feature off; an
 unknown parameter raises too.  Nothing is silently ignored.
@@ -74,7 +75,18 @@ _PARAMS: Dict[str, _P] = {
     "cat_l2": _P(10.0),
     "max_cat_to_onehot": _P(4),
     "min_data_per_group": _P(100),
+    # metric parameters (lightgbm_tpu/config.py): quantile and huber's
+    # alpha, fair's c, tweedie's rho, multi_error's k
+    "alpha": _P(0.9),
+    "fair_c": _P(1.0),
+    "tweedie_variance_power": _P(1.5),
     "multi_error_top_k": _P(1),
+    # accepted as the JAX package accepts it: train() stops early only on
+    # its early_stopping_rounds argument (lightgbm_tpu/engine.py:119-122)
+    "early_stopping_round": _P(0, ["early_stopping_rounds",
+                                   "early_stopping"]),
+    # early stopping watches only the first metric
+    "first_metric_only": _P(False),
     "boost_from_average": _P(True),
     # exclusive feature bundling (core/bundle.py): the grouping is
     # computed; a multi-feature group raises until its histogram expansion
@@ -118,7 +130,6 @@ _OFF_VALUES: Dict[str, Any] = {
     "cegb_penalty_feature_lazy": [],
     "cegb_penalty_feature_coupled": [],
     "max_bin_by_feature": [],
-    "early_stopping_round": 0,
     "tpu_double_precision": False,
     "gpu_use_dp": False,
 }
@@ -138,8 +149,6 @@ _OFF_ALIASES = {
     "mc": "monotone_constraints", "monotone_constraint": "monotone_constraints",
     "feature_contrib": "feature_contri", "fc": "feature_contri",
     "fp": "feature_contri", "feature_penalty": "feature_contri",
-    "early_stopping_rounds": "early_stopping_round",
-    "early_stopping": "early_stopping_round",
 }
 
 ALIAS_TABLE: Dict[str, str] = dict(_OFF_ALIASES)
@@ -156,14 +165,33 @@ OBJECTIVE_ALIASES = {
     "l2": "regression", "mean_squared_error": "regression",
     "mse": "regression", "l2_root": "regression",
     "root_mean_squared_error": "regression", "rmse": "regression",
-    "binary": "binary", "multiclass": "multiclass", "softmax": "multiclass"}
-METRIC_ALIASES = {"l2": "l2", "mean_squared_error": "l2", "mse": "l2",
-                  "regression": "l2", "regression_l2": "l2",
-                  "auc": "auc", "binary_logloss": "binary_logloss",
-                  "binary": "binary_logloss",
-                  "multi_logloss": "multi_logloss",
-                  "multiclass": "multi_logloss", "softmax": "multi_logloss",
-                  "multi_error": "multi_error"}
+    "binary": "binary", "multiclass": "multiclass", "softmax": "multiclass",
+    # no objective: the caller gives the gradients (train(fobj=...))
+    "none": "none", "null": "none", "custom": "none", "na": "none"}
+# lightgbm_tpu/metric/__init__.py metric_canonical_name, without the
+# ranking metrics (they need query groups)
+METRIC_ALIASES = {
+    "l2": "l2", "mean_squared_error": "l2", "mse": "l2", "regression": "l2",
+    "regression_l2": "l2",
+    "l2_root": "rmse", "root_mean_squared_error": "rmse", "rmse": "rmse",
+    "l1": "l1", "mean_absolute_error": "l1", "mae": "l1",
+    "regression_l1": "l1",
+    "quantile": "quantile", "huber": "huber", "fair": "fair",
+    "poisson": "poisson", "mape": "mape",
+    "mean_absolute_percentage_error": "mape",
+    "gamma": "gamma", "gamma_deviance": "gamma_deviance", "tweedie": "tweedie",
+    "auc": "auc",
+    "binary_logloss": "binary_logloss", "binary": "binary_logloss",
+    "binary_error": "binary_error",
+    "multi_logloss": "multi_logloss", "multiclass": "multi_logloss",
+    "softmax": "multi_logloss", "multiclassova": "multi_logloss",
+    "multi_error": "multi_error",
+    "cross_entropy": "cross_entropy", "xentropy": "cross_entropy",
+    "cross_entropy_lambda": "cross_entropy_lambda",
+    "xentlambda": "cross_entropy_lambda",
+    "kullback_leibler": "kullback_leibler", "kldiv": "kullback_leibler",
+}
+# objective -> its metric when none is named ("none" has none)
 DEFAULT_METRIC = {"regression": "l2", "binary": "binary_logloss",
                   "multiclass": "multi_logloss"}
 _TRUE_SET = {"true", "1", "yes", "+", "on"}
@@ -250,11 +278,12 @@ class Config:
         if obj not in OBJECTIVE_ALIASES:
             raise NotImplementedError(
                 f"objective {obj!r} is not supported by lightgbm_tpu_torch "
-                "(only regression, binary and multiclass)")
+                "(only regression, binary, multiclass and none)")
         self.objective = OBJECTIVE_ALIASES[obj]
         if self.objective == "multiclass" and self.num_class <= 1:
             raise LightGBMError("num_class must be > 1 for multiclass")
-        if self.objective != "multiclass" and self.num_class != 1:
+        if (self.objective not in ("multiclass", "none")
+                and self.num_class != 1):
             raise LightGBMError("num_class must be 1 for non-multiclass "
                                 "objectives")
         self.device_type = str(self.device_type).strip().lower()
@@ -270,7 +299,10 @@ class Config:
             if m not in METRIC_ALIASES:
                 raise NotImplementedError(
                     f"metric {m!r} is not supported by lightgbm_tpu_torch")
-            metrics.append(METRIC_ALIASES[m])
+            # each metric once, in the order named (the JAX Booster's
+            # _setup_metrics)
+            if METRIC_ALIASES[m] not in metrics:
+                metrics.append(METRIC_ALIASES[m])
         self.metric = metrics
         if self.num_leaves < 2:
             raise LightGBMError("num_leaves must be >= 2")

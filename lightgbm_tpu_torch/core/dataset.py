@@ -210,6 +210,27 @@ class TorchDataset:
         return any(self.bin_mappers[f].is_categorical
                    for f in self.used_feature_indices)
 
+    def inner_feature_index(self, real_feature: int) -> int:
+        """The used-feature index of an original feature, -1 if unused."""
+        hits = np.nonzero(self.used_feature_indices == real_feature)[0]
+        return int(hits[0]) if len(hits) else -1
+
+    def subset(self, indices: np.ndarray) -> "TorchDataset":
+        """The rows ``indices`` (sorted), sharing this dataset's bin
+        mappers (Dataset::CopySubset, dataset.cpp:503; the JAX Booster's
+        Dataset.subset)."""
+        indices = np.asarray(indices, dtype=np.int64)
+        sub = TorchDataset()
+        sub.num_data = len(indices)
+        sub.num_total_features = self.num_total_features
+        sub.bin_mappers = self.bin_mappers
+        sub.used_feature_indices = self.used_feature_indices
+        sub.max_num_bin = self.max_num_bin
+        sub.feature_names = self.feature_names
+        sub.bins_t = np.ascontiguousarray(self.bins_t[:, indices])
+        sub.metadata = self.metadata.subset(indices)
+        return sub
+
     def real_threshold(self, used_feature: int, bin_threshold: int) -> float:
         """Numerical bin threshold -> real-valued threshold
         (Dataset::RealThreshold)."""

@@ -29,3 +29,8 @@ class Metadata:
         check(len(label) == self.num_data,
               f"Length of label ({len(label)}) != num_data ({self.num_data})")
         self.label = label
+
+    def subset(self, indices: np.ndarray) -> "Metadata":
+        sub = Metadata(len(indices))
+        sub.label = self.label[indices]
+        return sub

@@ -15,7 +15,7 @@ each iteration (tree i is class i % C).
 from __future__ import annotations
 
 import time
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -93,18 +93,97 @@ def build_feature_meta(dataset: TorchDataset,
                        default_bin=col("default_bin"), is_cat=is_cat)
 
 
-class GBDT:
+class TreeEnsemble:
+    """A model as prediction sees it: the trees (tree i is class i % C),
+    the boost-from-average init scores, the objective's link (None: raw
+    scores).  GBDT trains one; serialization.LoadedBoosting is one read
+    from a model text."""
+
+    models: List[Tree]
+    num_tree_per_iteration: int
+    init_scores: List[float]
+    objective: Optional[object]
+    feature_names: List[str]
+    max_feature_idx: int
+    iter_: int
+
+    def current_iteration(self) -> int:
+        return self.iter_
+
+    def _end_iteration(self, num_iteration: int, start: int = 0) -> int:
+        """The iteration after the last one of ``num_iteration`` counted
+        from ``start`` (<= 0: every one)."""
+        if num_iteration <= 0:
+            return self.iter_
+        return min(start + num_iteration, self.iter_)
+
+    def _layout(self, score: np.ndarray) -> np.ndarray:
+        """[C, N] -> the objective's score layout: [N] when C == 1."""
+        return score[0] if self.num_tree_per_iteration == 1 else score
+
+    def predict(self, X: np.ndarray, num_iteration: int = -1,
+                raw_score: bool = False, pred_leaf: bool = False,
+                start_iteration: int = 0) -> np.ndarray:
+        """Raw scores or the objective's output ([N] or [N, C]) of a raw
+        feature matrix over ``num_iteration`` iterations from
+        ``start_iteration``, or with ``pred_leaf`` each row's leaf index in
+        each of those trees ([N, trees]).  A host walk of every tree
+        (lightgbm_tpu/models/gbdt.py _raw_predict, predict)."""
+        # feature-major: a tree node reads one contiguous column
+        X = np.asfortranarray(X, dtype=np.float64)
+        C = self.num_tree_per_iteration
+        start = min(max(start_iteration, 0), self.iter_)
+        trees = range(start * C, self._end_iteration(num_iteration,
+                                                     start) * C)
+        if pred_leaf:
+            leaves = np.zeros((X.shape[0], len(trees)), dtype=np.int32)
+            for j, i in enumerate(trees):
+                leaves[:, j] = self.models[i].apply_raw(X)
+            return leaves
+        raw = np.zeros((C, X.shape[0]), dtype=np.float64)
+        for k in range(C):
+            raw[k] += self.init_scores[k]
+        for i in trees:
+            raw[i % C] += self.models[i].predict_raw(X)
+        raw = self._layout(raw)
+        if raw_score or self.objective is None:
+            return raw.T
+        return self.objective.convert_output(raw).T
+
+    def feature_importance(self, importance_type: str = "split",
+                           iteration: int = -1) -> np.ndarray:
+        """Split counts ("split") or summed split gains ("gain") per
+        original feature (gbdt.h FeatureImportance)."""
+        if importance_type not in ("split", "gain"):
+            raise LightGBMError(f"importance_type must be 'split' or "
+                                f"'gain', got {importance_type!r}")
+        out = np.zeros(self.max_feature_idx + 1, dtype=np.float64)
+        for tree in self.models[:self._end_iteration(iteration)
+                                * self.num_tree_per_iteration]:
+            for i in range(tree.num_leaves - 1):
+                f = int(tree.split_feature[i])
+                if importance_type == "split":
+                    out[f] += 1
+                else:
+                    out[f] += max(float(tree.split_gain[i]), 0.0)
+        return out
+
+
+class GBDT(TreeEnsemble):
     """``fused_route`` picks the segment grower's kernels (K3, or K2 + K1
     when False); ``frontier_tier`` the frontier grower's (None, "off",
     "k1" or "fusedk": FrontierGrower), and is given only with
-    ``tpu_tree_impl=frontier``."""
+    ``tpu_tree_impl=frontier``.  ``objective`` None (objective "none")
+    trains on the gradients the caller hands ``train_one_iter``."""
 
     def __init__(self, config: Config, train_set: TorchDataset, objective,
                  fused_route: bool = True, frontier_tier=None):
         self.config = config
         self.device = resolve_device(config)
         self.objective = objective
-        self.num_tree_per_iteration = objective.num_tree_per_iteration
+        self.num_tree_per_iteration = (
+            objective.num_tree_per_iteration if objective is not None
+            else max(1, config.num_class))
         self.train_set = train_set
         self.num_data = train_set.num_data
         self.feature_names = list(train_set.feature_names)
@@ -116,7 +195,8 @@ class GBDT:
         self.init_scores = [0.0] * self.num_tree_per_iteration
         self._boosted_from_average = False
         self._stop = False
-        objective.init(train_set.metadata, self.num_data, self.device)
+        if objective is not None:
+            objective.init(train_set.metadata, self.num_data, self.device)
 
         self.fmeta = build_feature_meta(train_set, self.device)
         self.num_bins = _round_up_pow2(max(train_set.max_num_bin, 2))
@@ -156,22 +236,33 @@ class GBDT:
         self.valid_sets: List[Tuple[str, TorchDataset]] = []
         # raw scores of each valid set, [N] (C = 1) or [C, N]
         self.valid_scores: List[np.ndarray] = []
-        names = config.metric or [DEFAULT_METRIC[config.objective]]
+        names = config.metric or (
+            [DEFAULT_METRIC[config.objective]]
+            if config.objective in DEFAULT_METRIC else [])
         self.metric_names = names
         self.train_metrics = [create_metric(m, config) for m in names]
         for m in self.train_metrics:
             m.init(train_set.metadata, self.num_data)
         self.valid_metrics = []
 
-    def _layout(self, score: np.ndarray) -> np.ndarray:
-        """[C, N] -> the objective's score layout: [N] when C == 1."""
-        return score[0] if self.num_tree_per_iteration == 1 else score
+    def _replay_scores(self, dataset: TorchDataset) -> np.ndarray:
+        """[C, N] f64 raw scores of the current model on ``dataset``: every
+        tree walked over its binned rows, then the init scores
+        (lightgbm_tpu/models/gbdt.py _replay_model_scores; gbdt.cpp
+        AddValidDataset)."""
+        C = self.num_tree_per_iteration
+        score = np.zeros((C, dataset.num_data), dtype=np.float64)
+        infos = dataset.feature_infos()
+        for i, tree in enumerate(self.models[:self.iter_ * C]):
+            score[i % C] += tree.predict_binned(dataset.bins_t, infos)
+        for k in range(C):
+            score[k] += self.init_scores[k]
+        return score
 
     def add_valid(self, name: str, dataset: TorchDataset) -> None:
+        """A valid set, scored by the trees grown so far."""
         self.valid_sets.append((name, dataset))
-        score = np.repeat(np.asarray(self.init_scores, np.float64)[:, None],
-                          dataset.num_data, axis=1)
-        self.valid_scores.append(self._layout(score))
+        self.valid_scores.append(self._layout(self._replay_scores(dataset)))
         ms = [create_metric(m, self.config) for m in self.metric_names]
         for m in ms:
             m.init(dataset.metadata, dataset.num_data)
@@ -182,7 +273,7 @@ class GBDT:
         if self._boosted_from_average:
             return
         self._boosted_from_average = True
-        if not self.config.boost_from_average:
+        if self.objective is None or not self.config.boost_from_average:
             return
         C = self.num_tree_per_iteration
         for k in range(C):
@@ -207,9 +298,24 @@ class GBDT:
             hess = torch.nn.functional.pad(hess, (0, pad))
         return grad, hess
 
-    def train_one_iter(self) -> bool:
-        """One boosting iteration, C trees; True when training should stop
-        (no tree could split, LGBM_BoosterUpdateOneIter semantics)."""
+    def _given_gradients(self, grad: np.ndarray, hess: np.ndarray):
+        """A caller's gradients (host arrays of C x N, class-major) in
+        ``_gradients``' layout: [C, Npad] on the device, pad rows 0."""
+        C = self.num_tree_per_iteration
+        pad = self.bins.shape[1] - self.num_data
+
+        def upload(a):
+            t = torch.from_numpy(np.ascontiguousarray(
+                np.asarray(a, dtype=np.float32).reshape(C, self.num_data)))
+            return torch.nn.functional.pad(t.to(self.device), (0, pad))
+
+        return upload(grad), upload(hess)
+
+    def train_one_iter(self, grad: Optional[np.ndarray] = None,
+                       hess: Optional[np.ndarray] = None) -> bool:
+        """One boosting iteration, C trees, from the objective's gradients
+        or the given ones; True when training should stop (no tree could
+        split, LGBM_BoosterUpdateOneIter semantics)."""
         if self._stop:
             return True
         C = self.num_tree_per_iteration
@@ -221,7 +327,12 @@ class GBDT:
             return True
         t0 = time.perf_counter()
         self._boost_from_average()
-        grad, hess = self._gradients()
+        if grad is not None and hess is not None:
+            grad, hess = self._given_gradients(grad, hess)
+        elif self.objective is None:
+            raise LightGBMError("No objective and no custom gradients")
+        else:
+            grad, hess = self._gradients()
         roots = [None] * C
         if C > 1:
             # every class tree's root histogram in one K5 launch; each
@@ -265,33 +376,26 @@ class GBDT:
         self.iter_seconds.append(time.perf_counter() - t0)
         return False
 
-    # ------------------------------------------------------------ predict
-    def predict(self, X: np.ndarray, num_iteration: int = -1,
-                raw_score: bool = False) -> np.ndarray:
-        """Raw scores or the objective's output (probabilities) of a raw
-        feature matrix, [N] or [N, C]."""
-        X = np.asarray(X, dtype=np.float64)
+    def rollback_one_iter(self) -> None:
+        """Remove the last iteration's trees and their scores
+        (gbdt.cpp:553-576, lightgbm_tpu/models/gbdt.py:2050-2068): each
+        tree walked over the host bins, its f32 delta subtracted from the
+        device training score, its f64 delta from the valid scores."""
+        if self.iter_ <= 0:
+            return
         C = self.num_tree_per_iteration
-        n_iter = (self.iter_ if num_iteration <= 0
-                  else min(num_iteration, self.iter_))
-        raw = np.zeros((C, X.shape[0]), dtype=np.float64)
-        for k in range(C):
-            raw[k] += self.init_scores[k]
-        for i, tree in enumerate(self.models[:n_iter * C]):
-            raw[i % C] += tree.predict_raw(X)
-        raw = self._layout(raw)
-        out = raw if raw_score else self.objective.convert_output(raw)
-        return out.T
-
-    def feature_importance(self, num_iteration: int = -1) -> np.ndarray:
-        """Split counts per original feature (gbdt.h FeatureImportance)."""
-        out = np.zeros(self.max_feature_idx + 1, dtype=np.float64)
-        n_iter = (self.iter_ if num_iteration <= 0
-                  else min(num_iteration, self.iter_))
-        for tree in self.models[:n_iter * self.num_tree_per_iteration]:
-            for f in tree.split_feature[: tree.num_leaves - 1]:
-                out[int(f)] += 1
-        return out
+        infos = self.train_set.feature_infos()
+        for k in reversed(range(C)):
+            tree = self.models.pop()
+            if tree.num_leaves <= 1:
+                continue
+            delta = tree.predict_binned(self.train_set.bins_t, infos)
+            self.train_score[k] -= torch.from_numpy(
+                delta.astype(np.float32)).to(self.device)
+            for (_, vset), vscore in zip(self.valid_sets, self.valid_scores):
+                vscore.reshape(C, -1)[k] -= tree.predict_binned(vset.bins_t,
+                                                                infos)
+        self.iter_ -= 1
 
     # --------------------------------------------------------------- eval
     def eval_train(self) -> List[Tuple[str, float, bool]]:
@@ -300,10 +404,7 @@ class GBDT:
         return [(m.name, m.eval(score, self.objective), m.higher_better)
                 for m in self.train_metrics]
 
-    def eval_valid(self) -> List[Tuple[str, str, float, bool]]:
-        return [(name, m.name, m.eval(score, self.objective),
-                 m.higher_better)
-                for (name, _), score, ms in zip(self.valid_sets,
-                                                self.valid_scores,
-                                                self.valid_metrics)
-                for m in ms]
+    def eval_valid(self, i: int) -> List[Tuple[str, float, bool]]:
+        """The metrics of valid set ``i``."""
+        return [(m.name, m.eval(self.valid_scores[i], self.objective),
+                 m.higher_better) for m in self.valid_metrics[i]]

@@ -10,15 +10,22 @@ splits whose left-going set is a bitset over category values (outer, for
 raw data) and over bin ids (inner, for binned data).
 
 Prediction is vectorized numpy level-by-level routing, over raw feature
-matrices (``predict_raw``) or over a feature-major binned matrix aligned
-with the training bins (``predict_binned``).
+matrices (``predict_raw``, leaf indices ``apply_raw``) or over a
+feature-major binned matrix aligned with the training bins
+(``predict_binned``).
 """
 
 from __future__ import annotations
 
+import copy
+import itertools
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import List
 
 import numpy as np
+
+from ..utils.log import LightGBMError
 
 K_ZERO_THRESHOLD = 1e-35
 K_CATEGORICAL_MASK = 1
@@ -41,6 +48,17 @@ def bitset_from_values(values: List[int]) -> np.ndarray:
         if v >= 0:
             out[v // 32] |= np.uint32(1) << np.uint32(v % 32)
     return out
+
+
+# a walk of more rows than this is split over the cores (Tree._walk)
+PARALLEL_ROWS = 1 << 17
+
+
+def _walk_workers() -> int:
+    """The cores this process may run on (at most 16)."""
+    cores = (len(os.sched_getaffinity(0))
+             if hasattr(os, "sched_getaffinity") else os.cpu_count() or 1)
+    return min(cores, 16)
 
 
 class Tree:
@@ -72,6 +90,11 @@ class Tree:
         self.leaf_count = np.zeros(max(num_leaves, 1), dtype=np.int64)
         self.leaf_parent = np.full(max(num_leaves, 1), -1, dtype=np.int32)
         self.leaf_depth = np.zeros(max(num_leaves, 1), dtype=np.int32)
+        # whether threshold_in_bin, split_feature_inner and the inner
+        # bitsets hold a live dataset's bins: a tree parsed from a model
+        # text has real thresholds only, until ``aligned_to`` aligns it
+        # with a dataset
+        self.bins_aligned = True
 
     @classmethod
     def from_arrays(cls, arrays, dataset) -> "Tree":
@@ -137,6 +160,52 @@ class Tree:
             t.decision_type[i] = dt
         return t
 
+    def aligned_to(self, dataset) -> "Tree":
+        """A copy whose bin-space split data holds ``dataset``'s bins
+        (lightgbm_tpu/models/serialization.py _remap_tree_to_bins):
+        numerical thresholds through BinMapper.value_to_bin of the real
+        threshold (exact: a threshold is a bin's upper bound); a
+        categorical node keeps its bitset index, and where the model text
+        had no inner bitsets (stock LightGBM files) they are rebuilt over
+        ``dataset``'s category bins, categories it never saw skipped."""
+        t = copy.copy(self)
+        n = self.num_leaves - 1
+        t.split_feature_inner = np.asarray(
+            [dataset.inner_feature_index(int(f)) for f in self.split_feature],
+            dtype=np.int32)
+        thr = np.zeros(n, dtype=np.int32)
+        rebuild_inner = self.num_cat > 0 and not self.cat_threshold_inner
+        if rebuild_inner:
+            t.cat_threshold_inner = [None] * self.num_cat
+        for i in range(n):
+            mapper = dataset.bin_mappers[int(self.split_feature[i])]
+            if not self.decision_type[i] & K_CATEGORICAL_MASK:
+                thr[i] = int(mapper.value_to_bin(
+                    np.asarray([self.threshold[i]]))[0])
+                continue
+            cat_idx = int(self.threshold_in_bin[i])
+            thr[i] = cat_idx
+            if rebuild_inner:
+                words = self.cat_threshold[cat_idx]
+                inner = np.zeros(max(1, -(-mapper.num_bin // 32)),
+                                 dtype=np.uint32)
+                for c in range(len(words) * 32):
+                    if words[c // 32] >> (c % 32) & 1:
+                        b = mapper.categorical_2_bin.get(c)
+                        if b is not None:
+                            inner[b // 32] |= np.uint32(1 << (b % 32))
+                t.cat_threshold_inner[cat_idx] = inner
+        if rebuild_inner:
+            t.cat_threshold_inner = [
+                w if w is not None else np.zeros(1, dtype=np.uint32)
+                for w in t.cat_threshold_inner]
+            # the offsets of the rebuilt words, which a save slices by
+            t.cat_boundaries_inner = list(itertools.accumulate(
+                (len(w) for w in t.cat_threshold_inner), initial=0))
+        t.threshold_in_bin = thr
+        t.bins_aligned = True
+        return t
+
     @classmethod
     def from_grown(cls, arrays, dataset, shrinkage: float) -> "Tree":
         """Finalize one freshly-grown tree, learning rate applied."""
@@ -145,32 +214,36 @@ class Tree:
         return t
 
     # ------------------------------------------------------------ prediction
-    def _categorical_left(self, vals: np.ndarray, nodes: np.ndarray,
-                          bitsets: List[np.ndarray]) -> np.ndarray:
-        """Whether each integer ``vals[k]`` is in the bitset of categorical
-        node ``nodes[k]`` (negative values are in none)."""
-        go = np.zeros(len(nodes), dtype=bool)
-        idx = self.threshold_in_bin[nodes]
-        for c in np.unique(idx):
-            sel = idx == c
-            go[sel] = bitset_contains(bitsets[int(c)], vals[sel])
-        return go
+    def _walk(self, n: int, go_left_at) -> np.ndarray:
+        """Leaf index of each of ``n`` rows: from the root down, each
+        internal node's rows split by ``go_left_at(node, rows)`` (the
+        reference's DataPartition order), so a row is looked at once for
+        each node on its path.  Past PARALLEL_ROWS rows, one chunk of rows
+        a core is walked in a thread (numpy's array work releases the
+        GIL); a row's leaf does not depend on the chunks."""
+        leaf = np.empty(n, dtype=np.int32)
 
-    def _walk(self, go_left_fn, n: int) -> np.ndarray:
-        cur = np.zeros(n, dtype=np.int32)     # internal node index
-        leaf = np.full(n, -1, dtype=np.int32)
-        active = np.arange(n)
-        for _ in range(2 * self.num_leaves + 2):
-            if not len(active):
-                break
-            nodes = cur[active]
-            go_left = go_left_fn(active, nodes)
-            nxt = np.where(go_left, self.left_child[nodes],
-                           self.right_child[nodes])
-            done = nxt < 0
-            leaf[active[done]] = ~nxt[done]
-            cur[active] = nxt
-            active = active[~done]
+        def walk(rows):
+            stack = [(0, rows)]
+            while stack:
+                node, rows = stack.pop()
+                go = go_left_at(node, rows)
+                for child, sub in ((self.left_child[node], rows[go]),
+                                   (self.right_child[node], rows[~go])):
+                    if child < 0:
+                        leaf[sub] = ~child
+                    elif len(sub):
+                        stack.append((child, sub))
+
+        workers = _walk_workers()
+        if n < PARALLEL_ROWS or workers == 1:
+            walk(np.arange(n))
+            return leaf
+        bounds = np.linspace(0, n, workers + 1).astype(np.int64)
+        with ThreadPoolExecutor(workers) as pool:
+            # reading each result raises a chunk's exception here
+            list(pool.map(walk, [np.arange(a, b) for a, b in
+                                 zip(bounds[:-1], bounds[1:])]))
         return leaf
 
     def apply_raw(self, X: np.ndarray) -> np.ndarray:
@@ -179,28 +252,32 @@ class Tree:
         if self.num_leaves <= 1:
             return np.zeros(X.shape[0], dtype=np.int32)
 
-        def go_left(rows, nodes):
-            fv = X[rows, self.split_feature[nodes]].astype(np.float64)
-            dt = self.decision_type[nodes]
-            mt = (dt.astype(np.int32) >> 2) & 3
-            dl = (dt & K_DEFAULT_LEFT_MASK) > 0
+        def go_left_at(node, rows):
+            fv = np.asarray(X[rows, self.split_feature[node]],
+                            dtype=np.float64)
+            dt = int(self.decision_type[node])
+            mt = (dt >> 2) & 3
+            dl = bool(dt & K_DEFAULT_LEFT_MASK)
             nan = np.isnan(fv)
-            fv = np.where(nan & (mt != 2), 0.0, fv)
-            is_zero = (fv > -K_ZERO_THRESHOLD) & (fv <= K_ZERO_THRESHOLD)
-            use_default = ((mt == 1) & is_zero) | ((mt == 2) & np.isnan(fv))
-            go = np.where(use_default, dl, fv <= self.threshold[nodes])
-            cat = (dt & K_CATEGORICAL_MASK) > 0
-            if cat.any():
-                # NaN of a NaN-missing feature goes right; other NaN were
-                # zeroed above; values truncate to int like the reference
-                # (negative ones are in no bitset)
-                c = np.nonzero(cat)[0]
-                iv = np.where(np.isnan(fv[c]), -1, fv[c]).astype(np.int64)
-                go[c] = self._categorical_left(iv, nodes[c],
-                                               self.cat_threshold)
+            if mt != 2:
+                # NaN of a feature that is not NaN-missing counts as 0
+                fv = np.where(nan, 0.0, fv)
+            if dt & K_CATEGORICAL_MASK:
+                # NaN of a NaN-missing feature goes right; values truncate
+                # to int like the reference (negative ones are in no
+                # bitset)
+                iv = np.where(np.isnan(fv), -1, fv).astype(np.int64)
+                return bitset_contains(
+                    self.cat_threshold[int(self.threshold_in_bin[node])], iv)
+            go = fv <= self.threshold[node]
+            if mt == 2:
+                return go | nan if dl else go
+            if mt == 1:
+                zero = (fv > -K_ZERO_THRESHOLD) & (fv <= K_ZERO_THRESHOLD)
+                return np.where(zero, dl, go)
             return go
 
-        return self._walk(go_left, X.shape[0])
+        return self._walk(X.shape[0], go_left_at)
 
     def apply_binned(self, bins_t: np.ndarray, feature_infos) -> np.ndarray:
         """Leaf index of each row of a feature-major [F_used, N] binned
@@ -210,26 +287,29 @@ class Tree:
         n = bins_t.shape[1]
         if self.num_leaves <= 1:
             return np.zeros(n, dtype=np.int32)
-        nb = np.asarray([fi.num_bin for fi in feature_infos], np.int32)
-        db = np.asarray([fi.default_bin for fi in feature_infos], np.int32)
+        if not self.bins_aligned:
+            raise LightGBMError(
+                "tree loaded from a model text has no bin thresholds; align "
+                "it with a dataset first (Tree.aligned_to)")
 
-        def go_left(rows, nodes):
-            f = self.split_feature_inner[nodes]
-            fv = bins_t[f, rows].astype(np.int32)
-            dt = self.decision_type[nodes]
-            mt = (dt.astype(np.int32) >> 2) & 3
-            dl = (dt & K_DEFAULT_LEFT_MASK) > 0
-            is_missing = (((mt == 1) & (fv == db[f]))
-                          | ((mt == 2) & (fv == nb[f] - 1)))
-            go = np.where(is_missing, dl, fv <= self.threshold_in_bin[nodes])
-            cat = (dt & K_CATEGORICAL_MASK) > 0
-            if cat.any():
-                c = np.nonzero(cat)[0]
-                go[c] = self._categorical_left(fv[c], nodes[c],
-                                               self.cat_threshold_inner)
+        def go_left_at(node, rows):
+            f = int(self.split_feature_inner[node])
+            fv = bins_t[f][rows].astype(np.int32)
+            dt = int(self.decision_type[node])
+            if dt & K_CATEGORICAL_MASK:
+                return bitset_contains(
+                    self.cat_threshold_inner[int(self.threshold_in_bin[node])],
+                    fv)
+            go = fv <= self.threshold_in_bin[node]
+            mt = (dt >> 2) & 3
+            if mt in (1, 2):
+                info = feature_infos[f]
+                missing = fv == (info.default_bin if mt == 1
+                                 else info.num_bin - 1)
+                go = np.where(missing, bool(dt & K_DEFAULT_LEFT_MASK), go)
             return go
 
-        return self._walk(go_left, n)
+        return self._walk(n, go_left_at)
 
     def predict_raw(self, X: np.ndarray) -> np.ndarray:
         if self.num_leaves <= 1:

@@ -1211,3 +1211,139 @@ def test_capture_failure_raises(dev, monkeypatch):
             bst.update()
         assert bst.gbdt.grower._graph is None
     torch.cuda.synchronize()
+
+
+# ------------------------------------------------------------ the session
+def _session_data(n=40_000, seed=21):
+    """No NaN: a NaN-missing split of a leaf whose rows hold no NaN has
+    two equal gains, and rounding picks one (PERF.md, PR 8)."""
+    rng = np.random.RandomState(seed)
+    X = rng.normal(size=(n, 8))
+    y = (X[:, 0] + 0.5 * X[:, 1] * X[:, 2] + 0.5 * rng.normal(size=n)
+         > 0).astype(np.float64)
+    return X, y
+
+
+SESSION_PARAMS = dict(objective="binary", num_leaves=15, max_bin=63,
+                      learning_rate=0.5, metric=["binary_logloss"],
+                      verbosity=-1)
+
+
+def _same_splits(a_trees, b_trees):
+    """Card = CPU: the same split feature and bin at gain > 1e-2, up to a
+    near-tie.  Where the two pick different splits whose gains are within
+    1e-4 of each other (two leaves' or thresholds' equal gains, broken by
+    the histogram sums, which agree to 1e-5 of a bin's sum of |value|:
+    the card's exact fixed point, the CPU's float64), the rest of that
+    tree is not compared.  Returns the splits compared."""
+    assert len(a_trees) == len(b_trees)
+    compared = 0
+    for i, (a, b) in enumerate(zip(a_trees, b_trees)):
+        for k in range(min(a.num_leaves, b.num_leaves) - 1):
+            ga, gb = float(a.split_gain[k]), float(b.split_gain[k])
+            if ga <= 1e-2 or gb <= 1e-2:
+                break
+            if (a.split_feature[k], a.threshold_in_bin[k]) != (
+                    b.split_feature[k], b.threshold_in_bin[k]):
+                assert abs(ga - gb) <= 1e-4 * max(ga, gb), (
+                    f"tree {i}, split {k}: gains {ga} and {gb}")
+                break
+            compared += 1
+    return compared
+
+
+def _session_train(device, X, y, rounds, **kw):
+    ds = lt.Dataset(X[:30_000], y[:30_000])
+    return lt.train(dict(SESSION_PARAMS, device_type=device), ds, rounds,
+                    valid_sets=[ds.create_valid(X[30_000:], y[30_000:])],
+                    verbose_eval=False, **kw)
+
+
+@pytest.mark.cuda
+def test_early_stopping_on_card_equals_cpu(dev):
+    """The same stop, the same splits (up to a near-tie), the same holdout
+    curve within 1e-4 (chip_smoke's cv rule)."""
+    X, y = _session_data()
+    evals = {d: {} for d in ("cuda", "cpu")}
+    out = {d: _session_train(d, X, y, 60, early_stopping_rounds=2,
+                             evals_result=evals[d])
+           for d in ("cuda", "cpu")}
+    card, cpu = out["cuda"], out["cpu"]
+    assert 0 < card.best_iteration == cpu.best_iteration < 60
+    assert card.current_iteration() == cpu.current_iteration()
+    assert _same_splits(card.gbdt.models, cpu.gbdt.models) >= 20
+    np.testing.assert_allclose(evals["cuda"]["valid_0"]["binary_logloss"],
+                               evals["cpu"]["valid_0"]["binary_logloss"],
+                               rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_boosters_updated_in_turns_grow_their_solo_models(dev):
+    """Three boosters on one card (each with its own device state and
+    CUDA graphs, sharing the kernels' scratch) updated in turns, as cv
+    updates its folds, each grow bit for bit the model text they grow
+    alone."""
+    X, y = _session_data()
+    params = dict(SESSION_PARAMS, device_type="cuda")
+    parts = [np.arange(len(X))[i::3] for i in range(3)]
+
+    def booster(rows, seed_shift):
+        # different sizes and leaves, so the graphs differ
+        p = dict(params, num_leaves=15 + 8 * seed_shift)
+        return lt.Booster(p, lt.Dataset(X[rows], y[rows]))
+
+    solo = []
+    for i, rows in enumerate(parts):
+        b = booster(rows, i)
+        for _ in range(4):
+            b.update()
+        solo.append(b.model_to_string())
+        del b
+    turns = [booster(rows, i) for i, rows in enumerate(parts)]
+    for _ in range(4):
+        for b in turns:
+            b.update()
+    assert [b.model_to_string() for b in turns] == solo
+
+
+@pytest.mark.cuda
+def test_continued_training_on_card_equals_cpu(dev, tmp_path):
+    X, y = _session_data()
+    first = _session_train("cpu", X, y, 4)
+    path = str(tmp_path / "m.txt")
+    first.save_model(path)
+    out = {d: _session_train(d, X, y, 4, init_model=path)
+           for d in ("cuda", "cpu")}
+    card, cpu = out["cuda"], out["cpu"]
+    # the seeded scores: the same f32 adds on either device
+    seeded = {d: _session_train(d, X, y, 0, init_model=path)
+              for d in ("cuda", "cpu")}
+    np.testing.assert_array_equal(
+        seeded["cuda"].gbdt.train_score.cpu().numpy(),
+        seeded["cpu"].gbdt.train_score.numpy())
+    assert card.current_iteration() == cpu.current_iteration() == 8
+    assert _same_splits(card.gbdt.models[4:], cpu.gbdt.models[4:]) >= 10
+    np.testing.assert_allclose(card.eval_valid()[0][2],
+                               cpu.eval_valid()[0][2], rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_rollback_one_iter_on_card(dev):
+    """A rolled-back card booster scores as one trained an iteration
+    less (within 1e-6), and grows its next tree as that one does."""
+    X, y = _session_data()
+    ds = lt.Dataset(X, y)
+    params = dict(SESSION_PARAMS, device_type="cuda")
+    rolled, ref = lt.Booster(params, ds), lt.Booster(params, ds)
+    for _ in range(5):
+        rolled.update()
+    for _ in range(4):
+        ref.update()
+    rolled.rollback_one_iter()
+    assert rolled.current_iteration() == 4 == rolled.num_trees()
+    np.testing.assert_allclose(rolled.gbdt.train_score.cpu().numpy(),
+                               ref.gbdt.train_score.cpu().numpy(), rtol=0,
+                               atol=1e-6)
+    rolled.update()
+    ref.update()
+    assert _same_splits(rolled.gbdt.models, ref.gbdt.models) >= 20

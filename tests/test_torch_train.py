@@ -180,8 +180,8 @@ def test_regression_trees_match_jax(reg_sqrt):
                                rtol=0, atol=1e-4 if reg_sqrt else 1e-5)
     jm = JaxL2(cfg)
     jm.init(jds.metadata, jds.num_data)
-    assert bst.eval_train()[0][0] == "l2"
-    assert bst.eval_train()[0][1] == pytest.approx(
+    assert bst.eval_train()[0][:2] == ("training", "l2")
+    assert bst.eval_train()[0][2] == pytest.approx(
         jm.eval(np.asarray(jgb.train_score[0], dtype=np.float64), jobj),
         rel=1e-5)
 
