@@ -6,7 +6,7 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``lightgbm_tpu_torch/csrc`` and runs
-sixteen phases; any failure exits non-zero:
+nineteen phases; any failure exits non-zero:
 
   1. build    nvcc for sm_90a; prints ptxas's register/shared-memory lines
               and the card's name and power limit, and for the K1/K3,
@@ -123,6 +123,38 @@ sixteen phases; any failure exits non-zero:
  16. session mc  at multiclass_cat (after phase 8): ``cv`` with nfold=2
               for 3 rounds (K5 once an iteration a fold) and a save -> load
               round trip with categorical splits, bit for bit.
+ 17. objectives  first K1 (root) and K3 (a split) at the HIGGS shape on
+              weighted L2 gradients (weights over 1e-3..1e3, rows of
+              weight 0) against their plain versions at phase 2's
+              tolerance; then on phase 3's bins with new labels, weights
+              and init scores (the rows binned once), 2 iterations at 255
+              leaves each: L2 (weights over 1e-3..1e3 with rows of weight
+              0, init scores), L1 (weights, init scores), huber, fair,
+              quantile, mape, poisson, gamma, tweedie, binary (weights,
+              init scores), cross_entropy and cross_entropy_lambda
+              (weights), then multiclassova (weights) on phase 7's rows (K5 at its
+              class roots).  Each: the first metric improves on the
+              holdout, Booster.predict of the holdout (+ its init scores)
+              is the in-training valid score; L1/quantile/mape's last
+              renewal is the host percentile of the fetched leaf ids and
+              scores, bit for bit.  Logs iter_seconds and the renewal's
+              share.
+ 18. lambdarank  BASELINE config 4 at bench_suite.py's shape: its
+              generator (2.27M documents x 136 features, queries of 40-119,
+              labels 0-4), max_bin 63, 255 leaves, lr 0.1,
+              min_sum_hessian_in_leaf 100, label_gain 2^i - 1, 25
+              iterations, ndcg@1..5 on a 50k-document holdout: NDCG@10 of
+              the first 200k documents over bench_suite.py's gate of 0.80;
+              logs the binning time, the gradient's time a call (CUDA
+              events; two calls bit-identical), iter_seconds, K3 step
+              launches.
+ 19. metadata parity  weighted L1 with init scores at 200k rows,
+              lambdarank at 100k documents and weighted multiclassova at
+              200k rows (31 leaves, 3 iterations) on the card and on the
+              CPU: the same splits at gain > 1e-2 up to a near-tie (gains
+              within 1e-4), raw predictions within 1e-3; a weighted and an
+              unweighted booster updated in turns on the card grow their
+              solo model texts.
 
 Launch counts: a kernel captured into a CUDA graph counts at each replay
 (ops/kernels.py count_replay), when the card runs it.
@@ -130,7 +162,9 @@ Launch counts: a kernel captured into a CUDA graph counts at each replay
 Output: one JSON line per kernel, a ``{"device_loop": ...}`` line (phases
 3, 4 and 7), a ``{"session": ...}`` line (phases 14-16: walls, seeding
 times, peak memory, launches by kernel; the kernels' ``launches_by_path``
-holds them as "session"), one ``{"kernels": [...]}`` line, the
+holds them as "session"), an ``{"objectives": ...}`` line (phases 17-19;
+"objectives" and "lambdarank" in ``launches_by_path``), one
+``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Without a
 card, or run from a directory that does not hold the package, it exits
 non-zero and prints no result.
@@ -138,6 +172,7 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -2294,6 +2329,557 @@ def session_mc_phase(ds, Xh, yh):
     return launches, rec
 
 
+# --------------------------------------------------------------- phase 17
+def heavy_weights(n: int, seed: int):
+    """Sample weights log-uniform over 1e-3..1e3, every 13th row 0."""
+    import numpy as np
+    w = np.exp(np.random.RandomState(seed).uniform(
+        np.log(1e-3), np.log(1e3), size=n)).astype(np.float32)
+    w[::13] = 0.0
+    return w
+
+
+def mild_weights(n: int, seed: int):
+    """Sample weights log-uniform over 0.25..4."""
+    import numpy as np
+    return np.exp(np.random.RandomState(seed).uniform(
+        np.log(0.25), np.log(4.0), size=n)).astype(np.float32)
+
+
+def objective_labels(objective: str, X, seed: int):
+    """Labels the objective accepts, made from the features."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    n = len(X)
+    f = (X[:, 0] + 0.5 * X[:, 1] - 0.3 * X[:, 2] * X[:, 3]).astype(
+        np.float64)
+    if objective in ("poisson", "tweedie"):
+        return rng.poisson(np.exp(0.4 * f)).astype(np.float64)
+    if objective == "gamma":
+        return rng.gamma(2.0, np.exp(0.3 * f) / 2.0) + 1e-3
+    if objective.startswith("cross_entropy"):
+        return 1.0 / (1.0 + np.exp(-2.0 * f - 0.3 * rng.normal(size=n)))
+    return 2.0 * f + rng.normal(size=n)
+
+
+# objective -> (weights, init score, the first metric)
+OBJECTIVE_CASES = {
+    "regression": ("heavy", True, "l2"),
+    "regression_l1": ("mild", True, "l1"),
+    "huber": ("mild", False, "huber"),
+    "fair": ("mild", False, "fair"),
+    "quantile": (None, False, "quantile"),
+    "mape": ("mild", False, "mape"),
+    "poisson": ("mild", False, "poisson"),
+    "gamma": ("mild", False, "gamma"),
+    "tweedie": ("mild", False, "tweedie"),
+    "binary": ("mild", True, "binary_logloss"),
+    # the JAX package's cross_entropy metric scores against label > 0;
+    # kullback_leibler holds the soft labels
+    "cross_entropy": ("mild", False, "kullback_leibler"),
+    "cross_entropy_lambda": ("mild", False, "cross_entropy_lambda"),
+}
+OBJ_ITERS = 2
+OBJ_PARAMS = dict(num_leaves=255, max_bin=MAX_BIN, learning_rate=0.1,
+                  min_sum_hessian_in_leaf=100.0, verbosity=-1,
+                  device_type="cuda")
+RENEWING = ("regression_l1", "quantile", "mape")
+
+
+def with_metadata(handle, label=None, weights=None, init_score=None,
+                  group=None):
+    """A dataset over ``handle``'s bins (and its device copy) with other
+    metadata: the rows are binned once for every objective."""
+    import copy
+    from lightgbm_tpu_torch import Dataset
+    from lightgbm_tpu_torch.core.metadata import Metadata
+    h = copy.copy(handle)
+    h.metadata = Metadata(h.num_data)
+    h._set_metadata(handle.metadata.label if label is None else label,
+                    weights, group, init_score)
+    return Dataset(h)
+
+
+class record_renewals:
+    """Context: every renew_tree_output of an objective inside it keeps its
+    leaf ids, score and result (host copies) in ``self.calls``."""
+
+    def __init__(self, objective):
+        self.obj = objective
+        self.calls = []
+
+    def __enter__(self):
+        renew, calls = self.obj.renew_tree_output, self.calls
+
+        def recorded(leaf_values, leaf_ids, score):
+            out = renew(leaf_values, leaf_ids, score)
+            calls.append((leaf_ids.cpu().numpy().copy(),
+                          score.cpu().numpy().copy(), leaf_values,
+                          out.copy()))
+            return out
+
+        self.obj.renew_tree_output = recorded
+        return self
+
+    def __exit__(self, *exc):
+        del self.obj.renew_tree_output
+
+
+def host_renewal(obj, leaf_ids, score, leaf_values):
+    """The host percentile of each leaf's residuals, in row order (the
+    JAX package's per-leaf masks, grouped here by one stable argsort)."""
+    import numpy as np
+    from lightgbm_tpu_torch.objective.base import (percentile,
+                                                   weighted_percentile)
+    r = obj.label_np.astype(np.float64) - score.astype(np.float64)
+    w = (None if obj.renew_weights is None
+         else obj.renew_weights.cpu().numpy())
+    order = np.argsort(leaf_ids, kind="stable")
+    ends = np.cumsum(np.bincount(leaf_ids, minlength=len(leaf_values)))
+    out = np.array(leaf_values, dtype=np.float64)
+    for k in range(len(out)):
+        rows = order[ends[k - 1] if k else 0:ends[k]]
+        if len(rows):
+            out[k] = (percentile(r[rows], obj.alpha) if w is None else
+                      weighted_percentile(r[rows], w[rows], obj.alpha))
+    return out
+
+
+def train_objective(name, ds, valid, Xh, params, iters, metric):
+    """Train ``iters`` iterations with ``valid`` (binned from ``Xh``):
+    the first metric improves, Booster.predict of ``Xh`` (plus the valid
+    set's init scores) is the in-training valid score, and a renewing
+    objective's last renewal is the host percentile bit for bit.
+    Returns (booster, record)."""
+    import numpy as np
+    import torch
+    import lightgbm_tpu_torch as lt
+
+    evals = {}
+    t0 = time.perf_counter()
+    bst = lt.Booster(dict(params, metric=[metric]), ds)
+    bst.add_valid(valid, "holdout")
+    with record_renewals(bst.gbdt.objective) if (
+            name in RENEWING) else contextlib.nullcontext() as rec:
+        for _ in range(iters):
+            bst.update()
+            for _, m, v, _ in bst.eval_valid():
+                evals.setdefault(m, []).append(v)
+        renewals = getattr(rec, "calls", None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    curve = evals[metric]
+    require(len(bst.gbdt.models) == iters * bst.gbdt.num_tree_per_iteration
+            and all(t.num_leaves > 1 for t in bst.gbdt.models),
+            f"{name}: a tree did not split")
+    require(all(np.isfinite(curve)) and curve[-1] < curve[0],
+            f"{name}: holdout {metric} {curve} did not improve")
+    C = bst.gbdt.num_tree_per_iteration
+    pred = bst.predict(Xh, raw_score=True).T.reshape(C, -1)
+    init = valid._handle.metadata.init_score
+    if init is not None:
+        pred = np.reshape(init, (C, -1)) + pred
+    vdiff = float(np.abs(np.reshape(bst.gbdt.valid_scores[0], (C, -1))
+                         - pred).max())
+    require(vdiff <= 1e-9, f"{name}: the held-out scores differ from the "
+            f"in-training valid scores by {vdiff}")
+    it_s = list(bst.gbdt.iter_seconds)
+    rec = {"metric": metric, "curve": curve, "iter_s": it_s,
+           "wall_s": wall, "valid_diff": vdiff}
+    if renewals is not None:
+        require(len(renewals) == iters, f"{name}: {len(renewals)} renewals")
+        lid, score, lv, got = renewals[-1]
+        want = host_renewal(bst.gbdt.objective, lid, score, lv)
+        require(np.array_equal(got, want), f"{name}: the renewed leaves "
+                "differ from the host percentile")
+        rs = list(bst.gbdt.renew_seconds)
+        rec.update(renew_s=rs, renew_share=sum(rs) / sum(it_s))
+    return bst, rec
+
+
+def weighted_kernel_phase(handle, X):
+    """K1 (root) and K3 (a numeric split) at the HIGGS shape on weighted
+    L2 gradients (weights over 1e-3..1e3, rows of weight 0 kept as
+    members) against their plain versions, at phase 2's tolerance: the
+    fixed-point scale is set by the largest |g w| and is coarsest for the
+    small weights.  Returns the largest errors and the scale."""
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch import Config
+    from lightgbm_tpu_torch.core.metadata import Metadata
+    from lightgbm_tpu_torch.models.gbdt import block_rows
+    from lightgbm_tpu_torch.objective import create_objective
+    from lightgbm_tpu_torch.ops import histogram as th
+    from lightgbm_tpu_torch.ops.split import FeatureMeta
+
+    device = torch.device("cuda")
+    n = handle.num_data
+    config = Config.from_params(dict(OBJ_PARAMS, objective="regression"))
+    rb = block_rows(config, n)
+    binsT = handle.device_bins(rb, device)
+    npad = binsT.shape[1]
+    nblk = npad // rb
+    B = 1 << max(0, (handle.max_num_bin - 1).bit_length())
+    md = Metadata(n)
+    md.init(n)
+    md.set_label(objective_labels("regression", X, 99))
+    md.set_weights(heavy_weights(n, 98))
+    obj = create_objective(config)
+    obj.init(md, n, device)
+    grad, hess = obj.get_gradients(torch.full((n,), obj.boost_from_score(),
+                                              device=device))
+    pad = (0, npad - n)
+    member = torch.nn.functional.pad(torch.ones(n, device=device), pad)
+    w8 = th.pack_channels(torch.nn.functional.pad(grad, pad),
+                          torch.nn.functional.pad(hess, pad), member)
+    scales = th.fixed_point_scales(w8)
+    infos = handle.feature_infos()
+    fm = FeatureMeta(*(np.array([getattr(i, k) for i in infos], np.int32)
+                       for k in ("num_bin", "missing_type", "default_bin")))
+    route = th.pack_route(0, 1, 0, int(fm.num_bin[0]) // 2, False, False,
+                          np.zeros(8, np.uint32), fm)
+    lid0 = torch.zeros(npad, dtype=torch.int32, device=device)
+    want = th.histogram_segment_plain(binsT, w8, lid0, 0, nblk, 0, B, rb)
+    got = th.histogram_segment(binsT, w8, lid0, 0, nblk, 0, B, rb, scales)
+    err_k1 = check_hist("histogram_segment weighted root", got, want,
+                        hist_abs_sums(th, binsT, w8, lid0, 0, nblk, 0, B,
+                                      rb))
+    want_lid, want = th.histogram_segment_routed_plain(
+        binsT, w8, lid0.clone(), 0, nblk, 1, route, B, rb)
+    got_lid, got = th.histogram_segment_routed(
+        binsT, w8, lid0.clone(), 0, nblk, 1, route, B, rb, scales)
+    require(torch.equal(got_lid, want_lid), "histogram_segment_routed "
+            "weighted: leaf ids differ from the plain version")
+    err_k3 = check_hist("histogram_segment_routed weighted", got, want,
+                        hist_abs_sums(th, binsT, w8, want_lid, 0, nblk, 1,
+                                      B, rb))
+    rec = {"k1_root_max_abs_err": err_k1, "k3_split_max_abs_err": err_k3,
+           "grad_scale": float(scales[0]), "max_abs_grad":
+           float((grad.abs()).max())}
+    log(f"objectives: K1 root and K3 split on weighted gradients (weights "
+        f"1e-3..1e3, max |g w| {rec['max_abs_grad']:.4g}, gradient scale "
+        f"2^{np.log2(rec['grad_scale']):.0f}): counts exact, max |diff| "
+        f"{err_k1:.3g} / {err_k3:.3g}, within {HIST_RTOL} x sum|value|")
+    del w8, grad, hess
+    return rec
+
+
+def objectives_phase(ds, X, Xh, yh):
+    """Phase 17 at HIGGS: every objective of OBJECTIVE_CASES on the
+    phase 3 bins with its own labels, weights and init scores, 2
+    iterations at 255 leaves.  Returns (launches, records)."""
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.ops import kernels
+
+    base = ds.create_valid(Xh, yh).construct()._handle
+    out = {}
+    kernels.reset_launches()
+    for i, (name, (wkind, init, metric)) in enumerate(
+            OBJECTIVE_CASES.items()):
+        t0 = time.perf_counter()
+        y = (ds.get_label().astype(np.float64) if name == "binary"
+             else objective_labels(name, X, 100 + i))
+        yv = yh if name == "binary" else objective_labels(name, Xh, 200 + i)
+        n, nv = len(y), len(yv)
+        make = {"heavy": heavy_weights, "mild": mild_weights,
+                None: lambda n, seed: None}[wkind]
+        w, wv = make(n, 300 + i), make(nv, 400 + i)
+        rng = np.random.RandomState(500 + i)
+        s0 = 0.1 * rng.normal(size=n) if init else None
+        sv = 0.1 * rng.normal(size=nv) if init else None
+        train = with_metadata(ds._handle, y, w, s0)
+        valid = with_metadata(base, yv, wv, sv)
+        setup = time.perf_counter() - t0
+        bst, rec = train_objective(name, train, valid, Xh,
+                                   dict(OBJ_PARAMS, objective=name),
+                                   OBJ_ITERS, metric)
+        rec.update(weights=wkind, init_score=init, setup_s=setup)
+        out[name] = rec
+        share = (f", renewal {rec['renew_share']:.1%} of the iterations "
+                 f"({[round(x, 3) for x in rec['renew_s']]} s)"
+                 if "renew_s" in rec else "")
+        log(f"objectives: {name} ({wkind or 'no'} weights"
+            f"{', init scores' if init else ''}): holdout {metric} "
+            f"{[round(x, 6) for x in rec['curve']]}, iter_seconds "
+            f"{[round(x, 4) for x in rec['iter_s']]}{share}")
+        del bst, train, valid
+    torch.cuda.empty_cache()
+    return dict(kernels.LAUNCHES), out
+
+
+def ova_phase(ds, Xh, yh):
+    """Phase 17's multiclassova on the multiclass_cat rows (weighted,
+    255 leaves, 2 iterations): K5 at each iteration's class roots."""
+    import numpy as np
+    from lightgbm_tpu_torch.ops import kernels
+
+    kernels.reset_launches()
+    n, nv = ds.num_data(), len(yh)
+    train = with_metadata(ds._handle, weights=mild_weights(n, 600))
+    valid = ds.create_valid(Xh, yh, weight=mild_weights(nv, 601))
+    params = dict(OBJ_PARAMS, objective="multiclassova",
+                  num_class=MC_CLASSES)
+    _, rec = train_objective("multiclassova", train, valid, Xh, params,
+                             OBJ_ITERS, "multi_logloss")
+    launches = dict(kernels.LAUNCHES)
+    require(launches["histogram_all"] == OBJ_ITERS, "multiclassova: K5 "
+            f"launched {launches['histogram_all']} times")
+    log(f"objectives: multiclassova (weights): holdout multi_logloss "
+        f"{[round(x, 6) for x in rec['curve']]}, iter_seconds "
+        f"{[round(x, 4) for x in rec['iter_s']]}, K5 "
+        f"{launches['histogram_all']}")
+    return launches, rec
+
+
+# --------------------------------------------------------------- phase 18
+# BASELINE.json config 4 at bench_suite.py's shape and parameters
+RANK_ROWS = 2_270_000
+RANK_HOLDOUT_ROWS = 50_000
+RANK_FEATURES = 136
+RANK_ITERS = 25
+RANK_GATE = 0.80            # bench_suite.py:290-304
+RANK_PARAMS = dict(objective="lambdarank", num_leaves=255, max_bin=MAX_BIN,
+                   learning_rate=0.1, min_sum_hessian_in_leaf=100.0,
+                   label_gain=[(1 << i) - 1 for i in range(32)],
+                   metric=["ndcg"], eval_at=[1, 2, 3, 4, 5], verbosity=-1,
+                   device_type="cuda")
+
+
+def msltr_like(rng, n: int):
+    """bench_suite.py's _gen_rank: MSLR-WEB30K-shaped queries of 40-119
+    documents, 136 features, graded relevance 0-4 by each query's score
+    quintile.  Returns (X, y, group sizes)."""
+    import numpy as np
+    sizes = []
+    left = n
+    while left > 0:
+        s = min(int(rng.randint(40, 120)), left)
+        sizes.append(s)
+        left -= s
+    group = np.asarray(sizes)
+    X = rng.normal(size=(n, RANK_FEATURES)).astype(np.float32)
+    score = (X[:, 0] + 0.7 * X[:, 1] - 0.5 * X[:, 2]
+             + 0.3 * X[:, 3] * X[:, 4] + rng.normal(size=n) * 0.7)
+    y = np.zeros(n)
+    pos = 0
+    for s in sizes:
+        sl = slice(pos, pos + s)
+        order = np.argsort(np.argsort(score[sl]))
+        y[sl] = np.minimum(4, (5 * order) // max(s, 1))
+        pos += s
+    return X, y, group
+
+
+def ndcg_at_10(pred, y, group):
+    """bench_suite.py's _ndcg_at_10: the mean NDCG@10 of the queries with
+    a relevant document."""
+    import numpy as np
+    pos, total, nq = 0, 0.0, 0
+    disc = 1.0 / np.log2(np.arange(2, 13))
+    for s in group:
+        sl = slice(pos, pos + s)
+        ys, ps = y[sl], pred[sl]
+        k = min(10, s)
+        top = np.argsort(-ps, kind="stable")[:k]
+        dcg = float((((2.0 ** ys[top]) - 1) * disc[:k]).sum())
+        ideal = np.sort(ys)[::-1][:k]
+        idcg = float((((2.0 ** ideal) - 1) * disc[:k]).sum())
+        if idcg > 0:
+            total += dcg / idcg
+            nq += 1
+        pos += s
+    return total / max(nq, 1)
+
+
+def lambdarank_phase():
+    """Phase 18: lambdarank at 2.27M x 136 for 25 iterations; NDCG@10 of
+    the first 200k documents over bench_suite.py's gate, ndcg@1..5 on a
+    holdout each iteration.  Returns (launches, record)."""
+    import numpy as np
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch import Config
+    from lightgbm_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    X, y, group = msltr_like(np.random.RandomState(7), RANK_ROWS)
+    Xh, yh, gh = msltr_like(np.random.RandomState(8), RANK_HOLDOUT_ROWS)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds = lt.Dataset(X, y, group=group)
+    ds.construct(Config.from_params(RANK_PARAMS))
+    bin_s = time.perf_counter() - t0
+    log(f"lambdarank data: {RANK_ROWS} x {RANK_FEATURES} in {len(group)} "
+        f"queries generated in {gen_s:.1f} s, binned in {bin_s:.1f} s")
+    valid = ds.create_valid(Xh, yh, group=gh)
+    evals = {}
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with record_trees() as rec:
+        bst = lt.train(RANK_PARAMS, ds, RANK_ITERS, valid_sets=[valid],
+                       valid_names=["holdout"], evals_result=evals,
+                       verbose_eval=False)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    it_s = list(bst.gbdt.iter_seconds)
+    curves = evals["holdout"]
+    require(list(curves) == [f"ndcg@{k}" for k in range(1, 6)],
+            f"holdout metrics {list(curves)}")
+    require(len(bst.gbdt.models) == RANK_ITERS
+            and all(t.num_leaves > 1 for t in bst.gbdt.models),
+            "lambdarank: a tree did not split")
+    require(all(c[-1] > c[0] for c in curves.values()),
+            "lambdarank: holdout ndcg did not rise")
+    loop = device_loop_report("lambdarank", bst, rec.stats, launches,
+                              "histogram_segment_routed_step", wall)
+    require(launches["score_gather_add"] == RANK_ITERS,
+            "score_gather_add did not run once per iteration")
+    # the gate, as bench_suite.py takes it: the queries wholly inside the
+    # first 200k documents
+    m, take = 0, 0
+    while take < len(group) and m + group[take] <= 200_000:
+        m += group[take]
+        take += 1
+    pred = bst.predict(X[:200_000])
+    nd10 = ndcg_at_10(np.asarray(pred[:m]), y[:m], group[:take])
+    require(nd10 > RANK_GATE, f"NDCG@10 {nd10} is not over {RANK_GATE}")
+    raw = bst.predict(Xh, raw_score=True)
+    vdiff = float(np.abs(raw - bst.gbdt.valid_scores[0]).max())
+    require(vdiff <= 1e-9, f"lambdarank: Booster.predict differs from the "
+            f"in-training valid scores by {vdiff}")
+    # the lambdarank gradient alone, CUDA events
+    obj, score = bst.gbdt.objective, bst.gbdt.train_score[0]
+    grad_ms = time_ms(lambda i: obj.get_gradients(score), 5)
+    g1, g2 = obj.get_gradients(score), obj.get_gradients(score)
+    require(torch.equal(g1[0], g2[0]) and torch.equal(g1[1], g2[1]),
+            "lambdarank gradients differ between two calls")
+    rec = {"gen_s": gen_s, "bin_s": bin_s, "wall_s": wall, "iter_s": it_s,
+           "iter_s_median": float(np.median(it_s)),
+           "holdout": curves, "ndcg10_first_200k": nd10,
+           "gradient_ms": grad_ms,
+           "buckets": [(b["P"], b["C"], int(b["idx"].shape[0]))
+                       for b in obj.buckets],
+           "k3_step_launches": launches["histogram_segment_routed_step"],
+           "device_loop": loop}
+    log(f"lambdarank: {RANK_ITERS} iterations in {wall:.2f} s, median "
+        f"iteration {np.median(it_s):.4f} s, gradient {grad_ms:.2f} ms a "
+        f"call (buckets P, C, queries {rec['buckets']}); NDCG@10 first 200k "
+        f"{nd10:.5f} (gate {RANK_GATE}); holdout ndcg@1..5 "
+        f"{[round(c[-1], 5) for c in curves.values()]}; K3 step "
+        f"{launches['histogram_segment_routed_step']}")
+    del bst, ds, valid
+    torch.cuda.empty_cache()
+    return launches, rec
+
+
+# --------------------------------------------------------------- phase 19
+def _same_splits_near_tie(a_trees, b_trees, tag):
+    """Card = CPU: the same split feature and bin at gain > 1e-2, up to a
+    near-tie (two gains within 1e-4: the rest of that model is not
+    compared, its scores differ from there).  Returns (splits compared,
+    near-ties met)."""
+    require(len(a_trees) == len(b_trees), f"{tag}: {len(a_trees)} against "
+            f"{len(b_trees)} trees")
+    compared = 0
+    for i, (a, b) in enumerate(zip(a_trees, b_trees)):
+        for k in range(min(a.num_leaves, b.num_leaves) - 1):
+            ga, gb = float(a.split_gain[k]), float(b.split_gain[k])
+            if ga <= 1e-2 or gb <= 1e-2:
+                break
+            if (a.split_feature[k], a.threshold_in_bin[k]) != (
+                    b.split_feature[k], b.threshold_in_bin[k]):
+                require(abs(ga - gb) <= 1e-4 * max(ga, gb),
+                        f"{tag}: tree {i} split {k} differs (gains {ga}, "
+                        f"{gb})")
+                return compared, 1
+            compared += 1
+    return compared, 0
+
+
+def meta_parity_phase():
+    """Phase 19: weighted L1 with init scores (renewal) at 200k rows,
+    lambdarank at 100k documents and weighted multiclassova at 200k rows,
+    31 leaves x 3 iterations on the card and on the CPU; a weighted and
+    an unweighted booster in turns on the card grow their solo texts."""
+    import numpy as np
+    import lightgbm_tpu_torch as lt
+
+    X, _ = higgs_like(PARITY_ROWS, 17)
+    Xm, ym = multiclass_cat(PARITY_ROWS, 19)
+    Xr, yr, gr = msltr_like(np.random.RandomState(23), 100_000)
+    cases = {
+        "l1_weighted_init": (X, objective_labels("regression_l1", X, 18),
+                             dict(objective="regression_l1"),
+                             dict(weight=mild_weights(PARITY_ROWS, 20),
+                                  init_score=0.1 * np.random.RandomState(
+                                      21).normal(size=PARITY_ROWS))),
+        "lambdarank": (Xr, yr, dict(RANK_PARAMS, metric=[]),
+                       dict(group=gr)),
+        "multiclassova_weighted": (
+            Xm, ym, dict(objective="multiclassova", num_class=MC_CLASSES),
+            dict(weight=mild_weights(PARITY_ROWS, 22),
+                 categorical_feature=MC_CAT)),
+    }
+    rec = {}
+    for name, (Xc, yc, params, kw) in cases.items():
+        out, times = {}, {}
+        t0 = time.perf_counter()
+        ds = lt.Dataset(Xc, yc, **kw)     # binned once, for both devices
+        ds.construct(lt.Config.from_params(dict(params, device_type="cpu")))
+        bin_s = time.perf_counter() - t0
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            p = dict(params, num_leaves=31, verbosity=-1, device_type=dev)
+            bst = lt.Booster(p, ds)
+            for _ in range(3):
+                bst.update()
+            out[dev] = bst
+            times[dev] = time.perf_counter() - t0
+        n, ties = _same_splits_near_tie(out["cuda"].gbdt.models,
+                                        out["cpu"].gbdt.models, name)
+        require(n >= 30, f"{name}: only {n} splits compared")
+        diff = float(np.abs(out["cuda"].predict(Xc, raw_score=True)
+                            - out["cpu"].predict(Xc, raw_score=True)).max())
+        require(diff < 1e-3, f"{name}: card and CPU raw predictions differ "
+                f"by {diff}")
+        rec[name] = {"splits": n, "near_ties": ties, "raw_diff": diff,
+                     "wall_s": times, "bin_s": bin_s}
+        log(f"parity {name}: {n} splits identical"
+            f"{' up to a near-tie' if ties else ''}, max |raw diff| "
+            f"{diff:.3g}; card {times['cuda']:.1f} s, CPU "
+            f"{times['cpu']:.1f} s")
+        del out
+    # a weighted and an unweighted booster in turns = alone
+    Xb, yb = higgs_like(PARITY_ROWS, 29)
+    params = dict(TRAIN_PARAMS, num_leaves=31, metric=[])
+    base = lt.Dataset(Xb, yb).construct(lt.Config.from_params(params))
+    weighted = with_metadata(base._handle,
+                             weights=heavy_weights(PARITY_ROWS, 30))
+
+    def boosters():
+        return [lt.Booster(params, weighted), lt.Booster(params, base)]
+
+    solo = []
+    for b in boosters():
+        for _ in range(3):
+            b.update()
+        solo.append(b.model_to_string())
+        del b
+    turns = boosters()
+    for _ in range(3):
+        for b in turns:
+            b.update()
+    require([b.model_to_string() for b in turns] == solo and
+            solo[0] != solo[1], "a weighted and an unweighted booster in "
+            "turns grew other models than alone")
+    rec["weighted_in_turns"] = "bit for bit"
+    log("parity: a weighted and an unweighted booster in turns grow their "
+        "solo model texts, bit for bit")
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2360,6 +2946,11 @@ def main() -> int:
     session_launches, session = session_phase(ds, Xh, yh)
     session["parity"] = session_parity_phase()
     t_session = time.perf_counter() - t_session
+    t_obj = time.perf_counter()
+    weighted_kernels = weighted_kernel_phase(ds._handle, X)
+    obj_launches, objectives = objectives_phase(ds, X, Xh, yh)
+    objectives["weighted_kernels"] = weighted_kernels
+    t_obj = time.perf_counter() - t_obj
     del ds, X, y, Xh, yh
     torch.cuda.empty_cache()
 
@@ -2390,6 +2981,25 @@ def main() -> int:
     t_session += time.perf_counter() - t0
     for k, v in mc_session_launches.items():
         session_launches[k] += v
+    t0 = time.perf_counter()
+    ova_launches, objectives["multiclassova"] = ova_phase(ds, Xh, yh)
+    t_obj += time.perf_counter() - t0
+    for k, v in ova_launches.items():
+        obj_launches[k] += v
+    require(obj_launches["histogram_segment_routed_step"] > 0
+            and obj_launches["score_gather_add"] > 0
+            and obj_launches["histogram_all"] > 0,
+            f"the objectives did not run the path's kernels: {obj_launches}")
+    del ds, X, y, Xh, yh
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rank_launches, rank = lambdarank_phase()
+    rank["phase_wall_s"] = time.perf_counter() - t0
+    require(rank_launches["histogram_segment_routed_step"] > 0,
+            "lambdarank did not launch the K3 step entry")
+    t0 = time.perf_counter()
+    meta_parity = meta_parity_phase()
+    meta_parity["phase_wall_s"] = time.perf_counter() - t0
     session["launches"] = session_launches
     session["phase_wall_s"] = t_session
     require(session_launches["histogram_segment_routed_step"] > 0
@@ -2401,7 +3011,8 @@ def main() -> int:
              "multiclass": mc_launches, "frontier": fr_launches,
              "frontier_k1": tier_launches["k1"],
              "frontier_fusedk": tier_launches["fusedk"],
-             "session": session_launches}
+             "session": session_launches, "objectives": obj_launches,
+             "lambdarank": rank_launches}
     records = []
     for name in kernels.KERNEL_NAMES:
         r = dict(results.get(name, {}))
@@ -2449,6 +3060,8 @@ def main() -> int:
     log(json.dumps({"train": train_stats}))
     log(json.dumps({"mc_train": mc_stats}))
     log(json.dumps({"session": session}))
+    log(json.dumps({"objectives": objectives, "objectives_wall_s": t_obj,
+                    "lambdarank": rank, "meta_parity": meta_parity}))
     log(json.dumps({"kernels": records}))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(card)

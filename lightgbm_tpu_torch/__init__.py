@@ -1,7 +1,10 @@
 """lightgbm_tpu_torch: the PyTorch/CUDA port of lightgbm_tpu.
 
-Trains regression, binary and multiclass GBDT models on dense data,
-numeric or categorical, on an NVIDIA card (``device_type="cuda"``, the
+Trains GBDT models with the JAX package's fifteen objectives (the
+regression family, binary, multiclass softmax and one-vs-all,
+cross-entropy, lambdarank) on dense data, numeric or categorical, with
+sample weights, init scores and query groups, on an NVIDIA card
+(``device_type="cuda"``, the
 default) through hand-written CUDA kernels (``csrc/``), or on the CPU
 (``device_type="cpu"``) through the kernels' plain PyTorch versions.  The
 API follows the LightGBM python package: ``Dataset``, ``train`` (valid

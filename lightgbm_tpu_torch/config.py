@@ -2,11 +2,12 @@
 
 The same registry shape as the reference's Config (include/LightGBM/
 config.h, src/io/config_auto.cpp): name, default, aliases.  The port runs
-one path — L2 regression (the default objective, as in the JAX package),
-binary or multiclass-softmax GBDT, or a caller's own gradients (objective
+one path — GBDT with any of the JAX package's fifteen objectives (L2
+regression the default, as there) or a caller's own gradients (objective
 "none", ``train(fobj=...)``), with the serial segment or frontier grower
-on dense data, numeric or categorical — so the registry holds only the
-parameters that path honours.  A
+on dense data, numeric or categorical, weighted or not, with query groups
+and init scores — so the registry holds only the parameters that path
+honours.  A
 parameter of a feature the port does not have raises NotImplementedError
 unless it is given at the value that switches the feature off; an
 unknown parameter raises too.  Nothing is silently ignored.
@@ -81,6 +82,14 @@ _PARAMS: Dict[str, _P] = {
     "fair_c": _P(1.0),
     "tweedie_variance_power": _P(1.5),
     "multi_error_top_k": _P(1),
+    # poisson's hessian offset, lambdarank's truncation, normalization and
+    # gain table, the rank metrics' positions (lightgbm_tpu/config.py)
+    "poisson_max_delta_step": _P(0.7),
+    "max_position": _P(20),
+    "lambdamart_norm": _P(True),
+    "label_gain": _P([], ptype=list),
+    "eval_at": _P([1, 2, 3, 4, 5], ["ndcg_eval_at", "ndcg_at",
+                                    "map_eval_at", "map_at"], ptype=list),
     # accepted as the JAX package accepts it: train() stops early only on
     # its early_stopping_rounds argument (lightgbm_tpu/engine.py:119-122)
     "early_stopping_round": _P(0, ["early_stopping_rounds",
@@ -160,16 +169,30 @@ for _name, _spec in _PARAMS.items():
 DEVICE_TYPES = ("cuda", "cpu")
 TREE_IMPLS = {"auto": "segment", "segment": "segment",
               "frontier": "frontier"}
+# lightgbm_tpu/config.py OBJECTIVE_ALIASES
 OBJECTIVE_ALIASES = {
     "regression": "regression", "regression_l2": "regression",
     "l2": "regression", "mean_squared_error": "regression",
     "mse": "regression", "l2_root": "regression",
     "root_mean_squared_error": "regression", "rmse": "regression",
-    "binary": "binary", "multiclass": "multiclass", "softmax": "multiclass",
+    "regression_l1": "regression_l1", "l1": "regression_l1",
+    "mean_absolute_error": "regression_l1", "mae": "regression_l1",
+    "huber": "huber", "fair": "fair", "poisson": "poisson",
+    "quantile": "quantile", "mape": "mape",
+    "mean_absolute_percentage_error": "mape",
+    "gamma": "gamma", "tweedie": "tweedie",
+    "binary": "binary",
+    "multiclass": "multiclass", "softmax": "multiclass",
+    "multiclassova": "multiclassova", "multiclass_ova": "multiclassova",
+    "ova": "multiclassova", "ovr": "multiclassova",
+    "cross_entropy": "cross_entropy", "xentropy": "cross_entropy",
+    "cross_entropy_lambda": "cross_entropy_lambda",
+    "xentlambda": "cross_entropy_lambda",
+    "lambdarank": "lambdarank",
     # no objective: the caller gives the gradients (train(fobj=...))
     "none": "none", "null": "none", "custom": "none", "na": "none"}
-# lightgbm_tpu/metric/__init__.py metric_canonical_name, without the
-# ranking metrics (they need query groups)
+MULTICLASS_OBJECTIVES = ("multiclass", "multiclassova")
+# lightgbm_tpu/metric/__init__.py metric_canonical_name
 METRIC_ALIASES = {
     "l2": "l2", "mean_squared_error": "l2", "mse": "l2", "regression": "l2",
     "regression_l2": "l2",
@@ -190,10 +213,18 @@ METRIC_ALIASES = {
     "cross_entropy_lambda": "cross_entropy_lambda",
     "xentlambda": "cross_entropy_lambda",
     "kullback_leibler": "kullback_leibler", "kldiv": "kullback_leibler",
+    "ndcg": "ndcg", "lambdarank": "ndcg",
+    "map": "map", "mean_average_precision": "map",
 }
-# objective -> its metric when none is named ("none" has none)
-DEFAULT_METRIC = {"regression": "l2", "binary": "binary_logloss",
-                  "multiclass": "multi_logloss"}
+# objective -> its metric when none is named ("none" has none;
+# lightgbm_tpu/metric/__init__.py default_metric_for_objective)
+DEFAULT_METRIC = {
+    "regression": "l2", "regression_l1": "l1", "huber": "huber",
+    "fair": "fair", "poisson": "poisson", "quantile": "quantile",
+    "mape": "mape", "gamma": "gamma", "tweedie": "tweedie",
+    "binary": "binary_logloss", "multiclass": "multi_logloss",
+    "multiclassova": "multi_logloss", "cross_entropy": "cross_entropy",
+    "cross_entropy_lambda": "cross_entropy_lambda", "lambdarank": "ndcg"}
 _TRUE_SET = {"true", "1", "yes", "+", "on"}
 _FALSE_SET = {"false", "0", "no", "-", "off"}
 
@@ -276,13 +307,11 @@ class Config:
     def _post_process(self) -> None:
         obj = str(self.objective).strip().lower()
         if obj not in OBJECTIVE_ALIASES:
-            raise NotImplementedError(
-                f"objective {obj!r} is not supported by lightgbm_tpu_torch "
-                "(only regression, binary, multiclass and none)")
+            raise LightGBMError(f"Unknown objective type name: {obj}")
         self.objective = OBJECTIVE_ALIASES[obj]
-        if self.objective == "multiclass" and self.num_class <= 1:
+        if self.objective in MULTICLASS_OBJECTIVES and self.num_class <= 1:
             raise LightGBMError("num_class must be > 1 for multiclass")
-        if (self.objective not in ("multiclass", "none")
+        if (self.objective not in MULTICLASS_OBJECTIVES + ("none",)
                 and self.num_class != 1):
             raise LightGBMError("num_class must be 1 for non-multiclass "
                                 "objectives")

@@ -5,7 +5,8 @@ inputs:
 
   * ``dataset_from_arrays``: a binned dataset (the row-major ``binned``
     matrix of the used features, each BinMapper in its ``to_dict()``
-    form, the labels) -> a port Dataset over the same bins;
+    form, the labels, and the metadata: weights, query group sizes, init
+    scores) -> a port Dataset over the same bins;
   * ``trees_from_arrays``: trained trees, each given as its numpy fields
     (``vars(tree)``) -> port Trees.
 
@@ -27,11 +28,15 @@ from .models.tree import Tree
 
 def dataset_from_arrays(binned: np.ndarray, bin_mappers: Sequence[Dict],
                         label: Optional[np.ndarray] = None,
-                        feature_names: Optional[List[str]] = None
+                        feature_names: Optional[List[str]] = None,
+                        weights: Optional[np.ndarray] = None,
+                        group: Optional[np.ndarray] = None,
+                        init_score: Optional[np.ndarray] = None
                         ) -> Dataset:
     mappers = [BinMapper.from_dict(d) for d in bin_mappers]
     ds = TorchDataset.from_bins(np.asarray(binned).T, mappers, label,
-                                feature_names)
+                                feature_names, weights=weights, group=group,
+                                init_score=init_score)
     return Dataset(ds)
 
 

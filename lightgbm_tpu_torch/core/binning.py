@@ -73,22 +73,46 @@ def greedy_find_bin(distinct_values: np.ndarray, counts: np.ndarray,
     lower_bounds = [math.inf] * max_bin
     bin_cnt = 0
     lower_bounds[0] = float(distinct_values[0])
-    cur_cnt = 0
-    for i in range(num_distinct - 1):
+    # The reference walks the distinct values one by one, cutting a bin
+    # at value i when i is big, when the bin's count reaches
+    # mean_bin_size, or when value i + 1 is big and the count reaches half
+    # of it.  Between two cuts mean_bin_size is fixed and the count is an
+    # integer prefix sum, so each next cut is found by searchsorted on the
+    # prefix sums (count >= x <=> count >= ceil(x)) and a next-big table:
+    # the same cuts, without a Python step a value.
+    csum = np.concatenate([[0], np.cumsum(counts, dtype=np.int64)])
+    rest_csum = np.concatenate(
+        [[0], np.cumsum(np.where(is_big, 0, counts), dtype=np.int64)])
+    big_at = np.nonzero(is_big)[0]
+    last = num_distinct - 2          # the loop's last value
+
+    def next_big(k):
+        """The first big value at index >= k (num_distinct if none)."""
+        p = np.searchsorted(big_at, k, side="left")
+        return int(big_at[p]) if p < len(big_at) else num_distinct
+
+    start = 0
+    while start <= last:
+        base = int(csum[start])
+        cut_full = int(np.searchsorted(
+            csum, base + math.ceil(mean_bin_size), side="left")) - 1
+        half = int(np.searchsorted(
+            csum, base + math.ceil(max(1.0, mean_bin_size * 0.5)),
+            side="left")) - 1
+        i = min(next_big(start), max(cut_full, start),
+                next_big(max(half, start) + 1) - 1)
+        if i > last:
+            break
+        rest_sample_cnt -= int(rest_csum[i + 1] - rest_csum[start])
+        upper_bounds[bin_cnt] = float(distinct_values[i])
+        bin_cnt += 1
+        lower_bounds[bin_cnt] = float(distinct_values[i + 1])
+        if bin_cnt >= max_bin - 1:
+            break
         if not is_big[i]:
-            rest_sample_cnt -= int(counts[i])
-        cur_cnt += int(counts[i])
-        if (is_big[i] or cur_cnt >= mean_bin_size or
-                (is_big[i + 1] and cur_cnt >= max(1.0, mean_bin_size * 0.5))):
-            upper_bounds[bin_cnt] = float(distinct_values[i])
-            bin_cnt += 1
-            lower_bounds[bin_cnt] = float(distinct_values[i + 1])
-            if bin_cnt >= max_bin - 1:
-                break
-            cur_cnt = 0
-            if not is_big[i]:
-                rest_bin_cnt -= 1
-                mean_bin_size = rest_sample_cnt / max(rest_bin_cnt, 1)
+            rest_bin_cnt -= 1
+            mean_bin_size = rest_sample_cnt / max(rest_bin_cnt, 1)
+        start = i + 1
     bin_cnt += 1
     for i in range(bin_cnt - 1):
         val = _next_after_up((upper_bounds[i] + lower_bounds[i + 1]) / 2.0)
@@ -282,13 +306,11 @@ class BinMapper:
                 self.missing_type = MISSING_NONE
         self.bin_upper_bound = np.asarray(bounds, dtype=np.float64)
         self.num_bin = len(bounds)
-        # count per bin for trivial-feature filtering
-        cnt_in_bin = [0] * self.num_bin
-        i_bin = 0
-        for v, c in zip(distinct, counts):
-            while v > self.bin_upper_bound[i_bin]:
-                i_bin += 1
-            cnt_in_bin[i_bin] += int(c)
+        # count per bin for trivial-feature filtering: each distinct value
+        # in the first bin whose upper bound is >= it
+        cnt_in_bin = np.bincount(
+            np.searchsorted(self.bin_upper_bound, distinct, side="left"),
+            weights=counts, minlength=self.num_bin).astype(np.int64).tolist()
         if self.missing_type == MISSING_NAN:
             cnt_in_bin[self.num_bin - 1] = na_cnt
         check(self.num_bin <= max_bin, "num_bin exceeds max_bin")

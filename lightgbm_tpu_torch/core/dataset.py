@@ -10,21 +10,35 @@ grouping and raises where a multi-feature group forms, since storing and
 expanding a group is not ported yet; on data where none forms (dense
 data) the matrix is the unbundled one.  Categorical columns are named at
 construction (``categorical_features``) and binned by category
-(core/binning.py).
+(core/binning.py).  The metadata (core/metadata.py) holds labels, sample
+weights, query groups and init scores.
 """
 
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..config import Config
+from ..models.tree import PARALLEL_ROWS, _walk_workers
 from ..utils.log import check, log_warning
 from .binning import BIN_TYPE_CATEGORICAL, BIN_TYPE_NUMERICAL, BinMapper
 from .bundle import build_bundle
 from .metadata import Metadata
+
+
+def _per_feature(fn, features, num_rows: int) -> list:
+    """[fn(f) for f in features]; past PARALLEL_ROWS rows, one feature a
+    thread on the cores (numpy's sorts and searches release the GIL).
+    Each feature's result does not depend on the threads."""
+    workers = _walk_workers()
+    if num_rows < PARALLEL_ROWS or workers == 1 or len(features) <= 1:
+        return [fn(f) for f in features]
+    with ThreadPoolExecutor(workers) as pool:
+        return list(pool.map(fn, features))
 
 
 class FeatureInfo:
@@ -58,13 +72,18 @@ class TorchDataset:
                    config: Optional[Config] = None,
                    feature_names: Optional[List[str]] = None,
                    reference: Optional["TorchDataset"] = None,
-                   categorical_features: Sequence[int] = ()
+                   categorical_features: Sequence[int] = (),
+                   weights: Optional[np.ndarray] = None,
+                   group: Optional[np.ndarray] = None,
+                   init_score: Optional[np.ndarray] = None
                    ) -> "TorchDataset":
         """Build a dataset from a raw [N, F] float matrix
         (DatasetLoader::CostructFromSampleData, dataset_loader.cpp:553).
         ``categorical_features`` are column indices binned by category.
         With ``reference`` its bin mappers are reused, so validation data
-        aligns with the training bins (Dataset::CreateValid)."""
+        aligns with the training bins (Dataset::CreateValid).
+        ``weights`` [N], ``group`` (query sizes) and ``init_score`` [C*N,
+        class-major] go to the metadata."""
         cfg = config or Config(device_type="cpu")
         data = np.asarray(data)
         if data.ndim != 2:
@@ -96,10 +115,20 @@ class TorchDataset:
                         "is not ported to lightgbm_tpu_torch yet; pass "
                         "enable_bundle=False")
         ds._quantize(data)
-        ds.metadata.init(n)
-        if label is not None:
-            ds.metadata.set_label(label)
+        ds._set_metadata(label, weights, group, init_score)
         return ds
+
+    def _set_metadata(self, label, weights, group, init_score) -> None:
+        md = self.metadata
+        md.init(self.num_data)
+        if label is not None:
+            md.set_label(label)
+        if weights is not None:
+            md.set_weights(weights)
+        if group is not None:
+            md.set_query(group)
+        if init_score is not None:
+            md.set_init_score(init_score)
 
     @staticmethod
     def _sample_indices(n: int, cfg: Config) -> np.ndarray:
@@ -113,17 +142,18 @@ class TorchDataset:
     def _fit_bin_mappers(self, data: np.ndarray, cfg: Config,
                          categorical: set) -> None:
         sample_idx = self._sample_indices(data.shape[0], cfg)
-        self.bin_mappers = [
-            BinMapper().find_bin(
-                np.asarray(data[sample_idx, f], dtype=np.float64),
+        sample = np.asarray(data[sample_idx], dtype=np.float64)
+        self.bin_mappers = _per_feature(
+            lambda f: BinMapper().find_bin(
+                np.ascontiguousarray(sample[:, f]),
                 total_sample_cnt=len(sample_idx), max_bin=cfg.max_bin,
                 min_data_in_bin=cfg.min_data_in_bin,
                 min_split_data=cfg.min_data_in_leaf,
                 bin_type=(BIN_TYPE_CATEGORICAL if f in categorical
                           else BIN_TYPE_NUMERICAL),
                 use_missing=cfg.use_missing,
-                zero_as_missing=cfg.zero_as_missing)
-            for f in range(data.shape[1])]
+                zero_as_missing=cfg.zero_as_missing),
+            range(data.shape[1]), len(sample_idx))
         self._set_used_features()
 
     def _set_used_features(self) -> None:
@@ -164,19 +194,26 @@ class TorchDataset:
     def _quantize(self, data: np.ndarray) -> None:
         used = self.used_feature_indices
         out = np.empty((len(used), data.shape[0]), dtype=np.uint8)
-        for j, f in enumerate(used):
-            out[j] = self.bin_mappers[f].value_to_bin(
-                np.asarray(data[:, f], dtype=np.float64))
+
+        def quantize(j):
+            out[j] = self.bin_mappers[used[j]].value_to_bin(
+                np.asarray(data[:, used[j]], dtype=np.float64))
+
+        _per_feature(quantize, range(len(used)), data.shape[0])
         self.bins_t = out
         self._device_cache = {}
 
     @classmethod
     def from_bins(cls, bins_t: np.ndarray, bin_mappers: List[BinMapper],
                   label: Optional[np.ndarray] = None,
-                  feature_names: Optional[List[str]] = None
+                  feature_names: Optional[List[str]] = None,
+                  weights: Optional[np.ndarray] = None,
+                  group: Optional[np.ndarray] = None,
+                  init_score: Optional[np.ndarray] = None
                   ) -> "TorchDataset":
         """A dataset from an already-binned feature-major matrix of the
-        non-trivial features of ``bin_mappers``."""
+        non-trivial features of ``bin_mappers``, with from_numpy's
+        metadata."""
         ds = cls()
         ds.bin_mappers = list(bin_mappers)
         ds.num_total_features = len(bin_mappers)
@@ -188,9 +225,7 @@ class TorchDataset:
         ds.num_data = bins_t.shape[1]
         ds.feature_names = (list(feature_names) if feature_names else
                             [f"Column_{i}" for i in range(len(bin_mappers))])
-        ds.metadata.init(ds.num_data)
-        if label is not None:
-            ds.metadata.set_label(label)
+        ds._set_metadata(label, weights, group, init_score)
         return ds
 
     # ---------------------------------------------------------------- access
@@ -218,7 +253,8 @@ class TorchDataset:
     def subset(self, indices: np.ndarray) -> "TorchDataset":
         """The rows ``indices`` (sorted), sharing this dataset's bin
         mappers (Dataset::CopySubset, dataset.cpp:503; the JAX Booster's
-        Dataset.subset)."""
+        Dataset.subset), with their labels, weights and init scores, and
+        their query groups where the rows are whole queries."""
         indices = np.asarray(indices, dtype=np.int64)
         sub = TorchDataset()
         sub.num_data = len(indices)

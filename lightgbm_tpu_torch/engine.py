@@ -158,12 +158,26 @@ class CVBooster:
 
 def _make_n_folds(full_data: Dataset, nfold: int, seed: int,
                   stratified: bool, shuffle: bool):
-    """(train rows, test rows) of each fold: stratified by label (every
-    nfold-th row of the label order), else a (shuffled) split in order.
-    The JAX package's folds for the same seed; its query-group folds need
-    query groups, which the port does not have."""
+    """(train rows, test rows) of each fold, the JAX package's for the
+    same seed: whole queries dealt to the folds in turn (shuffled) where
+    the data has query groups; else stratified by label (every nfold-th
+    row of the label order), else a (shuffled) split in order."""
     num_data = full_data.num_data()
     rng = np.random.RandomState(seed)
+    group = full_data.get_group()
+    if group is not None:
+        gidx = np.arange(len(group))
+        if shuffle:
+            rng.shuffle(gidx)
+        bounds = np.concatenate([[0], np.cumsum(group)]).astype(np.int64)
+        for f in range(nfold):
+            test_rows = np.sort(np.concatenate(
+                [np.arange(bounds[g], bounds[g + 1])
+                 for g in gidx[f::nfold]] or [np.zeros(0, np.int64)]))
+            train = np.ones(num_data, dtype=bool)
+            train[test_rows] = False
+            yield np.flatnonzero(train), test_rows
+        return
     label = full_data.get_label()
     if stratified and label is not None:
         order = np.argsort(label, kind="stable")

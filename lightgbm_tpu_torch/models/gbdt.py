@@ -9,7 +9,11 @@ in one K5 launch (``histogram_all``, as the JAX loop does, gbdt.py:
 grower or, with ``tpu_tree_impl=frontier``, the frontier grower, the
 class's training score updated through the score kernel (K4), the tree
 finalized on the host.  Trees are kept class by class within
-each iteration (tree i is class i % C).
+each iteration (tree i is class i % C).  The training score starts from
+the train set's ``init_score`` where it has one (and then is not boosted
+from the average), a valid set's from its own; an objective with leaf
+renewal (L1, quantile, MAPE) refits a tree's leaves between its growth
+and its score update.
 """
 
 from __future__ import annotations
@@ -192,6 +196,7 @@ class GBDT(TreeEnsemble):
         self.models: List[Tree] = []
         self.iter_ = 0
         self.iter_seconds: List[float] = []   # wall time of each iteration
+        self.renew_seconds: List[float] = []  # each tree's leaf renewal
         self.init_scores = [0.0] * self.num_tree_per_iteration
         self._boosted_from_average = False
         self._stop = False
@@ -230,9 +235,8 @@ class GBDT(TreeEnsemble):
         else:
             self.grower = SegmentGrower(self.num_bins, params, rb,
                                         fused_route=fused_route)
-        self.train_score = torch.zeros(
-            (self.num_tree_per_iteration, self.num_data),
-            dtype=torch.float32, device=self.device)
+        self.train_score = self._initial_score(train_set).to(
+            torch.float32).to(self.device)
         self.valid_sets: List[Tuple[str, TorchDataset]] = []
         # raw scores of each valid set, [N] (C = 1) or [C, N]
         self.valid_scores: List[np.ndarray] = []
@@ -245,13 +249,27 @@ class GBDT(TreeEnsemble):
             m.init(train_set.metadata, self.num_data)
         self.valid_metrics = []
 
-    def _replay_scores(self, dataset: TorchDataset) -> np.ndarray:
-        """[C, N] f64 raw scores of the current model on ``dataset``: every
-        tree walked over its binned rows, then the init scores
-        (lightgbm_tpu/models/gbdt.py _replay_model_scores; gbdt.cpp
-        AddValidDataset)."""
+    def _initial_score(self, dataset: TorchDataset) -> torch.Tensor:
+        """[C, N] f64: the dataset's init scores (class-major), else
+        zeros (lightgbm_tpu/models/gbdt.py:725-731, :936-939)."""
         C = self.num_tree_per_iteration
-        score = np.zeros((C, dataset.num_data), dtype=np.float64)
+        init = dataset.metadata.init_score
+        if init is None:
+            return torch.zeros((C, dataset.num_data), dtype=torch.float64)
+        init = np.asarray(init, dtype=np.float64)
+        if init.size != C * dataset.num_data:
+            raise LightGBMError(
+                f"init_score has {init.size} values, expected "
+                f"{C} x {dataset.num_data}")
+        return torch.from_numpy(init.reshape(C, dataset.num_data).copy())
+
+    def _replay_scores(self, dataset: TorchDataset) -> np.ndarray:
+        """[C, N] f64 raw scores of the current model on ``dataset``: its
+        init scores, every tree walked over its binned rows, then the
+        boost-from-average scores (lightgbm_tpu/models/gbdt.py
+        _replay_model_scores; gbdt.cpp AddValidDataset)."""
+        C = self.num_tree_per_iteration
+        score = self._initial_score(dataset).numpy()
         infos = dataset.feature_infos()
         for i, tree in enumerate(self.models[:self.iter_ * C]):
             score[i % C] += tree.predict_binned(dataset.bins_t, infos)
@@ -273,7 +291,8 @@ class GBDT(TreeEnsemble):
         if self._boosted_from_average:
             return
         self._boosted_from_average = True
-        if self.objective is None or not self.config.boost_from_average:
+        if (self.objective is None or not self.config.boost_from_average
+                or self.train_set.metadata.init_score is not None):
             return
         C = self.num_tree_per_iteration
         for k in range(C):
@@ -351,13 +370,18 @@ class GBDT(TreeEnsemble):
             if arrays.num_leaves <= 1:
                 trees.append(Tree(1))
                 continue
-            table = torch.from_numpy(
-                np.float32(self.shrinkage_rate) * arrays.leaf_value).to(
-                    self.device)
             row = self.train_score[k]
-            score_gather_add(row, leaf_id[:self.num_data], table, out=row)
-            trees.append(Tree.from_grown(arrays, self.train_set,
-                                         self.shrinkage_rate))
+            if self.objective is not None \
+                    and self.objective.is_renew_tree_output:
+                tree, table = self._renewed_tree(arrays, leaf_id, row)
+            else:
+                tree = Tree.from_grown(arrays, self.train_set,
+                                       self.shrinkage_rate)
+                table = np.float32(self.shrinkage_rate) * arrays.leaf_value
+            score_gather_add(row, leaf_id[:self.num_data],
+                             torch.from_numpy(table).to(self.device),
+                             out=row)
+            trees.append(tree)
         if all(t.num_leaves <= 1 for t in trees):
             log_warning("Stopped training because there are no more leaves "
                         "that meet the split requirements")
@@ -375,6 +399,21 @@ class GBDT(TreeEnsemble):
             torch.cuda.synchronize(self.device)
         self.iter_seconds.append(time.perf_counter() - t0)
         return False
+
+    def _renewed_tree(self, arrays, leaf_id: torch.Tensor,
+                      score: torch.Tensor):
+        """A grown tree whose leaves the objective refits from its rows'
+        residuals against ``score`` (the class's training score before
+        this tree), then the learning rate, and its f32 leaf table for the
+        score update (lightgbm_tpu/models/gbdt.py:1698-1713)."""
+        t0 = time.perf_counter()
+        tree = Tree.from_arrays(arrays, self.train_set)
+        tree.leaf_value = np.array(self.objective.renew_tree_output(
+            tree.leaf_value, leaf_id[:self.num_data], score),
+            dtype=np.float64)[:tree.num_leaves]
+        tree.apply_shrinkage(self.shrinkage_rate)
+        self.renew_seconds.append(time.perf_counter() - t0)
+        return tree, tree.leaf_value.astype(np.float32)
 
     def rollback_one_iter(self) -> None:
         """Remove the last iteration's trees and their scores
@@ -398,13 +437,27 @@ class GBDT(TreeEnsemble):
         self.iter_ -= 1
 
     # --------------------------------------------------------------- eval
+    def _eval_score(self, score: np.ndarray, metrics
+                    ) -> List[Tuple[str, float, bool]]:
+        """(name, value, higher_better) of each metric; a ranking metric
+        gives one "name@k" a position (lightgbm_tpu/models/gbdt.py
+        _eval_score)."""
+        out = []
+        for m in metrics:
+            if hasattr(m, "eval_multi"):
+                out.extend((f"{m.name}@{k}", float(v), m.higher_better)
+                           for k, v in zip(m.eval_at, m.eval_multi(
+                               score, self.objective)))
+            else:
+                out.append((m.name, float(m.eval(score, self.objective)),
+                            m.higher_better))
+        return out
+
     def eval_train(self) -> List[Tuple[str, float, bool]]:
         score = self._layout(
             self.train_score.cpu().numpy().astype(np.float64))
-        return [(m.name, m.eval(score, self.objective), m.higher_better)
-                for m in self.train_metrics]
+        return self._eval_score(score, self.train_metrics)
 
     def eval_valid(self, i: int) -> List[Tuple[str, float, bool]]:
         """The metrics of valid set ``i``."""
-        return [(m.name, m.eval(self.valid_scores[i], self.objective),
-                 m.higher_better) for m in self.valid_metrics[i]]
+        return self._eval_score(self.valid_scores[i], self.valid_metrics[i])

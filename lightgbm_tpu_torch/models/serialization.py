@@ -41,6 +41,9 @@ def _join(arr, fmt=str) -> str:
 def _objective_to_string(config) -> str:
     if config.objective == "multiclass":
         return f"multiclass num_class:{config.num_class}"
+    if config.objective == "multiclassova":
+        return (f"multiclassova num_class:{config.num_class} "
+                f"sigmoid:{_fmt(config.sigmoid)}")
     if config.objective == "binary":
         return f"binary sigmoid:{_fmt(config.sigmoid)}"
     return config.objective

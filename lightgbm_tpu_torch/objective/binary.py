@@ -1,8 +1,10 @@
 """Binary log-loss objective.
 
-Reference: src/objective/binary_objective.hpp:21-180 — labels converted to
-±1, sigmoid-scaled logistic gradients, is_unbalance / scale_pos_weight
-label weighting, boost-from-average in log-odds.
+Counterpart of lightgbm_tpu/objective/binary.py; reference
+src/objective/binary_objective.hpp:21-180: labels converted to +-1,
+sigmoid-scaled logistic gradients, is_unbalance / scale_pos_weight label
+weighting (sample weights multiplied after it), boost-from-average in
+log-odds of the (weighted) positive rate.
 """
 
 from __future__ import annotations
@@ -52,13 +54,18 @@ class BinaryLogloss(ObjectiveFunction):
         abs_response = torch.abs(response)
         grad = response * self.label_weight
         hess = abs_response * (s - abs_response) * self.label_weight
-        return grad, hess
+        return self._apply_weights(grad, hess)
 
     def boost_from_score(self, class_id: int = 0):
-        """log-odds of the positive rate / sigmoid
+        """log-odds of the (weighted) positive rate / sigmoid
         (binary_objective.hpp:131-150)."""
-        pavg = min(max(self.cnt_pos / max(float(self.num_data), 1e-10),
-                       1e-10), 1.0 - 1e-10)
+        if self.weights_np is not None:
+            suml = float(np.sum((self.label_np > 0) * self.weights_np))
+            sumw = float(np.sum(self.weights_np))
+        else:
+            suml = float(self.cnt_pos)
+            sumw = float(self.num_data)
+        pavg = min(max(suml / max(sumw, 1e-10), 1e-10), 1.0 - 1e-10)
         init = np.log(pavg / (1.0 - pavg)) / self.sigmoid
         log_info(f"[binary:BoostFromScore]: pavg={pavg:.6f} -> "
                  f"initscore={init:.6f}")

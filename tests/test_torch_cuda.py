@@ -1347,3 +1347,186 @@ def test_rollback_one_iter_on_card(dev):
     rolled.update()
     ref.update()
     assert _same_splits(rolled.gbdt.models, ref.gbdt.models) >= 20
+
+
+# ------------------------------------------------ weights, ranks, renewal
+def _weights(n, seed):
+    """Sample weights log-uniform over 1e-3..1e3, every 13th row 0."""
+    w = np.exp(np.random.RandomState(seed).uniform(
+        np.log(1e-3), np.log(1e3), size=n)).astype(np.float32)
+    w[::13] = 0.0
+    return w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F,B", [(28, 64), (28, 256)])
+def test_segment_kernels_with_heavy_tailed_weights(dev, F, B):
+    """K1 and K3 on weighted gradients (weights over 1e-3..1e3, rows of
+    weight 0 still members): the fixed-point scale is set by the largest
+    |g w| and is coarse for the rest; the sums stay within 1e-5 of the
+    bin's sum of |value|, the counts count every member row."""
+    fm, binsT, _, lid = _segment_layout(F, B, F + B + 1)
+    n = binsT.shape[1]
+    rng = np.random.RandomState(F + B)
+    w = torch.from_numpy(_weights(n, F + B))
+    grad = torch.from_numpy(rng.normal(size=n).astype(np.float32)) * w
+    hess = torch.from_numpy(rng.uniform(0.01, 0.25, size=n).astype(
+        np.float32)) * w
+    w8 = th.pack_channels(grad, hess, torch.ones(n))
+    scales = th.fixed_point_scales(w8)
+    d_bins, d_w8, d_scales = binsT.to(dev), w8.to(dev), scales.to(dev)
+    for lo, nblk in _SEG_WINDOWS:
+        for target in (0, 1, 2):
+            want = th.histogram_segment_plain(binsT, w8, lid, lo, nblk,
+                                              target, B, RB)
+            got = th.histogram_segment(d_bins, d_w8, lid.to(dev), lo, nblk,
+                                       target, B, RB, d_scales)
+            _assert_hist(got, want, w8, binsT, lid, lo, nblk, target, B)
+    for route in _routes(fm, F)[:4]:
+        want_lid, want = th.histogram_segment_routed_plain(
+            binsT, w8, lid.clone(), 0, 16, 6, route, B, RB)
+        got_lid, got = th.histogram_segment_routed(
+            d_bins, d_w8, lid.to(dev), 0, 16, 6, route, B, RB, d_scales)
+        assert torch.equal(got_lid.cpu(), want_lid)
+        _assert_hist(got, want, w8, binsT, want_lid, 0, 16, 6, B)
+
+
+def _rank_data(n_queries=400, seed=31):
+    rng = np.random.RandomState(seed)
+    sizes = rng.randint(1, 120, size=n_queries)
+    n = int(sizes.sum())
+    X = rng.normal(size=(n, 10))
+    y = np.clip(np.round(X[:, 0] + 0.5 * X[:, 1] + 1.5
+                         + 0.5 * rng.normal(size=n)), 0, 4)
+    return X, y, sizes
+
+
+@pytest.mark.cuda
+def test_lambdarank_gradients_on_card_equal_cpu(dev):
+    """The same lambdas on the card as on the CPU (within 1e-5 of the
+    largest), the same bits on a second call."""
+    from lightgbm_tpu_torch.objective import create_objective
+    X, y, sizes = _rank_data()
+    md = lt.Dataset(X, y, group=sizes, weight=_weights(len(y), 3)
+                    ).construct()._handle.metadata
+    out = {}
+    for d in ("cuda", "cpu"):
+        obj = create_objective(lt.Config(device_type=d,
+                                         objective="lambdarank"))
+        obj.init(md, len(y), torch.device(d))
+        score = torch.from_numpy(np.round(np.random.RandomState(4).normal(
+            size=len(y)), 1).astype(np.float32)).to(d)
+        runs = [obj.get_gradients(score) for _ in range(2)]
+        out[d] = [(g.cpu(), h.cpu()) for g, h in runs]
+    (g0, h0), (g1, h1) = out["cuda"]
+    assert torch.equal(g0, g1) and torch.equal(h0, h1)
+    gc, hc = out["cpu"][0]
+    for a, b in ((g0, gc), (h0, hc)):
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max()
+
+
+def _objective_data(objective, n=30_000, seed=41):
+    rng = np.random.RandomState(seed)
+    X = rng.normal(size=(n, 12))
+    f = X[:, 0] + 0.5 * X[:, 1] - 0.3 * X[:, 2] ** 2
+    if objective == "poisson":
+        y = rng.poisson(np.exp(0.4 * f)).astype(np.float64)
+    elif objective == "multiclassova":
+        y = np.digitize(f + 0.3 * rng.normal(size=n), [-1.0, 0.0, 0.8])
+    else:
+        y = 3.0 * f + rng.normal(size=n)
+    return X, y.astype(np.float64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("objective", ["regression", "regression_l1",
+                                       "poisson", "multiclassova",
+                                       "lambdarank"])
+def test_weighted_offset_and_rank_boosters_on_card_equal_cpu(dev,
+                                                             objective):
+    """Weighted (with weight-0 rows), init-scored and lambdarank
+    boosters: card = CPU splits up to a near-tie, raw predictions within
+    1e-3; L1's renewed leaves are the host percentile of the card's own
+    leaf ids and scores."""
+    if objective == "lambdarank":
+        X, y, group = _rank_data()
+    else:
+        X, y = _objective_data(objective)
+        group = None
+    n = len(y)
+    C = 4 if objective == "multiclassova" else 1
+    init = 0.2 * np.random.RandomState(5).normal(size=C * n)
+    params = dict(objective=objective, num_leaves=15, verbosity=-1,
+                  learning_rate=0.3, **({"num_class": C} if C > 1 else {}))
+    w = np.exp(np.random.RandomState(6).uniform(-2.0, 2.0, size=n))
+    w[::17] = 0.0
+    out = {}
+    for d in ("cuda", "cpu"):
+        ds = lt.Dataset(X, y, weight=w, group=group, init_score=init)
+        bst = lt.Booster(dict(params, device_type=d), ds)
+        for _ in range(3):
+            bst.update()
+        out[d] = bst
+    card, cpu = out["cuda"], out["cpu"]
+    assert _same_splits(card.gbdt.models, cpu.gbdt.models) >= 10
+    np.testing.assert_allclose(card.predict(X, raw_score=True),
+                               cpu.predict(X, raw_score=True), rtol=0,
+                               atol=1e-3)
+    if objective == "regression_l1":
+        assert len(card.gbdt.renew_seconds) == 3
+
+
+@pytest.mark.cuda
+def test_l1_renewal_on_card_is_the_host_percentile(dev):
+    """The renewal groups rows by leaf on the card; each leaf's value is
+    bit for bit the host percentile of its rows' residuals."""
+    from lightgbm_tpu_torch.objective.base import weighted_percentile
+    X, y = _objective_data("regression_l1")
+    w = _weights(len(y), 7)
+    bst = lt.Booster(dict(objective="regression_l1", num_leaves=31,
+                          verbosity=-1, device_type="cuda"),
+                     lt.Dataset(X, y, weight=w))
+    bst.update()
+    score = bst.gbdt.train_score[0].clone()
+    leaf_values = np.random.RandomState(8).normal(size=31)
+    leaf_id = torch.from_numpy(np.random.RandomState(9).randint(
+        0, 30, size=len(y)).astype(np.int32)).to(dev)
+    got = bst.gbdt.objective.renew_tree_output(leaf_values, leaf_id, score)
+    lid = leaf_id.cpu().numpy()
+    r = y.astype(np.float32).astype(np.float64) - score.cpu().numpy(
+    ).astype(np.float64)
+    want = leaf_values.copy()
+    for k in range(31):
+        sel = lid == k
+        if sel.any():
+            want[k] = weighted_percentile(r[sel], w[sel], 0.5)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_weighted_and_unweighted_boosters_in_turns_grow_their_solo_models(
+        dev):
+    """A weighted booster and an unweighted one on one card, updated in
+    turns, each grow bit for bit the model text they grow alone: the
+    weighted gradients reach the device loop's graphs through the same
+    in-place tensors."""
+    X, y = _session_data()
+    w = _weights(len(y), 11)
+    params = dict(SESSION_PARAMS, device_type="cuda")
+
+    def boosters():
+        return [lt.Booster(params, lt.Dataset(X, y, weight=w)),
+                lt.Booster(params, lt.Dataset(X, y))]
+
+    solo = []
+    for b in boosters():
+        for _ in range(4):
+            b.update()
+        solo.append(b.model_to_string())
+        del b
+    turns = boosters()
+    for _ in range(4):
+        for b in turns:
+            b.update()
+    assert [b.model_to_string() for b in turns] == solo
+    assert solo[0] != solo[1]

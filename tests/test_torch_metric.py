@@ -1,9 +1,10 @@
 """The port's metrics (lightgbm_tpu_torch.metric) against the JAX
 package's (lightgbm_tpu.metric) on the same seeded scores and labels,
 with no training: every metric but the ranking ones (ndcg and map need
-query groups), each through the raw score and, where it has one, through
-an objective's link.  Held to 1e-9 relative: both are float64 numpy
-over the same formula.
+query groups: tests/test_torch_rank.py), each through the raw score and,
+where it has one, through an objective's link, without and with sample
+weights.  Held to 1e-9 relative: both are float64 numpy over the same
+formula.
 """
 
 from types import SimpleNamespace
@@ -52,8 +53,9 @@ def _case(kind, seed=3):
     return score, np.round(rng.normal(size=N) + score, 1)
 
 
-def _pair(name, label, port_cfg=None):
-    md = SimpleNamespace(label=label, weights=None, query_boundaries=None)
+def _pair(name, label, port_cfg=None, weights=None):
+    md = SimpleNamespace(label=label, weights=weights,
+                         query_boundaries=None)
     jm = jax_metric.create_metric(name, JaxConfig(**PARAMS))
     pm = port_metric.create_metric(
         name, port_cfg or lt.Config(device_type="cpu", **PARAMS))
@@ -93,11 +95,27 @@ def test_metric_matches_jax_through_the_objective_link(name, objective):
         want, rel=1e-9, abs=0)
 
 
+@pytest.mark.parametrize("name", sorted(METRICS))
+def test_weighted_metric_matches_jax(name):
+    """Sample weights log-uniform over 1e-3..1e3, some 0: the weighted
+    mean of the losses (cross_entropy_lambda: the weight as exposure, an
+    unweighted mean, as the JAX package has it; auc: the weighted
+    rank sum)."""
+    score, label = _case(METRICS[name], seed=7)
+    rng = np.random.RandomState(8)
+    w = np.exp(rng.uniform(np.log(1e-3), np.log(1e3), size=N))
+    w[::11] = 0.0
+    jm, pm = _pair(name, label, weights=w)
+    want = jm.eval(score, None)
+    assert np.isfinite(want)
+    assert pm.eval(score, None) == pytest.approx(want, rel=1e-9, abs=0)
+    assert pm.eval(score, None) != pytest.approx(
+        _pair(name, label)[1].eval(score, None), rel=1e-6, abs=0)
+
+
 def test_metric_aliases_are_jax_without_ranking():
-    want = {k: v for k, v in jax_metric._ALIASES.items()
-            if v not in ("ndcg", "map")}
-    assert METRIC_ALIASES == want
-    assert set(METRIC_ALIASES.values()) == set(METRICS)
+    assert METRIC_ALIASES == jax_metric._ALIASES
+    assert set(METRIC_ALIASES.values()) == set(METRICS) | {"ndcg", "map"}
     cfg = lt.Config(device_type="cpu",
                     metric=["mae", "rmse", "l1", "xentropy"])
     assert cfg.metric == ["l1", "rmse", "cross_entropy"]

@@ -243,11 +243,11 @@ def test_default_device_without_cuda_raises(monkeypatch):
     {"bagging_fraction": 0.5, "bagging_freq": 1},
     {"feature_fraction": 0.8},
     {"max_bin_by_feature": [3, 4]},
-    {"objective": "huber"},
-    {"objective": "multiclassova", "num_class": 3},
+    {"boosting": "dart"},
+    {"tree_learner": "data"},
     {"tpu_tree_impl": "fused"},
     {"no_such_parameter": 1},
-    {"metric": "ndcg"},
+    {"monotone_constraints": [1, 0]},
 ])
 def test_unsupported_parameter_raises(params):
     with pytest.raises(NotImplementedError):
