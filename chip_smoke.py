@@ -6,7 +6,7 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``lightgbm_tpu_torch/csrc`` and runs
-nineteen phases; any failure exits non-zero:
+twenty-two phases; any failure exits non-zero:
 
   1. build    nvcc for sm_90a; prints ptxas's register/shared-memory lines
               and the card's name and power limit, and for the K1/K3,
@@ -155,6 +155,37 @@ nineteen phases; any failure exits non-zero:
               within 1e-4), raw predictions within 1e-3; a weighted and an
               unweighted booster updated in turns on the card grow their
               solo model texts.
+ 20. goss_regression  BASELINE config 2 at bench_suite.py's shape: its
+              generator (2M rows x 28 features, a nonlinear regression
+              target), ``boosting=goss``, 255 leaves, max_bin 63, lr 0.1,
+              min_sum_hessian_in_leaf 100, 25 iterations: 10 of warm-up
+              on every row, then each iteration's bag is the selection of
+              its own gradients and key (recomputed on the card; the last
+              also in numpy: top_k + other_k rows plus those tied at the
+              other_k-th key); bench_suite.py's gate, l2 on the first 200k
+              rows under 0.5 x var(y), and a 100k holdout's l2; K3 on the
+              amplified gradients at phase 2's tolerance; logs the binning
+              time, the warm-up and GOSS iteration walls apart, the
+              selection's time a call (CUDA events) and K3 step launches.
+ 21. modes    on phase 3's binned HIGGS rows, 255 leaves, 3 iterations
+              each (DART 6): bagging 0.5, balanced bagging 0.5 / 0.9,
+              feature_fraction 0.5 with and without
+              feature_fraction_bynode 0.5, DART (drop_rate 0.5,
+              skip_drop 0), RF (bagging 0.632): the holdout AUC rises,
+              save -> load -> predict = the valid score, the RF text
+              carries ``average_output``; logs each run's iteration walls,
+              DART's drop-walk share and the segment grower's graphs
+              (device operations and time of a step replay and a tree
+              start) with by-node masks and without.
+ 22. modes parity  200k rows, 31 leaves, on the card and on the CPU:
+              bagging + feature_fraction + bynode (fused, unfused,
+              frontier width 4 tiers "off" and "k1"), GOSS (lr 0.5), DART,
+              RF and multiclass with bagging (K5): the same splits up to a
+              near-tie, raw predictions within 1e-3 and the same bag (GOSS:
+              within 1e-4 of the rows) where no near-tie was met; the
+              bagged model's refit on both devices; threefry bits and
+              node masks card = CPU; a bagged and an unbagged booster in
+              turns on the card grow their solo model texts.
 
 Launch counts: a kernel captured into a CUDA graph counts at each replay
 (ops/kernels.py count_replay), when the card runs it.
@@ -163,7 +194,9 @@ Output: one JSON line per kernel, a ``{"device_loop": ...}`` line (phases
 3, 4 and 7), a ``{"session": ...}`` line (phases 14-16: walls, seeding
 times, peak memory, launches by kernel; the kernels' ``launches_by_path``
 holds them as "session"), an ``{"objectives": ...}`` line (phases 17-19;
-"objectives" and "lambdarank" in ``launches_by_path``), one
+"objectives" and "lambdarank" in ``launches_by_path``), a
+``{"goss_regression": ..., "modes": ...}`` line (phases 20-22;
+"goss_regression" and "modes" in ``launches_by_path``), one
 ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Without a
 card, or run from a directory that does not hold the package, it exits
@@ -172,6 +205,7 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
@@ -2880,6 +2914,434 @@ def meta_parity_phase():
     return rec
 
 
+# --------------------------------------------------------------- phase 20
+# BASELINE.json config 2 at bench_suite.py's shape and parameters
+GOSS_ROWS = 2_000_000
+GOSS_ITERS = 25
+GOSS_GATE_ROWS = 200_000
+GOSS_PARAMS = dict(objective="regression", boosting="goss", num_leaves=255,
+                   max_bin=MAX_BIN, learning_rate=0.1,
+                   min_sum_hessian_in_leaf=100.0, metric=["l2"],
+                   verbosity=-1, device_type="cuda")
+
+
+def goss_like(rng, n: int):
+    """bench_suite.py's _gen_goss: 28 normal features, a nonlinear
+    regression target."""
+    import numpy as np
+    X = rng.normal(size=(n, N_FEATURES)).astype(np.float32)
+    y = (2.0 * X[:, 0] - X[:, 1] ** 2 + np.sin(3 * X[:, 2])
+         + 0.3 * X[:, 3] * X[:, 4] + 0.2 * rng.normal(size=n))
+    return X, y.astype(np.float64)
+
+
+def goss_reference(grad, hess, key, top_k, other_k):
+    """GOSS's selection in numpy, apart from the port's: the top_k rows by
+    sum |g h| in a stable descending order, then of the rest the rows
+    whose uniform key (the port's threefry on the CPU, held to jax.random
+    by tests/test_torch_random.py) is at most the other_k-th smallest.
+    Returns (mask, rows tied with the other_k-th key beyond other_k)."""
+    import numpy as np
+    from lightgbm_tpu_torch.utils import random
+    n = grad.shape[1]
+    score = np.abs(grad * hess).sum(axis=0)
+    top = np.zeros(n, bool)
+    top[np.argsort(-score, kind="stable")[:top_k]] = True
+    u = random.uniform(key.cpu(), n).numpy()
+    u[top] = np.inf
+    kth = np.partition(u, other_k - 1)[other_k - 1]
+    rest = (u <= kth) & ~top
+    return (top | rest).astype(np.float32), int(rest.sum()) - other_k
+
+
+def goss_phase():
+    """Phase 20: goss_regression, BASELINE config 2: 2M x 28, 25
+    iterations, 10 of warm-up; each GOSS iteration's bag is the
+    selection, recomputed on the card from the iteration's own inputs,
+    and the last one is the numpy reference's; bench_suite.py's gate on
+    the first 200k rows and a 100k holdout's l2; K3 at phase 2's
+    tolerance on the last GOSS iteration's amplified gradients.  Returns
+    (launches, record)."""
+    import numpy as np
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch import Config
+    from lightgbm_tpu_torch.models.goss import goss_select
+    from lightgbm_tpu_torch.ops import histogram as th
+    from lightgbm_tpu_torch.ops import kernels
+    from lightgbm_tpu_torch.ops.split import FeatureMeta
+    from lightgbm_tpu_torch.utils import random
+
+    t0 = time.perf_counter()
+    X, y = goss_like(np.random.RandomState(7), GOSS_ROWS)
+    Xh, yh = goss_like(np.random.RandomState(8), HOLDOUT_ROWS)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds = lt.Dataset(X, y)
+    ds.construct(Config.from_params(GOSS_PARAMS))
+    bin_s = time.perf_counter() - t0
+    log(f"goss data: {GOSS_ROWS} x {N_FEATURES} generated in {gen_s:.1f} "
+        f"s, binned in {bin_s:.1f} s")
+    n = GOSS_ROWS
+    top_k, other_k = int(n * 0.2), int(n * 0.1)
+    warm = int(1.0 / GOSS_PARAMS["learning_rate"])
+    bst = lt.Booster(GOSS_PARAMS, ds)
+    bst.add_valid(ds.create_valid(Xh, yh), "holdout")
+    gb = bst.gbdt
+    bags, holdout_l2 = [], []
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with record_trees() as rec:
+        for it in range(GOSS_ITERS):
+            if it >= warm:
+                # the iteration's own inputs: the score before it and the
+                # key before its trees split it
+                grad, hess = gb._gradients()
+                key = random.fold_in(gb._key, 0x60550000 + it)
+                want = goss_select(grad[:, :n], hess[:, :n],
+                                   key.to(grad.device), top_k, other_k)
+            bst.update()
+            bags.append(int(gb.member[:n].sum().item()))
+            if it >= warm:
+                require(torch.equal(gb.member[:n], want[2]),
+                        f"goss iteration {it}: the bag is not the "
+                        "selection of the iteration's gradients and key")
+            holdout_l2.append(bst.eval_valid()[0][2])
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    require(not gb.member[n:].any(), "goss: a pad row is in the bag")
+    require(bags[:warm] == [n] * warm, f"goss warm-up bags {bags[:warm]}")
+    require(all(top_k + other_k <= b < n for b in bags[warm:]),
+            f"goss bags {bags[warm:]}")
+    # the last iteration's selection against numpy, and timed on the card
+    mask_np, ties = goss_reference(grad[:, :n].cpu().numpy(),
+                                   hess[:, :n].cpu().numpy(), key, top_k,
+                                   other_k)
+    require(np.array_equal(want[2].cpu().numpy(), mask_np),
+            "goss: the card's selection differs from the numpy reference")
+    require(bags[-1] == top_k + other_k + ties,
+            f"goss: bag {bags[-1]} is not top_k {top_k} + other_k "
+            f"{other_k} + {ties} rows tied at the other_k-th key")
+    cpu = goss_select(grad[:, :n].cpu(), hess[:, :n].cpu(), key, top_k,
+                      other_k)
+    require(all(torch.equal(a.cpu(), b) for a, b in zip(want, cpu)),
+            "goss: the card's selection and amplified gradients differ "
+            "from the CPU's")
+    select_ms = time_ms(lambda i: goss_select(grad[:, :n], hess[:, :n],
+                                              key.to(grad.device), top_k,
+                                              other_k), 10)
+    # K3 on the amplified gradients at phase 2's tolerance
+    handle = ds._handle
+    rb, B = gb.grower.rb, gb.num_bins
+    binsT = gb.bins
+    nblk = binsT.shape[1] // rb
+    pad = (0, binsT.shape[1] - n)
+    w8 = th.pack_channels(torch.nn.functional.pad(want[0][0], pad),
+                          torch.nn.functional.pad(want[1][0], pad),
+                          torch.nn.functional.pad(want[2], pad))
+    scales = th.fixed_point_scales(w8)
+    infos = handle.feature_infos()
+    fm = FeatureMeta(*(np.array([getattr(i, k) for i in infos], np.int32)
+                       for k in ("num_bin", "missing_type", "default_bin")))
+    route = th.pack_route(0, 1, 0, int(fm.num_bin[0]) // 2, False, False,
+                          np.zeros(8, np.uint32), fm)
+    lid0 = torch.zeros(binsT.shape[1], dtype=torch.int32,
+                       device=binsT.device)
+    want_lid, want_h = th.histogram_segment_routed_plain(
+        binsT, w8, lid0.clone(), 0, nblk, 1, route, B, rb)
+    got_lid, got_h = th.histogram_segment_routed(
+        binsT, w8, lid0.clone(), 0, nblk, 1, route, B, rb, scales)
+    require(torch.equal(got_lid, want_lid), "histogram_segment_routed on "
+            "GOSS gradients: leaf ids differ from the plain version")
+    k3_err = check_hist("histogram_segment_routed GOSS-amplified", got_h,
+                        want_h, hist_abs_sums(th, binsT, w8, want_lid, 0,
+                                              nblk, 1, B, rb))
+    # bench_suite.py's gate: l2 on the first 200k rows, under 0.5 var(y)
+    pred = bst.predict(X[:GOSS_GATE_ROWS])
+    l2 = float(np.mean((pred - y[:GOSS_GATE_ROWS]) ** 2))
+    var = float(np.var(y))
+    require(l2 < 0.5 * var, f"goss: l2 {l2} on the first 200k rows is not "
+            f"under 0.5 x var(y) = {0.5 * var}")
+    # the metric reads the labels as the dataset keeps them, in float32
+    hl2 = float(np.mean((bst.predict(Xh) - yh.astype(np.float32)) ** 2))
+    require(hl2 < 0.5 * var and holdout_l2[-1] < holdout_l2[0],
+            f"goss: holdout l2 {holdout_l2}")
+    require(abs(hl2 - holdout_l2[-1]) <= 1e-9 * max(1.0, hl2),
+            "goss: Booster.predict differs from the in-training holdout "
+            "score")
+    loop = device_loop_report("goss_regression", bst, rec.stats, launches,
+                              "histogram_segment_routed_step", wall)
+    require(launches["score_gather_add"] == GOSS_ITERS,
+            "score_gather_add did not run once per iteration")
+    it_s = list(gb.iter_seconds)
+    out = {"gen_s": gen_s, "bin_s": bin_s, "wall_s": wall,
+           "iter_s_warmup": it_s[:warm], "iter_s_goss": it_s[warm:],
+           "iter_s_warmup_median": float(np.median(it_s[:warm])),
+           "iter_s_goss_median": float(np.median(it_s[warm:])),
+           "goss_select_ms": select_ms, "top_k": top_k, "other_k": other_k,
+           "bags": bags, "last_ties": ties, "l2_first_200k": l2,
+           "var_y": var, "holdout_l2": holdout_l2,
+           "k3_goss_max_abs_err": k3_err, "grad_scale": float(scales[0]),
+           "k3_step_launches": launches["histogram_segment_routed_step"],
+           "device_loop": loop}
+    log(f"goss_regression: {GOSS_ITERS} iterations in {wall:.2f} s; median "
+        f"iteration warm-up {out['iter_s_warmup_median']:.4f} s, GOSS "
+        f"{out['iter_s_goss_median']:.4f} s; goss_select {select_ms:.3f} ms "
+        f"a call (card = CPU = numpy); bags {sorted(set(bags[warm:]))} "
+        f"(top_k + other_k {top_k + other_k}); l2 first 200k {l2:.5f} < "
+        f"{0.5 * var:.5f}; holdout l2 {hl2:.5f}; K3 on amplified gradients "
+        f"max |diff| {k3_err:.3g}; K3 step "
+        f"{launches['histogram_segment_routed_step']}")
+    del bst, gb, ds, w8, want, grad, hess
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+# --------------------------------------------------------------- phase 21
+# (params, iterations): the modes at HIGGS on phase 3's bins
+MODE_RUNS = {
+    "bagging": (dict(bagging_fraction=0.5, bagging_freq=1), 3),
+    "balanced_bagging": (dict(pos_bagging_fraction=0.5,
+                              neg_bagging_fraction=0.9, bagging_freq=1), 3),
+    "feature_fraction": (dict(feature_fraction=0.5), 3),
+    "bynode": (dict(feature_fraction=0.5, feature_fraction_bynode=0.5), 3),
+    "dart": (dict(boosting="dart", drop_rate=0.5, skip_drop=0.0), 6),
+    "rf": (dict(boosting="rf", bagging_fraction=0.632, bagging_freq=1), 3),
+}
+
+
+def graph_report(g):
+    """The segment grower's two graphs after a tree: the device
+    operations of a step replay and of a tree-start replay (torch.profiler;
+    None where it sees none) and the device time of each (CUDA events)."""
+    import torch
+    start = g._start_graphs[False][0]
+    rec = {}
+    for name, graph in (("steps", g._graph), ("start", start)):
+        ops = device_ops_per_call(graph.replay)
+        rec[name] = {"kernels": None if ops is None else ops["kernel"],
+                     "memcpy": None if ops is None else ops["memcpy"],
+                     "ms": time_ms(lambda i: graph.replay(), 20)}
+    torch.cuda.synchronize()
+    return rec
+
+
+def modes_phase(ds, Xh, yh):
+    """Phase 21: each boosting mode 3 iterations at 255 leaves (DART 6)
+    on phase 3's binned HIGGS rows.  Returns (launches, record)."""
+    import numpy as np
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import kernels
+
+    valid = ds.create_valid(Xh, yh)
+    launches = collections.Counter()
+    rec = {}
+    for name, (extra, iters) in MODE_RUNS.items():
+        params = dict(TRAIN_PARAMS, **extra)
+        evals = {}
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        bst = lt.train(params, ds, iters, valid_sets=[valid],
+                       valid_names=["holdout"], evals_result=evals,
+                       verbose_eval=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        run = dict(kernels.LAUNCHES)
+        launches.update(run)
+        gb = bst.gbdt
+        auc = evals["holdout"]["auc"]
+        require(len(gb.models) == iters and auc[-1] > auc[0],
+                f"modes {name}: holdout AUC {auc}")
+        require(run["histogram_segment_routed_step"] > 0
+                and run["score_gather_add"] == iters,
+                f"modes {name}: launches {run}")
+        text = bst.model_to_string()
+        loaded = lt.Booster(model_str=text)
+        raw = loaded.predict(Xh, raw_score=True)
+        vscore = gb.valid_scores[0] / (iters if gb.average_output else 1)
+        vdiff = float(np.abs(raw - vscore).max())
+        require(vdiff <= 1e-9, f"modes {name}: the loaded model's holdout "
+                f"prediction differs from the valid score by {vdiff}")
+        r = {"iter_s": list(gb.iter_seconds), "wall_s": wall,
+             "holdout_auc": auc, "load_diff": vdiff,
+             "leaves": [t.num_leaves for t in gb.models],
+             "k3_step": run["histogram_segment_routed_step"]}
+        if name == "rf":
+            require("\naverage_output\n" in text and
+                    loaded.gbdt.average_output, "modes rf: the model text "
+                    "has no average_output")
+        if name == "dart":
+            drop = sum(gb.drop_seconds)
+            r["drop_s"] = list(gb.drop_seconds)
+            r["drop_share"] = drop / (drop + sum(gb.iter_seconds))
+        if name in ("feature_fraction", "bynode"):
+            r["graphs"] = graph_report(gb.grower)
+        rec[name] = r
+        log(f"modes {name}: {iters} iterations, iteration wall "
+            f"{[round(s, 4) for s in r['iter_s']]} s, holdout AUC "
+            f"{[round(a, 5) for a in auc]}, save -> load -> predict = valid "
+            f"score ({vdiff:.3g})"
+            + (f", drop share {r['drop_share']:.3f}" if name == "dart"
+               else "")
+            + (f", graphs {r['graphs']}" if "graphs" in r else ""))
+        del bst, gb, loaded
+        torch.cuda.empty_cache()
+    return dict(launches), rec
+
+
+# --------------------------------------------------------------- phase 22
+# (data, params, iterations, Booster keywords) of each card = CPU case
+MODES_PARITY_SEG = dict(bagging_fraction=0.7, bagging_freq=1,
+                        feature_fraction=0.75, feature_fraction_bynode=0.5)
+
+
+def modes_parity_phase():
+    """Phase 22: the modes on the card and on the CPU at 200k rows, 31
+    leaves: the same splits up to a near-tie, raw predictions within 1e-3
+    where no near-tie was met; refit on both devices within 1e-9; the
+    card's threefry draws = the CPU's; a bagged and an unbagged booster in
+    turns on the card grow their solo texts.  Returns (launches,
+    record)."""
+    import numpy as np
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.models.grower import (GrowerParams,
+                                                  node_feature_mask)
+    from lightgbm_tpu_torch.ops import kernels
+    from lightgbm_tpu_torch.utils import random
+
+    Xb, yb = higgs_like(PARITY_ROWS, 31)
+    Xg, yg = goss_like(np.random.RandomState(32), PARITY_ROWS)
+    Xm, ym = multiclass_cat(PARITY_ROWS, 33)
+    binary = dict(objective="binary")
+    cases = {
+        "bag_ff_bynode_fused": ("b", dict(binary, **MODES_PARITY_SEG), 3,
+                                {}),
+        "bag_ff_bynode_unfused": ("b", dict(binary, **MODES_PARITY_SEG), 3,
+                                  {"fused_route": False}),
+        "bag_ff_bynode_frontier_off": (
+            "b", dict(binary, tpu_tree_impl="frontier", tpu_frontier_width=4,
+                      **MODES_PARITY_SEG), 3, {"frontier_tier": "off"}),
+        "bag_ff_bynode_frontier_k1": (
+            "b", dict(binary, tpu_tree_impl="frontier", tpu_frontier_width=4,
+                      **MODES_PARITY_SEG), 3, {"frontier_tier": "k1"}),
+        "goss": ("g", dict(objective="regression", boosting="goss",
+                           learning_rate=0.5), 5, {}),
+        "dart": ("b", dict(binary, boosting="dart", drop_rate=0.5,
+                           skip_drop=0.0), 5, {}),
+        "rf": ("b", dict(binary, boosting="rf", bagging_fraction=0.632,
+                         bagging_freq=1), 3, {}),
+        "multiclass_bagging": ("m", dict(objective="multiclass",
+                                         num_class=MC_CLASSES,
+                                         bagging_fraction=0.7,
+                                         bagging_freq=1), 3, {}),
+    }
+    data = {"b": (Xb, yb, {}), "g": (Xg, yg, {}),
+            "m": (Xm, ym, {"categorical_feature": MC_CAT})}
+    built = {}
+    rec = {}
+    kernels.reset_launches()
+    for name, (dkey, params, iters, kw) in cases.items():
+        Xc, yc, dkw = data[dkey]
+        if dkey not in built:
+            ds = lt.Dataset(Xc, yc, **dkw)
+            ds.construct(lt.Config.from_params(dict(params,
+                                                    device_type="cpu")))
+            built[dkey] = ds
+        ds = built[dkey]
+        out, times = {}, {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            p = dict(params, num_leaves=31, verbosity=-1, device_type=dev)
+            bst = lt.Booster(p, ds, **kw)
+            for _ in range(iters):
+                bst.update()
+            out[dev] = bst
+            times[dev] = time.perf_counter() - t0
+        n, ties = _same_splits_near_tie(out["cuda"].gbdt.models,
+                                        out["cpu"].gbdt.models, name)
+        require(n >= 30, f"{name}: only {n} splits compared")
+        diff = float(np.abs(out["cuda"].predict(Xc, raw_score=True)
+                            - out["cpu"].predict(Xc, raw_score=True)).max())
+        require(ties or diff < 1e-3, f"{name}: card and CPU raw "
+                f"predictions differ by {diff}")
+        bag_diff = int((out["cuda"].gbdt.member.cpu()
+                        != out["cpu"].gbdt.member).sum())
+        # numpy's bags are the same rows; GOSS's follow the scores, which
+        # differ in their last bits (the card's fixed-point histogram sums
+        # against the CPU's float64), so rows at the top_k boundary swap
+        limit = PARITY_ROWS // 10_000 if dkey == "g" else 0
+        require(ties or bag_diff <= limit, f"{name}: the card's bag differs "
+                f"from the CPU's in {bag_diff} rows")
+        rec[name] = {"splits": n, "near_ties": ties, "raw_diff": diff,
+                     "bag_diff": bag_diff, "wall_s": times}
+        log(f"modes parity {name}: {n} splits identical"
+            f"{' up to a near-tie' if ties else ''}, max |raw diff| "
+            f"{diff:.3g}, bags differ in {bag_diff} rows; card "
+            f"{times['cuda']:.1f} s, CPU {times['cpu']:.1f} s")
+        if name == "bag_ff_bynode_fused":
+            # refit of the bagged model on both devices
+            text = out["cuda"].model_to_string()
+            Xr, yr = higgs_like(50_000, 34)
+            refit = []
+            for dev in ("cuda", "cpu"):
+                b = lt.Booster(params={"device_type": dev}, model_str=text)
+                b.refit(Xr, yr)
+                refit.append(np.concatenate([t.leaf_value
+                                             for t in b.gbdt.models]))
+            rdiff = float(np.abs(refit[0] - refit[1]).max())
+            require(rdiff <= 1e-6, f"refit: card and CPU leaf values differ "
+                    f"by {rdiff}")
+            rec["refit_leaf_diff"] = rdiff
+            log(f"modes parity refit: card and CPU leaf values within "
+                f"{rdiff:.3g}")
+        del out
+    launches = dict(kernels.LAUNCHES)
+    # the card's threefry draws = the CPU's
+    key = random.split(random.prng_key(7))[1]
+    dev = torch.device("cuda")
+    bits_equal = torch.equal(random.random_bits(key.to(dev), 1_000_003).cpu(),
+                             random.random_bits(key, 1_000_003))
+    steps = torch.arange(2 * 255 + 1)
+    base = (torch.arange(N_FEATURES) % 3 != 1).float()
+    gp = GrowerParams(num_leaves=255, feature_fraction_bynode=0.5)
+    masks_equal = torch.equal(
+        node_feature_mask(base.to(dev), key.to(dev), steps.to(dev),
+                          gp).cpu(),
+        node_feature_mask(base, key, steps, gp))
+    require(bits_equal and masks_equal, "threefry: the card's draws differ "
+            "from the CPU's")
+    rec["threefry_card_equals_cpu"] = True
+    # a bagged and an unbagged booster in turns = alone
+    params = dict(TRAIN_PARAMS, num_leaves=31, metric=[])
+    bagged = dict(params, **MODES_PARITY_SEG)
+    ds = built["b"]
+
+    def boosters():
+        return [lt.Booster(bagged, ds), lt.Booster(params, ds)]
+
+    solo = []
+    for b in boosters():
+        for _ in range(3):
+            b.update()
+        solo.append(b.model_to_string())
+        del b
+    turns = boosters()
+    for _ in range(3):
+        for b in turns:
+            b.update()
+    require([b.model_to_string() for b in turns] == solo and
+            solo[0] != solo[1], "a bagged and an unbagged booster in turns "
+            "grew other models than alone")
+    rec["bagged_in_turns"] = "bit for bit"
+    log("modes parity: threefry bits and node masks card = CPU; a bagged "
+        "and an unbagged booster in turns grow their solo model texts, bit "
+        "for bit")
+    return launches, rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2951,6 +3413,9 @@ def main() -> int:
     obj_launches, objectives = objectives_phase(ds, X, Xh, yh)
     objectives["weighted_kernels"] = weighted_kernels
     t_obj = time.perf_counter() - t_obj
+    t_modes = time.perf_counter()
+    modes_launches, modes = modes_phase(ds, Xh, yh)
+    t_modes = time.perf_counter() - t_modes
     del ds, X, y, Xh, yh
     torch.cuda.empty_cache()
 
@@ -3000,6 +3465,23 @@ def main() -> int:
     t0 = time.perf_counter()
     meta_parity = meta_parity_phase()
     meta_parity["phase_wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    goss_launches, goss = goss_phase()
+    goss["phase_wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    parity_launches, modes["parity"] = modes_parity_phase()
+    modes["phase_wall_s"] = t_modes + time.perf_counter() - t0
+    modes_launches = {k: modes_launches[k] + parity_launches[k]
+                      for k in modes_launches}
+    require(goss_launches["histogram_segment_routed_step"] > 0
+            and goss_launches["score_gather_add"] > 0,
+            f"goss_regression did not run the path's kernels: "
+            f"{goss_launches}")
+    require(all(modes_launches[k] > 0 for k in (
+        "histogram_segment_routed_step", "histogram_segment_step",
+        "route_window_step", "score_gather_add", "histogram_all",
+        "histogram_frontier", "histogram_frontier_routed")),
+        f"the modes did not run the path's kernels: {modes_launches}")
     session["launches"] = session_launches
     session["phase_wall_s"] = t_session
     require(session_launches["histogram_segment_routed_step"] > 0
@@ -3012,7 +3494,8 @@ def main() -> int:
              "frontier_k1": tier_launches["k1"],
              "frontier_fusedk": tier_launches["fusedk"],
              "session": session_launches, "objectives": obj_launches,
-             "lambdarank": rank_launches}
+             "lambdarank": rank_launches, "goss_regression": goss_launches,
+             "modes": modes_launches}
     records = []
     for name in kernels.KERNEL_NAMES:
         r = dict(results.get(name, {}))
@@ -3062,6 +3545,7 @@ def main() -> int:
     log(json.dumps({"session": session}))
     log(json.dumps({"objectives": objectives, "objectives_wall_s": t_obj,
                     "lambdarank": rank, "meta_parity": meta_parity}))
+    log(json.dumps({"goss_regression": goss, "modes": modes}))
     log(json.dumps({"kernels": records}))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(card)

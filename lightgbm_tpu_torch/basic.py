@@ -1,23 +1,28 @@
 """User-facing Dataset and Booster.
 
 Counterpart of lightgbm_tpu/basic.py (Dataset :103, Booster :334), after
-the reference python package's basic.py: training, evaluation, predict,
-rollback, importances, model text save/load/dump and pickling through
-the model text.  A Booster loaded from a model text does no device work:
+the reference python package's basic.py: training (gbdt, goss, dart or
+rf, models/boosting_factory.py), evaluation, predict, rollback, refit,
+importances, model text save/load/dump and pickling through the model
+text.  A Booster loaded from a model text does no device work:
 it predicts by the host tree walk.
 """
 
 from __future__ import annotations
 
+import copy
 import os
 import tempfile
 from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 
-from .config import Config
+from .config import Config, resolve_alias
 from .core.dataset import TorchDataset
-from .models.gbdt import GBDT
+from .core.metadata import Metadata
+from .models.boosting_factory import create_boosting
+from .models.gbdt import GBDT, resolve_device
+from .models.refit import refit_model
 from .models.serialization import (dump_model_dict, load_model,
                                    save_model_to_string)
 from .objective import create_objective
@@ -223,9 +228,10 @@ class Booster:
             train_set.construct(self.config)
             self.train_set = train_set
             self.objective = create_objective(self.config)
-            self.gbdt = GBDT(self.config, train_set._handle, self.objective,
-                             fused_route=fused_route,
-                             frontier_tier=frontier_tier)
+            self.gbdt = create_boosting(self.config, train_set._handle,
+                                        self.objective,
+                                        fused_route=fused_route,
+                                        frontier_tier=frontier_tier)
         elif model_file is not None or model_str is not None:
             if model_file is not None:
                 with open(model_file) as fh:
@@ -341,6 +347,38 @@ class Booster:
         return self.gbdt.predict(X, num_iteration=num_iteration,
                                  raw_score=raw_score, pred_leaf=pred_leaf,
                                  start_iteration=start_iteration)
+
+    def refit(self, data, label, weight=None,
+              decay_rate: Optional[float] = None) -> "Booster":
+        """New leaf outputs for every tree from (data, label[, weight]),
+        the trees' structure kept (reference ``Booster.refit``,
+        lightgbm_tpu/basic.py:545-570): each leaf blends its old output
+        with the gradient-optimal one, new = decay x old + (1 - decay) x
+        opt, ``decay_rate`` (default ``refit_decay_rate``).  The
+        objective's gradients run on the booster's device (a loaded
+        Booster's: its ``device_type`` parameter, "cuda" by default).
+        Returns self."""
+        if not self.gbdt.models:
+            raise LightGBMError("cannot refit a model with no trees")
+        leaf_preds = np.asarray(self.predict(data, pred_leaf=True),
+                                dtype=np.int32)
+        if leaf_preds.ndim == 1:
+            leaf_preds = leaf_preds[:, None]
+        n = leaf_preds.shape[0]
+        md = Metadata(n)
+        md.set_label(_as_f64(label))
+        if weight is not None:
+            md.set_weights(_as_f64(weight))
+        config = self.config
+        if decay_rate is not None:
+            config = copy.copy(config)
+            config.refit_decay_rate = float(decay_rate)
+        device = (self.gbdt.device if self.train_set is not None else
+                  resolve_device(Config.from_params(
+                      {k: v for k, v in self.params.items()
+                       if resolve_alias(k) == "device_type"})))
+        refit_model(self.gbdt, md, leaf_preds, config, device)
+        return self
 
     # --------------------------------------------------------------- model
     def model_to_string(self, num_iteration: Optional[int] = None,

@@ -2,12 +2,13 @@
 
 The same registry shape as the reference's Config (include/LightGBM/
 config.h, src/io/config_auto.cpp): name, default, aliases.  The port runs
-one path — GBDT with any of the JAX package's fifteen objectives (L2
-regression the default, as there) or a caller's own gradients (objective
-"none", ``train(fobj=...)``), with the serial segment or frontier grower
-on dense data, numeric or categorical, weighted or not, with query groups
-and init scores — so the registry holds only the parameters that path
-honours.  A
+one path — boosting (gbdt, goss, dart or rf, with bagging and feature
+fraction by tree and by node) with any of the JAX package's fifteen
+objectives (L2 regression the default, as there) or a caller's own
+gradients (objective "none", ``train(fobj=...)``), with the serial
+segment or frontier grower on dense data, numeric or categorical,
+weighted or not, with query groups and init scores — so the registry
+holds only the parameters that path honours.  A
 parameter of a feature the port does not have raises NotImplementedError
 unless it is given at the value that switches the feature off; an
 unknown parameter raises too.  Nothing is silently ignored.
@@ -42,7 +43,8 @@ _PARAMS: Dict[str, _P] = {
     "num_leaves": _P(31, ["num_leaf", "max_leaves", "max_leaf"]),
     # "cuda" or "cpu"; the card path never falls back to the CPU
     "device_type": _P("cuda", ["device"]),
-    # the slice draws no random numbers; the seed is kept for the model text
+    # the threefry key of GOSS's row draw and of the by-node feature masks
+    # (utils/random.py)
     "seed": _P(0, ["random_seed", "random_state"]),
     "max_depth": _P(-1),
     "min_data_in_leaf": _P(20, ["min_data_per_leaf", "min_data",
@@ -97,6 +99,32 @@ _PARAMS: Dict[str, _P] = {
     # early stopping watches only the first metric
     "first_metric_only": _P(False),
     "boost_from_average": _P(True),
+    # boosting modes (lightgbm_tpu/config.py:39, :57-90): "gbdt"/"gbrt",
+    # "goss", "dart", "rf"/"random_forest"
+    "boosting": _P("gbdt", ["boosting_type", "boost"]),
+    "bagging_fraction": _P(1.0, ["sub_row", "subsample", "bagging"]),
+    "pos_bagging_fraction": _P(1.0, ["pos_sub_row", "pos_subsample",
+                                     "pos_bagging"]),
+    "neg_bagging_fraction": _P(1.0, ["neg_sub_row", "neg_subsample",
+                                     "neg_bagging"]),
+    "bagging_freq": _P(0, ["subsample_freq"]),
+    "bagging_seed": _P(3, ["bagging_fraction_seed"]),
+    "feature_fraction": _P(1.0, ["sub_feature", "colsample_bytree"]),
+    "feature_fraction_bynode": _P(1.0, ["sub_feature_bynode",
+                                        "colsample_bynode"]),
+    "feature_fraction_seed": _P(2),
+    # DART (models/dart.py)
+    "drop_rate": _P(0.1, ["rate_drop"]),
+    "max_drop": _P(50),
+    "skip_drop": _P(0.5),
+    "xgboost_dart_mode": _P(False),
+    "uniform_drop": _P(False),
+    "drop_seed": _P(4),
+    # GOSS (models/goss.py)
+    "top_rate": _P(0.2),
+    "other_rate": _P(0.1),
+    # Booster.refit's blend of old and new leaf values (models/refit.py)
+    "refit_decay_rate": _P(0.9),
     # exclusive feature bundling (core/bundle.py): the grouping is
     # computed; a multi-feature group raises until its histogram expansion
     # is ported
@@ -122,16 +150,9 @@ _PARAMS: Dict[str, _P] = {
 # Parameters of features the port does not have, with the value that
 # switches each feature off.  Any other value raises NotImplementedError.
 _OFF_VALUES: Dict[str, Any] = {
-    "boosting": "gbdt",
     "tree_learner": "serial",
     "num_machines": 1,
     "num_threads": 0,
-    "bagging_fraction": 1.0,
-    "pos_bagging_fraction": 1.0,
-    "neg_bagging_fraction": 1.0,
-    "bagging_freq": 0,
-    "feature_fraction": 1.0,
-    "feature_fraction_bynode": 1.0,
     "monotone_constraints": [],
     "feature_contri": [],
     "forcedsplits_filename": "",
@@ -144,17 +165,11 @@ _OFF_VALUES: Dict[str, Any] = {
 }
 
 _OFF_ALIASES = {
-    "boosting_type": "boosting", "boost": "boosting",
     "tree": "tree_learner", "tree_type": "tree_learner",
     "tree_learner_type": "tree_learner",
     "num_machine": "num_machines",
     "num_thread": "num_threads", "nthread": "num_threads",
     "nthreads": "num_threads", "n_jobs": "num_threads",
-    "sub_row": "bagging_fraction", "subsample": "bagging_fraction",
-    "bagging": "bagging_fraction", "subsample_freq": "bagging_freq",
-    "sub_feature": "feature_fraction", "colsample_bytree": "feature_fraction",
-    "sub_feature_bynode": "feature_fraction_bynode",
-    "colsample_bynode": "feature_fraction_bynode",
     "mc": "monotone_constraints", "monotone_constraint": "monotone_constraints",
     "feature_contrib": "feature_contri", "fc": "feature_contri",
     "fp": "feature_contri", "feature_penalty": "feature_contri",
@@ -167,6 +182,9 @@ for _name, _spec in _PARAMS.items():
         ALIAS_TABLE[_a] = _name
 
 DEVICE_TYPES = ("cuda", "cpu")
+# lightgbm_tpu/models/boosting_factory.py's names
+BOOSTING_TYPES = {"gbdt": "gbdt", "gbrt": "gbdt", "goss": "goss",
+                  "dart": "dart", "rf": "rf", "random_forest": "rf"}
 TREE_IMPLS = {"auto": "segment", "segment": "segment",
               "frontier": "frontier"}
 # lightgbm_tpu/config.py OBJECTIVE_ALIASES
@@ -333,6 +351,15 @@ class Config:
             if METRIC_ALIASES[m] not in metrics:
                 metrics.append(METRIC_ALIASES[m])
         self.metric = metrics
+        boosting = str(self.boosting).strip().lower()
+        if boosting not in BOOSTING_TYPES:
+            raise LightGBMError(f"Unknown boosting type {boosting}")
+        self.boosting = BOOSTING_TYPES[boosting]
+        # lightgbm_tpu/config.py:558-561
+        if self.bagging_freq > 0 and not 0.0 < self.bagging_fraction <= 1.0:
+            raise ValueError("bagging_fraction must be in (0, 1]")
+        if not 0.0 < self.feature_fraction <= 1.0:
+            raise ValueError("feature_fraction must be in (0, 1]")
         if self.num_leaves < 2:
             raise LightGBMError("num_leaves must be >= 2")
         if not 2 <= self.max_bin <= 256:

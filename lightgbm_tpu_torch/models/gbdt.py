@@ -13,7 +13,14 @@ each iteration (tree i is class i % C).  The training score starts from
 the train set's ``init_score`` where it has one (and then is not boosted
 from the average), a valid set's from its own; an objective with leaf
 renewal (L1, quantile, MAPE) refits a tree's leaves between its growth
-and its score update.
+and its score update.  Subsampling follows the JAX package's streams
+(lightgbm_tpu/models/gbdt.py:732-734, :971-1015, :1627-1640): after the
+gradients, a bag of rows from a numpy RandomState(bagging_seed) every
+``bagging_freq`` iterations, copied into the ``member`` channel every
+kernel reads; then per class tree a feature mask from
+RandomState(feature_fraction_seed) and, where by-node masks or GOSS need
+it, the threefry key split from PRNGKey(seed) once a tree
+(utils/random.py).
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from ..ops.histogram import (class_scales, frontier_width, histogram_all,
                              pack_channel_sets)
 from ..ops.score import score_gather_add
 from ..ops.split import FeatureMeta, SplitParams
+from ..utils import random
 from ..utils.log import LightGBMError, log_warning
 from .grower import GrowerParams
 from .grower_frontier import FrontierGrower
@@ -100,9 +108,11 @@ def build_feature_meta(dataset: TorchDataset,
 class TreeEnsemble:
     """A model as prediction sees it: the trees (tree i is class i % C),
     the boost-from-average init scores, the objective's link (None: raw
-    scores).  GBDT trains one; serialization.LoadedBoosting is one read
-    from a model text."""
+    scores), and whether a prediction averages its iterations' trees
+    (``average_output``: a random forest).  GBDT trains one;
+    serialization.LoadedBoosting is one read from a model text."""
 
+    average_output = False
     models: List[Tree]
     num_tree_per_iteration: int
     init_scores: List[float]
@@ -149,6 +159,9 @@ class TreeEnsemble:
             raw[k] += self.init_scores[k]
         for i in trees:
             raw[i % C] += self.models[i].predict_raw(X)
+        if self.average_output:
+            # lightgbm_tpu/models/gbdt.py:2231-2234
+            raw = raw / max(len(trees) // C, 1)
         raw = self._layout(raw)
         if raw_score or self.objective is None:
             return raw.T
@@ -208,11 +221,21 @@ class GBDT(TreeEnsemble):
         rb = block_rows(config, self.num_data)
         self.bins = train_set.device_bins(rb, self.device)
         npad = self.bins.shape[1]
+        # the rows in the bag (1) or out of it (0); pad rows 0.  Updated in
+        # place by _bagging
         self.member = torch.zeros(npad, dtype=torch.float32,
                                   device=self.device)
         self.member[:self.num_data] = 1.0
+        self._bag_rng = np.random.RandomState(config.bagging_seed)
+        self._feat_rng = np.random.RandomState(config.feature_fraction_seed)
+        # the threefry key, on the host (a key is two words; the draws
+        # from it run on the device)
+        self._key = random.prng_key(config.seed)
+        self._masked = (config.feature_fraction < 1.0
+                        or config.feature_fraction_bynode < 1.0)
         params = GrowerParams(
             num_leaves=config.num_leaves, max_depth=config.max_depth,
+            feature_fraction_bynode=config.feature_fraction_bynode,
             split=SplitParams(
                 lambda_l1=config.lambda_l1, lambda_l2=config.lambda_l2,
                 max_delta_step=config.max_delta_step,
@@ -330,6 +353,75 @@ class GBDT(TreeEnsemble):
 
         return upload(grad), upload(hess)
 
+    # ------------------------------------------------------------ sampling
+    # GOSS folds its row key from the key stream, so it splits the key
+    # each tree even without by-node masks
+    _draws_keys = False
+
+    def _set_bag(self, mask: torch.Tensor) -> None:
+        """The bag ([num_data], 1 in, 0 out) into ``member``'s rows, in
+        place; pad rows stay 0."""
+        self.member[:self.num_data].copy_(mask)
+
+    def _bagging(self, iter_idx: int, grad: torch.Tensor,
+                 hess: torch.Tensor):
+        """A new bag every ``bagging_freq`` iterations, balanced over
+        label > 0 when pos_/neg_bagging_fraction < 1 (gbdt.cpp:186-240,
+        lightgbm_tpu/models/gbdt.py:971-1002); the draw is the JAX
+        package's numpy one, so the same seed draws the same rows.
+        Returns (grad, hess); GOSS overrides it and rescales them."""
+        cfg = self.config
+        need = (cfg.bagging_freq > 0
+                and (cfg.bagging_fraction < 1.0
+                     or cfg.pos_bagging_fraction < 1.0
+                     or cfg.neg_bagging_fraction < 1.0))
+        if not need or iter_idx % cfg.bagging_freq != 0:
+            return grad, hess
+        n = self.num_data
+        mask = np.zeros(n, dtype=np.float32)
+        if cfg.pos_bagging_fraction < 1.0 or cfg.neg_bagging_fraction < 1.0:
+            lab = np.asarray(self.train_set.metadata.label)
+            pos = np.nonzero(lab > 0)[0]
+            neg = np.nonzero(lab <= 0)[0]
+            kp = int(len(pos) * cfg.pos_bagging_fraction)
+            kn = int(len(neg) * cfg.neg_bagging_fraction)
+            if kp > 0:
+                mask[self._bag_rng.choice(pos, kp, replace=False)] = 1.0
+            if kn > 0:
+                mask[self._bag_rng.choice(neg, kn, replace=False)] = 1.0
+        else:
+            k = int(n * cfg.bagging_fraction)
+            mask[self._bag_rng.choice(n, k, replace=False)] = 1.0
+        self._set_bag(torch.from_numpy(mask).to(self.device))
+        return grad, hess
+
+    def _tree_feature_mask(self) -> Optional[torch.Tensor]:
+        """A tree's feature mask ([F] float32 on the device; None without
+        feature fraction): max(1, int(F x feature_fraction)) features drawn
+        from the numpy stream (GetUsedFeatures,
+        serial_tree_learner.cpp:273-321; lightgbm_tpu/models/gbdt.py:
+        1004-1015), all of them when only the by-node fraction is set."""
+        if not self._masked:
+            return None
+        F = self.train_set.num_used_features
+        frac = self.config.feature_fraction
+        if frac >= 1.0:
+            mask = np.ones(F, dtype=np.float32)
+        else:
+            mask = np.zeros(F, dtype=np.float32)
+            mask[self._feat_rng.choice(F, max(1, int(F * frac)),
+                                       replace=False)] = 1.0
+        return torch.from_numpy(mask).to(self.device)
+
+    def _tree_key(self) -> Optional[torch.Tensor]:
+        """The next tree's threefry key (key, sub = split(key)), where a
+        draw uses the key stream; else None."""
+        if not (self._draws_keys
+                or self.config.feature_fraction_bynode < 1.0):
+            return None
+        self._key, sub = random.split(self._key)
+        return sub
+
     def train_one_iter(self, grad: Optional[np.ndarray] = None,
                        hess: Optional[np.ndarray] = None) -> bool:
         """One boosting iteration, C trees, from the objective's gradients
@@ -352,6 +444,7 @@ class GBDT(TreeEnsemble):
             raise LightGBMError("No objective and no custom gradients")
         else:
             grad, hess = self._gradients()
+        grad, hess = self._bagging(self.iter_, grad, hess)
         roots = [None] * C
         if C > 1:
             # every class tree's root histogram in one K5 launch; each
@@ -364,9 +457,11 @@ class GBDT(TreeEnsemble):
                      for k in range(C)]
         trees = []
         for k in range(C):
+            fmask = self._tree_feature_mask()
+            key = self._tree_key()
             arrays, leaf_id = self.grower.grow(
                 self.bins, grad[k], hess[k], self.member, self.fmeta,
-                root=roots[k])
+                root=roots[k], feature_mask=fmask, key=key)
             if arrays.num_leaves <= 1:
                 trees.append(Tree(1))
                 continue
@@ -395,10 +490,14 @@ class GBDT(TreeEnsemble):
                     v2[k] += tree.predict_binned(vset.bins_t, infos)
         self.models.extend(trees)
         self.iter_ += 1
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        self._sync()
         self.iter_seconds.append(time.perf_counter() - t0)
         return False
+
+    def _sync(self) -> None:
+        """Wait for the device's queued work (a wall clock's end)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def _renewed_tree(self, arrays, leaf_id: torch.Tensor,
                       score: torch.Tensor):

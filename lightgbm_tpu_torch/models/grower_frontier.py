@@ -52,8 +52,8 @@ from ..ops.histogram import (fixed_point_scales, histogram_frontier,
                              pack_channels, pack_route, route_window,
                              union_block_list)
 from ..ops.split import NEG_INF, FeatureMeta, best_split
-from .grower import GrowerParams, TreeArrays
-from .grower_seg import COMPACT_WASTE, _unpermute
+from .grower import GrowerParams, TreeArrays, node_feature_mask
+from .grower_seg import COMPACT_WASTE, _check_key, _unpermute
 
 TIERS = ("off", "k1", "fusedk")
 
@@ -171,17 +171,18 @@ def record_split(st: _SegState, leaf: int, new_leaf: int, node: int) -> None:
 class HostGrower:
     """The host-driven loop's pieces: the per-tree state, the batched
     best-split scan into the host cache, the stop rule.
-    ``grow(binsT, grad, hess, member, fmeta, root=None)`` takes
-    feature-major bins [F, Npad] (Npad a multiple of ``block_rows``; pad
-    rows must carry member == 0) and returns ``(TreeArrays, leaf_id)``
-    with leaf ids in the original row order.
+    ``grow(binsT, grad, hess, member, fmeta, root=None, feature_mask=None,
+    key=None)`` takes feature-major bins [F, Npad] (Npad a multiple of
+    ``block_rows``; pad rows must carry member == 0) and returns
+    ``(TreeArrays, leaf_id)`` with leaf ids in the original row order.
 
     ``root``, when given, is ``(w8, scales, root_hist)``: this tree's
     channels as pack_channels packs them, their fixed_point_scales, and
     the root histogram [F, B, 3] at those scales, which takes the place of
     the root's own pass (K5's slice of this class is, bit for bit, what
     that pass gives).  The splits' kernels use the same ``w8`` and
-    ``scales``."""
+    ``scales``.  ``feature_mask`` and ``key`` are the tree's feature
+    fraction and threefry key, as SegmentGrower takes them."""
 
     def __init__(self, num_bins: int, params: GrowerParams,
                  block_rows: int):
@@ -208,15 +209,17 @@ class HostGrower:
                        C0, F, self.B)
         return st, scales, root_hist
 
-    def _scan(self, st: _SegState, leaves, hists, fmeta: FeatureMeta) -> None:
+    def _scan(self, st: _SegState, leaves, hists, fmeta: FeatureMeta,
+              masks=None) -> None:
         """Best split of each leaf in ``leaves`` from its histogram and its
-        sums; one device->host fetch writes the host cache (in float64
+        sums, under its feature mask (``masks``: [len(leaves) or 1, F], or
+        None); one device->host fetch writes the host cache (in float64
         when it carries categorical bitsets, whose 32-bit words float32
         would round).  A leaf at max_depth gets gain -inf."""
         dev = hists.device
         g, h, c = (torch.from_numpy(v[leaves]).to(dev)
                    for v in (st.leaf_g, st.leaf_h, st.leaf_c))
-        info = best_split(hists, g, h, c, fmeta, self.p.split)
+        info = best_split(hists, g, h, c, fmeta, self.p.split, masks)
         cols = [info.gain, info.feature, info.threshold, info.default_left,
                 info.left_g, info.left_h, info.left_c, info.left_out,
                 info.right_out]
@@ -239,6 +242,26 @@ class HostGrower:
             if info.is_cat is not None:
                 st.best_is_cat[leaf] = bool(rec[k, 9])
                 st.best_bitset[leaf] = rec[k, 10:18].astype(np.uint32)
+
+    def _node_masks(self, feature_mask, key, dev):
+        """The masks of the tree's node numbers 0 .. 2L
+        (``node_feature_mask``), drawn at once on the device; None without
+        a feature mask."""
+        if feature_mask is None:
+            return None
+        _check_key(feature_mask, key, self.p)
+        steps = torch.arange(2 * self.p.num_leaves + 1, dtype=torch.int64,
+                             device=dev)
+        return node_feature_mask(feature_mask.to(dev),
+                                 None if key is None else key.to(dev),
+                                 steps, self.p)
+
+    @staticmethod
+    def _rows(masks, steps):
+        """The mask rows of the node numbers ``steps``."""
+        if masks is None:
+            return None
+        return masks[torch.tensor(steps, device=masks.device)]
 
     def _can_grow(self, st: _SegState) -> bool:
         return (st.num_leaves < self.p.num_leaves
@@ -307,8 +330,10 @@ class FrontierGrower(HostGrower):
                          + [h[len(h) // 2:] for h in out]), n_blocks
 
     def _round(self, st: _SegState, fmeta: FeatureMeta, fm_host,
-               scales) -> None:
-        """One round (round_body)."""
+               scales, masks=None) -> None:
+        """One round (round_body); split j of the round is node base - 1 +
+        j, its children numbered 2 node and 2 node + 1 for their masks
+        (lightgbm_tpu/models/grower_frontier.py:440, :610)."""
         K, L, dev = self.K, self.p.num_leaves, st.leaf_hist.device
         base = st.num_leaves
         # top-K by cached gain, ties to the lower leaf as lax.top_k orders
@@ -351,16 +376,21 @@ class FrontierGrower(HostGrower):
             st.leaf_hist[torch.tensor(leaves + new, device=dev)] = children
         st.scanned_since += n_un
         st.scanned_total += n_un
-        self._scan(st, leaves + new, children, fmeta)
+        lefts = [2 * (base - 1 + j) for j in range(nv)]
+        self._scan(st, leaves + new, children, fmeta,
+                   self._rows(masks, lefts + [x + 1 for x in lefts]))
 
     # ---------------------------------------------------------------- grow
     def grow(self, binsT: torch.Tensor, grad: torch.Tensor,
              hess: torch.Tensor, member: torch.Tensor, fmeta: FeatureMeta,
              root: Optional[Tuple[torch.Tensor, torch.Tensor,
-                                  torch.Tensor]] = None
+                                  torch.Tensor]] = None,
+             feature_mask: Optional[torch.Tensor] = None,
+             key: Optional[torch.Tensor] = None
              ) -> Tuple[TreeArrays, torch.Tensor]:
         L, rb = self.p.num_leaves, self.rb
         st, scales, root_hist = self._start(binsT, grad, hess, member, root)
+        masks = self._node_masks(feature_mask, key, binsT.device)
         max_blocks = binsT.shape[1] // rb
         fm_host = FeatureMeta(*(t.cpu().numpy() for t in fmeta[:3]))
         if root_hist is None:
@@ -371,13 +401,14 @@ class FrontierGrower(HostGrower):
                                          [null_route()], scales)[0][0]
         st.leaf_hist[0] = root_hist
         st.scanned_since = st.scanned_total = max_blocks
-        self._scan(st, [0], root_hist[None], fmeta)
+        self._scan(st, [0], root_hist[None], fmeta,
+                   self._rows(masks, [2 * L]))
 
         limit_blocks = min(max(1, int(COMPACT_WASTE * max_blocks)),
                            2**31 - 1)
         rounds = 0
         while self._can_grow(st):
-            self._round(st, fmeta, fm_host, scales)
+            self._round(st, fmeta, fm_host, scales, masks)
             rounds += 1
             if st.scanned_since >= limit_blocks:
                 compact_state(st, L, rb)

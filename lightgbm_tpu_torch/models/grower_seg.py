@@ -38,6 +38,13 @@ does (the epoch loop at :802-830):
     its kernels on an empty window and writes nothing, so the state does
     not change: growth stops exactly where the JAX epoch stops, and every
     number of steps a replay grows the same model;
+  * with a feature mask (feature fraction by tree, ``feature_mask``) the
+    tree's start draws the masks of all 2L + 1 node numbers from the
+    tree's mask and key at once (``node_feature_mask``: by node when
+    ``feature_fraction_bynode`` < 1, else the tree's mask; 2L the root,
+    2s and 2s + 1 the children of split s), and a step gathers its two
+    children's rows by the split ordinal it reads from the counters on
+    the device;
   * on a card, ``steps`` steps are captured once in a CUDA graph and
     replayed; after each replay one small status tensor comes to the
     host, which compacts the layout on the device when growth can go on
@@ -64,7 +71,7 @@ from ..ops.histogram import (STEP_WORDS, SPLIT_WORDS, fixed_point_scales,
                              pack_channels, pack_route_device, pack_step,
                              route_window_step)
 from ..ops.split import NEG_INF, FeatureMeta, SplitInfo, best_split
-from .grower import GrowerParams, TreeArrays
+from .grower import GrowerParams, TreeArrays, node_feature_mask
 
 # Re-sort the layout once the histogram kernels have scanned more than
 # COMPACT_WASTE x N rows of confinement windows since the last sort
@@ -120,7 +127,7 @@ class _DeviceState:
              "node_f32", "leaf_i32", "leaf_value", "counters")
 
     def __init__(self, F: int, npad: int, B: int, L: int, dev,
-                 fmeta: FeatureMeta):
+                 fmeta: FeatureMeta, masked: bool = False):
         def zeros(*shape, dtype=torch.float32):
             return torch.zeros(shape, dtype=dtype, device=dev)
 
@@ -155,10 +162,22 @@ class _DeviceState:
         self.step = zeros(STEP_WORDS, dtype=torch.int32)
         self.hist_small = zeros(F, B, 3)
         self.status = zeros(_STATUS, dtype=torch.int64)
+        # feature fraction: the tree's mask and key, and the masks of the
+        # node numbers 0 .. 2L drawn from them at the tree's start
+        if masked:
+            self.fmask = torch.ones(F, dtype=torch.float32, device=dev)
+            self.key = zeros(2, dtype=torch.int64)
+            self.node_steps = torch.arange(2 * L + 1, dtype=torch.int64,
+                                           device=dev)
+            self.node_masks = zeros(2 * L + 1, F)
 
     def load(self, binsT, w8, scales, fmeta: FeatureMeta, root_sums,
-             root_hist=None) -> None:
+             root_hist=None, feature_mask=None, key=None) -> None:
         """Copy a tree's inputs into the state's buffers, in place."""
+        if feature_mask is not None:
+            self.fmask.copy_(feature_mask)
+        if key is not None:
+            self.key.copy_(key)
         self.binsT.copy_(binsT)
         self.w8.copy_(w8)
         self.scales.copy_(scales)
@@ -239,21 +258,35 @@ def _put(t: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor,
     t.index_copy_(0, idx, torch.where(keep, rows.reshape(old.shape), old))
 
 
+def _check_key(feature_mask, key, p: GrowerParams) -> None:
+    """By-node masks (``feature_fraction_bynode`` < 1) are drawn from the
+    tree's key: a tree mask without one raises."""
+    if (feature_mask is not None and p.feature_fraction_bynode < 1.0
+            and key is None):
+        raise ValueError("feature_fraction_bynode < 1 needs the tree's key")
+
+
 class SegmentGrower:
     """Strict best-first: one split at a time.  ``fused_route`` (default)
     runs each split's route and smaller-child histogram as one kernel
     (K3); False runs the unfused pair (K2, K1).  ``steps`` is the number of
     split steps one CUDA graph replay runs.
 
-    ``grow(binsT, grad, hess, member, fmeta, root=None)`` takes
-    feature-major bins [F, Npad] (Npad a multiple of ``block_rows``; pad
-    rows must carry member == 0) and returns ``(TreeArrays, leaf_id)``
-    with leaf ids in the original row order.  ``root``, when given, is
+    ``grow(binsT, grad, hess, member, fmeta, root=None, feature_mask=None,
+    key=None)`` takes feature-major bins [F, Npad] (Npad a multiple of
+    ``block_rows``; pad rows must carry member == 0) and returns
+    ``(TreeArrays, leaf_id)`` with leaf ids in the original row order.
+    ``root``, when given, is
     ``(w8, scales, root_hist)``: this tree's channels as pack_channels
     packs them, their fixed_point_scales, and the root histogram [F, B,
     3] at those scales, which takes the place of the root's own pass (K5's
     slice of this class is, bit for bit, what that pass gives).  The
     splits' kernels use the same ``w8`` and ``scales``.
+    ``feature_mask`` ([F] float32, nonzero = usable), when given, is the
+    tree's feature fraction; with ``feature_fraction_bynode`` < 1 each
+    node's mask is drawn from the tree's threefry ``key`` ([2] int64,
+    utils/random.py) as ``node_feature_mask`` draws it.  Both are copied
+    into the state's buffers, which the graphs read.
 
     ``last_stats`` holds the last tree's counters: blocks scanned,
     compactions, splits, the replays (or eager rounds of ``steps`` steps
@@ -280,6 +313,7 @@ class SegmentGrower:
         self._child_cols = None
         self._src = None
         self.limit = 1
+        self._masked = False
 
     # ---------------------------------------------------------- the step
     def _step(self) -> None:
@@ -342,9 +376,14 @@ class SegmentGrower:
                                          ).expand(2, 2), active)
         s.counters.add_(torch.cat([active.long(), n_blk, n_blk,
                                    torch.zeros_like(n_blk)]))
-        # both children's best splits; a child at max_depth gets -inf
+        # both children's best splits (under their node masks, numbered 2s
+        # and 2s + 1 for split s); a child at max_depth gets -inf
+        mask = None
+        if self._masked:
+            mask = s.node_masks.index_select(0, torch.cat([2 * node,
+                                                           2 * node + 1]))
         info = best_split(hists, sums[:, 0], sums[:, 1], sums[:, 2], s.fmeta,
-                          p.split)
+                          p.split, mask)
         gain2 = info.gain
         if p.max_depth > 0:
             gain2 = torch.where(depth >= p.max_depth, NEG_INF, gain2)
@@ -398,20 +437,24 @@ class SegmentGrower:
         s.counters[3:].add_(1)
 
     # ----------------------------------------------------- state, graph
-    def _state_for(self, binsT: torch.Tensor, fmeta: FeatureMeta):
-        """The grower's device state for this shape: allocated once (and,
-        on a card, its steps captured in a CUDA graph), then reused."""
+    def _state_for(self, binsT: torch.Tensor, fmeta: FeatureMeta,
+                   masked: bool = False):
+        """The grower's device state for this shape and feature masks:
+        allocated once (and, on a card, its steps captured in a CUDA
+        graph), then reused."""
         F, npad = binsT.shape
         L = self.p.num_leaves
         key = (F, npad, L, binsT.device, fmeta.is_cat is not None,
-               self.steps)
+               self.steps, masked)
         if key != self._key:
             # the key is kept only once the state is whole: after a capture
             # that raised, the next grow captures (and raises) again
             self._key = None
             self._graph = None
             self._start_graphs = {}
-            self.s = _DeviceState(F, npad, self.B, L, binsT.device, fmeta)
+            self._masked = masked
+            self.s = _DeviceState(F, npad, self.B, L, binsT.device, fmeta,
+                                  masked)
             self._child_cols = torch.arange(
                 _NODE_WORDS, device=binsT.device) >= SPLIT_WORDS
             self.limit = min(max(1, int(COMPACT_WASTE * (npad // self.rb))),
@@ -488,9 +531,14 @@ class SegmentGrower:
                                           max_blocks, 0, self.B, self.rb,
                                           s.scales)
         s.leaf_hist[0].copy_(root_hist)
+        mask = None
+        if self._masked:
+            s.node_masks.copy_(node_feature_mask(s.fmask, s.key,
+                                                 s.node_steps, self.p))
+            mask = s.node_masks[-1:]          # the root's number, 2L
         info = best_split(s.leaf_hist[:1], s.leaf_sum[:1, 0],
                           s.leaf_sum[:1, 1], s.leaf_sum[:1, 2], s.fmeta,
-                          self.p.split)
+                          self.p.split, mask)
         f32, i32 = _cache_rows(info, info.gain)
         s.best_f32[:1].copy_(f32)
         s.best_i32[:1].copy_(i32)
@@ -499,7 +547,9 @@ class SegmentGrower:
     def grow(self, binsT: torch.Tensor, grad: torch.Tensor,
              hess: torch.Tensor, member: torch.Tensor, fmeta: FeatureMeta,
              root: Optional[Tuple[torch.Tensor, torch.Tensor,
-                                  torch.Tensor]] = None
+                                  torch.Tensor]] = None,
+             feature_mask: Optional[torch.Tensor] = None,
+             key: Optional[torch.Tensor] = None
              ) -> Tuple[TreeArrays, torch.Tensor]:
         n = binsT.shape[1]
         if n % self.rb:
@@ -511,12 +561,14 @@ class SegmentGrower:
             root_hist = None
         else:
             w8, scales, root_hist = root
-        s = self._state_for(binsT, fmeta)
+        _check_key(feature_mask, key, self.p)
+        s = self._state_for(binsT, fmeta, feature_mask is not None)
         self._src = (binsT, w8)
         s.load(binsT, w8, scales, fmeta,
                torch.stack([torch.sum(grad * member),
                             torch.sum(hess * member), torch.sum(member)]),
-               root_hist)
+               root_hist, feature_mask,
+               None if feature_mask is None else key)
         self._begin(root_hist is not None, max_blocks)
         replays = fetches = 0
         while True:

@@ -112,9 +112,11 @@ def save_model_to_string(gbdt, config, num_iteration: int = -1,
     lines = ["tree", f"version={MODEL_VERSION}", f"num_class={C}",
              f"num_tree_per_iteration={C}", "label_index=0",
              f"max_feature_idx={gbdt.max_feature_idx}",
-             f"objective={_objective_to_string(config)}",
-             "feature_names=" + " ".join(gbdt.feature_names),
-             "feature_infos=" + " ".join(_feature_infos_strings(gbdt))]
+             f"objective={_objective_to_string(config)}"]
+    if gbdt.average_output:
+        lines.append("average_output")
+    lines += ["feature_names=" + " ".join(gbdt.feature_names),
+              "feature_infos=" + " ".join(_feature_infos_strings(gbdt))]
 
     def tree_for_save(i: int) -> Tree:
         """Boost-from-average is a bias folded into the leaves of the
@@ -240,11 +242,10 @@ def load_model(model_str: str):
         if "=" in line:
             k, v = line.split("=", 1)
             kv[k.strip()] = v.strip()
-        elif line.strip() == "average_output":
-            raise NotImplementedError(
-                "an averaged-output (random forest) model is not supported "
-                "by lightgbm_tpu_torch")
     out = LoadedBoosting()
+    # a random forest's predictions average its iterations' trees
+    out.average_output = "average_output" in (
+        line.strip() for line in header.splitlines())
     C = int(kv.get("num_tree_per_iteration", 1))
     out.num_tree_per_iteration = C
     out.max_feature_idx = int(kv.get("max_feature_idx", 0))
@@ -373,7 +374,7 @@ def dump_model_dict(gbdt, config, num_iteration: int = -1) -> Dict:
         "label_index": 0,
         "max_feature_idx": gbdt.max_feature_idx,
         "objective": _objective_to_string(config),
-        "average_output": False,
+        "average_output": bool(gbdt.average_output),
         "feature_names": list(gbdt.feature_names),
         "feature_importances": {
             name: int(v) for name, v in zip(

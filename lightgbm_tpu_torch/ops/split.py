@@ -34,7 +34,7 @@ histogram.  Every function takes a batch of K leaves: hist
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -283,12 +283,16 @@ def build_cat_bitset(mask: torch.Tensor) -> torch.Tensor:
 
 def best_split(hist: torch.Tensor, parent_g: torch.Tensor,
                parent_h: torch.Tensor, parent_c: torch.Tensor,
-               fmeta: FeatureMeta, p: SplitParams) -> SplitInfo:
+               fmeta: FeatureMeta, p: SplitParams,
+               feature_mask: Optional[torch.Tensor] = None) -> SplitInfo:
     """Best split of each of K leaves from their [K, F, B, 3] histograms
     and [K] parent sums (SerialTreeLearner::FindBestSplitsFromHistograms,
     serial_tree_learner.cpp:549-640): per-feature best candidate of each
     family (numerical; with has_cat also one-hot and sorted-subset), then
-    the per-leaf argmax over features."""
+    the per-leaf argmax over features.  ``feature_mask`` ([K, F] or [1,
+    F], nonzero = usable; feature fraction by tree and by node) gives a
+    masked feature the gain -inf before that argmax
+    (lightgbm_tpu/ops/split.py:420)."""
     K, F, B, _ = hist.shape
     kk = torch.arange(K, device=hist.device)
     parent = torch.stack([parent_g, parent_h, parent_c], dim=1).to(
@@ -323,6 +327,9 @@ def best_split(hist: torch.Tensor, parent_g: torch.Tensor,
         ng = torch.amax(fam_gains, dim=2)
     fgain = torch.where(ng > min_gain_shift, ng - min_gain_shift,
                         torch.full_like(ng, NEG_INF))
+    if feature_mask is not None:
+        fgain = torch.where(feature_mask > 0, fgain,
+                            torch.full_like(fgain, NEG_INF))
 
     best_f = torch.argmax(fgain, dim=1)                       # [K]
     best_gain = fgain[kk, best_f]

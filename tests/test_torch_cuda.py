@@ -1530,3 +1530,188 @@ def test_weighted_and_unweighted_boosters_in_turns_grow_their_solo_models(
             b.update()
     assert [b.model_to_string() for b in turns] == solo
     assert solo[0] != solo[1]
+
+
+# ------------------------------------------------- boosting modes (PR 10)
+@pytest.mark.cuda
+def test_threefry_on_card_equals_cpu(dev):
+    """Integer ops: the card's bits equal the CPU's, and so its uniforms,
+    fold-ins and node masks."""
+    from lightgbm_tpu_torch.models.grower import (GrowerParams,
+                                                  node_feature_mask)
+    from lightgbm_tpu_torch.utils import random
+    for seed in (0, 3, 2**31 - 1):
+        key = random.split(random.prng_key(seed))[1]
+        kd = key.to(dev)
+        for n in (1, 28, 100_003):
+            assert torch.equal(random.random_bits(kd, n).cpu(),
+                               random.random_bits(key, n))
+            assert torch.equal(random.uniform(kd, n).cpu(),
+                               random.uniform(key, n))
+        steps = torch.arange(2 * 63 + 1)
+        assert torch.equal(random.fold_in(kd, steps.to(dev)).cpu(),
+                           random.fold_in(key, steps))
+        base = (torch.arange(28) % 4 != 1).float()
+        p = GrowerParams(num_leaves=63, feature_fraction_bynode=0.4)
+        assert torch.equal(
+            node_feature_mask(base.to(dev), kd, steps.to(dev), p).cpu(),
+            node_feature_mask(base, key, steps, p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 3])
+def test_goss_select_on_card_equals_cpu(dev, C):
+    from lightgbm_tpu_torch.models.goss import goss_select
+    from lightgbm_tpu_torch.utils import random
+    rng = np.random.RandomState(C)
+    n = 200_001
+    g = torch.from_numpy(np.round(rng.normal(size=(C, n)), 3).astype(
+        np.float32))
+    h = torch.from_numpy(rng.uniform(0.05, 0.25, size=(C, n)).astype(
+        np.float32))
+    key = random.fold_in(random.prng_key(0), 0x60550000 + 12)
+    want = goss_select(g, h, key, n // 5, n // 10)
+    got = goss_select(g.to(dev), h.to(dev), key.to(dev), n // 5, n // 10)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    assert want[2].sum() >= n // 5 + n // 10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F,B", [(28, 64), (28, 256)])
+def test_segment_kernels_with_goss_amplified_gradients(dev, F, B):
+    """K1 and K3 on GOSS's amplified gradients, out-of-bag rows members 0:
+    the fixed-point scale follows the largest amplified |g|; the sums
+    stay within 1e-5 of the bin's sum of |value|."""
+    from lightgbm_tpu_torch.models.goss import goss_select
+    from lightgbm_tpu_torch.utils import random
+    fm, binsT, _, lid = _segment_layout(F, B, F + B + 2)
+    n = binsT.shape[1]
+    rng = np.random.RandomState(F + B)
+    grad = torch.from_numpy(rng.normal(size=(1, n)).astype(np.float32))
+    hess = torch.from_numpy(rng.uniform(0.01, 0.25, size=(1, n)).astype(
+        np.float32))
+    key = random.fold_in(random.prng_key(1), 0x60550000 + 3)
+    g, h, mask = goss_select(grad, hess, key, n // 5, n // 10)
+    w8 = th.pack_channels(g[0], h[0], mask)
+    scales = th.fixed_point_scales(w8)
+    d_bins, d_w8, d_scales = binsT.to(dev), w8.to(dev), scales.to(dev)
+    for lo, nblk in _SEG_WINDOWS:
+        want = th.histogram_segment_plain(binsT, w8, lid, lo, nblk, 1, B, RB)
+        got = th.histogram_segment(d_bins, d_w8, lid.to(dev), lo, nblk, 1,
+                                   B, RB, d_scales)
+        _assert_hist(got, want, w8, binsT, lid, lo, nblk, 1, B)
+    for route in _routes(fm, F)[:4]:
+        want_lid, want = th.histogram_segment_routed_plain(
+            binsT, w8, lid.clone(), 0, 16, 6, route, B, RB)
+        got_lid, got = th.histogram_segment_routed(
+            d_bins, d_w8, lid.to(dev), 0, 16, 6, route, B, RB, d_scales)
+        assert torch.equal(got_lid.cpu(), want_lid)
+        _assert_hist(got, want, w8, binsT, want_lid, 0, 16, 6, B)
+
+
+MODE_PARAMS = {
+    "bagging_bynode": dict(bagging_fraction=0.6, bagging_freq=1,
+                           feature_fraction=0.75,
+                           feature_fraction_bynode=0.5),
+    "goss": dict(boosting="goss", learning_rate=0.5),
+    "dart": dict(boosting="dart", drop_rate=0.5, skip_drop=0.0),
+    "rf": dict(boosting="rf", bagging_fraction=0.6, bagging_freq=1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", sorted(MODE_PARAMS))
+def test_mode_boosters_on_card_equal_cpu(dev, mode):
+    """5 iterations of each mode: the CPU's splits up to a near-tie, the
+    same bag (GOSS: up to 8 rows), raw predictions within 1e-3 where no
+    near-tie was met."""
+    X, y = _session_data()
+    params = dict(SESSION_PARAMS, **MODE_PARAMS[mode])
+    out = {}
+    for device in ("cuda", "cpu"):
+        bst = lt.Booster(dict(params, device_type=device), lt.Dataset(X, y))
+        for _ in range(5):
+            bst.update()
+        out[device] = bst
+    compared = _same_splits(out["cuda"].gbdt.models, out["cpu"].gbdt.models)
+    assert compared >= 30
+    if compared == sum(t.num_leaves - 1 for t in out["cpu"].gbdt.models):
+        # numpy's bags are the same rows; GOSS's follow the scores, whose
+        # last bits differ, so rows at the top_k boundary may swap
+        diff = (out["cuda"].gbdt.member.cpu() != out["cpu"].gbdt.member)
+        assert int(diff.sum()) <= (8 if mode == "goss" else 0)
+        assert np.abs(out["cuda"].predict(X, raw_score=True)
+                      - out["cpu"].predict(X, raw_score=True)).max() < 1e-3
+
+
+@pytest.mark.cuda
+def test_bynode_masks_in_the_device_loop_graph(dev):
+    """The tree-start graph draws every node's mask on the card: its table
+    equals the masks drawn on the CPU from the same tree key, and each
+    step's split uses a feature its node's row keeps."""
+    from lightgbm_tpu_torch.models.grower import node_feature_mask
+    from lightgbm_tpu_torch.utils import random
+    X, y = _session_data()
+    bst = lt.Booster(dict(SESSION_PARAMS, device_type="cuda",
+                          **MODE_PARAMS["bagging_bynode"]), lt.Dataset(X, y))
+    g = bst.gbdt.grower
+    keys = []
+    split = random.split
+
+    def recorded(key, num=2):
+        out = split(key, num)
+        keys.append(out[1])
+        return out
+
+    random.split = recorded
+    try:
+        for _ in range(3):
+            bst.update()
+    finally:
+        random.split = split
+    assert g.last_stats["graph"]
+    L = g.p.num_leaves
+    steps = torch.arange(2 * L + 1)
+    fmask = g.s.fmask.cpu()
+    want = node_feature_mask(fmask, keys[-1], steps, g.p)
+    assert torch.equal(g.s.node_masks.cpu(), want)
+    tree = bst.gbdt.models[-1]
+    # split s went on the root (node number 2L) or on a child of its
+    # parent node p: the left one numbered 2p, the right one 2p + 1
+    assert tree.num_leaves > 2
+    for s in range(tree.num_leaves - 1):
+        row = 2 * L
+        for p in range(s):
+            if tree.left_child[p] == s:
+                row = 2 * p
+            elif tree.right_child[p] == s:
+                row = 2 * p + 1
+        assert want[row, tree.split_feature_inner[s]] > 0, s
+
+
+@pytest.mark.cuda
+def test_bagged_and_unbagged_boosters_in_turns_grow_their_solo_models(dev):
+    """The bag, the tree mask and the key reach the device loop's graphs
+    through the state's buffers, so two boosters on one card, updated in
+    turns, each grow their solo text."""
+    X, y = _session_data()
+    params = dict(SESSION_PARAMS, device_type="cuda")
+    bagged = dict(params, **MODE_PARAMS["bagging_bynode"])
+
+    def boosters():
+        return [lt.Booster(bagged, lt.Dataset(X, y)),
+                lt.Booster(params, lt.Dataset(X, y))]
+
+    solo = []
+    for b in boosters():
+        for _ in range(4):
+            b.update()
+        solo.append(b.model_to_string())
+        del b
+    turns = boosters()
+    for _ in range(4):
+        for b in turns:
+            b.update()
+    assert [b.model_to_string() for b in turns] == solo
+    assert solo[0] != solo[1]

@@ -240,10 +240,10 @@ def test_default_device_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("params", [
-    {"bagging_fraction": 0.5, "bagging_freq": 1},
-    {"feature_fraction": 0.8},
+    {"cegb_penalty_split": 0.5},
+    {"forcedsplits_filename": "splits.json"},
     {"max_bin_by_feature": [3, 4]},
-    {"boosting": "dart"},
+    {"feature_contri": [1.0, 0.5]},
     {"tree_learner": "data"},
     {"tpu_tree_impl": "fused"},
     {"no_such_parameter": 1},
