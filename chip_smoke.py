@@ -6,7 +6,7 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``lightgbm_tpu_torch/csrc`` and runs
-twenty-two phases; any failure exits non-zero:
+twenty-three phases; any failure exits non-zero:
 
   1. build    nvcc for sm_90a; prints ptxas's register/shared-memory lines
               and the card's name and power limit, and for the K1/K3,
@@ -186,6 +186,20 @@ twenty-two phases; any failure exits non-zero:
               bagged model's refit on both devices; threefry bits and
               node masks card = CPU; a bagged and an unbagged booster in
               turns on the card grow their solo model texts.
+ 23. predict  prediction on the card (P1, route_trees): phase 3's
+              in-training valid scores (P1 an iteration) = the host walk
+              bit for bit; P1 on phase 3's device bins with its trees
+              against its plain version, bit for bit, one launch a call,
+              timed (CUDA events, 20 launches) beside its bound; then
+              Booster.predict of phase 3's booster on 1M raw HIGGS rows
+              and of phase 20's goss_regression booster (25 trees) on its
+              2M rows: "auto" and "on" take P1 (the recorded route says
+              so), "off" the host walk, raw scores and output bit for bit,
+              timed; P1 alone on those i16 bins; and at 200k rows DART,
+              rollback, init_model's seeding and a late add_valid with the
+              walks on the card = the same booster's host walks, bit for
+              bit.  Phase 14's seeding and rollback and phase 21's DART
+              drops are card walks too.
 
 Launch counts: a kernel captured into a CUDA graph counts at each replay
 (ops/kernels.py count_replay), when the card runs it.
@@ -196,7 +210,9 @@ times, peak memory, launches by kernel; the kernels' ``launches_by_path``
 holds them as "session"), an ``{"objectives": ...}`` line (phases 17-19;
 "objectives" and "lambdarank" in ``launches_by_path``), a
 ``{"goss_regression": ..., "modes": ...}`` line (phases 20-22;
-"goss_regression" and "modes" in ``launches_by_path``), one
+"goss_regression" and "modes" in ``launches_by_path``), a
+``{"predict": ...}`` line (phase 23; "predict" in ``launches_by_path``,
+the path whose P1 launches the kernels line reports), one
 ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Without a
 card, or run from a directory that does not hold the package, it exits
@@ -266,6 +282,9 @@ SOURCES = {
                                   "lightgbm_tpu/ops/pallas_histogram.py:1279"),
     "histogram_frontier_fusedk": ("lightgbm_tpu_torch/csrc/histogram.cu",
                                   "lightgbm_tpu/ops/pallas_histogram.py:1279"),
+    # no Pallas site: the JAX route is XLA gathers (_tree_leaves)
+    "route_trees": ("lightgbm_tpu_torch/csrc/predict.cu",
+                    "lightgbm_tpu/models/device_predict.py:99"),
 }
 FRONTIER_PARAMS = dict(TRAIN_PARAMS, tpu_tree_impl="frontier")
 # the session phase: a learning rate and stop at which the holdout's
@@ -2172,18 +2191,22 @@ def session_phase(ds, Xh, yh):
     _, ev_train_s = _timed(bst.gbdt.eval_train)
     vh = valid._handle
     last = bst.gbdt.models[-1]
-    _, walk_s = _timed(lambda: last.predict_binned(vh.bins_t,
-                                                   vh.feature_infos()))
+    # the valid walk an iteration makes (P1 and its fetch), and the host
+    # walk it replaced
+    _, walk_s = _timed(lambda: bst.gbdt._card_delta(vh, [last], [0]).cpu())
+    _, host_walk_s = _timed(lambda: last.predict_binned(vh.bins_t,
+                                                        vh.feature_infos()))
     rec.update(best_iteration=bst.best_iteration, iterations=iters,
                wall_s=wall, iter_s=it_s, curve=curve,
                es_iteration_wall_s=wall / iters,
                iter_s_median=float(np.median(it_s)),
                eval_valid_s=ev_valid_s, eval_train_s=ev_train_s,
-               valid_walk_tree_s=walk_s)
+               valid_walk_tree_s=walk_s, valid_host_walk_tree_s=host_walk_s)
     log(f"session: an early-stopping iteration {wall / iters:.4f} s wall "
         f"against iter_seconds median {np.median(it_s):.4f} s; eval_valid "
         f"{ev_valid_s:.4f} s, eval_train {ev_train_s:.4f} s, one tree's "
-        f"valid walk ({len(Xh)} rows) {walk_s:.4f} s")
+        f"valid walk ({len(Xh)} rows) {walk_s:.4f} s on the card, "
+        f"{host_walk_s:.4f} s on the host")
 
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "model.txt")
@@ -2212,13 +2235,15 @@ def session_phase(ds, Xh, yh):
             "the continued model's first trees predict differently")
     seed = cont.gbdt.init_model_seconds
     cc = cont_evals["holdout"][SESSION_PARAMS["metric"][0]]
-    rec.update(continue_wall_s=cont_s, seed_host_walk_s=seed["host_walk"],
+    require("card_walk" in seed, "init_model's seeding did not walk the "
+            "trees on the card")
+    rec.update(continue_wall_s=cont_s, seed_card_walk_s=seed["card_walk"],
                seed_device_add_s=seed["device_add"],
                continue_iter_s=list(cont.gbdt.iter_seconds),
                continue_curve=cc)
     log(f"session: init_model + 5 rounds in {cont_s:.2f} s: seeding "
-        f"{seed['host_walk']:.2f} s host walk of {iters} trees over "
-        f"{ds.num_data()} raw rows, {seed['device_add']:.4f} s device adds; "
+        f"{seed['card_walk']:.4f} s card walk (P1) of {iters} trees over "
+        f"{ds.num_data()} rows, {seed['device_add']:.4f} s device adds; "
         f"holdout {[round(x, 6) for x in cc]}")
 
     _, rb_s = _timed(cont.rollback_one_iter)
@@ -2233,8 +2258,8 @@ def session_phase(ds, Xh, yh):
             and cont.gbdt.models[-1].num_leaves > 1,
             "no tree grew after the rollback")
     rec.update(rollback_s=rb_s, update_after_rollback_s=up_s)
-    log(f"session: rollback_one_iter {rb_s:.3f} s (a host walk of the "
-        f"training bins), the next update {up_s:.3f} s")
+    log(f"session: rollback_one_iter {rb_s:.3f} s (P1 over the training "
+        f"and holdout bins), the next update {up_s:.3f} s")
     del bst, cont, loaded
 
     torch.cuda.empty_cache()
@@ -2961,7 +2986,8 @@ def goss_phase():
     and the last one is the numpy reference's; bench_suite.py's gate on
     the first 200k rows and a 100k holdout's l2; K3 at phase 2's
     tolerance on the last GOSS iteration's amplified gradients.  Returns
-    (launches, record)."""
+    (launches, record, the booster, its raw rows) (phase 23 predicts
+    them)."""
     import numpy as np
     import torch
     import lightgbm_tpu_torch as lt
@@ -3093,9 +3119,9 @@ def goss_phase():
         f"{0.5 * var:.5f}; holdout l2 {hl2:.5f}; K3 on amplified gradients "
         f"max |diff| {k3_err:.3g}; K3 step "
         f"{launches['histogram_segment_routed_step']}")
-    del bst, gb, ds, w8, want, grad, hess
+    del gb, ds, w8, want, grad, hess
     torch.cuda.empty_cache()
-    return launches, out
+    return launches, out, bst, X
 
 
 # --------------------------------------------------------------- phase 21
@@ -3342,7 +3368,218 @@ def modes_parity_phase():
     return launches, rec
 
 
+# --------------------------------------------------------------- phase 23
+PREDICT_ROWS = 1_000_000
+PREDICT_REPS = 20
+WALKS_PARAMS = dict(TRAIN_PARAMS, num_leaves=31, boosting="dart",
+                    drop_rate=0.5, skip_drop=0.0, learning_rate=0.3)
+
+
+def route_bytes(bins, stack, trees, num_bin, default_bin, n, C):
+    """The bytes P1 must move on these inputs: each tree's bins along
+    each row's path (the rows' leaves by the plain route), the [C, n]
+    float64 scores read and written once, the stack and the per-feature
+    tables read once.  Returns (bytes, bin reads)."""
+    import torch
+    from lightgbm_tpu_torch.models.device_predict import leaf_depths
+    from lightgbm_tpu_torch.ops.predict import route_leaves_plain
+    reads = 0
+    for t, tree in enumerate(trees):
+        leaves = route_leaves_plain(bins, stack, t, num_bin, default_bin, n)
+        depth = torch.from_numpy(leaf_depths(tree)).to(leaves.device)
+        reads += int(depth[leaves].sum().item())
+    tables = sum(x.numel() * x.element_size() for x in (
+        stack.split_feature, stack.threshold_bin, stack.decision_type,
+        stack.left_child, stack.right_child, stack.cat_bitset,
+        stack.leaf_value, stack.num_leaves, stack.tree_class, num_bin,
+        default_bin))
+    return reads * bins.element_size() + 16 * C * n + tables, reads
+
+
+def p1_times(bins, stack, num_bin, default_bin, out, trees, tag):
+    """P1 against its plain version on ``bins`` from the values in
+    ``out``: bit for bit, a relaunch adding the same again, one launch a
+    call; its time (CUDA events over PREDICT_REPS launches; plain 3), the
+    bound from this run's paths.  Returns the measurement dict."""
+    import torch
+    from lightgbm_tpu_torch.ops import kernels
+    from lightgbm_tpu_torch.ops import predict as tp
+    C, n = out.shape
+    want = tp.route_trees_plain(bins, stack, num_bin, default_bin,
+                                out.clone())
+    before = kernels.LAUNCHES["route_trees"]
+    got = tp.route_trees(bins, stack, num_bin, default_bin, out.clone())
+    torch.cuda.synchronize()
+    calls = kernels.LAUNCHES["route_trees"] - before
+    require(calls == 1, f"route_trees {tag}: {calls} launches a call")
+    require(torch.equal(got, want), f"route_trees {tag}: differs from the "
+            "plain version")
+    again = tp.route_trees(bins, stack, num_bin, default_bin, got.clone())
+    want2 = tp.route_trees_plain(bins, stack, num_bin, default_bin,
+                                 want.clone())
+    require(torch.equal(again, want2), f"route_trees {tag}: a relaunch "
+            "differs from the plain version")
+    scratch = out.clone()
+    ms = time_ms(lambda i: tp.route_trees(bins, stack, num_bin, default_bin,
+                                          scratch), PREDICT_REPS)
+    plain_ms = time_ms(lambda i: tp.route_trees_plain(
+        bins, stack, num_bin, default_bin, scratch), 3)
+    nbytes, reads = route_bytes(bins, stack, trees, num_bin, default_bin, n,
+                                C)
+    bound, by = bound_ms(nbytes, float(n) * len(trees))
+    rec = {"max_abs_err": float((got - want).abs().max().item()), "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+           "library_ms": None, "launches_a_call": calls, "bytes": nbytes,
+           "bin_reads": reads,
+           "shape": f"{tag}: {n} rows x {bins.shape[0]} features "
+                    f"({bins.dtype}), {len(trees)} trees, C = {C}, "
+                    f"max depth {stack.max_depth}"}
+    log(f"route_trees {tag}: bit for bit the plain version, 1 launch a "
+        f"call; {ms:.4f} ms (plain {plain_ms:.2f} ms), bound {bound:.4f} ms "
+        f"({by}: {reads} bin reads)")
+    return rec
+
+
+def route_kernel_phase(bst):
+    """P1 on phase 3's device bins (u8, the padded HIGGS matrix) with its
+    trees, from the training score: against its plain version and
+    timed (p1_times)."""
+    import torch
+    from lightgbm_tpu_torch.models.device_predict import TreeStack
+    gb = bst.gbdt
+    trees = gb.models
+    stack = TreeStack(trees, [0] * len(trees),
+                      gb.train_set.num_used_features, gb.device)
+    out = gb.train_score.to(torch.float64).contiguous()
+    return p1_times(gb.bins, stack, gb.fmeta.num_bin, gb.fmeta.default_bin,
+                    out, trees, "HIGGS training bins")
+
+
+def predict_phase(tag, bst, X):
+    """Phase 23: Booster.predict of the raw rows ``X`` on the card:
+    "auto" and "on" take P1 (the recorded route says so; one launch a
+    call), "off" the host walk; raw scores and output (the objective's
+    link of the host walk's raw scores) bit for bit; the walls (host
+    clock, binning, upload, P1 and fetch); then P1 alone on these i16
+    bins (p1_times).  Returns (launches, record)."""
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.models.device_predict import TreeStack, bin_rows
+    from lightgbm_tpu_torch.ops import kernels
+    gb = bst.gbdt
+    kernels.reset_launches()
+    # every tree (num_iteration 0), as P1 alone below takes them
+    on_raw, on_raw_s = _timed(lambda: bst.predict(
+        X, num_iteration=0, raw_score=True, predict_device="on"))
+    route_on = gb.last_predict_route
+    on, on_s = _timed(lambda: bst.predict(X, num_iteration=0))
+    route_auto = gb.last_predict_route
+    launches = dict(kernels.LAUNCHES)
+    off_raw, off_raw_s = _timed(lambda: bst.predict(
+        X, num_iteration=0, raw_score=True, predict_device="off"))
+    # predict's output is its objective's link of the raw scores: the
+    # host walk's output without walking the trees again
+    off = gb.objective.convert_output(off_raw)
+    require(route_on == route_auto == "device" and gb.last_predict_route
+            == "host", f"predict {tag}: routes {route_on}, {route_auto}")
+    require(launches["route_trees"] == 2, f"predict {tag}: route_trees "
+            f"launched {launches['route_trees']} times for 2 calls")
+    require(np.array_equal(on_raw, off_raw) and np.array_equal(on, off),
+            f"predict {tag}: the card's predictions differ from the host "
+            f"walk's (max {np.abs(on_raw - off_raw).max()})")
+    require(np.all(np.isfinite(on)) and on.shape == (len(X),),
+            f"predict {tag}: output not finite or of shape {on.shape}")
+    t0 = time.perf_counter()
+    bins = torch.from_numpy(bin_rows(gb.train_set, X)).to(gb.device)
+    torch.cuda.synchronize()
+    bin_s = time.perf_counter() - t0
+    C = gb.num_tree_per_iteration
+    trees = gb.models
+    stack = TreeStack(trees, [i % C for i in range(len(trees))],
+                      gb.train_set.num_used_features, gb.device)
+    out = torch.zeros((C, len(X)), dtype=torch.float64, device=gb.device)
+    kernel = p1_times(bins, stack, gb.fmeta.num_bin, gb.fmeta.default_bin,
+                      out, trees, f"{tag} predict bins")
+    rec = {"rows": len(X), "trees": len(trees),
+           "on_raw_s": on_raw_s, "auto_s": on_s, "off_raw_s": off_raw_s,
+           "bin_and_upload_s": bin_s, "speedup_raw": off_raw_s / on_raw_s,
+           "p1": kernel}
+    log(f"predict {tag}: {len(X)} rows x {len(trees)} trees: card "
+        f"{on_raw_s:.3f} s (raw), {on_s:.3f} s (auto) = host walk "
+        f"{off_raw_s:.3f} s (raw) bit for bit; binning + upload "
+        f"{bin_s:.3f} s")
+    del bins, out, stack
+    return launches, rec
+
+
+def walks_parity_phase():
+    """The training loop's walks on the card (P1: valid scores each
+    iteration, DART's drops, rollback, init_model's seeding, a late
+    add_valid's replay) against the host walks on the same card booster,
+    bit for bit: model texts, training scores, valid scores.  DART
+    (drop 0.5) at PARITY_ROWS, 31 leaves, 6 iterations, then 2 more
+    from it as init_model; and its seeding and predict on the holdout
+    rows, whose bins differ.  Returns the record."""
+    import numpy as np
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.models.gbdt import GBDT
+    from lightgbm_tpu_torch.ops import kernels
+    X, y = higgs_like(PARITY_ROWS + HOLDOUT_ROWS, 23)
+    Xh, yh = X[PARITY_ROWS:], y[PARITY_ROWS:]
+    X, y = X[:PARITY_ROWS], y[:PARITY_ROWS]
+
+    def run():
+        ds = lt.Dataset(X, y)
+        va = ds.create_valid(Xh, yh)
+        t0 = time.perf_counter()
+        bst = lt.train(WALKS_PARAMS, ds, 6, valid_sets=[va],
+                       verbose_eval=False)
+        bst.rollback_one_iter()
+        bst.update()
+        cont = lt.train(dict(WALKS_PARAMS, boosting="gbdt"),
+                        lt.Dataset(X, y), 2, init_model=bst,
+                        verbose_eval=False)
+        cont.add_valid(lt.Dataset(Xh, yh, reference=cont.train_set), "late")
+        # seeded on other rows: the trees' thresholds fall inside these
+        # bins, so the seeding walks the raw rows (Tree.bins_exact)
+        other = lt.train(dict(WALKS_PARAMS, boosting="gbdt"),
+                         lt.Dataset(Xh, yh), 0, init_model=bst,
+                         verbose_eval=False)
+        wall = time.perf_counter() - t0
+        out = [bst.model_to_string(), bst.gbdt.train_score.cpu().numpy(),
+               *bst.gbdt.valid_scores, cont.model_to_string(),
+               cont.gbdt.train_score.cpu().numpy(), *cont.gbdt.valid_scores,
+               other.gbdt.train_score.cpu().numpy(),
+               other.predict(Xh, raw_score=True)]
+        return out, wall, sum(bst.gbdt.drop_seconds)
+
+    kernels.reset_launches()
+    card, card_s, card_drop = run()
+    launches = kernels.LAUNCHES["route_trees"]
+    require(launches > 0, "walks parity: P1 did not run")
+    on_card = GBDT._walks_on_card
+    GBDT._walks_on_card = lambda self: False
+    try:
+        host, host_s, host_drop = run()
+    finally:
+        GBDT._walks_on_card = on_card
+    for i, (a, b) in enumerate(zip(card, host)):
+        same = a == b if isinstance(a, str) else np.array_equal(a, b)
+        require(same, f"walks parity: item {i} differs between the card's "
+                "walks and the host's")
+    rec = {"route_trees_launches": launches, "card_wall_s": card_s,
+           "host_wall_s": host_s, "card_drop_s": card_drop,
+           "host_drop_s": host_drop}
+    log(f"walks parity: DART + rollback + init_model + late add_valid at "
+        f"{PARITY_ROWS} rows, card walks = host walks bit for bit "
+        f"({launches} P1 launches); wall {card_s:.2f} s against "
+        f"{host_s:.2f} s, DART drops {card_drop:.3f} s against "
+        f"{host_drop:.3f} s")
+    return rec
+
+
 def main() -> int:
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3394,7 +3631,19 @@ def main() -> int:
     late = late_split_phase(bst)
     results["histogram_segment_routed"]["late_split"] = late["by_value"]
     results["histogram_segment_routed_step"]["late_split"] = late["step"]
-    del bst
+    # phase 23 at HIGGS: the in-training valid scores (P1 each iteration)
+    # = the host walk, P1 against its plain version, predict on and off
+    # every tree (phase 3b grew a fourth after train's best_iteration)
+    valid_off = bst.predict(Xh, raw_score=True, num_iteration=0,
+                            predict_device="off")
+    require(np.array_equal(bst.gbdt.valid_scores[0], valid_off),
+            "the card's in-training valid scores differ from the host walk")
+    t_predict = time.perf_counter()
+    results["route_trees"] = route_kernel_phase(bst)
+    Xp, _ = higgs_like(PREDICT_ROWS, 43)
+    predict_launches, predict_higgs = predict_phase("HIGGS", bst, Xp)
+    t_predict = time.perf_counter() - t_predict
+    del bst, Xp
     fr_launches, fr_stats, bst = frontier_train_phase(ds, Xh, yh,
                                                       train_stats)
     results["route_window"]["late_window"] = route_late_phase(bst)
@@ -3466,11 +3715,23 @@ def main() -> int:
     meta_parity = meta_parity_phase()
     meta_parity["phase_wall_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    goss_launches, goss = goss_phase()
+    goss_launches, goss, goss_bst, goss_X = goss_phase()
     goss["phase_wall_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     parity_launches, modes["parity"] = modes_parity_phase()
     modes["phase_wall_s"] = t_modes + time.perf_counter() - t0
+    t0 = time.perf_counter()
+    goss_predict_launches, predict_goss = predict_phase(
+        "goss_regression", goss_bst, goss_X)
+    del goss_bst, goss_X
+    torch.cuda.empty_cache()
+    walks = walks_parity_phase()
+    t_predict += time.perf_counter() - t0
+    predict_launches = {k: predict_launches[k] + goss_predict_launches[k]
+                        for k in predict_launches}
+    predict = {"higgs": predict_higgs, "goss_regression": predict_goss,
+               "walks_parity": walks, "launches": predict_launches,
+               "phase_wall_s": t_predict}
     modes_launches = {k: modes_launches[k] + parity_launches[k]
                       for k in modes_launches}
     require(goss_launches["histogram_segment_routed_step"] > 0
@@ -3495,7 +3756,7 @@ def main() -> int:
              "frontier_fusedk": tier_launches["fusedk"],
              "session": session_launches, "objectives": obj_launches,
              "lambdarank": rank_launches, "goss_regression": goss_launches,
-             "modes": modes_launches}
+             "modes": modes_launches, "predict": predict_launches}
     records = []
     for name in kernels.KERNEL_NAMES:
         r = dict(results.get(name, {}))
@@ -3508,8 +3769,8 @@ def main() -> int:
                 "histogram_all": "multiclass",
                 "histogram_frontier": "frontier",
                 "histogram_frontier_routed": "frontier_k1",
-                "histogram_frontier_fusedk": "frontier_fusedk"}.get(
-                    name, "fused")
+                "histogram_frontier_fusedk": "frontier_fusedk",
+                "route_trees": "predict"}.get(name, "fused")
         src, replaces = SOURCES[name]
         rec = {"name": name, "route": "cuda", "source": src,
                "replaces": replaces, "launches": paths[path][name],
@@ -3526,6 +3787,12 @@ def main() -> int:
                 "histogram_segment_step": "K1 step",
                 "histogram_segment_routed_step": "K3 step",
                 "route_window": "K2", "route_window_step": "K2 step"}[name]]
+        if name == "route_trees":
+            rec["no_pallas_site"] = (
+                "the JAX package computes this route as XLA gathers "
+                "(lightgbm_tpu/models/device_predict.py:99-149)")
+            rec["predict_bins"] = {"higgs": predict_higgs["p1"],
+                                   "goss_regression": predict_goss["p1"]}
         if name in fk_mc:
             rec["mc"] = fk_mc[name]
             rec["mc_k16"] = fk_mc[f"{name}_k16"]
@@ -3546,6 +3813,7 @@ def main() -> int:
     log(json.dumps({"objectives": objectives, "objectives_wall_s": t_obj,
                     "lambdarank": rank, "meta_parity": meta_parity}))
     log(json.dumps({"goss_regression": goss, "modes": modes}))
+    log(json.dumps({"predict": predict}))
     log(json.dumps({"kernels": records}))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -11,13 +11,14 @@ it predicts by the host tree walk.
 from __future__ import annotations
 
 import copy
+import json
 import os
 import tempfile
 from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 
-from .config import Config, resolve_alias
+from .config import PREDICT_PARAMS, Config, resolve_alias
 from .core.dataset import TorchDataset
 from .core.metadata import Metadata
 from .models.boosting_factory import create_boosting
@@ -25,8 +26,87 @@ from .models.gbdt import GBDT, resolve_device
 from .models.refit import refit_model
 from .models.serialization import (dump_model_dict, load_model,
                                    save_model_to_string)
+from .models.shap import predict_contrib
 from .objective import create_objective
 from .utils.log import LightGBMError, set_verbosity
+
+
+def _pandas_categories(data) -> Optional[List[list]]:
+    """The category lists of a DataFrame's category columns, in column
+    order (None for a frame without any, or for other data)."""
+    if not (hasattr(data, "dtypes") and hasattr(data, "columns")):
+        return None
+    out = [list(data[c].cat.categories) for c in data.columns
+           if str(data[c].dtype) == "category"]
+    return out or None
+
+
+def _as_2d_float(data, num_features: Optional[int] = None,
+                 pandas_categorical: Optional[List[list]] = None
+                 ) -> np.ndarray:
+    """A 2-D float matrix of ``data`` (lightgbm_tpu/basic.py _as_2d_float):
+    a DataFrame's category columns become their codes (missing or unseen
+    ones NaN), in the order ``pandas_categorical`` pins where given; a
+    scipy matrix is densified; a 1-D vector is one row when its length is
+    ``num_features``, else one column.  A float array keeps its type
+    (binning and the walks read it as float64)."""
+    if hasattr(data, "dtypes") and hasattr(data, "columns") and any(
+            str(dt) == "category" for dt in data.dtypes):
+        n_cat = sum(1 for dt in data.dtypes if str(dt) == "category")
+        if (pandas_categorical is not None
+                and n_cat != len(pandas_categorical)):
+            # positional matching would mis-align the mappings
+            raise LightGBMError(
+                f"train and predict/valid DataFrames have different "
+                f"category-column counts ({len(pandas_categorical)} at "
+                f"train, {n_cat} now)")
+        cols = []
+        cat_i = 0
+        for c in data.columns:
+            col = data[c]
+            if str(col.dtype) == "category":
+                if pandas_categorical is not None:
+                    # re-code into the training frame's category order
+                    col = col.cat.set_categories(pandas_categorical[cat_i])
+                codes = col.cat.codes.to_numpy().astype(np.float64)
+                codes[codes < 0] = np.nan
+                cols.append(codes)
+                cat_i += 1
+            else:
+                cols.append(col.to_numpy(dtype=np.float64))
+        data = np.stack(cols, axis=1)
+    if hasattr(data, "values"):       # pandas
+        data = data.values
+    if hasattr(data, "toarray"):      # scipy sparse
+        data = data.toarray()
+    arr = np.asarray(data)
+    if arr.dtype.kind != "f":
+        arr = arr.astype(np.float64)
+    if arr.ndim == 1:
+        if num_features is not None and len(arr) == num_features:
+            arr = arr[None, :]
+        else:
+            arr = arr[:, None]
+    return arr
+
+
+_PANDAS_CAT_KEY = "pandas_categorical:"
+
+
+def _split_pandas_categorical(model_str: str):
+    """(the model text without its trailing ``pandas_categorical:<json>``
+    line, the category lists or None): the reference python package's
+    trailer, so that either package reads the other's files
+    (lightgbm_tpu/basic.py:83-100)."""
+    idx = model_str.rfind("\n" + _PANDAS_CAT_KEY)
+    if idx < 0:
+        return model_str, None
+    line = model_str[idx + 1 + len(_PANDAS_CAT_KEY):].strip()
+    try:
+        cats = json.loads(line)
+    except json.JSONDecodeError:
+        return model_str, None
+    return model_str[:idx + 1], cats
 
 
 class Dataset:
@@ -36,7 +116,13 @@ class Dataset:
     query groups (lambdarank, ndcg, map), ``init_score`` [N] or [C * N]
     (class-major) raw scores to boost from.  ``categorical_feature``
     lists the categorical columns by index or feature name; "auto" takes
-    the ``categorical_feature`` parameter."""
+    the ``categorical_feature`` parameter and a DataFrame's category
+    columns.  A DataFrame gives its column names as feature names and
+    its category columns as codes (``pandas_categorical``: the category
+    lists, a valid set takes its reference's).  ``free_raw_data`` is kept
+    as the JAX Dataset keeps it; the raw matrix is only read at
+    construction.  A scipy sparse matrix is not taken yet (pass
+    ``data.toarray()``)."""
 
     def __init__(self, data, label=None,
                  reference: Optional["Dataset"] = None,
@@ -44,7 +130,8 @@ class Dataset:
                  feature_name="auto",
                  categorical_feature: Union[str, List[int], List[str]] =
                  "auto",
-                 params: Optional[Dict[str, Any]] = None):
+                 params: Optional[Dict[str, Any]] = None,
+                 free_raw_data: bool = True):
         self.data = data
         self.label = label
         self.reference = reference
@@ -56,8 +143,11 @@ class Dataset:
         self.params = dict(params or {})
         self._handle: Optional[TorchDataset] = (
             data if isinstance(data, TorchDataset) else None)
+        self.free_raw_data = free_raw_data
         # rows of ``reference`` this dataset is a subset of (``subset``)
         self.used_indices: Optional[np.ndarray] = None
+        # the training frame's category lists (set at construction)
+        self.pandas_categorical: Optional[List[list]] = None
 
     def construct(self, config: Optional[Config] = None) -> "Dataset":
         if self._handle is not None:
@@ -65,17 +155,38 @@ class Dataset:
         if self.used_indices is not None:
             self._handle = self.reference.construct(config)._handle.subset(
                 self.used_indices)
+            self.pandas_categorical = self.reference.pandas_categorical
             return self
+        if hasattr(self.data, "tocsr") and not hasattr(self.data, "values"):
+            raise NotImplementedError(
+                "lightgbm_tpu_torch does not bin a scipy sparse matrix; "
+                "pass data.toarray()")
         cfg = config or Config.from_params(self.params, device_type="cpu")
         ref = None
         if self.reference is not None:
             ref = self.reference.construct(cfg)._handle
-        names = (None if self.feature_name == "auto"
-                 else list(self.feature_name))
+        self.pandas_categorical = (
+            self.reference.pandas_categorical
+            if self.reference is not None
+            and self.reference.pandas_categorical is not None
+            else _pandas_categories(self.data))
+        if self.feature_name != "auto":
+            names = list(self.feature_name)
+        elif hasattr(self.data, "columns"):
+            names = [str(c) for c in self.data.columns]
+        else:
+            names = None
+        cat_idx = self._categorical_indices(cfg, names)
+        if self.categorical_feature == "auto" and hasattr(self.data,
+                                                          "dtypes"):
+            cat_idx += [i for i, dt in enumerate(self.data.dtypes)
+                        if str(dt) == "category" and i not in cat_idx]
         self._handle = TorchDataset.from_numpy(
-            np.asarray(self.data), label=self.label, config=cfg,
+            _as_2d_float(self.data,
+                         pandas_categorical=self.pandas_categorical),
+            label=self.label, config=cfg,
             feature_names=names, reference=ref,
-            categorical_features=self._categorical_indices(cfg, names),
+            categorical_features=cat_idx,
             weights=_as_f64(self.weight),
             group=(np.asarray(self.group) if self.group is not None
                    else None),
@@ -227,6 +338,7 @@ class Booster:
             set_verbosity(self.config.verbosity)
             train_set.construct(self.config)
             self.train_set = train_set
+            self.pandas_categorical = train_set.pandas_categorical
             self.objective = create_objective(self.config)
             self.gbdt = create_boosting(self.config, train_set._handle,
                                         self.objective,
@@ -242,6 +354,8 @@ class Booster:
                 "Booster needs train_set, model_file or model_str")
 
     def _load(self, model_str: str) -> None:
+        model_str, self.pandas_categorical = _split_pandas_categorical(
+            model_str)
         self.gbdt, self.config, self.objective = load_model(model_str)
         self.train_set = None
 
@@ -263,16 +377,41 @@ class Booster:
         return self
 
     # ------------------------------------------------------------ training
-    def update(self, fobj: Optional[Callable] = None) -> bool:
+    def update(self, train_set: Optional[Dataset] = None,
+               fobj: Optional[Callable] = None) -> bool:
         """One boosting iteration; True when training cannot continue.
-        ``fobj(preds, train_set) -> (grad, hess)`` gives the gradients
-        from the raw training score (flat, class-major)."""
+        A new ``train_set`` (binned by the training set's mappers: made
+        with it as ``reference``) is swapped in first
+        (LGBM_BoosterResetTrainingData; lightgbm_tpu/basic.py:405-425):
+        the model's scores are replayed on its rows, and the objective
+        and metrics bound to it.  ``fobj(preds, train_set) -> (grad,
+        hess)`` gives the gradients from the raw training score (flat,
+        class-major)."""
         gbdt = self._trainable()
+        if train_set is not None and train_set is not self.train_set:
+            train_set.construct(self.config)
+            gbdt.reset_train_data(train_set._handle)
+            self.train_set = train_set
+            gbdt.setup_metrics()
         if fobj is None:
             return gbdt.train_one_iter()
         score = gbdt.train_score.cpu().numpy().ravel()
         grad, hess = fobj(score, self.train_set)
         return gbdt.train_one_iter(np.asarray(grad), np.asarray(hess))
+
+    def reset_parameter(self, params: Dict[str, Any]) -> "Booster":
+        """Merge ``params`` into the booster's and train on from the new
+        configuration (LGBM_BoosterResetParameter; the semantics of
+        lightgbm_tpu/capi.py:433-443 booster_reset_parameter): the
+        learning rate and what each iteration reads (sampling, the
+        metrics) change; the grower keeps its tree shape."""
+        gbdt = self._trainable()
+        self.params = {**self.params, **params}
+        self.config = Config.from_params({**self.train_set.params,
+                                          **self.params})
+        set_verbosity(self.config.verbosity)
+        gbdt.reset_config(self.config)
+        return self
 
     def rollback_one_iter(self) -> "Booster":
         self._trainable().rollback_one_iter()
@@ -326,27 +465,57 @@ class Booster:
     # ------------------------------------------------------------- predict
     def predict(self, data, num_iteration: Optional[int] = -1,
                 raw_score: bool = False, pred_leaf: bool = False,
-                start_iteration: int = 0) -> np.ndarray:
-        """Raw scores, the objective's output, or (``pred_leaf``) leaf
-        indices of a raw feature matrix, over ``num_iteration``
-        iterations from ``start_iteration``.  ``num_iteration`` None or
-        negative means ``best_iteration`` when one is set, else every
-        iteration (lightgbm_tpu/basic.py:528); 0 means every iteration
-        too."""
+                pred_contrib: bool = False, start_iteration: int = 0,
+                **kwargs) -> np.ndarray:
+        """Raw scores, the objective's output, (``pred_leaf``) leaf
+        indices, or (``pred_contrib``) SHAP contributions ([N, F + 1] a
+        class, models/shap.py) of a feature matrix — an array, a
+        DataFrame (its category columns coded by ``pandas_categorical``)
+        or a scipy matrix — over ``num_iteration`` iterations from
+        ``start_iteration``.  ``num_iteration`` None or negative means
+        ``best_iteration`` when one is set, else every iteration
+        (lightgbm_tpu/basic.py:528); 0 means every iteration too.
+        ``kwargs`` are prediction parameters for this call
+        (``predict_device``, ``pred_early_stop``,
+        ``pred_early_stop_freq``, ``pred_early_stop_margin``,
+        ``predict_contrib``); any other raises.  A booster's predict
+        routes as ``predict_device`` says (GBDT.predict); the route taken
+        is ``gbdt.last_predict_route``."""
         if num_iteration is None or num_iteration < 0:
             num_iteration = (self.best_iteration if self.best_iteration > 0
                              else -1)
-        X = np.asarray(data, dtype=np.float64)
-        if X.ndim == 1:
-            X = X[None, :]
         n_feat = self.gbdt.max_feature_idx + 1
+        X = _as_2d_float(data, n_feat,
+                         pandas_categorical=self.pandas_categorical)
         if X.shape[1] != n_feat:
             raise LightGBMError(
                 f"The number of features in data ({X.shape[1]}) is not the "
                 f"same as it was in training data ({n_feat})")
+        config = self._predict_config(kwargs)
+        if pred_contrib or config.predict_contrib:
+            return predict_contrib(self.gbdt,
+                                   np.asarray(X, dtype=np.float64),
+                                   num_iteration)
         return self.gbdt.predict(X, num_iteration=num_iteration,
                                  raw_score=raw_score, pred_leaf=pred_leaf,
-                                 start_iteration=start_iteration)
+                                 start_iteration=start_iteration,
+                                 config=config)
+
+    def _predict_config(self, kwargs: Dict[str, Any]) -> Config:
+        """The booster's configuration with ``kwargs``' prediction
+        parameters applied (a copy; the booster's stays)."""
+        if not kwargs:
+            return self.config
+        bad = [k for k in kwargs if resolve_alias(k) not in PREDICT_PARAMS]
+        if bad:
+            raise NotImplementedError(
+                f"predict takes no parameter {bad[0]!r} in "
+                f"lightgbm_tpu_torch (prediction parameters: "
+                f"{', '.join(PREDICT_PARAMS)})")
+        config = copy.copy(self.config)
+        config.raw = dict(config.raw)
+        config.update(kwargs)
+        return config
 
     def refit(self, data, label, weight=None,
               decay_rate: Optional[float] = None) -> "Booster":
@@ -383,8 +552,15 @@ class Booster:
     # --------------------------------------------------------------- model
     def model_to_string(self, num_iteration: Optional[int] = None,
                         start_iteration: int = 0) -> str:
-        return save_model_to_string(self.gbdt, self.config,
+        """The model text; a DataFrame's category lists follow it on a
+        ``pandas_categorical:`` line, as the reference python package
+        writes them."""
+        text = save_model_to_string(self.gbdt, self.config,
                                     num_iteration or -1, start_iteration)
+        if self.pandas_categorical:
+            text += ("\n" + _PANDAS_CAT_KEY
+                     + json.dumps(self.pandas_categorical) + "\n")
+        return text
 
     def save_model(self, filename: str, num_iteration: Optional[int] = None,
                    start_iteration: int = 0) -> "Booster":

@@ -132,6 +132,17 @@ _PARAMS: Dict[str, _P] = {
     "max_conflict_rate": _P(0.0),
     "sparse_threshold": _P(0.8),
     "metric": _P([], ["metrics", "metric_types"], ptype=list),
+    # prediction (lightgbm_tpu/config.py:131-135, :283): "auto" = the
+    # stacked-tree route (kernel P1) on a card booster, the host walk on a
+    # CPU one; "on" = that route on the booster's device (on the CPU its
+    # plain version); "off" = the host walk.  The same bits either way
+    "predict_device": _P("auto"),
+    "predict_contrib": _P(False, ["is_predict_contrib", "contrib"]),
+    # per-row early stop of binary and multiclass prediction, every
+    # pred_early_stop_freq iterations past a margin (host walk only)
+    "pred_early_stop": _P(False),
+    "pred_early_stop_freq": _P(10),
+    "pred_early_stop_margin": _P(10.0),
     # row block: the granularity of the growers' confinement intervals
     # (0 = DEFAULT_BLOCK_ROWS, capped at the row count)
     "tpu_row_chunk": _P(0),
@@ -182,6 +193,9 @@ for _name, _spec in _PARAMS.items():
         ALIAS_TABLE[_a] = _name
 
 DEVICE_TYPES = ("cuda", "cpu")
+# the parameters Booster.predict takes as keywords for one call
+PREDICT_PARAMS = ("predict_device", "predict_contrib", "pred_early_stop",
+                  "pred_early_stop_freq", "pred_early_stop_margin")
 # lightgbm_tpu/models/boosting_factory.py's names
 BOOSTING_TYPES = {"gbdt": "gbdt", "gbrt": "gbdt", "goss": "goss",
                   "dart": "dart", "rf": "rf", "random_forest": "rf"}
@@ -377,6 +391,11 @@ class Config:
         # "auto" resolves to the grower it names, so the model text and
         # the growers see one spelling
         self.tpu_tree_impl = TREE_IMPLS[impl]
+        pd = str(self.predict_device).strip().lower() or "auto"
+        if pd not in ("auto", "on", "off"):
+            raise ValueError("predict_device must be one of auto, on, off "
+                             f"(got {self.predict_device!r})")
+        self.predict_device = pd
         if self.tpu_frontier_width < 0:
             raise LightGBMError("tpu_frontier_width must be >= 0")
         if not 0.0 <= self.tpu_frontier_gain_ratio <= 1.0:

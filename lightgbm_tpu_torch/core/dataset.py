@@ -24,7 +24,7 @@ import torch
 
 from ..config import Config
 from ..models.tree import PARALLEL_ROWS, _walk_workers
-from ..utils.log import check, log_warning
+from ..utils.log import LightGBMError, check, log_warning
 from .binning import BIN_TYPE_CATEGORICAL, BIN_TYPE_NUMERICAL, BinMapper
 from .bundle import build_bundle
 from .metadata import Metadata
@@ -266,6 +266,25 @@ class TorchDataset:
         sub.bins_t = np.ascontiguousarray(self.bins_t[:, indices])
         sub.metadata = self.metadata.subset(indices)
         return sub
+
+    def check_align(self, other: "TorchDataset") -> None:
+        """Raise unless ``other``'s bins align with this dataset's
+        (Dataset::CheckAlign; lightgbm_tpu/core/dataset.py check_align):
+        the same bin mappers, or mappers with the same bins."""
+        if other.bin_mappers is self.bin_mappers:
+            return
+        same = other.num_total_features == self.num_total_features and all(
+            a.num_bin == b.num_bin and a.is_categorical == b.is_categorical
+            and a.missing_type == b.missing_type
+            and np.array_equal(a.bin_upper_bound, b.bin_upper_bound,
+                               equal_nan=True)
+            and a.bin_2_categorical == b.bin_2_categorical
+            for a, b in zip(self.bin_mappers, other.bin_mappers))
+        if not same:
+            raise LightGBMError(
+                "Cannot use this dataset: its bin mappers differ from the "
+                "training data's (construct it with the training set as "
+                "reference)")
 
     def real_threshold(self, used_feature: int, bin_threshold: int) -> float:
         """Numerical bin threshold -> real-valued threshold

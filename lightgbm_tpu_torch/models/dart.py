@@ -9,9 +9,10 @@ the new trees with shrinkage lr / (1 + k) (xgboost mode: lr / (lr + k)),
 then applies Normalize's net effect: each dropped tree scaled by k / (k +
 1) (k / (k + lr)) and that share of its prediction added back.  A dropped
 tree's training prediction is the host walk over the training bins, as
-in the JAX package; its f32 cast leaves the device training score and its
-f64 value the valid scores.  ``drop_seconds`` holds each iteration's
-walks and score updates.
+in the JAX package (on a card booster P1 over the device bins, the same
+bits); its f32 cast leaves the device training score and its f64 value
+the valid scores.  ``drop_seconds`` holds each iteration's walks and
+score updates.
 """
 
 from __future__ import annotations
@@ -64,24 +65,37 @@ class DART(GBDT):
 
     def _tree_predictions(self, it: int):
         """Iteration ``it``'s trees' current predictions: per class, the
-        training rows' and each valid set's (host walks of the bins)."""
+        training rows' and each valid set's.  A card booster walks the
+        device bins with P1 (the training rows' [C, N] float64 stay on the
+        card); a CPU booster walks the host bins."""
         C = self.num_tree_per_iteration
+        trees = self.models[it * C:(it + 1) * C]
+        if self._walks_on_card():
+            classes = list(range(C))
+            train = self._card_delta(self.train_set, trees, classes)
+            valid = [self._card_delta(vset, trees, classes).cpu().numpy()
+                     for (_, vset) in self.valid_sets]
+            return ([train[k] for k in range(C)],
+                    [[v[k] for v in valid] for k in range(C)])
         infos = self.train_set.feature_infos()
         train_preds, valid_preds = [], []
-        for k in range(C):
-            tree = self.models[it * C + k]
+        for tree in trees:
             train_preds.append(tree.predict_binned(self.train_set.bins_t,
                                                    infos))
             valid_preds.append([tree.predict_binned(vset.bins_t, infos)
                                 for (_, vset) in self.valid_sets])
         return train_preds, valid_preds
 
-    def _add(self, k: int, train_delta: np.ndarray, valid_deltas) -> None:
-        """Class ``k``'s scores += the deltas: f32 on the device, f64 on
-        the valid sets."""
+    def _add(self, k: int, train_delta, valid_deltas) -> None:
+        """Class ``k``'s scores += the deltas: the training delta (a host
+        array, or a tensor on the card) cast to f32 and added on the
+        device, the f64 ones to the valid sets."""
         C = self.num_tree_per_iteration
-        self.train_score[k] += torch.from_numpy(
-            train_delta.astype(np.float32)).to(self.device)
+        if isinstance(train_delta, torch.Tensor):
+            self.train_score[k] += train_delta.to(torch.float32)
+        else:
+            self.train_score[k] += torch.from_numpy(
+                train_delta.astype(np.float32)).to(self.device)
         for vscore, d in zip(self.valid_scores, valid_deltas):
             vscore.reshape(C, -1)[k] += d
 
@@ -125,7 +139,7 @@ class DART(GBDT):
         for it, tp, vp in dropped:
             for ki in range(C):
                 self.models[it * C + ki].apply_shrinkage(scale)
-                self._add(ki, np.asarray(tp[ki]) * scale,
+                self._add(ki, tp[ki] * scale,
                           [v * scale for v in vp[ki]])
             if not cfg.uniform_drop:
                 self.sum_weight -= self.tree_weight[it] * sub

@@ -36,10 +36,12 @@ from ..core.dataset import TorchDataset
 from ..metric import create_metric
 from ..ops.histogram import (class_scales, frontier_width, histogram_all,
                              pack_channel_sets)
+from ..ops.predict import route_trees
 from ..ops.score import score_gather_add
 from ..ops.split import FeatureMeta, SplitParams
 from ..utils import random
 from ..utils.log import LightGBMError, log_warning
+from .device_predict import TreeStack, bin_rows
 from .grower import GrowerParams
 from .grower_frontier import FrontierGrower
 from .grower_seg import SegmentGrower
@@ -113,6 +115,9 @@ class TreeEnsemble:
     serialization.LoadedBoosting is one read from a model text."""
 
     average_output = False
+    # the route of the last predict: "device" (P1) or "host" (the walk)
+    last_predict_route: Optional[str] = None
+    config: Config
     models: List[Tree]
     num_tree_per_iteration: int
     init_scores: List[float]
@@ -137,28 +142,38 @@ class TreeEnsemble:
 
     def predict(self, X: np.ndarray, num_iteration: int = -1,
                 raw_score: bool = False, pred_leaf: bool = False,
-                start_iteration: int = 0) -> np.ndarray:
+                start_iteration: int = 0,
+                config: Optional[Config] = None) -> np.ndarray:
         """Raw scores or the objective's output ([N] or [N, C]) of a raw
         feature matrix over ``num_iteration`` iterations from
         ``start_iteration``, or with ``pred_leaf`` each row's leaf index in
-        each of those trees ([N, trees]).  A host walk of every tree
-        (lightgbm_tpu/models/gbdt.py _raw_predict, predict)."""
+        each of those trees ([N, trees]) (lightgbm_tpu/models/gbdt.py
+        predict :2210-2238).  ``config`` (default the model's) gives the
+        prediction parameters: under ``predict_device`` the stacked-tree
+        route (P1, ``_device_raw_predict``) where ``_device_route_ok``,
+        else the host walk of every tree (``_raw_predict``, with
+        ``pred_early_stop``); both give the same bits.  The route taken
+        is ``last_predict_route`` ("device" or "host"); ``pred_leaf`` is
+        a host walk."""
+        config = config or self.config
         # feature-major: a tree node reads one contiguous column
         X = np.asfortranarray(X, dtype=np.float64)
         C = self.num_tree_per_iteration
         start = min(max(start_iteration, 0), self.iter_)
-        trees = range(start * C, self._end_iteration(num_iteration,
-                                                     start) * C)
+        end = self._end_iteration(num_iteration, start)
+        trees = range(start * C, end * C)
         if pred_leaf:
+            self.last_predict_route = "host"
             leaves = np.zeros((X.shape[0], len(trees)), dtype=np.int32)
             for j, i in enumerate(trees):
                 leaves[:, j] = self.models[i].apply_raw(X)
             return leaves
-        raw = np.zeros((C, X.shape[0]), dtype=np.float64)
-        for k in range(C):
-            raw[k] += self.init_scores[k]
-        for i in trees:
-            raw[i % C] += self.models[i].predict_raw(X)
+        if self._device_route_ok(config):
+            self.last_predict_route = "device"
+            raw = self._device_raw_predict(X, trees)
+        else:
+            self.last_predict_route = "host"
+            raw = self._raw_predict(X, start, end, config)
         if self.average_output:
             # lightgbm_tpu/models/gbdt.py:2231-2234
             raw = raw / max(len(trees) // C, 1)
@@ -166,6 +181,63 @@ class TreeEnsemble:
         if raw_score or self.objective is None:
             return raw.T
         return self.objective.convert_output(raw).T
+
+    def _init_raw(self, n: int) -> np.ndarray:
+        """[C, n] f64: each class's boost-from-average score, added to 0.0
+        as the walks start."""
+        raw = np.zeros((self.num_tree_per_iteration, n), dtype=np.float64)
+        for k in range(self.num_tree_per_iteration):
+            raw[k] += self.init_scores[k]
+        return raw
+
+    def _early_stop(self, config: Config) -> bool:
+        """Whether prediction stops rows early (``pred_early_stop``): only
+        for binary, cross-entropy and multiclass models, as the reference
+        instantiates it (lightgbm_tpu/models/gbdt.py:2090-2093)."""
+        C = self.num_tree_per_iteration
+        kind_ok = C > 1 or getattr(self.objective, "name", "") in (
+            "binary", "cross_entropy", "xentropy")
+        return (bool(config.pred_early_stop)
+                and config.pred_early_stop_freq > 0 and kind_ok)
+
+    def _raw_predict(self, X: np.ndarray, start: int, end: int,
+                     config: Config) -> np.ndarray:
+        """[C, N] f64 raw scores of iterations [start, end) by the host
+        walk; with ``pred_early_stop`` a row stops after every
+        ``pred_early_stop_freq`` iterations once its margin (binary: 2 |raw|,
+        multiclass: top1 - top2) exceeds ``pred_early_stop_margin``
+        (prediction_early_stop.cpp; lightgbm_tpu/models/gbdt.py:
+        2080-2115)."""
+        C = self.num_tree_per_iteration
+        raw = self._init_raw(X.shape[0])
+        if not self._early_stop(config):
+            for i in range(start * C, end * C):
+                raw[i % C] += self.models[i].predict_raw(X)
+            return raw
+        freq = config.pred_early_stop_freq
+        thr = float(config.pred_early_stop_margin)
+        active = np.ones(X.shape[0], dtype=bool)
+        for it in range(start, end):
+            if not active.any():
+                break
+            Xa = X[active]
+            for k in range(C):
+                raw[k, active] += self.models[it * C + k].predict_raw(Xa)
+            if (it + 1 - start) % freq == 0:
+                sub = raw[:, active]
+                if C == 1:
+                    margin = 2.0 * np.abs(sub[0])
+                else:
+                    top2 = np.partition(sub, C - 2, axis=0)
+                    margin = top2[-1] - top2[-2]
+                idx = np.nonzero(active)[0]
+                active[idx[margin > thr]] = False
+        return raw
+
+    def _device_route_ok(self, config: Config) -> bool:
+        """A model with no bound training set (a loaded one) has no bin
+        mappers to bin rows by: the host walk."""
+        return False
 
     def feature_importance(self, importance_type: str = "split",
                            iteration: int = -1) -> np.ndarray:
@@ -201,21 +273,41 @@ class GBDT(TreeEnsemble):
         self.num_tree_per_iteration = (
             objective.num_tree_per_iteration if objective is not None
             else max(1, config.num_class))
-        self.train_set = train_set
-        self.num_data = train_set.num_data
-        self.feature_names = list(train_set.feature_names)
-        self.max_feature_idx = train_set.num_total_features - 1
+        if config.tpu_tree_impl != "frontier" and frontier_tier is not None:
+            raise LightGBMError("frontier_tier is given, but "
+                                "tpu_tree_impl is not 'frontier'")
+        self._fused_route = fused_route
+        self._frontier_tier = frontier_tier
         self.shrinkage_rate = config.learning_rate
         self.models: List[Tree] = []
         self.iter_ = 0
         self.iter_seconds: List[float] = []   # wall time of each iteration
         self.renew_seconds: List[float] = []  # each tree's leaf renewal
         self.init_scores = [0.0] * self.num_tree_per_iteration
-        self._boosted_from_average = False
-        self._stop = False
-        if objective is not None:
-            objective.init(train_set.metadata, self.num_data, self.device)
+        self.valid_sets: List[Tuple[str, TorchDataset]] = []
+        # raw scores of each valid set, [N] (C = 1) or [C, N]
+        self.valid_scores: List[np.ndarray] = []
+        self.train_set: Optional[TorchDataset] = None
+        self.reset_train_data(train_set)
+        self.setup_metrics()
 
+    def reset_train_data(self, train_set: TorchDataset) -> None:
+        """Train on ``train_set`` from here on (GBDT::ResetTrainingData;
+        lightgbm_tpu/models/gbdt.py reset_train_data :464-741): its bins
+        must align with the current training set's.  The device state,
+        the grower and the sampling streams start anew; the training score
+        is the current model's replay on the new rows (``_replay_scores``)
+        once a tree exists, else the rows' init scores."""
+        if self.train_set is not None and train_set is not self.train_set:
+            self.train_set.check_align(train_set)
+        config = self.config
+        self.train_set = train_set
+        self.num_data = train_set.num_data
+        self.feature_names = list(train_set.feature_names)
+        self.max_feature_idx = train_set.num_total_features - 1
+        if self.objective is not None:
+            self.objective.init(train_set.metadata, self.num_data,
+                                self.device)
         self.fmeta = build_feature_meta(train_set, self.device)
         self.num_bins = _round_up_pow2(max(train_set.max_num_bin, 2))
         rb = block_rows(config, self.num_data)
@@ -251,26 +343,42 @@ class GBDT(TreeEnsemble):
             self.grower = FrontierGrower(
                 self.num_bins, params, rb,
                 _auto_frontier_k(config, self.bins.shape[0], self.num_bins),
-                config.tpu_frontier_gain_ratio, tier=frontier_tier)
-        elif frontier_tier is not None:
-            raise LightGBMError("frontier_tier is given, but "
-                                "tpu_tree_impl is not 'frontier'")
+                config.tpu_frontier_gain_ratio, tier=self._frontier_tier)
         else:
             self.grower = SegmentGrower(self.num_bins, params, rb,
-                                        fused_route=fused_route)
-        self.train_score = self._initial_score(train_set).to(
-            torch.float32).to(self.device)
-        self.valid_sets: List[Tuple[str, TorchDataset]] = []
-        # raw scores of each valid set, [N] (C = 1) or [C, N]
-        self.valid_scores: List[np.ndarray] = []
-        names = config.metric or (
+                                        fused_route=self._fused_route)
+        score = (torch.from_numpy(self._replay_scores(train_set))
+                 if self.iter_ > 0 else self._initial_score(train_set))
+        self.train_score = score.to(torch.float32).to(self.device)
+        # a stopped model may find splits again on new rows; a replayed
+        # score holds the boost-from-average already
+        self._stop = False
+        self._boosted_from_average = self.iter_ > 0
+
+    def reset_config(self, config: Config) -> None:
+        """Train on from ``config`` (the C API's ResetParameter): its
+        learning rate and metrics from the next iteration on."""
+        self.config = config
+        self.shrinkage_rate = config.learning_rate
+        self.setup_metrics()
+
+    def _metrics_for(self, dataset: TorchDataset) -> list:
+        ms = [create_metric(m, self.config) for m in self.metric_names]
+        for m in ms:
+            m.init(dataset.metadata, dataset.num_data)
+        return ms
+
+    def setup_metrics(self) -> None:
+        """The metrics of ``config.metric`` (else the objective's own),
+        bound to the training set and to each valid set
+        (lightgbm_tpu/models/gbdt.py setup_metrics)."""
+        config = self.config
+        self.metric_names = config.metric or (
             [DEFAULT_METRIC[config.objective]]
             if config.objective in DEFAULT_METRIC else [])
-        self.metric_names = names
-        self.train_metrics = [create_metric(m, config) for m in names]
-        for m in self.train_metrics:
-            m.init(train_set.metadata, self.num_data)
-        self.valid_metrics = []
+        self.train_metrics = self._metrics_for(self.train_set)
+        self.valid_metrics = [self._metrics_for(vset)
+                              for _, vset in self.valid_sets]
 
     def _initial_score(self, dataset: TorchDataset) -> torch.Tensor:
         """[C, N] f64: the dataset's init scores (class-major), else
@@ -286,6 +394,41 @@ class GBDT(TreeEnsemble):
                 f"{C} x {dataset.num_data}")
         return torch.from_numpy(init.reshape(C, dataset.num_data).copy())
 
+    # ------------------------------------------------------------ walks
+    def _walks_on_card(self) -> bool:
+        """Whether the training loop's tree walks (valid scores, replay,
+        rollback, DART's drops, init_model's seeding) run as P1 over the
+        device bins (a card booster) or as the host walk over the host
+        bins (a CPU booster).  Both give the same bits."""
+        return self.device.type == "cuda"
+
+    def _card_walk(self, dataset: TorchDataset, trees: List[Tree],
+                   classes: List[int], out: torch.Tensor,
+                   bins: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """P1: ``out[classes[i]] += trees[i]``'s leaf values over
+        ``bins`` (default ``dataset``'s device bins: the training set's
+        padded matrix, or the set's own [F, N] copy, uploaded once), in
+        place; ``out`` [C, N] float64 on the card."""
+        if not trees:
+            return out
+        if bins is None:
+            bins = (self.bins if dataset is self.train_set
+                    else dataset.device_bins(1, self.device))
+        stack = TreeStack(trees, classes, dataset.num_used_features,
+                          self.device)
+        return route_trees(bins, stack, self.fmeta.num_bin,
+                           self.fmeta.default_bin, out)
+
+    def _card_delta(self, dataset: TorchDataset, trees: List[Tree],
+                    classes: List[int]) -> torch.Tensor:
+        """[C, N] float64 on the card: each class's sum of its ``trees``'
+        leaf values from -0.0, which adds nothing to any value (x + -0.0
+        is x, bit for bit): the host walk's ``tree.predict_binned`` where
+        a class has one tree, -0.0 where it has none."""
+        out = torch.full((self.num_tree_per_iteration, dataset.num_data),
+                         -0.0, dtype=torch.float64, device=self.device)
+        return self._card_walk(dataset, trees, classes, out)
+
     def _replay_scores(self, dataset: TorchDataset) -> np.ndarray:
         """[C, N] f64 raw scores of the current model on ``dataset``: its
         init scores, every tree walked over its binned rows, then the
@@ -293,9 +436,15 @@ class GBDT(TreeEnsemble):
         _replay_model_scores; gbdt.cpp AddValidDataset)."""
         C = self.num_tree_per_iteration
         score = self._initial_score(dataset).numpy()
-        infos = dataset.feature_infos()
-        for i, tree in enumerate(self.models[:self.iter_ * C]):
-            score[i % C] += tree.predict_binned(dataset.bins_t, infos)
+        trees = self.models[:self.iter_ * C]
+        if self._walks_on_card():
+            score = self._card_walk(
+                dataset, trees, [i % C for i in range(len(trees))],
+                torch.from_numpy(score).to(self.device)).cpu().numpy()
+        else:
+            infos = dataset.feature_infos()
+            for i, tree in enumerate(trees):
+                score[i % C] += tree.predict_binned(dataset.bins_t, infos)
         for k in range(C):
             score[k] += self.init_scores[k]
         return score
@@ -304,10 +453,42 @@ class GBDT(TreeEnsemble):
         """A valid set, scored by the trees grown so far."""
         self.valid_sets.append((name, dataset))
         self.valid_scores.append(self._layout(self._replay_scores(dataset)))
-        ms = [create_metric(m, self.config) for m in self.metric_names]
-        for m in ms:
-            m.init(dataset.metadata, dataset.num_data)
-        self.valid_metrics.append(ms)
+        self.valid_metrics.append(self._metrics_for(dataset))
+
+    # ---------------------------------------------------------- predict
+    def _device_route_ok(self, config: Config) -> bool:
+        """Whether predict takes the stacked-tree route (P1) instead of the
+        host walk (lightgbm_tpu/models/gbdt.py _device_route_ok
+        :2124-2154): ``predict_device`` "on", or "auto" on a card booster;
+        a training set with bin mappers and used features; every tree
+        bin-aligned, and routing binned rows as the raw walk routes them
+        (``Tree.bins_exact``: not so for a seeded tree grown on other
+        rows); and no per-row early stop (a host-only loop)."""
+        pd = config.predict_device
+        if pd == "off" or (pd == "auto" and self.device.type != "cuda"):
+            return False
+        ds = self.train_set
+        if ds is None or not ds.bin_mappers or ds.num_used_features == 0:
+            return False
+        if self._early_stop(config):
+            return False
+        return all(t.bins_exact for t in self.models)
+
+    def _device_raw_predict(self, X: np.ndarray, trees: range) -> np.ndarray:
+        """[C, N] f64 raw scores of ``trees`` on the booster's device:
+        the rows binned on the host (``bin_rows``, unseen categories -1),
+        uploaded as i16, routed and summed by P1 from the boost-from-
+        average scores in the host walk's order, then fetched
+        (lightgbm_tpu/models/gbdt.py _device_raw_predict :2156-2208)."""
+        C = self.num_tree_per_iteration
+        dev = self.device
+        bins = torch.from_numpy(bin_rows(self.train_set, X)).to(dev)
+        out = torch.from_numpy(self._init_raw(X.shape[0])).to(dev)
+        route_trees(bins, TreeStack([self.models[i] for i in trees],
+                                    [i % C for i in trees],
+                                    self.train_set.num_used_features, dev),
+                    self.fmeta.num_bin, self.fmeta.default_bin, out)
+        return out.cpu().numpy()
 
     # -------------------------------------------------------------- train
     def _boost_from_average(self) -> None:
@@ -482,12 +663,7 @@ class GBDT(TreeEnsemble):
                         "that meet the split requirements")
             self._stop = True
             return True
-        infos = self.train_set.feature_infos()
-        for (_, vset), vscore in zip(self.valid_sets, self.valid_scores):
-            v2 = vscore.reshape(C, -1)
-            for k, tree in enumerate(trees):
-                if tree.num_leaves > 1:
-                    v2[k] += tree.predict_binned(vset.bins_t, infos)
+        self._add_valid_trees(trees)
         self.models.extend(trees)
         self.iter_ += 1
         self._sync()
@@ -514,26 +690,56 @@ class GBDT(TreeEnsemble):
         self.renew_seconds.append(time.perf_counter() - t0)
         return tree, tree.leaf_value.astype(np.float32)
 
+    def _add_valid_trees(self, trees: List[Tree]) -> None:
+        """Each valid set's f64 scores += the iteration's trees that split
+        (tree k is class k): one walk a set, host or card (one fetched
+        delta a set)."""
+        C = self.num_tree_per_iteration
+        grown = [k for k, t in enumerate(trees) if t.num_leaves > 1]
+        if not grown:
+            return
+        infos = self.train_set.feature_infos()
+        for (_, vset), vscore in zip(self.valid_sets, self.valid_scores):
+            v2 = vscore.reshape(C, -1)
+            if self._walks_on_card():
+                v2 += self._card_delta(vset, [trees[k] for k in grown],
+                                       grown).cpu().numpy()
+                continue
+            for k in grown:
+                v2[k] += trees[k].predict_binned(vset.bins_t, infos)
+
     def rollback_one_iter(self) -> None:
         """Remove the last iteration's trees and their scores
         (gbdt.cpp:553-576, lightgbm_tpu/models/gbdt.py:2050-2068): each
-        tree walked over the host bins, its f32 delta subtracted from the
-        device training score, its f64 delta from the valid scores."""
+        tree that split walked over the training bins, its f32 delta
+        subtracted from the device training score, its f64 delta from the
+        valid scores."""
         if self.iter_ <= 0:
             return
         C = self.num_tree_per_iteration
+        trees = self.models[-C:]
+        del self.models[-C:]
+        self.iter_ -= 1
+        grown = [k for k, t in enumerate(trees) if t.num_leaves > 1]
+        if self._walks_on_card() and grown:
+            picked = [trees[k] for k in grown]
+            delta = self._card_delta(self.train_set, picked, grown)
+            for k in grown:
+                self.train_score[k] -= delta[k].to(torch.float32)
+            for (_, vset), vscore in zip(self.valid_sets, self.valid_scores):
+                delta = self._card_delta(vset, picked, grown).cpu().numpy()
+                for k in grown:
+                    vscore.reshape(C, -1)[k] -= delta[k]
+            return
         infos = self.train_set.feature_infos()
-        for k in reversed(range(C)):
-            tree = self.models.pop()
-            if tree.num_leaves <= 1:
-                continue
+        for k in reversed(grown):
+            tree = trees[k]
             delta = tree.predict_binned(self.train_set.bins_t, infos)
             self.train_score[k] -= torch.from_numpy(
                 delta.astype(np.float32)).to(self.device)
             for (_, vset), vscore in zip(self.valid_sets, self.valid_scores):
                 vscore.reshape(C, -1)[k] -= tree.predict_binned(vset.bins_t,
                                                                 infos)
-        self.iter_ -= 1
 
     # --------------------------------------------------------------- eval
     def _eval_score(self, score: np.ndarray, metrics

@@ -28,6 +28,14 @@ class RF(GBDT):
             log_fatal("RF mode does not support custom objective functions")
         super().__init__(config, train_set, objective, **kwargs)
         self.shrinkage_rate = 1.0
+
+    def reset_config(self, config) -> None:
+        super().reset_config(config)
+        self.shrinkage_rate = 1.0
+
+    def reset_train_data(self, train_set) -> None:
+        super().reset_train_data(train_set)
+        # the fixed gradients belong to the training rows
         self._fixed_grads = None
         self._rf_init = None
 

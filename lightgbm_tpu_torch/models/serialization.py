@@ -22,6 +22,7 @@ import torch
 from ..config import Config
 from ..objective import create_objective
 from ..utils.log import LightGBMError
+from .device_predict import bin_rows
 from .gbdt import TreeEnsemble
 from .tree import Tree
 
@@ -189,7 +190,7 @@ def tree_from_block(block: str) -> Tree:
     t.internal_weight = arr("internal_weight", np.float64, n)
     t.internal_count = arr("internal_count", np.int64, n)
     t.threshold_in_bin = np.zeros(n, dtype=np.int32)
-    t.bins_aligned = False
+    t.bins_aligned = t.bins_exact = False
     if t.num_cat > 0:
         def bitsets(bkey, wkey):
             bounds = arr(bkey, np.int64, t.num_cat + 1)
@@ -268,6 +269,7 @@ def load_model(model_str: str):
             out.models.append(tree_from_block(block.partition("\n")[2]))
     out.iter_ = len(out.models) // C
     out.objective = objective
+    out.config = config
     return out, config, objective
 
 
@@ -275,20 +277,40 @@ def load_trees_into(gbdt, src: TreeEnsemble, raw_data=None) -> None:
     """Continued training: seed a fresh GBDT with ``src``'s trees
     (boosting.cpp:53-74, lightgbm_tpu/models/serialization.py:339-378).
     The device training score gets, in the JAX package's order, the init
-    scores, then each class's trees summed in f64 over the raw rows
-    (``raw_data``; else over the training bins, each tree aligned) and
-    cast to f32.  The trees are kept aligned with the training bins (a
-    tree grown on other data is realigned too, where the JAX package keeps
-    it as it was), and the model counts as boosted from its average.
-    Records the host walk and the device adds in
-    ``gbdt.init_model_seconds``."""
+    scores, then each class's trees summed in f64 from 0.0 and cast to
+    f32.  The sums are the raw walk's over the raw rows (``raw_data``;
+    else the binned walk's over the training bins, each tree aligned).
+    A card booster makes them with P1: over the training set's device
+    bins, or, where a tree splits a category, over ``bin_rows`` of the
+    raw rows (the training bins put a category the mapper dropped in
+    its last bin, where the raw walk sends it right); but where an
+    aligned tree is not ``bins_exact`` (grown on other rows), it walks
+    the raw rows on the host.  The trees are kept aligned with the
+    training bins (a tree grown on other data is realigned too, where
+    the JAX package keeps it as it was), and the model counts as
+    boosted from its average.  Records the walk ("host_walk" or
+    "card_walk") and the device adds in ``gbdt.init_model_seconds``."""
     C = gbdt.num_tree_per_iteration
     if src.num_tree_per_iteration != C:
         raise LightGBMError("init model has different num_tree_per_iteration")
     ds = gbdt.train_set
     t0 = time.perf_counter()
     models = [t.aligned_to(ds) for t in src.models[:src.iter_ * C]]
-    if raw_data is not None:
+    card = gbdt._walks_on_card() and (
+        raw_data is None or all(t.bins_exact for t in models))
+    if card:
+        bins = None
+        if raw_data is not None and any(t.num_cat for t in models):
+            bins = torch.from_numpy(bin_rows(
+                ds, np.asfortranarray(raw_data, dtype=np.float64))).to(
+                    gbdt.device)
+        deltas = gbdt._card_walk(
+            ds, models, [i % C for i in range(len(models))],
+            torch.zeros((C, gbdt.num_data), dtype=torch.float64,
+                        device=gbdt.device), bins)
+        if gbdt.device.type == "cuda":
+            torch.cuda.synchronize(gbdt.device)
+    elif raw_data is not None:
         # feature-major: a tree node reads one contiguous column
         raw = np.asfortranarray(raw_data, dtype=np.float64)
         deltas = [sum(src.models[it * C + k].predict_raw(raw)
@@ -306,14 +328,17 @@ def load_trees_into(gbdt, src: TreeEnsemble, raw_data=None) -> None:
     for k in range(C):
         gbdt.train_score[k] += float(src.init_scores[k])
     for k in range(C):
-        gbdt.train_score[k] += torch.from_numpy(
-            np.asarray(deltas[k], dtype=np.float32)).to(gbdt.device)
+        if card:
+            gbdt.train_score[k] += deltas[k].to(torch.float32)
+        else:
+            gbdt.train_score[k] += torch.from_numpy(
+                np.asarray(deltas[k], dtype=np.float32)).to(gbdt.device)
     if gbdt.device.type == "cuda":
         torch.cuda.synchronize(gbdt.device)
     gbdt.models.extend(models)
     gbdt.iter_ += src.iter_
     gbdt._boosted_from_average = True
-    gbdt.init_model_seconds = {"host_walk": t1 - t0,
+    gbdt.init_model_seconds = {"card_walk" if card else "host_walk": t1 - t0,
                                "device_add": time.perf_counter() - t1}
 
 

@@ -44,7 +44,8 @@ KERNEL_NAMES = ("histogram_segment", "route_window",
                 "histogram_segment_routed", "histogram_segment_step",
                 "route_window_step", "histogram_segment_routed_step",
                 "score_gather_add", "histogram_all", "histogram_frontier",
-                "histogram_frontier_routed", "histogram_frontier_fusedk")
+                "histogram_frontier_routed", "histogram_frontier_fusedk",
+                "route_trees")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNEL_NAMES}
 # the launches recorded into the CUDA graph under capture, by kernel
 CAPTURED: Dict[str, int] = {}
@@ -68,6 +69,8 @@ _SIGNATURES = {
                                 _LL, _P, _P, _P, _P],
     "lgbt_frontier_tiling": [_I, _I, _I, _I, _I, _P],
     "lgbt_segment_tiling": [_I, _I, _P],
+    "lgbt_route_trees": [_P, _I, _LL, _LL] + [_P] * 9 + [_I] * 4
+    + [_P, _P, _I, _P, _P],
 }
 
 

@@ -10,6 +10,13 @@ K6/K7 also: each call captured in a CUDA graph and
 replayed (one launch, no synchronising copy), calls back to back at other
 widths and shapes (the scratch they share is left zero), a frontier whose
 slots tile across the grid, and the raises past the kernel's capacity.
+P1 (``route_trees``) on u8 training bins and on i16 predict-time bins
+with unseen, negative and NaN categories against its plain version; a
+card booster's training walks through P1 (valid scores, DART's drops,
+rollback, init_model's seeding, a late add_valid) against the host walks
+of the same booster; init_model's seeding from a model grown on other
+rows against a CPU booster's; and ``predict`` with ``predict_device``
+"auto"/"on" against "off", all bit for bit.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips where
 ``torch.cuda.is_available()`` is false.  The file imports neither JAX nor
@@ -1715,3 +1722,188 @@ def test_bagged_and_unbagged_boosters_in_turns_grow_their_solo_models(dev):
             b.update()
     assert [b.model_to_string() for b in turns] == solo
     assert solo[0] != solo[1]
+
+
+# ------------------------------------------------------ P1 and prediction
+def _predict_data(n=20_000, seed=31):
+    """Numeric columns with NaN (NaN-missing), with exact zeros
+    (zero-missing under zero_as_missing), a categorical column of 40
+    values, and a label from all of them."""
+    rng = np.random.RandomState(seed)
+    X = rng.normal(size=(n, 6))
+    X[rng.rand(n) < 0.1, 1] = np.nan
+    X[rng.rand(n) < 0.2, 2] = 0.0
+    X[:, 5] = rng.randint(0, 40, size=n)
+    y = (X[:, 0] + np.nan_to_num(X[:, 1]) + (X[:, 5] % 7 == 3)
+         + 0.3 * rng.normal(size=n) > 0.5).astype(np.float64)
+    return X, y
+
+
+PREDICT_PARAMS = dict(objective="binary", num_leaves=31, verbosity=-1,
+                      min_data_per_group=5, cat_smooth=1.0)
+
+
+def _predict_booster(device, X, y, **params):
+    ds = lt.Dataset(X, y, categorical_feature=[5])
+    return lt.train(dict(PREDICT_PARAMS, device_type=device, **params), ds,
+                    8, verbose_eval=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bins_of", ["train_u8", "raw_i16"])
+def test_route_trees_equals_plain(dev, bins_of):
+    """P1 on u8 training bins and on i16 predict-time bins (unseen and
+    negative categories as -1, a NaN one as category 0's bin) = its plain
+    version on the card, bit for bit, one launch a call; a second launch
+    adds the same again; a call of no rows launches nothing."""
+    from lightgbm_tpu_torch.models.device_predict import (TreeStack,
+                                                          bin_rows)
+    from lightgbm_tpu_torch.ops import predict as tp
+    X, y = _predict_data()
+    bst = _predict_booster("cpu", X, y, num_class=3, objective="multiclass")
+    ds = bst.train_set._handle
+    if bins_of == "train_u8":
+        bins = torch.from_numpy(ds.bins_t).to(dev)
+    else:
+        Xq = X.copy()
+        Xq[:50, 5] = 97.0       # unseen
+        Xq[50:60, 5] = -3.0     # negative
+        Xq[60:70, 5] = np.nan
+        bins = torch.from_numpy(bin_rows(ds, Xq)).to(dev)
+        cat = bins[ds.inner_feature_index(5)]
+        zero = int(bin_rows(ds, np.zeros((1, X.shape[1])))[
+            ds.inner_feature_index(5), 0])
+        assert bool((cat[:60] == -1).all()) and zero >= 0
+        assert bool((cat[60:70] == zero).all())
+    trees = bst.gbdt.models
+    stack = TreeStack(trees, [i % 3 for i in range(len(trees))],
+                      ds.num_used_features, dev)
+    nb, db = bst.gbdt.fmeta.num_bin.to(dev), bst.gbdt.fmeta.default_bin.to(
+        dev)
+    n = bins.shape[1] - 3     # fewer rows than the matrix's stride
+    start = torch.randn((3, n), dtype=torch.float64, device=dev)
+    want = tp.route_trees_plain(bins, stack, nb, db, start.clone())
+    kernels.reset_launches()
+    got = tp.route_trees(bins, stack, nb, db, start.clone())
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["route_trees"] == 1
+    assert torch.equal(got, want)
+    again = tp.route_trees(bins, stack, nb, db, got.clone())
+    assert torch.equal(again, tp.route_trees_plain(bins, stack, nb, db,
+                                                   want.clone()))
+    # no rows: nothing launched, none counted
+    kernels.reset_launches()
+    empty = torch.zeros((3, 0), dtype=torch.float64, device=dev)
+    assert tp.route_trees(bins, stack, nb, db, empty).shape == (3, 0)
+    assert kernels.LAUNCHES["route_trees"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("boosting", ["gbdt", "dart"])
+def test_card_walks_equal_host_walks(dev, boosting, monkeypatch):
+    """A card booster's training walks through P1 (valid scores each
+    iteration, DART's drops, rollback, init_model's seeding, a late
+    add_valid's replay) = the host walks on the same card booster, bit
+    for bit: model text, training score, valid scores."""
+    from lightgbm_tpu_torch.models.gbdt import GBDT
+    X, y = _predict_data()
+    params = dict(PREDICT_PARAMS, device_type="cuda", boosting=boosting,
+                  drop_rate=0.5, skip_drop=0.0, num_class=3,
+                  objective="multiclass")
+    yc = (np.nan_to_num(X[:, 0] * 2) % 3 + 3) % 3 // 1
+
+    def run():
+        ds = lt.Dataset(X[:15_000], yc[:15_000], categorical_feature=[5])
+        va = ds.create_valid(X[15_000:], yc[15_000:])
+        bst = lt.train(params, ds, 6, valid_sets=[va], verbose_eval=False)
+        bst.rollback_one_iter()
+        bst.update()
+        ds2 = lt.Dataset(X[:15_000], yc[:15_000], categorical_feature=[5])
+        cont = lt.train(dict(params, boosting="gbdt"), ds2, 2,
+                        init_model=bst, verbose_eval=False)
+        cont.add_valid(ds2.create_valid(X[15_000:], yc[15_000:]), "late")
+        return [bst.model_to_string(), bst.gbdt.train_score.cpu().numpy(),
+                *bst.gbdt.valid_scores, cont.model_to_string(),
+                cont.gbdt.train_score.cpu().numpy(),
+                *cont.gbdt.valid_scores]
+
+    kernels.reset_launches()
+    card = run()
+    assert kernels.LAUNCHES["route_trees"] > 0
+    monkeypatch.setattr(GBDT, "_walks_on_card", lambda self: False)
+    kernels.reset_launches()
+    host = run()
+    assert kernels.LAUNCHES["route_trees"] == 0
+    for a, b in zip(card, host):
+        if isinstance(a, str):
+            assert a == b
+        else:
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", ["same", "other"])
+def test_card_seeding_equals_cpu_seeding(dev, rows):
+    """init_model's seeding on a card booster = on a CPU booster (the raw
+    walk), bit for bit, from a model grown on the same rows (P1 over
+    bin_rows, as a tree splits a category) or on other rows (other bin
+    bounds, category bins in another order, an unseen category: the
+    raw walk, as a realigned tree is not bins_exact); then predict "on"
+    = "off", on P1 only where every tree is exact."""
+    X, y = _predict_data()
+    params = dict(PREDICT_PARAMS, objective="multiclass", num_class=3)
+    yc = X[:, 5] % 3
+    src = lt.train(dict(params, device_type="cpu"), lt.Dataset(
+        X[:8000], yc[:8000], categorical_feature=[5]), 4)
+    Xb, yb = (X[:8000], yc[:8000]) if rows == "same" else (
+        X[8000:].copy(), yc[8000:])
+    if rows == "other":
+        Xb[Xb[:, 5] == 39, 5] = 38
+        Xb[:, 5] = (Xb[:, 5] * 7) % 39
+    out = {}
+    for d in ("cuda", "cpu"):
+        kernels.reset_launches()
+        out[d] = lt.train(dict(params, device_type=d), lt.Dataset(
+            Xb, yb, categorical_feature=[5]), 0,
+            init_model=lt.Booster(model_str=src.model_to_string()))
+        if d == "cuda":
+            launches = kernels.LAUNCHES["route_trees"]
+    card, cpu = out["cuda"], out["cpu"]
+    exact = all(t.bins_exact for t in card.gbdt.models)
+    assert exact == (rows == "same") and launches == int(exact)
+    np.testing.assert_array_equal(card.gbdt.train_score.cpu().numpy(),
+                                  cpu.gbdt.train_score.numpy())
+    on = card.predict(X, raw_score=True)
+    assert card.gbdt.last_predict_route == ("device" if exact else "host")
+    np.testing.assert_array_equal(
+        on, card.predict(X, raw_score=True, predict_device="off"))
+    np.testing.assert_array_equal(on, src.predict(X, raw_score=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["binary", "multiclass", "rf"])
+def test_card_predict_on_equals_off(dev, case):
+    """predict on a card booster: "auto" takes P1 (the recorded route
+    says so), "on" the same, "off" the host walk; raw and converted
+    output bit for bit, with num_iteration and start_iteration."""
+    X, y = _predict_data()
+    params = {"binary": {}, "multiclass": dict(objective="multiclass",
+                                               num_class=3),
+              "rf": dict(boosting="rf", bagging_fraction=0.6,
+                         bagging_freq=1)}[case]
+    yy = y if case != "multiclass" else (X[:, 5] % 3)
+    bst = _predict_booster("cuda", X, yy, **params)
+    Xq = X[::3].copy()
+    Xq[:20, 5] = 99.0
+    for kw in ({}, dict(num_iteration=3), dict(start_iteration=2,
+                                               num_iteration=4)):
+        for raw in (True, False):
+            kernels.reset_launches()
+            auto = bst.predict(Xq, raw_score=raw, **kw)
+            assert bst.gbdt.last_predict_route == "device"
+            assert kernels.LAUNCHES["route_trees"] == 1
+            on = bst.predict(Xq, raw_score=raw, predict_device="on", **kw)
+            off = bst.predict(Xq, raw_score=raw, predict_device="off", **kw)
+            assert bst.gbdt.last_predict_route == "host"
+            np.testing.assert_array_equal(auto, off)
+            np.testing.assert_array_equal(on, off)

@@ -384,3 +384,132 @@ def test_early_stopping_round_parameter_is_accepted_as_in_jax():
     assert pb.current_iteration() == jb.current_iteration() == 6
     assert pb.best_iteration == jb.best_iteration == 6
     assert "[early_stopping_round: 1]" in pb.model_to_string()
+
+
+# ------------------------------------------------- C9-C12: the surface
+def _frame(n=1000):
+    """A DataFrame: five numeric columns a-e and a category column c of
+    strings (category codes in the order of first appearance)."""
+    pd = pytest.importorskip("pandas")
+    rng = np.random.RandomState(9)
+    df = pd.DataFrame(rng.normal(size=(n, 5)), columns=list("abcde"))
+    df = df.rename(columns={"c": "x"})
+    words = np.array(["red", "green", "blue", "cyan", "gray", "pink"])
+    df["c"] = pd.Categorical(words[rng.randint(0, 6, n)],
+                             categories=["red", "green", "blue", "cyan",
+                                         "gray", "pink"])
+    y = (df["a"].to_numpy() + (df["c"].cat.codes.to_numpy() % 2)
+         + 0.3 * rng.normal(size=n) > 0.5).astype(np.float64)
+    return df, y
+
+
+def test_dataframe_names_and_categories_match_jax():
+    """C9: a DataFrame trains with its column names as feature names and
+    its category column as codes (pinned by ``pandas_categorical``); the
+    model text carries the ``pandas_categorical:`` trailer as JAX's does,
+    and either package loads the other's text and predicts a frame whose
+    category order differs as the trained booster does."""
+    df, y = _frame()
+    params = dict(min_data_per_group=5, cat_smooth=1.0)
+    jb = lgb.train(dict(JAX_PARAMS, **params), lgb.Dataset(df, y), 3)
+    pb = lt.train(dict(PORT_PARAMS, **params), lt.Dataset(df, y), 3)
+    jt, pt = jb.model_to_string(), pb.model_to_string()
+    line = [s for s in pt.splitlines() if s.startswith("feature_names=")]
+    assert line == ["feature_names=a b x d e c"]
+    assert line == [s for s in jt.splitlines()
+                    if s.startswith("feature_names=")]
+    assert pt.splitlines()[-1] == jt.splitlines()[-1] == (
+        'pandas_categorical:[["red", "green", "blue", "cyan", "gray", '
+        '"pink"]]')
+    assert any(t.num_cat > 0 for t in pb.gbdt.models)
+    assert_same_trees(jb.gbdt.models, pb.gbdt.models)
+    shuffled = df.copy()
+    shuffled["c"] = shuffled["c"].cat.reorder_categories(
+        ["pink", "gray", "cyan", "blue", "green", "red"])
+    want = pb.predict(df, raw_score=True)
+    np.testing.assert_array_equal(pb.predict(shuffled, raw_score=True), want)
+    np.testing.assert_array_equal(
+        lt.Booster(model_str=pt).predict(shuffled, raw_score=True), want)
+    loaded = lt.Booster(model_str=jt)
+    assert loaded.pandas_categorical == pb.pandas_categorical
+    np.testing.assert_array_equal(loaded.predict(shuffled, raw_score=True),
+                                  jb.predict(df, raw_score=True))
+    assert lgb.Booster(model_str=pt).pandas_categorical == \
+        pb.pandas_categorical
+
+
+def test_sparse_predict_and_single_rows():
+    """C9: a scipy CSR matrix predicts as its dense rows; a 1-D vector of
+    the feature count is one row."""
+    sparse = pytest.importorskip("scipy.sparse")
+    bst, _ = _train(lt, 3)
+    dense = np.nan_to_num(X[:200])
+    np.testing.assert_array_equal(bst.predict(sparse.csr_matrix(dense)),
+                                  bst.predict(dense))
+    np.testing.assert_array_equal(bst.predict(dense[7]),
+                                  bst.predict(dense[7:8]))
+
+
+def test_update_with_a_new_train_set_matches_jax():
+    """C10: update(train_set=...) swaps in rows binned by the training
+    set's mappers (LGBM_BoosterResetTrainingData): the model's scores are
+    replayed on them, and training goes on there, as in JAX."""
+    out = {}
+    for pkg in (lgb, lt):
+        params = JAX_PARAMS if pkg is lgb else PORT_PARAMS
+        ds = pkg.Dataset(X[:NTRAIN], Y[:NTRAIN])
+        bst = pkg.Booster(params, ds)
+        for _ in range(3):
+            bst.update()
+        swap = pkg.Dataset(X[NTRAIN:], Y[NTRAIN:], reference=ds)
+        bst.update(train_set=swap)
+        bst.update()
+        out[pkg] = bst
+    jb, pb = out[lgb], out[lt]
+    assert pb.current_iteration() == jb.current_iteration() == 5
+    assert pb.train_set.num_data() == N - NTRAIN
+    assert_same_trees(jb.gbdt.models, pb.gbdt.models)
+    np.testing.assert_allclose(pb.gbdt.train_score.numpy(),
+                               np.asarray(jb.gbdt.train_score), rtol=0,
+                               atol=1e-3)
+    assert [r[:2] for r in pb.eval_train()] == [r[:2]
+                                                for r in jb.eval_train()]
+    other = lt.Dataset(X[NTRAIN:] * 2.0, Y[NTRAIN:])
+    with pytest.raises(lt.basic.LightGBMError, match="bin mappers"):
+        pb.update(train_set=other)
+
+
+def test_free_raw_data_and_pred_contrib_are_accepted():
+    """C11: Dataset(free_raw_data=...) and predict(pred_contrib=...) as
+    in JAX; the contributions sum to the raw score."""
+    ds = lt.Dataset(X[:NTRAIN], Y[:NTRAIN], free_raw_data=False)
+    assert ds.free_raw_data is False
+    bst = lt.train(PORT_PARAMS, ds, 3)
+    raw = bst.predict(X[:30], raw_score=True, pred_contrib=False)
+    contrib = bst.predict(X[:30], pred_contrib=True)
+    assert contrib.shape == (30, NF + 1)
+    np.testing.assert_allclose(contrib.sum(axis=1), raw, rtol=0, atol=1e-9)
+
+
+def test_reset_parameter_callback_matches_jax_capi():
+    """C12: train(callbacks=[reset_parameter(learning_rate=[...])]) in the
+    port = the JAX booster driven through capi.booster_reset_parameter
+    before each update (the JAX package's own callback cannot call it)."""
+    from lightgbm_tpu import capi
+    rates = [0.5, 0.2, 0.05]
+    pb = lt.train(PORT_PARAMS, lt.Dataset(X[:NTRAIN], Y[:NTRAIN]),
+                  len(rates), callbacks=[lt.reset_parameter(
+                      learning_rate=rates)])
+    jb = lgb.Booster(JAX_PARAMS, lgb.Dataset(X[:NTRAIN], Y[:NTRAIN]))
+    hid = capi._register(jb)
+    try:
+        for lr in rates:
+            capi.booster_reset_parameter(hid, f"learning_rate={lr}")
+            jb.update()
+    finally:
+        capi._handles.pop(hid)
+    assert [t.shrinkage for t in pb.gbdt.models] == rates
+    assert [t.shrinkage for t in jb.gbdt.models] == rates
+    assert pb.config.learning_rate == rates[-1]
+    assert_same_trees(jb.gbdt.models, pb.gbdt.models)
+    assert_same_predictions(jb, pb)

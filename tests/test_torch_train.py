@@ -262,11 +262,12 @@ def test_bad_device_type_raises():
 def test_port_imports_no_jax():
     root = os.path.join(os.path.dirname(__file__), os.pardir,
                         "lightgbm_tpu_torch")
-    bad = []
+    bad, scanned = [], set()
     for dirpath, _, files in os.walk(root):
         for name in files:
             if not name.endswith(".py"):
                 continue
+            scanned.add(os.path.relpath(os.path.join(dirpath, name), root))
             with open(os.path.join(dirpath, name)) as fh:
                 for line in fh:
                     s = line.strip()
@@ -277,3 +278,7 @@ def test_port_imports_no_jax():
                             or s.startswith("import lightgbm_tpu.")):
                         bad.append(f"{name}: {s}")
     assert not bad, bad
+    # the prediction modules are among those read
+    assert {os.path.join("models", "device_predict.py"),
+            os.path.join("models", "shap.py"),
+            os.path.join("ops", "predict.py")} <= scanned
