@@ -6,7 +6,7 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``lightgbm_tpu_torch/csrc`` and runs
-twenty-three phases; any failure exits non-zero:
+twenty-four phases; any failure exits non-zero:
 
   1. build    nvcc for sm_90a; prints ptxas's register/shared-memory lines
               and the card's name and power limit, and for the K1/K3,
@@ -200,6 +200,25 @@ twenty-three phases; any failure exits non-zero:
               walks on the card = the same booster's host walks, bit for
               bit.  Phase 14's seeding and rollback and phase 21's DART
               drops are card walks too.
+ 24. expo_onehot  exclusive feature bundling and sparse input at Expo's
+              shape (``expo_like``: 11M training rows and a 100k holdout,
+              4 numeric and 696 one-hot columns, from CSR): binned and
+              bundled from the nonzeros (G columns of up to 256 bins),
+              10 iterations with the reference's experiment settings
+              (255 leaves, lr 0.1, min_sum_hessian_in_leaf 100, max_bin
+              63): the holdout AUC rises, the card's valid scores (P1
+              over the holdout's bundled bins) = the host walk and
+              predict on = off, bit for bit; K1, K2 and K3 (the root
+              split and a one-hot member's split at a bin offset >= 128),
+              K5 (5 class sets), a K = 16 frontier round (K6, K7) and P1
+              with the group tables on the bundled bins against their
+              plain versions, timed; at 1M rows (every row in the binning
+              sample, so no row conflicts) enable_bundle on = off split
+              for split; at 200k rows card = CPU for the segment grower
+              fused and unfused, the frontier grower (K = 16) and 5-class
+              multiclass; the JAX package's sparse-at-scale gates
+              (10,000 x 100,000 block one-hot, at most 6500 columns and
+              80 MB of bins, log loss under 0.6915 after 4 rounds).
 
 Launch counts: a kernel captured into a CUDA graph counts at each replay
 (ops/kernels.py count_replay), when the card runs it.
@@ -212,7 +231,10 @@ holds them as "session"), an ``{"objectives": ...}`` line (phases 17-19;
 ``{"goss_regression": ..., "modes": ...}`` line (phases 20-22;
 "goss_regression" and "modes" in ``launches_by_path``), a
 ``{"predict": ...}`` line (phase 23; "predict" in ``launches_by_path``,
-the path whose P1 launches the kernels line reports), one
+the path whose P1 launches the kernels line reports), an
+``{"expo_onehot": ...}`` line (phase 24; "expo" and "sparse_at_scale" in
+``launches_by_path``, each kernel's bundled measurements under
+``"expo"``), one
 ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Without a
 card, or run from a directory that does not hold the package, it exits
@@ -339,6 +361,64 @@ def multiclass_cat(n: int, seed: int):
         for k in range(MC_CLASSES)], axis=1)
     y = np.argmax(2.0 * logits + rng.gumbel(size=(n, MC_CLASSES)), axis=1)
     return X, y.astype(np.float64)
+
+
+# Expo, the flight-delay set of the reference's experiments
+# (docs/Experiments.rst:101-146, BASELINE.md:17,21; "Flight Delay" in Ke
+# et al., NeurIPS 2017, Table 1): 11M training rows, a 100k holdout, 4
+# numeric columns and 696 one-hot columns (700 in all), binary "delayed"
+EXPO_ROWS = 11_000_000
+EXPO_HOLDOUT = 100_000
+# (name, categories, Zipf-like p ~ 1 / rank or uniform), in column order
+EXPO_BLOCKS = (("Month", 12, False), ("DayofMonth", 31, False),
+               ("DayOfWeek", 7, False), ("UniqueCarrier", 22, True),
+               ("Origin", 300, True), ("Dest", 300, True),
+               ("DepHour", 24, False))
+EXPO_NUMERIC = 4
+# BASELINE.md:9 and the GPU experiment's max_bin (BASELINE.md:40-41)
+EXPO_PARAMS = dict(objective="binary", num_leaves=255, learning_rate=0.1,
+                   min_sum_hessian_in_leaf=100.0, max_bin=63,
+                   metric=["auc"], verbosity=-1, device_type="cuda")
+
+
+def expo_like(n: int, seed: int):
+    """Expo-shaped data as a scipy CSR float64 matrix [n, 700] and a
+    binary label: CRSDepTime and CRSArrTime uniform in [0, 2400),
+    Distance lognormal and CRSElapsedTime from it, then the one-hot
+    blocks of EXPO_BLOCKS (DepHour is CRSDepTime's hour).  The label is
+    a draw from a logistic of per-category effects plus a departure-time
+    term (about 22% positive)."""
+    import numpy as np
+    import scipy.sparse as sp
+    rng = np.random.RandomState(seed)
+    dep = rng.uniform(0.0, 2400.0, n)
+    arr = rng.uniform(0.0, 2400.0, n)
+    dist = rng.lognormal(6.2, 0.6, n)
+    elapsed = 30.0 + dist / 8.0 + rng.uniform(0.0, 20.0, n)
+    logit = -2.5 + 1.2 * dep / 2400.0 + 0.1 * np.log(dist)
+    cols = [np.arange(EXPO_NUMERIC)[None, :].repeat(n, 0)]
+    base = EXPO_NUMERIC
+    for name, k, zipf in EXPO_BLOCKS:
+        if name == "DepHour":
+            c = (dep // 100).astype(np.int64) % k
+        elif zipf:
+            p = 1.0 / np.arange(1, k + 1)
+            c = rng.choice(k, n, p=p / p.sum())
+        else:
+            c = rng.randint(0, k, n)
+        logit += rng.normal(0.0, 0.4, k)[c]
+        cols.append((base + c)[:, None])
+        base += k
+    y = (rng.uniform(size=n) < 1.0 / (1.0 + np.exp(-logit))).astype(
+        np.float64)
+    indices = np.concatenate(cols, axis=1).astype(np.int32)
+    width = indices.shape[1]
+    data = np.ones((n, width), dtype=np.float64)
+    data[:, :EXPO_NUMERIC] = np.stack([dep, arr, dist, elapsed], axis=1)
+    X = sp.csr_matrix((data.reshape(-1), indices.reshape(-1),
+                       np.arange(0, n * width + 1, width, dtype=np.int64)),
+                      shape=(n, base))
+    return X, y
 
 
 def time_ms(fn, reps: int) -> float:
@@ -1580,11 +1660,12 @@ def leaf_layout(th, binsT, fm, rb, levels):
 
 
 def frontier_round(th, binsT, w8, scales, fm, feats, rb, K, levels, B, tag,
-                   reps, plain_reps, timed=True):
+                   reps, plain_reps, timed=True, thr=None):
     """One frontier round at this shape: leaves 0..K-1 of a 2^levels-leaf
     layout split into new leaves 2^levels + k, leaf k on feature
     feats[k % len(feats)] = (f, categorical): a numeric split at its middle
-    bin, or a categorical one by a bitset of every other bin.  K6 on the
+    bin (or at ``thr(f)``), or a categorical one by a bitset of every
+    other bin.  K6 on the
     routed ids (targets: the smaller children), K7 routed (the same
     targets) and K7 fused-K (parents then new leaves) against their plain
     versions.  Returns {kernel: measurement dict}."""
@@ -1599,8 +1680,8 @@ def frontier_round(th, binsT, w8, scales, fm, feats, rb, K, levels, B, tag,
     routes, new = [], []
     for k in range(K):
         f, cat = feats[k % len(feats)]
-        routes.append(th.pack_route(k, n_leaves + k, f,
-                                    int(fm.num_bin[f]) // 2, k % 2 == 1,
+        t = int(fm.num_bin[f]) // 2 if thr is None else thr(f)
+        routes.append(th.pack_route(k, n_leaves + k, f, t, k % 2 == 1,
                                     cat, every_other * cat, fm))
         new.append(n_leaves + k)
     routes = torch.stack(routes)
@@ -3375,63 +3456,70 @@ WALKS_PARAMS = dict(TRAIN_PARAMS, num_leaves=31, boosting="dart",
                     drop_rate=0.5, skip_drop=0.0, learning_rate=0.3)
 
 
-def route_bytes(bins, stack, trees, num_bin, default_bin, n, C):
+def route_bytes(bins, stack, trees, num_bin, default_bin, n, C,
+                tables=(None, None)):
     """The bytes P1 must move on these inputs: each tree's bins along
     each row's path (the rows' leaves by the plain route), the [C, n]
     float64 scores read and written once, the stack and the per-feature
-    tables read once.  Returns (bytes, bin reads)."""
+    tables read once.  ``tables``: the EFB feat_group / feat_offset of
+    bundled bins.  Returns (bytes, bin reads)."""
     import torch
     from lightgbm_tpu_torch.models.device_predict import leaf_depths
     from lightgbm_tpu_torch.ops.predict import route_leaves_plain
     reads = 0
     for t, tree in enumerate(trees):
-        leaves = route_leaves_plain(bins, stack, t, num_bin, default_bin, n)
+        leaves = route_leaves_plain(bins, stack, t, num_bin, default_bin, n,
+                                    *tables)
         depth = torch.from_numpy(leaf_depths(tree)).to(leaves.device)
         reads += int(depth[leaves].sum().item())
-    tables = sum(x.numel() * x.element_size() for x in (
+    table_bytes = sum(x.numel() * x.element_size() for x in (
         stack.split_feature, stack.threshold_bin, stack.decision_type,
         stack.left_child, stack.right_child, stack.cat_bitset,
         stack.leaf_value, stack.num_leaves, stack.tree_class, num_bin,
-        default_bin))
-    return reads * bins.element_size() + 16 * C * n + tables, reads
+        default_bin) + tuple(x for x in tables if x is not None))
+    return reads * bins.element_size() + 16 * C * n + table_bytes, reads
 
 
-def p1_times(bins, stack, num_bin, default_bin, out, trees, tag):
+def p1_times(bins, stack, num_bin, default_bin, out, trees, tag,
+             tables=(None, None)):
     """P1 against its plain version on ``bins`` from the values in
     ``out``: bit for bit, a relaunch adding the same again, one launch a
     call; its time (CUDA events over PREDICT_REPS launches; plain 3), the
-    bound from this run's paths.  Returns the measurement dict."""
+    bound from this run's paths.  ``tables``: the EFB feat_group /
+    feat_offset of bundled bins.  Returns the measurement dict."""
     import torch
     from lightgbm_tpu_torch.ops import kernels
     from lightgbm_tpu_torch.ops import predict as tp
     C, n = out.shape
     want = tp.route_trees_plain(bins, stack, num_bin, default_bin,
-                                out.clone())
+                                out.clone(), *tables)
     before = kernels.LAUNCHES["route_trees"]
-    got = tp.route_trees(bins, stack, num_bin, default_bin, out.clone())
+    got = tp.route_trees(bins, stack, num_bin, default_bin, out.clone(),
+                         *tables)
     torch.cuda.synchronize()
     calls = kernels.LAUNCHES["route_trees"] - before
     require(calls == 1, f"route_trees {tag}: {calls} launches a call")
     require(torch.equal(got, want), f"route_trees {tag}: differs from the "
             "plain version")
-    again = tp.route_trees(bins, stack, num_bin, default_bin, got.clone())
+    again = tp.route_trees(bins, stack, num_bin, default_bin, got.clone(),
+                           *tables)
     want2 = tp.route_trees_plain(bins, stack, num_bin, default_bin,
-                                 want.clone())
+                                 want.clone(), *tables)
     require(torch.equal(again, want2), f"route_trees {tag}: a relaunch "
             "differs from the plain version")
     scratch = out.clone()
     ms = time_ms(lambda i: tp.route_trees(bins, stack, num_bin, default_bin,
-                                          scratch), PREDICT_REPS)
+                                          scratch, *tables), PREDICT_REPS)
     plain_ms = time_ms(lambda i: tp.route_trees_plain(
-        bins, stack, num_bin, default_bin, scratch), 3)
+        bins, stack, num_bin, default_bin, scratch, *tables), 3)
     nbytes, reads = route_bytes(bins, stack, trees, num_bin, default_bin, n,
-                                C)
+                                C, tables)
     bound, by = bound_ms(nbytes, float(n) * len(trees))
     rec = {"max_abs_err": float((got - want).abs().max().item()), "ms": ms,
            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
            "library_ms": None, "launches_a_call": calls, "bytes": nbytes,
            "bin_reads": reads,
-           "shape": f"{tag}: {n} rows x {bins.shape[0]} features "
+           "shape": f"{tag}: {n} rows x {bins.shape[0]} columns "
                     f"({bins.dtype}), {len(trees)} trees, C = {C}, "
                     f"max depth {stack.max_depth}"}
     log(f"route_trees {tag}: bit for bit the plain version, 1 launch a "
@@ -3576,6 +3664,489 @@ def walks_parity_phase():
         f"{host_s:.2f} s, DART drops {card_drop:.3f} s against "
         f"{host_drop:.3f} s")
     return rec
+
+
+# ---------------------------------------------------------------- phase 24
+EXPO_SEED = 24
+EXPO_ITERS = 10
+EXPO_PARITY_ROWS = 1_000_000
+EXPO_PARITY_ITERS = 3
+# card = CPU at PARITY_ROWS: the CPU's multiclass run sets the wall
+EXPO_CPU_ITERS = 2
+# the JAX package's sparse-at-scale contract (tests/test_sparse_at_scale.py
+# :31-67): 10,000 rows x 100,000 block one-hot features at 0.5%
+SPARSE_ROWS, SPARSE_BLOCKS, SPARSE_WIDTH = 10_000, 500, 200
+SPARSE_PARAMS = dict(objective="binary", num_leaves=7, max_bin=15,
+                     min_data_in_leaf=5, verbosity=-1, device_type="cuda")
+SPARSE_MAX_GROUPS = 6500
+SPARSE_MAX_BYTES = 80 * 1024 * 1024
+SPARSE_LOGLOSS_GATE = 0.6915
+
+
+def host_meta(handle):
+    """The dataset's FeatureMeta as host arrays, with its EFB tables (the
+    route words' feature columns and bin offsets)."""
+    import numpy as np
+    from lightgbm_tpu_torch.ops.split import FeatureMeta
+    infos = handle.feature_infos()
+
+    def col(k):
+        return np.array([getattr(i, k) for i in infos], np.int32)
+
+    return FeatureMeta(col("num_bin"), col("missing_type"),
+                       col("default_bin"), None, col("group"),
+                       col("offset"))
+
+
+def expo_kernel_phase(gb, reps=20, plain_reps=3):
+    """Phase 24's kernels on the Expo booster's bundled device bins (G
+    columns, 256 bins): K2, K1 (root) and K3 (the first tree's root split,
+    and a split of a one-hot member stored at a bin offset of 128 or more)
+    against their plain versions; K5 with C = 5 class gradient sets; a
+    K = 16 frontier round (K6, K7 routed and fused-K) over numeric and
+    one-hot members; P1 with the group tables over the trained trees.
+    Times, bounds and library calls as in phases 2 and 9.  Returns
+    {kernel: measurement dict}."""
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.models.device_predict import TreeStack
+    from lightgbm_tpu_torch.objective import create_objective
+    from lightgbm_tpu_torch.ops import histogram as th
+    binsT = gb.bins
+    G, npad = binsT.shape
+    rb, B, n, dev = gb.grower.rb, gb.num_bins, gb.num_data, binsT.device
+    nblk = npad // rb
+    fm = host_meta(gb.train_set)
+    F = len(fm.num_bin)
+    obj = create_objective(gb.config)
+    obj.init(gb.train_set.metadata, n, dev)
+    score0 = torch.full((n,), obj.boost_from_score(), dtype=torch.float32,
+                        device=dev)
+    grad, hess = obj.get_gradients(score0)
+    grad = torch.nn.functional.pad(grad, (0, npad - n))
+    hess = torch.nn.functional.pad(hess, (0, npad - n))
+    member = torch.zeros(npad, dtype=torch.float32, device=dev)
+    member[:n] = 1.0
+    w8 = th.pack_channels(grad, hess, member)
+    scales = th.fixed_point_scales(w8)
+    lid0 = torch.zeros(npad, dtype=torch.int32, device=dev)
+    none = np.zeros(8, np.uint32)
+    root = gb.models[0]
+    f_root = int(root.split_feature_inner[0])
+    routes = {"root split": th.pack_route(
+        0, 1, f_root, int(root.threshold_in_bin[0]),
+        bool(root.decision_type[0] & 2), False, none, fm)}
+    # the one-hot member at an offset >= 128 with the most rows: its
+    # category (bin 1) goes right
+    cands = [j for j in range(F) if fm.feat_offset[j] >= 128
+             and fm.num_bin[j] == 2]
+    require(cands, "no one-hot member at a bin offset of 128 or more")
+    rows_of = [int((binsT[fm.feat_group[j]] == fm.feat_offset[j] + 1).sum())
+               for j in cands]
+    f_mem = cands[int(np.argmax(rows_of))]
+    routes["one-hot member"] = th.pack_route(0, 1, f_mem, 0, False, False,
+                                             none, fm)
+    require(int(routes["one-hot member"][10]) >= 128,
+            "the member's route has no bin offset")
+    log(f"expo kernels: G={G} F={F} B={B} Npad={npad} rb={rb}; routes: "
+        f"feature {f_root} (column {fm.feat_group[f_root]}, offset "
+        f"{fm.feat_offset[f_root]}), member {f_mem} (column "
+        f"{fm.feat_group[f_mem]}, offset {fm.feat_offset[f_mem]}, "
+        f"{max(rows_of)} rows)")
+    res = {}
+    err, split_ids = 0, {}
+    for rname, route in routes.items():
+        want = th.route_window_plain(binsT, lid0.clone(), 0, nblk, route, rb)
+        got = [th.route_window(binsT, lid0.clone(), 0, nblk, route, rb)
+               for _ in range(2)]
+        torch.cuda.synchronize()
+        for g in got:
+            err = max(err, int((g != want).sum().item()))
+        moved = int((want == 1).sum().item())
+        require(err == 0 and 0 < moved < n, f"route_window expo {rname}: "
+                f"{err} ids differ, {moved} rows moved")
+        split_ids[rname] = want
+        log(f"route_window expo {rname}: identical, {moved} rows moved")
+    res["route_window"] = {"max_abs_err": float(err)}
+
+    want = th.histogram_segment_plain(binsT, w8, lid0, 0, nblk, 0, B, rb)
+    a = th.histogram_segment(binsT, w8, lid0, 0, nblk, 0, B, rb, scales)
+    b = th.histogram_segment(binsT, w8, lid0, 0, nblk, 0, B, rb, scales)
+    torch.cuda.synchronize()
+    require(torch.equal(a, b), "histogram_segment expo: a second launch "
+            "differs from the first")
+    err = check_hist("histogram_segment expo root", a, want, hist_abs_sums(
+        th, binsT, w8, lid0, 0, nblk, 0, B, rb))
+    res["histogram_segment"] = {"max_abs_err": err}
+
+    err = 0.0
+    for rname, route in routes.items():
+        want_lid, want = th.histogram_segment_routed_plain(
+            binsT, w8, lid0.clone(), 0, nblk, 1, route, B, rb)
+        runs = []
+        for _ in range(2):
+            ids = lid0.clone()
+            runs.append(th.histogram_segment_routed(binsT, w8, ids, 0, nblk,
+                                                    1, route, B, rb, scales))
+        torch.cuda.synchronize()
+        require(torch.equal(runs[0][1], runs[1][1]) and all(
+            torch.equal(r[0], want_lid) for r in runs),
+            f"histogram_segment_routed expo {rname}: ids differ or a "
+            "relaunch differs")
+        err = max(err, check_hist(
+            f"histogram_segment_routed expo {rname}", runs[0][1], want,
+            hist_abs_sums(th, binsT, w8, want_lid, 0, nblk, 1, B, rb)))
+        # the step entry reads the same route from device memory
+        step = th.pack_step(0, nblk, 1, route).to(dev)
+        ids = lid0.clone()
+        _, got = th.histogram_segment_routed_step(binsT, w8, ids, step, B,
+                                                  rb, scales)
+        torch.cuda.synchronize()
+        require(torch.equal(ids, want_lid) and torch.equal(got, runs[0][1]),
+                f"histogram_segment_routed_step expo {rname}: differs from "
+                "the by-value entry")
+        log(f"histogram_segment_routed expo {rname}: ids identical, counts "
+            f"exact, max |diff| {err:.3g}; the step entry bit for bit")
+    res["histogram_segment_routed"] = {"max_abs_err": err}
+
+    # times at the first split (the root split's route)
+    route = routes["root split"]
+    moved = int((split_ids["root split"] == 1).sum().item())
+    W, out_bytes = npad, G * B * 3 * 4
+    t = res["histogram_segment"]
+    t["ms"] = time_ms(lambda i: th.histogram_segment(
+        binsT, w8, lid0, 0, nblk, 0, B, rb, scales), reps)
+    t["plain_ms"] = time_ms(lambda i: th.histogram_segment_plain(
+        binsT, w8, lid0, 0, nblk, 0, B, rb), plain_reps)
+    t["bound_ms"], t["bound_by"] = bound_ms(W * (G + 14) + out_bytes,
+                                            W * G * 3)
+    t["library_ms"] = library_hist_ms(binsT, [w8], torch.arange(
+        n, device=dev), B, reps)
+    t["shape"] = f"Expo root: {W} rows x {G} bundled columns, {B} bins"
+    t = res["histogram_segment_routed"]
+    fresh = [lid0.clone() for _ in range(reps + 1)]
+    t["ms"] = time_ms(lambda i: th.histogram_segment_routed(
+        binsT, w8, fresh[i], 0, nblk, 1, route, B, rb, scales), reps)
+    fresh = [lid0.clone() for _ in range(plain_reps + 1)]
+    t["plain_ms"] = time_ms(lambda i: th.histogram_segment_routed_plain(
+        binsT, w8, fresh[i], 0, nblk, 1, route, B, rb), plain_reps)
+    t["bound_ms"], t["bound_by"] = bound_ms(
+        W * 5 + moved * 4 + moved * (G - 1 + 10) + out_bytes,
+        W * 20 + moved * G * 3)
+    t["library_ms"] = library_hist_ms(binsT, [w8], torch.nonzero(
+        split_ids["root split"] == 1)[:, 0], B, reps)
+    t["shape"] = f"Expo first split: {W} rows, {moved} routed"
+    t = res["route_window"]
+    fresh = [lid0.clone() for _ in range(reps + 1)]
+    t["ms"] = time_ms(lambda i: th.route_window(
+        binsT, fresh[i], 0, nblk, route, rb), reps)
+    fresh = [lid0.clone() for _ in range(plain_reps + 1)]
+    t["plain_ms"] = time_ms(lambda i: th.route_window_plain(
+        binsT, fresh[i], 0, nblk, route, rb), plain_reps)
+    t["bound_ms"], t["bound_by"] = bound_ms(W * 5 + moved * 4, W * 20)
+    t["library_ms"] = None
+    t["shape"] = f"Expo first split: {W} rows, {moved} routed"
+    del fresh
+
+    # K5: five class gradient sets at random scores (made from a seed)
+    gen = torch.Generator(device=dev).manual_seed(24)
+    p = torch.softmax(torch.randn((MC_CLASSES, npad), generator=gen,
+                                  device=dev), dim=0)
+    lab = torch.randint(0, MC_CLASSES, (npad,), generator=gen, device=dev)
+    w8C = th.pack_channel_sets(
+        (p - torch.nn.functional.one_hot(lab, MC_CLASSES).T) * member,
+        2.0 * p * (1.0 - p) * member, member)
+    del p, lab
+    err5, scales5 = check_histogram_all(th, binsT, w8C, B, rb, "Expo rows")
+    C = MC_CLASSES
+    t = {"max_abs_err": err5}
+    t["ms"] = time_ms(lambda i: th.histogram_all(binsT, w8C, B, scales5),
+                      reps)
+    t["plain_ms"] = time_ms(lambda i: th.histogram_all_plain(binsT, w8C, B),
+                            plain_reps)
+    t["bound_ms"], t["bound_by"] = bound_ms(W * (G + 10 * C)
+                                            + C * out_bytes, W * G * C * 3)
+    t["library_ms"] = library_hist_ms(
+        binsT, [w8C[8 * c:8 * c + 8] for c in range(C)],
+        torch.arange(n, device=dev), B, reps)
+    t["shape"] = f"Expo: {W} rows x {G} columns x {C} sets, {B} bins"
+    res["histogram_all"] = t
+    del w8C
+
+    # a K = 16 frontier round: numeric features and one-hot members (a
+    # member's category goes right)
+    members = [j for j in range(F) if fm.feat_offset[j] > 0
+               and fm.num_bin[j] == 2]
+    feats = [(j, False) for j in range(4)] + [
+        (members[k * len(members) // 12], False) for k in range(12)]
+    # (the plain round walks every listed row a slot: one timed call)
+    res.update(frontier_round(
+        th, binsT, w8, scales, fm, feats, rb, 16, 5, B, "Expo", reps, 1,
+        thr=lambda f: 0 if fm.num_bin[f] == 2
+        else int(fm.num_bin[f]) // 2))
+
+    # P1 with the group tables over the trained trees, from the training
+    # score
+    stack = TreeStack(gb.models, [0] * len(gb.models), F, dev)
+    res["route_trees"] = p1_times(
+        binsT, stack, gb.fmeta.num_bin, gb.fmeta.default_bin,
+        gb.train_score.to(torch.float64).contiguous(), gb.models,
+        "Expo training bins", (gb.fmeta.feat_group, gb.fmeta.feat_offset))
+    del w8, grad, hess, member, lid0, split_ids
+    torch.cuda.empty_cache()
+    return res
+
+
+def expo_like_labels5(X, seed: int):
+    """A 5-class label of Expo-shaped rows: (month + day of week) mod 5,
+    a third of the rows drawn at random."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    month = np.asarray(X[:, 4:16].argmax(axis=1)).ravel()
+    dow = np.asarray(X[:, 47:54].argmax(axis=1)).ravel()
+    y = (month + dow) % 5
+    noise = rng.uniform(size=len(y)) < 1.0 / 3.0
+    y[noise] = rng.randint(0, 5, int(noise.sum()))
+    return y.astype(np.float64)
+
+
+def expo_phase():
+    """Phase 24: Expo-shaped one-hot data from CSR at full width.  Returns
+    (launches of the 11M run, record, the kernel measurements)."""
+    import numpy as np
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import kernels
+    rec = {}
+    t0 = time.perf_counter()
+    X, y = expo_like(EXPO_ROWS + EXPO_HOLDOUT, EXPO_SEED)
+    Xh, yh = X[EXPO_ROWS:], y[EXPO_ROWS:]
+    X, y = X[:EXPO_ROWS], y[:EXPO_ROWS]
+    rec["generate_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds = lt.Dataset(X, y)
+    ds.construct(lt.Config.from_params(EXPO_PARAMS))
+    rec["bin_and_bundle_s"] = time.perf_counter() - t0
+    h = ds._handle
+    require(h.bundle is not None and h.num_used_features > 690,
+            f"Expo: {h.num_used_features} used features, bundle "
+            f"{h.bundle is not None}")
+    sizes = [len(g) for g in h.bundle.groups]
+    rec.update(rows=EXPO_ROWS, nnz=int(X.nnz), positive=float(y.mean()),
+               features=int(h.num_used_features), columns=h.num_columns,
+               group_sizes=sizes, column_bins=h.column_bins.tolist(),
+               bundled_bytes=int(h.bins_t.nbytes),
+               unbundled_bytes=int(h.num_used_features) * EXPO_ROWS,
+               dense_f64_bytes=8 * EXPO_ROWS * X.shape[1])
+    log(f"expo: {EXPO_ROWS} x {X.shape[1]} CSR ({X.nnz} nonzeros, "
+        f"{rec['positive']:.3f} positive) generated in "
+        f"{rec['generate_s']:.1f} s, binned and bundled in "
+        f"{rec['bin_and_bundle_s']:.1f} s: {h.num_used_features} features "
+        f"in {h.num_columns} columns (groups of {sizes}), "
+        f"{rec['bundled_bytes'] / 1e9:.3f} GB of bins against "
+        f"{rec['unbundled_bytes'] / 1e9:.2f} GB unbundled")
+    va = ds.create_valid(Xh, yh)
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    evals = {}
+    bst, wall = _timed(lambda: lt.train(
+        EXPO_PARAMS, ds, EXPO_ITERS, valid_sets=[va], evals_result=evals,
+        verbose_eval=False))
+    launches = dict(kernels.LAUNCHES)
+    gb = bst.gbdt
+    auc = evals["valid_0"]["auc"]
+    rec.update(train_s=wall, iter_seconds=list(gb.iter_seconds),
+               median_iter_s=float(np.median(gb.iter_seconds)),
+               holdout_auc=auc,
+               peak_device_bytes=int(torch.cuda.max_memory_allocated()),
+               launches=launches)
+    log(f"expo: {EXPO_ITERS} iterations in {wall:.1f} s, median iteration "
+        f"{rec['median_iter_s']:.3f} s, holdout AUC "
+        f"{[round(a, 5) for a in auc]}, peak device memory "
+        f"{rec['peak_device_bytes'] / 1e9:.2f} GB")
+    require(gb.fmeta.gather_idx is not None and gb.bins.shape[0]
+            == h.num_columns and gb.num_bins == 256,
+            "the Expo booster does not train on the bundled columns")
+    require(all(np.isfinite(auc)) and auc[-1] > auc[0] + 0.01,
+            f"Expo: holdout AUC does not rise: {auc}")
+    require(launches["histogram_segment_routed_step"] > 0
+            and launches["score_gather_add"] == EXPO_ITERS
+            and launches["route_trees"] >= EXPO_ITERS,
+            f"Expo did not run the path's kernels: {launches}")
+    # the card's valid scores (P1 over the holdout's bundled bins, one
+    # launch an iteration) = the host walk over the same bins
+    vh = va._handle
+    infos = h.feature_infos()
+    host = np.full(vh.num_data, gb.init_scores[0])
+    for tree in gb.models:
+        host += tree.predict_binned(vh.bins_t, infos)
+    require(np.array_equal(gb.valid_scores[0], host),
+            "Expo: the card's valid scores differ from the host walk "
+            f"(max {np.abs(gb.valid_scores[0] - host).max()})")
+    on, on_s = _timed(lambda: bst.predict(Xh, raw_score=True,
+                                          predict_device="on"))
+    route_on = gb.last_predict_route
+    off, off_s = _timed(lambda: bst.predict(Xh, raw_score=True,
+                                            predict_device="off"))
+    require(route_on == "device" and gb.last_predict_route == "host"
+            and np.array_equal(on, off), "Expo: predict on differs from "
+            f"off (max {np.abs(on - off).max()})")
+    rec.update(predict_on_s=on_s, predict_off_s=off_s)
+    log(f"expo: valid scores = the host walk bit for bit; predict of the "
+        f"{EXPO_HOLDOUT} holdout rows on = off bit for bit ({on_s:.2f} s "
+        f"against {off_s:.2f} s)")
+    del X, y, Xh, yh, va
+    t0 = time.perf_counter()
+    kern = expo_kernel_phase(gb)
+    rec["kernels_s"] = time.perf_counter() - t0
+    del bst, gb, ds, h
+    torch.cuda.empty_cache()
+    return launches, rec, kern
+
+
+def expo_bundle_parity_phase():
+    """Phase 24: bundling is lossless at max_conflict_rate = 0 when the
+    binning sample is every row (no row holds two members of a group off
+    their default): at 1M Expo rows, enable_bundle on and off grow the
+    same splits (gain > 1e-2) and training scores within 1e-3."""
+    import numpy as np
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops.split import reconstruct_feature_column
+    X, y = expo_like(EXPO_PARITY_ROWS, 25)
+    params = dict(EXPO_PARAMS, bin_construct_sample_cnt=EXPO_PARITY_ROWS,
+                  metric=[])
+    out = {}
+    for bundle in (True, False):
+        p = dict(params, enable_bundle=bundle)
+        t0 = time.perf_counter()
+        ds = lt.Dataset(X, y)
+        ds.construct(lt.Config.from_params(p))
+        bin_s = time.perf_counter() - t0
+        bst, wall = _timed(lambda: lt.train(p, ds, EXPO_PARITY_ITERS,
+                                            verbose_eval=False))
+        out[bundle] = (bst.gbdt, bin_s, wall)
+    bg, ug = out[True][0], out[False][0]
+    require(bg.train_set.bundle is not None
+            and ug.train_set.bundle is None, "expo parity: the layouts")
+    # every feature's bins read out of its column = its own column
+    bad = 0
+    for j in range(len(bg.fmeta.num_bin)):
+        col = reconstruct_feature_column(
+            bg.bins[int(bg.fmeta.feat_group[j])], j, bg.fmeta)
+        bad += int((col != ug.bins[j].int()).sum().item())
+    require(bad == 0, f"expo parity: {bad} bins lost to conflicts")
+    n = _same_splits(bg.models, ug.models, "expo bundled / unbundled")
+    diff = float((bg.train_score - ug.train_score).abs().max().item())
+    require(n >= 100 and diff < 1e-3, f"expo parity: {n} splits compared, "
+            f"training scores differ by {diff}")
+    rec = {"rows": EXPO_PARITY_ROWS, "splits_compared": n,
+           "max_score_diff": diff,
+           "bundled": {"columns": bg.bins.shape[0], "bin_s": out[True][1],
+                       "train_s": out[True][2],
+                       "iter_seconds": list(bg.iter_seconds)},
+           "unbundled": {"columns": ug.bins.shape[0], "bin_s": out[False][1],
+                         "train_s": out[False][2],
+                         "iter_seconds": list(ug.iter_seconds)}}
+    log(f"expo parity: {EXPO_PARITY_ROWS} rows, bundled ({bg.bins.shape[0]} "
+        f"columns) = unbundled ({ug.bins.shape[0]}): no bin lost, {n} "
+        f"splits equal, scores within {diff:.3g}; iterations "
+        f"{np.median(bg.iter_seconds):.3f} s against "
+        f"{np.median(ug.iter_seconds):.3f} s")
+    return rec
+
+
+def expo_cpu_parity_phase():
+    """Phase 24: card = CPU at 200k Expo rows from CSR, 31 leaves,
+    EXPO_CPU_ITERS iterations: the segment grower fused and unfused, the
+    frontier grower at K = 16 and 5-class multiclass (K5) on the same
+    rows."""
+    import numpy as np
+    import lightgbm_tpu_torch as lt
+    X, y = expo_like(PARITY_ROWS, 26)
+    y5 = expo_like_labels5(X, 27)
+    base = dict(EXPO_PARAMS, num_leaves=31, metric=[])
+    cases = {"fused": (y, base, {}),
+             "unfused": (y, base, {"fused_route": False}),
+             "frontier": (y, dict(base, tpu_tree_impl="frontier",
+                                  tpu_frontier_width=16), {}),
+             "multiclass": (y5, dict(base, objective="multiclass",
+                                     num_class=5), {})}
+    rec = {}
+    for name, (yc, params, kw) in cases.items():
+        ds = lt.Dataset(X, yc)
+        ds.construct(lt.Config.from_params(dict(params, device_type="cpu")))
+        require(ds._handle.bundle is not None, f"expo {name}: no bundle")
+        out, times = {}, {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            bst = lt.Booster(dict(params, device_type=dev), ds, **kw)
+            for _ in range(EXPO_CPU_ITERS):
+                bst.update()
+            out[dev] = bst.gbdt
+            times[dev] = time.perf_counter() - t0
+        n, ties = _same_splits_near_tie(out["cuda"].models,
+                                        out["cpu"].models, f"expo {name}")
+        diff = float(np.abs(out["cuda"].train_score.cpu().numpy()
+                            - out["cpu"].train_score.numpy()).max())
+        require(n >= 30 and diff < 1e-3, f"expo {name}: {n} splits "
+                f"compared, card and CPU scores differ by {diff}")
+        rec[name] = {"splits_compared": n, "near_ties": ties,
+                     "max_score_diff": diff, "card_s": times["cuda"],
+                     "cpu_s": times["cpu"]}
+        log(f"expo parity {name}: card = CPU on {n} splits (near ties "
+            f"{ties}), scores within {diff:.3g}; card {times['cuda']:.1f} s,"
+            f" CPU {times['cpu']:.1f} s")
+    return rec
+
+
+def sparse_at_scale_phase():
+    """Phase 24: the JAX package's sparse-at-scale contract on the card
+    (tests/test_sparse_at_scale.py:31-67): 10,000 x 100,000 block one-hot
+    at 0.5% from CSR, max_bin 15, 7 leaves, 4 rounds: at most 6500
+    columns, at most 80 MB of bins, log loss on the first 1000 rows under
+    0.6915.  Returns (launches, record)."""
+    import numpy as np
+    import scipy.sparse as sp
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import kernels
+    rng = np.random.RandomState(31)
+    n, F = SPARSE_ROWS, SPARSE_BLOCKS * SPARSE_WIDTH
+    cols = (np.arange(SPARSE_BLOCKS) * SPARSE_WIDTH + rng.randint(
+        0, SPARSE_WIDTH, size=(n, SPARSE_BLOCKS))).ravel()
+    X = sp.csr_matrix((rng.uniform(1.0, 2.0, size=n * SPARSE_BLOCKS),
+                       (np.repeat(np.arange(n), SPARSE_BLOCKS), cols)),
+                      shape=(n, F))
+    y = np.asarray(X[:, :SPARSE_WIDTH].sum(axis=1)
+                   - X[:, SPARSE_WIDTH:2 * SPARSE_WIDTH].sum(axis=1)).ravel()
+    yb = (y > np.median(y)).astype(np.float64)
+    t0 = time.perf_counter()
+    ds = lt.Dataset(X, yb, params=SPARSE_PARAMS)
+    ds.construct(lt.Config.from_params(SPARSE_PARAMS))
+    bin_s = time.perf_counter() - t0
+    h = ds._handle
+    G = h.num_columns
+    require(h.bundle is not None and G <= SPARSE_MAX_GROUPS
+            and h.bins_t.nbytes <= SPARSE_MAX_BYTES,
+            f"sparse at scale: {G} columns, {h.bins_t.nbytes} bytes")
+    kernels.reset_launches()
+    bst, wall = _timed(lambda: lt.train(SPARSE_PARAMS, ds, 4,
+                                        verbose_eval=False))
+    launches = dict(kernels.LAUNCHES)
+    p = bst.predict(X[:1000])
+    ll = float(-np.mean(yb[:1000] * np.log(p + 1e-9)
+                        + (1 - yb[:1000]) * np.log(1 - p + 1e-9)))
+    require(ll < SPARSE_LOGLOSS_GATE, f"sparse at scale: log loss {ll}")
+    require(launches["histogram_segment_routed_step"] > 0,
+            f"sparse at scale did not launch K3: {launches}")
+    rec = {"rows": n, "features": F, "columns": G,
+           "bin_bytes": int(h.bins_t.nbytes), "bin_s": bin_s,
+           "train_s": wall, "iter_seconds": list(bst.gbdt.iter_seconds),
+           "logloss_1000": ll, "launches": launches}
+    log(f"sparse at scale: {n} x {F} ({X.nnz} nonzeros) binned in "
+        f"{bin_s:.1f} s into {G} columns ({h.bins_t.nbytes / 1e6:.1f} MB), "
+        f"4 rounds in {wall:.2f} s, log loss {ll:.4f} < "
+        f"{SPARSE_LOGLOSS_GATE}")
+    return launches, rec
 
 
 def main() -> int:
@@ -3743,6 +4314,13 @@ def main() -> int:
         "route_window_step", "score_gather_add", "histogram_all",
         "histogram_frontier", "histogram_frontier_routed")),
         f"the modes did not run the path's kernels: {modes_launches}")
+    t0 = time.perf_counter()
+    expo_launches, expo, expo_kernels = expo_phase()
+    expo["bundle_parity"] = expo_bundle_parity_phase()
+    expo["cpu_parity"] = expo_cpu_parity_phase()
+    sparse_launches, expo["sparse_at_scale"] = sparse_at_scale_phase()
+    expo["phase_wall_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
     session["launches"] = session_launches
     session["phase_wall_s"] = t_session
     require(session_launches["histogram_segment_routed_step"] > 0
@@ -3756,7 +4334,8 @@ def main() -> int:
              "frontier_fusedk": tier_launches["fusedk"],
              "session": session_launches, "objectives": obj_launches,
              "lambdarank": rank_launches, "goss_regression": goss_launches,
-             "modes": modes_launches, "predict": predict_launches}
+             "modes": modes_launches, "predict": predict_launches,
+             "expo": expo_launches, "sparse_at_scale": sparse_launches}
     records = []
     for name in kernels.KERNEL_NAMES:
         r = dict(results.get(name, {}))
@@ -3793,6 +4372,9 @@ def main() -> int:
                 "(lightgbm_tpu/models/device_predict.py:99-149)")
             rec["predict_bins"] = {"higgs": predict_higgs["p1"],
                                    "goss_regression": predict_goss["p1"]}
+        if name in expo_kernels:
+            # on the Expo rows' bundled columns (phase 24)
+            rec["expo"] = expo_kernels[name]
         if name in fk_mc:
             rec["mc"] = fk_mc[name]
             rec["mc_k16"] = fk_mc[f"{name}_k16"]
@@ -3814,6 +4396,7 @@ def main() -> int:
                     "lambdarank": rank, "meta_parity": meta_parity}))
     log(json.dumps({"goss_regression": goss, "modes": modes}))
     log(json.dumps({"predict": predict}))
+    log(json.dumps({"expo_onehot": expo}))
     log(json.dumps({"kernels": records}))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(card)

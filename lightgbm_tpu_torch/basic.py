@@ -121,8 +121,9 @@ class Dataset:
     its category columns as codes (``pandas_categorical``: the category
     lists, a valid set takes its reference's).  ``free_raw_data`` is kept
     as the JAX Dataset keeps it; the raw matrix is only read at
-    construction.  A scipy sparse matrix is not taken yet (pass
-    ``data.toarray()``)."""
+    construction.  A scipy sparse matrix (CSR, CSC, ...) is binned from
+    its nonzeros without densifying it (TorchDataset.from_scipy;
+    lightgbm_tpu/basic.py:143-147)."""
 
     def __init__(self, data, label=None,
                  reference: Optional["Dataset"] = None,
@@ -157,10 +158,8 @@ class Dataset:
                 self.used_indices)
             self.pandas_categorical = self.reference.pandas_categorical
             return self
-        if hasattr(self.data, "tocsr") and not hasattr(self.data, "values"):
-            raise NotImplementedError(
-                "lightgbm_tpu_torch does not bin a scipy sparse matrix; "
-                "pass data.toarray()")
+        is_sparse = (hasattr(self.data, "tocsr")
+                     and not hasattr(self.data, "values"))
         cfg = config or Config.from_params(self.params, device_type="cpu")
         ref = None
         if self.reference is not None:
@@ -181,9 +180,11 @@ class Dataset:
                                                           "dtypes"):
             cat_idx += [i for i, dt in enumerate(self.data.dtypes)
                         if str(dt) == "category" and i not in cat_idx]
-        self._handle = TorchDataset.from_numpy(
-            _as_2d_float(self.data,
-                         pandas_categorical=self.pandas_categorical),
+        make = TorchDataset.from_scipy if is_sparse else \
+            TorchDataset.from_numpy
+        self._handle = make(
+            self.data if is_sparse else _as_2d_float(
+                self.data, pandas_categorical=self.pandas_categorical),
             label=self.label, config=cfg,
             feature_names=names, reference=ref,
             categorical_features=cat_idx,

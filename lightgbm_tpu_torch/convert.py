@@ -4,14 +4,14 @@ Two hand-overs, so the port can be held to the JAX package on identical
 inputs:
 
   * ``dataset_from_arrays``: a binned dataset (the row-major ``binned``
-    matrix of the used features, each BinMapper in its ``to_dict()``
-    form, the labels, and the metadata: weights, query group sizes, init
-    scores) -> a port Dataset over the same bins;
+    matrix of its columns, each BinMapper in its ``to_dict()`` form, the
+    labels, the metadata: weights, query group sizes, init scores, and
+    the EFB groups of a bundled one, ``bundle.groups``) -> a port Dataset
+    over the same bins;
   * ``trees_from_arrays``: trained trees, each given as its numpy fields
     (``vars(tree)``) -> port Trees.
 
-Numerical and categorical features convert; bundled (EFB) state has no
-counterpart in the port and raises.
+Numerical and categorical features convert, bundled (EFB) or not.
 """
 
 from __future__ import annotations
@@ -31,12 +31,14 @@ def dataset_from_arrays(binned: np.ndarray, bin_mappers: Sequence[Dict],
                         feature_names: Optional[List[str]] = None,
                         weights: Optional[np.ndarray] = None,
                         group: Optional[np.ndarray] = None,
-                        init_score: Optional[np.ndarray] = None
+                        init_score: Optional[np.ndarray] = None,
+                        bundle_groups: Optional[List[List[int]]] = None
                         ) -> Dataset:
     mappers = [BinMapper.from_dict(d) for d in bin_mappers]
     ds = TorchDataset.from_bins(np.asarray(binned).T, mappers, label,
                                 feature_names, weights=weights, group=group,
-                                init_score=init_score)
+                                init_score=init_score,
+                                bundle_groups=bundle_groups)
     return Dataset(ds)
 
 

@@ -40,6 +40,10 @@ def _double_equal_ordered(a: float, b: float) -> bool:
     return b <= _next_after_up(a)
 
 
+# greedy_find_bin walks at most this many distinct values in Python
+_SEQUENTIAL_DISTINCT = 256
+
+
 def greedy_find_bin(distinct_values: np.ndarray, counts: np.ndarray,
                     max_bin: int, total_cnt: int,
                     min_data_in_bin: int) -> List[float]:
@@ -73,6 +77,31 @@ def greedy_find_bin(distinct_values: np.ndarray, counts: np.ndarray,
     lower_bounds = [math.inf] * max_bin
     bin_cnt = 0
     lower_bounds[0] = float(distinct_values[0])
+    if num_distinct <= _SEQUENTIAL_DISTINCT:
+        # few values: the reference's walk itself, on Python lists, costs
+        # less than the numpy calls of the search below (wide sparse data
+        # bins one short column a feature)
+        vals = distinct_values.tolist()
+        cnts = counts.tolist()
+        big = is_big.tolist()
+        cur_cnt = 0
+        for i in range(num_distinct - 1):
+            if not big[i]:
+                rest_sample_cnt -= cnts[i]
+            cur_cnt += cnts[i]
+            if (big[i] or cur_cnt >= mean_bin_size
+                    or (big[i + 1]
+                        and cur_cnt >= max(1.0, mean_bin_size * 0.5))):
+                upper_bounds[bin_cnt] = float(vals[i])
+                bin_cnt += 1
+                lower_bounds[bin_cnt] = float(vals[i + 1])
+                if bin_cnt >= max_bin - 1:
+                    break
+                cur_cnt = 0
+                if not big[i]:
+                    rest_bin_cnt -= 1
+                    mean_bin_size = rest_sample_cnt / max(rest_bin_cnt, 1)
+        return _bounds_of(upper_bounds, lower_bounds, bin_cnt + 1)
     # The reference walks the distinct values one by one, cutting a bin
     # at value i when i is big, when the bin's count reaches
     # mean_bin_size, or when value i + 1 is big and the count reaches half
@@ -113,7 +142,12 @@ def greedy_find_bin(distinct_values: np.ndarray, counts: np.ndarray,
             rest_bin_cnt -= 1
             mean_bin_size = rest_sample_cnt / max(rest_bin_cnt, 1)
         start = i + 1
-    bin_cnt += 1
+    return _bounds_of(upper_bounds, lower_bounds, bin_cnt + 1)
+
+
+def _bounds_of(upper_bounds, lower_bounds, bin_cnt: int) -> List[float]:
+    """The bins' upper bounds from the greedy cuts (bin.cpp:140-150)."""
+    bounds: List[float] = []
     for i in range(bin_cnt - 1):
         val = _next_after_up((upper_bounds[i] + lower_bounds[i + 1]) / 2.0)
         if not bounds or not _double_equal_ordered(bounds[-1], val):

@@ -9,6 +9,15 @@
 // computes that route as XLA gathers, not as a Pallas kernel: there is no
 // pl.pallas_call to replace.
 //
+// Bins of EFB-bundled data (lightgbm_tpu_torch/core/bundle.py): feature f
+// lives in column feat_group[f] at feat_offset[f] + bin; a column value
+// outside [offset, offset + num_bin) is f at its default bin, as the JAX
+// route reconstructs it (_tree_leaves :117-125).  A feature of offset 0
+// owns its column, which holds its bins as they are: the unbundled case,
+// predict-time bins (identity tables, whose -1 sentinel must stay -1)
+// and a singleton column of bundled data, whose values are always in
+// range.
+//
 // Routing (tree.h NumericalDecisionInner / CategoricalDecisionInner): a
 // numerical node sends a bin left when it is <= its threshold bin, except
 // a missing bin (the default bin under missing-zero, the last bin under
@@ -26,12 +35,13 @@
 //
 // What bounds it: bytes.  A row reads one bin a node on its path (at most
 // max_depth bytes a tree, two for signed bins) and reads and writes its
-// 8-byte score once a class; the tree arrays (a few KB a tree) stay in
-// L1/L2.  The simple design: a grid-stride loop over rows, the tree
-// arrays read through the read-only cache.
+// 8-byte score once a class; the tree arrays (a few KB a tree) and the
+// [F] tables stay in L1/L2.  The simple design: a grid-stride loop over
+// rows, the tree arrays read through the read-only cache.
 //
-// Bins are feature-major [F, stride]: u8 (the training and valid sets'
-// device bins) or i16 (predict-time bins, which carry the -1 sentinel).
+// Bins are column-major [G, stride]: u8 (the training and valid sets'
+// device bins, G EFB columns) or i16 (predict-time bins, one column a
+// feature, which carry the -1 sentinel).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -61,13 +71,20 @@ __device__ __forceinline__ int tree_leaf(const Stack& s, int t,
                                          const BinT* __restrict__ bins,
                                          long long stride, long long row,
                                          const int* __restrict__ num_bin,
-                                         const int* __restrict__ default_bin) {
+                                         const int* __restrict__ default_bin,
+                                         const int* __restrict__ feat_group,
+                                         const int* __restrict__ feat_offset) {
   const long long base = (long long)t * s.max_nodes;
   int node = __ldg(s.num_leaves + t) <= 1 ? -1 : 0;
   for (int step = 0; step <= s.max_depth && node >= 0; ++step) {
     const long long i = base + node;
     const int f = __ldg(s.split_feature + i);
-    const int fv = (int)bins[(long long)f * stride + row];
+    int fv = (int)bins[(long long)__ldg(feat_group + f) * stride + row];
+    const int off = __ldg(feat_offset + f);
+    if (off != 0) {
+      const bool in_range = fv >= off && fv < off + __ldg(num_bin + f);
+      fv = in_range ? fv - off : __ldg(default_bin + f);
+    }
     const int d = __ldg(s.decision_type + i);
     bool left;
     if (d & 1) {
@@ -93,7 +110,9 @@ template <typename BinT>
 __global__ void __launch_bounds__(kThreads)
 route_trees_kernel(const BinT* __restrict__ bins, long long stride,
                    long long n, Stack s, const int* __restrict__ num_bin,
-                   const int* __restrict__ default_bin, int num_class,
+                   const int* __restrict__ default_bin,
+                   const int* __restrict__ feat_group,
+                   const int* __restrict__ feat_offset, int num_class,
                    double* __restrict__ out) {
   const long long step = (long long)gridDim.x * blockDim.x;
   for (long long row = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -102,8 +121,8 @@ route_trees_kernel(const BinT* __restrict__ bins, long long stride,
       double acc = out[(long long)k * n + row];
       for (int t = 0; t < s.num_trees; ++t) {
         if (__ldg(s.tree_class + t) != k) continue;
-        const int leaf =
-            tree_leaf(s, t, bins, stride, row, num_bin, default_bin);
+        const int leaf = tree_leaf(s, t, bins, stride, row, num_bin,
+                                   default_bin, feat_group, feat_offset);
         acc = __dadd_rn(acc, __ldg(s.leaf_value +
                                    (long long)t * s.max_leaves + leaf));
       }
@@ -121,7 +140,8 @@ extern "C" int lgbt_route_trees(
     const unsigned* cat_bitset, const double* leaf_value,
     const int* num_leaves, const int* tree_class, int num_trees,
     int max_nodes, int max_leaves, int max_depth, const int* num_bin,
-    const int* default_bin, int num_class, double* out, void* stream) {
+    const int* default_bin, const int* feat_group, const int* feat_offset,
+    int num_class, double* out, void* stream) {
   if (bin_bytes != 1 && bin_bytes != 2) return (int)cudaErrorInvalidValue;
   if (n <= 0 || num_trees <= 0) return (int)cudaGetLastError();
   Stack s{split_feature, threshold_bin, decision_type, left_child,
@@ -137,12 +157,12 @@ extern "C" int lgbt_route_trees(
   cudaStream_t st = (cudaStream_t)stream;
   if (bin_bytes == 1) {
     route_trees_kernel<uint8_t><<<(unsigned)blocks, kThreads, 0, st>>>(
-        (const uint8_t*)bins, stride, n, s, num_bin, default_bin, num_class,
-        out);
+        (const uint8_t*)bins, stride, n, s, num_bin, default_bin, feat_group,
+        feat_offset, num_class, out);
   } else {
     route_trees_kernel<int16_t><<<(unsigned)blocks, kThreads, 0, st>>>(
-        (const int16_t*)bins, stride, n, s, num_bin, default_bin, num_class,
-        out);
+        (const int16_t*)bins, stride, n, s, num_bin, default_bin, feat_group,
+        feat_offset, num_class, out);
   }
   return (int)cudaGetLastError();
 }

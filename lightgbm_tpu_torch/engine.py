@@ -74,9 +74,12 @@ def train(params: Dict[str, Any], train_set: Dataset,
         raw = (None if isinstance(train_set.data, TorchDataset)
                else train_set.data)
         if raw is not None:
-            raw = np.asarray(raw, dtype=np.float64)
-            if raw.ndim == 1:
-                raw = raw[:, None]
+            # a scipy matrix stays sparse: the seeding densifies it only
+            # for a walk of the raw rows
+            if not hasattr(raw, "tocsr") or hasattr(raw, "values"):
+                raw = np.asarray(raw, dtype=np.float64)
+                if raw.ndim == 1:
+                    raw = raw[:, None]
             if train_set.used_indices is not None:
                 raw = raw[train_set.used_indices]
         load_trees_into(booster.gbdt, init_booster.gbdt, raw_data=raw)

@@ -10,12 +10,12 @@ JAX package fetched [T, N] leaf indices and gathered on the host; the
 kernel adds where it routes, so nothing of size [T, N] is written.
 
 Users (models/gbdt.py): ``GBDT.predict`` under ``predict_device`` (on
-i16 bins of raw rows, ``bin_rows``), and the training loop's walks of a
-card booster (valid scores, ``add_valid``'s replay, rollback, DART's
-drops, ``init_model``'s seeding) on the u8 device bins of the training
-and valid sets.  EFB's
-bundled columns (the JAX route's ``feat_group`` / ``feat_offset``) are
-not taken: the port stores no bundled dataset.
+i16 bins of raw rows, ``bin_rows``, one column a feature: P1 gets
+identity tables), and the training loop's walks of a card booster (valid
+scores, ``add_valid``'s replay, rollback, DART's drops, ``init_model``'s
+seeding) on the u8 device bins of the training and valid sets, in their
+EFB column layout: P1 reads feature f out of column ``feat_group[f]`` at
+``feat_offset[f] + bin``, as the JAX route does.
 """
 
 from __future__ import annotations

@@ -83,7 +83,8 @@ def _auto_frontier_k(config: Config, num_columns: int, num_bins: int) -> int:
     """Frontier width K (lightgbm_tpu/models/gbdt.py:109-124): an explicit
     tpu_frontier_width wins; else frontier_width's K, capped at
     ceil(num_leaves / 16) so that small trees stay near strict best-first.
-    ``num_columns`` is the bin matrix's row count (the port has no EFB)."""
+    ``num_columns`` is the bin matrix's column count (EFB groups, or the
+    used features) and ``num_bins`` its histograms' bin axis."""
     if config.tpu_frontier_width > 0:
         return config.tpu_frontier_width
     return min(frontier_width(num_columns, num_bins),
@@ -102,9 +103,24 @@ def build_feature_meta(dataset: TorchDataset,
     if dataset.has_categorical:
         is_cat = torch.tensor([bool(i.is_cat) for i in infos],
                               dtype=torch.bool, device=device)
+    feat_group = feat_offset = gather_idx = None
+    if dataset.bundle is not None:
+        # the [F, Bf] gather map from the flattened [G * Bg] group
+        # histogram, at the grower's bin axes (lightgbm_tpu/models/gbdt.py
+        # :185-200)
+        Bg = _round_up_pow2(max(dataset.max_column_bin, 2))
+        Bf = _round_up_pow2(max(dataset.max_num_bin, 2))
+        gi = np.full((len(infos), Bf), -1, dtype=np.int64)
+        for j, info in enumerate(infos):
+            gi[j, :info.num_bin] = (info.group * Bg + info.offset
+                                    + np.arange(info.num_bin))
+        feat_group, feat_offset = col("group"), col("offset")
+        gather_idx = torch.from_numpy(gi).to(device)
     return FeatureMeta(num_bin=col("num_bin"),
                        missing_type=col("missing_type"),
-                       default_bin=col("default_bin"), is_cat=is_cat)
+                       default_bin=col("default_bin"), is_cat=is_cat,
+                       feat_group=feat_group, feat_offset=feat_offset,
+                       gather_idx=gather_idx)
 
 
 class TreeEnsemble:
@@ -309,7 +325,8 @@ class GBDT(TreeEnsemble):
             self.objective.init(train_set.metadata, self.num_data,
                                 self.device)
         self.fmeta = build_feature_meta(train_set, self.device)
-        self.num_bins = _round_up_pow2(max(train_set.max_num_bin, 2))
+        # the kernels' bin axis: the widest column (an EFB group's bins)
+        self.num_bins = _round_up_pow2(max(train_set.max_column_bin, 2))
         rb = block_rows(config, self.num_data)
         self.bins = train_set.device_bins(rb, self.device)
         npad = self.bins.shape[1]
@@ -342,7 +359,8 @@ class GBDT(TreeEnsemble):
         if config.tpu_tree_impl == "frontier":
             self.grower = FrontierGrower(
                 self.num_bins, params, rb,
-                _auto_frontier_k(config, self.bins.shape[0], self.num_bins),
+                _auto_frontier_k(config, train_set.num_columns,
+                                 self.num_bins),
                 config.tpu_frontier_gain_ratio, tier=self._frontier_tier)
         else:
             self.grower = SegmentGrower(self.num_bins, params, rb,
@@ -406,18 +424,22 @@ class GBDT(TreeEnsemble):
                    classes: List[int], out: torch.Tensor,
                    bins: Optional[torch.Tensor] = None) -> torch.Tensor:
         """P1: ``out[classes[i]] += trees[i]``'s leaf values over
-        ``bins`` (default ``dataset``'s device bins: the training set's
-        padded matrix, or the set's own [F, N] copy, uploaded once), in
-        place; ``out`` [C, N] float64 on the card."""
+        ``bins``, in place; ``out`` [C, N] float64 on the card.  By
+        default ``bins`` are ``dataset``'s device bins (the training set's
+        padded matrix, or the set's own [G, N] copy, uploaded once), in
+        the training set's column layout (its EFB tables); given ``bins``
+        are predict-time bins of raw rows, one column a feature."""
         if not trees:
             return out
+        tables = (None, None)
         if bins is None:
             bins = (self.bins if dataset is self.train_set
                     else dataset.device_bins(1, self.device))
+            tables = (self.fmeta.feat_group, self.fmeta.feat_offset)
         stack = TreeStack(trees, classes, dataset.num_used_features,
                           self.device)
         return route_trees(bins, stack, self.fmeta.num_bin,
-                           self.fmeta.default_bin, out)
+                           self.fmeta.default_bin, out, *tables)
 
     def _card_delta(self, dataset: TorchDataset, trees: List[Tree],
                     classes: List[int]) -> torch.Tensor:

@@ -51,7 +51,7 @@ from ..ops.histogram import (fixed_point_scales, histogram_frontier,
                              histogram_frontier_routed, null_route,
                              pack_channels, pack_route, route_window,
                              union_block_list)
-from ..ops.split import NEG_INF, FeatureMeta, best_split
+from ..ops.split import NEG_INF, FeatureMeta, best_split, expand_group_hist
 from .grower import GrowerParams, TreeArrays, node_feature_mask
 from .grower_seg import COMPACT_WASTE, _check_key, _unpermute
 
@@ -63,10 +63,10 @@ class _SegState:
     row order, host bookkeeping of windows, leaf sums and best splits."""
 
     def __init__(self, binsT, w8, L: int, max_blocks: int, G0, H0, C0,
-                 F: int, B: int):
+                 B: int):
         dev = binsT.device
         n = binsT.shape[1]
-        self.binsT = binsT                      # [F, Npad] u8, permuted
+        self.binsT = binsT                      # [G, Npad] u8, permuted
         self.w8 = w8                            # [8, Npad] bf16, permuted
         self.order = torch.arange(n, dtype=torch.int64, device=dev)
         self.leaf_id = torch.zeros(n, dtype=torch.int32, device=dev)
@@ -77,8 +77,9 @@ class _SegState:
         self.scanned_total = 0
         self.num_sorts = 0
         self.num_leaves = 1
-        self.leaf_hist = torch.zeros((L, F, B, 3), dtype=torch.float32,
-                                     device=dev)
+        # the kernels' histograms, over the G columns
+        self.leaf_hist = torch.zeros((L, binsT.shape[0], B, 3),
+                                     dtype=torch.float32, device=dev)
         f32 = np.float32
         self.leaf_g = np.zeros(L, f32)
         self.leaf_h = np.zeros(L, f32)
@@ -172,13 +173,14 @@ class HostGrower:
     """The host-driven loop's pieces: the per-tree state, the batched
     best-split scan into the host cache, the stop rule.
     ``grow(binsT, grad, hess, member, fmeta, root=None, feature_mask=None,
-    key=None)`` takes feature-major bins [F, Npad] (Npad a multiple of
-    ``block_rows``; pad rows must carry member == 0) and returns
-    ``(TreeArrays, leaf_id)`` with leaf ids in the original row order.
+    key=None)`` takes column-major bins [G, Npad] (EFB groups, or the
+    features; Npad a multiple of ``block_rows``; pad rows must carry
+    member == 0) and returns ``(TreeArrays, leaf_id)`` with leaf ids in
+    the original row order.
 
     ``root``, when given, is ``(w8, scales, root_hist)``: this tree's
     channels as pack_channels packs them, their fixed_point_scales, and
-    the root histogram [F, B, 3] at those scales, which takes the place of
+    the root histogram [G, B, 3] at those scales, which takes the place of
     the root's own pass (K5's slice of this class is, bit for bit, what
     that pass gives).  The splits' kernels use the same ``w8`` and
     ``scales``.  ``feature_mask`` and ``key`` are the tree's feature
@@ -193,7 +195,7 @@ class HostGrower:
 
     def _start(self, binsT, grad, hess, member, root):
         """-> (state, scales, root histogram or None)."""
-        F, n = binsT.shape
+        n = binsT.shape[1]
         if n % self.rb:
             raise ValueError(f"Npad {n} is not a multiple of {self.rb}")
         if root is None:
@@ -206,20 +208,22 @@ class HostGrower:
                                   torch.sum(hess * member),
                                   torch.sum(member)]).cpu().numpy()
         st = _SegState(binsT, w8, self.p.num_leaves, n // self.rb, G0, H0,
-                       C0, F, self.B)
+                       C0, self.B)
         return st, scales, root_hist
 
     def _scan(self, st: _SegState, leaves, hists, fmeta: FeatureMeta,
               masks=None) -> None:
-        """Best split of each leaf in ``leaves`` from its histogram and its
-        sums, under its feature mask (``masks``: [len(leaves) or 1, F], or
-        None); one device->host fetch writes the host cache (in float64
+        """Best split of each leaf in ``leaves`` from its histogram (over
+        the columns, expanded to the features) and its sums, under its
+        feature mask (``masks``: [len(leaves) or 1, F], or None); one
+        device->host fetch writes the host cache (in float64
         when it carries categorical bitsets, whose 32-bit words float32
         would round).  A leaf at max_depth gets gain -inf."""
         dev = hists.device
         g, h, c = (torch.from_numpy(v[leaves]).to(dev)
                    for v in (st.leaf_g, st.leaf_h, st.leaf_c))
-        info = best_split(hists, g, h, c, fmeta, self.p.split, masks)
+        info = best_split(expand_group_hist(hists, fmeta, g, h, c), g, h, c,
+                          fmeta, self.p.split, masks)
         cols = [info.gain, info.feature, info.threshold, info.default_left,
                 info.left_g, info.left_h, info.left_c, info.left_out,
                 info.right_out]
@@ -392,7 +396,10 @@ class FrontierGrower(HostGrower):
         st, scales, root_hist = self._start(binsT, grad, hess, member, root)
         masks = self._node_masks(feature_mask, key, binsT.device)
         max_blocks = binsT.shape[1] // rb
-        fm_host = FeatureMeta(*(t.cpu().numpy() for t in fmeta[:3]))
+        # what pack_route reads: the route words' metadata and EFB tables
+        fm_host = FeatureMeta(*(
+            None if t is None else t.cpu().numpy()
+            for t in fmeta._replace(is_cat=None, gather_idx=None)))
         if root_hist is None:
             # the round kernel with one target (and a null route on the
             # fused tiers) over every block

@@ -70,7 +70,8 @@ from ..ops.histogram import (STEP_WORDS, SPLIT_WORDS, fixed_point_scales,
                              histogram_segment_step, null_route,
                              pack_channels, pack_route_device, pack_step,
                              route_window_step)
-from ..ops.split import NEG_INF, FeatureMeta, SplitInfo, best_split
+from ..ops.split import (NEG_INF, FeatureMeta, SplitInfo, best_split,
+                         expand_group_hist)
 from .grower import GrowerParams, TreeArrays, node_feature_mask
 
 # Re-sort the layout once the histogram kernels have scanned more than
@@ -126,12 +127,15 @@ class _DeviceState:
              "leaf_sum", "leaf_hist", "best_f32", "best_i32", "node_i32",
              "node_f32", "leaf_i32", "leaf_value", "counters")
 
-    def __init__(self, F: int, npad: int, B: int, L: int, dev,
+    def __init__(self, G: int, npad: int, B: int, L: int, dev,
                  fmeta: FeatureMeta, masked: bool = False):
+        """``G`` bin columns (EFB groups, or the features) of ``B`` bins;
+        the scan and the masks are over fmeta's F features."""
         def zeros(*shape, dtype=torch.float32):
             return torch.zeros(shape, dtype=dtype, device=dev)
 
-        self.binsT = zeros(F, npad, dtype=torch.uint8)       # permuted
+        F = fmeta.num_bin.shape[0]
+        self.binsT = zeros(G, npad, dtype=torch.uint8)       # permuted
         self.w8 = zeros(8, npad, dtype=torch.bfloat16)       # permuted
         # ones: the capture's warm-up step converts its sums by them
         self.scales = torch.ones(2, dtype=torch.float32, device=dev)
@@ -142,7 +146,8 @@ class _DeviceState:
         self.window = zeros(L, 2, dtype=torch.int64)    # [lo, hi) blocks
         # (sum_grad, sum_hess, count): the tree's leaf weight and count too
         self.leaf_sum = zeros(L, 3)
-        self.leaf_hist = zeros(L, F, B, 3)
+        # the kernels' histograms, over the columns
+        self.leaf_hist = zeros(L, G, B, 3)
         # best-split cache (best_split_per_leaf_, serial_tree_learner.h:153)
         self.best_f32 = zeros(L, 6)
         self.best_i32 = zeros(L, SPLIT_WORDS, dtype=torch.int32)
@@ -158,9 +163,9 @@ class _DeviceState:
         # a tree's inputs besides the layout: the root's sums and, when
         # the caller gives it, its histogram
         self.root_sums = zeros(3)
-        self.root_hist = zeros(F, B, 3)
+        self.root_hist = zeros(G, B, 3)
         self.step = zeros(STEP_WORDS, dtype=torch.int32)
-        self.hist_small = zeros(F, B, 3)
+        self.hist_small = zeros(G, B, 3)
         self.status = zeros(_STATUS, dtype=torch.int64)
         # feature fraction: the tree's mask and key, and the masks of the
         # node numbers 0 .. 2L drawn from them at the tree's start
@@ -273,12 +278,13 @@ class SegmentGrower:
     split steps one CUDA graph replay runs.
 
     ``grow(binsT, grad, hess, member, fmeta, root=None, feature_mask=None,
-    key=None)`` takes feature-major bins [F, Npad] (Npad a multiple of
+    key=None)`` takes column-major bins [G, Npad] (the G columns of the
+    dataset: EFB groups, or its F features; Npad a multiple of
     ``block_rows``; pad rows must carry member == 0) and returns
     ``(TreeArrays, leaf_id)`` with leaf ids in the original row order.
     ``root``, when given, is
     ``(w8, scales, root_hist)``: this tree's channels as pack_channels
-    packs them, their fixed_point_scales, and the root histogram [F, B,
+    packs them, their fixed_point_scales, and the root histogram [G, B,
     3] at those scales, which takes the place of the root's own pass (K5's
     slice of this class is, bit for bit, what that pass gives).  The
     splits' kernels use the same ``w8`` and ``scales``.
@@ -377,13 +383,15 @@ class SegmentGrower:
         s.counters.add_(torch.cat([active.long(), n_blk, n_blk,
                                    torch.zeros_like(n_blk)]))
         # both children's best splits (under their node masks, numbered 2s
-        # and 2s + 1 for split s); a child at max_depth gets -inf
+        # and 2s + 1 for split s), from their per-feature histograms; a
+        # child at max_depth gets -inf
         mask = None
         if self._masked:
             mask = s.node_masks.index_select(0, torch.cat([2 * node,
                                                            2 * node + 1]))
-        info = best_split(hists, sums[:, 0], sums[:, 1], sums[:, 2], s.fmeta,
-                          p.split, mask)
+        g, h, c = sums[:, 0], sums[:, 1], sums[:, 2]
+        info = best_split(expand_group_hist(hists, s.fmeta, g, h, c), g, h,
+                          c, s.fmeta, p.split, mask)
         gain2 = info.gain
         if p.max_depth > 0:
             gain2 = torch.where(depth >= p.max_depth, NEG_INF, gain2)
@@ -442,9 +450,10 @@ class SegmentGrower:
         """The grower's device state for this shape and feature masks:
         allocated once (and, on a card, its steps captured in a CUDA
         graph), then reused."""
-        F, npad = binsT.shape
+        G, npad = binsT.shape
         L = self.p.num_leaves
-        key = (F, npad, L, binsT.device, fmeta.is_cat is not None,
+        key = (G, fmeta.num_bin.shape[0], npad, L, binsT.device,
+               fmeta.is_cat is not None, fmeta.gather_idx is not None,
                self.steps, masked)
         if key != self._key:
             # the key is kept only once the state is whole: after a capture
@@ -453,7 +462,7 @@ class SegmentGrower:
             self._graph = None
             self._start_graphs = {}
             self._masked = masked
-            self.s = _DeviceState(F, npad, self.B, L, binsT.device, fmeta,
+            self.s = _DeviceState(G, npad, self.B, L, binsT.device, fmeta,
                                   masked)
             self._child_cols = torch.arange(
                 _NODE_WORDS, device=binsT.device) >= SPLIT_WORDS
@@ -536,8 +545,9 @@ class SegmentGrower:
             s.node_masks.copy_(node_feature_mask(s.fmask, s.key,
                                                  s.node_steps, self.p))
             mask = s.node_masks[-1:]          # the root's number, 2L
-        info = best_split(s.leaf_hist[:1], s.leaf_sum[:1, 0],
-                          s.leaf_sum[:1, 1], s.leaf_sum[:1, 2], s.fmeta,
+        g, h, c = s.leaf_sum[:1, 0], s.leaf_sum[:1, 1], s.leaf_sum[:1, 2]
+        info = best_split(expand_group_hist(s.leaf_hist[:1], s.fmeta, g, h,
+                                            c), g, h, c, s.fmeta,
                           self.p.split, mask)
         f32, i32 = _cache_rows(info, info.gain)
         s.best_f32[:1].copy_(f32)

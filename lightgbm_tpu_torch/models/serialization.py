@@ -281,9 +281,11 @@ def load_trees_into(gbdt, src: TreeEnsemble, raw_data=None) -> None:
     f32.  The sums are the raw walk's over the raw rows (``raw_data``;
     else the binned walk's over the training bins, each tree aligned).
     A card booster makes them with P1: over the training set's device
-    bins, or, where a tree splits a category, over ``bin_rows`` of the
-    raw rows (the training bins put a category the mapper dropped in
-    its last bin, where the raw walk sends it right); but where an
+    bins, or over ``bin_rows`` of the raw rows where those differ from
+    the training bins: a tree splits a category (the training bins put a
+    category the mapper dropped in its last bin, where the raw walk sends
+    it right), or the bins are EFB-bundled (a row where two members of a
+    group meet keeps only the last); but where an
     aligned tree is not ``bins_exact`` (grown on other rows), it walks
     the raw rows on the host.  The trees are kept aligned with the
     training bins (a tree grown on other data is realigned too, where
@@ -298,12 +300,20 @@ def load_trees_into(gbdt, src: TreeEnsemble, raw_data=None) -> None:
     models = [t.aligned_to(ds) for t in src.models[:src.iter_ * C]]
     card = gbdt._walks_on_card() and (
         raw_data is None or all(t.bins_exact for t in models))
+
+    def raw_rows():
+        """The raw rows, dense and feature-major (a scipy matrix is
+        densified here, where a walk reads them)."""
+        rows = raw_data.toarray() if hasattr(raw_data, "toarray") \
+            else raw_data
+        return np.asfortranarray(rows, dtype=np.float64)
+
     if card:
         bins = None
-        if raw_data is not None and any(t.num_cat for t in models):
-            bins = torch.from_numpy(bin_rows(
-                ds, np.asfortranarray(raw_data, dtype=np.float64))).to(
-                    gbdt.device)
+        if raw_data is not None and (ds.bundle is not None or any(
+                t.num_cat for t in models)):
+            bins = torch.from_numpy(bin_rows(ds, raw_rows())).to(
+                gbdt.device)
         deltas = gbdt._card_walk(
             ds, models, [i % C for i in range(len(models))],
             torch.zeros((C, gbdt.num_data), dtype=torch.float64,
@@ -312,7 +322,7 @@ def load_trees_into(gbdt, src: TreeEnsemble, raw_data=None) -> None:
             torch.cuda.synchronize(gbdt.device)
     elif raw_data is not None:
         # feature-major: a tree node reads one contiguous column
-        raw = np.asfortranarray(raw_data, dtype=np.float64)
+        raw = raw_rows()
         deltas = [sum(src.models[it * C + k].predict_raw(raw)
                       for it in range(src.iter_)) for k in range(C)]
     else:

@@ -45,8 +45,11 @@ leaves zero (``_kernel_scratch``).
 The weight stream is ``pack_channels``'s [8, Npad] bf16 layout
 ``[g_hi, g_lo, h_hi, h_lo, member, 0, 0, 0]``; the kernels read the five
 live channels.  A histogram is ``[F, B, 3]`` f32 (sum_grad, sum_hess,
-count).  The card kernels sum in 64-bit fixed point, so their sums do not
-depend on the order of the rows; ``fixed_point_scales`` picks the scale
+count) over the F rows of the bin matrix, its columns: EFB groups on a
+bundled dataset (core/bundle.py), where a route names its feature's
+column and bin offset and the scan expands the group histogram.  The
+card kernels sum in 64-bit fixed point, so their sums do not depend on
+the order of the rows; ``fixed_point_scales`` picks the scale
 (``class_scales``: one pair per channel set, each as for that set alone).
 """
 
@@ -137,14 +140,18 @@ def class_scales(w8C: torch.Tensor) -> torch.Tensor:
 def pack_route(leaf: int, new_leaf: int, f: int, t: int, dl: bool,
                cat: bool, bitset, fmeta) -> torch.Tensor:
     """[ROUTE_WORDS] int32 route descriptor, on the host (the kernels take
-    it as launch arguments).  ``fmeta`` is a FeatureMeta whose fields can
-    be indexed on the host.  Without EFB the physical bin row and the
-    group column are the feature itself and the bin offset is 0; the
-    words stay in the layout so the kernels reproduce the TPU route,
-    EFB reconstruction and nibble parity included."""
-    head = [int(leaf), int(new_leaf), int(f), int(f), int(t), int(bool(dl)),
+    it as launch arguments), word for word the JAX package's
+    ``pack_route(..., packed4=False)`` (pallas_histogram.py:979-998).
+    ``fmeta`` is a FeatureMeta whose fields can be indexed on the host.
+    The bin row and the group column are the feature's EFB column
+    (``feat_group[f]``; the feature itself without EFB) and ``off`` its
+    bin offset there, which the kernels undo (goes_right)."""
+    bundled = fmeta.feat_group is not None
+    col = int(fmeta.feat_group[f]) if bundled else int(f)
+    off = int(fmeta.feat_offset[f]) if bundled else 0
+    head = [int(leaf), int(new_leaf), col, col, int(t), int(bool(dl)),
             int(bool(cat)), int(fmeta.missing_type[f]),
-            int(fmeta.default_bin[f]), int(fmeta.num_bin[f]), 0]
+            int(fmeta.default_bin[f]), int(fmeta.num_bin[f]), off]
     words = np.asarray(bitset, dtype=np.uint32).reshape(8).view(np.int32)
     return torch.tensor(head + words.tolist(), dtype=torch.int32)
 
@@ -153,17 +160,23 @@ def pack_route_device(leaf: torch.Tensor, new_leaf: torch.Tensor,
                       split: torch.Tensor, fmeta) -> torch.Tensor:
     """pack_route on the device: [ROUTE_WORDS] int32 on ``split``'s
     device, equal to pack_route's words for the same split, built without
-    reading a value on the host.  ``leaf`` and ``new_leaf`` are [1]
-    integer tensors; ``split`` is a best-split cache row, int32
+    reading a value on the host (the EFB tables are gathered on the
+    device, so a CUDA graph can hold it).  ``leaf`` and ``new_leaf`` are
+    [1] integer tensors; ``split`` is a best-split cache row, int32
     [SPLIT_WORDS]; ``fmeta`` a FeatureMeta of tensors on the same device.
     A feature of -1 (no split) reads feature 0's metadata, so the words
     stay a valid route (the caller gives such a route the leaf -1, which
     no row matches)."""
     f = split[:1].clamp(min=0)
-    meta = torch.stack([fmeta.missing_type, fmeta.default_bin,
-                        fmeta.num_bin], dim=1).index_select(0, f.long())[0]
-    return torch.cat([leaf.to(torch.int32), new_leaf.to(torch.int32), f, f,
-                      split[1:4], meta.to(torch.int32), torch.zeros_like(f),
+    cols = [fmeta.missing_type, fmeta.default_bin, fmeta.num_bin]
+    if fmeta.feat_group is not None:
+        cols += [fmeta.feat_group, fmeta.feat_offset]
+    meta = torch.stack(cols, dim=1).index_select(0, f.long())[0].to(
+        torch.int32)
+    col, off = (meta[3:4], meta[4:5]) if fmeta.feat_group is not None \
+        else (f, torch.zeros_like(f))
+    return torch.cat([leaf.to(torch.int32), new_leaf.to(torch.int32), col,
+                      col, split[1:4], meta[:3], off,
                       split[4:SPLIT_WORDS]])
 
 
@@ -791,6 +804,7 @@ def _launch_frontier(name, binsT, w8, leaf_id, block_list, n_blocks,
     params = frontier_params(targets, routes)
     KT, K, n_ids = (int(x) for x in params[:3])
     off = _PARAM_HEAD + FRONTIER_MAX_TARGETS
+    # the routes' bin rows: their features' columns
     bin_rows = params[off + 2:off + K * ROUTE_WORDS:ROUTE_WORDS]
     if ((bin_rows < 0) | (bin_rows >= F)).any():
         raise ValueError("a route's bin row is outside binsT")

@@ -70,7 +70,7 @@ _SIGNATURES = {
     "lgbt_frontier_tiling": [_I, _I, _I, _I, _I, _P],
     "lgbt_segment_tiling": [_I, _I, _P],
     "lgbt_route_trees": [_P, _I, _LL, _LL] + [_P] * 9 + [_I] * 4
-    + [_P, _P, _I, _P, _P],
+    + [_P, _P, _P, _P, _I, _P, _P],
 }
 
 

@@ -4,11 +4,14 @@ plain version.
 Counterpart of the JAX package's stacked-tree route
 (lightgbm_tpu/models/device_predict.py ``_tree_leaves`` :99-149, which
 XLA computes as gathers; there is no Pallas kernel behind it).  P1 is in
-``csrc/predict.cu``.  Given a feature-major bin matrix ``[F, S]`` (u8
-device bins of a training or valid set, or i16 predict-time bins that
-carry the -1 sentinel of an unseen category), a stack of trees
-(models/device_predict.py ``TreeStack``), per-feature ``num_bin`` and
-``default_bin`` and an ``[C, n]`` float64 ``out`` (n <= S) holding each
+``csrc/predict.cu``.  Given a column-major bin matrix ``[G, S]`` (u8
+device bins of a training or valid set, EFB-bundled or not, or i16
+predict-time bins, one column a feature, that carry the -1 sentinel of
+an unseen category), a stack of trees (models/device_predict.py
+``TreeStack``), per-feature ``num_bin``, ``default_bin`` and EFB tables
+``feat_group`` / ``feat_offset`` (feature f's bins are in column
+``feat_group[f]`` at ``feat_offset[f] + bin``; a feature of offset 0 owns
+its column) and an ``[C, n]`` float64 ``out`` (n <= S) holding each
 class's starting values, it adds, per row and in tree order, each tree's
 leaf value into the row of the tree's class (``TreeStack.tree_class``),
 in place.  The additions are the host walk's, in its order, so the
@@ -29,11 +32,23 @@ MISSING_NAN = 2
 CAT_WORDS = 8
 
 
+def identity_tables(num_features: int, device) -> tuple:
+    """(feat_group, feat_offset) of bins with one column a feature."""
+    return (torch.arange(num_features, dtype=torch.int32, device=device),
+            torch.zeros(num_features, dtype=torch.int32, device=device))
+
+
 def route_leaves_plain(bins: torch.Tensor, stack, t: int,
                        num_bin: torch.Tensor, default_bin: torch.Tensor,
-                       n: int) -> torch.Tensor:
+                       n: int, feat_group: torch.Tensor = None,
+                       feat_offset: torch.Tensor = None) -> torch.Tensor:
     """Leaf index of each of the first ``n`` rows under tree ``t`` of
-    ``stack``: [n] int64 (the JAX route's ``_tree_leaves``)."""
+    ``stack``: [n] int64 (the JAX route's ``_tree_leaves``, with its
+    ``feat_group`` / ``feat_offset`` reconstruction; None: one column a
+    feature)."""
+    if feat_group is None:
+        feat_group, feat_offset = identity_tables(num_bin.shape[0],
+                                                  bins.device)
     sf = stack.split_feature[t].long()
     tb = stack.threshold_bin[t]
     dt = stack.decision_type[t]
@@ -47,7 +62,10 @@ def route_leaves_plain(bins: torch.Tensor, stack, t: int,
         internal = node >= 0
         safe = node.clamp(min=0).long()
         f = sf[safe]
-        fv = bins[f, rows].to(torch.int32)
+        fv = bins[feat_group[f].long(), rows].to(torch.int32)
+        off = feat_offset[f]
+        fv = torch.where((off == 0) | ((fv >= off) & (fv < off + num_bin[f])),
+                         fv - off, default_bin[f])
         d = dt[safe]
         is_cat = (d & 1) > 0
         mt = (d >> 2) & 3
@@ -66,24 +84,31 @@ def route_leaves_plain(bins: torch.Tensor, stack, t: int,
 
 
 def route_trees_plain(bins: torch.Tensor, stack, num_bin: torch.Tensor,
-                      default_bin: torch.Tensor,
-                      out: torch.Tensor) -> torch.Tensor:
+                      default_bin: torch.Tensor, out: torch.Tensor,
+                      feat_group: torch.Tensor = None,
+                      feat_offset: torch.Tensor = None) -> torch.Tensor:
     n = out.shape[1]
     for t in range(stack.num_trees):
-        leaf = route_leaves_plain(bins, stack, t, num_bin, default_bin, n)
+        leaf = route_leaves_plain(bins, stack, t, num_bin, default_bin, n,
+                                  feat_group, feat_offset)
         k = int(stack.tree_class[t])
         out[k] += stack.leaf_value[t][leaf]
     return out
 
 
 def route_trees(bins: torch.Tensor, stack, num_bin: torch.Tensor,
-                default_bin: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+                default_bin: torch.Tensor, out: torch.Tensor,
+                feat_group: torch.Tensor = None,
+                feat_offset: torch.Tensor = None) -> torch.Tensor:
     """P1: ``out[tree_class[t]][row] += leaf_value[t][leaf_t(row)]`` for
     every tree t of ``stack`` in order and every row < out.shape[1] of the
-    feature-major ``bins`` [F, S] (u8 or i16); ``out`` [C, n] float64,
-    updated in place and returned."""
+    column-major ``bins`` [G, S] (u8 or i16), each feature read out of its
+    column by the [F] tables ``feat_group`` / ``feat_offset`` (None: one
+    column a feature, G = F); ``out`` [C, n] float64, updated in place
+    and returned."""
     if out.device.type == "cpu":
-        return route_trees_plain(bins, stack, num_bin, default_bin, out)
+        return route_trees_plain(bins, stack, num_bin, default_bin, out,
+                                 feat_group, feat_offset)
     if out.device.type != "cuda":
         raise ValueError(f"unsupported device {out.device}")
     dev = out.device
@@ -97,7 +122,9 @@ def route_trees(bins: torch.Tensor, stack, num_bin: torch.Tensor,
         raise ValueError(f"out must be a contiguous [C, n] float64 tensor "
                          f"with n <= {bins.shape[1]} rows")
     T, M = stack.split_feature.shape
-    F = bins.shape[0]
+    F = num_bin.shape[0]
+    if feat_group is None:
+        feat_group, feat_offset = identity_tables(F, dev)
     for name, t, dtype, shape in (
             ("split_feature", stack.split_feature, torch.int32, (T, M)),
             ("threshold_bin", stack.threshold_bin, torch.int32, (T, M)),
@@ -110,7 +137,9 @@ def route_trees(bins: torch.Tensor, stack, num_bin: torch.Tensor,
             ("num_leaves", stack.num_leaves, torch.int32, (T,)),
             ("tree_class", stack.tree_class, torch.int32, (T,)),
             ("num_bin", num_bin, torch.int32, (F,)),
-            ("default_bin", default_bin, torch.int32, (F,))):
+            ("default_bin", default_bin, torch.int32, (F,)),
+            ("feat_group", feat_group, torch.int32, (F,)),
+            ("feat_offset", feat_offset, torch.int32, (F,))):
         if t.device != dev or t.dtype != dtype or not t.is_contiguous() \
                 or tuple(t.shape) != shape:
             raise ValueError(f"{name} must be a contiguous {dtype} tensor "
@@ -124,7 +153,8 @@ def route_trees(bins: torch.Tensor, stack, num_bin: torch.Tensor,
         stack.right_child.data_ptr(), stack.cat_bitset.data_ptr(),
         stack.leaf_value.data_ptr(), stack.num_leaves.data_ptr(),
         stack.tree_class.data_ptr(), T, M, stack.leaf_value.shape[1],
-        stack.max_depth, num_bin.data_ptr(), default_bin.data_ptr(), C,
-        out.data_ptr(), kernels.stream_ptr(dev))
+        stack.max_depth, num_bin.data_ptr(), default_bin.data_ptr(),
+        feat_group.data_ptr(), feat_offset.data_ptr(), C, out.data_ptr(),
+        kernels.stream_ptr(dev))
     kernels.check_launch("route_trees", rc)
     return out

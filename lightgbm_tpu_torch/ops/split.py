@@ -27,8 +27,9 @@ a 256-bit bitset of 8 words.  The categorical scans run only when the
 dataset has a categorical feature (``SplitParams.has_cat``), so a numeric
 dataset's split search has no extra device ops.
 
-The port is unbundled, so a group histogram is already the per-feature
-histogram.  Every function takes a batch of K leaves: hist
+Under EFB (core/bundle.py) the kernels histogram bin columns, [K, G, Bg,
+3]; ``expand_group_hist`` turns that into the per-feature [K, F, Bf, 3]
+the scan reads.  Every function takes a batch of K leaves: hist
 ``[K, F, B, 3]``.
 """
 
@@ -46,11 +47,19 @@ NEG_INF = float("-inf")
 
 class FeatureMeta(NamedTuple):
     """Per-used-feature metadata as tensors [F] on the device: int32, and
-    bool ``is_cat`` (None on a dataset without categorical features)."""
+    bool ``is_cat`` (None on a dataset without categorical features).
+    Under EFB, each feature's bin column ``feat_group`` and bin offset
+    ``feat_offset`` [F] int32, and ``gather_idx`` [F, Bf] int64, the slot
+    of the flattened [G * Bg] group histogram that holds each of the
+    feature's bins (-1: past its bins); all three None on an unbundled
+    dataset, where column = feature (lightgbm_tpu/ops/split.py:50-56)."""
     num_bin: torch.Tensor
     missing_type: torch.Tensor
     default_bin: torch.Tensor
     is_cat: torch.Tensor = None
+    feat_group: torch.Tensor = None
+    feat_offset: torch.Tensor = None
+    gather_idx: torch.Tensor = None
 
 
 class SplitParams(NamedTuple):
@@ -88,6 +97,50 @@ class SplitInfo(NamedTuple):
     # cat_bitset [K, 8] int64 words of 32 bits; None unless has_cat
     is_cat: torch.Tensor = None
     cat_bitset: torch.Tensor = None
+
+
+def expand_group_hist(hist: torch.Tensor, fmeta: FeatureMeta, parent_g,
+                      parent_h, parent_c) -> torch.Tensor:
+    """[K, G, Bg, 3] group histograms -> [K, F, Bf, 3] per-feature ones
+    (lightgbm_tpu/ops/split.py:expand_group_hist :97-121); the identity on
+    an unbundled dataset.  Each feature's slots are gathered out of its
+    column, and its default-bin slot, which bundling never stores, becomes
+    the leaf's total minus the stored slots (the reference's FixHistogram,
+    src/io/dataset.cpp:948-967).  As in the JAX package the fix applies to
+    every feature of a bundled dataset, a single-feature column's too,
+    where it replaces the summed slot by that difference.  ``parent_*``
+    are the K leaves' sums."""
+    if fmeta.gather_idx is None:
+        return hist
+    gi = fmeta.gather_idx                                     # [F, Bf]
+    K = hist.shape[0]
+    flat = hist.reshape(K, -1, hist.shape[-1])                # [K, G*Bg, 3]
+    fh = flat[:, gi.clamp(min=0)] * (gi >= 0)[None, ..., None].to(
+        hist.dtype)                                           # [K, F, Bf, 3]
+    total = torch.stack([parent_g, parent_h, parent_c], dim=1).to(
+        hist.dtype)                                           # [K, 3]
+    Bf = fh.shape[2]
+    db = (torch.arange(Bf, dtype=torch.int32, device=hist.device)[None, :]
+          == fmeta.default_bin[:, None])                      # [F, Bf]
+    stored = torch.sum(fh * (~db)[None, ..., None].to(hist.dtype), dim=2)
+    fix = total[:, None, :] - stored                          # [K, F, 3]
+    return torch.where(db[None, ..., None], fix[:, :, None, :], fh)
+
+
+def reconstruct_feature_column(gcol: torch.Tensor, f: int,
+                               fmeta: FeatureMeta) -> torch.Tensor:
+    """Per-row bin of feature ``f`` from its column ``gcol`` (the inverse
+    of core/bundle.quantize_bundled for one feature,
+    lightgbm_tpu/ops/split.py:124-133): a value in the feature's range
+    ``[offset, offset + num_bin)`` is ``offset + bin``, any other is the
+    feature at its default bin.  A feature of offset 0 owns its column,
+    whose values are its bins."""
+    g = gcol.to(torch.int32)
+    if fmeta.feat_offset is None or int(fmeta.feat_offset[f]) == 0:
+        return g
+    off, nb = int(fmeta.feat_offset[f]), int(fmeta.num_bin[f])
+    return torch.where((g >= off) & (g < off + nb), g - off,
+                       torch.full_like(g, int(fmeta.default_bin[f])))
 
 
 def threshold_l1(s, l1: float):

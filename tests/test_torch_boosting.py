@@ -30,6 +30,18 @@ from lightgbm_tpu_torch import convert
 from lightgbm_tpu_torch.models.goss import goss_select
 from lightgbm_tpu_torch.utils import random
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch intra-op thread for this module's tests: the CPU tests
+    share the cores with other pytest workers, and torch's parallel
+    regions on oversubscribed cores ran these tests 20-80 times slower
+    than alone."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 N, NF = 3000, 8
 TRAIN = dict(num_leaves=15, max_bin=63, tpu_row_chunk=256, learning_rate=0.3,
              verbosity=-1, tpu_frontier_width=4)

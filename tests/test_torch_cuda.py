@@ -16,7 +16,11 @@ card booster's training walks through P1 (valid scores, DART's drops,
 rollback, init_model's seeding, a late add_valid) against the host walks
 of the same booster; init_model's seeding from a model grown on other
 rows against a CPU booster's; and ``predict`` with ``predict_device``
-"auto"/"on" against "off", all bit for bit.
+"auto"/"on" against "off", all bit for bit.  On EFB-bundled Expo-shaped
+bins (255-bin groups beside 63-bin columns): K1, K3, K2, K5, K6 and K7
+against their plain versions with routes of group members (bin offset
+not 0) bit for bit in the leaf ids, P1 with the group tables, and a
+bundled booster and a CSR one against the CPU booster.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips where
 ``torch.cuda.is_available()`` is false.  The file imports neither JAX nor
@@ -1907,3 +1911,225 @@ def test_card_predict_on_equals_off(dev, case):
             assert bst.gbdt.last_predict_route == "host"
             np.testing.assert_array_equal(auto, off)
             np.testing.assert_array_equal(on, off)
+
+
+# ------------------------------------------------------------- EFB bundling
+def _expo(n=12 * RB, seed=5):
+    """Expo-shaped rows (chip_smoke.expo_like) binned and bundled on the
+    CPU: (X, y, the dataset, its host FeatureMeta with the EFB tables)."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), os.pardir))
+    import chip_smoke
+    from lightgbm_tpu_torch.core.dataset import TorchDataset
+    X, y = chip_smoke.expo_like(n, seed)
+    h = TorchDataset.from_scipy(X, y, config=lt.Config(
+        device_type="cpu", max_bin=63, min_data_in_leaf=5))
+    assert h.bundle is not None and h.max_column_bin > 200
+    return X, y, h, chip_smoke.host_meta(h)
+
+
+def _member_routes(fm, K, leaf0=0, new0=6):
+    """K routes of leaves leaf0.. into new0..: group members (offset not
+    0, their category right) and, every fourth, a numeric column."""
+    members = [j for j in range(len(fm.num_bin)) if fm.feat_offset[j] > 0]
+    none = np.zeros(8, np.uint32)
+    out = []
+    for k in range(K):
+        f = k % 4 if k % 4 == 3 else members[(k * 37) % len(members)]
+        t = 0 if fm.num_bin[f] == 2 else int(fm.num_bin[f]) // 2
+        out.append(th.pack_route(leaf0 + k, new0 + k, f, t, k % 2 == 1,
+                                 False, none, fm))
+    return out
+
+
+@pytest.mark.cuda
+def test_bundled_kernels_match_plain(dev):
+    """K1, K3 and K2 (routes of group members at their bin offsets), K5
+    and a K = 16 frontier round (K6, K7 routed, K7 fused-K) on bundled
+    [G, N] bins of 256 bins: leaf ids bit for bit, counts exact, sums in
+    tolerance, relaunches bit for bit."""
+    _, _, h, fm = _expo()
+    B = 256
+    binsT = h.device_bins(RB, torch.device("cpu"))
+    G, npad = binsT.shape
+    nblk = npad // RB
+    rng = np.random.RandomState(7)
+    grad = torch.from_numpy(rng.normal(size=npad).astype(np.float32))
+    hess = torch.from_numpy(rng.uniform(0.01, 0.25, npad).astype(np.float32))
+    member = torch.ones(npad)
+    member[h.num_data:] = 0.0
+    w8 = th.pack_channels(grad, hess, member)
+    lid = torch.from_numpy(rng.randint(0, 4, size=npad).astype(np.int32))
+    scales = th.fixed_point_scales(w8)
+    d_bins, d_w8, d_scales = binsT.to(dev), w8.to(dev), scales.to(dev)
+    want = th.histogram_segment_plain(binsT, w8, lid, 0, nblk, 2, B, RB)
+    got = th.histogram_segment(d_bins, d_w8, lid.to(dev), 0, nblk, 2, B, RB,
+                               d_scales)
+    _assert_hist(got, want, w8, binsT, lid, 0, nblk, 2, B)
+    routes = _member_routes(fm, 4, leaf0=0, new0=6)
+    assert all(int(r[10]) > 0 for r in routes[:3])
+    for route in routes:
+        want_lid, want = th.histogram_segment_routed_plain(
+            binsT, w8, lid.clone(), 1, nblk - 2, 6, route, B, RB)
+        assert not torch.equal(want_lid, lid)
+        runs = [th.histogram_segment_routed(d_bins, d_w8, lid.to(dev), 1,
+                                            nblk - 2, 6, route, B, RB,
+                                            d_scales) for _ in range(2)]
+        for got_lid, got in runs:
+            assert torch.equal(got_lid.cpu(), want_lid)
+        assert torch.equal(runs[0][1], runs[1][1])
+        _assert_hist(runs[0][1], want, w8, binsT, want_lid, 1, nblk - 2, 6,
+                     B)
+        k2 = th.route_window(d_bins, lid.to(dev), 1, nblk - 2, route, RB)
+        assert torch.equal(k2.cpu(), want_lid)
+    # K5: three class sets
+    w8C = th.pack_channel_sets(torch.stack([grad, -grad, 0.5 * grad]),
+                               torch.stack([hess, hess, 2 * hess]), member)
+    sc = th.class_scales(w8C)
+    want = th.histogram_all_plain(binsT, w8C, B)
+    got = th.histogram_all(d_bins, w8C.to(dev), B, sc.to(dev))
+    lid0 = torch.zeros(npad, dtype=torch.int32)
+    for c in range(3):
+        _assert_hist(got[c], want[c], w8C[8 * c:8 * c + 8], binsT, lid0, 0,
+                     nblk, 0, B)
+    # a K = 16 frontier round over bundled columns
+    K = 16
+    flid = torch.from_numpy(np.sort(rng.randint(0, 2 * K, size=npad)).astype(
+        np.int32))
+    froutes = torch.stack(_member_routes(fm, K, leaf0=0, new0=2 * K))
+    bl, n = th.union_block_list([0, 3, nblk // 2], [2, 6, nblk], [True] * 3)
+    smaller = torch.tensor([k if k % 3 else 2 * K + k for k in range(K)],
+                           dtype=torch.int32)
+    targets2 = torch.tensor(list(range(K)) + list(range(2 * K, 3 * K)),
+                            dtype=torch.int32)
+    routed, _ = th.histogram_frontier_routed_plain(
+        binsT, w8, flid.clone(), bl, n, smaller, froutes, B, RB)
+    assert not torch.equal(routed, flid)
+    want = th.histogram_frontier_plain(binsT, w8, routed, bl, n, smaller, B,
+                                       RB)
+    got = th.histogram_frontier(d_bins, d_w8, routed.to(dev), bl.to(dev), n,
+                                smaller, B, RB, d_scales)
+    _assert_frontier(got, want, w8, binsT, routed, bl, n, smaller, B)
+    for fn, targets in ((th.histogram_frontier_routed, smaller),
+                        (th.histogram_frontier_fusedk, targets2)):
+        want_lid, want = th.histogram_frontier_routed_plain(
+            binsT, w8, flid.clone(), bl, n, targets, froutes, B, RB)
+        got_lid, got = fn(d_bins, d_w8, flid.to(dev), bl.to(dev), n,
+                          targets, froutes, B, RB, d_scales)
+        assert torch.equal(got_lid.cpu(), want_lid)
+        _assert_frontier(got, want, w8, binsT, want_lid, bl, n, targets, B)
+
+
+@pytest.mark.cuda
+def test_bundled_step_entries_route_members_bit_for_bit(dev):
+    """K2 and K3's step entries (the route read from device memory, as
+    the device loop's graph calls them) with routes of group members at
+    bin offsets of 1 to 200+: the by-value entries' and the plain
+    versions' leaf ids, bit for bit, over a whole and a partial window."""
+    _, _, h, fm = _expo(seed=6)
+    B = 256
+    binsT = h.device_bins(RB, torch.device("cpu"))
+    npad = binsT.shape[1]
+    nblk = npad // RB
+    rng = np.random.RandomState(8)
+    w8 = th.pack_channels(torch.randn(npad), torch.rand(npad) + 0.01,
+                          torch.ones(npad))
+    scales = th.fixed_point_scales(w8).to(dev)
+    lid = torch.from_numpy(rng.randint(0, 3, size=npad).astype(np.int32))
+    offsets = sorted({int(fm.feat_offset[j]) for j in range(len(fm.num_bin))})
+    assert offsets[0] == 0 and offsets[-1] > 200
+    for route in _member_routes(fm, 8, leaf0=0, new0=5):
+        for lo, nb in ((0, nblk), (2, nblk // 2)):
+            want = th.route_window_plain(binsT, lid.clone(), lo, nb, route,
+                                         RB)
+            step = th.pack_step(lo, nb, 5, route).to(dev)
+            k2 = th.route_window_step(binsT.to(dev), lid.to(dev), step, RB)
+            ids = lid.to(dev)
+            th.histogram_segment_routed_step(binsT.to(dev), w8.to(dev), ids,
+                                             step, B, RB, scales)
+            assert torch.equal(k2.cpu(), want)
+            assert torch.equal(ids.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_route_trees_with_group_tables_equals_plain(dev):
+    """P1 over bundled training bins with the group tables = its plain
+    version bit for bit, one launch counted, and = the host walk over the
+    same bins."""
+    from lightgbm_tpu_torch.models.device_predict import TreeStack
+    from lightgbm_tpu_torch.ops import predict as tp
+    X, y, _, _ = _expo(n=8000, seed=9)
+    params = dict(objective="binary", num_leaves=31, max_bin=63,
+                  min_data_in_leaf=5, verbosity=-1, device_type="cpu")
+    bst = lt.train(params, lt.Dataset(X, y), 6, verbose_eval=False)
+    g = bst.gbdt
+    ds = g.train_set
+    assert g.fmeta.feat_group is not None
+    bins = torch.from_numpy(ds.bins_t).to(dev)
+    stack = TreeStack(g.models, [0] * len(g.models), ds.num_used_features,
+                      dev)
+    tables = [t.to(dev) for t in (g.fmeta.num_bin, g.fmeta.default_bin,
+                                  g.fmeta.feat_group, g.fmeta.feat_offset)]
+    start = torch.zeros((1, ds.num_data), dtype=torch.float64, device=dev)
+    want = tp.route_trees_plain(bins, stack, tables[0], tables[1],
+                                start.clone(), *tables[2:])
+    kernels.reset_launches()
+    got = tp.route_trees(bins, stack, tables[0], tables[1], start.clone(),
+                         *tables[2:])
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["route_trees"] == 1
+    assert torch.equal(got, want)
+    host = np.zeros(ds.num_data)
+    infos = ds.feature_infos()
+    for tree in g.models:
+        host += tree.predict_binned(ds.bins_t, infos)
+    np.testing.assert_array_equal(got[0].cpu().numpy(), host)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["dense_fused", "csr_unfused",
+                                  "csr_frontier", "csr_multiclass"])
+def test_bundled_boosters_on_card_equal_cpu(dev, case):
+    """A card booster on bundled bins (from dense and from CSR input) =
+    the CPU booster: the same splits up to a near-tie, training scores
+    within 1e-3; its valid scores (P1 over the bundled valid bins) = the
+    host walk's."""
+    import scipy.sparse as sp
+    X, y, _, _ = _expo(n=20_000, seed=11)
+    if case == "csr_multiclass":
+        y = (np.asarray(X[:, 4:16].argmax(axis=1)).ravel() % 3).astype(
+            np.float64)
+    data = X.toarray() if case == "dense_fused" else sp.csr_matrix(X)
+    params = dict(objective="binary", num_leaves=31, max_bin=63,
+                  min_data_in_leaf=5, verbosity=-1)
+    kw = {}
+    if case == "csr_unfused":
+        kw = {"fused_route": False}
+    elif case == "csr_frontier":
+        params.update(tpu_tree_impl="frontier", tpu_frontier_width=16)
+    elif case == "csr_multiclass":
+        params.update(objective="multiclass", num_class=3)
+    out = {}
+    for device in ("cuda", "cpu"):
+        ds = lt.Dataset(data[:16_000], y[:16_000])
+        va = ds.create_valid(data[16_000:], y[16_000:])
+        bst = lt.Booster(dict(params, device_type=device), ds, **kw)
+        bst.add_valid(va, "v")
+        for _ in range(3):
+            bst.update()
+        assert bst.gbdt.train_set.bundle is not None
+        out[device] = bst.gbdt
+    assert _same_splits(out["cuda"].models, out["cpu"].models) >= 30
+    assert np.abs(out["cuda"].train_score.cpu().numpy()
+                  - out["cpu"].train_score.numpy()).max() < 1e-3
+    vh = out["cuda"].valid_sets[0][1]
+    infos = out["cuda"].train_set.feature_infos()
+    C = out["cuda"].num_tree_per_iteration
+    host = np.zeros((C, vh.num_data)) + np.asarray(
+        out["cuda"].init_scores)[:, None]
+    for i, tree in enumerate(out["cuda"].models):
+        if tree.num_leaves > 1:
+            host[i % C] += tree.predict_binned(vh.bins_t, infos)
+    np.testing.assert_array_equal(
+        out["cuda"].valid_scores[0].reshape(C, -1), host)
