@@ -6,7 +6,7 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``lightgbm_tpu_torch/csrc`` and runs
-twenty-four phases; any failure exits non-zero:
+twenty-five phases; any failure exits non-zero:
 
   1. build    nvcc for sm_90a; prints ptxas's register/shared-memory lines
               and the card's name and power limit, and for the K1/K3,
@@ -219,6 +219,23 @@ twenty-four phases; any failure exits non-zero:
               multiclass; the JAX package's sparse-at-scale gates
               (10,000 x 100,000 block one-hot, at most 6500 columns and
               80 MB of bins, log loss under 0.6915 after 4 rounds).
+ 25. packed4  HIGGS at max_bin 15 (16 bins) on the 4-bit packed layout:
+              10.5M x 28 generated, binned, packed on the host and
+              uploaded as [14, Npad] bytes (walls and bytes against the
+              unpacked 28 rows logged), byte for byte the host's packing;
+              3 iterations each of the segment grower fused (then a
+              rollback: P1 over the packed bins) and unfused, the
+              frontier grower (K = 16) and 5-class multiclass (K5 roots),
+              each launching the packed kernels only (median
+              iter_seconds, peak device memory, the device loop); K1, K2,
+              K3 (two nibbles), their step entries, K5, a K = 16 frontier
+              round (K6, K7) and P1 on the packed bins against their plain
+              versions and, bit for bit, against the same kernels on the
+              unpacked bins, timed beside them (``unpacked_ms``); at 1M
+              rows packed = unpacked (``packed4=False``) bit for bit for
+              the fused segment grower and the frontier's three tiers,
+              P1's walk over the packed bins = the host walk; at 200k rows
+              card = CPU.
 
 Launch counts: a kernel captured into a CUDA graph counts at each replay
 (ops/kernels.py count_replay), when the card runs it.
@@ -234,7 +251,9 @@ holds them as "session"), an ``{"objectives": ...}`` line (phases 17-19;
 the path whose P1 launches the kernels line reports), an
 ``{"expo_onehot": ...}`` line (phase 24; "expo" and "sparse_at_scale" in
 ``launches_by_path``, each kernel's bundled measurements under
-``"expo"``), one
+``"expo"``), a ``{"packed4": ...}`` line (phase 25; its runs are the
+"packed4_*" paths, and each kernel's packed input mode is a row of its
+own, named with "_packed4"), one
 ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Without a
 card, or run from a directory that does not hold the package, it exits
@@ -247,6 +266,7 @@ import collections
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -458,7 +478,9 @@ def build_phase():
         if "registers" in line or "Compiling entry" in line:
             log("ptxas: " + line.strip())
     report = {}
-    # body -> (name of the instantiation without, with a route)
+    # body -> (name of the instantiation without, with a route); each body
+    # has a packed4 instantiation too (its bool template argument last),
+    # named with " packed4"
     for body, names in (("segment_window_kernel", ("K1", "K3")),
                         ("segment_step_kernel", ("K1 step", "K3 step")),
                         ("frontier_hist_kernel", ("K6", "K7")),
@@ -470,15 +492,22 @@ def build_phase():
         part = {}
         for fn in sorted(set(ptxas) | set(sass)):
             ops = sass.get(fn, {})
-            part[names[1] if "ILb1E" in fn else names[0]] = {
+            bools = re.findall(r"Lb([01])E", fn)
+            name = names[1] if len(bools) == 2 and bools[0] == "1" \
+                else names[0]
+            if bools and bools[-1] == "1":
+                name += " packed4"
+            part[name] = {
                 "ptxas": ptxas.get(fn, []),
                 "atomics": {k: v for k, v in sorted(ops.items())
                             if k.startswith(("ATOMS", "ATOM", "RED"))},
                 "atoms_cas": sum(v for k, v in ops.items()
                                  if k.startswith("ATOMS.CAS"))}
         log(f"{body} build: {json.dumps(part)}")
-        require(set(part) == set(names) and len(ptxas) == len(set(names)),
-                f"{body}'s instantiations are missing from the build")
+        want = {n + p for n in names for p in ("", " packed4")}
+        require(set(part) == want and len(ptxas) == len(want),
+                f"{body}'s instantiations are missing from the build: "
+                f"{sorted(part)}")
         for name, rec in part.items():
             require(rec["atoms_cas"] == 0, f"{name} ({body}) has "
                     f"{rec['atoms_cas']} ATOMS.CAS loops")
@@ -495,11 +524,12 @@ def card_line() -> str:
 
 
 # ---------------------------------------------------------------- phase 2
-def hist_abs_sums(th, binsT, w8, lid, lo_blk, n_blk, target, B, rb):
+def hist_abs_sums(th, binsT, w8, lid, lo_blk, n_blk, target, B, rb,
+                  packed4=False):
     """Per-bin sums of |gradient| and |hessian| (the tolerance's scale),
     by the plain histogram over absolute-valued channels."""
     return th.histogram_segment_plain(binsT, abs_channel_sets(w8), lid,
-                                      lo_blk, n_blk, target, B, rb)
+                                      lo_blk, n_blk, target, B, rb, packed4)
 
 
 def check_hist(name, got, want, abs_sums) -> float:
@@ -529,7 +559,7 @@ def abs_channel_sets(w8C):
     return torch.cat(out)
 
 
-def check_histogram_all(th, binsT, w8C, B, rb, tag):
+def check_histogram_all(th, binsT, w8C, B, rb, tag, packed4=False):
     """K5 against its plain version: counts exact, sums in tolerance, a
     relaunch bit-identical, and class c's slice bit-identical to K1 on a
     root of class c at the class's scale.  Returns (max |diff|, scales)."""
@@ -537,18 +567,20 @@ def check_histogram_all(th, binsT, w8C, B, rb, tag):
     F, npad = binsT.shape
     C = w8C.shape[0] // 8
     scales = th.class_scales(w8C)
-    want = th.histogram_all_plain(binsT, w8C, B)
-    a = th.histogram_all(binsT, w8C, B, scales)
-    b = th.histogram_all(binsT, w8C, B, scales)
+    want = th.histogram_all_plain(binsT, w8C, B, packed4)
+    a = th.histogram_all(binsT, w8C, B, scales, packed4)
+    b = th.histogram_all(binsT, w8C, B, scales, packed4)
     torch.cuda.synchronize()
     require(torch.equal(a, b), f"histogram_all {tag}: a second launch "
             "differs from the first")
-    abs_sums = th.histogram_all_plain(binsT, abs_channel_sets(w8C), B)
+    abs_sums = th.histogram_all_plain(binsT, abs_channel_sets(w8C), B,
+                                      packed4)
     err = check_hist(f"histogram_all {tag}", a, want, abs_sums)
     lid0 = torch.zeros(npad, dtype=torch.int32, device=binsT.device)
     for c in range(C):
         root = th.histogram_segment(binsT, w8C[8 * c:8 * c + 8], lid0, 0,
-                                    npad // rb, 0, B, rb, scales[c])
+                                    npad // rb, 0, B, rb, scales[c],
+                                    packed4)
         require(torch.equal(a[c], root), f"histogram_all {tag}: class {c} "
                 "differs from the K1 root of that class")
     log(f"histogram_all {tag}: {C} sets, counts exact, max |diff| "
@@ -556,7 +588,8 @@ def check_histogram_all(th, binsT, w8C, B, rb, tag):
     return err, scales
 
 
-def check_step_entries(th, binsT, w8, scales, lid, B, rb, cases, tag):
+def check_step_entries(th, binsT, w8, scales, lid, B, rb, cases, tag,
+                       packed4=False):
     """The step entries (K1, K2 and K3 reading their window, target and
     route from a step block in device memory) against their by-value
     entries, bit for bit (histograms and leaf ids), and each against its
@@ -571,15 +604,17 @@ def check_step_entries(th, binsT, w8, scales, lid, B, rb, cases, tag):
         step = th.pack_step(lo, nb, target, route).to(binsT.device)
         want_ids = lid.clone()
         _, want = th.histogram_segment_routed(binsT, w8, want_ids, lo, nb,
-                                              target, route, B, rb, scales)
+                                              target, route, B, rb, scales,
+                                              packed4)
         ids = lid.clone()
         _, got = th.histogram_segment_routed_step(binsT, w8, ids, step, B,
-                                                  rb, scales)
-        k2 = th.route_window_step(binsT, lid.clone(), step, rb)
+                                                  rb, scales,
+                                                  packed4=packed4)
+        k2 = th.route_window_step(binsT, lid.clone(), step, rb, packed4)
         k1 = th.histogram_segment_step(binsT, w8, want_ids, step, B, rb,
-                                       scales)
+                                       scales, packed4=packed4)
         k1_by = th.histogram_segment(binsT, w8, want_ids, lo, nb, target, B,
-                                     rb, scales)
+                                     rb, scales, packed4)
         torch.cuda.synchronize()
         require(torch.equal(ids, want_ids) and torch.equal(got, want),
                 f"histogram_segment_routed_step {tag} {name}: differs from "
@@ -589,21 +624,23 @@ def check_step_entries(th, binsT, w8, scales, lid, B, rb, cases, tag):
         require(torch.equal(k1, k1_by), f"histogram_segment_step {tag} "
                 f"{name}: differs from the by-value entry")
         plain_ids, plain = th.histogram_segment_routed_step_plain(
-            binsT, w8, lid.clone(), step, B, rb)
+            binsT, w8, lid.clone(), step, B, rb, packed4)
         require(torch.equal(plain_ids, ids), f"histogram_segment_routed_step "
                 f"{tag} {name}: leaf ids differ from the plain version")
-        abs_sums = hist_abs_sums(th, binsT, w8, ids, lo, nb, target, B, rb)
+        abs_sums = hist_abs_sums(th, binsT, w8, ids, lo, nb, target, B, rb,
+                                 packed4)
         key = "histogram_segment_routed_step"
         err[key] = max(err[key], check_hist(f"{key} {tag} {name}", got,
                                             plain, abs_sums))
-        plain_k2 = th.route_window_step_plain(binsT, lid.clone(), step, rb)
+        plain_k2 = th.route_window_step_plain(binsT, lid.clone(), step, rb,
+                                              packed4)
         moved = int((k2 != plain_k2).sum().item())
         require(moved == 0, f"route_window_step {tag} {name}: {moved} leaf "
                 "ids differ from the plain version")
         err["route_window_step"] = max(err["route_window_step"], moved)
         # K1 over the routed ids, as the unfused split runs it after K2
         plain_k1 = th.histogram_segment_step_plain(binsT, w8, want_ids, step,
-                                                   B, rb)
+                                                   B, rb, packed4)
         key = "histogram_segment_step"
         err[key] = max(err[key], check_hist(f"{key} {tag} {name}", k1,
                                             plain_k1, abs_sums))
@@ -1633,14 +1670,15 @@ def mc_parity_phase():
 
 
 # ---------------------------------------------------------------- phase 9
-def leaf_layout(th, binsT, fm, rb, levels):
+def leaf_layout(th, binsT, fm, rb, levels, packed4=False):
     """2^levels leaves of the rows, each a split of every leaf on feature
     (level) at its middle bin, then the rows sorted by leaf as compaction
     leaves them.  Returns (perm, leaf_id, lo, hi) in the sorted order, lo
     and hi each leaf's window in blocks."""
     import numpy as np
     import torch
-    F, npad = binsT.shape
+    npad = binsT.shape[1]
+    F = min(th.logical_columns(binsT, packed4), len(fm.num_bin))
     lid = torch.zeros(npad, dtype=torch.int32, device=binsT.device)
     none = np.zeros(8, np.uint32)
     for lvl in range(levels):
@@ -1648,8 +1686,8 @@ def leaf_layout(th, binsT, fm, rb, levels):
         for leaf in range(1 << lvl):
             route = th.pack_route(leaf, leaf + (1 << lvl), f,
                                   int(fm.num_bin[f]) // 2, False, False,
-                                  none, fm)
-            th.route_window(binsT, lid, 0, npad // rb, route, rb)
+                                  none, fm, packed4)
+            th.route_window(binsT, lid, 0, npad // rb, route, rb, packed4)
     lid, perm = torch.sort(lid, stable=True)
     leaves = torch.arange(1 << levels, dtype=lid.dtype, device=lid.device)
     starts = torch.searchsorted(lid, leaves).tolist()
@@ -1660,7 +1698,7 @@ def leaf_layout(th, binsT, fm, rb, levels):
 
 
 def frontier_round(th, binsT, w8, scales, fm, feats, rb, K, levels, B, tag,
-                   reps, plain_reps, timed=True, thr=None):
+                   reps, plain_reps, timed=True, thr=None, packed4=False):
     """One frontier round at this shape: leaves 0..K-1 of a 2^levels-leaf
     layout split into new leaves 2^levels + k, leaf k on feature
     feats[k % len(feats)] = (f, categorical): a numeric split at its middle
@@ -1668,28 +1706,39 @@ def frontier_round(th, binsT, w8, scales, fm, feats, rb, K, levels, B, tag,
     other bin.  K6 on the
     routed ids (targets: the smaller children), K7 routed (the same
     targets) and K7 fused-K (parents then new leaves) against their plain
-    versions.  Returns {kernel: measurement dict}."""
+    versions.  ``packed4``: the bins hold two columns a byte; each kernel
+    is also held against, and timed beside, the same kernel on the
+    unpacked bins (``unpacked_ms``), bit for bit over the G real columns.
+    Returns {kernel: measurement dict}."""
     import numpy as np
     import torch
-    F, npad = binsT.shape
-    perm, lid, lo, hi = leaf_layout(th, binsT, fm, rb, levels)
+    rows_b, npad = binsT.shape
+    F = th.logical_columns(binsT, packed4)
+    perm, lid, lo, hi = leaf_layout(th, binsT, fm, rb, levels, packed4)
     binsT = binsT.index_select(1, perm)
     w8 = w8.index_select(1, perm)
+    # the unpacked bins, for the comparison and the library call only
+    G = len(fm.num_bin) if fm.feat_group is None else int(
+        max(fm.feat_group)) + 1
+    flat = (th.unpack_bins_4bit(binsT)[:G].contiguous() if packed4
+            else binsT)
     n_leaves = 1 << levels
     every_other = np.full(8, 0x55555555, np.uint32)
-    routes, new = [], []
+    routes, flat_routes, new = [], [], []
     for k in range(K):
         f, cat = feats[k % len(feats)]
         t = int(fm.num_bin[f]) // 2 if thr is None else thr(f)
-        routes.append(th.pack_route(k, n_leaves + k, f, t, k % 2 == 1,
-                                    cat, every_other * cat, fm))
+        for out, p4 in ((routes, packed4), (flat_routes, False)):
+            out.append(th.pack_route(k, n_leaves + k, f, t, k % 2 == 1,
+                                     cat, every_other * cat, fm, p4))
         new.append(n_leaves + k)
     routes = torch.stack(routes)
+    flat_routes = torch.stack(flat_routes)
     bl, n = th.union_block_list(lo[:K], hi[:K], [True] * K)
     bl = bl.to(binsT.device)
     routed_lid, _ = th.histogram_frontier_routed_plain(
         binsT, w8, lid.clone(), bl, n, torch.tensor(new, dtype=torch.int32),
-        routes, B, rb)
+        routes, B, rb, packed4)
     counts = torch.bincount(routed_lid.long(), minlength=n_leaves + K)
     smaller = torch.tensor(
         [k if counts[k] <= counts[n_leaves + k] else n_leaves + k
@@ -1700,46 +1749,61 @@ def frontier_round(th, binsT, w8, scales, fm, feats, rb, K, levels, B, tag,
     cases = (("histogram_frontier", smaller, None),
              ("histogram_frontier_routed", smaller, routes),
              ("histogram_frontier_fusedk", targets2, routes))
+    def call(name, bins, ids, targets, rts, p4):
+        """The kernel ``name`` on these bins: (leaf ids, histograms)."""
+        if rts is None:
+            return ids, th.histogram_frontier(bins, w8, ids, bl, n, targets,
+                                              B, rb, scales, p4)
+        return getattr(th, name)(bins, w8, ids, bl, n, targets, rts, B, rb,
+                                 scales, p4)
+
     for name, targets, rts in cases:
         KT = int(targets.shape[0])
+        frts = None if rts is None else flat_routes
         if rts is None:
             want_lid = routed_lid
             want = th.histogram_frontier_plain(binsT, w8, routed_lid, bl, n,
-                                               targets, B, rb)
-            runs = [(routed_lid, th.histogram_frontier(
-                binsT, w8, routed_lid, bl, n, targets, B, rb, scales))
-                for _ in range(2)]
+                                               targets, B, rb, packed4)
         else:
-            fn = getattr(th, name)
             want_lid, want = th.histogram_frontier_routed_plain(
-                binsT, w8, lid.clone(), bl, n, targets, rts, B, rb)
-            runs = []
-            for _ in range(2):
-                ids = lid.clone()
-                got_lid, got = fn(binsT, w8, ids, bl, n, targets, rts, B, rb,
-                                  scales)
-                require(got_lid.data_ptr() == ids.data_ptr(),
-                        f"{name}: leaf_id not updated in place")
-                runs.append((got_lid, got))
+                binsT, w8, lid.clone(), bl, n, targets, rts, B, rb, packed4)
+        runs = []
+        start = routed_lid if rts is None else lid
+        for _ in range(2):
+            ids = start.clone() if rts is not None else start
+            got_lid, got = call(name, binsT, ids, targets, rts, packed4)
+            require(got_lid.data_ptr() == ids.data_ptr(),
+                    f"{name}: leaf_id not updated in place")
+            runs.append((got_lid, got))
         torch.cuda.synchronize()
         for got_lid, _ in runs:
             require(torch.equal(got_lid, want_lid), f"{name} {tag}: leaf ids "
                     "differ from the plain version")
         require(torch.equal(runs[0][1], runs[1][1]),
                 f"{name} {tag}: a second launch differs from the first")
+        if packed4:
+            flat_lid, flat_hist = call(name, flat, start.clone(), targets,
+                                       frts, False)
+            torch.cuda.synchronize()
+            require(torch.equal(flat_lid, want_lid)
+                    and torch.equal(runs[0][1][:, :G], flat_hist),
+                    f"{name} {tag}: packed differs from unpacked")
         abs_sums = th.histogram_frontier_plain(
-            binsT, abs_channel_sets(w8), want_lid, bl, n, targets, B, rb)
+            binsT, abs_channel_sets(w8), want_lid, bl, n, targets, B, rb,
+            packed4)
         err = check_hist(f"{name} {tag}", runs[0][1], want, abs_sums)
         # slot j is K1 of its target over the window of the parent it came
         # from (split k = j mod K), bit for bit
         for j, t in enumerate(targets.tolist()):
             k = j % K
             k1 = th.histogram_segment(binsT, w8, want_lid, lo[k],
-                                      hi[k] - lo[k], t, B, rb, scales)
+                                      hi[k] - lo[k], t, B, rb, scales,
+                                      packed4)
             require(torch.equal(runs[0][1][j], k1), f"{name} {tag}: slot {j} "
                     f"differs from K1 of leaf {t}")
         tiling = th.frontier_tiling(F, B, KT, 0 if rts is None else K,
-                                    int(th.frontier_params(targets, rts)[2]))
+                                    int(th.frontier_params(targets, rts)[2]),
+                                    packed4)
         moved = int((want_lid != lid).sum().item())
         log(f"{name} {tag}: K={K} KT={KT}, {n} blocks ({U} rows) listed, "
             f"{moved} routed, ids identical, counts exact, max |diff| "
@@ -1756,49 +1820,49 @@ def frontier_round(th, binsT, w8, scales, fm, feats, rb, K, levels, B, tag,
                 lid[_rows(bl, n, rb)], torch.arange(K, device=lid.device,
                                                     dtype=lid.dtype)
             ).sum().item())
+            # (a byte of bins a row: rows_b bytes, F columns)
             nbytes = (U * 4 + 4 * n + R + moved * 4 * (rts is not None)
-                      + M * (F + 10) + KT * F * B * 12)
+                      + M * (rows_b + 10) + KT * F * B * 12)
             nops = U * (KT + (0 if rts is None else K)) + R * 20 + M * F * 3
             rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, nops)
+            ids = [start.clone() for _ in range(reps + 1)]
+            rec["ms"] = time_ms(lambda i: call(
+                name, binsT, ids[i], targets, rts, packed4), reps)
+            if packed4:
+                rec["unpacked_ms"] = time_ms(lambda i: call(
+                    name, flat, ids[i], targets, frts, False), reps)
+            ids = [start.clone() for _ in range(plain_reps + 1)]
             if rts is None:
-                rec["ms"] = time_ms(lambda i: th.histogram_frontier(
-                    binsT, w8, routed_lid, bl, n, targets, B, rb, scales),
-                    reps)
-                rec["plain_ms"] = time_ms(lambda i: th.histogram_frontier_plain(
-                    binsT, w8, routed_lid, bl, n, targets, B, rb),
+                rec["plain_ms"] = time_ms(
+                    lambda i: th.histogram_frontier_plain(
+                        binsT, w8, ids[i], bl, n, targets, B, rb, packed4),
                     plain_reps)
             else:
-                fn = getattr(th, name)
-                ids = [lid.clone() for _ in range(reps + 1)]
-                rec["ms"] = time_ms(lambda i: fn(
-                    binsT, w8, ids[i], bl, n, targets, rts, B, rb, scales),
-                    reps)
-                ids = [lid.clone() for _ in range(plain_reps + 1)]
                 rec["plain_ms"] = time_ms(
                     lambda i: th.histogram_frontier_routed_plain(
-                        binsT, w8, ids[i], bl, n, targets, rts, B, rb),
+                        binsT, w8, ids[i], bl, n, targets, rts, B, rb,
+                        packed4),
                     plain_reps)
-                del ids
+            del ids
             rows = _rows(bl, n, rb)[sel]
             slot_of = torch.full((n_leaves + K,), -1, dtype=torch.int64,
                                  device=lid.device)
             slot_of[targets.long().to(lid.device)] = torch.arange(
                 KT, device=lid.device)
             rec["library_ms"] = library_hist_ms(
-                binsT, [w8], rows, B, reps, slots=slot_of[want_lid[rows].long()],
-                n_slots=KT)
+                flat, [w8], rows, B, reps,
+                slots=slot_of[want_lid[rows].long()], n_slots=KT)
             rec["shape"] = (f"{tag}: {U} listed rows of {npad}, {M} in the "
-                            f"{KT} targets, {moved} routed, {F} x {B} bins")
+                            f"{KT} targets, {moved} routed, {F} x {B} bins"
+                            + (f" in {rows_b} bytes a row" if packed4
+                               else ""))
             # one call is one launch: what the profiler sees on the card,
             # and a CUDA graph's capture and replay (a stream sync or a
             # pageable copy in the call would fail the capture)
-            start = routed_lid if rts is None else lid
-            call = ((lambda ids: th.histogram_frontier(
-                binsT, w8, ids, bl, n, targets, B, rb, scales))
-                if rts is None else (lambda ids: getattr(th, name)(
-                    binsT, w8, ids, bl, n, targets, rts, B, rb, scales)[1]))
-            rec.update(launch_report(f"{name} {tag}", call, start,
-                                     runs[0][1], want_lid, reps))
+            rec.update(launch_report(
+                f"{name} {tag}",
+                lambda ids: call(name, binsT, ids, targets, rts, packed4)[1],
+                start, runs[0][1], want_lid, reps))
             log(f"{name} {tag}: {rec['ms']:.4f} ms a call eager")
         out[name] = rec
     torch.cuda.empty_cache()
@@ -2047,7 +2111,10 @@ def route_late_phase(bst):
     fn = grower_frontier.route_window
     calls, last = [], {}
 
-    def recorded(binsT, leaf_id, start_block, n_blocks, route, block_rows):
+    def recorded(binsT, leaf_id, start_block, n_blocks, route, block_rows,
+                 packed4=False):
+        require(not packed4, "route_window late window: packed bins at "
+                "max_bin 63")
         before = leaf_id.clone()
         out = fn(binsT, leaf_id, start_block, n_blocks, route, block_rows)
         calls.append((int(n_blocks) * block_rows,
@@ -3457,19 +3524,20 @@ WALKS_PARAMS = dict(TRAIN_PARAMS, num_leaves=31, boosting="dart",
 
 
 def route_bytes(bins, stack, trees, num_bin, default_bin, n, C,
-                tables=(None, None)):
+                tables=(None, None), packed4=False):
     """The bytes P1 must move on these inputs: each tree's bins along
-    each row's path (the rows' leaves by the plain route), the [C, n]
-    float64 scores read and written once, the stack and the per-feature
-    tables read once.  ``tables``: the EFB feat_group / feat_offset of
-    bundled bins.  Returns (bytes, bin reads)."""
+    each row's path (the rows' leaves by the plain route; a byte a read,
+    packed or not), the [C, n] float64 scores read and written once, the
+    stack and the per-feature tables read once.  ``tables``: the EFB
+    feat_group / feat_offset of bundled bins.  Returns (bytes, bin
+    reads)."""
     import torch
     from lightgbm_tpu_torch.models.device_predict import leaf_depths
     from lightgbm_tpu_torch.ops.predict import route_leaves_plain
     reads = 0
     for t, tree in enumerate(trees):
         leaves = route_leaves_plain(bins, stack, t, num_bin, default_bin, n,
-                                    *tables)
+                                    *tables, packed4=packed4)
         depth = torch.from_numpy(leaf_depths(tree)).to(leaves.device)
         reads += int(depth[leaves].sum().item())
     table_bytes = sum(x.numel() * x.element_size() for x in (
@@ -3481,39 +3549,43 @@ def route_bytes(bins, stack, trees, num_bin, default_bin, n, C,
 
 
 def p1_times(bins, stack, num_bin, default_bin, out, trees, tag,
-             tables=(None, None)):
+             tables=(None, None), packed4=False):
     """P1 against its plain version on ``bins`` from the values in
     ``out``: bit for bit, a relaunch adding the same again, one launch a
     call; its time (CUDA events over PREDICT_REPS launches; plain 3), the
     bound from this run's paths.  ``tables``: the EFB feat_group /
-    feat_offset of bundled bins.  Returns the measurement dict."""
+    feat_offset of bundled bins; ``packed4``: the bins hold two columns a
+    byte.  Returns the measurement dict."""
     import torch
     from lightgbm_tpu_torch.ops import kernels
     from lightgbm_tpu_torch.ops import predict as tp
     C, n = out.shape
+    p4 = {"packed4": packed4}
+    kname = kernels.variant("route_trees", packed4)
     want = tp.route_trees_plain(bins, stack, num_bin, default_bin,
-                                out.clone(), *tables)
-    before = kernels.LAUNCHES["route_trees"]
+                                out.clone(), *tables, **p4)
+    before = kernels.LAUNCHES[kname]
     got = tp.route_trees(bins, stack, num_bin, default_bin, out.clone(),
-                         *tables)
+                         *tables, **p4)
     torch.cuda.synchronize()
-    calls = kernels.LAUNCHES["route_trees"] - before
+    calls = kernels.LAUNCHES[kname] - before
     require(calls == 1, f"route_trees {tag}: {calls} launches a call")
     require(torch.equal(got, want), f"route_trees {tag}: differs from the "
             "plain version")
     again = tp.route_trees(bins, stack, num_bin, default_bin, got.clone(),
-                           *tables)
+                           *tables, **p4)
     want2 = tp.route_trees_plain(bins, stack, num_bin, default_bin,
-                                 want.clone(), *tables)
+                                 want.clone(), *tables, **p4)
     require(torch.equal(again, want2), f"route_trees {tag}: a relaunch "
             "differs from the plain version")
     scratch = out.clone()
     ms = time_ms(lambda i: tp.route_trees(bins, stack, num_bin, default_bin,
-                                          scratch, *tables), PREDICT_REPS)
+                                          scratch, *tables, **p4),
+                 PREDICT_REPS)
     plain_ms = time_ms(lambda i: tp.route_trees_plain(
-        bins, stack, num_bin, default_bin, scratch, *tables), 3)
+        bins, stack, num_bin, default_bin, scratch, *tables, **p4), 3)
     nbytes, reads = route_bytes(bins, stack, trees, num_bin, default_bin, n,
-                                C, tables)
+                                C, tables, packed4)
     bound, by = bound_ms(nbytes, float(n) * len(trees))
     rec = {"max_abs_err": float((got - want).abs().max().item()), "ms": ms,
            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
@@ -4136,7 +4208,8 @@ def sparse_at_scale_phase():
     ll = float(-np.mean(yb[:1000] * np.log(p + 1e-9)
                         + (1 - yb[:1000]) * np.log(1 - p + 1e-9)))
     require(ll < SPARSE_LOGLOSS_GATE, f"sparse at scale: log loss {ll}")
-    require(launches["histogram_segment_routed_step"] > 0,
+    require(launches["histogram_segment_routed_step"]
+            + launches["histogram_segment_routed_step_packed4"] > 0,
             f"sparse at scale did not launch K3: {launches}")
     rec = {"rows": n, "features": F, "columns": G,
            "bin_bytes": int(h.bins_t.nbytes), "bin_s": bin_s,
@@ -4147,6 +4220,504 @@ def sparse_at_scale_phase():
         f"4 rounds in {wall:.2f} s, log loss {ll:.4f} < "
         f"{SPARSE_LOGLOSS_GATE}")
     return launches, rec
+
+
+# ---------------------------------------------------------------- phase 25
+P4_PARAMS = dict(TRAIN_PARAMS, max_bin=15)
+P4_ITERS = 3
+P4_PARITY_ROWS = 1_000_000
+P4_RUNS = (("fused", {}, {}),
+           ("unfused", {}, {"fused_route": False}),
+           ("frontier", {"tpu_tree_impl": "frontier"}, {}),
+           ("multiclass", {"objective": "multiclass",
+                           "num_class": MC_CLASSES,
+                           "metric": ["multi_logloss"]}, {}))
+# the kernel each run's path must launch (packed) and, where the run has
+# one, its split kernel
+P4_RUN_KERNEL = {"fused": "histogram_segment_routed_step",
+                 "unfused": "histogram_segment_step",
+                 "frontier": "histogram_frontier",
+                 "multiclass": "histogram_all"}
+P4_TIERS = ("off", "k1", "fusedk")
+
+
+def packed4_kernel_phase(gb, reps=20, plain_reps=1):
+    """Phase 25's kernels on the packed HIGGS bins of a max_bin 15 booster
+    ([14, Npad], 16 bins): K2, K1 (root) and K3 (the first tree's root
+    split and a split on the other nibble of its byte), the K1/K2/K3 step
+    entries at that split, K5 (5 class sets), a K = 16 frontier round (K6,
+    K7 routed and fused-K) and P1 over the trained trees, each against
+    its plain version on the packed bins and against the same kernel on
+    the unpacked bins (bit for bit over the 28 columns: the sums are fixed
+    point, the layout cannot move them), timed beside the unpacked kernel
+    (``unpacked_ms``).  The unpacked [28, Npad] copy is made for these
+    comparisons only, after training.  Returns {kernel: measurement
+    dict}."""
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.models.device_predict import TreeStack
+    from lightgbm_tpu_torch.objective import create_objective
+    from lightgbm_tpu_torch.ops import histogram as th
+    binsT = gb.bins
+    P, npad = binsT.shape
+    G = gb.train_set.num_columns
+    rb, B, n, dev = gb.grower.rb, gb.num_bins, gb.num_data, binsT.device
+    H, nblk = 2 * P, npad // rb
+    flat = th.unpack_bins_4bit(binsT)[:G].contiguous()
+    fm = host_meta(gb.train_set)
+    obj = create_objective(gb.config)
+    obj.init(gb.train_set.metadata, n, dev)
+    score0 = torch.full((n,), obj.boost_from_score(), dtype=torch.float32,
+                        device=dev)
+    grad, hess = obj.get_gradients(score0)
+    grad = torch.nn.functional.pad(grad, (0, npad - n))
+    hess = torch.nn.functional.pad(hess, (0, npad - n))
+    member = torch.zeros(npad, dtype=torch.float32, device=dev)
+    member[:n] = 1.0
+    w8 = th.pack_channels(grad, hess, member)
+    scales = th.fixed_point_scales(w8)
+    lid0 = torch.zeros(npad, dtype=torch.int32, device=dev)
+    none = np.zeros(8, np.uint32)
+    root = gb.models[0]
+    f0 = int(root.split_feature_inner[0])
+    splits = {"root split": (f0, int(root.threshold_in_bin[0]),
+                             bool(root.decision_type[0] & 2)),
+              "other nibble": (f0 ^ 1, int(fm.num_bin[f0 ^ 1]) // 2, False)}
+    routes = {k: {p4: th.pack_route(0, 1, f, t, dl, False, none, fm, p4)
+                  for p4 in (True, False)}
+              for k, (f, t, dl) in splits.items()}
+    log(f"packed4 kernels: G={G} in {P} byte rows, B={B} Npad={npad} "
+        f"rb={rb}; routes on columns {f0} and {f0 ^ 1}")
+    res, split_ids = {}, {}
+
+    def same(tag, packed, unpacked):
+        require(torch.equal(packed, unpacked),
+                f"{tag}: the packed kernel differs from the unpacked one")
+
+    err = 0
+    for rname, r in routes.items():
+        want = th.route_window_plain(binsT, lid0.clone(), 0, nblk, r[True],
+                                     rb, True)
+        got = [th.route_window(binsT, lid0.clone(), 0, nblk, r[True], rb,
+                               True) for _ in range(2)]
+        unp = th.route_window(flat, lid0.clone(), 0, nblk, r[False], rb)
+        torch.cuda.synchronize()
+        for g in got:
+            err = max(err, int((g != want).sum().item()))
+        same(f"route_window packed4 {rname}", got[0], unp)
+        moved = int((want == 1).sum().item())
+        require(err == 0 and 0 < moved < n, f"route_window packed4 {rname}: "
+                f"{err} ids differ, {moved} rows moved")
+        split_ids[rname] = want
+    res["route_window"] = {"max_abs_err": float(err)}
+
+    a = th.histogram_segment(binsT, w8, lid0, 0, nblk, 0, B, rb, scales,
+                             True)
+    b = th.histogram_segment(binsT, w8, lid0, 0, nblk, 0, B, rb, scales,
+                             True)
+    unp = th.histogram_segment(flat, w8, lid0, 0, nblk, 0, B, rb, scales)
+    torch.cuda.synchronize()
+    require(torch.equal(a, b), "histogram_segment packed4: a second launch "
+            "differs from the first")
+    same("histogram_segment packed4", a[:G], unp)
+    want = th.histogram_segment_plain(binsT, w8, lid0, 0, nblk, 0, B, rb,
+                                      True)
+    res["histogram_segment"] = {"max_abs_err": check_hist(
+        "histogram_segment packed4 root", a, want, hist_abs_sums(
+            th, binsT, w8, lid0, 0, nblk, 0, B, rb, True))}
+
+    err = 0.0
+    for rname, r in routes.items():
+        want_lid, want = th.histogram_segment_routed_plain(
+            binsT, w8, lid0.clone(), 0, nblk, 1, r[True], B, rb, True)
+        runs = [th.histogram_segment_routed(binsT, w8, lid0.clone(), 0, nblk,
+                                            1, r[True], B, rb, scales, True)
+                for _ in range(2)]
+        ul, uh = th.histogram_segment_routed(flat, w8, lid0.clone(), 0, nblk,
+                                             1, r[False], B, rb, scales)
+        torch.cuda.synchronize()
+        require(torch.equal(runs[0][1], runs[1][1]) and all(
+            torch.equal(x[0], want_lid) for x in runs),
+            f"histogram_segment_routed packed4 {rname}: ids differ or a "
+            "relaunch differs")
+        same(f"histogram_segment_routed packed4 {rname}", runs[0][1][:G], uh)
+        same(f"histogram_segment_routed packed4 {rname} ids", runs[0][0], ul)
+        err = max(err, check_hist(
+            f"histogram_segment_routed packed4 {rname}", runs[0][1], want,
+            hist_abs_sums(th, binsT, w8, want_lid, 0, nblk, 1, B, rb, True)))
+    res["histogram_segment_routed"] = {"max_abs_err": err}
+    # the step entries at the first split, a late window and an empty one
+    r = routes["root split"][True]
+    steps = check_step_entries(th, binsT, w8, scales, lid0, B, rb, (
+        ("first split", 0, nblk, 1, r), ("late window", nblk - 2, 2, 1, r),
+        ("empty window", 3, 0, 1, r)), "HIGGS packed4", packed4=True)
+    for name, e in steps.items():
+        res[name] = {"max_abs_err": float(e)}
+    log(f"packed4 kernels: K1, K2 and K3 (by value and step entries) = "
+        f"their plain versions and = the unpacked kernels bit for bit")
+
+    # times at the first split; bounds at the packed bytes (P bytes of
+    # bins a row instead of G)
+    ids1 = split_ids["root split"]
+    moved = int((ids1 == 1).sum().item())
+    W, out_bytes = npad, H * B * 3 * 4
+    step = th.pack_step(0, nblk, 1, r).to(dev)
+    fr = routes["root split"][False]
+    fstep = th.pack_step(0, nblk, 1, fr).to(dev)
+
+    def timed(name, call, flat_call, plain, nbytes, flat_bytes, nops, rows,
+              shape, fresh=False, start=lid0):
+        """Times of kernel ``name`` from the leaf ids ``start`` (a copy a
+        call where the call routes them)."""
+        t = res[name]
+        ids = ([start.clone() for _ in range(reps + 1)] if fresh
+               else [start] * (reps + 1))
+        t["ms"] = time_ms(lambda i: call(ids[i]), reps)
+        t["unpacked_ms"] = time_ms(lambda i: flat_call(ids[i]), reps)
+        ids = ([start.clone() for _ in range(plain_reps + 1)] if fresh
+               else [start] * (plain_reps + 1))
+        t["plain_ms"] = time_ms(lambda i: plain(ids[i]), plain_reps)
+        t["bound_ms"], t["bound_by"] = bound_ms(nbytes, nops)
+        t["unpacked_bound_ms"] = bound_ms(flat_bytes, nops)[0]
+        t["library_ms"] = (None if rows is None
+                           else library_hist_ms(flat, [w8], rows, B, reps))
+        t["shape"] = shape
+        log(f"{name} packed4: {t['ms']:.4f} ms (unpacked "
+            f"{t['unpacked_ms']:.4f} ms, plain {t['plain_ms']:.2f} ms), "
+            f"bound {t['bound_ms']:.4f} ms at {P} bytes a row (unpacked "
+            f"{t['unpacked_bound_ms']:.4f} ms)")
+
+    everyone = torch.arange(n, device=dev)
+    routed_rows = torch.nonzero(ids1 == 1)[:, 0]
+    timed("histogram_segment",
+          lambda ids: th.histogram_segment(binsT, w8, ids, 0, nblk, 0, B, rb,
+                                           scales, True),
+          lambda ids: th.histogram_segment(flat, w8, ids, 0, nblk, 0, B, rb,
+                                           scales),
+          lambda ids: th.histogram_segment_plain(binsT, w8, ids, 0, nblk, 0,
+                                                 B, rb, True),
+          W * (P + 14) + out_bytes, W * (G + 14) + out_bytes, W * G * 3,
+          everyone, f"HIGGS root: {W} rows x {G} columns in {P} bytes, "
+          f"{B} bins")
+    split_bytes = (W * 5 + moved * 4 + moved * (P - 1 + 10) + out_bytes,
+                   W * 5 + moved * 4 + moved * (G - 1 + 10) + out_bytes,
+                   W * 20 + moved * G * 3)
+    timed("histogram_segment_routed",
+          lambda ids: th.histogram_segment_routed(binsT, w8, ids, 0, nblk, 1,
+                                                  r, B, rb, scales, True),
+          lambda ids: th.histogram_segment_routed(flat, w8, ids, 0, nblk, 1,
+                                                  fr, B, rb, scales),
+          lambda ids: th.histogram_segment_routed_plain(
+              binsT, w8, ids, 0, nblk, 1, r, B, rb, True),
+          *split_bytes, routed_rows,
+          f"HIGGS first split: {W} rows, {moved} routed", fresh=True)
+    timed("histogram_segment_routed_step",
+          lambda ids: th.histogram_segment_routed_step(
+              binsT, w8, ids, step, B, rb, scales, packed4=True),
+          lambda ids: th.histogram_segment_routed_step(
+              flat, w8, ids, fstep, B, rb, scales),
+          lambda ids: th.histogram_segment_routed_step_plain(
+              binsT, w8, ids, step, B, rb, True),
+          *split_bytes, routed_rows,
+          f"HIGGS first split: {W} rows, {moved} routed", fresh=True)
+    for name, by_value in (("route_window", False),
+                           ("route_window_step", True)):
+        timed(name,
+              (lambda ids: th.route_window_step(binsT, ids, step, rb, True))
+              if by_value else (lambda ids: th.route_window(
+                  binsT, ids, 0, nblk, r, rb, True)),
+              (lambda ids: th.route_window_step(flat, ids, fstep, rb))
+              if by_value else (lambda ids: th.route_window(
+                  flat, ids, 0, nblk, fr, rb)),
+              lambda ids: th.route_window_plain(binsT, ids, 0, nblk, r, rb,
+                                                True),
+              W * 5 + moved * 4, W * 5 + moved * 4, W * 20, None,
+              f"HIGGS first split: {W} rows, {moved} routed", fresh=True)
+    # K1 over the routed ids, as the unfused split runs it after K2
+    timed("histogram_segment_step",
+          lambda ids: th.histogram_segment_step(binsT, w8, ids, step, B, rb,
+                                                scales, packed4=True),
+          lambda ids: th.histogram_segment_step(flat, w8, ids, fstep, B, rb,
+                                                scales),
+          lambda ids: th.histogram_segment_step_plain(binsT, w8, ids, step,
+                                                      B, rb, True),
+          W * 4 + moved * (P + 10) + out_bytes,
+          W * 4 + moved * (G + 10) + out_bytes, moved * G * 3, routed_rows,
+          f"HIGGS first split's smaller child: {W} rows, {moved} in it",
+          start=ids1)
+
+    # K5: five class gradient sets at random scores (made from a seed)
+    C = MC_CLASSES
+    gen = torch.Generator(device=dev).manual_seed(25)
+    p = torch.softmax(torch.randn((C, npad), generator=gen, device=dev),
+                      dim=0)
+    lab = torch.randint(0, C, (npad,), generator=gen, device=dev)
+    w8C = th.pack_channel_sets(
+        (p - torch.nn.functional.one_hot(lab, C).T) * member,
+        2.0 * p * (1.0 - p) * member, member)
+    del p, lab
+    err5, scales5 = check_histogram_all(th, binsT, w8C, B, rb,
+                                        "HIGGS packed4", True)
+    unp = th.histogram_all(flat, w8C, B, scales5)
+    a = th.histogram_all(binsT, w8C, B, scales5, True)
+    torch.cuda.synchronize()
+    same("histogram_all packed4", a[:, :G], unp)
+    t = {"max_abs_err": err5}
+    t["ms"] = time_ms(lambda i: th.histogram_all(binsT, w8C, B, scales5,
+                                                 True), reps)
+    t["unpacked_ms"] = time_ms(lambda i: th.histogram_all(flat, w8C, B,
+                                                          scales5), reps)
+    t["plain_ms"] = time_ms(lambda i: th.histogram_all_plain(
+        binsT, w8C, B, True), plain_reps)
+    t["bound_ms"], t["bound_by"] = bound_ms(W * (P + 10 * C)
+                                            + C * out_bytes, W * G * C * 3)
+    t["unpacked_bound_ms"] = bound_ms(W * (G + 10 * C) + C * out_bytes,
+                                      W * G * C * 3)[0]
+    t["library_ms"] = library_hist_ms(
+        flat, [w8C[8 * c:8 * c + 8] for c in range(C)], everyone, B, reps)
+    t["shape"] = f"HIGGS: {W} rows x {G} columns in {P} bytes x {C} sets"
+    res["histogram_all"] = t
+    log(f"histogram_all packed4: {t['ms']:.4f} ms (unpacked "
+        f"{t['unpacked_ms']:.4f} ms), bound {t['bound_ms']:.4f} ms")
+    del w8C, a, unp
+
+    # a K = 16 frontier round, each kernel also against the unpacked one
+    res.update(frontier_round(
+        th, binsT, w8, scales, fm, [(f, False) for f in range(G)], rb, 16, 5,
+        B, "HIGGS packed4", reps, plain_reps, packed4=True))
+
+    # P1 over the packed training bins with the trained trees, from the
+    # training score; = P1 over the unpacked bins
+    stack = TreeStack(gb.models, [0] * len(gb.models), G, dev)
+    start = gb.train_score.to(torch.float64).contiguous()
+    res["route_trees"] = p1_times(
+        binsT, stack, gb.fmeta.num_bin, gb.fmeta.default_bin, start,
+        gb.models, "HIGGS packed training bins", packed4=True)
+    from lightgbm_tpu_torch.ops import predict as tp
+    got = tp.route_trees(binsT, stack, gb.fmeta.num_bin,
+                         gb.fmeta.default_bin, start.clone(), packed4=True)
+    unp = tp.route_trees(flat, stack, gb.fmeta.num_bin,
+                         gb.fmeta.default_bin, start.clone())
+    torch.cuda.synchronize()
+    same("route_trees packed4", got, unp)
+    scratch = start.clone()
+    res["route_trees"]["unpacked_ms"] = time_ms(lambda i: tp.route_trees(
+        flat, stack, gb.fmeta.num_bin, gb.fmeta.default_bin, scratch),
+        PREDICT_REPS)
+    del flat, w8, grad, hess, member, split_ids, got, unp, scratch
+    torch.cuda.empty_cache()
+    return res
+
+
+def packed4_phase():
+    """Phase 25: HIGGS at max_bin 15 (16 bins) on the 4-bit packed layout.
+    Returns ({run: launches}, record, the kernel measurements)."""
+    import numpy as np
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.models.gbdt import block_rows, resolve_device
+    from lightgbm_tpu_torch.ops import histogram as th
+    from lightgbm_tpu_torch.ops import kernels
+    rec = {}
+    t0 = time.perf_counter()
+    X, y = higgs_like(HIGGS_ROWS + HOLDOUT_ROWS, 42)
+    Xh, yh = X[HIGGS_ROWS:], y[HIGGS_ROWS:]
+    X, y = X[:HIGGS_ROWS], y[:HIGGS_ROWS]
+    rec["generate_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    config = lt.Config.from_params(P4_PARAMS)
+    ds = lt.Dataset(X, y)
+    ds.construct(config)
+    rec["bin_s"] = time.perf_counter() - t0
+    h = ds._handle
+    G = h.num_columns
+    require(G == N_FEATURES and h.max_column_bin <= 16,
+            f"packed4: {G} columns of up to {h.max_column_bin} bins")
+    rb = block_rows(config, h.num_data)
+    t0 = time.perf_counter()
+    host_packed = th.pack_bins_4bit(h.bins_t)
+    rec["pack_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dev_bins = h.device_bins(rb, resolve_device(config), packed4=True)
+    torch.cuda.synchronize()
+    rec["pack_and_upload_s"] = time.perf_counter() - t0
+    npad = dev_bins.shape[1]
+    require(tuple(dev_bins.shape) == (-(-G // 2), npad) and torch.equal(
+        dev_bins[:, :h.num_data].cpu(), torch.from_numpy(host_packed))
+        and not dev_bins[:, h.num_data:].any(),
+        "packed4: the card's bins are not the host's packed bytes")
+    rec.update(rows=HIGGS_ROWS, columns=G, npad=npad,
+               packed_bytes=int(dev_bins.numel()), unpacked_bytes=G * npad)
+    del host_packed
+    log(f"packed4: {HIGGS_ROWS} x {G} at max_bin 15 generated in "
+        f"{rec['generate_s']:.1f} s, binned in {rec['bin_s']:.1f} s, packed "
+        f"in {rec['pack_s']:.2f} s ({rec['pack_and_upload_s']:.2f} s packed "
+        f"and uploaded): {rec['packed_bytes'] / 1e6:.1f} MB of bins against "
+        f"{rec['unpacked_bytes'] / 1e6:.1f} MB unpacked")
+    va = ds.create_valid(Xh, yh)
+    va.construct(config)
+    # 5 classes of the same rows (their bins shared): the quintiles of a
+    # mix of the label and two features
+    def classes(Xc, yc):
+        z = Xc[:, 0] + 0.5 * Xc[:, 1] + yc
+        return np.digitize(z, np.quantile(z[:100_000], [0.2, 0.4, 0.6,
+                                                        0.8])).astype(float)
+    sets = {"multiclass": (with_metadata(h, label=classes(X, y)),
+                           with_metadata(va._handle,
+                                         label=classes(Xh, yh)))}
+    launches, kern = {}, None
+    for name, extra, kw in P4_RUNS:
+        params = dict(P4_PARAMS, **extra)
+        train_set, valid_set = sets.get(name, (ds, va))
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with record_trees() as trees_rec:
+            bst = lt.Booster(params, train_set, **kw)
+            bst.add_valid(valid_set, "holdout")
+            metric = []
+            for _ in range(P4_ITERS):
+                bst.update()
+                metric.append(bst.eval_valid()[0][2])
+            if name == "fused":
+                # a card walk over the packed training bins (P1)
+                before = bst.gbdt.train_score.clone()
+                bst.rollback_one_iter()
+                require(not torch.equal(before, bst.gbdt.train_score),
+                        "packed4: the rollback changed no score")
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        run = dict(kernels.LAUNCHES)
+        gb = bst.gbdt
+        require(gb.packed4 and gb.bins.data_ptr() == dev_bins.data_ptr(),
+                f"packed4 {name}: the booster does not train on the packed "
+                "bins")
+        kname = P4_RUN_KERNEL[name]
+        C = gb.num_tree_per_iteration
+        require(run[kname + "_packed4"] > 0 and run[kname] == 0
+                and run["score_gather_add"] == P4_ITERS * C,
+                f"packed4 {name}: the packed kernels did not run: {run}")
+        ok = (metric[-1] > 0.8 if name != "multiclass"
+              else metric[-1] < metric[0])
+        require(all(np.isfinite(metric)) and ok,
+                f"packed4 {name}: holdout {params['metric'][0]} {metric}")
+        r = {"iter_seconds": list(gb.iter_seconds),
+             "median_iter_s": float(np.median(gb.iter_seconds)),
+             "wall_s": wall, "holdout": {params["metric"][0]: metric},
+             "peak_device_bytes": int(torch.cuda.max_memory_allocated()),
+             "launches": {k: v for k, v in run.items() if v}}
+        if name == "frontier":
+            require(gb.grower.K == 16, f"packed4 frontier: K {gb.grower.K}")
+        else:
+            step = ("histogram_segment_step" if name == "unfused"
+                    else "histogram_segment_routed_step")
+            r["device_loop"] = device_loop_report(
+                f"HIGGS packed4 {name}", bst, trees_rec.stats, run,
+                step + "_packed4", wall)
+        rec[name] = r
+        launches[name] = run
+        log(f"packed4 {name}: {P4_ITERS} iterations, median "
+            f"{r['median_iter_s']:.3f} s, holdout {params['metric'][0]} "
+            f"{[round(a, 5) for a in metric]}, peak device memory "
+            f"{r['peak_device_bytes'] / 1e9:.2f} GB")
+        if name == "fused":
+            t0 = time.perf_counter()
+            kern = packed4_kernel_phase(gb)
+            rec["kernels_s"] = time.perf_counter() - t0
+        del bst, gb
+        torch.cuda.empty_cache()
+    del ds, va, sets, dev_bins, X, y, Xh, yh
+    torch.cuda.empty_cache()
+    tier_launches, rec["parity"] = packed4_parity_phase()
+    launches.update(tier_launches)
+    return launches, rec, kern
+
+
+def packed4_parity_phase():
+    """Phase 25: at 1M rows, packed = unpacked (packed4=False) bit for bit
+    (model text, training and valid scores; the fused segment grower and
+    the frontier grower's three tiers, "k1" = "off"), and P1's walk over
+    the packed training bins = the host walk; at 200k rows, card = CPU.
+    Returns ({"parity_" + run: launches}, record)."""
+    import numpy as np
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import kernels
+    X, y = higgs_like(P4_PARITY_ROWS + HOLDOUT_ROWS, 44)
+    Xh, yh = X[P4_PARITY_ROWS:], y[P4_PARITY_ROWS:]
+    X, y = X[:P4_PARITY_ROWS], y[:P4_PARITY_ROWS]
+    ds = lt.Dataset(X, y)
+    ds.construct(lt.Config.from_params(P4_PARAMS))
+    va = ds.create_valid(Xh, yh)
+    rec, launches, texts = {}, {}, {}
+    cases = [("fused", {}, {})] + [
+        (f"frontier_{tier}", {"tpu_tree_impl": "frontier"},
+         {"frontier_tier": tier}) for tier in P4_TIERS]
+    for name, extra, kw in cases:
+        out = {}
+        for packed4 in (None, False):
+            kernels.reset_launches()
+            bst = lt.Booster(dict(P4_PARAMS, **extra), ds, packed4=packed4,
+                             **kw)
+            bst.add_valid(va, "holdout")
+            for _ in range(P4_ITERS):
+                bst.update()
+            if packed4 is None:
+                launches[name] = dict(kernels.LAUNCHES)
+            out[packed4] = bst
+        a, b = out[None].gbdt, out[False].gbdt
+        require(a.packed4 and not b.packed4, "packed4 parity: the layouts")
+        require(out[None].model_to_string() == out[False].model_to_string()
+                and torch.equal(a.train_score, b.train_score)
+                and np.array_equal(a.valid_scores[0], b.valid_scores[0]),
+                f"packed4 parity {name}: packed differs from unpacked")
+        # P1 over the packed training bins = the host walk over the bins
+        tree = a.models[-1]
+        card = a._card_delta(a.train_set, [tree], [0])[0].cpu().numpy()
+        host = tree.predict_binned(a.train_set.bins_t,
+                                   a.train_set.feature_infos())
+        require(np.array_equal(card, host), f"packed4 parity {name}: P1 "
+                "over the packed bins differs from the host walk")
+        texts[name] = out[None].model_to_string().split("parameters:")[0]
+        rec[name] = {"rows": P4_PARITY_ROWS, "model_text_equal": True,
+                     "splits": int(sum(t.num_leaves - 1 for t in a.models)),
+                     "packed_iter_s": list(a.iter_seconds),
+                     "unpacked_iter_s": list(b.iter_seconds)}
+        log(f"packed4 parity {name}: {P4_PARITY_ROWS} rows, packed = "
+            f"unpacked bit for bit ({rec[name]['splits']} splits, model "
+            f"text, scores); P1 over the packed bins = the host walk")
+        del out, a, b
+    # "k1" shares "off"'s subtraction: the same model text
+    require(texts["frontier_k1"] == texts["frontier_off"],
+            "packed4 parity: frontier tier k1 grew another model than off")
+    for tier, kname in FRONTIER_TIER_KERNEL.items():
+        run = launches[f"frontier_{tier}"]
+        require(run[kname + "_packed4"] > 0 and run[kname] == 0,
+                f"packed4 frontier {tier}: {kname} was not launched packed")
+    # card = CPU at 200k rows
+    Xp, yp = X[:PARITY_ROWS], y[:PARITY_ROWS]
+    params = dict(P4_PARAMS, num_leaves=31, metric=[])
+    out = {}
+    for dev in ("cuda", "cpu"):
+        ds = lt.Dataset(Xp, yp)
+        t0 = time.perf_counter()
+        bst = lt.Booster(dict(params, device_type=dev), ds)
+        for _ in range(P4_ITERS):
+            bst.update()
+        require(bst.gbdt.packed4, f"packed4 parity {dev}: not packed")
+        out[dev] = (bst.gbdt, time.perf_counter() - t0)
+    n, ties = _same_splits_near_tie(out["cuda"][0].models,
+                                    out["cpu"][0].models, "packed4 card/CPU")
+    diff = float(np.abs(out["cuda"][0].train_score.cpu().numpy()
+                        - out["cpu"][0].train_score.numpy()).max())
+    require(n >= 60 and diff < 1e-3, f"packed4 card/CPU: {n} splits "
+            f"compared, scores differ by {diff}")
+    rec["card_cpu"] = {"rows": PARITY_ROWS, "splits_compared": n,
+                       "near_ties": ties, "max_score_diff": diff,
+                       "card_s": out["cuda"][1], "cpu_s": out["cpu"][1]}
+    log(f"packed4 parity: card = CPU at {PARITY_ROWS} rows on {n} splits "
+        f"(near ties {ties}), scores within {diff:.3g}")
+    return {f"parity_{k}": v for k, v in launches.items()}, rec
 
 
 def main() -> int:
@@ -4321,6 +4892,10 @@ def main() -> int:
     sparse_launches, expo["sparse_at_scale"] = sparse_at_scale_phase()
     expo["phase_wall_s"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    p4_launches, packed4, p4_kernels = packed4_phase()
+    packed4["phase_wall_s"] = time.perf_counter() - t0
+    log(f"packed4: phase took {packed4['phase_wall_s']:.1f} s")
     session["launches"] = session_launches
     session["phase_wall_s"] = t_session
     require(session_launches["histogram_segment_routed_step"] > 0
@@ -4336,8 +4911,34 @@ def main() -> int:
              "lambdarank": rank_launches, "goss_regression": goss_launches,
              "modes": modes_launches, "predict": predict_launches,
              "expo": expo_launches, "sparse_at_scale": sparse_launches}
+    paths.update({f"packed4_{k}": v for k, v in p4_launches.items()})
     records = []
     for name in kernels.KERNEL_NAMES:
+        if name.endswith(kernels.PACKED4_SUFFIX):
+            # phase 25's row: the kernel's 4-bit packed input mode
+            base = name[:-len(kernels.PACKED4_SUFFIX)]
+            path = "packed4_" + {
+                "histogram_segment": "unfused",
+                "histogram_segment_step": "unfused",
+                "route_window_step": "unfused",
+                "route_window": "frontier",
+                "histogram_all": "multiclass",
+                "histogram_frontier": "frontier",
+                "histogram_frontier_routed": "parity_frontier_k1",
+                "histogram_frontier_fusedk": "parity_frontier_fusedk",
+            }.get(base, "fused")
+            src, replaces = SOURCES[base]
+            rec = {"name": name, "route": "cuda", "source": src,
+                   "replaces": replaces, "variant": "packed4",
+                   "launches": paths[path][name], "path": path,
+                   "launches_by_path": {k: v[name] for k, v in paths.items()
+                                        if v[name]}}
+            rec.update(p4_kernels[base])
+            records.append(rec)
+            require(rec["launches"] > 0,
+                    f"{name} was not launched on its path")
+            log(json.dumps(rec))
+            continue
         r = dict(results.get(name, {}))
         r.update(mc_results.get(name, {}))
         r.update(fk_results.get(name, {}))
@@ -4397,6 +4998,7 @@ def main() -> int:
     log(json.dumps({"goss_regression": goss, "modes": modes}))
     log(json.dumps({"predict": predict}))
     log(json.dumps({"expo_onehot": expo}))
+    log(json.dumps({"packed4": packed4}))
     log(json.dumps({"kernels": records}))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(card)

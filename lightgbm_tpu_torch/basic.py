@@ -317,14 +317,17 @@ class Booster:
     route/histogram kernel pair instead of the fused one;
     ``frontier_tier`` ("off", "k1" or "fusedk"; None = the default for the
     frontier width) picks the frontier grower's histogram launch under
-    ``tpu_tree_impl=frontier``."""
+    ``tpu_tree_impl=frontier``; ``packed4`` the training bins' layout
+    (None: two columns a byte where the bin axis is at most 16; False or
+    True forces it, models/gbdt.py GBDT)."""
 
     def __init__(self, params: Optional[Dict] = None,
                  train_set: Optional[Dataset] = None,
                  model_file: Optional[str] = None,
                  model_str: Optional[str] = None,
                  fused_route: bool = True,
-                 frontier_tier: Optional[str] = None):
+                 frontier_tier: Optional[str] = None,
+                 packed4: Optional[bool] = None):
         self.params = dict(params or {})
         # the iteration predict uses by default; -1 = none (engine.train
         # sets it: the early stop's best, else every iteration)
@@ -344,7 +347,8 @@ class Booster:
             self.gbdt = create_boosting(self.config, train_set._handle,
                                         self.objective,
                                         fused_route=fused_route,
-                                        frontier_tier=frontier_tier)
+                                        frontier_tier=frontier_tier,
+                                        packed4=packed4)
         elif model_file is not None or model_str is not None:
             if model_file is not None:
                 with open(model_file) as fh:

@@ -26,6 +26,7 @@ import torch
 
 from ..config import Config
 from ..models.tree import PARALLEL_ROWS, _walk_workers
+from ..ops.histogram import pack_bins_4bit
 from ..utils.log import LightGBMError, check, log_warning
 from .binning import BIN_TYPE_CATEGORICAL, BIN_TYPE_NUMERICAL, BinMapper
 from .bundle import BundleSpec, build_bundle, quantize_bundled
@@ -413,17 +414,25 @@ class TorchDataset:
         f = int(self.used_feature_indices[used_feature])
         return self.bin_mappers[f].bin_to_value(int(bin_threshold))
 
-    def device_bins(self, row_multiple: int,
-                    device: torch.device) -> torch.Tensor:
+    def device_bins(self, row_multiple: int, device: torch.device,
+                    packed4: bool = False) -> torch.Tensor:
         """Column-major [G, Npad] uint8 on ``device``, rows padded with
         bin 0 to a multiple of ``row_multiple`` (the grower gives pad rows
-        zero weight).  Uploaded once per (row_multiple, device)."""
-        key = (row_multiple, str(device))
+        zero weight); ``packed4``: [ceil(G / 2), Npad], two <= 16-bin
+        columns a byte, packed on the host (ops/histogram.py
+        pack_bins_4bit), byte for byte the JAX package's
+        ``host_binned_T(row_multiple, packed4=True)``, so the card never
+        holds the unpacked matrix.  Uploaded once per (row_multiple,
+        device, packed4)."""
+        key = (row_multiple, str(device), bool(packed4))
         t = self._device_cache.get(key)
         if t is None:
             npad = -(-self.num_data // row_multiple) * row_multiple
-            t = torch.zeros((self.bins_t.shape[0], npad),
-                            dtype=torch.uint8, device=device)
-            t[:, :self.num_data] = torch.from_numpy(self.bins_t).to(device)
+            host = self.bins_t
+            if packed4:
+                host = pack_bins_4bit(host)
+            t = torch.zeros((host.shape[0], npad), dtype=torch.uint8,
+                            device=device)
+            t[:, :self.num_data] = torch.from_numpy(host).to(device)
             self._device_cache = {key: t}
         return t

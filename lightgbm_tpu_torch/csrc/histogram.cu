@@ -140,6 +140,25 @@
 // Features tile across gridDim.y and, when one feature's KT slots do not
 // fit, target slots across gridDim.z (lgbt_frontier_tiling).  Every tile
 // re-reads its rows' leaf ids; K7's ids are rewritten by tile (0, 0) only.
+//
+// The 4-bit packed layout (kPacked4; the TPU kernels' packed4 branch,
+// _accumulate_block's nibble unpack at pallas_histogram.py:329-334 and
+// _route_block_ids' parity at :1018; the reference's Dense4bitsBin,
+// dense_nbits_bin.hpp:42).  A dataset whose bin axis is at most 16 stores
+// two columns a byte: column 2i in the low nibble of byte row i, 2i + 1 in
+// the high one (ops/histogram.py:pack_bins_4bit), so the bins are
+// [ceil(G / 2), npad] and every kernel that reads them reads each byte and
+// picks the nibble itself (unpack_bin); no unpacked copy exists.  The
+// histogram kernels then take num_features = the logical columns (2 x the
+// byte rows, the pad nibble of an odd G included, as the TPU kernels'
+// F_log), and their tilings cut features in pairs, so a tile starts on a
+// byte and each byte the four-feature loads fetch feeds two features
+// (load_bins4).  A route's w[2] is the byte row and w[3] the column, whose
+// parity picks the nibble; K2's table is built over the 256 byte values
+// with the nibble already picked, so its row loop is unchanged.  The bound
+// falls with the bytes: at HIGGS (28 columns) K1 reads G / 2 + 14 = 28 B a
+// row instead of 42; the adds, 16 bins where there were 64, meet more
+// often on one address.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -237,6 +256,45 @@ __device__ __forceinline__ int routed_leaf(const RouteDesc& r, int g,
   return lid == r.w[0] && goes_right(r, g) == 1 ? r.w[1] : lid;
 }
 
+// The bin of logical column `col` from the byte that holds it: the byte
+// itself, or (kPacked4) its low nibble for an even column and its high
+// nibble for an odd one (ops/histogram.py:unpack_nibble).  Every read of
+// training bins goes through it.
+template <bool kPacked4>
+__device__ __forceinline__ int unpack_bin(int byte, int col) {
+  if (!kPacked4) return byte;
+  return (col & 1) ? byte >> 4 : byte & 15;
+}
+
+// The bins of columns c .. c + 3 of one row into nb (num_bins, which no
+// cell takes, from column `end` on), `brow` pointing at the row in the
+// byte row of column 0.  Unpacked, a byte a column; packed, c even (the
+// tilings cut features in pairs), one byte feeds two columns.
+template <bool kPacked4>
+__device__ __forceinline__ void load_bins4(const uint8_t* __restrict__ brow,
+                                           long long npad, int c, int end,
+                                           int num_bins, int nb[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (kPacked4 && (j & 1)) continue;
+    const int col = c + j;
+    const int byte = col < end
+        ? (int)brow[(long long)(kPacked4 ? col >> 1 : col) * npad] : 0;
+    nb[j] = col < end ? unpack_bin<kPacked4>(byte, col) : num_bins;
+    if (kPacked4)
+      nb[j + 1] = col + 1 < end ? unpack_bin<kPacked4>(byte, col + 1)
+                                : num_bins;
+  }
+}
+
+// The split column's bin of a row, from the route's byte row w[2] (frow:
+// that row of the bin matrix) and, packed, the parity of its column w[3].
+template <bool kPacked4>
+__device__ __forceinline__ int route_bin(const uint8_t* __restrict__ frow,
+                                         const RouteDesc& r, long long row) {
+  return unpack_bin<kPacked4>(frow[row], r.w[3]);
+}
+
 // A split's step block, as the segment grower's device loop writes it
 // (ops/histogram.py:pack_step): [start_block, n_blocks, target, route[19]]
 // int32 in device memory, the TPU kernels' scalar-prefetch operand
@@ -252,7 +310,7 @@ struct StepArgs {
 
 __device__ __forceinline__ StepArgs read_step(const int* __restrict__ step,
                                               long long npad, int block_rows,
-                                              int num_features) {
+                                              int bin_rows) {
   StepArgs a;
   const long long start = __ldg(step), n_blocks = __ldg(step + 1);
   a.row_lo = min(max(start, 0ll) * block_rows, npad);
@@ -260,7 +318,7 @@ __device__ __forceinline__ StepArgs read_step(const int* __restrict__ step,
   a.target = __ldg(step + 2);
 #pragma unroll
   for (int k = 0; k < kRouteWords; ++k) a.route.w[k] = __ldg(step + 3 + k);
-  if (a.route.w[2] < 0 || a.route.w[2] >= num_features) {
+  if (a.route.w[2] < 0 || a.route.w[2] >= bin_rows) {
     a.route.w[0] = -1;
     a.route.w[2] = 0;
   }
@@ -295,8 +353,8 @@ __device__ __forceinline__ unsigned carry_of(unsigned old, unsigned add) {
 // adds their features, a row a lane.  So the adds run with full warps
 // however sparse the matches are (half the listed rows at the HIGGS
 // round's K6), and no warp waits for another; the order of the adds moves
-// no bit.
-template <bool kRouted>
+// no bit.  kPacked4: two columns a byte (unpack_bin).
+template <bool kRouted, bool kPacked4>
 __global__ void __launch_bounds__(kFrontierThreads, kFrontierBlocksPerSm)
 frontier_hist_kernel(const uint8_t* __restrict__ bins,
                      const uint16_t* __restrict__ w8, int* leaf_id,
@@ -358,7 +416,8 @@ frontier_hist_kernel(const uint8_t* __restrict__ bins,
 
   const double scale_g = (double)scales[0];
   const double scale_h = (double)scales[1];
-  const uint8_t* tile = bins + (long long)f0 * npad;
+  // the tile's first byte row (packed: f0 is even)
+  const uint8_t* tile = bins + (long long)(kPacked4 ? f0 >> 1 : f0) * npad;
   // adds queued row q's features into the shared histogram; four features
   // at a time: their bins loaded together, their low adds issued before
   // the high adds that wait on them
@@ -375,16 +434,13 @@ frontier_hist_kernel(const uint8_t* __restrict__ bins,
     const uint8_t* brow = tile + row;
     const int base = q_slot[q] * slot_cells;
     for (int f = 0; f < nf; f += 4) {
-      int k[4];
+      int k[4], nb[4];
       unsigned og[4], oh[4];
+      load_bins4<kPacked4>(brow, npad, f, nf, num_bins, nb);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        k[j] = -1;
-        if (f + j < nf) {
-          const int b = brow[(long long)(f + j) * npad];
-          // the TPU one-hot drops bins >= num_bins too
-          if (b < num_bins) k[j] = base + (f + j) * num_bins + b;
-        }
+        // the TPU one-hot drops bins >= num_bins too
+        k[j] = nb[j] < num_bins ? base + (f + j) * num_bins + nb[j] : -1;
       }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -420,8 +476,9 @@ frontier_hist_kernel(const uint8_t* __restrict__ bins,
       if (kRouted && (unsigned)lid < (unsigned)n_ids && s_route[lid] >= 0) {
         const RouteDesc& desc = *reinterpret_cast<const RouteDesc*>(
             s_routes + s_route[lid] * kRouteWords);
-        const int moved = routed_leaf(desc, bins[(long long)desc.w[2] * npad
-                                                 + row], lid);
+        const int moved = routed_leaf(
+            desc, route_bin<kPacked4>(bins + (long long)desc.w[2] * npad,
+                                      desc, row), lid);
         // idempotent (a moved row matches no route), so a tile that
         // reads an id tile (0, 0) already rewrote computes the same id
         if (moved != lid && writer) leaf_id[row] = moved;
@@ -513,7 +570,8 @@ frontier_hist_kernel(const uint8_t* __restrict__ bins,
 //
 // Shared memory: the warps' row queues, then five u32 planes (g lo, g hi,
 // h lo, h hi, count) of the tile's nf x num_bins cells, feature-major.
-template <bool kRouted>
+// kPacked4: two columns a byte (unpack_bin).
+template <bool kRouted, bool kPacked4>
 __device__ __forceinline__ void
 segment_window(const uint8_t* __restrict__ bins,
                const uint16_t* __restrict__ w8, int* leaf_id,
@@ -541,7 +599,8 @@ segment_window(const uint8_t* __restrict__ bins,
 
   const double scale_g = (double)scales[0];
   const double scale_h = (double)scales[1];
-  const uint8_t* tile = bins + (long long)f0 * npad;
+  // the tile's first byte row (packed: f0 is even)
+  const uint8_t* tile = bins + (long long)(kPacked4 ? f0 >> 1 : f0) * npad;
   // adds the features of queued rows [0, n), a row a lane, so the lanes
   // of a warp add one feature at a time; four features at a time, their
   // low adds issued before the high adds that wait on them, while the
@@ -560,9 +619,7 @@ segment_window(const uint8_t* __restrict__ bins,
     const uint8_t* brow = tile + row;
     // past the tile, a bin of num_bins: no cell
     int nb[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      nb[j] = j < nf ? brow[(long long)j * npad] : num_bins;
+    load_bins4<kPacked4>(brow, npad, 0, nf, num_bins, nb);
     for (int f = 0; f < nf; f += 4) {
       int k[4];
       unsigned og[4], oh[4];
@@ -570,9 +627,8 @@ segment_window(const uint8_t* __restrict__ bins,
       for (int j = 0; j < 4; ++j) {
         // the TPU one-hot drops bins >= num_bins too
         k[j] = nb[j] < num_bins ? (f + j) * num_bins + nb[j] : -1;
-        nb[j] = f + 4 + j < nf ? brow[(long long)(f + 4 + j) * npad]
-                               : num_bins;
       }
+      load_bins4<kPacked4>(brow, npad, f + 4, nf, num_bins, nb);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         if (k[j] < 0) continue;
@@ -599,7 +655,9 @@ segment_window(const uint8_t* __restrict__ bins,
     if (row < row_hi) {
       int lid = leaf_id[row];
       if (kRouted) {
-        const int moved = routed_leaf(route, frow[row], lid);
+        const int moved = routed_leaf(route,
+                                      route_bin<kPacked4>(frow, route, row),
+                                      lid);
         // the route is idempotent (moved rows stop matching route.w[0]),
         // so a tile reading an id tile 0 already rewrote agrees
         if (moved != lid && writer) leaf_id[row] = moved;
@@ -675,7 +733,7 @@ segment_window(const uint8_t* __restrict__ bins,
 // a step block in device memory (segment_step_kernel), so that a split's
 // step needs no value from the host (read_step).  The same body, so the
 // two give the same bits on the same window and route.
-template <bool kRouted>
+template <bool kRouted, bool kPacked4>
 __global__ void __launch_bounds__(kSegThreads, 1)
 segment_window_kernel(const uint8_t* __restrict__ bins,
                       const uint16_t* __restrict__ w8, int* leaf_id,
@@ -685,12 +743,13 @@ segment_window_kernel(const uint8_t* __restrict__ bins,
                       RouteDesc route, unsigned long long* __restrict__ acc,
                       unsigned int* __restrict__ arrivals,
                       float* __restrict__ out) {
-  segment_window<kRouted>(bins, w8, leaf_id, npad, num_features, num_bins,
-                          tile_features, row_lo, row_hi, target, scales,
-                          route, acc, arrivals, out);
+  segment_window<kRouted, kPacked4>(bins, w8, leaf_id, npad, num_features,
+                                    num_bins, tile_features, row_lo, row_hi,
+                                    target, scales, route, acc, arrivals,
+                                    out);
 }
 
-template <bool kRouted>
+template <bool kRouted, bool kPacked4>
 __global__ void __launch_bounds__(kSegThreads, 1)
 segment_step_kernel(const uint8_t* __restrict__ bins,
                     const uint16_t* __restrict__ w8, int* leaf_id,
@@ -701,10 +760,13 @@ segment_step_kernel(const uint8_t* __restrict__ bins,
                     unsigned long long* __restrict__ acc,
                     unsigned int* __restrict__ arrivals,
                     float* __restrict__ out) {
-  const StepArgs a = read_step(step, npad, block_rows, num_features);
-  segment_window<kRouted>(bins, w8, leaf_id, npad, num_features, num_bins,
-                          tile_features, a.row_lo, a.row_hi, a.target, scales,
-                          a.route, acc, arrivals, out);
+  // packed, the logical columns are twice the byte rows
+  const StepArgs a = read_step(step, npad, block_rows,
+                               kPacked4 ? num_features / 2 : num_features);
+  segment_window<kRouted, kPacked4>(bins, w8, leaf_id, npad, num_features,
+                                    num_bins, tile_features, a.row_lo,
+                                    a.row_hi, a.target, scales, a.route, acc,
+                                    arrivals, out);
 }
 
 // K5.  One launch covers every row x the feature tile blockIdx.y x the set
@@ -719,7 +781,9 @@ segment_step_kernel(const uint8_t* __restrict__ bins,
 // K1's add loop (segment_window_kernel: four features at a time, their
 // low adds before the high adds that wait on them, while the next four
 // features' bins load); a row's bins come from device memory for the
-// first set and from the cache for the others.
+// first set and from the cache for the others.  kPacked4: two columns a
+// byte (unpack_bin).
+template <bool kPacked4>
 __global__ void __launch_bounds__(kSegThreads, 1)
 all_hist_kernel(const uint8_t* __restrict__ bins,
                 const uint16_t* __restrict__ w8, long long npad,
@@ -745,7 +809,8 @@ all_hist_kernel(const uint8_t* __restrict__ bins,
   for (int k = threadIdx.x; k < 5 * cells; k += blockDim.x) g_lo[k] = 0u;
   __syncthreads();
 
-  const uint8_t* tile = bins + (long long)f0 * npad;
+  // the tile's first byte row (packed: f0 is even)
+  const uint8_t* tile = bins + (long long)(kPacked4 ? f0 >> 1 : f0) * npad;
   const long long n_steps = (npad + kSegThreads - 1) / kSegThreads;
   for (long long c = blockIdx.x; c < n_steps; c += gridDim.x) {
     const long long row = c * kSegThreads + threadIdx.x;
@@ -766,9 +831,7 @@ all_hist_kernel(const uint8_t* __restrict__ bins,
       const int base = s * set_cells;
       // past the tile, a bin of num_bins: no cell
       int nb[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        nb[j] = j < nf ? brow[(long long)j * npad] : num_bins;
+      load_bins4<kPacked4>(brow, npad, 0, nf, num_bins, nb);
       for (int f = 0; f < nf; f += 4) {
         int k[4];
         unsigned og[4], oh[4];
@@ -776,9 +839,8 @@ all_hist_kernel(const uint8_t* __restrict__ bins,
         for (int j = 0; j < 4; ++j) {
           // the TPU one-hot drops bins >= num_bins too
           k[j] = nb[j] < num_bins ? base + (f + j) * num_bins + nb[j] : -1;
-          nb[j] = f + 4 + j < nf ? brow[(long long)(f + 4 + j) * npad]
-                                 : num_bins;
         }
+        load_bins4<kPacked4>(brow, npad, f + 4, nf, num_bins, nb);
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           if (k[j] < 0) continue;
@@ -861,8 +923,10 @@ all_hist_kernel(const uint8_t* __restrict__ bins,
 // picks vec_lo and vec_hi so that both arrays are aligned there and the
 // span is a whole number of steps; the rows outside it (fewer than
 // 2 kRows, or the whole window where the two arrays cannot be aligned
-// together) are routed one a thread.
-template <int kRows, bool kTable>
+// together) are routed one a thread.  kPacked4: frow holds two columns a
+// byte, and a row's bin is the nibble of the route's column (route_bin);
+// the table is over the 256 byte values, each with its nibble picked.
+template <int kRows, bool kTable, bool kPacked4>
 __device__ __forceinline__ void
 route_window(const uint8_t* __restrict__ frow, int* __restrict__ leaf_id,
              long long row_lo, long long row_hi, long long vec_lo,
@@ -872,13 +936,17 @@ route_window(const uint8_t* __restrict__ frow, int* __restrict__ leaf_id,
   __shared__ unsigned s_right[8];
   if (kTable) {
     const unsigned word = __ballot_sync(
-        0xffffffffu, goes_right(route, (int)threadIdx.x) == 1);
+        0xffffffffu,
+        goes_right(route, unpack_bin<kPacked4>((int)threadIdx.x,
+                                               route.w[3])) == 1);
     if ((threadIdx.x & 31u) == 0) s_right[threadIdx.x >> 5] = word;
     __syncthreads();
   }
   const int leaf = route.w[0], new_leaf = route.w[1];
+  // g: the row's byte
   auto route_row = [&](int g, int lid) {
-    if (!kTable) return routed_leaf(route, g, lid);
+    if (!kTable)
+      return routed_leaf(route, unpack_bin<kPacked4>(g, route.w[3]), lid);
     return lid == leaf && ((s_right[g >> 5] >> (g & 31)) & 1u) ? new_leaf
                                                               : lid;
   };
@@ -956,27 +1024,29 @@ __host__ __device__ inline void route_span(const uint8_t* frow,
 // span picked by the host (route_window_kernel), or read by every block at
 // entry from a split's step block in device memory, the span computed from
 // the row_lo read there (route_step_kernel).
-template <int kRows, bool kTable>
+template <int kRows, bool kTable, bool kPacked4>
 __global__ void __launch_bounds__(kRouteThreads)
 route_window_kernel(const uint8_t* __restrict__ frow,
                     int* __restrict__ leaf_id, long long row_lo,
                     long long row_hi, long long vec_lo, long long vec_hi,
                     RouteDesc route) {
-  route_window<kRows, kTable>(frow, leaf_id, row_lo, row_hi, vec_lo, vec_hi,
-                              route);
+  route_window<kRows, kTable, kPacked4>(frow, leaf_id, row_lo, row_hi,
+                                        vec_lo, vec_hi, route);
 }
 
-template <int kRows, bool kTable>
+// bin_rows: the bin matrix's byte rows (the columns, or half the logical
+// columns packed)
+template <int kRows, bool kTable, bool kPacked4>
 __global__ void __launch_bounds__(kRouteThreads)
 route_step_kernel(const uint8_t* __restrict__ bins, int* __restrict__ leaf_id,
-                  long long npad, int num_features, int block_rows,
+                  long long npad, int bin_rows, int block_rows,
                   const int* __restrict__ step) {
-  const StepArgs a = read_step(step, npad, block_rows, num_features);
+  const StepArgs a = read_step(step, npad, block_rows, bin_rows);
   const uint8_t* frow = bins + (long long)a.route.w[2] * npad;
   long long vec_lo, vec_hi;
   route_span<kRows>(frow, leaf_id, a.row_lo, a.row_hi, &vec_lo, &vec_hi);
-  route_window<kRows, kTable>(frow, leaf_id, a.row_lo, a.row_hi, vec_lo,
-                              vec_hi, a.route);
+  route_window<kRows, kTable, kPacked4>(frow, leaf_id, a.row_lo, a.row_hi,
+                                        vec_lo, vec_hi, a.route);
 }
 
 int sm_count() {
@@ -1019,7 +1089,7 @@ int frontier_smem_budget() {
 // the rows are few), so each block flushes its shared histogram once.
 // Makes no call that a CUDA graph's capture refuses.  Returns a CUDA
 // error.
-template <bool kRouted>
+template <bool kRouted, bool kPacked4>
 int launch_frontier(int tiles_y, int tiles_z, size_t smem, cudaStream_t s,
                     const uint8_t* bins, const uint16_t* w8, int* leaf_id,
                     long long npad, int num_features, int num_bins, int ft,
@@ -1029,7 +1099,7 @@ int launch_frontier(int tiles_y, int tiles_z, size_t smem, cudaStream_t s,
   static bool opted_in = false;
   if (!opted_in) {
     const cudaError_t e = cudaFuncSetAttribute(
-        frontier_hist_kernel<kRouted>,
+        frontier_hist_kernel<kRouted, kPacked4>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, frontier_smem_budget());
     if (e != cudaSuccess) return (int)e;
     opted_in = true;
@@ -1043,7 +1113,8 @@ int launch_frontier(int tiles_y, int tiles_z, size_t smem, cudaStream_t s,
   // the tiles' arrival counters follow the histogram cells in the scratch
   const long long cells3 = 3ll * p.n_targets * num_features * num_bins;
   dim3 grid((unsigned)bx, (unsigned)tiles_y, (unsigned)tiles_z);
-  frontier_hist_kernel<kRouted><<<grid, kFrontierThreads, smem, s>>>(
+  frontier_hist_kernel<kRouted, kPacked4><<<grid, kFrontierThreads, smem,
+                                             s>>>(
       bins, w8, leaf_id, npad, num_features, num_bins, ft, tt, block_list,
       n_blocks, block_rows, scales,
       reinterpret_cast<unsigned long long*>(acc),
@@ -1056,8 +1127,9 @@ int launch_frontier(int tiles_y, int tiles_z, size_t smem, cudaStream_t s,
 // window, at most one wave over the tiles (one block a tile when the
 // window is empty: it writes the zeros).  Makes no call that a CUDA
 // graph's capture refuses.  Returns a CUDA error.
-template <bool kRouted>
-int launch_segment(int tiles, int ft, size_t smem, cudaStream_t s, const uint8_t* bins, const uint16_t* w8,
+template <bool kRouted, bool kPacked4>
+int launch_segment(int tiles, int ft, size_t smem, cudaStream_t s,
+                   const uint8_t* bins, const uint16_t* w8,
                    int* leaf_id, long long npad, int num_features,
                    int num_bins, long long row_lo, long long row_hi,
                    int target, const float* scales, const RouteDesc& route,
@@ -1065,7 +1137,7 @@ int launch_segment(int tiles, int ft, size_t smem, cudaStream_t s, const uint8_t
   static bool opted_in = false;
   if (!opted_in) {
     const cudaError_t e = cudaFuncSetAttribute(
-        segment_window_kernel<kRouted>,
+        segment_window_kernel<kRouted, kPacked4>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, frontier_smem_budget());
     if (e != cudaSuccess) return (int)e;
     opted_in = true;
@@ -1077,7 +1149,7 @@ int launch_segment(int tiles, int ft, size_t smem, cudaStream_t s, const uint8_t
   // the tiles' arrival counters follow the histogram cells in the scratch
   const long long cells3 = 3ll * num_features * num_bins;
   dim3 grid((unsigned)bx, (unsigned)tiles);
-  segment_window_kernel<kRouted><<<grid, kSegThreads, smem, s>>>(
+  segment_window_kernel<kRouted, kPacked4><<<grid, kSegThreads, smem, s>>>(
       bins, w8, leaf_id, npad, num_features, num_bins, ft, row_lo, row_hi,
       target, scales, route,
       reinterpret_cast<unsigned long long*>(scratch),
@@ -1089,13 +1161,14 @@ int launch_segment(int tiles, int ft, size_t smem, cudaStream_t s, const uint8_t
 // one wave (the blocks an SM that fit, once asked, on every SM), and one
 // block for an empty window, so a call is always one launch.  Makes no
 // call that a CUDA graph's capture refuses.  Returns a CUDA error.
-template <int kRows, bool kTable>
+template <int kRows, bool kTable, bool kPacked4>
 int launch_route(const uint8_t* frow, int* leaf_id, long long row_lo,
                  long long row_hi, const RouteDesc& route, cudaStream_t s) {
   static int per_sm = 0;
   if (per_sm == 0) {
     const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, route_window_kernel<kRows, kTable>, kRouteThreads, 0);
+        &per_sm, route_window_kernel<kRows, kTable, kPacked4>,
+        kRouteThreads, 0);
     if (e != cudaSuccess) return (int)e;
     if (per_sm < 1) per_sm = 1;
   }
@@ -1107,9 +1180,9 @@ int launch_route(const uint8_t* frow, int* leaf_id, long long row_lo,
   const long long wave = (long long)per_sm * sm_count();
   if (blocks > wave) blocks = wave;
   if (blocks < 1) blocks = 1;
-  route_window_kernel<kRows, kTable><<<(unsigned)blocks, kRouteThreads, 0,
-                                       s>>>(frow, leaf_id, row_lo, row_hi,
-                                            vec_lo, vec_hi, route);
+  route_window_kernel<kRows, kTable, kPacked4><<<(unsigned)blocks,
+                                                 kRouteThreads, 0, s>>>(
+      frow, leaf_id, row_lo, row_hi, vec_lo, vec_hi, route);
   return 0;
 }
 
@@ -1119,7 +1192,7 @@ int launch_route(const uint8_t* frow, int* leaf_id, long long row_lo,
 // blocks stride over the window they read; one with no rows flushes
 // nothing and still arrives at its tile's counter, so an empty window
 // writes zeros.  Makes no call that a CUDA graph's capture refuses.
-template <bool kRouted>
+template <bool kRouted, bool kPacked4>
 int launch_segment_step(int tiles, int ft, size_t smem, cudaStream_t s,
                         const uint8_t* bins, const uint16_t* w8,
                         int* leaf_id, long long npad, int num_features,
@@ -1128,7 +1201,7 @@ int launch_segment_step(int tiles, int ft, size_t smem, cudaStream_t s,
   static bool opted_in = false;
   if (!opted_in) {
     const cudaError_t e = cudaFuncSetAttribute(
-        segment_step_kernel<kRouted>,
+        segment_step_kernel<kRouted, kPacked4>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, frontier_smem_budget());
     if (e != cudaSuccess) return (int)e;
     opted_in = true;
@@ -1136,7 +1209,7 @@ int launch_segment_step(int tiles, int ft, size_t smem, cudaStream_t s,
   const long long cap = sm_count() / tiles > 0 ? sm_count() / tiles : 1;
   const long long cells3 = 3ll * num_features * num_bins;
   dim3 grid((unsigned)cap, (unsigned)tiles);
-  segment_step_kernel<kRouted><<<grid, kSegThreads, smem, s>>>(
+  segment_step_kernel<kRouted, kPacked4><<<grid, kSegThreads, smem, s>>>(
       bins, w8, leaf_id, npad, num_features, num_bins, ft, block_rows, step,
       scales, reinterpret_cast<unsigned long long*>(scratch),
       reinterpret_cast<unsigned int*>(scratch + cells3), out);
@@ -1145,22 +1218,39 @@ int launch_segment_step(int tiles, int ft, size_t smem, cudaStream_t s,
 
 // Launches K2's step kernel over the occupancy wave (launch_route's cap),
 // whatever the window.
-template <int kRows, bool kTable>
+template <int kRows, bool kTable, bool kPacked4>
 int launch_route_step(const uint8_t* bins, int* leaf_id, long long npad,
-                      int num_features, int block_rows, const int* step,
+                      int bin_rows, int block_rows, const int* step,
                       cudaStream_t s) {
   static int per_sm = 0;
   if (per_sm == 0) {
     const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, route_step_kernel<kRows, kTable>, kRouteThreads, 0);
+        &per_sm, route_step_kernel<kRows, kTable, kPacked4>, kRouteThreads,
+        0);
     if (e != cudaSuccess) return (int)e;
     if (per_sm < 1) per_sm = 1;
   }
   const long long wave = (long long)per_sm * sm_count();
-  route_step_kernel<kRows, kTable><<<(unsigned)wave, kRouteThreads, 0, s>>>(
-      bins, leaf_id, npad, num_features, block_rows, step);
+  route_step_kernel<kRows, kTable, kPacked4><<<(unsigned)wave, kRouteThreads,
+                                               0, s>>>(
+      bins, leaf_id, npad, bin_rows, block_rows, step);
   return 0;
 }
+
+// Features a tile of `units` feature units of `per_unit` bytes each within
+// `budget` bytes: as many as fit, spread evenly over the fewest tiles, in
+// features (unit features a unit).  0 when not even one unit fits.
+long long even_tile(long long units, long long per_unit, long long budget,
+                    int unit) {
+  if (units < 1 || per_unit < 1 || budget < per_unit) return 0;
+  long long most = budget / per_unit;
+  if (most > units) most = units;
+  return div_up(units, div_up(units, most)) * unit;
+}
+
+// The feature unit of a tiling: a pair of columns (one byte row) packed, so
+// that a tile starts on a byte; one column unpacked.
+int feature_unit(int packed4) { return packed4 != 0 ? 2 : 1; }
 
 }  // namespace
 
@@ -1172,56 +1262,73 @@ const char* lgbt_error_string(int code) {
 
 // K1/K3 tiling: out[0] features a tile, out[1] dynamic shared memory a
 // block (bytes): as many features as fit the budget (K6/K7's: one block
-// an SM), spread evenly over the fewest tiles.  Returns 0, or
-// cudaErrorInvalidValue when not even one feature fits.
-int lgbt_segment_tiling(int num_features, int num_bins, int* out) {
+// an SM), spread evenly over the fewest tiles; packed4 (two columns a
+// byte: num_features are the logical columns, an even count) cuts them
+// in pairs.  Returns 0, or cudaErrorInvalidValue when not even one
+// feature (pair) fits.
+int lgbt_segment_tiling(int num_features, int num_bins, int packed4,
+                        int* out) {
+  const int unit = feature_unit(packed4);
   const long long per_feature = (long long)num_bins * kSegCellBytes;
-  const long long budget = frontier_smem_budget() - kSegQueueBytes;
-  if (num_features < 1 || num_bins < 1 || budget < per_feature)
-    return (int)cudaErrorInvalidValue;
-  long long most = budget / per_feature;
-  if (most > num_features) most = num_features;
-  const int ft = (int)div_up(num_features, div_up(num_features, most));
-  out[0] = ft;
+  const long long ft = even_tile(
+      num_features < 1 || num_bins < 1 ? 0 : div_up(num_features, unit),
+      per_feature * unit, frontier_smem_budget() - kSegQueueBytes, unit);
+  if (ft == 0) return (int)cudaErrorInvalidValue;
+  out[0] = (int)ft;
   out[1] = (int)(kSegQueueBytes + ft * per_feature);
   return 0;
 }
 
 // K1 (route == NULL) or K3 (route = host pointer to 19 ints), one kernel
-// launch and no other operation on the stream.  bins [F, npad] u8, w8 [8,
-// npad] bf16 bits, leaf_id [npad] i32 (updated in place by K3 over the
-// window), scales [2] f32 on the device; scratch = the wrapper's
-// persistent i64 buffer, all zero, of F*B*3 words plus one u32 a feature
-// tile, left all zero; out [F, B, 3] f32.  An empty window writes zeros.
-// Returns a CUDA error code (0 on success).
+// launch and no other operation on the stream.  bins [F, npad] u8, or
+// packed4 != 0 [F / 2, npad] u8 of two columns a byte (F the logical
+// columns, even), w8 [8, npad] bf16 bits, leaf_id [npad] i32 (updated in
+// place by K3 over the window), scales [2] f32 on the device; scratch =
+// the wrapper's persistent i64 buffer, all zero, of F*B*3 words plus one
+// u32 a feature tile, left all zero; out [F, B, 3] f32.  An empty window
+// writes zeros.  Returns a CUDA error code (0 on success).
 int lgbt_histogram_segment(const uint8_t* bins, const uint16_t* w8,
                            int* leaf_id, long long npad, int num_features,
                            int num_bins, long long row_lo, long long row_hi,
                            int target, const float* scales, const int* route,
-                           long long* scratch, float* out, void* stream) {
+                           long long* scratch, float* out, int packed4,
+                           void* stream) {
   // the queue holds a row as an i32
-  if (npad > 0x7fffffffll || row_lo < 0 || row_hi > npad)
+  if (npad > 0x7fffffffll || row_lo < 0 || row_hi > npad
+      || (packed4 != 0 && num_features % 2 != 0))
     return (int)cudaErrorInvalidValue;
   int tiling[2];
-  const int rc = lgbt_segment_tiling(num_features, num_bins, tiling);
+  const int rc = lgbt_segment_tiling(num_features, num_bins, packed4, tiling);
   if (rc != 0) return rc;
   const int tiles = (int)div_up(num_features, tiling[0]);
   if (row_hi < row_lo) row_hi = row_lo;
   cudaStream_t s = (cudaStream_t)stream;
   RouteDesc desc = {};
-  int e;
-  if (route != nullptr) {
+  if (route != nullptr)
     for (int k = 0; k < kRouteWords; ++k) desc.w[k] = route[k];
-    e = launch_segment<true>(tiles, tiling[0], (size_t)tiling[1], s, bins,
-                             w8, leaf_id, npad, num_features, num_bins,
-                             row_lo, row_hi, target, scales, desc, scratch,
-                             out);
-  } else {
-    e = launch_segment<false>(tiles, tiling[0], (size_t)tiling[1], s, bins,
-                              w8, leaf_id, npad, num_features, num_bins,
-                              row_lo, row_hi, target, scales, desc, scratch,
-                              out);
-  }
+  const size_t smem = (size_t)tiling[1];
+  const int ft = tiling[0];
+  int e;
+  if (route != nullptr && packed4 != 0)
+    e = launch_segment<true, true>(tiles, ft, smem, s, bins, w8, leaf_id,
+                                   npad, num_features, num_bins, row_lo,
+                                   row_hi, target, scales, desc, scratch,
+                                   out);
+  else if (route != nullptr)
+    e = launch_segment<true, false>(tiles, ft, smem, s, bins, w8, leaf_id,
+                                    npad, num_features, num_bins, row_lo,
+                                    row_hi, target, scales, desc, scratch,
+                                    out);
+  else if (packed4 != 0)
+    e = launch_segment<false, true>(tiles, ft, smem, s, bins, w8, leaf_id,
+                                    npad, num_features, num_bins, row_lo,
+                                    row_hi, target, scales, desc, scratch,
+                                    out);
+  else
+    e = launch_segment<false, false>(tiles, ft, smem, s, bins, w8, leaf_id,
+                                     npad, num_features, num_bins, row_lo,
+                                     row_hi, target, scales, desc, scratch,
+                                     out);
   if (e != 0) return e;
   return (int)cudaGetLastError();
 }
@@ -1239,22 +1346,38 @@ int lgbt_histogram_segment_step(const uint8_t* bins, const uint16_t* w8,
                                 int num_features, int num_bins,
                                 int block_rows, const int* step, int routed,
                                 const float* scales, long long* scratch,
-                                float* out, void* stream) {
-  if (npad > 0x7fffffffll || block_rows < 1) return (int)cudaErrorInvalidValue;
+                                float* out, int packed4, void* stream) {
+  if (npad > 0x7fffffffll || block_rows < 1
+      || (packed4 != 0 && num_features % 2 != 0))
+    return (int)cudaErrorInvalidValue;
   int tiling[2];
-  const int rc = lgbt_segment_tiling(num_features, num_bins, tiling);
+  const int rc = lgbt_segment_tiling(num_features, num_bins, packed4, tiling);
   if (rc != 0) return rc;
   const int tiles = (int)div_up(num_features, tiling[0]);
   cudaStream_t s = (cudaStream_t)stream;
-  const int e = routed != 0
-      ? launch_segment_step<true>(tiles, tiling[0], (size_t)tiling[1], s,
-                                  bins, w8, leaf_id, npad, num_features,
-                                  num_bins, block_rows, step, scales,
-                                  scratch, out)
-      : launch_segment_step<false>(tiles, tiling[0], (size_t)tiling[1], s,
-                                   bins, w8, leaf_id, npad, num_features,
-                                   num_bins, block_rows, step, scales,
-                                   scratch, out);
+  const size_t smem = (size_t)tiling[1];
+  const int ft = tiling[0];
+  int e;
+  if (routed != 0 && packed4 != 0)
+    e = launch_segment_step<true, true>(tiles, ft, smem, s, bins, w8,
+                                        leaf_id, npad, num_features,
+                                        num_bins, block_rows, step, scales,
+                                        scratch, out);
+  else if (routed != 0)
+    e = launch_segment_step<true, false>(tiles, ft, smem, s, bins, w8,
+                                         leaf_id, npad, num_features,
+                                         num_bins, block_rows, step, scales,
+                                         scratch, out);
+  else if (packed4 != 0)
+    e = launch_segment_step<false, true>(tiles, ft, smem, s, bins, w8,
+                                         leaf_id, npad, num_features,
+                                         num_bins, block_rows, step, scales,
+                                         scratch, out);
+  else
+    e = launch_segment_step<false, false>(tiles, ft, smem, s, bins, w8,
+                                          leaf_id, npad, num_features,
+                                          num_bins, block_rows, step, scales,
+                                          scratch, out);
   if (e != 0) return e;
   return (int)cudaGetLastError();
 }
@@ -1262,46 +1385,52 @@ int lgbt_histogram_segment_step(const uint8_t* bins, const uint16_t* w8,
 // K5 tiling: out[0] features a tile, out[1] sets a tile, out[2] dynamic
 // shared memory a block (bytes).  One set a block (the sets across
 // gridDim.z) and as many of its features as fit the budget (K1's: one
-// block an SM), spread evenly over the fewest tiles.  Blocks of several
-// sets read fewer bytes (a row's bins once for all their sets) but were
-// slower: each set's adds take a row's bins from the cache again
-// (tools/route_candidates.py, PERF.md).  Returns 0, or
-// cudaErrorInvalidValue when not even one feature fits.
-int lgbt_all_tiling(int num_features, int num_bins, int num_sets, int* out) {
+// block an SM), spread evenly over the fewest tiles; in pairs packed4.
+// Blocks of several sets read fewer bytes (a row's bins once for all
+// their sets) but were slower: each set's adds take a row's bins from the
+// cache again (tools/route_candidates.py, PERF.md).  Returns 0, or
+// cudaErrorInvalidValue when not even one feature (pair) of one set fits.
+int lgbt_all_tiling(int num_features, int num_bins, int num_sets,
+                    int packed4, int* out) {
+  const int unit = feature_unit(packed4);
   const long long per_feature = (long long)num_bins * kSegCellBytes;
-  const long long budget = frontier_smem_budget();
-  if (num_features < 1 || num_bins < 1 || num_sets < 1
-      || budget < per_feature)
-    return (int)cudaErrorInvalidValue;
-  // one set a block, its features spread evenly over the fewest tiles
-  long long most = budget / per_feature;
-  if (most > num_features) most = num_features;
-  out[0] = (int)div_up(num_features, div_up(num_features, most));
+  const long long ft = even_tile(
+      num_features < 1 || num_bins < 1 || num_sets < 1
+          ? 0 : div_up(num_features, unit),
+      per_feature * unit, frontier_smem_budget(), unit);
+  if (ft == 0) return (int)cudaErrorInvalidValue;
+  out[0] = (int)ft;
   out[1] = 1;
-  out[2] = (int)(per_feature * out[0]);
+  out[2] = (int)(per_feature * ft);
   return 0;
 }
 
 // K5, one kernel launch and no other operation on the stream.  bins [F,
-// npad] u8, w8 [8 * sets, npad] bf16 bits (pad rows carry member 0),
-// scales [sets, 2] f32 on the device; scratch = the wrapper's persistent
-// i64 buffer, all zero, of sets*F*B*3 words plus one u32 a tile, left all
-// zero; out [sets, F, B, 3] f32.  Returns a CUDA error code (0 on
-// success).
+// npad] u8 (packed4: [F / 2, npad], two columns a byte, F even), w8 [8 *
+// sets, npad] bf16 bits (pad rows carry member 0), scales [sets, 2] f32 on
+// the device; scratch = the wrapper's persistent i64 buffer, all zero, of
+// sets*F*B*3 words plus one u32 a tile, left all zero; out [sets, F, B, 3]
+// f32.  Returns a CUDA error code (0 on success).
 int lgbt_histogram_all(const uint8_t* bins, const uint16_t* w8,
                        long long npad, int num_features, int num_bins,
                        int sets, const float* scales, long long* scratch,
-                       float* out, void* stream) {
+                       float* out, int packed4, void* stream) {
+  if (packed4 != 0 && num_features % 2 != 0)
+    return (int)cudaErrorInvalidValue;
   int tiling[3];
-  const int rc = lgbt_all_tiling(num_features, num_bins, sets, tiling);
+  const int rc = lgbt_all_tiling(num_features, num_bins, sets, packed4,
+                                 tiling);
   if (rc != 0) return rc;
-  static bool opted_in = false;
-  if (!opted_in) {
+  static bool opted_in[2] = {false, false};
+  const void* kernel = packed4 != 0
+      ? reinterpret_cast<const void*>(all_hist_kernel<true>)
+      : reinterpret_cast<const void*>(all_hist_kernel<false>);
+  if (!opted_in[packed4 != 0]) {
     const cudaError_t e = cudaFuncSetAttribute(
-        all_hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         frontier_smem_budget());
     if (e != cudaSuccess) return (int)e;
-    opted_in = true;
+    opted_in[packed4 != 0] = true;
   }
   const int tiles_y = (int)div_up(num_features, tiling[0]);
   const int tiles_z = (int)div_up(sets, tiling[1]);
@@ -1315,11 +1444,18 @@ int lgbt_histogram_all(const uint8_t* bins, const uint16_t* w8,
   // the tiles' arrival counters follow the histogram cells in the scratch
   const long long cells3 = 3ll * sets * num_features * num_bins;
   dim3 grid((unsigned)bx, (unsigned)tiles_y, (unsigned)tiles_z);
-  all_hist_kernel<<<grid, kSegThreads, (size_t)tiling[2],
-                    (cudaStream_t)stream>>>(
-      bins, w8, npad, num_features, num_bins, sets, tiling[0], tiling[1],
-      scales, reinterpret_cast<unsigned long long*>(scratch),
-      reinterpret_cast<unsigned int*>(scratch + cells3), out);
+  auto* acc = reinterpret_cast<unsigned long long*>(scratch);
+  auto* arrivals = reinterpret_cast<unsigned int*>(scratch + cells3);
+  if (packed4 != 0)
+    all_hist_kernel<true><<<grid, kSegThreads, (size_t)tiling[2],
+                            (cudaStream_t)stream>>>(
+        bins, w8, npad, num_features, num_bins, sets, tiling[0], tiling[1],
+        scales, acc, arrivals, out);
+  else
+    all_hist_kernel<false><<<grid, kSegThreads, (size_t)tiling[2],
+                             (cudaStream_t)stream>>>(
+        bins, w8, npad, num_features, num_bins, sets, tiling[0], tiling[1],
+        scales, acc, arrivals, out);
   return (int)cudaGetLastError();
 }
 
@@ -1328,11 +1464,14 @@ int lgbt_histogram_all(const uint8_t* bins, const uint16_t* w8,
 // entries.  All n_targets slots of as many features as fit the budget,
 // spread evenly over the fewest feature tiles; when one feature's slots do
 // not fit, one feature a tile and the slots spread evenly over the fewest
-// target tiles.  Returns 0, or cudaErrorInvalidValue when not even one
-// slot of one feature fits beside the tables.
+// target tiles.  packed4 cuts the features in pairs (a pair where the
+// rule says one).  Returns 0, or cudaErrorInvalidValue when not even one
+// slot of one feature (pair) fits beside the tables.
 int lgbt_frontier_tiling(int num_features, int num_bins, int n_targets,
-                         int n_routes, int n_ids, int* out) {
-  const int slot_bytes = num_bins * kFrontierCellBytes;
+                         int n_routes, int n_ids, int packed4, int* out) {
+  const int unit = feature_unit(packed4);
+  const long long slot_bytes = (long long)unit * num_bins
+                               * kFrontierCellBytes;
   // ids that could not fit, checked before the table's size is computed
   if (n_ids < 0 || n_ids > frontier_smem_budget() / 4)
     return (int)cudaErrorInvalidValue;
@@ -1343,28 +1482,29 @@ int lgbt_frontier_tiling(int num_features, int num_bins, int n_targets,
   if (num_features < 1 || n_targets < 1 || n_routes < 0
       || budget < slot_bytes)
     return (int)cudaErrorInvalidValue;
+  const long long units = div_up(num_features, unit);
   int ft, tt;
   if ((long long)n_targets * slot_bytes <= budget) {
     tt = n_targets;
-    long long most = budget / ((long long)n_targets * slot_bytes);
-    if (most > num_features) most = num_features;
-    ft = (int)div_up(num_features, div_up(num_features, most));
+    ft = (int)even_tile(units, (long long)n_targets * slot_bytes, budget,
+                        unit);
   } else {
-    ft = 1;
+    ft = unit;
     const long long most = budget / slot_bytes;
     tt = (int)div_up(n_targets, div_up(n_targets, most));
   }
   out[0] = ft;
   out[1] = tt;
-  out[2] = (int)(fixed + (long long)ft * tt * slot_bytes);
+  out[2] = (int)(fixed + (long long)ft * tt * num_bins * kFrontierCellBytes);
   return 0;
 }
 
 // K6 (n_routes == 0) or K7 (n_routes > 0, KT = n_targets = K or 2K), one
-// kernel launch and no other operation on the stream.  bins [F, npad] u8,
-// w8 [8, npad] bf16 bits, leaf_id [npad] i32 (K7 updates it in place over
-// the listed blocks), block_list [>= n_blocks] i32 on the device; params
-// = host pointer to a FrontierParams of params_bytes bytes
+// kernel launch and no other operation on the stream.  bins [F, npad] u8
+// (packed4: [F / 2, npad], two columns a byte, F even), w8 [8, npad] bf16
+// bits, leaf_id [npad] i32 (K7 updates it in place over the listed
+// blocks), block_list [>= n_blocks] i32 on the device; params = host
+// pointer to a FrontierParams of params_bytes bytes
 // (ops/histogram.py:frontier_params), copied into the launch; scales [2]
 // f32 on the device; scratch = the wrapper's persistent i64 buffer, all
 // zero, of n_targets*F*B*3 words plus one u32 a tile, left all zero; out
@@ -1376,7 +1516,7 @@ int lgbt_histogram_frontier(const uint8_t* bins, const uint16_t* w8,
                             const int* block_list, long long n_blocks,
                             const void* params, long long params_bytes,
                             const float* scales, long long* scratch,
-                            float* out, void* stream) {
+                            float* out, int packed4, void* stream) {
   if (params_bytes != (long long)sizeof(FrontierParams))
     return (int)cudaErrorInvalidValue;
   FrontierParams p;
@@ -1384,59 +1524,81 @@ int lgbt_histogram_frontier(const uint8_t* bins, const uint16_t* w8,
   // the queue holds a row as an i32
   if (p.n_targets < 1 || p.n_targets > kFrontierMaxTargets
       || p.n_routes < 0 || p.n_routes > kFrontierMaxRoutes || p.n_ids < 0
-      || block_rows < 1 || n_blocks < 0 || npad > 0x7fffffffll)
+      || block_rows < 1 || n_blocks < 0 || npad > 0x7fffffffll
+      || (packed4 != 0 && num_features % 2 != 0))
     return (int)cudaErrorInvalidValue;
   int tiling[3];
   const int rc = lgbt_frontier_tiling(num_features, num_bins, p.n_targets,
-                                      p.n_routes, p.n_ids, tiling);
+                                      p.n_routes, p.n_ids, packed4, tiling);
   if (rc != 0) return rc;
   const int ft = tiling[0], tt = tiling[1];
   const size_t smem = (size_t)tiling[2];
   const int tiles_y = (int)div_up(num_features, ft);
   const int tiles_z = (int)div_up(p.n_targets, tt);
   cudaStream_t s = (cudaStream_t)stream;
-  const int e = p.n_routes > 0
-      ? launch_frontier<true>(tiles_y, tiles_z, smem, s, bins, w8, leaf_id,
-                              npad, num_features, num_bins, ft, tt,
-                              block_list, n_blocks, block_rows, scales,
-                              scratch, p, out)
-      : launch_frontier<false>(tiles_y, tiles_z, smem, s, bins, w8, leaf_id,
-                               npad, num_features, num_bins, ft, tt,
-                               block_list, n_blocks, block_rows, scales,
-                               scratch, p, out);
+  int e;
+  if (p.n_routes > 0 && packed4 != 0)
+    e = launch_frontier<true, true>(tiles_y, tiles_z, smem, s, bins, w8,
+                                    leaf_id, npad, num_features, num_bins,
+                                    ft, tt, block_list, n_blocks, block_rows,
+                                    scales, scratch, p, out);
+  else if (p.n_routes > 0)
+    e = launch_frontier<true, false>(tiles_y, tiles_z, smem, s, bins, w8,
+                                     leaf_id, npad, num_features, num_bins,
+                                     ft, tt, block_list, n_blocks, block_rows,
+                                     scales, scratch, p, out);
+  else if (packed4 != 0)
+    e = launch_frontier<false, true>(tiles_y, tiles_z, smem, s, bins, w8,
+                                     leaf_id, npad, num_features, num_bins,
+                                     ft, tt, block_list, n_blocks, block_rows,
+                                     scales, scratch, p, out);
+  else
+    e = launch_frontier<false, false>(tiles_y, tiles_z, smem, s, bins, w8,
+                                      leaf_id, npad, num_features, num_bins,
+                                      ft, tt, block_list, n_blocks,
+                                      block_rows, scales, scratch, p, out);
   if (e != 0) return e;
   return (int)cudaGetLastError();
 }
 
-// K2, one kernel launch and no other operation on the stream.  bins [F,
-// npad] u8, leaf_id [npad] i32 (updated in place over [row_lo, row_hi)),
-// route = host pointer to 19 ints (its bin row w[2] is the split
-// feature's).  Returns a CUDA error code (0 on success).
+// K2, one kernel launch and no other operation on the stream.  bins [G,
+// npad] u8 (packed4: two columns a byte), leaf_id [npad] i32 (updated in
+// place over [row_lo, row_hi)), route = host pointer to 19 ints (its byte
+// row w[2] holds the split feature's column w[3]).  Returns a CUDA error
+// code (0 on success).
 int lgbt_route_window(const uint8_t* bins, int* leaf_id, long long npad,
                       long long row_lo, long long row_hi, const int* route,
-                      void* stream) {
+                      int packed4, void* stream) {
   if (row_lo < 0 || row_hi > npad) return (int)cudaErrorInvalidValue;
   if (row_hi < row_lo) row_hi = row_lo;
   RouteDesc desc;
   for (int k = 0; k < kRouteWords; ++k) desc.w[k] = route[k];
-  const int e = launch_route<kRouteRows, kRouteTable>(
-      bins + (long long)desc.w[2] * npad, leaf_id, row_lo, row_hi, desc,
-      (cudaStream_t)stream);
+  const uint8_t* frow = bins + (long long)desc.w[2] * npad;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int e = packed4 != 0
+      ? launch_route<kRouteRows, kRouteTable, true>(frow, leaf_id, row_lo,
+                                                    row_hi, desc, s)
+      : launch_route<kRouteRows, kRouteTable, false>(frow, leaf_id, row_lo,
+                                                     row_hi, desc, s);
   if (e != 0) return e;
   return (int)cudaGetLastError();
 }
 
 // K2 with the window and route read from step, a device pointer to a step
 // block (lgbt_histogram_segment_step's), one kernel launch and no other
-// operation on the stream.  Bit for bit lgbt_route_window's leaf ids on the
-// same window and route.  Returns a CUDA error code (0 on success).
+// operation on the stream; bin_rows the bin matrix's byte rows.  Bit for
+// bit lgbt_route_window's leaf ids on the same window and route.  Returns
+// a CUDA error code (0 on success).
 int lgbt_route_window_step(const uint8_t* bins, int* leaf_id, long long npad,
-                           int num_features, int block_rows, const int* step,
-                           void* stream) {
-  if (num_features < 1 || block_rows < 1) return (int)cudaErrorInvalidValue;
-  const int e = launch_route_step<kRouteRows, kRouteTable>(
-      bins, leaf_id, npad, num_features, block_rows, step,
-      (cudaStream_t)stream);
+                           int bin_rows, int block_rows, const int* step,
+                           int packed4, void* stream) {
+  if (bin_rows < 1 || block_rows < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int e = packed4 != 0
+      ? launch_route_step<kRouteRows, kRouteTable, true>(
+            bins, leaf_id, npad, bin_rows, block_rows, step, s)
+      : launch_route_step<kRouteRows, kRouteTable, false>(
+            bins, leaf_id, npad, bin_rows, block_rows, step, s);
   if (e != 0) return e;
   return (int)cudaGetLastError();
 }

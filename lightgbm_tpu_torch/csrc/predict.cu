@@ -41,7 +41,12 @@
 //
 // Bins are column-major [G, stride]: u8 (the training and valid sets'
 // device bins, G EFB columns) or i16 (predict-time bins, one column a
-// feature, which carry the -1 sentinel).
+// feature, which carry the -1 sentinel).  The training set's u8 bins may
+// be 4-bit packed (kPacked4, a dataset whose bin axis is at most 16: two
+// columns a byte, column 2i in the low nibble of byte row i and 2i + 1 in
+// the high one, ops/histogram.py:pack_bins_4bit): feature f is then read
+// from byte row feat_group[f] >> 1 and the nibble of feat_group[f]'s
+// parity, before feat_offset applies.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -66,7 +71,7 @@ struct Stack {
   int num_trees, max_nodes, max_leaves, max_depth;
 };
 
-template <typename BinT>
+template <typename BinT, bool kPacked4>
 __device__ __forceinline__ int tree_leaf(const Stack& s, int t,
                                          const BinT* __restrict__ bins,
                                          long long stride, long long row,
@@ -79,7 +84,9 @@ __device__ __forceinline__ int tree_leaf(const Stack& s, int t,
   for (int step = 0; step <= s.max_depth && node >= 0; ++step) {
     const long long i = base + node;
     const int f = __ldg(s.split_feature + i);
-    int fv = (int)bins[(long long)__ldg(feat_group + f) * stride + row];
+    const int col = __ldg(feat_group + f);
+    int fv = (int)bins[(long long)(kPacked4 ? col >> 1 : col) * stride + row];
+    if (kPacked4) fv = (col & 1) ? fv >> 4 : fv & 15;
     const int off = __ldg(feat_offset + f);
     if (off != 0) {
       const bool in_range = fv >= off && fv < off + __ldg(num_bin + f);
@@ -106,7 +113,7 @@ __device__ __forceinline__ int tree_leaf(const Stack& s, int t,
   return node < 0 ? ~node : 0;
 }
 
-template <typename BinT>
+template <typename BinT, bool kPacked4>
 __global__ void __launch_bounds__(kThreads)
 route_trees_kernel(const BinT* __restrict__ bins, long long stride,
                    long long n, Stack s, const int* __restrict__ num_bin,
@@ -121,8 +128,9 @@ route_trees_kernel(const BinT* __restrict__ bins, long long stride,
       double acc = out[(long long)k * n + row];
       for (int t = 0; t < s.num_trees; ++t) {
         if (__ldg(s.tree_class + t) != k) continue;
-        const int leaf = tree_leaf(s, t, bins, stride, row, num_bin,
-                                   default_bin, feat_group, feat_offset);
+        const int leaf = tree_leaf<BinT, kPacked4>(
+            s, t, bins, stride, row, num_bin, default_bin, feat_group,
+            feat_offset);
         acc = __dadd_rn(acc, __ldg(s.leaf_value +
                                    (long long)t * s.max_leaves + leaf));
       }
@@ -141,8 +149,9 @@ extern "C" int lgbt_route_trees(
     const int* num_leaves, const int* tree_class, int num_trees,
     int max_nodes, int max_leaves, int max_depth, const int* num_bin,
     const int* default_bin, const int* feat_group, const int* feat_offset,
-    int num_class, double* out, void* stream) {
-  if (bin_bytes != 1 && bin_bytes != 2) return (int)cudaErrorInvalidValue;
+    int num_class, double* out, int packed4, void* stream) {
+  if ((bin_bytes != 1 && bin_bytes != 2) || (packed4 != 0 && bin_bytes != 1))
+    return (int)cudaErrorInvalidValue;
   if (n <= 0 || num_trees <= 0) return (int)cudaGetLastError();
   Stack s{split_feature, threshold_bin, decision_type, left_child,
           right_child,   cat_bitset,    leaf_value,    num_leaves,
@@ -155,12 +164,18 @@ extern "C" int lgbt_route_trees(
   const long long cap = 32ll * (sms > 0 ? sms : 1);
   if (blocks > cap) blocks = cap;
   cudaStream_t st = (cudaStream_t)stream;
-  if (bin_bytes == 1) {
-    route_trees_kernel<uint8_t><<<(unsigned)blocks, kThreads, 0, st>>>(
+  if (packed4 != 0) {
+    route_trees_kernel<uint8_t, true><<<(unsigned)blocks, kThreads, 0, st>>>(
+        (const uint8_t*)bins, stride, n, s, num_bin, default_bin, feat_group,
+        feat_offset, num_class, out);
+  } else if (bin_bytes == 1) {
+    route_trees_kernel<uint8_t, false><<<(unsigned)blocks, kThreads, 0,
+                                         st>>>(
         (const uint8_t*)bins, stride, n, s, num_bin, default_bin, feat_group,
         feat_offset, num_class, out);
   } else {
-    route_trees_kernel<int16_t><<<(unsigned)blocks, kThreads, 0, st>>>(
+    route_trees_kernel<int16_t, false><<<(unsigned)blocks, kThreads, 0,
+                                         st>>>(
         (const int16_t*)bins, stride, n, s, num_bin, default_bin, feat_group,
         feat_offset, num_class, out);
   }

@@ -8,7 +8,7 @@ from __future__ import annotations
 def create_boosting(config, train_set, objective, **kwargs):
     """A GBDT, GOSS, DART or RF booster for ``config.boosting`` (the
     config has resolved its aliases); ``kwargs`` go to GBDT
-    (``fused_route``, ``frontier_tier``)."""
+    (``fused_route``, ``frontier_tier``, ``packed4``)."""
     if config.boosting == "goss":
         from .goss import GOSS as cls
     elif config.boosting == "dart":

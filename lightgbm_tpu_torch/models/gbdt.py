@@ -278,11 +278,16 @@ class GBDT(TreeEnsemble):
     """``fused_route`` picks the segment grower's kernels (K3, or K2 + K1
     when False); ``frontier_tier`` the frontier grower's (None, "off",
     "k1" or "fusedk": FrontierGrower), and is given only with
-    ``tpu_tree_impl=frontier``.  ``objective`` None (objective "none")
-    trains on the gradients the caller hands ``train_one_iter``."""
+    ``tpu_tree_impl=frontier``; ``packed4`` the training bins' layout
+    (None: two columns a byte exactly when the bin axis is at most 16, as
+    the JAX package picks it, lightgbm_tpu/models/gbdt.py:547-565; False:
+    one column a byte; True: packed, which needs <= 16 bins).
+    ``objective`` None (objective "none") trains on the gradients the
+    caller hands ``train_one_iter``."""
 
     def __init__(self, config: Config, train_set: TorchDataset, objective,
-                 fused_route: bool = True, frontier_tier=None):
+                 fused_route: bool = True, frontier_tier=None,
+                 packed4: Optional[bool] = None):
         self.config = config
         self.device = resolve_device(config)
         self.objective = objective
@@ -294,6 +299,7 @@ class GBDT(TreeEnsemble):
                                 "tpu_tree_impl is not 'frontier'")
         self._fused_route = fused_route
         self._frontier_tier = frontier_tier
+        self._packed4 = packed4
         self.shrinkage_rate = config.learning_rate
         self.models: List[Tree] = []
         self.iter_ = 0
@@ -327,8 +333,14 @@ class GBDT(TreeEnsemble):
         self.fmeta = build_feature_meta(train_set, self.device)
         # the kernels' bin axis: the widest column (an EFB group's bins)
         self.num_bins = _round_up_pow2(max(train_set.max_column_bin, 2))
+        # 4-bit packing: two columns a byte where the bin axis is <= 16
+        self.packed4 = (self.num_bins <= 16 if self._packed4 is None
+                        else bool(self._packed4))
+        if self.packed4 and self.num_bins > 16:
+            raise LightGBMError(f"packed4 needs a bin axis of at most 16, "
+                                f"this dataset's is {self.num_bins}")
         rb = block_rows(config, self.num_data)
-        self.bins = train_set.device_bins(rb, self.device)
+        self.bins = train_set.device_bins(rb, self.device, self.packed4)
         npad = self.bins.shape[1]
         # the rows in the bag (1) or out of it (0); pad rows 0.  Updated in
         # place by _bagging
@@ -355,7 +367,8 @@ class GBDT(TreeEnsemble):
                 max_cat_threshold=config.max_cat_threshold,
                 max_cat_to_onehot=config.max_cat_to_onehot,
                 min_data_per_group=config.min_data_per_group,
-                has_cat=train_set.has_categorical))
+                has_cat=train_set.has_categorical),
+            packed4=self.packed4, num_columns=train_set.num_columns)
         if config.tpu_tree_impl == "frontier":
             self.grower = FrontierGrower(
                 self.num_bins, params, rb,
@@ -428,18 +441,23 @@ class GBDT(TreeEnsemble):
         default ``bins`` are ``dataset``'s device bins (the training set's
         padded matrix, or the set's own [G, N] copy, uploaded once), in
         the training set's column layout (its EFB tables); given ``bins``
-        are predict-time bins of raw rows, one column a feature."""
+        are predict-time bins of raw rows, one column a feature.  The
+        training set's bins are read as they are held, packed or not; a
+        valid set's keep one column a byte."""
         if not trees:
             return out
         tables = (None, None)
+        packed4 = False
         if bins is None:
+            packed4 = self.packed4 and dataset is self.train_set
             bins = (self.bins if dataset is self.train_set
                     else dataset.device_bins(1, self.device))
             tables = (self.fmeta.feat_group, self.fmeta.feat_offset)
         stack = TreeStack(trees, classes, dataset.num_used_features,
                           self.device)
         return route_trees(bins, stack, self.fmeta.num_bin,
-                           self.fmeta.default_bin, out, *tables)
+                           self.fmeta.default_bin, out, *tables,
+                           packed4=packed4)
 
     def _card_delta(self, dataset: TorchDataset, trees: List[Tree],
                     classes: List[int]) -> torch.Tensor:
@@ -655,7 +673,8 @@ class GBDT(TreeEnsemble):
             # tree's kernels, so the root and the splits share one scale
             w8C = pack_channel_sets(grad, hess, self.member)
             scales = class_scales(w8C)
-            hists = histogram_all(self.bins, w8C, self.num_bins, scales)
+            hists = histogram_all(self.bins, w8C, self.num_bins, scales,
+                                  self.packed4)
             roots = [(w8C[8 * k:8 * k + 8], scales[k], hists[k])
                      for k in range(C)]
         trees = []

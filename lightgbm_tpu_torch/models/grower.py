@@ -22,11 +22,24 @@ from ..utils import random
 
 
 class GrowerParams(NamedTuple):
-    """Growth hyper-parameters."""
+    """Growth hyper-parameters, and the bin matrix's layout: ``packed4``,
+    two <= 16-bin columns a byte (ops/histogram.py pack_bins_4bit), and
+    ``num_columns``, its columns (EFB groups, or the features; 0 = its
+    rows, which packing halves)."""
     num_leaves: int = 31
     max_depth: int = -1
     split: SplitParams = SplitParams()
     feature_fraction_bynode: float = 1.0
+    packed4: bool = False
+    num_columns: int = 0
+
+
+def grower_columns(p: GrowerParams, binsT: torch.Tensor) -> int:
+    """The bin matrix's columns G (grower_seg.py's G_cols): the
+    histograms' first columns, before the pad nibble of an odd G."""
+    if p.num_columns:
+        return p.num_columns
+    return 2 * binsT.shape[0] if p.packed4 else binsT.shape[0]
 
 
 def node_feature_mask(base_mask: torch.Tensor, key: torch.Tensor,

@@ -48,11 +48,12 @@ import torch
 from ..ops import histogram
 from ..ops.histogram import (fixed_point_scales, histogram_frontier,
                              histogram_frontier_fusedk,
-                             histogram_frontier_routed, null_route,
-                             pack_channels, pack_route, route_window,
-                             union_block_list)
+                             histogram_frontier_routed, logical_columns,
+                             null_route, pack_channels, pack_route,
+                             route_window, union_block_list)
 from ..ops.split import NEG_INF, FeatureMeta, best_split, expand_group_hist
-from .grower import GrowerParams, TreeArrays, node_feature_mask
+from .grower import (GrowerParams, TreeArrays, grower_columns,
+                     node_feature_mask)
 from .grower_seg import COMPACT_WASTE, _check_key, _unpermute
 
 TIERS = ("off", "k1", "fusedk")
@@ -63,7 +64,7 @@ class _SegState:
     row order, host bookkeeping of windows, leaf sums and best splits."""
 
     def __init__(self, binsT, w8, L: int, max_blocks: int, G0, H0, C0,
-                 B: int):
+                 B: int, H: int):
         dev = binsT.device
         n = binsT.shape[1]
         self.binsT = binsT                      # [G, Npad] u8, permuted
@@ -77,9 +78,10 @@ class _SegState:
         self.scanned_total = 0
         self.num_sorts = 0
         self.num_leaves = 1
-        # the kernels' histograms, over the G columns
-        self.leaf_hist = torch.zeros((L, binsT.shape[0], B, 3),
-                                     dtype=torch.float32, device=dev)
+        # the kernels' histograms, over their H columns (packed: 2 x the
+        # byte rows)
+        self.leaf_hist = torch.zeros((L, H, B, 3), dtype=torch.float32,
+                                     device=dev)
         f32 = np.float32
         self.leaf_g = np.zeros(L, f32)
         self.leaf_h = np.zeros(L, f32)
@@ -122,12 +124,12 @@ def compact_state(st: _SegState, L: int, rb: int) -> None:
 
 
 def split_route(st: _SegState, leaf: int, new_leaf: int,
-                fm_host: FeatureMeta) -> torch.Tensor:
+                fm_host: FeatureMeta, packed4: bool) -> torch.Tensor:
     """The route descriptor of the cached best split of ``leaf``."""
     return pack_route(leaf, new_leaf, int(st.best_feature[leaf]),
                       int(st.best_threshold[leaf]), bool(st.best_dl[leaf]),
                       bool(st.best_is_cat[leaf]), st.best_bitset[leaf],
-                      fm_host)
+                      fm_host, packed4)
 
 
 def record_split(st: _SegState, leaf: int, new_leaf: int, node: int) -> None:
@@ -175,12 +177,14 @@ class HostGrower:
     ``grow(binsT, grad, hess, member, fmeta, root=None, feature_mask=None,
     key=None)`` takes column-major bins [G, Npad] (EFB groups, or the
     features; Npad a multiple of ``block_rows``; pad rows must carry
-    member == 0) and returns ``(TreeArrays, leaf_id)`` with leaf ids in
-    the original row order.
+    member == 0), or with ``params.packed4`` [ceil(G / 2), Npad] of two
+    columns a byte, and returns ``(TreeArrays, leaf_id)`` with leaf ids in
+    the original row order.  The scan reads the first G columns of the
+    kernels' histograms (SegmentGrower's).
 
     ``root``, when given, is ``(w8, scales, root_hist)``: this tree's
     channels as pack_channels packs them, their fixed_point_scales, and
-    the root histogram [G, B, 3] at those scales, which takes the place of
+    the root histogram [H, B, 3] at those scales, which takes the place of
     the root's own pass (K5's slice of this class is, bit for bit, what
     that pass gives).  The splits' kernels use the same ``w8`` and
     ``scales``.  ``feature_mask`` and ``key`` are the tree's feature
@@ -208,7 +212,7 @@ class HostGrower:
                                   torch.sum(hess * member),
                                   torch.sum(member)]).cpu().numpy()
         st = _SegState(binsT, w8, self.p.num_leaves, n // self.rb, G0, H0,
-                       C0, self.B)
+                       C0, self.B, logical_columns(binsT, self.p.packed4))
         return st, scales, root_hist
 
     def _scan(self, st: _SegState, leaves, hists, fmeta: FeatureMeta,
@@ -222,8 +226,9 @@ class HostGrower:
         dev = hists.device
         g, h, c = (torch.from_numpy(v[leaves]).to(dev)
                    for v in (st.leaf_g, st.leaf_h, st.leaf_c))
-        info = best_split(expand_group_hist(hists, fmeta, g, h, c), g, h, c,
-                          fmeta, self.p.split, masks)
+        G = grower_columns(self.p, st.binsT)
+        info = best_split(expand_group_hist(hists[:, :G], fmeta, g, h, c),
+                          g, h, c, fmeta, self.p.split, masks)
         cols = [info.gain, info.feature, info.threshold, info.default_left,
                 info.left_g, info.left_h, info.left_c, info.left_out,
                 info.right_out]
@@ -316,7 +321,7 @@ class FrontierGrower(HostGrower):
             args = (st.binsT, st.w8, st.leaf_id,
                     block_list.to(st.binsT.device), n_blocks,
                     torch.tensor(tgt, dtype=torch.int32))
-            tail = (self.B, self.rb, scales)
+            tail = (self.B, self.rb, scales, self.p.packed4)
             if self.tier == "off":
                 out.append(histogram_frontier(*args, *tail))
                 continue
@@ -353,14 +358,15 @@ class FrontierGrower(HostGrower):
         # the smaller child from the cache, before any split is applied
         Cl = st.best_left[leaves, 2]
         smaller_is_left = Cl <= st.leaf_c[leaves] - Cl
-        routes = [split_route(st, a, b, fm_host) for a, b in zip(leaves, new)]
+        routes = [split_route(st, a, b, fm_host, self.p.packed4)
+                  for a, b in zip(leaves, new)]
         parents = (None if self.tier == "fusedk"
                    else st.leaf_hist[torch.tensor(leaves, device=dev)])
         for j in range(nv):
             if self.tier == "off":
                 lo, hi = st.leaf_lo[leaves[j]], st.leaf_hi[leaves[j]]
                 route_window(st.binsT, st.leaf_id, lo, hi - lo, routes[j],
-                             self.rb)
+                             self.rb, self.p.packed4)
             record_split(st, leaves[j], new[j], base - 1 + j)
         windows = [(st.leaf_lo[x], st.leaf_hi[x]) for x in leaves]
         if self.tier == "fusedk":

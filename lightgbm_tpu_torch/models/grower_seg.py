@@ -67,12 +67,13 @@ from ..ops import kernels
 from ..ops.histogram import (STEP_WORDS, SPLIT_WORDS, fixed_point_scales,
                              histogram_segment, histogram_segment_routed,
                              histogram_segment_routed_step,
-                             histogram_segment_step, null_route,
-                             pack_channels, pack_route_device, pack_step,
-                             route_window_step)
+                             histogram_segment_step, logical_columns,
+                             null_route, pack_channels, pack_route_device,
+                             pack_step, route_window_step)
 from ..ops.split import (NEG_INF, FeatureMeta, SplitInfo, best_split,
                          expand_group_hist)
-from .grower import GrowerParams, TreeArrays, node_feature_mask
+from .grower import (GrowerParams, TreeArrays, grower_columns,
+                     node_feature_mask)
 
 # Re-sort the layout once the histogram kernels have scanned more than
 # COMPACT_WASTE x N rows of confinement windows since the last sort
@@ -127,15 +128,16 @@ class _DeviceState:
              "leaf_sum", "leaf_hist", "best_f32", "best_i32", "node_i32",
              "node_f32", "leaf_i32", "leaf_value", "counters")
 
-    def __init__(self, G: int, npad: int, B: int, L: int, dev,
+    def __init__(self, rows: int, H: int, npad: int, B: int, L: int, dev,
                  fmeta: FeatureMeta, masked: bool = False):
-        """``G`` bin columns (EFB groups, or the features) of ``B`` bins;
-        the scan and the masks are over fmeta's F features."""
+        """A bin matrix of ``rows`` byte rows whose kernels' histograms have
+        ``H`` columns (EFB groups, or the features; packed, 2 x rows) of
+        ``B`` bins; the scan and the masks are over fmeta's F features."""
         def zeros(*shape, dtype=torch.float32):
             return torch.zeros(shape, dtype=dtype, device=dev)
 
         F = fmeta.num_bin.shape[0]
-        self.binsT = zeros(G, npad, dtype=torch.uint8)       # permuted
+        self.binsT = zeros(rows, npad, dtype=torch.uint8)    # permuted
         self.w8 = zeros(8, npad, dtype=torch.bfloat16)       # permuted
         # ones: the capture's warm-up step converts its sums by them
         self.scales = torch.ones(2, dtype=torch.float32, device=dev)
@@ -147,7 +149,7 @@ class _DeviceState:
         # (sum_grad, sum_hess, count): the tree's leaf weight and count too
         self.leaf_sum = zeros(L, 3)
         # the kernels' histograms, over the columns
-        self.leaf_hist = zeros(L, G, B, 3)
+        self.leaf_hist = zeros(L, H, B, 3)
         # best-split cache (best_split_per_leaf_, serial_tree_learner.h:153)
         self.best_f32 = zeros(L, 6)
         self.best_i32 = zeros(L, SPLIT_WORDS, dtype=torch.int32)
@@ -163,9 +165,9 @@ class _DeviceState:
         # a tree's inputs besides the layout: the root's sums and, when
         # the caller gives it, its histogram
         self.root_sums = zeros(3)
-        self.root_hist = zeros(G, B, 3)
+        self.root_hist = zeros(H, B, 3)
         self.step = zeros(STEP_WORDS, dtype=torch.int32)
-        self.hist_small = zeros(G, B, 3)
+        self.hist_small = zeros(H, B, 3)
         self.status = zeros(_STATUS, dtype=torch.int64)
         # feature fraction: the tree's mask and key, and the masks of the
         # node numbers 0 .. 2L drawn from them at the tree's start
@@ -280,13 +282,17 @@ class SegmentGrower:
     ``grow(binsT, grad, hess, member, fmeta, root=None, feature_mask=None,
     key=None)`` takes column-major bins [G, Npad] (the G columns of the
     dataset: EFB groups, or its F features; Npad a multiple of
-    ``block_rows``; pad rows must carry member == 0) and returns
-    ``(TreeArrays, leaf_id)`` with leaf ids in the original row order.
-    ``root``, when given, is
+    ``block_rows``; pad rows must carry member == 0), or with
+    ``params.packed4`` [ceil(G / 2), Npad] of two columns a byte (G =
+    ``params.num_columns``), and returns ``(TreeArrays, leaf_id)`` with
+    leaf ids in the original row order.  The kernels' histograms have the
+    logical columns of the bins (2 x the byte rows packed); the scan reads
+    the first G.  ``root``, when given, is
     ``(w8, scales, root_hist)``: this tree's channels as pack_channels
-    packs them, their fixed_point_scales, and the root histogram [G, B,
-    3] at those scales, which takes the place of the root's own pass (K5's
-    slice of this class is, bit for bit, what that pass gives).  The
+    packs them, their fixed_point_scales, and the root histogram [H, B,
+    3] (H the kernels' columns) at those scales, which takes the place of
+    the root's own pass (K5's slice of this class is, bit for bit, what
+    that pass gives).  The
     splits' kernels use the same ``w8`` and ``scales``.
     ``feature_mask`` ([F] float32, nonzero = usable), when given, is the
     tree's feature fraction; with ``feature_fraction_bynode`` < 1 each
@@ -318,6 +324,7 @@ class SegmentGrower:
         self._capture_s = 0.0
         self._child_cols = None
         self._src = None
+        self.G = 0
         self.limit = 1
         self._masked = False
 
@@ -342,17 +349,19 @@ class SegmentGrower:
         smaller_is_left = sums[0, 2:] <= sums[1, 2:]
         smaller = torch.where(smaller_is_left, leaf, new_leaf)
         n_blk = torch.where(active, window[1:] - window[:1], 0)
+        packed4 = p.packed4
         route = pack_route_device(torch.where(active, leaf, -1), new_leaf,
-                                  split, s.fmeta)
+                                  split, s.fmeta, packed4)
         s.step.copy_(pack_step(window[:1], n_blk, smaller, route))
         if self.fused_route:
             histogram_segment_routed_step(s.binsT, s.w8, s.leaf_id, s.step,
                                           self.B, self.rb, s.scales,
-                                          out=s.hist_small)
+                                          out=s.hist_small, packed4=packed4)
         else:
-            route_window_step(s.binsT, s.leaf_id, s.step, self.rb)
+            route_window_step(s.binsT, s.leaf_id, s.step, self.rb, packed4)
             histogram_segment_step(s.binsT, s.w8, s.leaf_id, s.step, self.B,
-                                   self.rb, s.scales, out=s.hist_small)
+                                   self.rb, s.scales, out=s.hist_small,
+                                   packed4=packed4)
         small = s.hist_small
         large = s.leaf_hist.index_select(0, leaf)[0] - small
         sel = smaller_is_left.reshape(1, 1, 1)
@@ -390,8 +399,9 @@ class SegmentGrower:
             mask = s.node_masks.index_select(0, torch.cat([2 * node,
                                                            2 * node + 1]))
         g, h, c = sums[:, 0], sums[:, 1], sums[:, 2]
-        info = best_split(expand_group_hist(hists, s.fmeta, g, h, c), g, h,
-                          c, s.fmeta, p.split, mask)
+        info = best_split(expand_group_hist(hists[:, :self.G], s.fmeta, g, h,
+                                            c), g, h, c, s.fmeta, p.split,
+                          mask)
         gain2 = info.gain
         if p.max_depth > 0:
             gain2 = torch.where(depth >= p.max_depth, NEG_INF, gain2)
@@ -429,7 +439,8 @@ class SegmentGrower:
         s, L, rb = self.s, self.p.num_leaves, self.rb
         lid, perm = torch.sort(s.leaf_id, stable=True)
         s.order.copy_(s.order.index_select(0, perm))
-        # the layout is the tree's own inputs in ``order``
+        # the layout is the tree's own inputs in ``order`` (a packed byte
+        # holds two columns of one row, so it moves as it is)
         torch.index_select(self._src[0], 1, s.order, out=s.binsT)
         torch.index_select(self._src[1], 1, s.order, out=s.w8)
         s.leaf_id.copy_(lid)
@@ -450,9 +461,9 @@ class SegmentGrower:
         """The grower's device state for this shape and feature masks:
         allocated once (and, on a card, its steps captured in a CUDA
         graph), then reused."""
-        G, npad = binsT.shape
+        rows, npad = binsT.shape
         L = self.p.num_leaves
-        key = (G, fmeta.num_bin.shape[0], npad, L, binsT.device,
+        key = (rows, fmeta.num_bin.shape[0], npad, L, binsT.device,
                fmeta.is_cat is not None, fmeta.gather_idx is not None,
                self.steps, masked)
         if key != self._key:
@@ -462,7 +473,9 @@ class SegmentGrower:
             self._graph = None
             self._start_graphs = {}
             self._masked = masked
-            self.s = _DeviceState(G, npad, self.B, L, binsT.device, fmeta,
+            self.G = grower_columns(self.p, binsT)
+            self.s = _DeviceState(rows, logical_columns(binsT, self.p.packed4),
+                                  npad, self.B, L, binsT.device, fmeta,
                                   masked)
             self._child_cols = torch.arange(
                 _NODE_WORDS, device=binsT.device) >= SPLIT_WORDS
@@ -534,11 +547,11 @@ class SegmentGrower:
             # the split path's kernel with a match-nothing route
             root_hist = histogram_segment_routed(
                 s.binsT, s.w8, s.leaf_id, 0, max_blocks, 0, null_route(),
-                self.B, self.rb, s.scales)[1]
+                self.B, self.rb, s.scales, self.p.packed4)[1]
         else:
             root_hist = histogram_segment(s.binsT, s.w8, s.leaf_id, 0,
                                           max_blocks, 0, self.B, self.rb,
-                                          s.scales)
+                                          s.scales, self.p.packed4)
         s.leaf_hist[0].copy_(root_hist)
         mask = None
         if self._masked:
@@ -546,9 +559,9 @@ class SegmentGrower:
                                                  s.node_steps, self.p))
             mask = s.node_masks[-1:]          # the root's number, 2L
         g, h, c = s.leaf_sum[:1, 0], s.leaf_sum[:1, 1], s.leaf_sum[:1, 2]
-        info = best_split(expand_group_hist(s.leaf_hist[:1], s.fmeta, g, h,
-                                            c), g, h, c, s.fmeta,
-                          self.p.split, mask)
+        info = best_split(expand_group_hist(s.leaf_hist[:1, :self.G],
+                                            s.fmeta, g, h, c), g, h, c,
+                          s.fmeta, self.p.split, mask)
         f32, i32 = _cache_rows(info, info.gain)
         s.best_f32[:1].copy_(f32)
         s.best_i32[:1].copy_(i32)

@@ -51,6 +51,16 @@ column and bin offset and the scan expands the group histogram.  The
 card kernels sum in 64-bit fixed point, so their sums do not depend on
 the order of the rows; ``fixed_point_scales`` picks the scale
 (``class_scales``: one pair per channel set, each as for that set alone).
+
+``packed4`` (every wrapper takes it): the bin matrix holds two <= 16-bin
+columns a byte (``pack_bins_4bit``: column 2i in the low nibble of byte
+row i, 2i + 1 in the high one), [ceil(G / 2), Npad], the JAX package's
+layout for a dataset whose bin axis is at most 16.  The kernels read each
+byte and pick the nibble; the plain versions unpack the rows they read
+(``unpack_bins_4bit``) and run as unpacked.  The histograms then have 2 x
+the byte rows columns, the zero pad nibble of an odd G included (the JAX
+kernels' F_log), which the growers drop before the scan; a route's row
+word is the byte row (``pack_route``), its column word picks the nibble.
 """
 
 from __future__ import annotations
@@ -137,19 +147,62 @@ def class_scales(w8C: torch.Tensor) -> torch.Tensor:
                         for c in range(w8C.shape[0] // NUM_CHANNELS)])
 
 
+def pack_bins_4bit(binsT: np.ndarray) -> np.ndarray:
+    """[G, N] u8 (bins <= 15) -> [ceil(G / 2), N] u8, column 2i in the low
+    nibble of byte row i and 2i + 1 in the high one, a zero high nibble
+    for an odd G: byte for byte lightgbm_tpu/ops/pallas_histogram.py
+    pack_bins_4bit (the reference's Dense4bitsBin, dense_nbits_bin.hpp:42,
+    cut for a column-major stream)."""
+    binsT = np.asarray(binsT)
+    if binsT.shape[0] % 2:
+        binsT = np.concatenate(
+            [binsT, np.zeros((1, binsT.shape[1]), binsT.dtype)])
+    return (binsT[0::2] | (binsT[1::2] << 4)).astype(np.uint8)
+
+
+def unpack_nibble(byte: torch.Tensor, col) -> torch.Tensor:
+    """Column ``col``'s bins (int32) out of the bytes that hold it: the
+    high nibble for an odd column, the low one for an even column (the
+    inverse of pack_bins_4bit; ``col`` an int or a tensor)."""
+    b = byte.to(torch.int32)
+    return torch.where(torch.as_tensor(col) % 2 == 1, b >> 4, b & 15)
+
+
+def unpack_bins_4bit(packed: torch.Tensor) -> torch.Tensor:
+    """[P, ...] packed bytes -> [2P, ...] u8, one column a row (the pad
+    nibble of an odd G last)."""
+    b = packed.to(torch.uint8)
+    return torch.stack([b & 15, b >> 4], dim=1).reshape(
+        (2 * b.shape[0],) + tuple(b.shape[1:]))
+
+
+def slice_packed_column(binsT: torch.Tensor, col: int) -> torch.Tensor:
+    """One column [N] int32 of a packed [P, N] bin matrix."""
+    return unpack_nibble(binsT[int(col) // 2], int(col))
+
+
+def logical_columns(binsT: torch.Tensor, packed4: bool) -> int:
+    """The histogram's columns over a bin matrix: its rows, or 2 x its
+    byte rows packed."""
+    return 2 * binsT.shape[0] if packed4 else binsT.shape[0]
+
+
 def pack_route(leaf: int, new_leaf: int, f: int, t: int, dl: bool,
-               cat: bool, bitset, fmeta) -> torch.Tensor:
+               cat: bool, bitset, fmeta,
+               packed4: bool = False) -> torch.Tensor:
     """[ROUTE_WORDS] int32 route descriptor, on the host (the kernels take
     it as launch arguments), word for word the JAX package's
-    ``pack_route(..., packed4=False)`` (pallas_histogram.py:979-998).
+    ``pack_route(..., packed4)`` (pallas_histogram.py:979-998).
     ``fmeta`` is a FeatureMeta whose fields can be indexed on the host.
-    The bin row and the group column are the feature's EFB column
-    (``feat_group[f]``; the feature itself without EFB) and ``off`` its
-    bin offset there, which the kernels undo (goes_right)."""
+    The group column is the feature's EFB column (``feat_group[f]``; the
+    feature itself without EFB), the bin row that column, or its byte row
+    ``col // 2`` packed, and ``off`` its bin offset there, which the
+    kernels undo (goes_right)."""
     bundled = fmeta.feat_group is not None
     col = int(fmeta.feat_group[f]) if bundled else int(f)
     off = int(fmeta.feat_offset[f]) if bundled else 0
-    head = [int(leaf), int(new_leaf), col, col, int(t), int(bool(dl)),
+    row = col // 2 if packed4 else col
+    head = [int(leaf), int(new_leaf), row, col, int(t), int(bool(dl)),
             int(bool(cat)), int(fmeta.missing_type[f]),
             int(fmeta.default_bin[f]), int(fmeta.num_bin[f]), off]
     words = np.asarray(bitset, dtype=np.uint32).reshape(8).view(np.int32)
@@ -157,9 +210,11 @@ def pack_route(leaf: int, new_leaf: int, f: int, t: int, dl: bool,
 
 
 def pack_route_device(leaf: torch.Tensor, new_leaf: torch.Tensor,
-                      split: torch.Tensor, fmeta) -> torch.Tensor:
+                      split: torch.Tensor, fmeta,
+                      packed4: bool = False) -> torch.Tensor:
     """pack_route on the device: [ROUTE_WORDS] int32 on ``split``'s
-    device, equal to pack_route's words for the same split, built without
+    device, equal to pack_route's words for the same split (``packed4``:
+    the byte row ``col >> 1``), built without
     reading a value on the host (the EFB tables are gathered on the
     device, so a CUDA graph can hold it).  ``leaf`` and ``new_leaf`` are
     [1] integer tensors; ``split`` is a best-split cache row, int32
@@ -175,7 +230,8 @@ def pack_route_device(leaf: torch.Tensor, new_leaf: torch.Tensor,
         torch.int32)
     col, off = (meta[3:4], meta[4:5]) if fmeta.feat_group is not None \
         else (f, torch.zeros_like(f))
-    return torch.cat([leaf.to(torch.int32), new_leaf.to(torch.int32), col,
+    row = col >> 1 if packed4 else col
+    return torch.cat([leaf.to(torch.int32), new_leaf.to(torch.int32), row,
                       col, split[1:4], meta[:3], off,
                       split[4:SPLIT_WORDS]])
 
@@ -304,58 +360,72 @@ def routed_ids_plain(fcol_raw: torch.Tensor, lid: torch.Tensor,
                        torch.full_like(lid, r[1]), lid)
 
 
+def _route_column(binsT, r, rows, packed4: bool) -> torch.Tensor:
+    """The split column's bins at ``rows`` (a slice or an index tensor)
+    from the route words ``r``: its bin row r[2], and packed the nibble of
+    its column r[3]."""
+    byte = binsT[r[2], rows]
+    return unpack_nibble(byte, r[3]) if packed4 else byte
+
+
 def route_window_plain(binsT, leaf_id, start_block, n_blocks, route,
-                       block_rows):
+                       block_rows, packed4=False):
     """Plain K2: updates ``leaf_id`` in place over the window."""
     lo, hi = _window(leaf_id.shape[0], start_block, n_blocks, block_rows)
     r = route.tolist()
     if hi > lo:
-        leaf_id[lo:hi] = routed_ids_plain(binsT[r[2], lo:hi],
-                                          leaf_id[lo:hi], r)
+        leaf_id[lo:hi] = routed_ids_plain(
+            _route_column(binsT, r, slice(lo, hi), packed4), leaf_id[lo:hi],
+            r)
     return leaf_id
 
 
-def _read_step_plain(step, num_features):
+def _read_step_plain(step, bin_rows):
     """A step block's window, target and route (host ints), as the
     kernels read it (csrc/histogram.cu read_step): a route whose bin row
-    lies outside the bin matrix routes nothing."""
+    lies outside the bin matrix's ``bin_rows`` rows routes nothing."""
     s = [int(x) for x in step.tolist()]
     route = s[3:]
-    if not 0 <= route[2] < num_features:
+    if not 0 <= route[2] < bin_rows:
         route[0], route[2] = -1, 0
     return s[0], s[1], s[2], torch.tensor(route, dtype=torch.int32)
 
 
-def route_window_step_plain(binsT, leaf_id, step, block_rows):
+def route_window_step_plain(binsT, leaf_id, step, block_rows,
+                            packed4=False):
     """Plain K2 from a step block: updates ``leaf_id`` in place."""
     lo, nb, _, route = _read_step_plain(step, binsT.shape[0])
-    return route_window_plain(binsT, leaf_id, lo, nb, route, block_rows)
+    return route_window_plain(binsT, leaf_id, lo, nb, route, block_rows,
+                              packed4)
 
 
 def histogram_segment_step_plain(binsT, w8, leaf_id, step, num_bins,
-                                 block_rows):
+                                 block_rows, packed4=False):
     """Plain K1 from a step block -> [F, B, 3] float32."""
     lo, nb, target, _ = _read_step_plain(step, binsT.shape[0])
     return histogram_segment_plain(binsT, w8, leaf_id, lo, nb, target,
-                                   num_bins, block_rows)
+                                   num_bins, block_rows, packed4)
 
 
 def histogram_segment_routed_step_plain(binsT, w8, leaf_id, step, num_bins,
-                                        block_rows):
+                                        block_rows, packed4=False):
     """Plain K3 from a step block -> (leaf_id, [F, B, 3] float32)."""
     lo, nb, target, route = _read_step_plain(step, binsT.shape[0])
     return histogram_segment_routed_plain(binsT, w8, leaf_id, lo, nb,
                                           target, route, num_bins,
-                                          block_rows)
+                                          block_rows, packed4)
 
 
-def _plain_sums(bins, w, num_bins, slot=None, n_slots=1):
-    """[F, rows] bins and [5, rows] float64 channels -> [F, B, 3] float32:
-    the five channel sums by bincount in float64 (so the order the rows
-    arrive in moves no bit that survives the cast), then unpack_hist.
-    Bins >= num_bins are dropped, as the kernels drop them.  With
-    ``slot`` ([rows] int64, -1 = no slot) each row adds to the histogram
-    of its slot: -> [n_slots, F, B, 3]."""
+def _plain_sums(bins, w, num_bins, slot=None, n_slots=1, packed4=False):
+    """[F, rows] bins (packed4: [F / 2, rows] bytes, unpacked first) and
+    [5, rows] float64 channels -> [F, B, 3] float32: the five channel
+    sums by bincount in float64 (so the order the rows arrive in moves no
+    bit that survives the cast), then unpack_hist.  Bins >= num_bins are
+    dropped, as the kernels drop them.  With ``slot`` ([rows] int64, -1 =
+    no slot) each row adds to the histogram of its slot: -> [n_slots, F,
+    B, 3]."""
+    if packed4:
+        bins = unpack_bins_4bit(bins)
     F = bins.shape[0]
     cells = F * num_bins
     total = n_slots * cells
@@ -374,17 +444,19 @@ def _plain_sums(bins, w, num_bins, slot=None, n_slots=1):
 
 
 def histogram_segment_plain(binsT, w8, leaf_id, start_block, n_blocks,
-                            target, num_bins, block_rows):
+                            target, num_bins, block_rows, packed4=False):
     """Plain K1 -> [F, B, 3] float32."""
     lo, hi = _window(leaf_id.shape[0], start_block, n_blocks, block_rows)
     sel = (leaf_id[lo:hi] == int(target)).to(torch.float64)
     return _plain_sums(binsT[:, lo:hi], w8[:5, lo:hi].double() * sel,
-                       num_bins)
+                       num_bins, packed4=packed4)
 
 
-def histogram_all_plain(binsT, w8C, num_bins):
+def histogram_all_plain(binsT, w8C, num_bins, packed4=False):
     """Plain K5 -> [C, F, B, 3] float32; class c's slice is plain K1 of a
     root whose every row is in leaf 0, on set c (same float64 sums)."""
+    if packed4:
+        binsT = unpack_bins_4bit(binsT)
     return torch.stack([_plain_sums(binsT, w8C[8 * c:8 * c + 5].double(),
                                     num_bins)
                         for c in range(w8C.shape[0] // NUM_CHANNELS)])
@@ -392,13 +464,13 @@ def histogram_all_plain(binsT, w8C, num_bins):
 
 def histogram_segment_routed_plain(binsT, w8, leaf_id, start_block,
                                    n_blocks, target, route, num_bins,
-                                   block_rows):
+                                   block_rows, packed4=False):
     """Plain K3: plain K2, then plain K1 on the updated ids."""
     route_window_plain(binsT, leaf_id, start_block, n_blocks, route,
-                       block_rows)
+                       block_rows, packed4)
     return leaf_id, histogram_segment_plain(binsT, w8, leaf_id, start_block,
                                             n_blocks, target, num_bins,
-                                            block_rows)
+                                            block_rows, packed4)
 
 
 def _union_rows(block_list, n_blocks, block_rows, device):
@@ -408,11 +480,11 @@ def _union_rows(block_list, n_blocks, block_rows, device):
 
 
 def histogram_frontier_plain(binsT, w8, leaf_id, block_list, n_blocks,
-                             targets, num_bins, block_rows):
+                             targets, num_bins, block_rows, packed4=False):
     """Plain K6 -> [KT, F, B, 3] float32: slot k is plain K1 of leaf
     ``targets[k]`` over the listed blocks' rows (the same float64 sums);
     a -1 slot is zeros.  Targets are distinct (the first match wins)."""
-    F = binsT.shape[0]
+    F = logical_columns(binsT, packed4)
     KT = int(targets.shape[0])
     rows = _union_rows(block_list, n_blocks, block_rows, binsT.device)
     if rows.numel() == 0:
@@ -425,12 +497,12 @@ def histogram_frontier_plain(binsT, w8, leaf_id, block_list, n_blocks,
         if t >= 0:
             slot = torch.where(lid == t, k, slot)
     return _plain_sums(binsT[:, rows], w8[:5, rows].double(), num_bins,
-                       slot, KT)
+                       slot, KT, packed4)
 
 
 def histogram_frontier_routed_plain(binsT, w8, leaf_id, block_list,
                                     n_blocks, targets, routes, num_bins,
-                                    block_rows):
+                                    block_rows, packed4=False):
     """Plain K7: each route of ``routes`` [K, 19] applied to ``leaf_id``
     in place over the listed blocks (at most one matches a row, so their
     order does not matter), then plain K6 on the updated ids.  Returns
@@ -440,28 +512,32 @@ def histogram_frontier_routed_plain(binsT, w8, leaf_id, block_list,
         lid = leaf_id[rows]
         for r in routes.tolist():
             if r[0] >= 0:
-                lid = routed_ids_plain(binsT[r[2], rows], lid, r)
+                lid = routed_ids_plain(_route_column(binsT, r, rows, packed4),
+                                       lid, r)
         leaf_id[rows] = lid
     return leaf_id, histogram_frontier_plain(
         binsT, w8, leaf_id, block_list, n_blocks, targets, num_bins,
-        block_rows)
+        block_rows, packed4)
 
 
 # ----------------------------------------------------------------- wrappers
-def segment_tiling(num_features: int, num_bins: int) -> dict:
-    """The card kernel's tiling of K1/K3 at this shape: features a block
-    holds, its shared memory, and the feature tiles of the grid
+def segment_tiling(num_features: int, num_bins: int,
+                   packed4: bool = False) -> dict:
+    """The card kernel's tiling of K1/K3 at this shape (``num_features``
+    the histogram's columns; ``packed4`` cuts them in pairs): features a
+    block holds, its shared memory, and the feature tiles of the grid
     (csrc/histogram.cu lgbt_segment_tiling).  Raises where not even one
     feature fits."""
-    ft, smem = _seg_tiling(int(num_features), int(num_bins))
+    ft, smem = _seg_tiling(int(num_features), int(num_bins), bool(packed4))
     return {"tile_features": ft, "smem_bytes": smem,
             "feature_tiles": -(-num_features // ft)}
 
 
 @functools.lru_cache(maxsize=64)
-def _seg_tiling(num_features, num_bins):
+def _seg_tiling(num_features, num_bins, packed4):
     out = (ctypes.c_int * 2)()
     rc = kernels.library().lgbt_segment_tiling(num_features, num_bins,
+                                               int(packed4),
                                                ctypes.addressof(out))
     if rc != 0:
         raise ValueError(f"{num_bins} bins do not fit the segment kernel's "
@@ -469,23 +545,32 @@ def _seg_tiling(num_features, num_bins):
     return tuple(out)
 
 
+def _check_bins(num_bins: int, packed4: bool) -> None:
+    top = 16 if packed4 else 256
+    if not 1 <= num_bins <= top:
+        raise ValueError(f"num_bins must be in [1, {top}]"
+                         + (" with packed4" if packed4 else ""))
+
+
 def _launch_hist(name, binsT, w8, leaf_id, start_block, n_blocks, target,
-                 route, num_bins, block_rows, scales):
-    F, npad = binsT.shape
+                 route, num_bins, block_rows, scales, packed4):
+    rows, npad = binsT.shape
+    F = logical_columns(binsT, packed4)
     dev = binsT.device
     _check_cuda(dev, binsT=(binsT, torch.uint8), w8=(w8, torch.bfloat16),
                 leaf_id=(leaf_id, torch.int32), scales=(scales, torch.float32))
     if w8.shape != (NUM_CHANNELS, npad) or leaf_id.shape != (npad,):
         raise ValueError("w8 must be [8, Npad] and leaf_id [Npad]")
-    if not 1 <= num_bins <= 256 or scales.shape != (2,):
-        raise ValueError("num_bins must be in [1, 256] and scales [2]")
+    _check_bins(num_bins, packed4)
+    if scales.shape != (2,):
+        raise ValueError("scales must be [2]")
     route_ptr = None
     if route is not None:
         _check_route(route)
-        if not 0 <= int(route[2]) < F:
+        if not 0 <= int(route[2]) < rows:
             raise ValueError("the route's bin row is outside binsT")
         route_ptr = route.data_ptr()
-    tiles = segment_tiling(F, num_bins)["feature_tiles"]
+    tiles = segment_tiling(F, num_bins, packed4)["feature_tiles"]
     lo, hi = _window(npad, start_block, n_blocks, block_rows)
     # the cells' i64 sums, then one u32 arrival counter a tile
     scratch = _kernel_scratch(dev, F * num_bins * 3 + (tiles + 1) // 2)
@@ -493,57 +578,62 @@ def _launch_hist(name, binsT, w8, leaf_id, start_block, n_blocks, target,
     rc = kernels.library().lgbt_histogram_segment(
         binsT.data_ptr(), w8.data_ptr(), leaf_id.data_ptr(), npad, F,
         num_bins, lo, hi, int(target), scales.data_ptr(), route_ptr,
-        scratch.data_ptr(), out.data_ptr(), kernels.stream_ptr(dev))
-    kernels.check_launch(name, rc)
+        scratch.data_ptr(), out.data_ptr(), int(packed4),
+        kernels.stream_ptr(dev))
+    kernels.check_launch(kernels.variant(name, packed4), rc)
     return out
 
 
 def histogram_segment(binsT: torch.Tensor, w8: torch.Tensor,
                       leaf_id: torch.Tensor, start_block: int,
                       n_blocks: int, target: int, num_bins: int,
-                      block_rows: int,
-                      scales: torch.Tensor) -> torch.Tensor:
+                      block_rows: int, scales: torch.Tensor,
+                      packed4: bool = False) -> torch.Tensor:
     """K1: histogram of leaf ``target`` over its confinement window ->
     [F, B, 3] f32.  ``scales`` is fixed_point_scales(w8) (the plain
     version sums in float64 and does not use it)."""
     if _device_kind(binsT) == "cpu":
         return histogram_segment_plain(binsT, w8, leaf_id, start_block,
                                        n_blocks, target, num_bins,
-                                       block_rows)
+                                       block_rows, packed4)
     return _launch_hist("histogram_segment", binsT, w8, leaf_id,
                         start_block, n_blocks, target, None, num_bins,
-                        block_rows, scales)
+                        block_rows, scales, packed4)
 
 
 def histogram_segment_routed(binsT: torch.Tensor, w8: torch.Tensor,
                              leaf_id: torch.Tensor, start_block: int,
                              n_blocks: int, target: int,
                              route: torch.Tensor, num_bins: int,
-                             block_rows: int, scales: torch.Tensor):
+                             block_rows: int, scales: torch.Tensor,
+                             packed4: bool = False):
     """K3: apply ``route`` to ``leaf_id`` in place over the window AND
     histogram ``target`` from the updated ids, in one pass.  Returns
     ``(leaf_id, [F, B, 3] hist)``."""
     if _device_kind(binsT) == "cpu":
         return histogram_segment_routed_plain(binsT, w8, leaf_id,
                                               start_block, n_blocks, target,
-                                              route, num_bins, block_rows)
+                                              route, num_bins, block_rows,
+                                              packed4)
     hist = _launch_hist("histogram_segment_routed", binsT, w8, leaf_id,
                         start_block, n_blocks, target, route, num_bins,
-                        block_rows, scales)
+                        block_rows, scales, packed4)
     return leaf_id, hist
 
 
 def _launch_hist_step(name, binsT, w8, leaf_id, step, routed, num_bins,
-                      block_rows, scales, out):
-    F, npad = binsT.shape
+                      block_rows, scales, out, packed4):
+    npad = binsT.shape[1]
+    F = logical_columns(binsT, packed4)
     dev = binsT.device
     _check_cuda(dev, binsT=(binsT, torch.uint8), w8=(w8, torch.bfloat16),
                 leaf_id=(leaf_id, torch.int32), scales=(scales, torch.float32))
     _check_step(step, dev)
     if w8.shape != (NUM_CHANNELS, npad) or leaf_id.shape != (npad,):
         raise ValueError("w8 must be [8, Npad] and leaf_id [Npad]")
-    if not 1 <= num_bins <= 256 or scales.shape != (2,):
-        raise ValueError("num_bins must be in [1, 256] and scales [2]")
+    _check_bins(num_bins, packed4)
+    if scales.shape != (2,):
+        raise ValueError("scales must be [2]")
     if block_rows < 1 or npad % block_rows:
         raise ValueError(f"Npad {npad} is not a multiple of the row block "
                          f"{block_rows}")
@@ -553,14 +643,14 @@ def _launch_hist_step(name, binsT, w8, leaf_id, step, routed, num_bins,
         _check_cuda(dev, out=(out, torch.float32))
         if out.shape != (F, num_bins, 3):
             raise ValueError("out must be [F, num_bins, 3]")
-    tiles = segment_tiling(F, num_bins)["feature_tiles"]
+    tiles = segment_tiling(F, num_bins, packed4)["feature_tiles"]
     scratch = _kernel_scratch(dev, F * num_bins * 3 + (tiles + 1) // 2)
     rc = kernels.library().lgbt_histogram_segment_step(
         binsT.data_ptr(), w8.data_ptr(), leaf_id.data_ptr(), npad, F,
         num_bins, int(block_rows), step.data_ptr(), int(routed),
-        scales.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+        scales.data_ptr(), scratch.data_ptr(), out.data_ptr(), int(packed4),
         kernels.stream_ptr(dev))
-    kernels.check_launch(name, rc)
+    kernels.check_launch(kernels.variant(name, packed4), rc)
     return out
 
 
@@ -571,8 +661,8 @@ def _into(out, hist):
 def histogram_segment_step(binsT: torch.Tensor, w8: torch.Tensor,
                            leaf_id: torch.Tensor, step: torch.Tensor,
                            num_bins: int, block_rows: int,
-                           scales: torch.Tensor,
-                           out: torch.Tensor = None) -> torch.Tensor:
+                           scales: torch.Tensor, out: torch.Tensor = None,
+                           packed4: bool = False) -> torch.Tensor:
     """K1 over the window of ``step`` for its target leaf (a pack_step
     block on binsT's device; the host reads none of it) -> [F, B, 3] f32,
     written into ``out`` when given.  Bit for bit histogram_segment on
@@ -580,16 +670,18 @@ def histogram_segment_step(binsT: torch.Tensor, w8: torch.Tensor,
     if _device_kind(binsT) == "cpu":
         _check_step(step, binsT.device)
         return _into(out, histogram_segment_step_plain(
-            binsT, w8, leaf_id, step, num_bins, block_rows))
+            binsT, w8, leaf_id, step, num_bins, block_rows, packed4))
     return _launch_hist_step("histogram_segment_step", binsT, w8, leaf_id,
-                             step, False, num_bins, block_rows, scales, out)
+                             step, False, num_bins, block_rows, scales, out,
+                             packed4)
 
 
 def histogram_segment_routed_step(binsT: torch.Tensor, w8: torch.Tensor,
                                   leaf_id: torch.Tensor, step: torch.Tensor,
                                   num_bins: int, block_rows: int,
                                   scales: torch.Tensor,
-                                  out: torch.Tensor = None):
+                                  out: torch.Tensor = None,
+                                  packed4: bool = False):
     """K3 from a step block: its route applied to ``leaf_id`` in place over
     its window AND its target histogrammed from the updated ids, in one
     pass.  Returns ``(leaf_id, [F, B, 3] hist)`` (into ``out`` when
@@ -597,23 +689,24 @@ def histogram_segment_routed_step(binsT: torch.Tensor, w8: torch.Tensor,
     if _device_kind(binsT) == "cpu":
         _check_step(step, binsT.device)
         _, hist = histogram_segment_routed_step_plain(
-            binsT, w8, leaf_id, step, num_bins, block_rows)
+            binsT, w8, leaf_id, step, num_bins, block_rows, packed4)
         return leaf_id, _into(out, hist)
     hist = _launch_hist_step("histogram_segment_routed_step", binsT, w8,
                              leaf_id, step, True, num_bins, block_rows,
-                             scales, out)
+                             scales, out, packed4)
     return leaf_id, hist
 
 
 def histogram_all(binsT: torch.Tensor, w8C: torch.Tensor, num_bins: int,
-                  scales: torch.Tensor) -> torch.Tensor:
+                  scales: torch.Tensor, packed4: bool = False) -> torch.Tensor:
     """K5: the histogram of every row for each of the C channel sets of
     ``w8C`` ([8C, Npad] bf16, pack_channel_sets; pad rows carry member
     0) -> [C, F, B, 3] f32.  ``scales`` is class_scales(w8C) (the plain
     version does not use it)."""
     if _device_kind(binsT) == "cpu":
-        return histogram_all_plain(binsT, w8C, num_bins)
-    F, npad = binsT.shape
+        return histogram_all_plain(binsT, w8C, num_bins, packed4)
+    npad = binsT.shape[1]
+    F = logical_columns(binsT, packed4)
     dev = binsT.device
     _check_cuda(dev, binsT=(binsT, torch.uint8), w8C=(w8C, torch.bfloat16),
                 scales=(scales, torch.float32))
@@ -621,37 +714,39 @@ def histogram_all(binsT: torch.Tensor, w8C: torch.Tensor, num_bins: int,
     if (C < 1 or w8C.shape != (NUM_CHANNELS * C, npad)
             or scales.shape != (C, 2)):
         raise ValueError("w8C must be [8C, Npad] and scales [C, 2]")
-    if not 1 <= num_bins <= 256:
-        raise ValueError("num_bins must be in [1, 256]")
-    tiling = all_tiling(F, num_bins, C)
+    _check_bins(num_bins, packed4)
+    tiling = all_tiling(F, num_bins, C, packed4)
     tiles = tiling["feature_tiles"] * tiling["set_tiles"]
     # the cells' i64 sums, then one u32 arrival counter a tile
     scratch = _kernel_scratch(dev, C * F * num_bins * 3 + (tiles + 1) // 2)
     out = torch.empty((C, F, num_bins, 3), dtype=torch.float32, device=dev)
     rc = kernels.library().lgbt_histogram_all(
         binsT.data_ptr(), w8C.data_ptr(), npad, F, num_bins, C,
-        scales.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+        scales.data_ptr(), scratch.data_ptr(), out.data_ptr(), int(packed4),
         kernels.stream_ptr(dev))
-    kernels.check_launch("histogram_all", rc)
+    kernels.check_launch(kernels.variant("histogram_all", packed4), rc)
     return out
 
 
-def all_tiling(num_features: int, num_bins: int, num_sets: int) -> dict:
-    """The card kernel's tiling of K5 at this shape: the features and
-    channel sets a block holds, its shared memory, and the feature and set
-    tiles of the grid (csrc/histogram.cu lgbt_all_tiling).  Raises where
-    not even one feature of one set fits."""
+def all_tiling(num_features: int, num_bins: int, num_sets: int,
+               packed4: bool = False) -> dict:
+    """The card kernel's tiling of K5 at this shape (``packed4``: features
+    in pairs): the features and channel sets a block holds, its shared
+    memory, and the feature and set tiles of the grid (csrc/histogram.cu
+    lgbt_all_tiling).  Raises where not even one feature of one set
+    fits."""
     ft, st, smem = _all_tiling(int(num_features), int(num_bins),
-                               int(num_sets))
+                               int(num_sets), bool(packed4))
     return {"tile_features": ft, "tile_sets": st, "smem_bytes": smem,
             "feature_tiles": -(-num_features // ft),
             "set_tiles": -(-num_sets // st)}
 
 
 @functools.lru_cache(maxsize=64)
-def _all_tiling(num_features, num_bins, num_sets):
+def _all_tiling(num_features, num_bins, num_sets, packed4):
     out = (ctypes.c_int * 3)()
     rc = kernels.library().lgbt_all_tiling(num_features, num_bins, num_sets,
+                                           int(packed4),
                                            ctypes.addressof(out))
     if rc != 0:
         raise ValueError(f"{num_bins} bins do not fit the kernel's tile")
@@ -660,12 +755,12 @@ def _all_tiling(num_features, num_bins, num_sets):
 
 def route_window(binsT: torch.Tensor, leaf_id: torch.Tensor,
                  start_block: int, n_blocks: int, route: torch.Tensor,
-                 block_rows: int) -> torch.Tensor:
+                 block_rows: int, packed4: bool = False) -> torch.Tensor:
     """K2: apply one split's route to ``leaf_id`` in place over the
     parent's window; returns ``leaf_id``."""
     if _device_kind(binsT) == "cpu":
         return route_window_plain(binsT, leaf_id, start_block, n_blocks,
-                                  route, block_rows)
+                                  route, block_rows, packed4)
     F, npad = binsT.shape
     _check_cuda(binsT.device, binsT=(binsT, torch.uint8),
                 leaf_id=(leaf_id, torch.int32))
@@ -676,18 +771,20 @@ def route_window(binsT: torch.Tensor, leaf_id: torch.Tensor,
     lo, hi = _window(npad, start_block, n_blocks, block_rows)
     rc = kernels.library().lgbt_route_window(
         binsT.data_ptr(), leaf_id.data_ptr(), npad, lo, hi,
-        route.data_ptr(), kernels.stream_ptr(binsT.device))
-    kernels.check_launch("route_window", rc)
+        route.data_ptr(), int(packed4), kernels.stream_ptr(binsT.device))
+    kernels.check_launch(kernels.variant("route_window", packed4), rc)
     return leaf_id
 
 
 def route_window_step(binsT: torch.Tensor, leaf_id: torch.Tensor,
-                      step: torch.Tensor, block_rows: int) -> torch.Tensor:
+                      step: torch.Tensor, block_rows: int,
+                      packed4: bool = False) -> torch.Tensor:
     """K2 from a step block: its route applied to ``leaf_id`` in place over
     its window; returns ``leaf_id``, bit for bit route_window's."""
     _check_step(step, binsT.device)
     if _device_kind(binsT) == "cpu":
-        return route_window_step_plain(binsT, leaf_id, step, block_rows)
+        return route_window_step_plain(binsT, leaf_id, step, block_rows,
+                                       packed4)
     F, npad = binsT.shape
     _check_cuda(binsT.device, binsT=(binsT, torch.uint8),
                 leaf_id=(leaf_id, torch.int32))
@@ -696,8 +793,8 @@ def route_window_step(binsT: torch.Tensor, leaf_id: torch.Tensor,
                          "row block")
     rc = kernels.library().lgbt_route_window_step(
         binsT.data_ptr(), leaf_id.data_ptr(), npad, F, int(block_rows),
-        step.data_ptr(), kernels.stream_ptr(binsT.device))
-    kernels.check_launch("route_window_step", rc)
+        step.data_ptr(), int(packed4), kernels.stream_ptr(binsT.device))
+    kernels.check_launch(kernels.variant("route_window_step", packed4), rc)
     return leaf_id
 
 
@@ -742,23 +839,25 @@ def frontier_params(targets: torch.Tensor, routes) -> np.ndarray:
 
 
 def frontier_tiling(num_features: int, num_bins: int, n_targets: int,
-                    n_routes: int, n_ids: int) -> dict:
+                    n_routes: int, n_ids: int,
+                    packed4: bool = False) -> dict:
     """The card kernel's tiling of K6/K7 at this shape, with leaf tables
-    of ``n_ids`` entries: features and target slots a block holds, its
-    shared memory, and the feature and target tiles of the grid
-    (csrc/histogram.cu lgbt_frontier_tiling)."""
+    of ``n_ids`` entries (``packed4``: features in pairs): features and
+    target slots a block holds, its shared memory, and the feature and
+    target tiles of the grid (csrc/histogram.cu lgbt_frontier_tiling)."""
     ft, tt, smem = _tiling(int(num_features), int(num_bins),
-                           int(n_targets), int(n_routes), int(n_ids))
+                           int(n_targets), int(n_routes), int(n_ids),
+                           bool(packed4))
     return {"tile_features": ft, "tile_targets": tt, "smem_bytes": smem,
             "feature_tiles": -(-num_features // ft),
             "target_tiles": -(-n_targets // tt)}
 
 
 @functools.lru_cache(maxsize=256)
-def _tiling(num_features, num_bins, n_targets, n_routes, n_ids):
+def _tiling(num_features, num_bins, n_targets, n_routes, n_ids, packed4):
     out = (ctypes.c_int * 3)()
     rc = kernels.library().lgbt_frontier_tiling(
-        num_features, num_bins, n_targets, n_routes, n_ids,
+        num_features, num_bins, n_targets, n_routes, n_ids, int(packed4),
         ctypes.addressof(out))
     if rc != 0:
         raise ValueError(f"{n_targets} target slots at {num_bins} bins, with "
@@ -783,8 +882,9 @@ def _kernel_scratch(dev, words: int) -> torch.Tensor:
 
 
 def _launch_frontier(name, binsT, w8, leaf_id, block_list, n_blocks,
-                     targets, routes, num_bins, block_rows, scales):
-    F, npad = binsT.shape
+                     targets, routes, num_bins, block_rows, scales, packed4):
+    rows, npad = binsT.shape
+    F = logical_columns(binsT, packed4)
     dev = binsT.device
     _check_cuda(dev, binsT=(binsT, torch.uint8), w8=(w8, torch.bfloat16),
                 leaf_id=(leaf_id, torch.int32),
@@ -792,8 +892,9 @@ def _launch_frontier(name, binsT, w8, leaf_id, block_list, n_blocks,
                 scales=(scales, torch.float32))
     if w8.shape != (NUM_CHANNELS, npad) or leaf_id.shape != (npad,):
         raise ValueError("w8 must be [8, Npad] and leaf_id [Npad]")
-    if not 1 <= num_bins <= 256 or scales.shape != (2,):
-        raise ValueError("num_bins must be in [1, 256] and scales [2]")
+    _check_bins(num_bins, packed4)
+    if scales.shape != (2,):
+        raise ValueError("scales must be [2]")
     if npad % block_rows:
         raise ValueError(f"Npad {npad} is not a multiple of the row block "
                          f"{block_rows}")
@@ -806,10 +907,10 @@ def _launch_frontier(name, binsT, w8, leaf_id, block_list, n_blocks,
     off = _PARAM_HEAD + FRONTIER_MAX_TARGETS
     # the routes' bin rows: their features' columns
     bin_rows = params[off + 2:off + K * ROUTE_WORDS:ROUTE_WORDS]
-    if ((bin_rows < 0) | (bin_rows >= F)).any():
+    if ((bin_rows < 0) | (bin_rows >= rows)).any():
         raise ValueError("a route's bin row is outside binsT")
     # raises where the slots and leaf tables do not fit
-    tiling = frontier_tiling(F, num_bins, KT, K, n_ids)
+    tiling = frontier_tiling(F, num_bins, KT, K, n_ids, packed4)
     tiles = tiling["feature_tiles"] * tiling["target_tiles"]
     # the cells' i64 sums, then one u32 arrival counter a tile
     scratch = _kernel_scratch(dev, KT * F * num_bins * 3 + (tiles + 1) // 2)
@@ -818,15 +919,17 @@ def _launch_frontier(name, binsT, w8, leaf_id, block_list, n_blocks,
         binsT.data_ptr(), w8.data_ptr(), leaf_id.data_ptr(), npad, F,
         num_bins, int(block_rows), block_list.data_ptr(), int(n_blocks),
         params.ctypes.data, params.nbytes, scales.data_ptr(),
-        scratch.data_ptr(), out.data_ptr(), kernels.stream_ptr(dev))
-    kernels.check_launch(name, rc)
+        scratch.data_ptr(), out.data_ptr(), int(packed4),
+        kernels.stream_ptr(dev))
+    kernels.check_launch(kernels.variant(name, packed4), rc)
     return out
 
 
 def histogram_frontier(binsT: torch.Tensor, w8: torch.Tensor,
                        leaf_id: torch.Tensor, block_list: torch.Tensor,
                        n_blocks: int, targets: torch.Tensor, num_bins: int,
-                       block_rows: int, scales: torch.Tensor) -> torch.Tensor:
+                       block_rows: int, scales: torch.Tensor,
+                       packed4: bool = False) -> torch.Tensor:
     """K6: the histograms of the leaves ``targets`` (a host int32 tensor
     [KT]; -1 = an empty slot, zeros) over the rows of the blocks
     ``block_list[:n_blocks]`` (an int32 tensor on binsT's device) ->
@@ -836,10 +939,10 @@ def histogram_frontier(binsT: torch.Tensor, w8: torch.Tensor,
     if _device_kind(binsT) == "cpu":
         return histogram_frontier_plain(binsT, w8, leaf_id, block_list,
                                         n_blocks, targets, num_bins,
-                                        block_rows)
+                                        block_rows, packed4)
     return _launch_frontier("histogram_frontier", binsT, w8, leaf_id,
                             block_list, n_blocks, targets, None, num_bins,
-                            block_rows, scales)
+                            block_rows, scales, packed4)
 
 
 def histogram_frontier_routed(binsT: torch.Tensor, w8: torch.Tensor,
@@ -847,7 +950,7 @@ def histogram_frontier_routed(binsT: torch.Tensor, w8: torch.Tensor,
                               block_list: torch.Tensor, n_blocks: int,
                               targets: torch.Tensor, routes: torch.Tensor,
                               num_bins: int, block_rows: int,
-                              scales: torch.Tensor):
+                              scales: torch.Tensor, packed4: bool = False):
     """K7 with KT = K: apply the K routes ``routes`` [K, 19] (null_route()
     rows for empty slots) to ``leaf_id`` in place over the listed blocks
     AND histogram the K ``targets`` from the updated ids, in one pass.
@@ -855,7 +958,7 @@ def histogram_frontier_routed(binsT: torch.Tensor, w8: torch.Tensor,
     _check_frontier_args(targets, routes, 1)
     return _frontier_routed("histogram_frontier_routed", binsT, w8, leaf_id,
                             block_list, n_blocks, targets, routes, num_bins,
-                            block_rows, scales)
+                            block_rows, scales, packed4)
 
 
 def histogram_frontier_fusedk(binsT: torch.Tensor, w8: torch.Tensor,
@@ -863,7 +966,7 @@ def histogram_frontier_fusedk(binsT: torch.Tensor, w8: torch.Tensor,
                               block_list: torch.Tensor, n_blocks: int,
                               targets2: torch.Tensor, routes: torch.Tensor,
                               num_bins: int, block_rows: int,
-                              scales: torch.Tensor):
+                              scales: torch.Tensor, packed4: bool = False):
     """K7 with KT = 2K: apply the K routes and histogram all 2K children
     in one pass; ``targets2`` is [left children = the routed parents,
     which keep their ids, then right children = the new leaves], -1 for
@@ -872,15 +975,16 @@ def histogram_frontier_fusedk(binsT: torch.Tensor, w8: torch.Tensor,
     _check_frontier_args(targets2, routes, 2)
     return _frontier_routed("histogram_frontier_fusedk", binsT, w8,
                             leaf_id, block_list, n_blocks, targets2, routes,
-                            num_bins, block_rows, scales)
+                            num_bins, block_rows, scales, packed4)
 
 
 def _frontier_routed(name, binsT, w8, leaf_id, block_list, n_blocks,
-                     targets, routes, num_bins, block_rows, scales):
+                     targets, routes, num_bins, block_rows, scales, packed4):
     if _device_kind(binsT) == "cpu":
         return histogram_frontier_routed_plain(
             binsT, w8, leaf_id, block_list, n_blocks, targets, routes,
-            num_bins, block_rows)
+            num_bins, block_rows, packed4)
     hist = _launch_frontier(name, binsT, w8, leaf_id, block_list, n_blocks,
-                            targets, routes, num_bins, block_rows, scales)
+                            targets, routes, num_bins, block_rows, scales,
+                            packed4)
     return leaf_id, hist

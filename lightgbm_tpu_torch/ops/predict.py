@@ -17,6 +17,12 @@ leaf value into the row of the tree's class (``TreeStack.tree_class``),
 in place.  The additions are the host walk's, in its order, so the
 result has the host walk's bits.
 
+The training set's u8 bins may be 4-bit packed (``packed4``: two columns
+a byte, ops/histogram.py pack_bins_4bit, the layout of a dataset whose bin
+axis is at most 16): feature f is then the nibble of column
+``feat_group[f]`` in byte row ``feat_group[f] >> 1``, before
+``feat_offset`` applies.
+
 A CPU ``out`` goes to the plain version (the JAX route's gather loop in
 torch); a CUDA one to the kernel, or the wrapper raises.
 """
@@ -26,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from . import kernels
+from .histogram import unpack_nibble
 
 MISSING_ZERO = 1
 MISSING_NAN = 2
@@ -41,11 +48,12 @@ def identity_tables(num_features: int, device) -> tuple:
 def route_leaves_plain(bins: torch.Tensor, stack, t: int,
                        num_bin: torch.Tensor, default_bin: torch.Tensor,
                        n: int, feat_group: torch.Tensor = None,
-                       feat_offset: torch.Tensor = None) -> torch.Tensor:
+                       feat_offset: torch.Tensor = None,
+                       packed4: bool = False) -> torch.Tensor:
     """Leaf index of each of the first ``n`` rows under tree ``t`` of
     ``stack``: [n] int64 (the JAX route's ``_tree_leaves``, with its
     ``feat_group`` / ``feat_offset`` reconstruction; None: one column a
-    feature)."""
+    feature; ``packed4``: two columns a byte)."""
     if feat_group is None:
         feat_group, feat_offset = identity_tables(num_bin.shape[0],
                                                   bins.device)
@@ -62,7 +70,11 @@ def route_leaves_plain(bins: torch.Tensor, stack, t: int,
         internal = node >= 0
         safe = node.clamp(min=0).long()
         f = sf[safe]
-        fv = bins[feat_group[f].long(), rows].to(torch.int32)
+        col = feat_group[f].long()
+        if packed4:
+            fv = unpack_nibble(bins[col >> 1, rows], col)
+        else:
+            fv = bins[col, rows].to(torch.int32)
         off = feat_offset[f]
         fv = torch.where((off == 0) | ((fv >= off) & (fv < off + num_bin[f])),
                          fv - off, default_bin[f])
@@ -86,11 +98,12 @@ def route_leaves_plain(bins: torch.Tensor, stack, t: int,
 def route_trees_plain(bins: torch.Tensor, stack, num_bin: torch.Tensor,
                       default_bin: torch.Tensor, out: torch.Tensor,
                       feat_group: torch.Tensor = None,
-                      feat_offset: torch.Tensor = None) -> torch.Tensor:
+                      feat_offset: torch.Tensor = None,
+                      packed4: bool = False) -> torch.Tensor:
     n = out.shape[1]
     for t in range(stack.num_trees):
         leaf = route_leaves_plain(bins, stack, t, num_bin, default_bin, n,
-                                  feat_group, feat_offset)
+                                  feat_group, feat_offset, packed4)
         k = int(stack.tree_class[t])
         out[k] += stack.leaf_value[t][leaf]
     return out
@@ -99,23 +112,26 @@ def route_trees_plain(bins: torch.Tensor, stack, num_bin: torch.Tensor,
 def route_trees(bins: torch.Tensor, stack, num_bin: torch.Tensor,
                 default_bin: torch.Tensor, out: torch.Tensor,
                 feat_group: torch.Tensor = None,
-                feat_offset: torch.Tensor = None) -> torch.Tensor:
+                feat_offset: torch.Tensor = None,
+                packed4: bool = False) -> torch.Tensor:
     """P1: ``out[tree_class[t]][row] += leaf_value[t][leaf_t(row)]`` for
     every tree t of ``stack`` in order and every row < out.shape[1] of the
-    column-major ``bins`` [G, S] (u8 or i16), each feature read out of its
-    column by the [F] tables ``feat_group`` / ``feat_offset`` (None: one
-    column a feature, G = F); ``out`` [C, n] float64, updated in place
-    and returned."""
+    column-major ``bins`` [G, S] (u8 or i16; ``packed4``: u8 [ceil(G /
+    2), S], two columns a byte), each feature read out of its column by
+    the [F] tables ``feat_group`` / ``feat_offset`` (None: one column a
+    feature, G = F); ``out`` [C, n] float64, updated in place and
+    returned."""
     if out.device.type == "cpu":
         return route_trees_plain(bins, stack, num_bin, default_bin, out,
-                                 feat_group, feat_offset)
+                                 feat_group, feat_offset, packed4)
     if out.device.type != "cuda":
         raise ValueError(f"unsupported device {out.device}")
     dev = out.device
     if bins.dtype not in (torch.uint8, torch.int16) or bins.dim() != 2 \
-            or not bins.is_contiguous() or bins.device != dev:
+            or not bins.is_contiguous() or bins.device != dev \
+            or (packed4 and bins.dtype != torch.uint8):
         raise ValueError(f"bins must be a contiguous [F, S] uint8 or int16 "
-                         f"tensor on {dev}")
+                         f"tensor on {dev} (uint8 when packed4)")
     C, n = out.shape
     if out.dtype != torch.float64 or not out.is_contiguous() \
             or n > bins.shape[1]:
@@ -155,6 +171,6 @@ def route_trees(bins: torch.Tensor, stack, num_bin: torch.Tensor,
         stack.tree_class.data_ptr(), T, M, stack.leaf_value.shape[1],
         stack.max_depth, num_bin.data_ptr(), default_bin.data_ptr(),
         feat_group.data_ptr(), feat_offset.data_ptr(), C, out.data_ptr(),
-        kernels.stream_ptr(dev))
-    kernels.check_launch("route_trees", rc)
+        int(packed4), kernels.stream_ptr(dev))
+    kernels.check_launch(kernels.variant("route_trees", packed4), rc)
     return out

@@ -20,7 +20,12 @@ rows against a CPU booster's; and ``predict`` with ``predict_device``
 bins (255-bin groups beside 63-bin columns): K1, K3, K2, K5, K6 and K7
 against their plain versions with routes of group members (bin offset
 not 0) bit for bit in the leaf ids, P1 with the group tables, and a
-bundled booster and a CSR one against the CPU booster.
+bundled booster and a CSR one against the CPU booster.  On 4-bit packed
+bins (two <= 16-bin columns a byte): K1, K3, K2, their step entries, K5,
+K6 and K7 bit for bit the same kernels on the unpacked bins at odd and
+even column counts and at counts whose tiles split, P1 likewise, and
+packed boosters (segment fused and unfused, frontier, multiclass,
+bundled) = their unpacked model text = the CPU's splits.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips where
 ``torch.cuda.is_available()`` is false.  The file imports neither JAX nor
@@ -2133,3 +2138,278 @@ def test_bundled_boosters_on_card_equal_cpu(dev, case):
             host[i % C] += tree.predict_binned(vh.bins_t, infos)
     np.testing.assert_array_equal(
         out["cuda"].valid_scores[0].reshape(C, -1), host)
+
+
+# ------------------------------------------------------------ 4-bit packing
+def _packed_case(G, seed):
+    """Bins of G <= 16-bin columns, unpacked [G, N] and packed two a byte
+    [ceil(G / 2), N]; K routes of leaves 0..K-1 on even and odd columns
+    (numeric, NaN- and zero-missing, categorical; a null route last) in
+    both layouts' words; the frontier round's block union."""
+    npad = 8 * RB
+    fm, binsT, w8, lid = _inputs(G, 16, npad, seed)
+    packed = torch.from_numpy(th.pack_bins_4bit(binsT.numpy()))
+    rng = np.random.RandomState(seed)
+    K = 16
+    routes = {False: [], True: []}
+    for k in range(K - 1):
+        f = (7 * k + 1) % G
+        bitset = rng.randint(0, 2**32, size=8, dtype=np.uint64).astype(
+            np.uint32)
+        for p4 in (False, True):
+            routes[p4].append(th.pack_route(
+                k, 2 * K + k, f, int(fm.num_bin[f]) // 2, k % 2 == 1,
+                k % 4 == 3, bitset, fm, packed4=p4))
+    for p4 in (False, True):
+        routes[p4] = torch.stack(routes[p4] + [th.null_route()])
+    flid = torch.from_numpy(np.sort(rng.randint(0, 2 * K, size=npad)).astype(
+        np.int32))
+    nblk = npad // RB
+    bl, n = th.union_block_list([0, 2, nblk // 2, nblk - 3],
+                                [3, 5, nblk // 2 + 2, nblk], [True] * 4)
+    return binsT, packed, w8, lid, routes, flid, bl, n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [7, 28, 41, 1401])
+def test_packed_kernels_equal_unpacked_bit_for_bit(dev, G):
+    """K1, K3, K2 (by value and from a step block), K5, K6 and K7 on bins
+    packed two columns a byte = the same kernels on the unpacked bins,
+    bit for bit (the sums are fixed-point integers: the layout cannot
+    move them), over the G real columns; each packed kernel = its plain
+    version (ids exact, counts exact over every column, the pad nibble's
+    included, sums in tolerance).  G odd and even, 41 columns that tile
+    K7 fused-K's shared memory, 1401 that tile K1's and K5's."""
+    B = 16
+    binsT, packed, w8, lid, routes, flid, bl, n = _packed_case(G, G)
+    npad = binsT.shape[1]
+    nblk = npad // RB
+    scales = th.fixed_point_scales(w8)
+    du, dp, dw, ds = binsT.to(dev), packed.to(dev), w8.to(dev), scales.to(dev)
+    H = 2 * packed.shape[0]
+    if G == 1401:
+        til = th.segment_tiling(H, B, packed4=True)
+        assert til["feature_tiles"] > 1 and til["tile_features"] % 2 == 0
+        assert th.all_tiling(H, B, 3, packed4=True)["feature_tiles"] > 1
+    if G == 41:
+        til = th.frontier_tiling(H, B, 32, 16, 48, packed4=True)
+        assert til["feature_tiles"] > 1 and til["tile_features"] % 2 == 0
+    # K1 over whole, partial and empty windows
+    for lo, nb, target in ((0, nblk, 1), (2, 3, 0), (5, 0, 2)):
+        got = th.histogram_segment(dp, dw, lid.to(dev), lo, nb, target, B,
+                                   RB, ds, packed4=True)
+        unp = th.histogram_segment(du, dw, lid.to(dev), lo, nb, target, B,
+                                   RB, ds)
+        torch.cuda.synchronize()
+        assert got.shape == (H, B, 3) and torch.equal(got[:G], unp)
+        want = th.histogram_segment_plain(packed, w8, lid, lo, nb, target, B,
+                                          RB, packed4=True)
+        assert torch.equal(got[..., 2].cpu(), want[..., 2])
+        _assert_hist(got[:G], want[:G], w8, binsT, lid, lo, nb, target, B)
+    # K3, K2 and the step entries on every route
+    for ru, rp in zip(routes[False][:-1], routes[True]):
+        assert int(rp[2]) == int(ru[2]) // 2
+        want_lid, want = th.histogram_segment_routed_plain(
+            packed, w8, lid.clone(), 1, nblk - 2, 6, rp, B, RB, packed4=True)
+        ul, uh = th.histogram_segment_routed(du, dw, lid.to(dev), 1, nblk - 2,
+                                             6, ru, B, RB, ds)
+        pl, ph = th.histogram_segment_routed(dp, dw, lid.to(dev), 1, nblk - 2,
+                                             6, rp, B, RB, ds, packed4=True)
+        k2 = th.route_window(dp, lid.to(dev), 1, nblk - 2, rp, RB,
+                             packed4=True)
+        step = th.pack_step(1, nblk - 2, 6, rp).to(dev)
+        sl = lid.to(dev)
+        _, sh = th.histogram_segment_routed_step(dp, dw, sl, step, B, RB, ds,
+                                                 packed4=True)
+        s2 = th.route_window_step(dp, lid.to(dev), step, RB, packed4=True)
+        s1 = th.histogram_segment_step(dp, dw, want_lid.to(dev), step, B, RB,
+                                       ds, packed4=True)
+        k1 = th.histogram_segment(dp, dw, want_lid.to(dev), 1, nblk - 2, 6,
+                                  B, RB, ds, packed4=True)
+        torch.cuda.synchronize()
+        for ids in (ul, pl, k2, sl, s2):
+            assert torch.equal(ids.cpu(), want_lid)
+        assert torch.equal(ph[:G], uh) and torch.equal(sh, ph)
+        assert torch.equal(s1, k1) and torch.equal(k1, ph)
+        assert torch.equal(ph[..., 2].cpu(), want[..., 2])
+        _assert_hist(ph[:G], want[:G], w8, binsT, want_lid, 1, nblk - 2, 6,
+                     B)
+    # K5: three class sets
+    member = w8[4].float()
+    g = w8[0].float() + w8[1].float()
+    h = w8[2].float() + w8[3].float()
+    w8C = th.pack_channel_sets(torch.stack([g, -g, 0.5 * g]),
+                               torch.stack([h, h, 2 * h]), member)
+    sc = th.class_scales(w8C).to(dev)
+    got = th.histogram_all(dp, w8C.to(dev), B, sc, packed4=True)
+    unp = th.histogram_all(du, w8C.to(dev), B, sc)
+    want = th.histogram_all_plain(packed, w8C, B, packed4=True)
+    torch.cuda.synchronize()
+    assert got.shape == (3, H, B, 3) and torch.equal(got[:, :G], unp)
+    assert torch.equal(got[..., 2].cpu(), want[..., 2])
+    lid0 = torch.zeros(npad, dtype=torch.int32)
+    for c in range(3):
+        _assert_hist(got[c, :G], want[c, :G], w8C[8 * c:8 * c + 8], binsT,
+                     lid0, 0, nblk, 0, B)
+    # a K = 16 frontier round: K6 on the routed ids, K7 routed and fused-K
+    K = 16
+    smaller = torch.tensor([k if k % 3 else 2 * K + k for k in range(K)],
+                           dtype=torch.int32)
+    targets2 = torch.tensor(list(range(K)) + list(range(2 * K, 3 * K)),
+                            dtype=torch.int32)
+    routed, _ = th.histogram_frontier_routed_plain(
+        packed, w8, flid.clone(), bl, n, smaller, routes[True], B, RB,
+        packed4=True)
+    assert not torch.equal(routed, flid)
+    got = th.histogram_frontier(dp, dw, routed.to(dev), bl.to(dev), n,
+                                smaller, B, RB, ds, packed4=True)
+    unp = th.histogram_frontier(du, dw, routed.to(dev), bl.to(dev), n,
+                                smaller, B, RB, ds)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:, :G], unp)
+    want = th.histogram_frontier_plain(packed, w8, routed, bl, n, smaller, B,
+                                       RB, packed4=True)
+    _assert_frontier(got[:, :G], want[:, :G], w8, binsT, routed, bl, n,
+                     smaller, B)
+    for fn, targets in ((th.histogram_frontier_routed, smaller),
+                        (th.histogram_frontier_fusedk, targets2)):
+        want_lid, want = th.histogram_frontier_routed_plain(
+            packed, w8, flid.clone(), bl, n, targets, routes[True], B, RB,
+            packed4=True)
+        pl, ph = fn(dp, dw, flid.to(dev), bl.to(dev), n, targets,
+                    routes[True], B, RB, ds, packed4=True)
+        ul, uh = fn(du, dw, flid.to(dev), bl.to(dev), n, targets,
+                    routes[False], B, RB, ds)
+        torch.cuda.synchronize()
+        assert torch.equal(pl.cpu(), want_lid)
+        assert torch.equal(ul.cpu(), want_lid)
+        assert torch.equal(ph[:, :G], uh)
+        assert torch.equal(ph[..., 2].cpu(), want[..., 2])
+        _assert_frontier(ph[:, :G], want[:, :G], w8, binsT, want_lid, bl, n,
+                         targets, B)
+
+
+@pytest.mark.cuda
+def test_packed_wrappers_reject_wide_bins(dev):
+    _, packed, w8, lid, _, _, _, _ = _packed_case(7, 3)
+    with pytest.raises(ValueError):     # more than 16 bins cannot pack
+        th.histogram_segment(packed.to(dev), w8.to(dev), lid.to(dev), 0, 8,
+                             0, 32, RB, th.fixed_point_scales(w8).to(dev),
+                             packed4=True)
+
+
+def _packed_one_hot(n, seed):
+    """Two dense columns and 7-way and 5-way one-hot blocks: at max_bin 15
+    the 7-way block bundles into one column of 15 bins."""
+    rng = np.random.RandomState(seed)
+    a = rng.randint(0, 7, size=n)
+    b = rng.randint(0, 5, size=n)
+    X = np.concatenate([rng.normal(size=(n, 2)), np.eye(7)[a], np.eye(5)[b]],
+                       axis=1)
+    y = (X[:, 0] + (a % 3 == 0) - 0.5 * (b == 2)
+         + 0.3 * rng.normal(size=n) > 0.4).astype(np.float64)
+    return X, y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bundled", [False, True])
+def test_route_trees_on_packed_bins_equals_unpacked(dev, bundled):
+    """P1 over packed training bins (with the group tables of a bundled
+    dataset) = P1 over the unpacked ones = its plain version, bit for
+    bit."""
+    from lightgbm_tpu_torch.models.device_predict import TreeStack
+    from lightgbm_tpu_torch.ops import predict as tp
+    X, y = (_packed_one_hot(8000, 9) if bundled else _session_data(8000, 9))
+    params = dict(objective="binary", num_leaves=31, max_bin=15,
+                  min_data_in_leaf=5, verbosity=-1, device_type="cpu")
+    bst = lt.train(params, lt.Dataset(X, y), 6, verbose_eval=False)
+    g = bst.gbdt
+    ds = g.train_set
+    assert g.packed4 and (g.fmeta.feat_group is not None) == bundled
+    stack = TreeStack(g.models, [0] * len(g.models), ds.num_used_features,
+                      dev)
+    tables = [None if t is None else t.to(dev) for t in (
+        g.fmeta.num_bin, g.fmeta.default_bin, g.fmeta.feat_group,
+        g.fmeta.feat_offset)]
+    unpacked = torch.from_numpy(ds.bins_t).to(dev)
+    packed = torch.from_numpy(th.pack_bins_4bit(ds.bins_t)).to(dev)
+    start = torch.zeros((1, ds.num_data), dtype=torch.float64, device=dev)
+    want = tp.route_trees(unpacked, stack, tables[0], tables[1],
+                          start.clone(), *tables[2:])
+    plain = tp.route_trees_plain(packed, stack, tables[0], tables[1],
+                                 start.clone(), *tables[2:], packed4=True)
+    kernels.reset_launches()
+    got = tp.route_trees(packed, stack, tables[0], tables[1], start.clone(),
+                         *tables[2:], packed4=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["route_trees_packed4"] == 1
+    assert kernels.LAUNCHES["route_trees"] == 0
+    assert torch.equal(got, want) and torch.equal(got, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["fused", "unfused", "frontier",
+                                  "multiclass", "bundled"])
+def test_packed_boosters_on_card_equal_unpacked_and_cpu(dev, case):
+    """At max_bin 15 a card booster trains on packed bins: its model text
+    = the card's unpacked booster's, bit for bit; = the CPU booster up to
+    a near-tie; its valid scores (P1 over the unpacked valid bins) = the
+    host walk, and a rollback (P1 over the packed training bins) = the
+    CPU's."""
+    X, y = (_packed_one_hot(20_000, 11) if case == "bundled"
+            else _session_data(20_000, 11))
+    if case == "multiclass":
+        y = np.digitize(X[:, 0] + 0.5 * X[:, 1], [-0.5, 0.5]).astype(
+            np.float64)
+    params = dict(objective="binary", num_leaves=31, max_bin=15,
+                  min_data_in_leaf=5, verbosity=-1)
+    kw = {}
+    if case == "unfused":
+        kw = {"fused_route": False}
+    elif case == "frontier":
+        params.update(tpu_tree_impl="frontier", tpu_frontier_width=4)
+    elif case == "multiclass":
+        params.update(objective="multiclass", num_class=3)
+    # the kernel that histograms a split on this path
+    split_kernel = {"unfused": "histogram_segment_step",
+                    "frontier": "histogram_frontier"}.get(
+        case, "histogram_segment_routed_step")
+    out, launches = {}, {}
+    for key, device, packed4 in (("card", "cuda", None),
+                                 ("card_unpacked", "cuda", False),
+                                 ("cpu", "cpu", None)):
+        ds = lt.Dataset(X[:16_000], y[:16_000])
+        va = ds.create_valid(X[16_000:], y[16_000:])
+        bst = lt.Booster(dict(params, device_type=device), ds,
+                         packed4=packed4, **kw)
+        bst.add_valid(va, "v")
+        kernels.reset_launches()
+        for _ in range(3):
+            bst.update()
+        launches[key] = dict(kernels.LAUNCHES)
+        assert bst.gbdt.packed4 == (packed4 is None)
+        out[key] = bst
+    assert launches["card"][split_kernel + "_packed4"] > 0
+    assert launches["card"][split_kernel] == 0
+    assert launches["card_unpacked"][split_kernel] > 0
+    card = out["card"].gbdt
+    assert tuple(card.bins.shape) == (-(-card.train_set.num_columns // 2),
+                                      card.bins.shape[1])
+    assert (card.fmeta.feat_group is not None) == (case == "bundled")
+    text = out["card"].model_to_string()
+    assert text == out["card_unpacked"].model_to_string()
+    assert _same_splits(card.models, out["cpu"].gbdt.models) >= 30
+    vh = card.valid_sets[0][1]
+    infos = card.train_set.feature_infos()
+    C = card.num_tree_per_iteration
+    host = np.zeros((C, vh.num_data)) + np.asarray(card.init_scores)[:, None]
+    for i, tree in enumerate(card.models):
+        if tree.num_leaves > 1:
+            host[i % C] += tree.predict_binned(vh.bins_t, infos)
+    np.testing.assert_array_equal(card.valid_scores[0].reshape(C, -1), host)
+    before = card.train_score.clone()
+    out["card"].rollback_one_iter()
+    out["card_unpacked"].rollback_one_iter()
+    assert not torch.equal(card.train_score, before)
+    assert torch.equal(card.train_score,
+                       out["card_unpacked"].gbdt.train_score)
