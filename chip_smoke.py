@@ -6,7 +6,7 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``lightgbm_tpu_torch/csrc`` and runs
-twenty-five phases; any failure exits non-zero:
+twenty-six phases; any failure exits non-zero:
 
   1. build    nvcc for sm_90a; prints ptxas's register/shared-memory lines
               and the card's name and power limit, and for the K1/K3,
@@ -236,6 +236,23 @@ twenty-five phases; any failure exits non-zero:
               the fused segment grower and the frontier's three tiers,
               P1's walk over the packed bins = the host walk; at 200k rows
               card = CPU.
+ 26. packed_acc  the packed-accumulator stream (``packed_acc=True``:
+              gradients and hessians quantized once a tree by Q1, integer
+              histogram sums): on phase 3's HIGGS bins, 3 iterations each
+              of the segment grower unfused and fused and the frontier
+              grower (K = 16, "off"), in turns with the f32 mode (median
+              iter_seconds, peak device memory, holdout AUC within 0.005
+              of the f32 run's), each launching only the ``_packed_acc``
+              histogram kernels; Q1, K1, K3, their step entries, K5 (as
+              leaf_histogram launches it) and a K = 16 frontier round
+              (K6, K7 routed and fused-K) against their plain versions bit
+              for bit, timed beside the same kernels in the f32 mode
+              (``f32_ms``); at 1M rows the frontier's fused tiers, and at
+              max_bin 15 the 4-bit bins with the stream (runs and
+              kernels); at 200k rows card = CPU; on phase 7's
+              multiclass_cat rows 5-class training (K5 roots on the f32
+              channels, the splits on the stream, holdout multi_logloss
+              within 1% of the f32 run's).
 
 Launch counts: a kernel captured into a CUDA graph counts at each replay
 (ops/kernels.py count_replay), when the card runs it.
@@ -253,7 +270,10 @@ the path whose P1 launches the kernels line reports), an
 ``launches_by_path``, each kernel's bundled measurements under
 ``"expo"``), a ``{"packed4": ...}`` line (phase 25; its runs are the
 "packed4_*" paths, and each kernel's packed input mode is a row of its
-own, named with "_packed4"), one
+own, named with "_packed4"), a ``{"packed_acc": ...}`` line (phase 26;
+its runs are the "packed_acc_*" and "leaf_histogram*" paths, each
+kernel's packed-accumulator mode a row named with "_packed_acc", and Q1
+the row "quantize_pack"), one
 ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Without a
 card, or run from a directory that does not hold the package, it exits
@@ -327,6 +347,9 @@ SOURCES = {
     # no Pallas site: the JAX route is XLA gathers (_tree_leaves)
     "route_trees": ("lightgbm_tpu_torch/csrc/predict.cu",
                     "lightgbm_tpu/models/device_predict.py:99"),
+    # no Pallas site: the JAX quantizer is XLA (quantize_pack_channels)
+    "quantize_pack": ("lightgbm_tpu_torch/csrc/quantize.cu",
+                      "lightgbm_tpu/ops/pallas_histogram.py:188"),
 }
 FRONTIER_PARAMS = dict(TRAIN_PARAMS, tpu_tree_impl="frontier")
 # the session phase: a learning rate and stop at which the holdout's
@@ -478,25 +501,31 @@ def build_phase():
         if "registers" in line or "Compiling entry" in line:
             log("ptxas: " + line.strip())
     report = {}
-    # body -> (name of the instantiation without, with a route); each body
-    # has a packed4 instantiation too (its bool template argument last),
-    # named with " packed4"
-    for body, names in (("segment_window_kernel", ("K1", "K3")),
-                        ("segment_step_kernel", ("K1 step", "K3 step")),
-                        ("frontier_hist_kernel", ("K6", "K7")),
-                        ("all_hist_kernel", ("K5", "K5")),
-                        ("route_window_kernel", ("K2", "K2")),
-                        ("route_step_kernel", ("K2 step", "K2 step"))):
+    # body -> (name of the instantiation without, with a route) and its
+    # bool template arguments in order: a route ("routed"; K2's "table"),
+    # the 4-bit bins ("packed4", named " packed4"), the packed-accumulator
+    # stream ("acc", named " packed_acc")
+    for body, names, flags in (
+            ("segment_window_kernel", ("K1", "K3"),
+             ("routed", "packed4", "acc")),
+            ("segment_step_kernel", ("K1 step", "K3 step"),
+             ("routed", "packed4", "acc")),
+            ("frontier_hist_kernel", ("K6", "K7"),
+             ("routed", "packed4", "acc")),
+            ("all_hist_kernel", ("K5",), ("packed4", "acc")),
+            ("route_window_kernel", ("K2",), ("table", "packed4")),
+            ("route_step_kernel", ("K2 step",), ("table", "packed4")),
+            ("quantize_pack_kernel", ("Q1",), ())):
         ptxas = kernels.ptxas_lines(body)
         sass = kernels.sass_opcodes(body)
         part = {}
         for fn in sorted(set(ptxas) | set(sass)):
             ops = sass.get(fn, {})
-            bools = re.findall(r"Lb([01])E", fn)
-            name = names[1] if len(bools) == 2 and bools[0] == "1" \
-                else names[0]
-            if bools and bools[-1] == "1":
-                name += " packed4"
+            on = dict(zip(flags, (b == "1" for b in
+                                  re.findall(r"Lb([01])E", fn))))
+            name = (names[1 if on.get("routed") else 0]
+                    + (" packed4" if on.get("packed4") else "")
+                    + (" packed_acc" if on.get("acc") else ""))
             part[name] = {
                 "ptxas": ptxas.get(fn, []),
                 "atomics": {k: v for k, v in sorted(ops.items())
@@ -504,7 +533,9 @@ def build_phase():
                 "atoms_cas": sum(v for k, v in ops.items()
                                  if k.startswith("ATOMS.CAS"))}
         log(f"{body} build: {json.dumps(part)}")
-        want = {n + p for n in names for p in ("", " packed4")}
+        want = {n + p + a for n in names
+                for p in (("", " packed4") if "packed4" in flags else ("",))
+                for a in (("", " packed_acc") if "acc" in flags else ("",))}
         require(set(part) == want and len(ptxas) == len(want),
                 f"{body}'s instantiations are missing from the build: "
                 f"{sorted(part)}")
@@ -4720,6 +4751,580 @@ def packed4_parity_phase():
     return {f"parity_{k}": v for k, v in launches.items()}, rec
 
 
+# ---------------------------------------------------------------- phase 26
+ACC_ITERS = 3
+ACC_SMALL_ROWS = 1_000_000
+ACC_AUC_SLACK = 0.005
+ACC_LOGLOSS_RTOL = 0.01
+# Q1's integer operations a row: two threefry2x32 hashes (20 rounds of an
+# add, a rotate and a xor, five key injections of three adds) and a dozen
+# for the rounding, the clip and the pack
+ACC_Q1_OPS = 2 * (20 * 3 + 5 * 3) + 12
+# phase 26's training runs at HIGGS, in turns with the f32 mode: the
+# segment grower unfused (the default under packed_acc) and fused, the
+# frontier grower at K = 16 ("off", the default under packed_acc)
+ACC_RUNS = (("segment_unfused", {}, {}),
+            ("segment_fused", {}, {"fused_route": True}),
+            ("frontier", {"tpu_tree_impl": "frontier"}, {}))
+# at 1M rows: the frontier's fused tiers (max_bin 63), and max_bin 15 with
+# the 4-bit bins, where every histogram kernel runs in both modes at once
+ACC_SMALL_RUNS = (
+    ("tier_k1", {"tpu_tree_impl": "frontier"}, {"frontier_tier": "k1"}),
+    ("tier_fusedk", {"tpu_tree_impl": "frontier"},
+     {"frontier_tier": "fusedk"}),
+    ("p4_segment_unfused", {"max_bin": 15}, {}),
+    ("p4_segment_fused", {"max_bin": 15}, {"fused_route": True}),
+    ("p4_frontier", {"max_bin": 15, "tpu_tree_impl": "frontier"}, {}),
+    ("p4_tier_k1", {"max_bin": 15, "tpu_tree_impl": "frontier"},
+     {"frontier_tier": "k1"}),
+    ("p4_tier_fusedk", {"max_bin": 15, "tpu_tree_impl": "frontier"},
+     {"frontier_tier": "fusedk"}))
+# the histogram kernel each run's splits launch
+ACC_RUN_KERNEL = {"segment_unfused": "histogram_segment_step",
+                  "segment_fused": "histogram_segment_routed_step",
+                  "frontier": "histogram_frontier",
+                  "tier_k1": "histogram_frontier_routed",
+                  "tier_fusedk": "histogram_frontier_fusedk",
+                  "multiclass_cat": "histogram_segment_step"}
+# where each packed-accumulator kernel replaces the TPU kernels' int32
+# stream branch (pallas_histogram.py)
+ACC_REPLACES = {
+    "histogram_segment": "lightgbm_tpu/ops/pallas_histogram.py:418",
+    "histogram_segment_step": "lightgbm_tpu/ops/pallas_histogram.py:418",
+    "histogram_segment_routed": "lightgbm_tpu/ops/pallas_histogram.py:1065",
+    "histogram_segment_routed_step":
+        "lightgbm_tpu/ops/pallas_histogram.py:1065",
+    "histogram_all": "lightgbm_tpu/ops/pallas_histogram.py:395",
+    "histogram_frontier": "lightgbm_tpu/ops/pallas_histogram.py:777",
+    "histogram_frontier_routed": "lightgbm_tpu/ops/pallas_histogram.py:1203",
+    "histogram_frontier_fusedk": "lightgbm_tpu/ops/pallas_histogram.py:1203",
+}
+
+
+def acc_channels(th, w2, scales):
+    """A packed-accumulator stream as library_hist_ms reads channels: [g,
+    0, h, 0, member] float32, the quantized values in real units."""
+    import torch
+    g, h, m = th.packed_weight_channels(w2, slice(None)).float()
+    z = torch.zeros_like(m)
+    return torch.stack([g * float(scales[0]), z, h * float(scales[1]), z, m])
+
+
+def require_packed_acc(tag, run, packed4, roots_f32=False):
+    """The run's histograms came from the packed-accumulator kernels only
+    (K5's f32 roots aside for multiclass), fed by Q1."""
+    from lightgbm_tpu_torch.ops import kernels
+    f32 = {k: run[kernels.variant(k, packed4)]
+           for k in kernels.PACKED_ACC_KERNELS
+           if not (roots_f32 and k == "histogram_all")}
+    acc = {k: run[kernels.variant(k, packed4, True)]
+           for k in kernels.PACKED_ACC_KERNELS}
+    require(not any(f32.values()) and any(acc.values())
+            and run["quantize_pack"] > 0,
+            f"packed_acc {tag}: histograms in the f32 mode {f32}, in the "
+            f"packed-accumulator mode {acc}, Q1 {run['quantize_pack']}")
+
+
+def acc_runs(tag, runs, ds, va, base, metric_key):
+    """Each run of ``runs`` ((name, params, kwargs)) in the f32 mode, then
+    with packed_acc, ACC_ITERS iterations on ``ds`` with the holdout
+    ``va``: median iteration wall, peak device memory and the holdout
+    metric of each, and the packed run's launches.  Returns ({name:
+    launches}, {name: record})."""
+    import numpy as np
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import kernels
+    launches, rec = {}, {}
+    for name, extra, kw in runs:
+        params = dict(base, **extra)
+        r = {}
+        for acc in (False, True):
+            kernels.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            bst = lt.Booster(params, ds, packed_acc=acc, **kw)
+            bst.add_valid(va, "holdout")
+            metric = []
+            for _ in range(ACC_ITERS):
+                bst.update()
+                metric.append(bst.eval_valid()[0][2])
+            torch.cuda.synchronize()
+            gb = bst.gbdt
+            mode = "packed_acc" if acc else "f32"
+            r[mode] = {"iter_seconds": list(gb.iter_seconds),
+                       "median_iter_s": float(np.median(gb.iter_seconds)),
+                       "peak_device_bytes": int(
+                           torch.cuda.max_memory_allocated()),
+                       metric_key: metric}
+            if acc:
+                run = dict(kernels.LAUNCHES)
+                r["launches"] = {k: v for k, v in run.items() if v}
+                r["quant_clips_last_tree"] = gb.grower.last_stats[
+                    "quant_clips"]
+                require(gb.grower.p.packed_acc, f"{tag} {name}: not packed")
+            del bst, gb
+            torch.cuda.empty_cache()
+        packed4 = params.get("max_bin", 255) <= 15
+        require_packed_acc(f"{tag} {name}", run, packed4,
+                           roots_f32=params.get("num_class", 1) > 1)
+        kname = ACC_RUN_KERNEL.get(name.replace("p4_", ""))
+        if kname is not None:
+            require(run[kernels.variant(kname, packed4, True)] > 0,
+                    f"{tag} {name}: {kname} was not launched packed_acc")
+        a, b = r["f32"][metric_key][-1], r["packed_acc"][metric_key][-1]
+        ok = (b >= a - ACC_AUC_SLACK if metric_key == "auc"
+              else b <= a * (1.0 + ACC_LOGLOSS_RTOL))
+        require(all(np.isfinite(r["packed_acc"][metric_key])) and ok,
+                f"{tag} {name}: holdout {metric_key} {b} against the f32 "
+                f"mode's {a}")
+        log(f"packed_acc {tag} {name}: median iteration "
+            f"{r['packed_acc']['median_iter_s']:.4f} s (f32 "
+            f"{r['f32']['median_iter_s']:.4f} s), peak "
+            f"{r['packed_acc']['peak_device_bytes'] / 1e9:.2f} GB (f32 "
+            f"{r['f32']['peak_device_bytes'] / 1e9:.2f} GB), holdout "
+            f"{metric_key} {b:.5f} (f32 {a:.5f})")
+        rec[name] = r
+        launches[name] = run
+    return launches, rec
+
+
+def acc_kernel_set(th, binsT, grad, hess, member, fm, rb, B, G, packed4,
+                   tag, reps, plain_reps, split_col, with_q1=False):
+    """Every packed-accumulator kernel on these bins at the gradients
+    ``grad``/``hess``: Q1 (``with_q1``), K1 at the root, K3 at a split of
+    column ``split_col`` at its middle bin, the K1 and K3 step entries
+    there, K5 (one set, leaf_histogram's launch) and a K = 16 frontier
+    round (K6, K7 routed and fused-K), each against its plain version bit
+    for bit (leaf ids and histograms), a relaunch bit-identical, timed
+    (``ms``) beside the same kernel on the f32 channels (``f32_ms``), its
+    plain version, the bound and the library's index_add_.  Returns
+    {kernel: measurement dict}."""
+    import numpy as np
+    import torch
+    dev = binsT.device
+    P, npad = binsT.shape
+    H, nblk = th.logical_columns(binsT, packed4), npad // rb
+    n = int(member.sum().item())
+    w8 = th.pack_channels(grad, hess, member)
+    s8 = th.fixed_point_scales(w8)
+    w2, qs, clips = th.quantize_pack(grad, hess, member)
+    ch = acc_channels(th, w2, qs)
+    res = {}
+
+    def same(name, got, want):
+        require(torch.equal(got, want), f"{name} packed_acc {tag}: differs "
+                "from its plain version")
+
+    if with_q1:
+        sc, seed = th.quantize_inputs(grad, hess, member, 8)
+        want, want_clips = th.quantize_pack_plain(grad, hess, member, sc,
+                                                  seed, 8)
+        torch.cuda.synchronize()
+        same("quantize_pack", w2, want)
+        require(int(clips) == int(want_clips[0]),
+                f"quantize_pack {tag}: clips {int(clips)} against "
+                f"{int(want_clips[0])}")
+        t = {"max_abs_err": 0.0, "clips": int(clips)}
+        t["ms"] = time_ms(lambda i: th.quantize_pack(grad, hess, member),
+                          reps)
+        t["f32_ms"] = time_ms(lambda i: th.fixed_point_scales(
+            th.pack_channels(grad, hess, member)), reps)
+        t["plain_ms"] = time_ms(lambda i: th.quantize_pack_plain(
+            grad, hess, member, sc, seed, 8), plain_reps)
+        t["bound_ms"], t["bound_by"] = bound_ms(npad * (12 + 8),
+                                                npad * ACC_Q1_OPS)
+        t["library_ms"] = None
+        t["shape"] = f"{tag}: {npad} rows, 8 bits"
+        res["quantize_pack"] = t
+        log(f"quantize_pack {tag}: = its plain version bit for bit ({t['clips']} "
+            f"clipped), {t['ms']:.4f} ms (f32 channels in torch "
+            f"{t['f32_ms']:.4f} ms, plain {t['plain_ms']:.2f} ms), bound "
+            f"{t['bound_ms']:.4f} ms")
+
+    lid0 = torch.zeros(npad, dtype=torch.int32, device=dev)
+    none = np.zeros(8, np.uint32)
+    route = th.pack_route(0, 1, split_col, int(fm.num_bin[split_col]) // 2,
+                          False, False, none, fm, packed4)
+    step = th.pack_step(0, nblk, 1, route).to(dev)
+    want_ids, want3 = th.histogram_segment_routed_plain(
+        binsT, w2, lid0.clone(), 0, nblk, 1, route, B, rb, packed4, qs)
+    moved = int((want_ids == 1).sum().item())
+    require(0 < moved < n, f"packed_acc {tag}: the split moved {moved} rows")
+    everyone = torch.arange(n, device=dev)
+    routed_rows = torch.nonzero(want_ids == 1)[:, 0]
+    W, out_bytes = npad, H * B * 3 * 4
+    split_ops = W * 20 + moved * G * 3
+    # name: (call on (ids, weights, scales), plain on ids, start ids,
+    # whether the call routes them, bytes, ops, library rows)
+    cases = {
+        "histogram_segment": (
+            lambda ids, w, s: th.histogram_segment(binsT, w, ids, 0, nblk, 0,
+                                                   B, rb, s, packed4),
+            lambda ids: th.histogram_segment_plain(binsT, w2, ids, 0, nblk,
+                                                   0, B, rb, packed4, qs),
+            lid0, False, W * (P + 12) + out_bytes, W * G * 3, everyone),
+        "histogram_segment_routed": (
+            lambda ids, w, s: th.histogram_segment_routed(
+                binsT, w, ids, 0, nblk, 1, route, B, rb, s, packed4)[1],
+            lambda ids: th.histogram_segment_routed_plain(
+                binsT, w2, ids, 0, nblk, 1, route, B, rb, packed4, qs)[1],
+            lid0, True, W * 5 + moved * 4 + moved * (P - 1 + 8) + out_bytes,
+            split_ops, routed_rows),
+        "histogram_segment_routed_step": (
+            lambda ids, w, s: th.histogram_segment_routed_step(
+                binsT, w, ids, step, B, rb, s, packed4=packed4)[1],
+            lambda ids: th.histogram_segment_routed_step_plain(
+                binsT, w2, ids, step, B, rb, packed4, qs)[1],
+            lid0, True, W * 5 + moved * 4 + moved * (P - 1 + 8) + out_bytes,
+            split_ops, routed_rows),
+        "histogram_segment_step": (
+            lambda ids, w, s: th.histogram_segment_step(
+                binsT, w, ids, step, B, rb, s, packed4=packed4),
+            lambda ids: th.histogram_segment_step_plain(
+                binsT, w2, ids, step, B, rb, packed4, qs),
+            want_ids, False, W * 4 + moved * (P + 8) + out_bytes,
+            moved * G * 3, routed_rows),
+        "histogram_all": (
+            lambda ids, w, s: th.histogram_all(
+                binsT, w, B, s if w.dtype == torch.int32 else s[None],
+                packed4),
+            lambda ids: th.histogram_all_plain(binsT, w2, B, packed4, qs),
+            lid0, False, W * (P + 8) + out_bytes, W * G * 3, everyone),
+    }
+    for name, (call, plain, start, routes, nbytes, nops, rows) in \
+            cases.items():
+        a_ids, b_ids = start.clone(), start.clone()
+        a, b = call(a_ids, w2, qs), call(b_ids, w2, qs)
+        want = plain(start.clone())
+        torch.cuda.synchronize()
+        same(name, a, want)
+        require(torch.equal(a, b), f"{name} packed_acc {tag}: a relaunch "
+                "differs")
+        if routes:
+            require(torch.equal(a_ids, want_ids), f"{name} packed_acc {tag}:"
+                    " leaf ids differ from the plain version")
+        ids = [start.clone() for _ in range(reps + 1)]
+        t = {"max_abs_err": 0.0}
+        t["ms"] = time_ms(lambda i: call(ids[i], w2, qs), reps)
+        t["f32_ms"] = time_ms(lambda i: call(ids[i], w8, s8), reps)
+        ids = [start.clone() for _ in range(plain_reps + 1)]
+        t["plain_ms"] = time_ms(lambda i: plain(ids[i]), plain_reps)
+        del ids
+        t["bound_ms"], t["bound_by"] = bound_ms(nbytes, nops)
+        t["library_ms"] = library_hist_ms(
+            binsT if not packed4 else th.unpack_bins_4bit(binsT)[:G],
+            [ch], rows, B, reps)
+        t["shape"] = (f"{tag}: {W} rows x {G} columns"
+                      + (f" in {P} bytes" if packed4 else "")
+                      + f", {B} bins" + (f", {moved} routed" if routes
+                                         else ""))
+        res[name] = t
+        log(f"{name} packed_acc {tag}: = its plain version bit for bit, "
+            f"{t['ms']:.4f} ms (f32 mode {t['f32_ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.2f} ms), bound {t['bound_ms']:.4f} ms, "
+            f"index_add_ {t['library_ms']:.4f} ms")
+
+    # a K = 16 frontier round on a 32-leaf layout sorted by leaf
+    K = 16
+    perm, lid, lo, hi = leaf_layout(th, binsT, fm, rb, 5, packed4)
+    fb = binsT.index_select(1, perm)
+    fw2, fw8 = w2.index_select(1, perm), w8.index_select(1, perm)
+    fch = ch.index_select(1, perm)
+    every_other = np.full(8, 0x55555555, np.uint32)
+    routes = torch.stack([th.pack_route(
+        k, 32 + k, k % G, int(fm.num_bin[k % G]) // 2, k % 2 == 1, False,
+        every_other * 0, fm, packed4) for k in range(K)])
+    bl, nbl = th.union_block_list(lo[:K], hi[:K], [True] * K)
+    bl = bl.to(dev)
+    routed, _ = th.histogram_frontier_routed_plain(
+        fb, fw2, lid.clone(), bl, nbl, torch.arange(32, 32 + K,
+                                                    dtype=torch.int32),
+        routes, B, rb, packed4, qs)
+    counts = torch.bincount(routed.long(), minlength=32 + K)
+    smaller = torch.tensor([k if counts[k] <= counts[32 + k] else 32 + k
+                            for k in range(K)], dtype=torch.int32)
+    targets2 = torch.tensor(list(range(K)) + list(range(32, 32 + K)),
+                            dtype=torch.int32)
+    U = nbl * rb
+    urows = (bl[:nbl].long()[:, None] * rb
+             + torch.arange(rb, device=dev)).reshape(-1)
+    flat = th.unpack_bins_4bit(fb)[:G] if packed4 else fb
+    for name, targets, rts in (
+            ("histogram_frontier", smaller, None),
+            ("histogram_frontier_routed", smaller, routes),
+            ("histogram_frontier_fusedk", targets2, routes)):
+        start = routed if rts is None else lid
+        KT = int(targets.shape[0])
+
+        def call(ids, w, s, name=name, targets=targets, rts=rts):
+            if rts is None:
+                return th.histogram_frontier(fb, w, ids, bl, nbl, targets,
+                                             B, rb, s, packed4)
+            return getattr(th, name)(fb, w, ids, bl, nbl, targets, rts, B,
+                                     rb, s, packed4)[1]
+
+        if rts is None:
+            want_lid = routed
+            want = th.histogram_frontier_plain(fb, fw2, routed, bl, nbl,
+                                               targets, B, rb, packed4, qs)
+        else:
+            want_lid, want = th.histogram_frontier_routed_plain(
+                fb, fw2, lid.clone(), bl, nbl, targets, rts, B, rb, packed4,
+                qs)
+        a_ids, b_ids = start.clone(), start.clone()
+        a, b = call(a_ids, fw2, qs), call(b_ids, fw2, qs)
+        torch.cuda.synchronize()
+        same(name, a, want)
+        require(torch.equal(a, b) and torch.equal(a_ids, want_lid),
+                f"{name} packed_acc {tag}: a relaunch or the ids differ")
+        sel = torch.isin(want_lid[urows], targets.to(dev))
+        M = int(sel.sum().item())
+        R = 0 if rts is None else int(torch.isin(
+            lid[urows], torch.arange(K, device=dev, dtype=lid.dtype)
+        ).sum().item())
+        mv = int((want_lid != start).sum().item())
+        nbytes = (U * 4 + 4 * nbl + R + mv * 4 + M * (P + 8)
+                  + KT * H * B * 12)
+        nops = U * (KT + (0 if rts is None else K)) + R * 20 + M * G * 3
+        t = {"max_abs_err": 0.0, "K": K, "KT": KT,
+             "tiling": th.frontier_tiling(
+                 H, B, KT, 0 if rts is None else K,
+                 int(th.frontier_params(targets, rts)[2]), packed4, True),
+             "f32_tiling": th.frontier_tiling(
+                 H, B, KT, 0 if rts is None else K,
+                 int(th.frontier_params(targets, rts)[2]), packed4)}
+        ids = [start.clone() for _ in range(reps + 1)]
+        t["ms"] = time_ms(lambda i: call(ids[i], fw2, qs), reps)
+        t["f32_ms"] = time_ms(lambda i: call(ids[i], fw8, s8), reps)
+        ids = [start.clone() for _ in range(plain_reps + 1)]
+        if rts is None:
+            t["plain_ms"] = time_ms(lambda i: th.histogram_frontier_plain(
+                fb, fw2, ids[i], bl, nbl, targets, B, rb, packed4, qs),
+                plain_reps)
+        else:
+            t["plain_ms"] = time_ms(
+                lambda i: th.histogram_frontier_routed_plain(
+                    fb, fw2, ids[i], bl, nbl, targets, rts, B, rb, packed4,
+                    qs), plain_reps)
+        del ids
+        t["bound_ms"], t["bound_by"] = bound_ms(nbytes, nops)
+        rows = urows[sel]
+        slot_of = torch.full((32 + K,), -1, dtype=torch.int64, device=dev)
+        slot_of[targets.long().to(dev)] = torch.arange(KT, device=dev)
+        t["library_ms"] = library_hist_ms(flat, [fch], rows, B, reps,
+                                          slots=slot_of[want_lid[rows].long()],
+                                          n_slots=KT)
+        t["shape"] = (f"{tag}: K = {K} round, {U} listed rows, {M} in the "
+                      f"{KT} targets, {mv} routed, {G} x {B} bins")
+        res[name] = t
+        log(f"{name} packed_acc {tag}: = its plain version bit for bit, "
+            f"{t['ms']:.4f} ms (f32 mode {t['f32_ms']:.4f} ms), tiling "
+            f"{t['tiling']} (f32 {t['f32_tiling']})")
+    del fb, fw2, fw8, fch, w8, w2, ch, flat
+    torch.cuda.empty_cache()
+    return res
+
+
+def acc_gradients(gb):
+    """The first iteration's gradients of booster ``gb``'s objective (at
+    the boost-from-average score), padded to the layout, and member."""
+    import torch
+    from lightgbm_tpu_torch.objective import create_objective
+    n, npad, dev = gb.num_data, gb.bins.shape[1], gb.bins.device
+    obj = create_objective(gb.config)
+    obj.init(gb.train_set.metadata, n, dev)
+    score0 = torch.full((n,), obj.boost_from_score(), dtype=torch.float32,
+                        device=dev)
+    grad, hess = obj.get_gradients(score0)
+    member = torch.zeros(npad, dtype=torch.float32, device=dev)
+    member[:n] = 1.0
+    return (torch.nn.functional.pad(grad, (0, npad - n)),
+            torch.nn.functional.pad(hess, (0, npad - n)), member)
+
+
+def packed_acc_phase(ds, Xh, yh):
+    """Phase 26 at HIGGS (phase 3's binned rows): the segment grower
+    unfused and fused and the frontier grower at K = 16 trained with
+    packed_acc beside the f32 mode (holdout AUC within ACC_AUC_SLACK);
+    every packed-accumulator kernel and Q1 against their plain versions,
+    timed beside the f32 mode; leaf_histogram's K5 launch; at 1M rows the
+    frontier's fused tiers and, at max_bin 15, the 4-bit bins with
+    packed_acc (runs and kernels); at 200k rows card = CPU.  Returns
+    ({path: launches}, record, {kernel variant: measurement})."""
+    import numpy as np
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import histogram as th
+    from lightgbm_tpu_torch.ops import kernels
+    t0 = time.perf_counter()
+    va = ds.create_valid(Xh, yh)
+    launches, rec = acc_runs("HIGGS", ACC_RUNS, ds, va, TRAIN_PARAMS, "auc")
+    launches = {f"packed_acc_{k}": v for k, v in launches.items()}
+    rec["higgs_runs_s"] = time.perf_counter() - t0
+    # the kernels on the HIGGS bins of an unfused packed booster
+    t0 = time.perf_counter()
+    bst = lt.Booster(TRAIN_PARAMS, ds, packed_acc=True)
+    gb = bst.gbdt
+    grad, hess, member = acc_gradients(gb)
+    fm = host_meta(gb.train_set)
+    kern = {(k if k == "quantize_pack" else kernels.variant(k, False, True)):
+            v for k, v in acc_kernel_set(
+                th, gb.bins, grad, hess, member, fm, gb.grower.rb,
+                gb.num_bins, gb.train_set.num_columns, False, "HIGGS", 20,
+                1, 0, with_q1=True).items()}
+    # leaf_histogram: K5 on the stream, quantized for the call (its own
+    # path: no grower of the port calls it)
+    kernels.reset_launches()
+    leaf = th.leaf_histogram(gb.bins, grad, hess, member, gb.num_bins,
+                             packed_acc=True)
+    torch.cuda.synchronize()
+    launches["leaf_histogram"] = dict(kernels.LAUNCHES)
+    require(leaf.shape[0] == gb.train_set.num_columns
+            and launches["leaf_histogram"]["histogram_all_packed_acc"] == 1,
+            "leaf_histogram did not launch K5 packed_acc")
+    rec["kernels_s"] = time.perf_counter() - t0
+    del bst, gb, grad, hess, member, leaf
+    torch.cuda.empty_cache()
+
+    # at 1M rows: the fused frontier tiers, and the 4-bit bins
+    t0 = time.perf_counter()
+    X, y = higgs_like(ACC_SMALL_ROWS + HOLDOUT_ROWS, 46)
+    Xs, ys = X[:ACC_SMALL_ROWS], y[:ACC_SMALL_ROWS]
+    Xv, yv = X[ACC_SMALL_ROWS:], y[ACC_SMALL_ROWS:]
+    sets = {}
+    for max_bin in (MAX_BIN, 15):
+        d = lt.Dataset(Xs, ys)
+        d.construct(lt.Config.from_params(dict(TRAIN_PARAMS,
+                                               max_bin=max_bin)))
+        sets[max_bin] = (d, d.create_valid(Xv, yv))
+    small_launches = {}
+    for name, extra, kw in ACC_SMALL_RUNS:
+        d, v = sets[extra.get("max_bin", MAX_BIN)]
+        ln, r = acc_runs("1M", [(name, extra, kw)], d, v, TRAIN_PARAMS,
+                         "auc")
+        small_launches.update(ln)
+        rec[f"small_{name}"] = r[name]
+    launches.update({f"packed_acc_{k}": v for k, v in small_launches.items()})
+    bst = lt.Booster(dict(TRAIN_PARAMS, max_bin=15), sets[15][0],
+                     packed_acc=True)
+    gb = bst.gbdt
+    require(gb.packed4, "packed_acc max_bin 15: the bins are not packed")
+    grad, hess, member = acc_gradients(gb)
+    p4 = acc_kernel_set(th, gb.bins, grad, hess, member,
+                        host_meta(gb.train_set), gb.grower.rb, gb.num_bins,
+                        gb.train_set.num_columns, True, "1M packed4", 20, 1,
+                        1)
+    kernels.reset_launches()
+    th.leaf_histogram(gb.bins, grad, hess, member, gb.num_bins, packed4=True,
+                      packed_acc=True)
+    torch.cuda.synchronize()
+    launches["leaf_histogram_packed4"] = dict(kernels.LAUNCHES)
+    kern.update({kernels.variant(k, True, True): v for k, v in p4.items()})
+    rec["small_s"] = time.perf_counter() - t0
+    del bst, gb, grad, hess, member, sets
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    rec["card_cpu"] = acc_card_cpu_phase(X[:PARITY_ROWS], y[:PARITY_ROWS],
+                                         Xv, yv)
+    rec["card_cpu"]["wall_s"] = time.perf_counter() - t0
+    return launches, rec, kern
+
+
+def acc_card_cpu_phase(X, y, Xv, yv):
+    """Phase 26's card = CPU at 200k rows.  Fed the same gradient arrays
+    (three draws from a seed), the segment grower with packed_acc grows
+    the same trees on the card and the CPU, split for split up to a
+    near-tie, with the same quant_clips.  Boosters: the first iteration's
+    trees likewise; later trees quantize gradients whose bits differ by
+    the f32 rounding of the two devices' root sums, so they draw other
+    uniforms, and the models are held to the JAX package's gate for a
+    quantized model (predictions within 0.12).  Returns the record."""
+    import numpy as np
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.models.grower_seg import SegmentGrower
+    params = dict(TRAIN_PARAMS, num_leaves=31, metric=[])
+    out, preds = {}, {}
+    for dev in ("cuda", "cpu"):
+        b = lt.Booster(dict(params, device_type=dev), lt.Dataset(X, y),
+                       packed_acc=True)
+        for _ in range(ACC_ITERS):
+            b.update()
+        out[dev] = b.gbdt
+        preds[dev] = b.predict(Xv)
+    first, ties = _same_splits_near_tie(out["cuda"].models[:1],
+                                        out["cpu"].models[:1],
+                                        "packed_acc card/CPU first tree")
+    pdiff = float(np.abs(preds["cuda"] - preds["cpu"]).max())
+    require(first >= 20 and pdiff <= 0.12, f"packed_acc card/CPU: "
+            f"{first} splits of the first tree compared, predictions "
+            f"differ by {pdiff}")
+    gb = out["cuda"]
+    growers = {d: SegmentGrower(gb.num_bins, gb.grower.p, gb.grower.rb)
+               for d in ("cuda", "cpu")}
+    fmeta = {"cuda": gb.fmeta, "cpu": type(gb.fmeta)(*(
+        None if t is None else t.cpu() for t in gb.fmeta))}
+    bins = {"cuda": gb.bins, "cpu": gb.bins.cpu()}
+    member = gb.member.cpu()
+    gen = np.random.RandomState(26)
+    compared = 0
+    for t in range(ACC_ITERS):
+        p = gen.uniform(0.05, 0.95, size=member.shape[0])
+        lab = gen.uniform(size=member.shape[0]) < p
+        grad = torch.from_numpy((p - lab).astype(np.float32)) * member
+        hess = torch.from_numpy((p * (1 - p)).astype(np.float32)) * member
+        trees = {}
+        for d in ("cuda", "cpu"):
+            tree, lid = growers[d].grow(bins[d], grad.to(d), hess.to(d),
+                                        member.to(d), fmeta[d])
+            trees[d] = (tree, lid.cpu(), growers[d].last_stats[
+                "quant_clips"])
+        a, b = trees["cuda"][0], trees["cpu"][0]
+        require(a.num_leaves == b.num_leaves
+                and trees["cuda"][2] == trees["cpu"][2],
+                f"packed_acc card/CPU grower tree {t}: {a.num_leaves} / "
+                f"{b.num_leaves} leaves, clips {trees['cuda'][2]} / "
+                f"{trees['cpu'][2]}")
+        for k in range(a.num_leaves - 1):
+            ga, gc = float(a.split_gain[k]), float(b.split_gain[k])
+            if ga <= 1e-2 or gc <= 1e-2:
+                break
+            if (a.split_feature[k], a.threshold_bin[k]) != (
+                    b.split_feature[k], b.threshold_bin[k]):
+                require(abs(ga - gc) <= 1e-4 * max(ga, gc),
+                        f"packed_acc card/CPU grower tree {t} split {k} "
+                        f"differs (gains {ga}, {gc})")
+                ties += 1
+                break
+            compared += 1
+    require(compared >= 60, f"packed_acc card/CPU growers: {compared} "
+            "splits compared")
+    log(f"packed_acc card = CPU at {X.shape[0]} rows: the first tree on "
+        f"{first} splits, the growers fed the same gradients on {compared} "
+        f"splits (near ties {ties}); 3-iteration predictions within "
+        f"{pdiff:.3g}")
+    return {"rows": int(X.shape[0]), "first_tree_splits": first,
+            "grower_splits": compared, "near_ties": ties,
+            "max_pred_diff": pdiff}
+
+
+def packed_acc_mc_phase(ds, Xh, yh):
+    """Phase 26 at multiclass_cat (phase 7's binned rows): 5-class training
+    with packed_acc beside the f32 mode, K5's roots on the f32 channels
+    and every split on the stream (holdout multi_logloss within
+    ACC_LOGLOSS_RTOL).  Returns ({path: launches}, record)."""
+    va = ds.create_valid(Xh, yh)
+    launches, rec = acc_runs("multiclass_cat", [("multiclass_cat", {}, {})],
+                             ds, va, MC_PARAMS, "multi_logloss")
+    run = launches["multiclass_cat"]
+    require(run["histogram_all"] == ACC_ITERS
+            and run["histogram_all_packed_acc"] == 0
+            and run["quantize_pack"] == ACC_ITERS * MC_CLASSES,
+            f"packed_acc multiclass_cat: K5 roots or Q1 launches {run}")
+    return {"packed_acc_multiclass_cat": run}, rec["multiclass_cat"]
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4807,6 +5412,9 @@ def main() -> int:
     t_modes = time.perf_counter()
     modes_launches, modes = modes_phase(ds, Xh, yh)
     t_modes = time.perf_counter() - t_modes
+    t_acc = time.perf_counter()
+    acc_launches, packed_acc, acc_kernels = packed_acc_phase(ds, Xh, yh)
+    t_acc = time.perf_counter() - t_acc
     del ds, X, y, Xh, yh
     torch.cuda.empty_cache()
 
@@ -4831,6 +5439,12 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     mc_launches, mc_stats = mc_train_phase(ds, Xh, yh)
     mc_parity_phase()
+    t0 = time.perf_counter()
+    mc_acc_launches, packed_acc["multiclass_cat"] = packed_acc_mc_phase(
+        ds, Xh, yh)
+    acc_launches.update(mc_acc_launches)
+    packed_acc["phase_wall_s"] = t_acc + time.perf_counter() - t0
+    log(f"packed_acc: phase took {packed_acc['phase_wall_s']:.1f} s")
     t0 = time.perf_counter()
     mc_session_launches, session["multiclass_cat"] = session_mc_phase(
         ds, Xh, yh)
@@ -4912,8 +5526,44 @@ def main() -> int:
              "modes": modes_launches, "predict": predict_launches,
              "expo": expo_launches, "sparse_at_scale": sparse_launches}
     paths.update({f"packed4_{k}": v for k, v in p4_launches.items()})
+    paths.update(acc_launches)
     records = []
     for name in kernels.KERNEL_NAMES:
+        if (name.endswith(kernels.PACKED_ACC_SUFFIX)
+                or name == "quantize_pack"):
+            # phase 26's row: the packed-accumulator mode, and Q1
+            p4 = kernels.PACKED4_SUFFIX in name
+            base = name.replace(kernels.PACKED_ACC_SUFFIX, "").replace(
+                kernels.PACKED4_SUFFIX, "")
+            path = "packed_acc_" + ("p4_" if p4 else "") + {
+                "histogram_segment": "segment_unfused",
+                "histogram_segment_step": "segment_unfused",
+                "quantize_pack": "segment_unfused",
+                "histogram_segment_routed": "segment_fused",
+                "histogram_segment_routed_step": "segment_fused",
+                "histogram_frontier": "frontier",
+                "histogram_frontier_routed": "tier_k1",
+                "histogram_frontier_fusedk": "tier_fusedk"}.get(base, "")
+            if base == "histogram_all":
+                path = "leaf_histogram" + ("_packed4" if p4 else "")
+            src, replaces = SOURCES[base]
+            rec = {"name": name, "route": "cuda", "source": src,
+                   "replaces": ACC_REPLACES.get(base, replaces),
+                   "variant": ("packed4_" if p4 else "") + (
+                       "packed_acc" if base != "quantize_pack" else "q1"),
+                   "launches": paths[path][name], "path": path,
+                   "launches_by_path": {k: v[name] for k, v in paths.items()
+                                        if v[name]}}
+            if base == "quantize_pack":
+                rec["no_pallas_site"] = (
+                    "the JAX package quantizes with XLA "
+                    "(lightgbm_tpu/ops/pallas_histogram.py:188-233)")
+            rec.update(acc_kernels[name])
+            records.append(rec)
+            require(rec["launches"] > 0,
+                    f"{name} was not launched on its path")
+            log(json.dumps(rec))
+            continue
         if name.endswith(kernels.PACKED4_SUFFIX):
             # phase 25's row: the kernel's 4-bit packed input mode
             base = name[:-len(kernels.PACKED4_SUFFIX)]
@@ -4999,6 +5649,7 @@ def main() -> int:
     log(json.dumps({"predict": predict}))
     log(json.dumps({"expo_onehot": expo}))
     log(json.dumps({"packed4": packed4}))
+    log(json.dumps({"packed_acc": packed_acc}))
     log(json.dumps({"kernels": records}))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(card)

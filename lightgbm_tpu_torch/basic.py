@@ -314,20 +314,25 @@ class Booster:
     """Model handle: training-capable from a ``train_set``, or a model read
     from ``model_file`` / ``model_str`` (prediction only, no device).
     ``fused_route=False`` grows with the segment grower's unfused
-    route/histogram kernel pair instead of the fused one;
+    route/histogram kernel pair instead of the fused one (None: fused,
+    unfused under ``packed_acc``);
     ``frontier_tier`` ("off", "k1" or "fusedk"; None = the default for the
     frontier width) picks the frontier grower's histogram launch under
     ``tpu_tree_impl=frontier``; ``packed4`` the training bins' layout
     (None: two columns a byte where the bin axis is at most 16; False or
-    True forces it, models/gbdt.py GBDT)."""
+    True forces it, models/gbdt.py GBDT); ``packed_acc=True`` trains on
+    the packed-accumulator stream (gradients and hessians quantized once a
+    tree to ``packed_acc_bits`` in [2, 15], integer histogram sums; the
+    JAX package's LIGHTGBM_TPU_PACKED_ACC=force)."""
 
     def __init__(self, params: Optional[Dict] = None,
                  train_set: Optional[Dataset] = None,
                  model_file: Optional[str] = None,
                  model_str: Optional[str] = None,
-                 fused_route: bool = True,
+                 fused_route: Optional[bool] = None,
                  frontier_tier: Optional[str] = None,
-                 packed4: Optional[bool] = None):
+                 packed4: Optional[bool] = None,
+                 packed_acc: bool = False, packed_acc_bits: int = 8):
         self.params = dict(params or {})
         # the iteration predict uses by default; -1 = none (engine.train
         # sets it: the early stop's best, else every iteration)
@@ -348,7 +353,9 @@ class Booster:
                                         self.objective,
                                         fused_route=fused_route,
                                         frontier_tier=frontier_tier,
-                                        packed4=packed4)
+                                        packed4=packed4,
+                                        packed_acc=packed_acc,
+                                        packed_acc_bits=packed_acc_bits)
         elif model_file is not None or model_str is not None:
             if model_file is not None:
                 with open(model_file) as fh:

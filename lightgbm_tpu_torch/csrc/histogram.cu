@@ -159,10 +159,37 @@
 // falls with the bytes: at HIGGS (28 columns) K1 reads G / 2 + 14 = 28 B a
 // row instead of 42; the adds, 16 bins where there were 64, meet more
 // often on one address.
+//
+// The packed-accumulator stream (kAcc; the TPU kernels' int32 weight
+// branch, _packed_wrows at pallas_histogram.py:245-258, taken by
+// _kernel_all, _kernel_segment, _kernel_frontier, _kernel_segment_routed
+// and _kernel_frontier_routed).  In place of the eight bf16 channels the
+// weights are ops/histogram.py quantize_pack's [2, npad] int32 stream: row
+// 0 packs a row's stochastically rounded gradient (high half) and hessian
+// (low half) as int16, row 1 holds member as f32 bits.  A row reads one
+// int32 for both values and one for member; each half is sign-extended
+// and rounded to bf16 (acc_value: the identity up to 9 bits, and the value
+// the TPU's matrix unit adds above), and added as a 32-bit integer: a
+// cell is three 32-bit shared planes (g, h, count) and three independent
+// atomics a (row, feature), no carry chain, 12 B where the fixed-point
+// cell takes 20 B, so the tilings fit more features (K1/K3/K5) or slots
+// (K6/K7) a tile.  A block's int32 sums stay exact: |value| <= 2^14 (15
+// bits, bf16-rounded), and the launches give each block at most
+// kAccMaxRows rows (more blocks where the rows need them), so no plane
+// passes 2^31.  The flush and the last block's finalize are
+// the fixed-point ones; the finalize writes float(sum) * scale in f32,
+// the order of unpack_hist_packed (pallas_histogram.py:236-242), with the
+// quantizer's scales.  A sum below 2^24 is then, bit for bit, the TPU
+// kernel's f32 matrix-unit sum; above 2^24 that sum rounds, and this one
+// stays the exact integer.  The bound falls by the two channels' 2 B a
+// row: at HIGGS K1 reads G + 12 B a row instead of G + 14.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -179,8 +206,13 @@ constexpr bool kRouteTable = true;
 constexpr int kSegThreads = 1024;
 // the warps' queues of matching rows: 64 rows (i32) a warp
 constexpr int kSegQueueBytes = kSegThreads * 2 * 4;
-// a (feature, bin) cell: g lo, g hi, h lo, h hi, count, u32 planes
-constexpr int kSegCellBytes = 5 * 4;
+// a (feature, bin) cell, and K6/K7's (slot, feature, bin) cell: g lo, g
+// hi, h lo, h hi, count, u32 planes; (kAcc) g, h, count
+constexpr int kFixedCellBytes = 5 * 4;
+constexpr int kAccCellBytes = 3 * 4;
+__host__ __device__ constexpr int cell_bytes(bool acc) {
+  return acc ? kAccCellBytes : kFixedCellBytes;
+}
 // rows a block walks at least (one step of the block): a window of a
 // few row blocks still spreads over as many SMs as it has steps
 constexpr int kSegMinRows = kSegThreads;
@@ -188,8 +220,13 @@ constexpr int kSegMinRows = kSegThreads;
 // equal share of the SM's shared memory (32 warps an SM either way)
 constexpr int kFrontierBlocksPerSm = 1;
 constexpr int kFrontierThreads = 1024 / kFrontierBlocksPerSm;
-// a (slot, feature, bin) cell: g lo, g hi, h lo, h hi, count, u32 planes
-constexpr int kFrontierCellBytes = 5 * 4;
+// kAcc: the rows a block may walk, so that a shared int32 plane cannot
+// pass 2^31 when every row adds the largest value, 2^14 (qmax 16383 at 15
+// bits, rounded to bf16)
+constexpr int kAccMaxValue = 1 << 14;
+constexpr long long kAccMaxRows = 0x7fffffffll / kAccMaxValue;
+static_assert(kAccMaxRows >= kSegThreads && kAccMaxRows >= kFrontierThreads,
+              "a step fits an int32 plane");
 // the parameter block's capacity: every frontier the grower asks at
 // num_leaves <= 257 (K <= 256 routes, KT = 2K targets);
 // ops/histogram.py:FRONTIER_MAX_ROUTES / _TARGETS
@@ -338,6 +375,121 @@ __device__ __forceinline__ unsigned carry_of(unsigned old, unsigned add) {
   return old + add < old ? 1u : 0u;
 }
 
+// kAcc: a quantized value as the TPU kernels add it, i32 -> f32 -> bf16
+// (round to nearest even) and back: the identity for |q| <= 256, so for
+// up to 9 bits (pallas_histogram.py:255-256).
+__device__ __forceinline__ int acc_value(int q) {
+  return (int)__bfloat162float(__float2bfloat16_rn((float)q));
+}
+
+// Whether row `row` is a member (not a pad or out-of-bag row) in a weight
+// stream `w`: w8's member channel (bf16 bits, row 4), or (kAcc) row 1 of
+// the int32 stream (f32 bits).  Member is 0 or 1 in the port.
+template <bool kAcc>
+__device__ __forceinline__ bool is_member(const uint16_t* __restrict__ w,
+                                          long long npad, long long row) {
+  if (kAcc) return reinterpret_cast<const int*>(w)[npad + row] != 0;
+  return w[4 * npad + row] != 0;
+}
+
+// A row's 32-bit adds {g lo, g hi, h lo, h hi} from the weight stream `w`:
+// the halves of its 64-bit fixed-point gradient and hessian (the hi + lo
+// bf16 channels times the scales, rounded to the nearest integer), or
+// (kAcc) its two quantized values (unpacked, sign-extended, acc_value),
+// whose high words no add reads.
+template <bool kAcc>
+__device__ __forceinline__ void row_adds(const uint16_t* __restrict__ w,
+                                         long long npad, long long row,
+                                         double scale_g, double scale_h,
+                                         unsigned a[4]) {
+  if (kAcc) {
+    const int q = reinterpret_cast<const int*>(w)[row];
+    a[0] = (unsigned)acc_value(q >> 16);
+    a[2] = (unsigned)acc_value((int)((unsigned)q << 16) >> 16);
+    a[1] = a[3] = 0u;
+    return;
+  }
+  const unsigned long long qg = (unsigned long long)__double2ll_rn(
+      (bf16_bits_to_double(w[row]) + bf16_bits_to_double(w[npad + row]))
+      * scale_g);
+  const unsigned long long qh = (unsigned long long)__double2ll_rn(
+      (bf16_bits_to_double(w[2 * npad + row])
+       + bf16_bits_to_double(w[3 * npad + row])) * scale_h);
+  a[0] = (unsigned)qg;
+  a[1] = (unsigned)(qg >> 32);
+  a[2] = (unsigned)qh;
+  a[3] = (unsigned)(qh >> 32);
+}
+
+// The shared planes of a histogram tile of `cells` cells from `base`:
+// g lo, g hi, h lo, h hi, count, or (kAcc) g, h, count in g_lo, h_lo and
+// cnt (g_hi and h_hi are then not used).
+template <bool kAcc>
+struct Planes {
+  unsigned *g_lo, *g_hi, *h_lo, *h_hi, *cnt;
+  static constexpr int kCount = kAcc ? 3 : 5;
+  __device__ __forceinline__ Planes(unsigned* base, int cells) {
+    g_lo = base;
+    g_hi = base + cells;
+    h_lo = base + (kAcc ? 1 : 2) * cells;
+    h_hi = base + 3 * cells;
+    cnt = base + (kAcc ? 2 : 4) * cells;
+  }
+  // the adds of one row into the cells k[0..3] (-1: none): the low (kAcc:
+  // the only) adds and the counts first, then the high adds that wait on
+  // the low adds' carries
+  __device__ __forceinline__ void add4(const int k[4], const unsigned a[4]) {
+    unsigned og[4], oh[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (k[j] < 0) continue;
+      og[j] = atomicAdd(g_lo + k[j], a[0]);
+      oh[j] = atomicAdd(h_lo + k[j], a[2]);
+      atomicAdd(cnt + k[j], 1u);
+    }
+    if (kAcc) return;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (k[j] < 0) continue;
+      atomicAdd(g_hi + k[j], a[1] + carry_of(og[j], a[0]));
+      atomicAdd(h_hi + k[j], a[3] + carry_of(oh[j], a[2]));
+    }
+  }
+  // cell k's block sums into the i64 scratch cell dst (kAcc: the int32
+  // sums sign-extended)
+  __device__ __forceinline__ void flush(int k,
+                                        unsigned long long* dst) const {
+    if (kAcc) {
+      atomicAdd(dst + 0, (unsigned long long)(long long)(int)g_lo[k]);
+      atomicAdd(dst + 1, (unsigned long long)(long long)(int)h_lo[k]);
+    } else {
+      atomicAdd(dst + 0, ((unsigned long long)g_hi[k] << 32) | g_lo[k]);
+      atomicAdd(dst + 1, ((unsigned long long)h_hi[k] << 32) | h_lo[k]);
+    }
+    atomicAdd(dst + 2, (unsigned long long)cnt[k]);
+  }
+};
+
+// A finished sum in real units: the fixed-point sum over its scale in
+// double, rounded to f32; (kAcc) the integer sum as f32 times its scale
+// in f32 (unpack_hist_packed's order).
+template <bool kAcc>
+__device__ __forceinline__ float finish_sum(long long sum, float scale) {
+  if (kAcc) return __fmul_rn(__ll2float_rn(sum), scale);
+  return (float)((double)sum / (double)scale);
+}
+
+// The blocks of a launch whose blocks stride over `steps` steps of
+// `step_rows` rows: `blocks`, or (kAcc) more where one would walk more
+// than kAccMaxRows rows.
+template <bool kAcc>
+long long acc_blocks(long long blocks, long long steps, int step_rows) {
+  if (!kAcc) return blocks;
+  const long long per_block = kAccMaxRows / step_rows;
+  const long long need = (steps + per_block - 1) / per_block;
+  return blocks > need ? blocks : need;
+}
+
 // K6 (kRouted false) and K7 (true).  One launch covers the rows of
 // block_list[:n_blocks] x the feature tile blockIdx.y x the target tile
 // blockIdx.z, and writes out [n_targets, F, B, 3] f32.  acc
@@ -353,8 +505,9 @@ __device__ __forceinline__ unsigned carry_of(unsigned old, unsigned add) {
 // adds their features, a row a lane.  So the adds run with full warps
 // however sparse the matches are (half the listed rows at the HIGGS
 // round's K6), and no warp waits for another; the order of the adds moves
-// no bit.  kPacked4: two columns a byte (unpack_bin).
-template <bool kRouted, bool kPacked4>
+// no bit.  kPacked4: two columns a byte (unpack_bin); kAcc: the int32
+// packed-accumulator stream in place of w8 (row_adds, Planes).
+template <bool kRouted, bool kPacked4, bool kAcc>
 __global__ void __launch_bounds__(kFrontierThreads, kFrontierBlocksPerSm)
 frontier_hist_kernel(const uint8_t* __restrict__ bins,
                      const uint16_t* __restrict__ w8, int* leaf_id,
@@ -386,12 +539,10 @@ frontier_hist_kernel(const uint8_t* __restrict__ bins,
   short* q_slot = reinterpret_cast<short*>(
       reinterpret_cast<int*>(at) + 2 * kFrontierThreads)
       + 2 * (threadIdx.x - lane);
-  unsigned* g_lo = reinterpret_cast<unsigned*>(at + kFrontierQueueBytes);
-  unsigned* g_hi = g_lo + cells;
-  unsigned* h_lo = g_hi + cells;
-  unsigned* h_hi = h_lo + cells;
-  unsigned* cnt = h_hi + cells;
-  for (int k = threadIdx.x; k < 5 * cells; k += blockDim.x) g_lo[k] = 0u;
+  Planes<kAcc> pl(reinterpret_cast<unsigned*>(at + kFrontierQueueBytes),
+                  cells);
+  for (int k = threadIdx.x; k < pl.kCount * cells; k += blockDim.x)
+    pl.g_lo[k] = 0u;
   for (int k = threadIdx.x; k < n_ids; k += blockDim.x) {
     s_slot[k] = -1;
     s_route[k] = -1;
@@ -423,38 +574,19 @@ frontier_hist_kernel(const uint8_t* __restrict__ bins,
   // the high adds that wait on them
   auto add_row = [&](int q) {
     const long long row = q_row[q];
-    const unsigned long long qg = (unsigned long long)__double2ll_rn(
-        (bf16_bits_to_double(w8[row]) + bf16_bits_to_double(w8[npad + row]))
-        * scale_g);
-    const unsigned long long qh = (unsigned long long)__double2ll_rn(
-        (bf16_bits_to_double(w8[2 * npad + row])
-         + bf16_bits_to_double(w8[3 * npad + row])) * scale_h);
-    const unsigned glo = (unsigned)qg, ghi = (unsigned)(qg >> 32);
-    const unsigned hlo = (unsigned)qh, hhi = (unsigned)(qh >> 32);
+    unsigned a[4];
+    row_adds<kAcc>(w8, npad, row, scale_g, scale_h, a);
     const uint8_t* brow = tile + row;
     const int base = q_slot[q] * slot_cells;
     for (int f = 0; f < nf; f += 4) {
       int k[4], nb[4];
-      unsigned og[4], oh[4];
       load_bins4<kPacked4>(brow, npad, f, nf, num_bins, nb);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         // the TPU one-hot drops bins >= num_bins too
         k[j] = nb[j] < num_bins ? base + (f + j) * num_bins + nb[j] : -1;
       }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (k[j] < 0) continue;
-        og[j] = atomicAdd(g_lo + k[j], glo);
-        oh[j] = atomicAdd(h_lo + k[j], hlo);
-        atomicAdd(cnt + k[j], 1u);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (k[j] < 0) continue;
-        atomicAdd(g_hi + k[j], ghi + carry_of(og[j], glo));
-        atomicAdd(h_hi + k[j], hhi + carry_of(oh[j], hlo));
-      }
+      pl.add4(k, a);
     }
   };
 
@@ -485,7 +617,7 @@ frontier_hist_kernel(const uint8_t* __restrict__ bins,
         lid = moved;
       }
       // member 0: a pad row
-      if ((unsigned)lid < (unsigned)n_ids && w8[4 * npad + row] != 0)
+      if ((unsigned)lid < (unsigned)n_ids && is_member<kAcc>(w8, npad, row))
         slot = s_slot[lid];
     }
     const unsigned match = __ballot_sync(0xffffffffu, slot >= 0);
@@ -514,14 +646,11 @@ frontier_hist_kernel(const uint8_t* __restrict__ bins,
 
   const long long cells_all = (long long)num_features * num_bins;
   for (int k = threadIdx.x; k < cells; k += blockDim.x) {
-    if (cnt[k] == 0u) continue;
+    if (pl.cnt[k] == 0u) continue;
     const int s = k / slot_cells;
     const int fb = k - s * slot_cells;
-    unsigned long long* dst =
-        acc + 3ll * ((s0 + s) * cells_all + (long long)f0 * num_bins + fb);
-    atomicAdd(dst + 0, ((unsigned long long)g_hi[k] << 32) | g_lo[k]);
-    atomicAdd(dst + 1, ((unsigned long long)h_hi[k] << 32) | h_lo[k]);
-    atomicAdd(dst + 2, (unsigned long long)cnt[k]);
+    pl.flush(k, acc + 3ll * ((s0 + s) * cells_all + (long long)f0 * num_bins
+                             + fb));
   }
   // the last block of the tile to arrive sees every block's adds
   __threadfence();
@@ -533,7 +662,7 @@ frontier_hist_kernel(const uint8_t* __restrict__ bins,
   if (!s_last) return;
   __threadfence();
   // four cells a thread at a time, their loads in flight together; each
-  // sum over its scale in double, rounded to f32, then the cells zeroed
+  // sum in real units (finish_sum), then the cells zeroed
   for (int k0 = threadIdx.x; k0 < cells; k0 += 4 * blockDim.x) {
     long long cell[4], a[4][3];
 #pragma unroll
@@ -551,8 +680,8 @@ frontier_hist_kernel(const uint8_t* __restrict__ bins,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       if (cell[j] < 0) continue;
-      out[3 * cell[j] + 0] = (float)((double)a[j][0] / (double)scales[0]);
-      out[3 * cell[j] + 1] = (float)((double)a[j][1] / (double)scales[1]);
+      out[3 * cell[j] + 0] = finish_sum<kAcc>(a[j][0], scales[0]);
+      out[3 * cell[j] + 1] = finish_sum<kAcc>(a[j][1], scales[1]);
       out[3 * cell[j] + 2] = (float)a[j][2];
 #pragma unroll
       for (int i = 0; i < 3; ++i) acc[3 * cell[j] + i] = 0ull;
@@ -569,9 +698,10 @@ frontier_hist_kernel(const uint8_t* __restrict__ bins,
 // out and zeroes it again.
 //
 // Shared memory: the warps' row queues, then five u32 planes (g lo, g hi,
-// h lo, h hi, count) of the tile's nf x num_bins cells, feature-major.
-// kPacked4: two columns a byte (unpack_bin).
-template <bool kRouted, bool kPacked4>
+// h lo, h hi, count) of the tile's nf x num_bins cells, feature-major
+// (kAcc: three, Planes).  kPacked4: two columns a byte (unpack_bin); kAcc:
+// the int32 packed-accumulator stream in place of w8.
+template <bool kRouted, bool kPacked4, bool kAcc>
 __device__ __forceinline__ void
 segment_window(const uint8_t* __restrict__ bins,
                const uint16_t* __restrict__ w8, int* leaf_id,
@@ -589,12 +719,10 @@ segment_window(const uint8_t* __restrict__ bins,
   const unsigned lane = threadIdx.x & 31u;
   // this warp's queue: 64 rows
   int* q_row = reinterpret_cast<int*>(smem_raw) + 2 * (threadIdx.x - lane);
-  unsigned* g_lo = reinterpret_cast<unsigned*>(smem_raw + kSegQueueBytes);
-  unsigned* g_hi = g_lo + cells;
-  unsigned* h_lo = g_hi + cells;
-  unsigned* h_hi = h_lo + cells;
-  unsigned* cnt = h_hi + cells;
-  for (int k = threadIdx.x; k < 5 * cells; k += blockDim.x) g_lo[k] = 0u;
+  Planes<kAcc> pl(reinterpret_cast<unsigned*>(smem_raw + kSegQueueBytes),
+                  cells);
+  for (int k = threadIdx.x; k < pl.kCount * cells; k += blockDim.x)
+    pl.g_lo[k] = 0u;
   __syncthreads();
 
   const double scale_g = (double)scales[0];
@@ -608,40 +736,21 @@ segment_window(const uint8_t* __restrict__ bins,
   auto add_rows = [&](int n) {
     if ((int)lane >= n) return;
     const long long row = q_row[lane];
-    const unsigned long long qg = (unsigned long long)__double2ll_rn(
-        (bf16_bits_to_double(w8[row]) + bf16_bits_to_double(w8[npad + row]))
-        * scale_g);
-    const unsigned long long qh = (unsigned long long)__double2ll_rn(
-        (bf16_bits_to_double(w8[2 * npad + row])
-         + bf16_bits_to_double(w8[3 * npad + row])) * scale_h);
-    const unsigned glo = (unsigned)qg, ghi = (unsigned)(qg >> 32);
-    const unsigned hlo = (unsigned)qh, hhi = (unsigned)(qh >> 32);
+    unsigned a[4];
+    row_adds<kAcc>(w8, npad, row, scale_g, scale_h, a);
     const uint8_t* brow = tile + row;
     // past the tile, a bin of num_bins: no cell
     int nb[4];
     load_bins4<kPacked4>(brow, npad, 0, nf, num_bins, nb);
     for (int f = 0; f < nf; f += 4) {
       int k[4];
-      unsigned og[4], oh[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         // the TPU one-hot drops bins >= num_bins too
         k[j] = nb[j] < num_bins ? (f + j) * num_bins + nb[j] : -1;
       }
       load_bins4<kPacked4>(brow, npad, f + 4, nf, num_bins, nb);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (k[j] < 0) continue;
-        og[j] = atomicAdd(g_lo + k[j], glo);
-        oh[j] = atomicAdd(h_lo + k[j], hlo);
-        atomicAdd(cnt + k[j], 1u);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (k[j] < 0) continue;
-        atomicAdd(g_hi + k[j], ghi + carry_of(og[j], glo));
-        atomicAdd(h_hi + k[j], hhi + carry_of(oh[j], hlo));
-      }
+      pl.add4(k, a);
     }
   };
 
@@ -664,7 +773,7 @@ segment_window(const uint8_t* __restrict__ bins,
         lid = moved;
       }
       // member is 0 (pad rows) or 1: the port has no bagging weights
-      match = lid == target && w8[4 * npad + row] != 0;
+      match = lid == target && is_member<kAcc>(w8, npad, row);
     }
     const unsigned m = __ballot_sync(0xffffffffu, match);
     // fewer than 32 rows wait at a step's start, so 64 entries hold the
@@ -687,11 +796,8 @@ segment_window(const uint8_t* __restrict__ bins,
   // there and in out
   const long long tile_base = (long long)f0 * num_bins;
   for (int k = threadIdx.x; k < cells; k += blockDim.x) {
-    if (cnt[k] == 0u) continue;
-    unsigned long long* dst = acc + 3 * (tile_base + k);
-    atomicAdd(dst + 0, ((unsigned long long)g_hi[k] << 32) | g_lo[k]);
-    atomicAdd(dst + 1, ((unsigned long long)h_hi[k] << 32) | h_lo[k]);
-    atomicAdd(dst + 2, (unsigned long long)cnt[k]);
+    if (pl.cnt[k] == 0u) continue;
+    pl.flush(k, acc + 3 * (tile_base + k));
   }
   // the last block of the tile to arrive sees every block's adds
   __threadfence();
@@ -702,7 +808,7 @@ segment_window(const uint8_t* __restrict__ bins,
   if (!s_last) return;
   __threadfence();
   // four cells a thread at a time, their loads in flight together; each
-  // sum over its scale in double, rounded to f32, then the cells zeroed
+  // sum in real units (finish_sum), then the cells zeroed
   for (int k0 = threadIdx.x; k0 < cells; k0 += 4 * blockDim.x) {
     long long a[4][3];
 #pragma unroll
@@ -718,8 +824,8 @@ segment_window(const uint8_t* __restrict__ bins,
       const int k = k0 + j * blockDim.x;
       if (k >= cells) continue;
       const long long cell = tile_base + k;
-      out[3 * cell + 0] = (float)((double)a[j][0] / (double)scales[0]);
-      out[3 * cell + 1] = (float)((double)a[j][1] / (double)scales[1]);
+      out[3 * cell + 0] = finish_sum<kAcc>(a[j][0], scales[0]);
+      out[3 * cell + 1] = finish_sum<kAcc>(a[j][1], scales[1]);
       out[3 * cell + 2] = (float)a[j][2];
 #pragma unroll
       for (int i = 0; i < 3; ++i) acc[3 * cell + i] = 0ull;
@@ -733,7 +839,7 @@ segment_window(const uint8_t* __restrict__ bins,
 // a step block in device memory (segment_step_kernel), so that a split's
 // step needs no value from the host (read_step).  The same body, so the
 // two give the same bits on the same window and route.
-template <bool kRouted, bool kPacked4>
+template <bool kRouted, bool kPacked4, bool kAcc>
 __global__ void __launch_bounds__(kSegThreads, 1)
 segment_window_kernel(const uint8_t* __restrict__ bins,
                       const uint16_t* __restrict__ w8, int* leaf_id,
@@ -743,13 +849,14 @@ segment_window_kernel(const uint8_t* __restrict__ bins,
                       RouteDesc route, unsigned long long* __restrict__ acc,
                       unsigned int* __restrict__ arrivals,
                       float* __restrict__ out) {
-  segment_window<kRouted, kPacked4>(bins, w8, leaf_id, npad, num_features,
-                                    num_bins, tile_features, row_lo, row_hi,
-                                    target, scales, route, acc, arrivals,
-                                    out);
+  segment_window<kRouted, kPacked4, kAcc>(bins, w8, leaf_id, npad,
+                                          num_features, num_bins,
+                                          tile_features, row_lo, row_hi,
+                                          target, scales, route, acc,
+                                          arrivals, out);
 }
 
-template <bool kRouted, bool kPacked4>
+template <bool kRouted, bool kPacked4, bool kAcc>
 __global__ void __launch_bounds__(kSegThreads, 1)
 segment_step_kernel(const uint8_t* __restrict__ bins,
                     const uint16_t* __restrict__ w8, int* leaf_id,
@@ -763,10 +870,11 @@ segment_step_kernel(const uint8_t* __restrict__ bins,
   // packed, the logical columns are twice the byte rows
   const StepArgs a = read_step(step, npad, block_rows,
                                kPacked4 ? num_features / 2 : num_features);
-  segment_window<kRouted, kPacked4>(bins, w8, leaf_id, npad, num_features,
-                                    num_bins, tile_features, a.row_lo,
-                                    a.row_hi, a.target, scales, a.route, acc,
-                                    arrivals, out);
+  segment_window<kRouted, kPacked4, kAcc>(bins, w8, leaf_id, npad,
+                                          num_features, num_bins,
+                                          tile_features, a.row_lo, a.row_hi,
+                                          a.target, scales, a.route, acc,
+                                          arrivals, out);
 }
 
 // K5.  One launch covers every row x the feature tile blockIdx.y x the set
@@ -782,8 +890,9 @@ segment_step_kernel(const uint8_t* __restrict__ bins,
 // low adds before the high adds that wait on them, while the next four
 // features' bins load); a row's bins come from device memory for the
 // first set and from the cache for the others.  kPacked4: two columns a
-// byte (unpack_bin).
-template <bool kPacked4>
+// byte (unpack_bin); kAcc: one set, the int32 packed-accumulator stream
+// [2, npad] in place of w8, and its quantizer's scales [2] (Planes).
+template <bool kPacked4, bool kAcc>
 __global__ void __launch_bounds__(kSegThreads, 1)
 all_hist_kernel(const uint8_t* __restrict__ bins,
                 const uint16_t* __restrict__ w8, long long npad,
@@ -801,12 +910,9 @@ all_hist_kernel(const uint8_t* __restrict__ bins,
   const int ns = min(tile_sets, num_sets - c0);
   const int set_cells = nf * num_bins;
   const int cells = ns * set_cells;
-  unsigned* g_lo = reinterpret_cast<unsigned*>(smem_raw);
-  unsigned* g_hi = g_lo + cells;
-  unsigned* h_lo = g_hi + cells;
-  unsigned* h_hi = h_lo + cells;
-  unsigned* cnt = h_hi + cells;
-  for (int k = threadIdx.x; k < 5 * cells; k += blockDim.x) g_lo[k] = 0u;
+  Planes<kAcc> pl(reinterpret_cast<unsigned*>(smem_raw), cells);
+  for (int k = threadIdx.x; k < pl.kCount * cells; k += blockDim.x)
+    pl.g_lo[k] = 0u;
   __syncthreads();
 
   // the tile's first byte row (packed: f0 is even)
@@ -817,43 +923,25 @@ all_hist_kernel(const uint8_t* __restrict__ bins,
     if (row >= npad) break;
     const uint8_t* brow = tile + row;
     for (int s = 0; s < ns; ++s) {
-      const uint16_t* w = w8 + (long long)(c0 + s) * 8 * npad + row;
+      const uint16_t* w = w8 + (long long)(c0 + s) * 8 * npad;
       // member is 0 (pad rows) or 1: the port has no bagging weights
-      if (w[4 * npad] == 0) continue;
-      const unsigned long long qg = (unsigned long long)__double2ll_rn(
-          (bf16_bits_to_double(w[0]) + bf16_bits_to_double(w[npad]))
-          * (double)scales[2 * (c0 + s)]);
-      const unsigned long long qh = (unsigned long long)__double2ll_rn(
-          (bf16_bits_to_double(w[2 * npad]) + bf16_bits_to_double(w[3 * npad]))
-          * (double)scales[2 * (c0 + s) + 1]);
-      const unsigned glo = (unsigned)qg, ghi = (unsigned)(qg >> 32);
-      const unsigned hlo = (unsigned)qh, hhi = (unsigned)(qh >> 32);
+      if (!is_member<kAcc>(w, npad, row)) continue;
+      unsigned a[4];
+      row_adds<kAcc>(w, npad, row, (double)scales[2 * (c0 + s)],
+                     (double)scales[2 * (c0 + s) + 1], a);
       const int base = s * set_cells;
       // past the tile, a bin of num_bins: no cell
       int nb[4];
       load_bins4<kPacked4>(brow, npad, 0, nf, num_bins, nb);
       for (int f = 0; f < nf; f += 4) {
         int k[4];
-        unsigned og[4], oh[4];
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           // the TPU one-hot drops bins >= num_bins too
           k[j] = nb[j] < num_bins ? base + (f + j) * num_bins + nb[j] : -1;
         }
         load_bins4<kPacked4>(brow, npad, f + 4, nf, num_bins, nb);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if (k[j] < 0) continue;
-          og[j] = atomicAdd(g_lo + k[j], glo);
-          oh[j] = atomicAdd(h_lo + k[j], hlo);
-          atomicAdd(cnt + k[j], 1u);
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if (k[j] < 0) continue;
-          atomicAdd(g_hi + k[j], ghi + carry_of(og[j], glo));
-          atomicAdd(h_hi + k[j], hhi + carry_of(oh[j], hlo));
-        }
+        pl.add4(k, a);
       }
     }
   }
@@ -868,11 +956,8 @@ all_hist_kernel(const uint8_t* __restrict__ bins,
            + (k - s * set_cells);
   };
   for (int k = threadIdx.x; k < cells; k += blockDim.x) {
-    if (cnt[k] == 0u) continue;
-    unsigned long long* dst = acc + 3 * cell_of(k);
-    atomicAdd(dst + 0, ((unsigned long long)g_hi[k] << 32) | g_lo[k]);
-    atomicAdd(dst + 1, ((unsigned long long)h_hi[k] << 32) | h_lo[k]);
-    atomicAdd(dst + 2, (unsigned long long)cnt[k]);
+    if (pl.cnt[k] == 0u) continue;
+    pl.flush(k, acc + 3 * cell_of(k));
   }
   // the last block of the tile to arrive sees every block's adds
   __threadfence();
@@ -884,7 +969,7 @@ all_hist_kernel(const uint8_t* __restrict__ bins,
   if (!s_last) return;
   __threadfence();
   // four cells a thread at a time, their loads in flight together; each
-  // sum over its set's scale in double, rounded to f32, then the cells
+  // sum in real units at its set's scale (finish_sum), then the cells
   // zeroed
   for (int k0 = threadIdx.x; k0 < cells; k0 += 4 * blockDim.x) {
     long long cell[4], a[4][3];
@@ -902,8 +987,8 @@ all_hist_kernel(const uint8_t* __restrict__ bins,
     for (int j = 0; j < 4; ++j) {
       if (cell[j] < 0) continue;
       const float* sc = scales + 2 * (cell[j] / cells_all);
-      out[3 * cell[j] + 0] = (float)((double)a[j][0] / (double)sc[0]);
-      out[3 * cell[j] + 1] = (float)((double)a[j][1] / (double)sc[1]);
+      out[3 * cell[j] + 0] = finish_sum<kAcc>(a[j][0], sc[0]);
+      out[3 * cell[j] + 1] = finish_sum<kAcc>(a[j][1], sc[1]);
       out[3 * cell[j] + 2] = (float)a[j][2];
 #pragma unroll
       for (int i = 0; i < 3; ++i) acc[3 * cell[j] + i] = 0ull;
@@ -1089,7 +1174,7 @@ int frontier_smem_budget() {
 // the rows are few), so each block flushes its shared histogram once.
 // Makes no call that a CUDA graph's capture refuses.  Returns a CUDA
 // error.
-template <bool kRouted, bool kPacked4>
+template <bool kRouted, bool kPacked4, bool kAcc>
 int launch_frontier(int tiles_y, int tiles_z, size_t smem, cudaStream_t s,
                     const uint8_t* bins, const uint16_t* w8, int* leaf_id,
                     long long npad, int num_features, int num_bins, int ft,
@@ -1099,22 +1184,24 @@ int launch_frontier(int tiles_y, int tiles_z, size_t smem, cudaStream_t s,
   static bool opted_in = false;
   if (!opted_in) {
     const cudaError_t e = cudaFuncSetAttribute(
-        frontier_hist_kernel<kRouted, kPacked4>,
+        frontier_hist_kernel<kRouted, kPacked4, kAcc>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, frontier_smem_budget());
     if (e != cudaSuccess) return (int)e;
     opted_in = true;
   }
   const long long tiles = (long long)tiles_y * tiles_z;
-  long long bx = n_blocks * div_up(block_rows, kFrontierThreads);
+  const long long steps = n_blocks * div_up(block_rows, kFrontierThreads);
+  long long bx = steps;
   const long long wave = (long long)kFrontierBlocksPerSm * sm_count();
   const long long cap = wave / tiles > 0 ? wave / tiles : 1;
   if (bx > cap) bx = cap;
+  bx = acc_blocks<kAcc>(bx, steps, kFrontierThreads);
   if (bx < 1) bx = 1;   // no rows: one block a tile writes the zeros
   // the tiles' arrival counters follow the histogram cells in the scratch
   const long long cells3 = 3ll * p.n_targets * num_features * num_bins;
   dim3 grid((unsigned)bx, (unsigned)tiles_y, (unsigned)tiles_z);
-  frontier_hist_kernel<kRouted, kPacked4><<<grid, kFrontierThreads, smem,
-                                             s>>>(
+  frontier_hist_kernel<kRouted, kPacked4, kAcc><<<grid, kFrontierThreads,
+                                                   smem, s>>>(
       bins, w8, leaf_id, npad, num_features, num_bins, ft, tt, block_list,
       n_blocks, block_rows, scales,
       reinterpret_cast<unsigned long long*>(acc),
@@ -1126,8 +1213,9 @@ int launch_frontier(int tiles_y, int tiles_z, size_t smem, cudaStream_t s,
 // launches, for each feature tile, one block per kSegMinRows rows of the
 // window, at most one wave over the tiles (one block a tile when the
 // window is empty: it writes the zeros).  Makes no call that a CUDA
-// graph's capture refuses.  Returns a CUDA error.
-template <bool kRouted, bool kPacked4>
+// graph's capture refuses.  kAcc launches more blocks where a block
+// would walk more than kAccMaxRows rows.  Returns a CUDA error.
+template <bool kRouted, bool kPacked4, bool kAcc>
 int launch_segment(int tiles, int ft, size_t smem, cudaStream_t s,
                    const uint8_t* bins, const uint16_t* w8,
                    int* leaf_id, long long npad, int num_features,
@@ -1137,7 +1225,7 @@ int launch_segment(int tiles, int ft, size_t smem, cudaStream_t s,
   static bool opted_in = false;
   if (!opted_in) {
     const cudaError_t e = cudaFuncSetAttribute(
-        segment_window_kernel<kRouted, kPacked4>,
+        segment_window_kernel<kRouted, kPacked4, kAcc>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, frontier_smem_budget());
     if (e != cudaSuccess) return (int)e;
     opted_in = true;
@@ -1145,11 +1233,14 @@ int launch_segment(int tiles, int ft, size_t smem, cudaStream_t s,
   long long bx = div_up(row_hi - row_lo, kSegMinRows);
   const long long cap = sm_count() / tiles > 0 ? sm_count() / tiles : 1;
   if (bx > cap) bx = cap;
+  bx = acc_blocks<kAcc>(bx, div_up(row_hi - row_lo, kSegThreads),
+                        kSegThreads);
   if (bx < 1) bx = 1;
   // the tiles' arrival counters follow the histogram cells in the scratch
   const long long cells3 = 3ll * num_features * num_bins;
   dim3 grid((unsigned)bx, (unsigned)tiles);
-  segment_window_kernel<kRouted, kPacked4><<<grid, kSegThreads, smem, s>>>(
+  segment_window_kernel<kRouted, kPacked4, kAcc><<<grid, kSegThreads, smem,
+                                                   s>>>(
       bins, w8, leaf_id, npad, num_features, num_bins, ft, row_lo, row_hi,
       target, scales, route,
       reinterpret_cast<unsigned long long*>(scratch),
@@ -1191,8 +1282,9 @@ int launch_route(const uint8_t* frow, int* leaf_id, long long row_lo,
 // launch_segment (sm_count() / tiles blocks a tile) at every window.  The
 // blocks stride over the window they read; one with no rows flushes
 // nothing and still arrives at its tile's counter, so an empty window
-// writes zeros.  Makes no call that a CUDA graph's capture refuses.
-template <bool kRouted, bool kPacked4>
+// writes zeros.  kAcc: at least the blocks the whole layout would need
+// (acc_blocks).  Makes no call that a CUDA graph's capture refuses.
+template <bool kRouted, bool kPacked4, bool kAcc>
 int launch_segment_step(int tiles, int ft, size_t smem, cudaStream_t s,
                         const uint8_t* bins, const uint16_t* w8,
                         int* leaf_id, long long npad, int num_features,
@@ -1201,15 +1293,18 @@ int launch_segment_step(int tiles, int ft, size_t smem, cudaStream_t s,
   static bool opted_in = false;
   if (!opted_in) {
     const cudaError_t e = cudaFuncSetAttribute(
-        segment_step_kernel<kRouted, kPacked4>,
+        segment_step_kernel<kRouted, kPacked4, kAcc>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, frontier_smem_budget());
     if (e != cudaSuccess) return (int)e;
     opted_in = true;
   }
-  const long long cap = sm_count() / tiles > 0 ? sm_count() / tiles : 1;
+  const long long cap = acc_blocks<kAcc>(
+      sm_count() / tiles > 0 ? sm_count() / tiles : 1,
+      div_up(npad, kSegThreads), kSegThreads);
   const long long cells3 = 3ll * num_features * num_bins;
   dim3 grid((unsigned)cap, (unsigned)tiles);
-  segment_step_kernel<kRouted, kPacked4><<<grid, kSegThreads, smem, s>>>(
+  segment_step_kernel<kRouted, kPacked4, kAcc><<<grid, kSegThreads, smem,
+                                                 s>>>(
       bins, w8, leaf_id, npad, num_features, num_bins, ft, block_rows, step,
       scales, reinterpret_cast<unsigned long long*>(scratch),
       reinterpret_cast<unsigned int*>(scratch + cells3), out);
@@ -1252,6 +1347,20 @@ long long even_tile(long long units, long long per_unit, long long budget,
 // that a tile starts on a byte; one column unpacked.
 int feature_unit(int packed4) { return packed4 != 0 ? 2 : 1; }
 
+// Calls fn(r, p, a) with std::true_type / std::false_type for the three
+// runtime flags, so fn instantiates the kernel whose template arguments
+// match them; returns fn's result.
+template <typename Fn>
+int dispatch(bool r, bool p, bool a, Fn&& fn) {
+  using T = std::true_type;
+  using F = std::false_type;
+  auto rest = [&](auto R) {
+    auto last = [&](auto P) { return a ? fn(R, P, T{}) : fn(R, P, F{}); };
+    return p ? last(T{}) : last(F{});
+  };
+  return r ? rest(T{}) : rest(F{});
+}
+
 }  // namespace
 
 extern "C" {
@@ -1264,12 +1373,13 @@ const char* lgbt_error_string(int code) {
 // block (bytes): as many features as fit the budget (K6/K7's: one block
 // an SM), spread evenly over the fewest tiles; packed4 (two columns a
 // byte: num_features are the logical columns, an even count) cuts them
-// in pairs.  Returns 0, or cudaErrorInvalidValue when not even one
-// feature (pair) fits.
+// in pairs; packed_acc takes its 12-byte cells.  Returns 0, or
+// cudaErrorInvalidValue when not even one feature (pair) fits.
 int lgbt_segment_tiling(int num_features, int num_bins, int packed4,
-                        int* out) {
+                        int packed_acc, int* out) {
   const int unit = feature_unit(packed4);
-  const long long per_feature = (long long)num_bins * kSegCellBytes;
+  const long long per_feature = (long long)num_bins
+                                * cell_bytes(packed_acc != 0);
   const long long ft = even_tile(
       num_features < 1 || num_bins < 1 ? 0 : div_up(num_features, unit),
       per_feature * unit, frontier_smem_budget() - kSegQueueBytes, unit);
@@ -1282,23 +1392,26 @@ int lgbt_segment_tiling(int num_features, int num_bins, int packed4,
 // K1 (route == NULL) or K3 (route = host pointer to 19 ints), one kernel
 // launch and no other operation on the stream.  bins [F, npad] u8, or
 // packed4 != 0 [F / 2, npad] u8 of two columns a byte (F the logical
-// columns, even), w8 [8, npad] bf16 bits, leaf_id [npad] i32 (updated in
-// place by K3 over the window), scales [2] f32 on the device; scratch =
-// the wrapper's persistent i64 buffer, all zero, of F*B*3 words plus one
-// u32 a feature tile, left all zero; out [F, B, 3] f32.  An empty window
-// writes zeros.  Returns a CUDA error code (0 on success).
+// columns, even), w8 [8, npad] bf16 bits (fixed_point_scales' scales
+// [2]), or packed_acc != 0 the [2, npad] int32 packed-accumulator stream
+// (quantize_pack's scales [2]), leaf_id [npad] i32 (updated in place by
+// K3 over the window), scales f32 on the device; scratch = the wrapper's
+// persistent i64 buffer, all zero, of F*B*3 words plus one u32 a feature
+// tile, left all zero; out [F, B, 3] f32.  An empty window writes zeros.
+// Returns a CUDA error code (0 on success).
 int lgbt_histogram_segment(const uint8_t* bins, const uint16_t* w8,
                            int* leaf_id, long long npad, int num_features,
                            int num_bins, long long row_lo, long long row_hi,
                            int target, const float* scales, const int* route,
                            long long* scratch, float* out, int packed4,
-                           void* stream) {
+                           int packed_acc, void* stream) {
   // the queue holds a row as an i32
   if (npad > 0x7fffffffll || row_lo < 0 || row_hi > npad
       || (packed4 != 0 && num_features % 2 != 0))
     return (int)cudaErrorInvalidValue;
   int tiling[2];
-  const int rc = lgbt_segment_tiling(num_features, num_bins, packed4, tiling);
+  const int rc = lgbt_segment_tiling(num_features, num_bins, packed4,
+                                     packed_acc, tiling);
   if (rc != 0) return rc;
   const int tiles = (int)div_up(num_features, tiling[0]);
   if (row_hi < row_lo) row_hi = row_lo;
@@ -1308,27 +1421,14 @@ int lgbt_histogram_segment(const uint8_t* bins, const uint16_t* w8,
     for (int k = 0; k < kRouteWords; ++k) desc.w[k] = route[k];
   const size_t smem = (size_t)tiling[1];
   const int ft = tiling[0];
-  int e;
-  if (route != nullptr && packed4 != 0)
-    e = launch_segment<true, true>(tiles, ft, smem, s, bins, w8, leaf_id,
-                                   npad, num_features, num_bins, row_lo,
-                                   row_hi, target, scales, desc, scratch,
-                                   out);
-  else if (route != nullptr)
-    e = launch_segment<true, false>(tiles, ft, smem, s, bins, w8, leaf_id,
-                                    npad, num_features, num_bins, row_lo,
-                                    row_hi, target, scales, desc, scratch,
-                                    out);
-  else if (packed4 != 0)
-    e = launch_segment<false, true>(tiles, ft, smem, s, bins, w8, leaf_id,
-                                    npad, num_features, num_bins, row_lo,
-                                    row_hi, target, scales, desc, scratch,
-                                    out);
-  else
-    e = launch_segment<false, false>(tiles, ft, smem, s, bins, w8, leaf_id,
-                                     npad, num_features, num_bins, row_lo,
-                                     row_hi, target, scales, desc, scratch,
-                                     out);
+  const int e = dispatch(
+      route != nullptr, packed4 != 0, packed_acc != 0,
+      [&](auto R, auto P, auto A) {
+        return launch_segment<decltype(R)::value, decltype(P)::value,
+                              decltype(A)::value>(
+            tiles, ft, smem, s, bins, w8, leaf_id, npad, num_features,
+            num_bins, row_lo, row_hi, target, scales, desc, scratch, out);
+      });
   if (e != 0) return e;
   return (int)cudaGetLastError();
 }
@@ -1346,38 +1446,27 @@ int lgbt_histogram_segment_step(const uint8_t* bins, const uint16_t* w8,
                                 int num_features, int num_bins,
                                 int block_rows, const int* step, int routed,
                                 const float* scales, long long* scratch,
-                                float* out, int packed4, void* stream) {
+                                float* out, int packed4, int packed_acc,
+                                void* stream) {
   if (npad > 0x7fffffffll || block_rows < 1
       || (packed4 != 0 && num_features % 2 != 0))
     return (int)cudaErrorInvalidValue;
   int tiling[2];
-  const int rc = lgbt_segment_tiling(num_features, num_bins, packed4, tiling);
+  const int rc = lgbt_segment_tiling(num_features, num_bins, packed4,
+                                     packed_acc, tiling);
   if (rc != 0) return rc;
   const int tiles = (int)div_up(num_features, tiling[0]);
   cudaStream_t s = (cudaStream_t)stream;
   const size_t smem = (size_t)tiling[1];
   const int ft = tiling[0];
-  int e;
-  if (routed != 0 && packed4 != 0)
-    e = launch_segment_step<true, true>(tiles, ft, smem, s, bins, w8,
-                                        leaf_id, npad, num_features,
-                                        num_bins, block_rows, step, scales,
-                                        scratch, out);
-  else if (routed != 0)
-    e = launch_segment_step<true, false>(tiles, ft, smem, s, bins, w8,
-                                         leaf_id, npad, num_features,
-                                         num_bins, block_rows, step, scales,
-                                         scratch, out);
-  else if (packed4 != 0)
-    e = launch_segment_step<false, true>(tiles, ft, smem, s, bins, w8,
-                                         leaf_id, npad, num_features,
-                                         num_bins, block_rows, step, scales,
-                                         scratch, out);
-  else
-    e = launch_segment_step<false, false>(tiles, ft, smem, s, bins, w8,
-                                          leaf_id, npad, num_features,
-                                          num_bins, block_rows, step, scales,
-                                          scratch, out);
+  const int e = dispatch(
+      routed != 0, packed4 != 0, packed_acc != 0,
+      [&](auto R, auto P, auto A) {
+        return launch_segment_step<decltype(R)::value, decltype(P)::value,
+                                   decltype(A)::value>(
+            tiles, ft, smem, s, bins, w8, leaf_id, npad, num_features,
+            num_bins, block_rows, step, scales, scratch, out);
+      });
   if (e != 0) return e;
   return (int)cudaGetLastError();
 }
@@ -1388,12 +1477,14 @@ int lgbt_histogram_segment_step(const uint8_t* bins, const uint16_t* w8,
 // block an SM), spread evenly over the fewest tiles; in pairs packed4.
 // Blocks of several sets read fewer bytes (a row's bins once for all
 // their sets) but were slower: each set's adds take a row's bins from the
-// cache again (tools/route_candidates.py, PERF.md).  Returns 0, or
-// cudaErrorInvalidValue when not even one feature (pair) of one set fits.
+// cache again (tools/route_candidates.py, PERF.md).  packed_acc takes its
+// 12-byte cells.  Returns 0, or cudaErrorInvalidValue when not even one
+// feature (pair) of one set fits.
 int lgbt_all_tiling(int num_features, int num_bins, int num_sets,
-                    int packed4, int* out) {
+                    int packed4, int packed_acc, int* out) {
   const int unit = feature_unit(packed4);
-  const long long per_feature = (long long)num_bins * kSegCellBytes;
+  const long long per_feature = (long long)num_bins
+                                * cell_bytes(packed_acc != 0);
   const long long ft = even_tile(
       num_features < 1 || num_bins < 1 || num_sets < 1
           ? 0 : div_up(num_features, unit),
@@ -1407,56 +1498,58 @@ int lgbt_all_tiling(int num_features, int num_bins, int num_sets,
 
 // K5, one kernel launch and no other operation on the stream.  bins [F,
 // npad] u8 (packed4: [F / 2, npad], two columns a byte, F even), w8 [8 *
-// sets, npad] bf16 bits (pad rows carry member 0), scales [sets, 2] f32 on
-// the device; scratch = the wrapper's persistent i64 buffer, all zero, of
-// sets*F*B*3 words plus one u32 a tile, left all zero; out [sets, F, B, 3]
-// f32.  Returns a CUDA error code (0 on success).
+// sets, npad] bf16 bits (pad rows carry member 0) and scales [sets, 2] f32
+// on the device, or packed_acc != 0 (sets == 1) the [2, npad] int32
+// packed-accumulator stream and quantize_pack's scales [2]; scratch = the
+// wrapper's persistent i64 buffer, all zero, of sets*F*B*3 words plus one
+// u32 a tile, left all zero; out [sets, F, B, 3] f32.  Returns a CUDA
+// error code (0 on success).
 int lgbt_histogram_all(const uint8_t* bins, const uint16_t* w8,
                        long long npad, int num_features, int num_bins,
                        int sets, const float* scales, long long* scratch,
-                       float* out, int packed4, void* stream) {
-  if (packed4 != 0 && num_features % 2 != 0)
+                       float* out, int packed4, int packed_acc,
+                       void* stream) {
+  if ((packed4 != 0 && num_features % 2 != 0)
+      || (packed_acc != 0 && sets != 1))
     return (int)cudaErrorInvalidValue;
   int tiling[3];
   const int rc = lgbt_all_tiling(num_features, num_bins, sets, packed4,
-                                 tiling);
+                                 packed_acc, tiling);
   if (rc != 0) return rc;
-  static bool opted_in[2] = {false, false};
-  const void* kernel = packed4 != 0
-      ? reinterpret_cast<const void*>(all_hist_kernel<true>)
-      : reinterpret_cast<const void*>(all_hist_kernel<false>);
-  if (!opted_in[packed4 != 0]) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        frontier_smem_budget());
-    if (e != cudaSuccess) return (int)e;
-    opted_in[packed4 != 0] = true;
-  }
   const int tiles_y = (int)div_up(num_features, tiling[0]);
   const int tiles_z = (int)div_up(sets, tiling[1]);
   const long long tiles = (long long)tiles_y * tiles_z;
-  // one block per 1,024-row step, at most one wave over the tiles (one
-  // block a tile when there are no rows: it writes the zeros)
-  long long bx = div_up(npad, kSegMinRows);
-  const long long cap = sm_count() / tiles > 0 ? sm_count() / tiles : 1;
-  if (bx > cap) bx = cap;
-  if (bx < 1) bx = 1;
   // the tiles' arrival counters follow the histogram cells in the scratch
   const long long cells3 = 3ll * sets * num_features * num_bins;
-  dim3 grid((unsigned)bx, (unsigned)tiles_y, (unsigned)tiles_z);
   auto* acc = reinterpret_cast<unsigned long long*>(scratch);
   auto* arrivals = reinterpret_cast<unsigned int*>(scratch + cells3);
-  if (packed4 != 0)
-    all_hist_kernel<true><<<grid, kSegThreads, (size_t)tiling[2],
-                            (cudaStream_t)stream>>>(
-        bins, w8, npad, num_features, num_bins, sets, tiling[0], tiling[1],
-        scales, acc, arrivals, out);
-  else
-    all_hist_kernel<false><<<grid, kSegThreads, (size_t)tiling[2],
-                             (cudaStream_t)stream>>>(
-        bins, w8, npad, num_features, num_bins, sets, tiling[0], tiling[1],
-        scales, acc, arrivals, out);
-  return (int)cudaGetLastError();
+  return dispatch(
+      false, packed4 != 0, packed_acc != 0, [&](auto, auto P, auto A) {
+        constexpr bool kP = decltype(P)::value, kA = decltype(A)::value;
+        static bool opted_in = false;
+        if (!opted_in) {
+          const cudaError_t e = cudaFuncSetAttribute(
+              all_hist_kernel<kP, kA>,
+              cudaFuncAttributeMaxDynamicSharedMemorySize,
+              frontier_smem_budget());
+          if (e != cudaSuccess) return (int)e;
+          opted_in = true;
+        }
+        // one block per 1,024-row step, at most one wave over the tiles
+        // (one block a tile when there are no rows: it writes the zeros)
+        long long bx = div_up(npad, kSegMinRows);
+        const long long cap = sm_count() / tiles > 0 ? sm_count() / tiles
+                                                     : 1;
+        if (bx > cap) bx = cap;
+        bx = acc_blocks<kA>(bx, div_up(npad, kSegThreads), kSegThreads);
+        if (bx < 1) bx = 1;
+        dim3 grid((unsigned)bx, (unsigned)tiles_y, (unsigned)tiles_z);
+        all_hist_kernel<kP, kA><<<grid, kSegThreads, (size_t)tiling[2],
+                                  (cudaStream_t)stream>>>(
+            bins, w8, npad, num_features, num_bins, sets, tiling[0],
+            tiling[1], scales, acc, arrivals, out);
+        return (int)cudaGetLastError();
+      });
 }
 
 // K6/K7 tiling: out[0] features per tile, out[1] target slots per tile,
@@ -1465,13 +1558,15 @@ int lgbt_histogram_all(const uint8_t* bins, const uint16_t* w8,
 // spread evenly over the fewest feature tiles; when one feature's slots do
 // not fit, one feature a tile and the slots spread evenly over the fewest
 // target tiles.  packed4 cuts the features in pairs (a pair where the
-// rule says one).  Returns 0, or cudaErrorInvalidValue when not even one
-// slot of one feature (pair) fits beside the tables.
+// rule says one); packed_acc takes its 12-byte cells.  Returns 0, or
+// cudaErrorInvalidValue when not even one slot of one feature (pair) fits
+// beside the tables.
 int lgbt_frontier_tiling(int num_features, int num_bins, int n_targets,
-                         int n_routes, int n_ids, int packed4, int* out) {
+                         int n_routes, int n_ids, int packed4,
+                         int packed_acc, int* out) {
   const int unit = feature_unit(packed4);
-  const long long slot_bytes = (long long)unit * num_bins
-                               * kFrontierCellBytes;
+  const int cell = cell_bytes(packed_acc != 0);
+  const long long slot_bytes = (long long)unit * num_bins * cell;
   // ids that could not fit, checked before the table's size is computed
   if (n_ids < 0 || n_ids > frontier_smem_budget() / 4)
     return (int)cudaErrorInvalidValue;
@@ -1495,18 +1590,18 @@ int lgbt_frontier_tiling(int num_features, int num_bins, int n_targets,
   }
   out[0] = ft;
   out[1] = tt;
-  out[2] = (int)(fixed + (long long)ft * tt * num_bins * kFrontierCellBytes);
+  out[2] = (int)(fixed + (long long)ft * tt * num_bins * cell);
   return 0;
 }
 
 // K6 (n_routes == 0) or K7 (n_routes > 0, KT = n_targets = K or 2K), one
 // kernel launch and no other operation on the stream.  bins [F, npad] u8
 // (packed4: [F / 2, npad], two columns a byte, F even), w8 [8, npad] bf16
-// bits, leaf_id [npad] i32 (K7 updates it in place over the listed
-// blocks), block_list [>= n_blocks] i32 on the device; params = host
-// pointer to a FrontierParams of params_bytes bytes
-// (ops/histogram.py:frontier_params), copied into the launch; scales [2]
-// f32 on the device; scratch = the wrapper's persistent i64 buffer, all
+// bits (packed_acc: the [2, npad] int32 stream), leaf_id [npad] i32 (K7
+// updates it in place over the listed blocks), block_list [>= n_blocks]
+// i32 on the device; params = host pointer to a FrontierParams of
+// params_bytes bytes (ops/histogram.py:frontier_params), copied into the
+// launch; scales [2] f32 on the device; scratch = the wrapper's persistent i64 buffer, all
 // zero, of n_targets*F*B*3 words plus one u32 a tile, left all zero; out
 // [n_targets, F, B, 3] f32.  n_blocks == 0 writes zero histograms and
 // leaves leaf_id alone.  Returns a CUDA error code (0 on success).
@@ -1516,7 +1611,8 @@ int lgbt_histogram_frontier(const uint8_t* bins, const uint16_t* w8,
                             const int* block_list, long long n_blocks,
                             const void* params, long long params_bytes,
                             const float* scales, long long* scratch,
-                            float* out, int packed4, void* stream) {
+                            float* out, int packed4, int packed_acc,
+                            void* stream) {
   if (params_bytes != (long long)sizeof(FrontierParams))
     return (int)cudaErrorInvalidValue;
   FrontierParams p;
@@ -1529,34 +1625,23 @@ int lgbt_histogram_frontier(const uint8_t* bins, const uint16_t* w8,
     return (int)cudaErrorInvalidValue;
   int tiling[3];
   const int rc = lgbt_frontier_tiling(num_features, num_bins, p.n_targets,
-                                      p.n_routes, p.n_ids, packed4, tiling);
+                                      p.n_routes, p.n_ids, packed4,
+                                      packed_acc, tiling);
   if (rc != 0) return rc;
   const int ft = tiling[0], tt = tiling[1];
   const size_t smem = (size_t)tiling[2];
   const int tiles_y = (int)div_up(num_features, ft);
   const int tiles_z = (int)div_up(p.n_targets, tt);
   cudaStream_t s = (cudaStream_t)stream;
-  int e;
-  if (p.n_routes > 0 && packed4 != 0)
-    e = launch_frontier<true, true>(tiles_y, tiles_z, smem, s, bins, w8,
-                                    leaf_id, npad, num_features, num_bins,
-                                    ft, tt, block_list, n_blocks, block_rows,
-                                    scales, scratch, p, out);
-  else if (p.n_routes > 0)
-    e = launch_frontier<true, false>(tiles_y, tiles_z, smem, s, bins, w8,
-                                     leaf_id, npad, num_features, num_bins,
-                                     ft, tt, block_list, n_blocks, block_rows,
-                                     scales, scratch, p, out);
-  else if (packed4 != 0)
-    e = launch_frontier<false, true>(tiles_y, tiles_z, smem, s, bins, w8,
-                                     leaf_id, npad, num_features, num_bins,
-                                     ft, tt, block_list, n_blocks, block_rows,
-                                     scales, scratch, p, out);
-  else
-    e = launch_frontier<false, false>(tiles_y, tiles_z, smem, s, bins, w8,
-                                      leaf_id, npad, num_features, num_bins,
-                                      ft, tt, block_list, n_blocks,
-                                      block_rows, scales, scratch, p, out);
+  const int e = dispatch(
+      p.n_routes > 0, packed4 != 0, packed_acc != 0,
+      [&](auto R, auto P, auto A) {
+        return launch_frontier<decltype(R)::value, decltype(P)::value,
+                               decltype(A)::value>(
+            tiles_y, tiles_z, smem, s, bins, w8, leaf_id, npad, num_features,
+            num_bins, ft, tt, block_list, n_blocks, block_rows, scales,
+            scratch, p, out);
+      });
   if (e != 0) return e;
   return (int)cudaGetLastError();
 }

@@ -8,7 +8,8 @@ from __future__ import annotations
 def create_boosting(config, train_set, objective, **kwargs):
     """A GBDT, GOSS, DART or RF booster for ``config.boosting`` (the
     config has resolved its aliases); ``kwargs`` go to GBDT
-    (``fused_route``, ``frontier_tier``, ``packed4``)."""
+    (``fused_route``, ``frontier_tier``, ``packed4``, ``packed_acc``,
+    ``packed_acc_bits``)."""
     if config.boosting == "goss":
         from .goss import GOSS as cls
     elif config.boosting == "dart":

@@ -34,8 +34,8 @@ import torch
 from ..config import DEFAULT_METRIC, Config
 from ..core.dataset import TorchDataset
 from ..metric import create_metric
-from ..ops.histogram import (class_scales, frontier_width, histogram_all,
-                             pack_channel_sets)
+from ..ops.histogram import (check_packed_acc_bits, class_scales,
+                             frontier_width, histogram_all, pack_channel_sets)
 from ..ops.predict import route_trees
 from ..ops.score import score_gather_add
 from ..ops.split import FeatureMeta, SplitParams
@@ -276,18 +276,25 @@ class TreeEnsemble:
 
 class GBDT(TreeEnsemble):
     """``fused_route`` picks the segment grower's kernels (K3, or K2 + K1
-    when False); ``frontier_tier`` the frontier grower's (None, "off",
-    "k1" or "fusedk": FrontierGrower), and is given only with
-    ``tpu_tree_impl=frontier``; ``packed4`` the training bins' layout
-    (None: two columns a byte exactly when the bin axis is at most 16, as
-    the JAX package picks it, lightgbm_tpu/models/gbdt.py:547-565; False:
-    one column a byte; True: packed, which needs <= 16 bins).
-    ``objective`` None (objective "none") trains on the gradients the
-    caller hands ``train_one_iter``."""
+    when False; None: K3, and K2 + K1 under ``packed_acc``, as the JAX
+    growers choose without LIGHTGBM_TPU_FUSED_PACKED); ``frontier_tier``
+    the frontier grower's (None, "off", "k1" or "fusedk": FrontierGrower),
+    and is given only with ``tpu_tree_impl=frontier``; ``packed4`` the
+    training bins' layout (None: two columns a byte exactly when the bin
+    axis is at most 16, as the JAX package picks it,
+    lightgbm_tpu/models/gbdt.py:547-565; False: one column a byte; True:
+    packed, which needs <= 16 bins).  ``packed_acc`` feeds the histogram
+    kernels the packed-accumulator stream, quantized once a tree at
+    ``packed_acc_bits`` (in [2, 15]; JAX's LIGHTGBM_TPU_PACKED_ACC=force
+    and LIGHTGBM_TPU_PACKED_BITS, read there and never here): no
+    self-check, no fallback.  Multiclass roots keep K5's fixed-point
+    channels, as in JAX.  ``objective`` None (objective "none") trains on
+    the gradients the caller hands ``train_one_iter``."""
 
     def __init__(self, config: Config, train_set: TorchDataset, objective,
-                 fused_route: bool = True, frontier_tier=None,
-                 packed4: Optional[bool] = None):
+                 fused_route: Optional[bool] = None, frontier_tier=None,
+                 packed4: Optional[bool] = None, packed_acc: bool = False,
+                 packed_acc_bits: int = 8):
         self.config = config
         self.device = resolve_device(config)
         self.objective = objective
@@ -297,7 +304,10 @@ class GBDT(TreeEnsemble):
         if config.tpu_tree_impl != "frontier" and frontier_tier is not None:
             raise LightGBMError("frontier_tier is given, but "
                                 "tpu_tree_impl is not 'frontier'")
-        self._fused_route = fused_route
+        self.packed_acc = bool(packed_acc)
+        self.packed_acc_bits = check_packed_acc_bits(packed_acc_bits)
+        self._fused_route = (not self.packed_acc if fused_route is None
+                             else bool(fused_route))
         self._frontier_tier = frontier_tier
         self._packed4 = packed4
         self.shrinkage_rate = config.learning_rate
@@ -368,7 +378,9 @@ class GBDT(TreeEnsemble):
                 max_cat_to_onehot=config.max_cat_to_onehot,
                 min_data_per_group=config.min_data_per_group,
                 has_cat=train_set.has_categorical),
-            packed4=self.packed4, num_columns=train_set.num_columns)
+            packed4=self.packed4, num_columns=train_set.num_columns,
+            packed_acc=self.packed_acc,
+            packed_acc_bits=self.packed_acc_bits)
         if config.tpu_tree_impl == "frontier":
             self.grower = FrontierGrower(
                 self.num_bins, params, rb,

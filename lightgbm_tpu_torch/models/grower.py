@@ -25,13 +25,19 @@ class GrowerParams(NamedTuple):
     """Growth hyper-parameters, and the bin matrix's layout: ``packed4``,
     two <= 16-bin columns a byte (ops/histogram.py pack_bins_4bit), and
     ``num_columns``, its columns (EFB groups, or the features; 0 = its
-    rows, which packing halves)."""
+    rows, which packing halves).  ``packed_acc``: the histogram kernels
+    read the packed-accumulator stream, quantized once a tree at
+    ``packed_acc_bits`` (ops/histogram.py quantize_pack), in place of the
+    fixed-point channels (the JAX package's LIGHTGBM_TPU_PACKED_ACC=force
+    and LIGHTGBM_TPU_PACKED_BITS)."""
     num_leaves: int = 31
     max_depth: int = -1
     split: SplitParams = SplitParams()
     feature_fraction_bynode: float = 1.0
     packed4: bool = False
     num_columns: int = 0
+    packed_acc: bool = False
+    packed_acc_bits: int = 8
 
 
 def grower_columns(p: GrowerParams, binsT: torch.Tensor) -> int:

@@ -23,6 +23,12 @@ pallas_histogram.py:1500):
   * ``"fusedk"``: K7 histogram_frontier_fusedk on all 2K children, with no
     parent histogram and no subtraction.
 
+With ``params.packed_acc`` every launch reads the packed-accumulator
+stream, quantized once a tree (JAX grower_frontier.py:173-201, :263-268),
+and the default tier is "off" at any K (the JAX growers keep the unfused
+pair unless LIGHTGBM_TPU_FUSED_PACKED opts the fused ones in; here an
+explicit ``tier`` is that opt-in).
+
 A round launches only its valid slots (the JAX kernels' static K pads
 with -1 slots, which give zeros).  The rows stay in the segment grower's
 epoch-compacted layout (``compact_state``), compacted after a round once
@@ -50,7 +56,7 @@ from ..ops.histogram import (fixed_point_scales, histogram_frontier,
                              histogram_frontier_fusedk,
                              histogram_frontier_routed, logical_columns,
                              null_route, pack_channels, pack_route,
-                             route_window, union_block_list)
+                             quantize_pack, route_window, union_block_list)
 from ..ops.split import NEG_INF, FeatureMeta, best_split, expand_group_hist
 from .grower import (GrowerParams, TreeArrays, grower_columns,
                      node_feature_mask)
@@ -68,7 +74,8 @@ class _SegState:
         dev = binsT.device
         n = binsT.shape[1]
         self.binsT = binsT                      # [G, Npad] u8, permuted
-        self.w8 = w8                            # [8, Npad] bf16, permuted
+        # [8, Npad] bf16 or (packed_acc) [2, Npad] int32, permuted
+        self.w8 = w8
         self.order = torch.arange(n, dtype=torch.int64, device=dev)
         self.leaf_id = torch.zeros(n, dtype=torch.int32, device=dev)
         self.leaf_lo = [0] * L                  # window start block
@@ -187,8 +194,11 @@ class HostGrower:
     the root histogram [H, B, 3] at those scales, which takes the place of
     the root's own pass (K5's slice of this class is, bit for bit, what
     that pass gives).  The splits' kernels use the same ``w8`` and
-    ``scales``.  ``feature_mask`` and ``key`` are the tree's feature
-    fraction and threefry key, as SegmentGrower takes them."""
+    ``scales``, or with ``params.packed_acc`` the tree's own quantized
+    stream.  ``feature_mask`` and ``key`` are the tree's feature
+    fraction and threefry key, as SegmentGrower takes them.
+    ``last_stats["quant_clips"]`` counts the values the quantizer clipped
+    (0 without packed_acc)."""
 
     def __init__(self, num_bins: int, params: GrowerParams,
                  block_rows: int):
@@ -198,16 +208,22 @@ class HostGrower:
         self.last_stats = {}
 
     def _start(self, binsT, grad, hess, member, root):
-        """-> (state, scales, root histogram or None)."""
+        """-> (state, scales, root histogram or None); the quantizer's
+        clip count goes to ``last_stats``."""
         n = binsT.shape[1]
         if n % self.rb:
             raise ValueError(f"Npad {n} is not a multiple of {self.rb}")
-        if root is None:
+        root_hist = None if root is None else root[2]
+        self.last_stats = {"quant_clips": 0}
+        if self.p.packed_acc:
+            w8, scales, clips = quantize_pack(grad, hess, member,
+                                              self.p.packed_acc_bits)
+            self.last_stats["quant_clips"] = int(clips)
+        elif root is None:
             w8 = pack_channels(grad, hess, member)
             scales = fixed_point_scales(w8)
-            root_hist = None
         else:
-            w8, scales, root_hist = root
+            w8, scales, _ = root
         G0, H0, C0 = torch.stack([torch.sum(grad * member),
                                   torch.sum(hess * member),
                                   torch.sum(member)]).cpu().numpy()
@@ -283,7 +299,7 @@ class FrontierGrower(HostGrower):
     ``gain_ratio`` batches only leaves whose gain is at least that share
     of the round's best; ``tier`` picks the histogram launch (module
     docstring), None = the JAX package's default: "k1" when K == 1, else
-    "off"."""
+    "off", and "off" with ``params.packed_acc``."""
 
     def __init__(self, num_bins: int, params: GrowerParams,
                  block_rows: int, width: int, gain_ratio: float = 0.0,
@@ -292,7 +308,7 @@ class FrontierGrower(HostGrower):
         self.K = max(1, min(int(width), params.num_leaves - 1))
         self.gain_ratio = min(max(float(gain_ratio), 0.0), 1.0)
         if tier is None:
-            tier = "k1" if self.K == 1 else "off"
+            tier = "k1" if self.K == 1 and not params.packed_acc else "off"
         if tier not in TIERS:
             raise ValueError(f"frontier tier must be one of {TIERS}, got "
                              f"{tier!r}")
@@ -425,8 +441,8 @@ class FrontierGrower(HostGrower):
             rounds += 1
             if st.scanned_since >= limit_blocks:
                 compact_state(st, L, rb)
-        self.last_stats = {"scanned_blocks": st.scanned_total,
-                           "compactions": st.num_sorts,
-                           "max_blocks": max_blocks, "rounds": rounds,
-                           "K": self.K, "tier": self.tier}
+        self.last_stats.update(scanned_blocks=st.scanned_total,
+                               compactions=st.num_sorts,
+                               max_blocks=max_blocks, rounds=rounds,
+                               K=self.K, tier=self.tier)
         return st.tree, _unpermute(st.order, st.leaf_id)

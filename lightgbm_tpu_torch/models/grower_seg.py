@@ -20,7 +20,14 @@ This grower uses *epoch compaction*, as the TPU one does:
     bitset of its left-going bins, in the same kernels;
   * the root's histogram is one full-window pass, unless the caller gives
     it (``root``: the multiclass loop packs all C class trees' channels
-    and histograms their roots in one K5 launch).
+    and histograms their roots in one K5 launch);
+  * with ``params.packed_acc`` the kernels read the packed-accumulator
+    stream (JAX grower_seg.py:474-491, :615-620): Q1 quantizes the tree's
+    gradients once (quantize_pack), the state holds the [2, Npad] int32
+    stream and its scales, and the histograms come back in real units, so
+    the rest of the step is unchanged.  A given root keeps its f32
+    channels' histogram while the splits quantize, as in JAX (the first
+    subtraction mixes the two, as JAX's does).
 
 The split loop runs on the device, as the JAX grower's one jitted loop
 does (the epoch loop at :802-830):
@@ -69,7 +76,7 @@ from ..ops.histogram import (STEP_WORDS, SPLIT_WORDS, fixed_point_scales,
                              histogram_segment_routed_step,
                              histogram_segment_step, logical_columns,
                              null_route, pack_channels, pack_route_device,
-                             pack_step, route_window_step)
+                             pack_step, quantize_pack, route_window_step)
 from ..ops.split import (NEG_INF, FeatureMeta, SplitInfo, best_split,
                          expand_group_hist)
 from .grower import (GrowerParams, TreeArrays, grower_columns,
@@ -122,14 +129,17 @@ class _DeviceState:
     storage from tree to tree (a CUDA graph holds their addresses).
     ``STATE`` names them; ``root_sums`` and ``root_hist`` hold a tree's
     inputs, ``step``, ``hist_small`` and ``status`` are the step's own
-    buffers."""
+    buffers; ``quant_clips`` the tree's clipped quantized values.  ``w8``
+    is the weights the kernels read: pack_channels' [8, Npad] bf16, or
+    with ``packed_acc`` the [2, Npad] int32 packed-accumulator stream."""
 
     STATE = ("binsT", "w8", "scales", "order", "leaf_id", "window",
              "leaf_sum", "leaf_hist", "best_f32", "best_i32", "node_i32",
              "node_f32", "leaf_i32", "leaf_value", "counters")
 
     def __init__(self, rows: int, H: int, npad: int, B: int, L: int, dev,
-                 fmeta: FeatureMeta, masked: bool = False):
+                 fmeta: FeatureMeta, masked: bool = False,
+                 packed_acc: bool = False):
         """A bin matrix of ``rows`` byte rows whose kernels' histograms have
         ``H`` columns (EFB groups, or the features; packed, 2 x rows) of
         ``B`` bins; the scan and the masks are over fmeta's F features."""
@@ -138,7 +148,8 @@ class _DeviceState:
 
         F = fmeta.num_bin.shape[0]
         self.binsT = zeros(rows, npad, dtype=torch.uint8)    # permuted
-        self.w8 = zeros(8, npad, dtype=torch.bfloat16)       # permuted
+        self.w8 = (zeros(2, npad, dtype=torch.int32) if packed_acc
+                   else zeros(8, npad, dtype=torch.bfloat16))   # permuted
         # ones: the capture's warm-up step converts its sums by them
         self.scales = torch.ones(2, dtype=torch.float32, device=dev)
         self.order = zeros(npad, dtype=torch.int64)   # pos -> original row
@@ -166,6 +177,7 @@ class _DeviceState:
         # the caller gives it, its histogram
         self.root_sums = zeros(3)
         self.root_hist = zeros(H, B, 3)
+        self.quant_clips = zeros(1, dtype=torch.int64)
         self.step = zeros(STEP_WORDS, dtype=torch.int32)
         self.hist_small = zeros(H, B, 3)
         self.status = zeros(_STATUS, dtype=torch.int64)
@@ -179,7 +191,8 @@ class _DeviceState:
             self.node_masks = zeros(2 * L + 1, F)
 
     def load(self, binsT, w8, scales, fmeta: FeatureMeta, root_sums,
-             root_hist=None, feature_mask=None, key=None) -> None:
+             root_hist=None, feature_mask=None, key=None,
+             clips=None) -> None:
         """Copy a tree's inputs into the state's buffers, in place."""
         if feature_mask is not None:
             self.fmask.copy_(feature_mask)
@@ -194,6 +207,10 @@ class _DeviceState:
         self.root_sums.copy_(root_sums)
         if root_hist is not None:
             self.root_hist.copy_(root_hist)
+        if clips is None:
+            self.quant_clips.zero_()
+        else:
+            self.quant_clips.copy_(clips.reshape(1))
 
     def reset(self, max_blocks: int) -> None:
         """A new tree from the loaded inputs (fresh_state,
@@ -224,7 +241,8 @@ class _DeviceState:
     def tree(self) -> Tuple[TreeArrays, dict]:
         """The tree arrays and the counters, in one device-to-host fetch."""
         parts = (self.node_i32, self.node_f32, self.leaf_i32,
-                 self.leaf_value, self.leaf_sum, self.counters)
+                 self.leaf_value, self.leaf_sum, self.counters,
+                 self.quant_clips)
         flat = torch.cat([p.reshape(-1).view(torch.int32)
                           for p in parts]).cpu().numpy()
         out, at = [], 0
@@ -234,7 +252,7 @@ class _DeviceState:
                      torch.int64: np.int64}[p.dtype]
             out.append(flat[at:at + n].view(dtype).reshape(p.shape))
             at += n
-        node_i, node_f, leaf_i, leaf_value, leaf_sum, counters = out
+        node_i, node_f, leaf_i, leaf_value, leaf_sum, counters, clips = out
         L = leaf_value.shape[0]
         tr = TreeArrays(L)
         tr.num_leaves = int(counters[0])
@@ -253,7 +271,8 @@ class _DeviceState:
         tr.leaf_parent = leaf_i[:, 0].copy()
         tr.leaf_depth = leaf_i[:, 1].copy()
         return tr, {"scanned_blocks": int(counters[2]),
-                    "compactions": int(counters[3])}
+                    "compactions": int(counters[3]),
+                    "quant_clips": int(clips[0])}
 
 
 def _put(t: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor,
@@ -277,7 +296,8 @@ class SegmentGrower:
     """Strict best-first: one split at a time.  ``fused_route`` (default)
     runs each split's route and smaller-child histogram as one kernel
     (K3); False runs the unfused pair (K2, K1).  ``steps`` is the number of
-    split steps one CUDA graph replay runs.
+    split steps one CUDA graph replay runs.  ``params.packed_acc`` feeds
+    every kernel of the tree the packed-accumulator stream.
 
     ``grow(binsT, grad, hess, member, fmeta, root=None, feature_mask=None,
     key=None)`` takes column-major bins [G, Npad] (the G columns of the
@@ -293,7 +313,9 @@ class SegmentGrower:
     3] (H the kernels' columns) at those scales, which takes the place of
     the root's own pass (K5's slice of this class is, bit for bit, what
     that pass gives).  The
-    splits' kernels use the same ``w8`` and ``scales``.
+    splits' kernels use the same ``w8`` and ``scales``, or with
+    ``packed_acc`` the tree's own quantized stream (only root_hist is
+    read).
     ``feature_mask`` ([F] float32, nonzero = usable), when given, is the
     tree's feature fraction; with ``feature_fraction_bynode`` < 1 each
     node's mask is drawn from the tree's threefry ``key`` ([2] int64,
@@ -302,7 +324,9 @@ class SegmentGrower:
 
     ``last_stats`` holds the last tree's counters: blocks scanned,
     compactions, splits, the replays (or eager rounds of ``steps`` steps
-    on the CPU) and the host fetches, and the graph's capture time."""
+    on the CPU) and the host fetches, the graph's capture time, and
+    ``quant_clips``, the values the quantizer clipped (0 without
+    packed_acc; the JAX growers' stats slot, grower_seg.py:79-87)."""
 
     def __init__(self, num_bins: int, params: GrowerParams,
                  block_rows: int, fused_route: bool = True,
@@ -476,7 +500,7 @@ class SegmentGrower:
             self.G = grower_columns(self.p, binsT)
             self.s = _DeviceState(rows, logical_columns(binsT, self.p.packed4),
                                   npad, self.B, L, binsT.device, fmeta,
-                                  masked)
+                                  masked, self.p.packed_acc)
             self._child_cols = torch.arange(
                 _NODE_WORDS, device=binsT.device) >= SPLIT_WORDS
             self.limit = min(max(1, int(COMPACT_WASTE * (npad // self.rb))),
@@ -578,12 +602,17 @@ class SegmentGrower:
         if n % self.rb:
             raise ValueError(f"Npad {n} is not a multiple of {self.rb}")
         max_blocks = n // self.rb
-        if root is None:
+        clips = None
+        root_hist = None if root is None else root[2]
+        if self.p.packed_acc:
+            # once a tree, a given root too (JAX grower_seg.py:615-620)
+            w8, scales, clips = quantize_pack(grad, hess, member,
+                                              self.p.packed_acc_bits)
+        elif root is None:
             w8 = pack_channels(grad, hess, member)
             scales = fixed_point_scales(w8)
-            root_hist = None
         else:
-            w8, scales, root_hist = root
+            w8, scales, _ = root
         _check_key(feature_mask, key, self.p)
         s = self._state_for(binsT, fmeta, feature_mask is not None)
         self._src = (binsT, w8)
@@ -591,7 +620,7 @@ class SegmentGrower:
                torch.stack([torch.sum(grad * member),
                             torch.sum(hess * member), torch.sum(member)]),
                root_hist, feature_mask,
-               None if feature_mask is None else key)
+               None if feature_mask is None else key, clips)
         self._begin(root_hist is not None, max_blocks)
         replays = fetches = 0
         while True:

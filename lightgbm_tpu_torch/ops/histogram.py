@@ -61,6 +61,20 @@ byte and pick the nibble; the plain versions unpack the rows they read
 the byte rows columns, the zero pad nibble of an odd G included (the JAX
 kernels' F_log), which the growers drop before the scan; a route's row
 word is the byte row (``pack_route``), its column word picks the nibble.
+
+The packed-accumulator stream (JAX's ``LIGHTGBM_TPU_PACKED_ACC``
+branch, pallas_histogram.py:172-258).  In place of ``w8`` every histogram
+wrapper (K1, K3, their step entries, K5 with one set, K6, K7) takes the
+[2, Npad] int32 stream of ``quantize_pack`` (kernel Q1, csrc/quantize.cu),
+told apart by its dtype as the JAX wrappers do, with the quantizer's
+``scales`` in place of fixed_point_scales: row 0 packs each row's
+stochastically rounded gradient and hessian as two int16 halves, row 1
+holds member as f32 bits.  The kernels add the halves as 32-bit integers
+(bf16-rounded above 9 bits, as the TPU's matrix unit adds them) and write
+``float(sum) * scale``; the plain versions sum the same integers in
+float64 and dequantize in the same order (``unpack_hist_packed``), so a
+sum below 2^24 is, bit for bit, the JAX kernels' f32 sum.  Such a launch
+counts under ``kernels.variant(name, packed4, True)``.
 """
 
 from __future__ import annotations
@@ -72,9 +86,13 @@ import numpy as np
 import torch
 
 from ..models.grower import routed_left
+from ..utils import random
 from . import kernels
 
 NUM_CHANNELS = 8
+# quantize_pack's key seed (pallas_histogram.py:217)
+_QUANT_KEY_SEED = 0x517CC1B7
+_MASK32 = 0xFFFFFFFF
 # pack_route's layout: leaf, new_leaf, row, col, thr, dl, cat, mt, dbin,
 # nbf, off + 8 bitset words
 ROUTE_WORDS = 19
@@ -138,6 +156,147 @@ def fixed_point_scales(w8: torch.Tensor) -> torch.Tensor:
     mags = torch.clamp(mags.double() * n, min=1e-30)
     exps = torch.clamp(61.0 - torch.ceil(torch.log2(mags)), -126.0, 126.0)
     return torch.exp2(exps).float()
+
+
+def check_packed_acc_bits(bits: int) -> int:
+    """``bits`` of the packed accumulator as an int in [2, 15], or raise
+    (the JAX package clamps LIGHTGBM_TPU_PACKED_BITS into that range,
+    pallas_histogram.py:172-186; the port takes a number and refuses one
+    outside it)."""
+    if isinstance(bits, bool) or int(bits) != bits or not 2 <= bits <= 15:
+        raise ValueError(f"packed_acc_bits must be an integer in [2, 15], "
+                         f"got {bits!r}")
+    return int(bits)
+
+
+def quantize_inputs(grad: torch.Tensor, hess: torch.Tensor,
+                    member: torch.Tensor, bits: int):
+    """The quantizer's scales and seed, by torch reductions on the
+    tensors' device (no value on the host): ``(scales [2] f32, seed [1]
+    int64)``.  scales = max(max |x * member|, 1e-30) / qmax for the
+    gradient and the hessian; seed the uint32 sum of the bits of (grad *
+    member)[:8] (pallas_histogram.py:206-216)."""
+    qmax = float(2 ** (bits - 1) - 1)
+    gm = grad * member
+    hm = hess * member
+    mags = torch.stack([gm.abs().max(), hm.abs().max()])
+    scales = torch.clamp(mags, min=1e-30) / qmax
+    bits8 = gm[:8].contiguous().view(torch.int32).to(torch.int64) & _MASK32
+    return scales, (bits8.sum() & _MASK32).reshape(1)
+
+
+def quantize_pack_plain(grad: torch.Tensor, hess: torch.Tensor,
+                        member: torch.Tensor, scales: torch.Tensor,
+                        seed: torch.Tensor, bits: int):
+    """Plain Q1 -> ``(w2 [2, N] int32, clips int32 [1])``: the stochastic
+    rounding of grad * member and hess * member at ``scales``, with the
+    uniforms of the keys split(fold_in(PRNGKey(0x517CC1B7), seed)), packed
+    as pallas_histogram.py:quantize_pack_channels packs them (:218-233)."""
+    n = grad.shape[0]
+    qmax = float(2 ** (bits - 1) - 1)
+    key = random.fold_in(random.prng_key(_QUANT_KEY_SEED, grad.device),
+                         seed[0])
+    keys = random.split(key)
+
+    def q(x, scale, k):
+        t = x / scale
+        fl = torch.floor(t)
+        up = random.uniform(k, n) < (t - fl)
+        return torch.clamp(fl + up.to(torch.float32), -qmax,
+                           qmax).to(torch.int64)
+
+    gq = q(grad * member, scales[0], keys[0])
+    hq = q(hess * member, scales[1], keys[1])
+    clips = ((gq.abs() >= qmax).sum() + (hq.abs() >= qmax).sum()).to(
+        torch.int32).reshape(1)
+    word = (gq * 65536 + (hq & 0xFFFF)) & _MASK32
+    word = torch.where(word >= 2**31, word - 2**32, word).to(torch.int32)
+    member_bits = member.to(torch.float32).contiguous().view(torch.int32)
+    return torch.stack([word, member_bits]), clips
+
+
+def quantize_pack(grad: torch.Tensor, hess: torch.Tensor,
+                  member: torch.Tensor, bits: int = 8):
+    """Q1: [N] f32 grad/hess/member -> ``(w2 [2, N] int32, scales [2] f32,
+    clips int32 [])``, the packed-accumulator stream for the histogram
+    kernels, bit for bit the JAX package's quantize_pack_channels(grad,
+    hess, member, bits=bits) on the same inputs.  Pad and out-of-bag rows
+    (member 0) quantize to zero.  ``clips`` counts the values quantized to
+    +-qmax (the JAX growers' quant_clips).  On a card, the scales and seed
+    come from torch reductions and the rest is one kernel launch; nothing
+    is read on the host."""
+    bits = check_packed_acc_bits(bits)
+    scales, seed = quantize_inputs(grad, hess, member, bits)
+    if _device_kind(grad) == "cpu":
+        w2, clips = quantize_pack_plain(grad, hess, member, scales, seed,
+                                        bits)
+        return w2, scales, clips.reshape(())
+    dev = grad.device
+    n = grad.shape[0]
+    _check_cuda(dev, grad=(grad, torch.float32), hess=(hess, torch.float32),
+                member=(member, torch.float32))
+    if grad.dim() != 1 or hess.shape != (n,) or member.shape != (n,):
+        raise ValueError("grad, hess and member must be [N]")
+    w2 = torch.empty((2, n), dtype=torch.int32, device=dev)
+    clips = torch.zeros(1, dtype=torch.int32, device=dev)
+    rc = kernels.library().lgbt_quantize_pack(
+        grad.data_ptr(), hess.data_ptr(), member.data_ptr(), n,
+        scales.data_ptr(), seed.data_ptr(), bits, w2.data_ptr(),
+        clips.data_ptr(), kernels.stream_ptr(dev))
+    kernels.check_launch("quantize_pack", rc)
+    return w2, scales, clips.reshape(())
+
+
+def unpack_hist_packed(out: torch.Tensor, scales: torch.Tensor
+                       ) -> torch.Tensor:
+    """[..., C >= 3] packed-accumulator sums (g_q, h_q, count, ...) ->
+    [..., 3] real units (sum_grad, sum_hess, count): the integer sums
+    times the quantizer's scales in f32 (pallas_histogram.py:236-242)."""
+    return torch.stack([out[..., 0] * scales[0], out[..., 1] * scales[1],
+                        out[..., 2]], dim=-1)
+
+
+def acc_values(q: torch.Tensor) -> torch.Tensor:
+    """Quantized values as the packed-accumulator kernels add them: i32 ->
+    f32 -> bf16 (round to nearest even) -> float64, the identity up to 9
+    bits (_packed_wrows, pallas_histogram.py:255-256)."""
+    return q.to(torch.float32).to(torch.bfloat16).to(torch.float64)
+
+
+def packed_weight_channels(w2: torch.Tensor, cols) -> torch.Tensor:
+    """[2, N] int32 packed-accumulator stream -> [3, rows] float64 ``[g_q,
+    h_q, member]`` at the columns ``cols``, the JAX kernels' widened
+    channels without their zero one: the int16 halves sign-extended and
+    bf16-rounded (acc_values), member from its f32 bits (_packed_wrows,
+    pallas_histogram.py:245-258)."""
+    w = w2[0, cols].to(torch.int64)
+    g = acc_values(w >> 16)
+    h = acc_values(((w & 0xFFFF) ^ 0x8000) - 0x8000)
+    m = w2[1, cols].contiguous().view(torch.float32).to(torch.float64)
+    return torch.stack([g, h, m])
+
+
+def _weight_channels(w: torch.Tensor, cols) -> torch.Tensor:
+    """The five channels _plain_sums adds, float64 [5, rows] at the
+    columns ``cols``: w8's [g_hi, g_lo, h_hi, h_lo, member], or a packed
+    stream's [g_q, 0, h_q, 0, member], whose sums unpack_hist then leaves
+    as the integer sums."""
+    if w.dtype != torch.int32:
+        return w[:5, cols].double()
+    g, h, m = packed_weight_channels(w, cols)
+    z = torch.zeros_like(m)
+    return torch.stack([g, z, h, z, m])
+
+
+def _finish(hist: torch.Tensor, w: torch.Tensor, scales) -> torch.Tensor:
+    """A plain histogram in real units: as it is, or (a packed stream)
+    its integer sums times ``scales`` (unpack_hist_packed)."""
+    if w.dtype != torch.int32:
+        return hist
+    if scales is None:
+        raise ValueError("a packed-accumulator stream needs its scales "
+                         "(quantize_pack)")
+    return unpack_hist_packed(hist, scales.to(hist.device))
 
 
 def class_scales(w8C: torch.Tensor) -> torch.Tensor:
@@ -400,20 +559,21 @@ def route_window_step_plain(binsT, leaf_id, step, block_rows,
 
 
 def histogram_segment_step_plain(binsT, w8, leaf_id, step, num_bins,
-                                 block_rows, packed4=False):
+                                 block_rows, packed4=False, scales=None):
     """Plain K1 from a step block -> [F, B, 3] float32."""
     lo, nb, target, _ = _read_step_plain(step, binsT.shape[0])
     return histogram_segment_plain(binsT, w8, leaf_id, lo, nb, target,
-                                   num_bins, block_rows, packed4)
+                                   num_bins, block_rows, packed4, scales)
 
 
 def histogram_segment_routed_step_plain(binsT, w8, leaf_id, step, num_bins,
-                                        block_rows, packed4=False):
+                                        block_rows, packed4=False,
+                                        scales=None):
     """Plain K3 from a step block -> (leaf_id, [F, B, 3] float32)."""
     lo, nb, target, route = _read_step_plain(step, binsT.shape[0])
     return histogram_segment_routed_plain(binsT, w8, leaf_id, lo, nb,
                                           target, route, num_bins,
-                                          block_rows, packed4)
+                                          block_rows, packed4, scales)
 
 
 def _plain_sums(bins, w, num_bins, slot=None, n_slots=1, packed4=False):
@@ -444,19 +604,26 @@ def _plain_sums(bins, w, num_bins, slot=None, n_slots=1, packed4=False):
 
 
 def histogram_segment_plain(binsT, w8, leaf_id, start_block, n_blocks,
-                            target, num_bins, block_rows, packed4=False):
-    """Plain K1 -> [F, B, 3] float32."""
+                            target, num_bins, block_rows, packed4=False,
+                            scales=None):
+    """Plain K1 -> [F, B, 3] float32 (``w8`` a packed-accumulator stream:
+    dequantized at its ``scales``)."""
     lo, hi = _window(leaf_id.shape[0], start_block, n_blocks, block_rows)
     sel = (leaf_id[lo:hi] == int(target)).to(torch.float64)
-    return _plain_sums(binsT[:, lo:hi], w8[:5, lo:hi].double() * sel,
-                       num_bins, packed4=packed4)
+    return _finish(_plain_sums(binsT[:, lo:hi],
+                               _weight_channels(w8, slice(lo, hi)) * sel,
+                               num_bins, packed4=packed4), w8, scales)
 
 
-def histogram_all_plain(binsT, w8C, num_bins, packed4=False):
+def histogram_all_plain(binsT, w8C, num_bins, packed4=False, scales=None):
     """Plain K5 -> [C, F, B, 3] float32; class c's slice is plain K1 of a
-    root whose every row is in leaf 0, on set c (same float64 sums)."""
+    root whose every row is in leaf 0, on set c (same float64 sums).  A
+    packed-accumulator stream is one set, dequantized at its ``scales``."""
     if packed4:
         binsT = unpack_bins_4bit(binsT)
+    if w8C.dtype == torch.int32:
+        return _finish(_plain_sums(binsT, _weight_channels(w8C, slice(None)),
+                                   num_bins), w8C, scales)[None]
     return torch.stack([_plain_sums(binsT, w8C[8 * c:8 * c + 5].double(),
                                     num_bins)
                         for c in range(w8C.shape[0] // NUM_CHANNELS)])
@@ -464,13 +631,13 @@ def histogram_all_plain(binsT, w8C, num_bins, packed4=False):
 
 def histogram_segment_routed_plain(binsT, w8, leaf_id, start_block,
                                    n_blocks, target, route, num_bins,
-                                   block_rows, packed4=False):
+                                   block_rows, packed4=False, scales=None):
     """Plain K3: plain K2, then plain K1 on the updated ids."""
     route_window_plain(binsT, leaf_id, start_block, n_blocks, route,
                        block_rows, packed4)
     return leaf_id, histogram_segment_plain(binsT, w8, leaf_id, start_block,
                                             n_blocks, target, num_bins,
-                                            block_rows, packed4)
+                                            block_rows, packed4, scales)
 
 
 def _union_rows(block_list, n_blocks, block_rows, device):
@@ -480,7 +647,8 @@ def _union_rows(block_list, n_blocks, block_rows, device):
 
 
 def histogram_frontier_plain(binsT, w8, leaf_id, block_list, n_blocks,
-                             targets, num_bins, block_rows, packed4=False):
+                             targets, num_bins, block_rows, packed4=False,
+                             scales=None):
     """Plain K6 -> [KT, F, B, 3] float32: slot k is plain K1 of leaf
     ``targets[k]`` over the listed blocks' rows (the same float64 sums);
     a -1 slot is zeros.  Targets are distinct (the first match wins)."""
@@ -496,13 +664,13 @@ def histogram_frontier_plain(binsT, w8, leaf_id, block_list, n_blocks,
         t = int(targets[k])
         if t >= 0:
             slot = torch.where(lid == t, k, slot)
-    return _plain_sums(binsT[:, rows], w8[:5, rows].double(), num_bins,
-                       slot, KT, packed4)
+    return _finish(_plain_sums(binsT[:, rows], _weight_channels(w8, rows),
+                               num_bins, slot, KT, packed4), w8, scales)
 
 
 def histogram_frontier_routed_plain(binsT, w8, leaf_id, block_list,
                                     n_blocks, targets, routes, num_bins,
-                                    block_rows, packed4=False):
+                                    block_rows, packed4=False, scales=None):
     """Plain K7: each route of ``routes`` [K, 19] applied to ``leaf_id``
     in place over the listed blocks (at most one matches a row, so their
     order does not matter), then plain K6 on the updated ids.  Returns
@@ -517,27 +685,29 @@ def histogram_frontier_routed_plain(binsT, w8, leaf_id, block_list,
         leaf_id[rows] = lid
     return leaf_id, histogram_frontier_plain(
         binsT, w8, leaf_id, block_list, n_blocks, targets, num_bins,
-        block_rows, packed4)
+        block_rows, packed4, scales)
 
 
 # ----------------------------------------------------------------- wrappers
 def segment_tiling(num_features: int, num_bins: int,
-                   packed4: bool = False) -> dict:
+                   packed4: bool = False, packed_acc: bool = False) -> dict:
     """The card kernel's tiling of K1/K3 at this shape (``num_features``
-    the histogram's columns; ``packed4`` cuts them in pairs): features a
-    block holds, its shared memory, and the feature tiles of the grid
+    the histogram's columns; ``packed4`` cuts them in pairs; ``packed_acc``
+    takes the packed-accumulator stream's 12-byte cells): features a block
+    holds, its shared memory, and the feature tiles of the grid
     (csrc/histogram.cu lgbt_segment_tiling).  Raises where not even one
     feature fits."""
-    ft, smem = _seg_tiling(int(num_features), int(num_bins), bool(packed4))
+    ft, smem = _seg_tiling(int(num_features), int(num_bins), bool(packed4),
+                           bool(packed_acc))
     return {"tile_features": ft, "smem_bytes": smem,
             "feature_tiles": -(-num_features // ft)}
 
 
 @functools.lru_cache(maxsize=64)
-def _seg_tiling(num_features, num_bins, packed4):
+def _seg_tiling(num_features, num_bins, packed4, packed_acc):
     out = (ctypes.c_int * 2)()
     rc = kernels.library().lgbt_segment_tiling(num_features, num_bins,
-                                               int(packed4),
+                                               int(packed4), int(packed_acc),
                                                ctypes.addressof(out))
     if rc != 0:
         raise ValueError(f"{num_bins} bins do not fit the segment kernel's "
@@ -552,15 +722,29 @@ def _check_bins(num_bins: int, packed4: bool) -> None:
                          + (" with packed4" if packed4 else ""))
 
 
+def _weight_mode(dev, w: torch.Tensor, npad: int) -> bool:
+    """Checks a histogram kernel's weight stream on ``dev``: w8, [8, Npad]
+    bf16 (False), or a packed-accumulator stream, [2, Npad] int32 (True:
+    the kernels' packed_acc mode, chosen by the dtype as the JAX wrappers
+    choose it)."""
+    acc = w.dtype == torch.int32
+    _check_cuda(dev, w8=(w, torch.int32 if acc else torch.bfloat16))
+    if w.shape != ((2 if acc else NUM_CHANNELS), npad):
+        raise ValueError("the weights must be w8 [8, Npad] bf16 or a "
+                         "packed-accumulator stream [2, Npad] int32")
+    return acc
+
+
 def _launch_hist(name, binsT, w8, leaf_id, start_block, n_blocks, target,
                  route, num_bins, block_rows, scales, packed4):
     rows, npad = binsT.shape
     F = logical_columns(binsT, packed4)
     dev = binsT.device
-    _check_cuda(dev, binsT=(binsT, torch.uint8), w8=(w8, torch.bfloat16),
+    _check_cuda(dev, binsT=(binsT, torch.uint8),
                 leaf_id=(leaf_id, torch.int32), scales=(scales, torch.float32))
-    if w8.shape != (NUM_CHANNELS, npad) or leaf_id.shape != (npad,):
-        raise ValueError("w8 must be [8, Npad] and leaf_id [Npad]")
+    acc = _weight_mode(dev, w8, npad)
+    if leaf_id.shape != (npad,):
+        raise ValueError("leaf_id must be [Npad]")
     _check_bins(num_bins, packed4)
     if scales.shape != (2,):
         raise ValueError("scales must be [2]")
@@ -570,7 +754,7 @@ def _launch_hist(name, binsT, w8, leaf_id, start_block, n_blocks, target,
         if not 0 <= int(route[2]) < rows:
             raise ValueError("the route's bin row is outside binsT")
         route_ptr = route.data_ptr()
-    tiles = segment_tiling(F, num_bins, packed4)["feature_tiles"]
+    tiles = segment_tiling(F, num_bins, packed4, acc)["feature_tiles"]
     lo, hi = _window(npad, start_block, n_blocks, block_rows)
     # the cells' i64 sums, then one u32 arrival counter a tile
     scratch = _kernel_scratch(dev, F * num_bins * 3 + (tiles + 1) // 2)
@@ -578,9 +762,9 @@ def _launch_hist(name, binsT, w8, leaf_id, start_block, n_blocks, target,
     rc = kernels.library().lgbt_histogram_segment(
         binsT.data_ptr(), w8.data_ptr(), leaf_id.data_ptr(), npad, F,
         num_bins, lo, hi, int(target), scales.data_ptr(), route_ptr,
-        scratch.data_ptr(), out.data_ptr(), int(packed4),
+        scratch.data_ptr(), out.data_ptr(), int(packed4), int(acc),
         kernels.stream_ptr(dev))
-    kernels.check_launch(kernels.variant(name, packed4), rc)
+    kernels.check_launch(kernels.variant(name, packed4, acc), rc)
     return out
 
 
@@ -591,11 +775,13 @@ def histogram_segment(binsT: torch.Tensor, w8: torch.Tensor,
                       packed4: bool = False) -> torch.Tensor:
     """K1: histogram of leaf ``target`` over its confinement window ->
     [F, B, 3] f32.  ``scales`` is fixed_point_scales(w8) (the plain
-    version sums in float64 and does not use it)."""
+    version sums in float64 and does not use it), or with a
+    packed-accumulator stream ``w8`` (quantize_pack's [2, Npad] int32) its
+    quantizer's scales."""
     if _device_kind(binsT) == "cpu":
         return histogram_segment_plain(binsT, w8, leaf_id, start_block,
                                        n_blocks, target, num_bins,
-                                       block_rows, packed4)
+                                       block_rows, packed4, scales)
     return _launch_hist("histogram_segment", binsT, w8, leaf_id,
                         start_block, n_blocks, target, None, num_bins,
                         block_rows, scales, packed4)
@@ -614,7 +800,7 @@ def histogram_segment_routed(binsT: torch.Tensor, w8: torch.Tensor,
         return histogram_segment_routed_plain(binsT, w8, leaf_id,
                                               start_block, n_blocks, target,
                                               route, num_bins, block_rows,
-                                              packed4)
+                                              packed4, scales)
     hist = _launch_hist("histogram_segment_routed", binsT, w8, leaf_id,
                         start_block, n_blocks, target, route, num_bins,
                         block_rows, scales, packed4)
@@ -626,11 +812,12 @@ def _launch_hist_step(name, binsT, w8, leaf_id, step, routed, num_bins,
     npad = binsT.shape[1]
     F = logical_columns(binsT, packed4)
     dev = binsT.device
-    _check_cuda(dev, binsT=(binsT, torch.uint8), w8=(w8, torch.bfloat16),
+    _check_cuda(dev, binsT=(binsT, torch.uint8),
                 leaf_id=(leaf_id, torch.int32), scales=(scales, torch.float32))
+    acc = _weight_mode(dev, w8, npad)
     _check_step(step, dev)
-    if w8.shape != (NUM_CHANNELS, npad) or leaf_id.shape != (npad,):
-        raise ValueError("w8 must be [8, Npad] and leaf_id [Npad]")
+    if leaf_id.shape != (npad,):
+        raise ValueError("leaf_id must be [Npad]")
     _check_bins(num_bins, packed4)
     if scales.shape != (2,):
         raise ValueError("scales must be [2]")
@@ -643,14 +830,14 @@ def _launch_hist_step(name, binsT, w8, leaf_id, step, routed, num_bins,
         _check_cuda(dev, out=(out, torch.float32))
         if out.shape != (F, num_bins, 3):
             raise ValueError("out must be [F, num_bins, 3]")
-    tiles = segment_tiling(F, num_bins, packed4)["feature_tiles"]
+    tiles = segment_tiling(F, num_bins, packed4, acc)["feature_tiles"]
     scratch = _kernel_scratch(dev, F * num_bins * 3 + (tiles + 1) // 2)
     rc = kernels.library().lgbt_histogram_segment_step(
         binsT.data_ptr(), w8.data_ptr(), leaf_id.data_ptr(), npad, F,
         num_bins, int(block_rows), step.data_ptr(), int(routed),
         scales.data_ptr(), scratch.data_ptr(), out.data_ptr(), int(packed4),
-        kernels.stream_ptr(dev))
-    kernels.check_launch(kernels.variant(name, packed4), rc)
+        int(acc), kernels.stream_ptr(dev))
+    kernels.check_launch(kernels.variant(name, packed4, acc), rc)
     return out
 
 
@@ -670,7 +857,7 @@ def histogram_segment_step(binsT: torch.Tensor, w8: torch.Tensor,
     if _device_kind(binsT) == "cpu":
         _check_step(step, binsT.device)
         return _into(out, histogram_segment_step_plain(
-            binsT, w8, leaf_id, step, num_bins, block_rows, packed4))
+            binsT, w8, leaf_id, step, num_bins, block_rows, packed4, scales))
     return _launch_hist_step("histogram_segment_step", binsT, w8, leaf_id,
                              step, False, num_bins, block_rows, scales, out,
                              packed4)
@@ -689,7 +876,7 @@ def histogram_segment_routed_step(binsT: torch.Tensor, w8: torch.Tensor,
     if _device_kind(binsT) == "cpu":
         _check_step(step, binsT.device)
         _, hist = histogram_segment_routed_step_plain(
-            binsT, w8, leaf_id, step, num_bins, block_rows, packed4)
+            binsT, w8, leaf_id, step, num_bins, block_rows, packed4, scales)
         return leaf_id, _into(out, hist)
     hist = _launch_hist_step("histogram_segment_routed_step", binsT, w8,
                              leaf_id, step, True, num_bins, block_rows,
@@ -702,20 +889,31 @@ def histogram_all(binsT: torch.Tensor, w8C: torch.Tensor, num_bins: int,
     """K5: the histogram of every row for each of the C channel sets of
     ``w8C`` ([8C, Npad] bf16, pack_channel_sets; pad rows carry member
     0) -> [C, F, B, 3] f32.  ``scales`` is class_scales(w8C) (the plain
-    version does not use it)."""
+    version does not use it).  ``w8C`` may instead be one
+    packed-accumulator stream (quantize_pack's [2, Npad] int32, the JAX
+    kernel's single-set int32 branch) with its quantizer's ``scales`` [2]:
+    -> [1, F, B, 3]."""
     if _device_kind(binsT) == "cpu":
-        return histogram_all_plain(binsT, w8C, num_bins, packed4)
+        return histogram_all_plain(binsT, w8C, num_bins, packed4, scales)
     npad = binsT.shape[1]
     F = logical_columns(binsT, packed4)
     dev = binsT.device
-    _check_cuda(dev, binsT=(binsT, torch.uint8), w8C=(w8C, torch.bfloat16),
+    _check_cuda(dev, binsT=(binsT, torch.uint8),
                 scales=(scales, torch.float32))
-    C = w8C.shape[0] // NUM_CHANNELS
-    if (C < 1 or w8C.shape != (NUM_CHANNELS * C, npad)
-            or scales.shape != (C, 2)):
-        raise ValueError("w8C must be [8C, Npad] and scales [C, 2]")
+    acc = w8C.dtype == torch.int32
+    if acc:
+        _weight_mode(dev, w8C, npad)
+        C = 1
+        if scales.shape != (2,):
+            raise ValueError("a packed-accumulator stream's scales are [2]")
+    else:
+        _check_cuda(dev, w8C=(w8C, torch.bfloat16))
+        C = w8C.shape[0] // NUM_CHANNELS
+        if (C < 1 or w8C.shape != (NUM_CHANNELS * C, npad)
+                or scales.shape != (C, 2)):
+            raise ValueError("w8C must be [8C, Npad] and scales [C, 2]")
     _check_bins(num_bins, packed4)
-    tiling = all_tiling(F, num_bins, C, packed4)
+    tiling = all_tiling(F, num_bins, C, packed4, acc)
     tiles = tiling["feature_tiles"] * tiling["set_tiles"]
     # the cells' i64 sums, then one u32 arrival counter a tile
     scratch = _kernel_scratch(dev, C * F * num_bins * 3 + (tiles + 1) // 2)
@@ -723,30 +921,47 @@ def histogram_all(binsT: torch.Tensor, w8C: torch.Tensor, num_bins: int,
     rc = kernels.library().lgbt_histogram_all(
         binsT.data_ptr(), w8C.data_ptr(), npad, F, num_bins, C,
         scales.data_ptr(), scratch.data_ptr(), out.data_ptr(), int(packed4),
-        kernels.stream_ptr(dev))
-    kernels.check_launch(kernels.variant("histogram_all", packed4), rc)
+        int(acc), kernels.stream_ptr(dev))
+    kernels.check_launch(kernels.variant("histogram_all", packed4, acc), rc)
     return out
 
 
+def leaf_histogram(binsT: torch.Tensor, grad: torch.Tensor,
+                   hess: torch.Tensor, member: torch.Tensor, num_bins: int,
+                   packed4: bool = False, packed_acc: bool = False,
+                   bits: int = 8) -> torch.Tensor:
+    """One leaf's [F, B, 3] histogram by K5 over every row, ``member``
+    selecting the leaf's rows (lightgbm_tpu/ops/pallas_histogram.py
+    leaf_histogram_pallas :2273-2290): from pack_channels' fixed-point
+    channels, or with ``packed_acc`` from the packed-accumulator stream,
+    quantized for this call (quantize_pack at ``bits``), so its scales are
+    the leaf's own."""
+    if packed_acc:
+        w2, scales, _ = quantize_pack(grad, hess, member, bits)
+        return histogram_all(binsT, w2, num_bins, scales, packed4)[0]
+    w8 = pack_channels(grad, hess, member)
+    return histogram_all(binsT, w8, num_bins, class_scales(w8), packed4)[0]
+
+
 def all_tiling(num_features: int, num_bins: int, num_sets: int,
-               packed4: bool = False) -> dict:
+               packed4: bool = False, packed_acc: bool = False) -> dict:
     """The card kernel's tiling of K5 at this shape (``packed4``: features
-    in pairs): the features and channel sets a block holds, its shared
-    memory, and the feature and set tiles of the grid (csrc/histogram.cu
-    lgbt_all_tiling).  Raises where not even one feature of one set
-    fits."""
+    in pairs; ``packed_acc``: 12-byte cells): the features and channel sets
+    a block holds, its shared memory, and the feature and set tiles of the
+    grid (csrc/histogram.cu lgbt_all_tiling).  Raises where not even one
+    feature of one set fits."""
     ft, st, smem = _all_tiling(int(num_features), int(num_bins),
-                               int(num_sets), bool(packed4))
+                               int(num_sets), bool(packed4), bool(packed_acc))
     return {"tile_features": ft, "tile_sets": st, "smem_bytes": smem,
             "feature_tiles": -(-num_features // ft),
             "set_tiles": -(-num_sets // st)}
 
 
 @functools.lru_cache(maxsize=64)
-def _all_tiling(num_features, num_bins, num_sets, packed4):
+def _all_tiling(num_features, num_bins, num_sets, packed4, packed_acc):
     out = (ctypes.c_int * 3)()
     rc = kernels.library().lgbt_all_tiling(num_features, num_bins, num_sets,
-                                           int(packed4),
+                                           int(packed4), int(packed_acc),
                                            ctypes.addressof(out))
     if rc != 0:
         raise ValueError(f"{num_bins} bins do not fit the kernel's tile")
@@ -839,26 +1054,28 @@ def frontier_params(targets: torch.Tensor, routes) -> np.ndarray:
 
 
 def frontier_tiling(num_features: int, num_bins: int, n_targets: int,
-                    n_routes: int, n_ids: int,
-                    packed4: bool = False) -> dict:
+                    n_routes: int, n_ids: int, packed4: bool = False,
+                    packed_acc: bool = False) -> dict:
     """The card kernel's tiling of K6/K7 at this shape, with leaf tables
-    of ``n_ids`` entries (``packed4``: features in pairs): features and
-    target slots a block holds, its shared memory, and the feature and
-    target tiles of the grid (csrc/histogram.cu lgbt_frontier_tiling)."""
+    of ``n_ids`` entries (``packed4``: features in pairs; ``packed_acc``:
+    12-byte cells): features and target slots a block holds, its shared
+    memory, and the feature and target tiles of the grid
+    (csrc/histogram.cu lgbt_frontier_tiling)."""
     ft, tt, smem = _tiling(int(num_features), int(num_bins),
                            int(n_targets), int(n_routes), int(n_ids),
-                           bool(packed4))
+                           bool(packed4), bool(packed_acc))
     return {"tile_features": ft, "tile_targets": tt, "smem_bytes": smem,
             "feature_tiles": -(-num_features // ft),
             "target_tiles": -(-n_targets // tt)}
 
 
 @functools.lru_cache(maxsize=256)
-def _tiling(num_features, num_bins, n_targets, n_routes, n_ids, packed4):
+def _tiling(num_features, num_bins, n_targets, n_routes, n_ids, packed4,
+            packed_acc):
     out = (ctypes.c_int * 3)()
     rc = kernels.library().lgbt_frontier_tiling(
         num_features, num_bins, n_targets, n_routes, n_ids, int(packed4),
-        ctypes.addressof(out))
+        int(packed_acc), ctypes.addressof(out))
     if rc != 0:
         raise ValueError(f"{n_targets} target slots at {num_bins} bins, with "
                          f"leaf tables of {n_ids} ids, do not fit the "
@@ -886,12 +1103,13 @@ def _launch_frontier(name, binsT, w8, leaf_id, block_list, n_blocks,
     rows, npad = binsT.shape
     F = logical_columns(binsT, packed4)
     dev = binsT.device
-    _check_cuda(dev, binsT=(binsT, torch.uint8), w8=(w8, torch.bfloat16),
+    _check_cuda(dev, binsT=(binsT, torch.uint8),
                 leaf_id=(leaf_id, torch.int32),
                 block_list=(block_list, torch.int32),
                 scales=(scales, torch.float32))
-    if w8.shape != (NUM_CHANNELS, npad) or leaf_id.shape != (npad,):
-        raise ValueError("w8 must be [8, Npad] and leaf_id [Npad]")
+    acc = _weight_mode(dev, w8, npad)
+    if leaf_id.shape != (npad,):
+        raise ValueError("leaf_id must be [Npad]")
     _check_bins(num_bins, packed4)
     if scales.shape != (2,):
         raise ValueError("scales must be [2]")
@@ -910,7 +1128,7 @@ def _launch_frontier(name, binsT, w8, leaf_id, block_list, n_blocks,
     if ((bin_rows < 0) | (bin_rows >= rows)).any():
         raise ValueError("a route's bin row is outside binsT")
     # raises where the slots and leaf tables do not fit
-    tiling = frontier_tiling(F, num_bins, KT, K, n_ids, packed4)
+    tiling = frontier_tiling(F, num_bins, KT, K, n_ids, packed4, acc)
     tiles = tiling["feature_tiles"] * tiling["target_tiles"]
     # the cells' i64 sums, then one u32 arrival counter a tile
     scratch = _kernel_scratch(dev, KT * F * num_bins * 3 + (tiles + 1) // 2)
@@ -919,9 +1137,9 @@ def _launch_frontier(name, binsT, w8, leaf_id, block_list, n_blocks,
         binsT.data_ptr(), w8.data_ptr(), leaf_id.data_ptr(), npad, F,
         num_bins, int(block_rows), block_list.data_ptr(), int(n_blocks),
         params.ctypes.data, params.nbytes, scales.data_ptr(),
-        scratch.data_ptr(), out.data_ptr(), int(packed4),
+        scratch.data_ptr(), out.data_ptr(), int(packed4), int(acc),
         kernels.stream_ptr(dev))
-    kernels.check_launch(kernels.variant(name, packed4), rc)
+    kernels.check_launch(kernels.variant(name, packed4, acc), rc)
     return out
 
 
@@ -934,12 +1152,13 @@ def histogram_frontier(binsT: torch.Tensor, w8: torch.Tensor,
     [KT]; -1 = an empty slot, zeros) over the rows of the blocks
     ``block_list[:n_blocks]`` (an int32 tensor on binsT's device) ->
     [KT, F, B, 3] f32, in target order.  ``scales`` is
-    fixed_point_scales(w8)."""
+    fixed_point_scales(w8), or a packed-accumulator stream's quantizer
+    scales."""
     _check_frontier_args(targets, None, 0)
     if _device_kind(binsT) == "cpu":
         return histogram_frontier_plain(binsT, w8, leaf_id, block_list,
                                         n_blocks, targets, num_bins,
-                                        block_rows, packed4)
+                                        block_rows, packed4, scales)
     return _launch_frontier("histogram_frontier", binsT, w8, leaf_id,
                             block_list, n_blocks, targets, None, num_bins,
                             block_rows, scales, packed4)
@@ -983,7 +1202,7 @@ def _frontier_routed(name, binsT, w8, leaf_id, block_list, n_blocks,
     if _device_kind(binsT) == "cpu":
         return histogram_frontier_routed_plain(
             binsT, w8, leaf_id, block_list, n_blocks, targets, routes,
-            num_bins, block_rows, packed4)
+            num_bins, block_rows, packed4, scales)
     hist = _launch_frontier(name, binsT, w8, leaf_id, block_list, n_blocks,
                             targets, routes, num_bins, block_rows, scales,
                             packed4)

@@ -11,7 +11,10 @@ reused.  A failed build raises.
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made; a run
 resets it with ``reset_launches()`` and reads it after, to show which
 kernels a path went through.  A kernel's 4-bit packed input mode (two bin
-columns a byte) counts under its own name, ``variant(name, True)``.  A
+columns a byte) counts under its own name, ``variant(name, True)``, and so
+does a histogram kernel's packed-accumulator mode (the int32 quantized
+weight stream), ``variant(name, packed4, True)``: ``<name>_packed_acc``,
+``<name>_packed4_packed_acc`` with both.  A
 call made while a CUDA graph is being captured launches nothing then: it
 is counted in ``CAPTURED``, which the capturing code keeps as the graph's
 launches and adds to ``LAUNCHES`` at every replay (``count_replay``),
@@ -47,21 +50,34 @@ BASE_KERNEL_NAMES = ("histogram_segment", "route_window",
                      "route_window_step", "histogram_segment_routed_step",
                      "score_gather_add", "histogram_all",
                      "histogram_frontier", "histogram_frontier_routed",
-                     "histogram_frontier_fusedk", "route_trees")
+                     "histogram_frontier_fusedk", "route_trees",
+                     "quantize_pack")
 # the kernels that read training bins, and so have a packed4 input mode
 PACKED4_KERNELS = tuple(k for k in BASE_KERNEL_NAMES
-                        if k != "score_gather_add")
+                        if k not in ("score_gather_add", "quantize_pack"))
 PACKED4_SUFFIX = "_packed4"
+# the histogram kernels, which read weights, and so have a
+# packed-accumulator input mode
+PACKED_ACC_KERNELS = ("histogram_segment", "histogram_segment_routed",
+                      "histogram_segment_step",
+                      "histogram_segment_routed_step", "histogram_all",
+                      "histogram_frontier", "histogram_frontier_routed",
+                      "histogram_frontier_fusedk")
+PACKED_ACC_SUFFIX = "_packed_acc"
 
 
-def variant(name: str, packed4: bool) -> str:
+def variant(name: str, packed4: bool, packed_acc: bool = False) -> str:
     """The launch-count name of kernel ``name`` in its packed4 input mode
-    (two bin columns a byte), or ``name``."""
-    return name + PACKED4_SUFFIX if packed4 else name
+    (two bin columns a byte) and its packed-accumulator mode, or
+    ``name``."""
+    return (name + (PACKED4_SUFFIX if packed4 else "")
+            + (PACKED_ACC_SUFFIX if packed_acc else ""))
 
 
-KERNEL_NAMES = BASE_KERNEL_NAMES + tuple(variant(k, True)
-                                         for k in PACKED4_KERNELS)
+KERNEL_NAMES = (BASE_KERNEL_NAMES
+                + tuple(variant(k, True) for k in PACKED4_KERNELS)
+                + tuple(variant(k, p4, True) for p4 in (False, True)
+                        for k in PACKED_ACC_KERNELS))
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNEL_NAMES}
 # the launches recorded into the CUDA graph under capture, by kernel
 CAPTURED: Dict[str, int] = {}
@@ -71,22 +87,25 @@ _LIB: Optional[ctypes.CDLL] = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
-# the last int of each histogram, route and tiling entry is packed4 (0 or
-# 1: two bin columns a byte)
+# the last int of each route entry is packed4 (0 or 1: two bin columns a
+# byte); the histogram and tiling entries take packed4, then packed_acc
+# (0 or 1: the int32 packed-accumulator stream)
 _SIGNATURES = {
     "lgbt_histogram_segment": [_P, _P, _P, _LL, _I, _I, _LL, _LL, _I, _P,
-                               _P, _P, _P, _I, _P],
-    "lgbt_histogram_all": [_P, _P, _LL, _I, _I, _I, _P, _P, _P, _I, _P],
+                               _P, _P, _P, _I, _I, _P],
+    "lgbt_histogram_all": [_P, _P, _LL, _I, _I, _I, _P, _P, _P, _I, _I,
+                           _P],
     "lgbt_route_window": [_P, _P, _LL, _LL, _LL, _P, _I, _P],
     "lgbt_histogram_segment_step": [_P, _P, _P, _LL, _I, _I, _I, _P, _I,
-                                    _P, _P, _P, _I, _P],
+                                    _P, _P, _P, _I, _I, _P],
     "lgbt_route_window_step": [_P, _P, _LL, _I, _I, _P, _I, _P],
     "lgbt_score_gather_add": [_P, _P, _P, _P, _LL, _I, _P],
-    "lgbt_all_tiling": [_I, _I, _I, _I, _P],
+    "lgbt_all_tiling": [_I, _I, _I, _I, _I, _P],
     "lgbt_histogram_frontier": [_P, _P, _P, _LL, _I, _I, _I, _P, _LL, _P,
-                                _LL, _P, _P, _P, _I, _P],
-    "lgbt_frontier_tiling": [_I, _I, _I, _I, _I, _I, _P],
-    "lgbt_segment_tiling": [_I, _I, _I, _P],
+                                _LL, _P, _P, _P, _I, _I, _P],
+    "lgbt_frontier_tiling": [_I, _I, _I, _I, _I, _I, _I, _P],
+    "lgbt_segment_tiling": [_I, _I, _I, _I, _P],
+    "lgbt_quantize_pack": [_P, _P, _P, _LL, _P, _P, _I, _P, _P, _P],
     "lgbt_route_trees": [_P, _I, _LL, _LL] + [_P] * 9 + [_I] * 4
     + [_P, _P, _P, _P, _I, _P, _I, _P],
 }

@@ -25,7 +25,15 @@ bins (two <= 16-bin columns a byte): K1, K3, K2, their step entries, K5,
 K6 and K7 bit for bit the same kernels on the unpacked bins at odd and
 even column counts and at counts whose tiles split, P1 likewise, and
 packed boosters (segment fused and unfused, frontier, multiclass,
-bundled) = their unpacked model text = the CPU's splits.
+bundled) = their unpacked model text = the CPU's splits.  The
+packed-accumulator stream: Q1 (``quantize_pack``) at 10M rows and every
+``_packed_acc`` kernel (K1, K3, their step entries, K5, K6, K7 routed and
+fused-K, at G 7/28/41, with and without 4-bit bins) bit for bit their
+plain versions; int32 planes exact when every row of 20M carries the
+largest value into one bin; growers fed the same gradients = the CPU's
+trees; packed_acc boosters (segment fused and unfused, the frontier's
+three tiers, 3-class) launch only the ``_packed_acc`` histogram kernels,
+their first iteration = the CPU's splits.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips where
 ``torch.cuda.is_available()`` is false.  The file imports neither JAX nor
@@ -2413,3 +2421,304 @@ def test_packed_boosters_on_card_equal_unpacked_and_cpu(dev, case):
     assert not torch.equal(card.train_score, before)
     assert torch.equal(card.train_score,
                        out["card_unpacked"].gbdt.train_score)
+
+
+# -------------------------------------------- the packed-accumulator stream
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [2, 8, 12, 15])
+def test_quantize_pack_equals_plain(dev, bits):
+    """Q1 at 10M rows = its plain version bit for bit: the stream, the
+    scales and the clip count (one launch)."""
+    n = 10_000_000
+    gen = torch.Generator(device=dev).manual_seed(bits)
+    grad = torch.randn(n, generator=gen, device=dev)
+    hess = torch.rand(n, generator=gen, device=dev) * 0.25
+    member = (torch.rand(n, generator=gen, device=dev) > 0.2).float()
+    member[-1000:] = 0.0
+    kernels.reset_launches()
+    w2, scales, clips = th.quantize_pack(grad, hess, member, bits)
+    sc, seed = th.quantize_inputs(grad, hess, member, bits)
+    want, want_clips = th.quantize_pack_plain(grad, hess, member, sc, seed,
+                                              bits)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["quantize_pack"] == 1
+    assert w2.shape == (2, n) and torch.equal(w2, want)
+    assert torch.equal(scales, sc) and int(clips) == int(want_clips) > 0
+    assert not w2[:, -1000:].any()
+
+
+def _acc_case(G, packed4, seed):
+    """A packed-accumulator case: bins of G columns (16 bins packed two a
+    byte, or 64), the stream at 12 bits (bf16-rounded values), leaf ids,
+    16 routes of leaves 0..15 (a null route last) and a frontier round's
+    block union."""
+    B = 16 if packed4 else 64
+    npad = 8 * RB
+    fm, binsT, w8, lid = _inputs(G, B, npad, seed)
+    bins = (torch.from_numpy(th.pack_bins_4bit(binsT.numpy())) if packed4
+            else binsT)
+    grad = w8[0].float() + w8[1].float()
+    hess = w8[2].float() + w8[3].float()
+    w2, scales, _ = th.quantize_pack(grad, hess, w8[4].float(), 12)
+    rng = np.random.RandomState(seed)
+    K = 16
+    routes = []
+    for k in range(K - 1):
+        f = (7 * k + 1) % G
+        bitset = rng.randint(0, 2**32, size=8, dtype=np.uint64).astype(
+            np.uint32)
+        routes.append(th.pack_route(k, 2 * K + k, f, int(fm.num_bin[f]) // 2,
+                                    k % 2 == 1, k % 4 == 3, bitset, fm,
+                                    packed4=packed4))
+    routes = torch.stack(routes + [th.null_route()])
+    flid = torch.from_numpy(np.sort(rng.randint(0, 2 * K, size=npad)).astype(
+        np.int32))
+    nblk = npad // RB
+    bl, n = th.union_block_list([0, 2, nblk // 2, nblk - 3],
+                                [3, 5, nblk // 2 + 2, nblk], [True] * 4)
+    return B, bins, w2, scales, lid, routes, flid, bl, n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed4", [False, True])
+@pytest.mark.parametrize("G", [7, 28, 41])
+def test_packed_acc_kernels_equal_plain(dev, G, packed4):
+    """Every packed-accumulator kernel = its plain version bit for bit
+    (leaf ids and histograms: integer sums, dequantized in one order): K1
+    over whole, partial and empty windows, K3 and both step entries on
+    every route, K5, a K = 16 frontier round (K6, K7 routed and fused-K)
+    and a 5-route fused-K call; each launch counted under its
+    ``_packed_acc`` name.  41 columns tile K7 fused-K's shared memory."""
+    B, bins, w2, scales, lid, routes, flid, bl, n = _acc_case(G, packed4, G)
+    npad = bins.shape[1]
+    nblk = npad // RB
+    db, dw, ds = bins.to(dev), w2.to(dev), scales.to(dev)
+    H = th.logical_columns(bins, packed4)
+    kernels.reset_launches()
+    for lo, nb, target in ((0, nblk, 1), (2, 3, 0), (5, 0, 2)):
+        got = th.histogram_segment(db, dw, lid.to(dev), lo, nb, target, B,
+                                   RB, ds, packed4=packed4)
+        want = th.histogram_segment_plain(bins, w2, lid, lo, nb, target, B,
+                                          RB, packed4, scales)
+        assert got.shape == (H, B, 3) and torch.equal(got.cpu(), want)
+    for r in routes[:-1]:
+        want_lid, want = th.histogram_segment_routed_plain(
+            bins, w2, lid.clone(), 1, nblk - 2, 6, r, B, RB, packed4, scales)
+        kl, kh = th.histogram_segment_routed(db, dw, lid.to(dev), 1,
+                                             nblk - 2, 6, r, B, RB, ds,
+                                             packed4=packed4)
+        step = th.pack_step(1, nblk - 2, 6, r).to(dev)
+        sl = lid.to(dev)
+        _, sh = th.histogram_segment_routed_step(db, dw, sl, step, B, RB, ds,
+                                                 packed4=packed4)
+        s1 = th.histogram_segment_step(db, dw, want_lid.to(dev), step, B, RB,
+                                       ds, packed4=packed4)
+        torch.cuda.synchronize()
+        assert torch.equal(kl.cpu(), want_lid) and torch.equal(sl.cpu(),
+                                                               want_lid)
+        for h in (kh, sh, s1):
+            assert torch.equal(h.cpu(), want)
+    got = th.histogram_all(db, dw, B, ds, packed4)
+    want = th.histogram_all_plain(bins, w2, B, packed4, scales)
+    assert got.shape == (1, H, B, 3) and torch.equal(got.cpu(), want)
+    K = 16
+    smaller = torch.tensor([k if k % 3 else 2 * K + k for k in range(K)],
+                           dtype=torch.int32)
+    targets2 = torch.tensor(list(range(K)) + list(range(2 * K, 3 * K)),
+                            dtype=torch.int32)
+    if G == 41:
+        til = th.frontier_tiling(H, B, 2 * K, K, 3 * K, packed4, True)
+        assert til["feature_tiles"] > 1
+    got = th.histogram_frontier(db, dw, flid.to(dev), bl.to(dev), n, smaller,
+                                B, RB, ds, packed4)
+    want = th.histogram_frontier_plain(bins, w2, flid, bl, n, smaller, B, RB,
+                                       packed4, scales)
+    assert torch.equal(got.cpu(), want)
+    for fn, targets, rts in (
+            (th.histogram_frontier_routed, smaller, routes),
+            (th.histogram_frontier_fusedk, targets2, routes),
+            (th.histogram_frontier_fusedk,
+             torch.tensor([0, 1, 2, 3, 4, 32, 33, 34, 35, 36],
+                          dtype=torch.int32), routes[:5])):
+        want_lid, want = th.histogram_frontier_routed_plain(
+            bins, w2, flid.clone(), bl, n, targets, rts, B, RB, packed4,
+            scales)
+        gl, gh = fn(db, dw, flid.to(dev), bl.to(dev), n, targets, rts, B,
+                    RB, ds, packed4)
+        torch.cuda.synchronize()
+        assert torch.equal(gl.cpu(), want_lid) and torch.equal(gh.cpu(), want)
+    for name, calls in (("histogram_segment", 3),
+                        ("histogram_segment_routed", K - 1),
+                        ("histogram_segment_routed_step", K - 1),
+                        ("histogram_segment_step", K - 1),
+                        ("histogram_all", 1), ("histogram_frontier", 1),
+                        ("histogram_frontier_routed", 1),
+                        ("histogram_frontier_fusedk", 2)):
+        assert kernels.LAUNCHES[kernels.variant(name, packed4, True)] == calls
+        assert kernels.LAUNCHES[kernels.variant(name, packed4)] == 0
+
+
+@pytest.mark.cuda
+def test_packed_acc_int32_planes_stay_exact(dev):
+    """Every row carries the largest value (qmax 16383 at 15 bits, 2^14
+    once bf16-rounded) into one bin, over 20M rows: more than one block's
+    int32 plane could hold if a block walked its share of one wave, so the
+    launches give each block at most kAccMaxRows rows.  K1, K3, the step
+    entry, K5 and K6 give the exact sum, as the plain version does."""
+    n, rb = 20_000_000, 1000
+    bins = torch.zeros((1, n), dtype=torch.uint8, device=dev)
+    one = torch.ones(n, device=dev)
+    w2, scales, clips = th.quantize_pack(one, one, one, 15)
+    assert int(clips) == 2 * n
+    lid = torch.zeros(n, dtype=torch.int32, device=dev)
+    want = th.histogram_segment_plain(bins, w2, lid, 0, n // rb, 0, 256, rb,
+                                      False, scales)
+    exact = np.float32(np.float32(n * 16384) * scales[0].item())
+    assert want[0, 0, 0].item() == exact and want[0, 0, 2].item() == n
+    step = th.pack_step(0, n // rb, 0, th.null_route()).to(dev)
+    blocks = torch.arange(n // rb, dtype=torch.int32, device=dev)
+    outs = [th.histogram_segment(bins, w2, lid, 0, n // rb, 0, 256, rb,
+                                 scales),
+            th.histogram_segment_routed(bins, w2, lid, 0, n // rb, 0,
+                                        th.null_route(), 256, rb, scales)[1],
+            th.histogram_segment_step(bins, w2, lid, step, 256, rb, scales),
+            th.histogram_all(bins, w2, 256, scales)[0],
+            th.histogram_frontier(bins, w2, lid, blocks, n // rb,
+                                  torch.tensor([0], dtype=torch.int32), 256,
+                                  rb, scales)[0]]
+    torch.cuda.synchronize()
+    for got in outs:
+        assert torch.equal(got, want)
+
+
+ACC_CASES = {
+    "segment_unfused": ({}, {}),
+    "segment_fused": ({}, {"fused_route": True}),
+    "frontier_off": ({"tpu_tree_impl": "frontier", "tpu_frontier_width": 4},
+                     {}),
+    "frontier_k1": ({"tpu_tree_impl": "frontier", "tpu_frontier_width": 4},
+                    {"frontier_tier": "k1"}),
+    "frontier_fusedk": ({"tpu_tree_impl": "frontier",
+                         "tpu_frontier_width": 4},
+                        {"frontier_tier": "fusedk"}),
+    "multiclass": ({"objective": "multiclass", "num_class": 3}, {}),
+}
+
+
+def _same_tree_arrays(a, b, tag):
+    """Two grown trees (TreeArrays): the same splits at gain > 1e-2 up to
+    a near-tie (two gains within 1e-4), the same leaf values within 1e-5
+    where no near-tie was met.  Returns the splits compared."""
+    assert a.num_leaves == b.num_leaves, tag
+    for k in range(a.num_leaves - 1):
+        ga, gb = float(a.split_gain[k]), float(b.split_gain[k])
+        if ga <= 1e-2 or gb <= 1e-2:
+            return k
+        if (a.split_feature[k], a.threshold_bin[k]) != (
+                b.split_feature[k], b.threshold_bin[k]):
+            assert abs(ga - gb) <= 1e-4 * max(ga, gb), (tag, k, ga, gb)
+            return k
+    np.testing.assert_allclose(a.leaf_value[:a.num_leaves],
+                               b.leaf_value[:b.num_leaves], rtol=1e-5,
+                               atol=1e-6)
+    return a.num_leaves - 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grower", ["segment_unfused", "segment_fused",
+                                    "frontier_off", "frontier_fusedk"])
+def test_packed_acc_growers_on_card_equal_cpu(dev, grower):
+    """Fed the same bins and gradient arrays, a packed_acc grower on the
+    card grows the CPU's trees split for split (Q1 = its plain version
+    and the kernels' integer sums = the plain ones, bit for bit), and the
+    same quant_clips, at 200k rows."""
+    from lightgbm_tpu_torch.models.grower import GrowerParams
+    from lightgbm_tpu_torch.models.grower_frontier import FrontierGrower
+    from lightgbm_tpu_torch.models.grower_seg import SegmentGrower
+    npad, G, B = 200 * 1024, 8, 64
+    fm, binsT, _, _ = _inputs(G, B, npad, 29)
+    meta = {d: FeatureMeta(*(None if t is None else torch.from_numpy(
+        np.asarray(t)).to(d) for t in fm)) for d in ("cpu", "cuda")}
+    rng = np.random.RandomState(5)
+    member = np.ones(npad, np.float32)
+    member[-300:] = 0.0
+    p = GrowerParams(num_leaves=31, packed_acc=True,
+                     split=SplitParams(min_data_in_leaf=20.0))
+    growers = {}
+    for d in ("cpu", "cuda"):
+        if grower.startswith("segment"):
+            growers[d] = SegmentGrower(B, p, 1024,
+                                       fused_route=grower == "segment_fused")
+        else:
+            growers[d] = FrontierGrower(B, p, 1024, 4,
+                                        tier=grower.split("_")[1])
+    compared = 0
+    for t in range(3):
+        signal = (binsT[0].numpy() / B + 0.5 * (binsT[3].numpy() > B // 2)
+                  + 0.3 * rng.normal(size=npad))
+        grad = ((0.5 - (signal > 0.8)) * member).astype(np.float32)
+        hess = (rng.uniform(0.1, 0.3, size=npad) * member).astype(np.float32)
+        out = {}
+        for d in ("cpu", "cuda"):
+            args = [x.to(d) for x in (binsT, torch.from_numpy(grad),
+                                      torch.from_numpy(hess),
+                                      torch.from_numpy(member))]
+            kernels.reset_launches()
+            tree, lid = growers[d].grow(*args, meta[d])
+            out[d] = (tree, lid.cpu(), growers[d].last_stats["quant_clips"])
+            if d == "cuda":
+                assert kernels.LAUNCHES["quantize_pack"] == 1
+        assert out["cuda"][2] == out["cpu"][2]
+        compared += _same_tree_arrays(out["cuda"][0], out["cpu"][0],
+                                      f"{grower} tree {t}")
+    assert compared >= 60
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(ACC_CASES))
+def test_packed_acc_boosters_on_card_equal_cpu(dev, case):
+    """A packed_acc booster on the card at 200k rows: its histograms from
+    the ``_packed_acc`` kernels only, fed by Q1 once a tree (multiclass
+    roots on K5's f32 channels); its first iteration's trees = the CPU
+    booster's split for split.  Later trees quantize gradients whose bits
+    differ from the CPU's by the f32 rounding of the root sums (torch's
+    reductions on the two devices), so their stochastic rounding draws
+    other uniforms: the models are held to the JAX package's gate for a
+    quantized model, predictions within 0.12."""
+    X, y = _session_data(220_000, 13)
+    if case == "multiclass":
+        y = np.digitize(X[:, 0] + 0.5 * X[:, 1], [-0.5, 0.5]).astype(
+            np.float64)
+    extra, kw = ACC_CASES[case]
+    params = dict(dict(objective="binary", num_leaves=31, max_bin=63,
+                       min_data_in_leaf=20, verbosity=-1), **extra)
+    split_kernel = {"segment_unfused": "histogram_segment_step",
+                    "segment_fused": "histogram_segment_routed_step",
+                    "frontier_off": "histogram_frontier",
+                    "frontier_k1": "histogram_frontier_routed",
+                    "frontier_fusedk": "histogram_frontier_fusedk",
+                    "multiclass": "histogram_segment_step"}[case]
+    out = {}
+    preds = {}
+    for device in ("cuda", "cpu"):
+        ds = lt.Dataset(X[:200_000], y[:200_000])
+        bst = lt.Booster(dict(params, device_type=device), ds,
+                         packed_acc=True, **kw)
+        kernels.reset_launches()
+        for _ in range(3):
+            bst.update()
+        out[device] = bst.gbdt
+        preds[device] = bst.predict(X[200_000:])
+        if device == "cuda":
+            run = dict(kernels.LAUNCHES)
+    C = out["cuda"].num_tree_per_iteration
+    assert run["quantize_pack"] == 3 * C
+    assert run[split_kernel + "_packed_acc"] > 0 and run[split_kernel] == 0
+    assert run["histogram_all"] == (3 if C > 1 else 0)
+    assert run["histogram_all_packed_acc"] == 0
+    for name in kernels.PACKED_ACC_KERNELS:
+        if name != "histogram_all":
+            assert run[name] == 0, name
+    assert out["cuda"].grower.last_stats["quant_clips"] >= 0
+    assert _same_splits(out["cuda"].models[:C], out["cpu"].models[:C]) >= 20
+    np.testing.assert_allclose(preds["cuda"], preds["cpu"], atol=0.12)

@@ -19,15 +19,17 @@ histograms and leaf ids bit for bit, and times K6, K7 routed and K7
 fused-K of each at two frontier rounds: the HIGGS round (10.5M rows x 28
 features x 64 bins, 16 of 32 leaves split, about half the rows listed)
 and the multiclass_cat round (1M rows x 28 x 256 bins, 2 of 32 leaves
-split).  Candidates:
+split), in both weight modes: ``f32`` (pack_channels' fixed-point
+channels) and ``packed_acc`` (quantize_pack's int32 stream at 8 bits); a
+``mode`` record times the shipped kernel's two modes against each other
+(f32, packed_acc, packed_acc, f32).  Warp aggregation with
+__match_any_sync (+52-67% at HIGGS, PERF.md) edited an add loop the body
+no longer has and is not rebuilt here.  Candidates:
 
   * ``1x1024``    the shipped design: one 1024-thread block an SM with the
                   SM's whole shared memory;
   * ``2x512``     two 512-thread blocks an SM, each half the shared memory
                   (more feature tiles re-walk the rows);
-  * ``warp_agg``  the shipped geometry, lanes of a warp that hit one cell
-                  summed with __match_any_sync and shuffles, one lane
-                  adding for the group;
   * ``no_queue``  no queue of matching rows: each thread adds its own row
                   where it finds a match, with the lanes of its warp that
                   match too.
@@ -60,68 +62,13 @@ sys.path.insert(0, ROOT)
 
 SOURCE = os.path.join(ROOT, "lightgbm_tpu_torch", "csrc", "histogram.cu")
 
-# the shipped accumulation step, and warp_agg's replacement for it
-_ACCUMULATE = """    for (int f = 0; f < nf; f += 4) {
-      int k[4];
-      unsigned og[4], oh[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        k[j] = -1;
-        if (f + j < nf) {
-          const int b = brow[(long long)(f + j) * npad];
-          // the TPU one-hot drops bins >= num_bins too
-          if (b < num_bins) k[j] = base + (f + j) * num_bins + b;
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (k[j] < 0) continue;
-        og[j] = atomicAdd(g_lo + k[j], glo);
-        oh[j] = atomicAdd(h_lo + k[j], hlo);
-        atomicAdd(cnt + k[j], 1u);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (k[j] < 0) continue;
-        atomicAdd(g_hi + k[j], ghi + carry_of(og[j], glo));
-        atomicAdd(h_hi + k[j], hhi + carry_of(oh[j], hlo));
-      }
-    }
-"""
-_WARP_AGG = """    const unsigned active = __activemask();
-    const unsigned lane = threadIdx.x & 31u;
-    for (int f = 0; f < nf; ++f) {
-      const int b = brow[(long long)f * npad];
-      const int kk = b < num_bins ? base + f * num_bins + b : -1;
-      const unsigned peers = __match_any_sync(active, kk);
-      unsigned rest = peers & ~(1u << lane);
-      unsigned long long sg = qg, sh = qh;
-      const unsigned rounds = __reduce_max_sync(active, __popc(rest));
-      for (unsigned r = 0; r < rounds; ++r) {
-        const int src = rest ? __ffs(rest) - 1 : (int)lane;
-        const unsigned long long vg = __shfl_sync(active, qg, src);
-        const unsigned long long vh = __shfl_sync(active, qh, src);
-        if (rest) {
-          sg += vg;
-          sh += vh;
-          rest &= rest - 1;
-        }
-      }
-      if (kk < 0 || lane != (unsigned)(__ffs(peers) - 1)) continue;
-      const unsigned og = atomicAdd(g_lo + kk, (unsigned)sg);
-      const unsigned oh = atomicAdd(h_lo + kk, (unsigned)sh);
-      atomicAdd(cnt + kk, (unsigned)__popc(peers));
-      atomicAdd(g_hi + kk, (unsigned)(sg >> 32) + carry_of(og, (unsigned)sg));
-      atomicAdd(h_hi + kk, (unsigned)(sh >> 32) + carry_of(oh, (unsigned)sh));
-    }
-"""
+MODES = ("f32", "packed_acc")
 # no_queue: each thread adds its own matching row where it finds it, with
 # the lanes of its warp that match (no queue)
 CANDIDATES = {
     "1x1024": [],
     "2x512": [("constexpr int kFrontierBlocksPerSm = 1;",
                "constexpr int kFrontierBlocksPerSm = 2;")],
-    "warp_agg": [(_ACCUMULATE, _WARP_AGG)],
     "no_queue": [("QUEUE", """    if (slot >= 0) {
       q_row[lane] = (int)row;
       q_slot[lane] = (short)slot;
@@ -194,7 +141,7 @@ def _round_inputs(torch, th, npad, F, B, rb, K, n_leaves, seed, dev):
     0..n_leaves-1 in contiguous runs, the first K leaves split at the
     middle bin of features 5 + k (new leaves n_leaves + k); the union of
     their windows listed.  Returns the tensors and the three calls' target
-    lists."""
+    lists; the weights and scales by mode."""
     import numpy as np
     from lightgbm_tpu_torch.ops.split import FeatureMeta
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -206,7 +153,9 @@ def _round_inputs(torch, th, npad, F, B, rb, K, n_leaves, seed, dev):
     hess = torch.rand(npad, generator=gen, device=dev) * 0.25
     member = torch.ones(npad, device=dev)
     w8 = th.pack_channels(grad, hess, member)
-    scales = th.fixed_point_scales(w8)
+    w2, qscales, _ = th.quantize_pack(grad, hess, member)
+    ws = {"f32": (w8, th.fixed_point_scales(w8)),
+          "packed_acc": (w2, qscales)}
     fm = FeatureMeta(np.full(F, B - 1, np.int32), np.zeros(F, np.int32),
                      np.zeros(F, np.int32))
     none = np.zeros(8, np.uint32)
@@ -222,7 +171,7 @@ def _round_inputs(torch, th, npad, F, B, rb, K, n_leaves, seed, dev):
                            dtype=torch.int32)
     both = torch.tensor(list(range(K)) + [n_leaves + k for k in range(K)],
                         dtype=torch.int32)
-    return binsT, w8, lid, scales, routes, bl.to(dev), n, smaller, both
+    return binsT, ws, lid, routes, bl.to(dev), n, smaller, both
 
 
 class _Lib:
@@ -242,6 +191,8 @@ class _Lib:
 
     def call(self, th, binsT, w8, lid, bl, n, targets, routes, B, rb, scales,
              params=None):
+        """``w8``: the f32 mode's channels or a packed-accumulator stream
+        (int32), which picks the kernel's mode."""
         torch = self.torch
         F, npad = binsT.shape
         if params is None:
@@ -252,15 +203,16 @@ class _Lib:
         rc = self.lib.lgbt_histogram_frontier(
             binsT.data_ptr(), w8.data_ptr(), lid.data_ptr(), npad, F, B, rb,
             bl.data_ptr(), n, params.ctypes.data, params.nbytes,
-            scales.data_ptr(), self.scratch.data_ptr(), out.data_ptr(),
+            scales.data_ptr(), self.scratch.data_ptr(), out.data_ptr(), 0,
+            int(w8.dtype == torch.int32),
             torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"launch failed: {rc}")
         return out
 
-    def tiling(self, F, B, KT, K, n_ids):
+    def tiling(self, F, B, KT, K, n_ids, acc):
         out = (ctypes.c_int * 3)()
-        rc = self.lib.lgbt_frontier_tiling(F, B, KT, K, n_ids,
+        rc = self.lib.lgbt_frontier_tiling(F, B, KT, K, n_ids, 0, int(acc),
                                            ctypes.addressof(out))
         return list(out) if rc == 0 else None
 
@@ -288,37 +240,35 @@ def time_main(reps: int, out_path) -> int:
     shapes = {"higgs": (10_502_144, 28, 64, 8192, 16, 32),
               "mc": (1_007_616, 28, 256, 8192, 2, 32)}
     records = []
+
+    def emit(rec):
+        records.append(rec)
+        print(json.dumps(rec), flush=True)
+
+    shipped = libs["1x1024"]
     for shape, (npad, F, B, rb, K, L) in shapes.items():
-        binsT, w8, lid, scales, routes, bl, n, smaller, both = _round_inputs(
+        binsT, ws, lid, routes, bl, n, smaller, both = _round_inputs(
             torch, th, npad, F, B, rb, K, L, 3, dev)
         routed = lid.clone()
-        libs["1x1024"].call(th, binsT, w8, routed, bl, n, smaller, routes,
-                            B, rb, scales)
+        shipped.call(th, binsT, *ws["f32"][:1], routed, bl, n, smaller,
+                     routes, B, rb, ws["f32"][1])
         cases = {"histogram_frontier": (routed, smaller, None),
                  "histogram_frontier_routed": (lid, smaller, routes),
                  "histogram_frontier_fusedk": (lid, both, routes)}
         for kname, (ids0, targets, rts) in cases.items():
-            def run(lib, ids):
-                return lib.call(th, binsT, w8, ids, bl, n, targets, rts, B,
+            def run(lib, ids, mode):
+                w, scales = ws[mode]
+                return lib.call(th, binsT, w, ids, bl, n, targets, rts, B,
                                 rb, scales)
-            ref_ids = ids0.clone()
-            ref = run(libs["1x1024"], ref_ids)
-            for name, lib in libs.items():
-                ids = ids0.clone()
-                got = run(lib, ids)
-                torch.cuda.synchronize()
-                if not (torch.equal(got, ref) and torch.equal(ids, ref_ids)):
-                    raise SystemExit(f"{name} differs from the shipped "
-                                     f"kernel on {kname} {shape}")
 
-            def time_ms(lib):
+            def time_ms(lib, mode):
                 # reps calls, each on its own copy of the ids, in one CUDA
                 # graph: the device's time, with no host between calls
                 ids = [ids0.clone() for _ in range(reps)]
                 graph = torch.cuda.CUDAGraph()
                 with torch.cuda.graph(graph):
                     for x in ids:
-                        run(lib, x)
+                        run(lib, x, mode)
                 a = torch.cuda.Event(enable_timing=True)
                 b = torch.cuda.Event(enable_timing=True)
                 for _ in range(2):       # a warm-up replay, a timed one
@@ -332,22 +282,43 @@ def time_main(reps: int, out_path) -> int:
 
             KT = int(targets.shape[0])
             nk = 0 if rts is None else K
-            params = th.frontier_params(targets, rts)
-            for name, lib in libs.items():
-                if name == "1x1024":
-                    continue
-                t = [time_ms(libs["1x1024"]), time_ms(lib), time_ms(lib),
-                     time_ms(libs["1x1024"])]
-                rec = {"shape": shape, "kernel": kname, "candidate": name,
-                       "ms": (t[1] + t[2]) / 2,
-                       "shipped_ms": (t[0] + t[3]) / 2, "turns_ms": t,
-                       "tiling": lib.tiling(F, B, KT, nk, int(params[2])),
-                       "shipped_tiling": libs["1x1024"].tiling(
-                           F, B, KT, nk, int(params[2])),
-                       "listed_rows": n * rb, "reps": reps, "card": card}
-                records.append(rec)
-                print(json.dumps(rec), flush=True)
-        del binsT, w8, lid, routed
+            n_ids = int(th.frontier_params(targets, rts)[2])
+            for mode in MODES:
+                acc = mode == "packed_acc"
+                ref_ids = ids0.clone()
+                ref = run(shipped, ref_ids, mode)
+                for name, lib in libs.items():
+                    ids = ids0.clone()
+                    got = run(lib, ids, mode)
+                    torch.cuda.synchronize()
+                    if not (torch.equal(got, ref)
+                            and torch.equal(ids, ref_ids)):
+                        raise SystemExit(f"{name} differs from the shipped "
+                                         f"kernel on {kname} {shape} "
+                                         f"({mode})")
+                for name, lib in libs.items():
+                    if name == "1x1024":
+                        continue
+                    t = [time_ms(shipped, mode), time_ms(lib, mode),
+                         time_ms(lib, mode), time_ms(shipped, mode)]
+                    emit({"shape": shape, "kernel": kname, "mode": mode,
+                          "candidate": name, "ms": (t[1] + t[2]) / 2,
+                          "shipped_ms": (t[0] + t[3]) / 2, "turns_ms": t,
+                          "tiling": lib.tiling(F, B, KT, nk, n_ids, acc),
+                          "shipped_tiling": shipped.tiling(F, B, KT, nk,
+                                                           n_ids, acc),
+                          "listed_rows": n * rb, "reps": reps,
+                          "card": card})
+            t = [time_ms(shipped, "f32"), time_ms(shipped, "packed_acc"),
+                 time_ms(shipped, "packed_acc"), time_ms(shipped, "f32")]
+            emit({"shape": shape, "kernel": kname, "candidate": "mode",
+                  "packed_acc_ms": (t[1] + t[2]) / 2,
+                  "f32_ms": (t[0] + t[3]) / 2, "turns_ms": t,
+                  "tiling": {m: shipped.tiling(F, B, KT, nk, n_ids,
+                                               m == "packed_acc")
+                             for m in MODES},
+                  "listed_rows": n * rb, "reps": reps, "card": card})
+        del binsT, ws, lid, routed
         torch.cuda.empty_cache()
     if out_path:
         with open(out_path, "w") as fh:
@@ -407,8 +378,9 @@ def host_main(reps: int, out_path) -> int:
     shapes = {"higgs": (10_502_144, 28, 64, 8192, 16, 32),
               "mc": (1_007_616, 28, 256, 8192, 2, 32)}
     for shape, (npad, F, B, rb, K, L) in shapes.items():
-        binsT, w8, lid, scales, routes, bl, n, smaller, both = _round_inputs(
+        binsT, ws, lid, routes, bl, n, smaller, both = _round_inputs(
             torch, th, npad, F, B, rb, K, L, 3, dev)
+        w8, scales = ws["f32"]
         cases = {"histogram_frontier": (smaller, None),
                  "histogram_frontier_routed": (smaller, routes),
                  "histogram_frontier_fusedk": (both, routes)}
@@ -429,7 +401,7 @@ def host_main(reps: int, out_path) -> int:
                     binsT.data_ptr(), w8.data_ptr(), ids.data_ptr(), npad,
                     F, B, rb, bl.data_ptr(), n, params.ctypes.data,
                     params.nbytes, scales.data_ptr(), scratch.data_ptr(),
-                    out.data_ptr(), stream)
+                    out.data_ptr(), 0, 0, stream)
 
             sblock = _small_block(th, block, 16, 32)
             rec = {"shape": shape, "kernel": kname, "reps": reps,
@@ -445,7 +417,7 @@ def host_main(reps: int, out_path) -> int:
                    "small_params_bytes": int(sblock.nbytes)}
             records.append(rec)
             print(json.dumps(rec), flush=True)
-        del binsT, w8, lid
+        del binsT, ws, w8, lid
         torch.cuda.empty_cache()
     if out_path:
         with open(out_path, "w") as fh:
