@@ -12,7 +12,15 @@ twenty-six phases; any failure exits non-zero:
               and the card's name and power limit, and for the K1/K3,
               K5, K6/K7 and K2 kernels (their by-value and step entries)
               their registers, spills and atomic SASS opcodes (no
-              ATOMS.CAS loop allowed).
+              ATOMS.CAS loop allowed); for P1's five and Q1's four
+              instantiations their registers, spills and SASS counts (Q1's
+              rotations funnel shifts: at least 160 SHF a quantizer body).
+              Builds too the previous designs of P1 and Q1
+              (tools/prev_kernels/, by tools/p1_time.py), which every P1
+              and Q1 measurement times in turns with the shipped kernel
+              (previous, shipped, shipped, previous: ``prev_ms``).  Then
+              Q1's device operations a call (torch.profiler, the run's
+              first session): two kernels, no copy, no memset.
   2. kernels  at the HIGGS shape (10.5M rows x 28 features, 64 bins), every
               kernel against its plain PyTorch version on the card: counts,
               leaf ids and scores exact, gradient/hessian sums within
@@ -68,7 +76,9 @@ twenty-six phases; any failure exits non-zero:
               per class tree; held-out multi_logloss under
               bench_suite.py's gate of 0.9; held-out predictions match the
               in-training valid scores; the model text holds num_class=5
-              and categorical nodes.
+              and categorical nodes.  P1 over the training bins with the
+              125 trees (classes interleaved) against its plain version,
+              timed as in phase 23.
   8. mc parity  200k rows, 3 iterations on the card and on the CPU: the
               same split features, thresholds and category bitsets for
               splits with gain > 1e-2, raw predictions within 1e-3.
@@ -189,8 +199,11 @@ twenty-six phases; any failure exits non-zero:
  23. predict  prediction on the card (P1, route_trees): phase 3's
               in-training valid scores (P1 an iteration) = the host walk
               bit for bit; P1 on phase 3's device bins with its trees
-              against its plain version, bit for bit, one launch a call,
-              timed (CUDA events, 20 launches) beside its bound; then
+              against its plain version and its previous design, bit for
+              bit, one launch a call, timed (CUDA events, 20 launches, in
+              turns with the previous design) beside its bound by both
+              counts (the bins on each row's path, or each row's bin
+              columns once) and the mode the shapes chose; then
               Booster.predict of phase 3's booster on 1M raw HIGGS rows
               and of phase 20's goss_regression booster (25 trees) on its
               2M rows: "auto" and "on" take P1 (the recorded route says
@@ -243,7 +256,10 @@ twenty-six phases; any failure exits non-zero:
               grower (K = 16, "off"), in turns with the f32 mode (median
               iter_seconds, peak device memory, holdout AUC within 0.005
               of the f32 run's), each launching only the ``_packed_acc``
-              histogram kernels; Q1, K1, K3, their step entries, K5 (as
+              histogram kernels; Q1 (its two kernels the call's only
+              device operations; timed in turns with its previous design;
+              its bound by 32 B a row and by its integer operations at
+              the INT32 rate), K1, K3, their step entries, K5 (as
               leaf_histogram launches it) and a K = 16 frontier round
               (K6, K7 routed and fused-K) against their plain versions bit
               for bit, timed beside the same kernels in the f32 mode
@@ -318,6 +334,11 @@ MC_LOGLOSS_GATE = 0.9       # bench_suite.py:282-289
 # adds run on the same units)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+# Q1's work is integer: the H100 SXM5 issues 64 INT32 operations a clock
+# on each of its 132 SMs (NVIDIA H100 Tensor Core GPU Architecture
+# whitepaper, the SM's four partitions of 16 INT32 units) at a 1.98 GHz
+# boost clock (H100 SXM5 data sheet)
+PEAK_INT32_OPS_PER_S = 132 * 64 * 1.98e9
 HIST_RTOL = 1e-5
 
 SOURCES = {
@@ -480,10 +501,19 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(nbytes: float, nops: float):
+def bound_ms(nbytes: float, nops: float, ops_per_s: float = PEAK_OPS_PER_S):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = nops / PEAK_OPS_PER_S * 1e3
+    t_ops = nops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def prev_designs():
+    """tools/p1_time.py, which builds and calls the previous designs of P1
+    and Q1 (tools/prev_kernels/) for timing in turns with the shipped
+    ones."""
+    sys.path.insert(0, os.path.join(HERE, "tools"))
+    import p1_time
+    return p1_time
 
 
 # ---------------------------------------------------------------- phase 1
@@ -495,8 +525,12 @@ def build_phase():
     body must have none."""
     from lightgbm_tpu_torch.ops import kernels
     t0 = time.perf_counter()
+    prev = prev_designs()
+    handle = prev.prev_build_start()
     kernels.library()
-    log(f"build: {time.perf_counter() - t0:.1f} s")
+    prev.prev_library(handle)
+    log(f"build: {time.perf_counter() - t0:.1f} s (the previous P1 and Q1 "
+        f"designs' library too)")
     for line in kernels.build_log().splitlines():
         if "registers" in line or "Compiling entry" in line:
             log("ptxas: " + line.strip())
@@ -514,8 +548,7 @@ def build_phase():
              ("routed", "packed4", "acc")),
             ("all_hist_kernel", ("K5",), ("packed4", "acc")),
             ("route_window_kernel", ("K2",), ("table", "packed4")),
-            ("route_step_kernel", ("K2 step",), ("table", "packed4")),
-            ("quantize_pack_kernel", ("Q1",), ())):
+            ("route_step_kernel", ("K2 step",), ("table", "packed4"))):
         ptxas = kernels.ptxas_lines(body)
         sass = kernels.sass_opcodes(body)
         part = {}
@@ -543,7 +576,47 @@ def build_phase():
             require(rec["atoms_cas"] == 0, f"{name} ({body}) has "
                     f"{rec['atoms_cas']} ATOMS.CAS loops")
         report.update(part)
+    report.update(p1_q1_build_report(kernels))
     return report
+
+
+def p1_q1_build_report(kernels):
+    """P1's five instantiations (u8 bins tiled or read in place, 4-bit
+    packed or not; i16 bins read in place) and Q1's two kernels (16-byte
+    access or not, two instantiations each): ptxas's lines and SASS
+    opcode counts.  Q1's rotations must be funnel shifts: each
+    quantize_pack_kernel holds at least 40 SHF a row (two hashes of 20
+    rounds) for its four rows."""
+    part = {}
+    for body, label in (("route_trees_kernel", "P1"),
+                        ("quantize_reduce_kernel", "Q1 reduce"),
+                        ("quantize_pack_kernel", "Q1 pack")):
+        ptxas = kernels.ptxas_lines(body)
+        sass = kernels.sass_opcodes(body)
+        for fn in sorted(set(ptxas) | set(sass)):
+            flags = [b == "1" for b in re.findall(r"Lb([01])E", fn)]
+            if body == "route_trees_kernel":
+                m = re.search(r"route_trees_kernelI([hs])", fn)
+                name = (f"P1 {'i16' if m and m.group(1) == 's' else 'u8'}"
+                        + (" packed4" if flags[0] else "")
+                        + (" tiled" if flags[1] else ""))
+            else:
+                name = label + (" vec" if flags and flags[0] else "")
+            ops = sass.get(fn, {})
+            part[name] = {
+                "ptxas": ptxas.get(fn, []),
+                "shf": sum(v for k, v in ops.items() if k.startswith("SHF")),
+                "sass_instructions": sum(ops.values())}
+    want = {"P1 i16"} | {f"P1 u8{p}{t}" for p in ("", " packed4")
+                         for t in ("", " tiled")} | {
+        f"Q1 {k}{v}" for k in ("reduce", "pack") for v in ("", " vec")}
+    log(f"P1 / Q1 build: {json.dumps(part)}")
+    require(set(part) == want, f"P1 / Q1 instantiations missing from the "
+            f"build: {sorted(part)}")
+    for name in ("Q1 pack", "Q1 pack vec"):
+        require(part[name]["shf"] >= 40 * 4, f"{name}: {part[name]['shf']} "
+                "funnel shifts, fewer than its 160 rotations")
+    return part
 
 
 def card_line() -> str:
@@ -1649,9 +1722,12 @@ def mc_train_phase(ds, Xh, yh):
     log(f"mc train: {splits} splits, {n_cat} categorical, holdout predict "
         f"ok (multi_logloss {hll:.5f}, |raw - valid score| {vdiff:.3g}), "
         f"model text {len(text)} bytes")
+    # P1 over the training bins with the 125 trees, classes interleaved
+    p1 = route_kernel_phase(bst, "multiclass_cat training bins")
     return launches, {"wall_s": wall, "iter_s": it_s,
                       "holdout_multi_logloss": ll, "splits": splits,
-                      "categorical_splits": n_cat, "device_loop": loop}
+                      "categorical_splits": n_cat, "device_loop": loop,
+                      "p1": p1}
 
 
 # ---------------------------------------------------------------- phase 8
@@ -3556,12 +3632,14 @@ WALKS_PARAMS = dict(TRAIN_PARAMS, num_leaves=31, boosting="dart",
 
 def route_bytes(bins, stack, trees, num_bin, default_bin, n, C,
                 tables=(None, None), packed4=False):
-    """The bytes P1 must move on these inputs: each tree's bins along
-    each row's path (the rows' leaves by the plain route; a byte a read,
-    packed or not), the [C, n] float64 scores read and written once, the
-    stack and the per-feature tables read once.  ``tables``: the EFB
-    feat_group / feat_offset of bundled bins.  Returns (bytes, bin
-    reads)."""
+    """The bytes P1 must move on these inputs, by the lesser of two counts
+    of the bins: each tree's bins along each row's path (the rows' leaves
+    by the plain route; a byte a read, packed or not, two for i16) or each
+    row's bin columns once (the matrix's byte rows); plus the [C, n]
+    float64 scores read and written once and the stack's buffer (records,
+    leaf values, bitsets) read once.  ``tables``: the EFB feat_group /
+    feat_offset of bundled bins.  Returns (bytes, {path_bytes,
+    tile_bytes, scores_bytes, stack_bytes, bin_reads})."""
     import torch
     from lightgbm_tpu_torch.models.device_predict import leaf_depths
     from lightgbm_tpu_torch.ops.predict import route_leaves_plain
@@ -3571,25 +3649,32 @@ def route_bytes(bins, stack, trees, num_bin, default_bin, n, C,
                                     *tables, packed4=packed4)
         depth = torch.from_numpy(leaf_depths(tree)).to(leaves.device)
         reads += int(depth[leaves].sum().item())
-    table_bytes = sum(x.numel() * x.element_size() for x in (
-        stack.split_feature, stack.threshold_bin, stack.decision_type,
-        stack.left_child, stack.right_child, stack.cat_bitset,
-        stack.leaf_value, stack.num_leaves, stack.tree_class, num_bin,
-        default_bin) + tuple(x for x in tables if x is not None))
-    return reads * bins.element_size() + 16 * C * n + table_bytes, reads
+    records, _ = stack.records(num_bin.shape[0])
+    parts = {"path_bytes": reads * bins.element_size(),
+             "tile_bytes": bins.shape[0] * bins.element_size() * n,
+             "scores_bytes": 16 * C * n,
+             "stack_bytes": records.numel() * records.element_size(),
+             "bin_reads": reads}
+    nbytes = (min(parts["path_bytes"], parts["tile_bytes"])
+              + parts["scores_bytes"] + parts["stack_bytes"])
+    return nbytes, parts
 
 
 def p1_times(bins, stack, num_bin, default_bin, out, trees, tag,
              tables=(None, None), packed4=False):
     """P1 against its plain version on ``bins`` from the values in
     ``out``: bit for bit, a relaunch adding the same again, one launch a
-    call; its time (CUDA events over PREDICT_REPS launches; plain 3), the
-    bound from this run's paths.  ``tables``: the EFB feat_group /
-    feat_offset of bundled bins; ``packed4``: the bins hold two columns a
-    byte.  Returns the measurement dict."""
+    call; its time (CUDA events over PREDICT_REPS launches; plain 3) in
+    turns with the previous design's (tools/p1_time.py prev_route_trees:
+    previous, shipped, shipped, previous; the previous design = the
+    shipped one bit for bit), the bound from this run's paths by both
+    counts (route_bytes) and the mode the shapes chose.  ``tables``: the
+    EFB feat_group / feat_offset of bundled bins; ``packed4``: the bins
+    hold two columns a byte.  Returns the measurement dict."""
     import torch
     from lightgbm_tpu_torch.ops import kernels
     from lightgbm_tpu_torch.ops import predict as tp
+    prev = prev_designs()
     C, n = out.shape
     p4 = {"packed4": packed4}
     kname = kernels.variant("route_trees", packed4)
@@ -3609,41 +3694,69 @@ def p1_times(bins, stack, num_bin, default_bin, out, trees, tag,
                                  want.clone(), *tables, **p4)
     require(torch.equal(again, want2), f"route_trees {tag}: a relaunch "
             "differs from the plain version")
+    old = prev.prev_route_trees(bins, stack, num_bin, default_bin,
+                                out.clone(), *tables, **p4)
+    torch.cuda.synchronize()
+    require(torch.equal(old, want), f"route_trees {tag}: the previous "
+            "design differs from the plain version")
     scratch = out.clone()
-    ms = time_ms(lambda i: tp.route_trees(bins, stack, num_bin, default_bin,
-                                          scratch, *tables, **p4),
-                 PREDICT_REPS)
+
+    def shipped():
+        return time_ms(lambda i: tp.route_trees(
+            bins, stack, num_bin, default_bin, scratch, *tables, **p4),
+            PREDICT_REPS)
+
+    def previous():
+        return time_ms(lambda i: prev.prev_route_trees(
+            bins, stack, num_bin, default_bin, scratch, *tables, **p4),
+            PREDICT_REPS)
+
+    turns = [previous(), shipped(), shipped(), previous()]
+    ms, prev_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
     plain_ms = time_ms(lambda i: tp.route_trees_plain(
         bins, stack, num_bin, default_bin, scratch, *tables, **p4), 3)
-    nbytes, reads = route_bytes(bins, stack, trees, num_bin, default_bin, n,
-                                C, tables, packed4)
+    nbytes, parts = route_bytes(bins, stack, trees, num_bin, default_bin,
+                                n, C, tables, packed4)
     bound, by = bound_ms(nbytes, float(n) * len(trees))
+    path_bound = bound_ms(parts["path_bytes"] + parts["scores_bytes"]
+                          + parts["stack_bytes"], 0.0)[0]
+    tile_bound = bound_ms(parts["tile_bytes"] + parts["scores_bytes"]
+                          + parts["stack_bytes"], 0.0)[0]
+    rows, tiled = tp.route_plan(bins.shape[0], bins.element_size())
     rec = {"max_abs_err": float((got - want).abs().max().item()), "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-           "library_ms": None, "launches_a_call": calls, "bytes": nbytes,
-           "bin_reads": reads,
+           "prev_ms": prev_ms, "turns_ms": turns, "plain_ms": plain_ms,
+           "bound_ms": bound, "bound_by": by, "path_bound_ms": path_bound,
+           "tile_bound_ms": tile_bound, "library_ms": None,
+           "launches_a_call": calls, "bytes": nbytes, **parts,
+           "mode": "tiled" if tiled else "direct", "rows_a_block": rows,
            "shape": f"{tag}: {n} rows x {bins.shape[0]} columns "
                     f"({bins.dtype}), {len(trees)} trees, C = {C}, "
                     f"max depth {stack.max_depth}"}
-    log(f"route_trees {tag}: bit for bit the plain version, 1 launch a "
-        f"call; {ms:.4f} ms (plain {plain_ms:.2f} ms), bound {bound:.4f} ms "
-        f"({by}: {reads} bin reads)")
+    log(f"route_trees {tag}: bit for bit the plain version and the "
+        f"previous design, 1 launch a call, {rec['mode']} ({rows} rows a "
+        f"block); {ms:.4f} ms (previous design {prev_ms:.4f} ms, plain "
+        f"{plain_ms:.2f} ms), bound {bound:.4f} ms ({by}; by the path's "
+        f"{parts['bin_reads']} bin reads {path_bound:.4f} ms, by the bin "
+        f"rows once {tile_bound:.4f} ms)")
     return rec
 
 
-def route_kernel_phase(bst):
-    """P1 on phase 3's device bins (u8, the padded HIGGS matrix) with its
-    trees, from the training score: against its plain version and
-    timed (p1_times)."""
+def route_kernel_phase(bst, tag="HIGGS training bins"):
+    """P1 on a booster's device bins (u8, the padded matrix) with its
+    trees, each of class i % C, from the training score: against its
+    plain version and timed (p1_times)."""
     import torch
     from lightgbm_tpu_torch.models.device_predict import TreeStack
     gb = bst.gbdt
     trees = gb.models
-    stack = TreeStack(trees, [0] * len(trees),
-                      gb.train_set.num_used_features, gb.device)
+    C = gb.num_tree_per_iteration
+    stack = TreeStack(trees, [i % C for i in range(len(trees))],
+                      gb.train_set.num_used_features, gb.device,
+                      gb.route_tables[0])
     out = gb.train_score.to(torch.float64).contiguous()
+    tables = (gb.fmeta.feat_group, gb.fmeta.feat_offset)
     return p1_times(gb.bins, stack, gb.fmeta.num_bin, gb.fmeta.default_bin,
-                    out, trees, "HIGGS training bins")
+                    out, trees, tag, tables, packed4=gb.packed4)
 
 
 def predict_phase(tag, bst, X):
@@ -3687,7 +3800,8 @@ def predict_phase(tag, bst, X):
     C = gb.num_tree_per_iteration
     trees = gb.models
     stack = TreeStack(trees, [i % C for i in range(len(trees))],
-                      gb.train_set.num_used_features, gb.device)
+                      gb.train_set.num_used_features, gb.device,
+                      gb.route_tables[1])
     out = torch.zeros((C, len(X)), dtype=torch.float64, device=gb.device)
     kernel = p1_times(bins, stack, gb.fmeta.num_bin, gb.fmeta.default_bin,
                       out, trees, f"{tag} predict bins")
@@ -3990,7 +4104,8 @@ def expo_kernel_phase(gb, reps=20, plain_reps=3):
 
     # P1 with the group tables over the trained trees, from the training
     # score
-    stack = TreeStack(gb.models, [0] * len(gb.models), F, dev)
+    stack = TreeStack(gb.models, [0] * len(gb.models), F, dev,
+                      gb.route_tables[0])
     res["route_trees"] = p1_times(
         binsT, stack, gb.fmeta.num_bin, gb.fmeta.default_bin,
         gb.train_score.to(torch.float64).contiguous(), gb.models,
@@ -4519,7 +4634,8 @@ def packed4_kernel_phase(gb, reps=20, plain_reps=1):
 
     # P1 over the packed training bins with the trained trees, from the
     # training score; = P1 over the unpacked bins
-    stack = TreeStack(gb.models, [0] * len(gb.models), G, dev)
+    stack = TreeStack(gb.models, [0] * len(gb.models), G, dev,
+                      gb.route_tables[0])
     start = gb.train_score.to(torch.float64).contiguous()
     res["route_trees"] = p1_times(
         binsT, stack, gb.fmeta.num_bin, gb.fmeta.default_bin, start,
@@ -4758,7 +4874,7 @@ ACC_AUC_SLACK = 0.005
 ACC_LOGLOSS_RTOL = 0.01
 # Q1's integer operations a row: two threefry2x32 hashes (20 rounds of an
 # add, a rotate and a xor, five key injections of three adds) and a dozen
-# for the rounding, the clip and the pack
+# for the rounding, the clip and the pack; counted at PEAK_INT32_OPS_PER_S
 ACC_Q1_OPS = 2 * (20 * 3 + 5 * 3) + 12
 # phase 26's training runs at HIGGS, in turns with the f32 mode: the
 # segment grower unfused (the default under packed_acc) and fused, the
@@ -4888,6 +5004,118 @@ def acc_runs(tag, runs, ds, va, base, metric_key):
     return launches, rec
 
 
+# Q1's device operations a call, counted by q1_device_ops_phase in the
+# run's first profiler session (later sessions of a long process may see
+# no device activity, and device_ops_per_call then gives None)
+Q1_DEVICE_OPS = {}
+
+
+def q1_device_ops_phase(n=1 << 20):
+    """The device operations of one Q1 call and of one call of its
+    previous design on n random rows (device_ops_per_call, right after
+    the build): the shipped call must be two kernels, no copy, no
+    memset."""
+    import torch
+    from lightgbm_tpu_torch.ops import histogram as th
+    prev = prev_designs()
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    grad = torch.randn(n, generator=gen, device="cuda")
+    hess = torch.rand(n, generator=gen, device="cuda")
+    member = torch.ones(n, device="cuda")
+    Q1_DEVICE_OPS["shipped"] = device_ops_per_call(
+        lambda: th.quantize_pack(grad, hess, member))
+    Q1_DEVICE_OPS["previous"] = device_ops_per_call(
+        lambda: prev.prev_quantize_pack(grad, hess, member))
+    ops = Q1_DEVICE_OPS["shipped"]
+    require(ops is None or (ops["kernel"] == 2 and ops["memcpy"] == 0
+                            and ops["memset"] == 0),
+            f"quantize_pack: device operations a call {ops}")
+    log(f"quantize_pack: device operations a call {ops} (previous design "
+        f"{Q1_DEVICE_OPS['previous']})")
+
+
+def q1_times(grad, hess, member, tag, reps=20, plain_reps=1):
+    """Q1 at 8 bits on these rows against its plain version (the stream,
+    the scales and the clip count bit for bit) and the previous design
+    (tools/p1_time.py prev_quantize_pack, the same bits); the device
+    operations of a call (device_ops_per_call: two kernels, no copy or
+    memset), its time in turns with the previous design's (previous,
+    shipped, shipped, previous; CUDA events over ``reps`` calls), the f32
+    channels it replaces in torch and the plain version; the bound by 32
+    bytes a row (the rows read twice: the scales need a whole pass first)
+    and by ACC_Q1_OPS integer operations a row at the card's INT32 rate,
+    beside the 20-byte figure (each input read once).  Returns the
+    measurement dict."""
+    import torch
+    from lightgbm_tpu_torch.ops import histogram as th
+    prev = prev_designs()
+    npad = grad.shape[0]
+    w2, qs, clips = th.quantize_pack(grad, hess, member)
+    sc, seed = th.quantize_inputs(grad, hess, member, 8)
+    want, want_clips = th.quantize_pack_plain(grad, hess, member, sc, seed,
+                                              8)
+    old = prev.prev_quantize_pack(grad, hess, member)
+    old_want, old_clips = th.quantize_pack_plain(grad, hess, member, old[1],
+                                                 seed, 8)
+    torch.cuda.synchronize()
+    require(torch.equal(w2, want) and torch.equal(qs, sc)
+            and int(clips) == int(want_clips[0]),
+            f"quantize_pack {tag}: differs from its plain version")
+    # the previous design took ATen's scales on the card (a reciprocal
+    # multiply), which can differ by an ulp: it is held to the plain
+    # version at its own scales
+    require(torch.equal(old[0], old_want) and int(old[2]) == int(old_clips[0]),
+            f"quantize_pack {tag}: the previous design differs from the "
+            f"plain version at its scales")
+    ops = device_ops_per_call(lambda: th.quantize_pack(grad, hess, member))
+    prev_ops = device_ops_per_call(
+        lambda: prev.prev_quantize_pack(grad, hess, member))
+    if ops is None:
+        # this session saw no device activity: the count of the run's
+        # first session (q1_device_ops_phase)
+        ops, prev_ops = (Q1_DEVICE_OPS.get("shipped"),
+                         Q1_DEVICE_OPS.get("previous"))
+    require(ops is None or (ops["kernel"] == 2 and ops["memcpy"] == 0
+                            and ops["memset"] == 0),
+            f"quantize_pack {tag}: device operations a call {ops}")
+
+    def shipped():
+        return time_ms(lambda i: th.quantize_pack(grad, hess, member), reps)
+
+    def previous():
+        return time_ms(lambda i: prev.prev_quantize_pack(grad, hess, member),
+                       reps)
+
+    turns = [previous(), shipped(), shipped(), previous()]
+    t = {"max_abs_err": 0.0, "clips": int(clips),
+         "prev_scales_equal": bool(torch.equal(old[1], qs)),
+         "ms": (turns[1] + turns[2]) / 2, "prev_ms": (turns[0] + turns[3]) / 2,
+         "turns_ms": turns, "device_ops_per_call": ops,
+         "prev_device_ops_per_call": prev_ops}
+    t["f32_ms"] = time_ms(lambda i: th.fixed_point_scales(
+        th.pack_channels(grad, hess, member)), reps)
+    t["plain_ms"] = time_ms(lambda i: th.quantize_pack_plain(
+        grad, hess, member, sc, seed, 8), plain_reps)
+    t["bound_ms"], t["bound_by"] = bound_ms(npad * (12 + 12 + 8),
+                                            npad * ACC_Q1_OPS,
+                                            PEAK_INT32_OPS_PER_S)
+    t["bytes_bound_ms"] = bound_ms(npad * (12 + 12 + 8), 0.0)[0]
+    t["one_pass_bound_ms"] = bound_ms(npad * (12 + 8), 0.0)[0]
+    t["int32_ops_bound_ms"] = npad * ACC_Q1_OPS / PEAK_INT32_OPS_PER_S * 1e3
+    t["library_ms"] = None
+    t["shape"] = f"{tag}: {npad} rows, 8 bits"
+    log(f"quantize_pack {tag}: = its plain version and the previous design "
+        f"bit for bit ({t['clips']} clipped), {t['ms']:.4f} ms (previous "
+        f"design {t['prev_ms']:.4f} ms; f32 channels in torch "
+        f"{t['f32_ms']:.4f} ms, plain {t['plain_ms']:.2f} ms), bound "
+        f"{t['bound_ms']:.4f} ms ({t['bound_by']}: 32 B a row "
+        f"{t['bytes_bound_ms']:.4f} ms, INT32 ops "
+        f"{t['int32_ops_bound_ms']:.4f} ms; one pass of 20 B a row "
+        f"{t['one_pass_bound_ms']:.4f} ms); device operations a call "
+        f"{ops} (previous {prev_ops})")
+    return t
+
+
 def acc_kernel_set(th, binsT, grad, hess, member, fm, rb, B, G, packed4,
                    tag, reps, plain_reps, split_col, with_q1=False):
     """Every packed-accumulator kernel on these bins at the gradients
@@ -4916,30 +5144,8 @@ def acc_kernel_set(th, binsT, grad, hess, member, fm, rb, B, G, packed4,
                 "from its plain version")
 
     if with_q1:
-        sc, seed = th.quantize_inputs(grad, hess, member, 8)
-        want, want_clips = th.quantize_pack_plain(grad, hess, member, sc,
-                                                  seed, 8)
-        torch.cuda.synchronize()
-        same("quantize_pack", w2, want)
-        require(int(clips) == int(want_clips[0]),
-                f"quantize_pack {tag}: clips {int(clips)} against "
-                f"{int(want_clips[0])}")
-        t = {"max_abs_err": 0.0, "clips": int(clips)}
-        t["ms"] = time_ms(lambda i: th.quantize_pack(grad, hess, member),
-                          reps)
-        t["f32_ms"] = time_ms(lambda i: th.fixed_point_scales(
-            th.pack_channels(grad, hess, member)), reps)
-        t["plain_ms"] = time_ms(lambda i: th.quantize_pack_plain(
-            grad, hess, member, sc, seed, 8), plain_reps)
-        t["bound_ms"], t["bound_by"] = bound_ms(npad * (12 + 8),
-                                                npad * ACC_Q1_OPS)
-        t["library_ms"] = None
-        t["shape"] = f"{tag}: {npad} rows, 8 bits"
-        res["quantize_pack"] = t
-        log(f"quantize_pack {tag}: = its plain version bit for bit ({t['clips']} "
-            f"clipped), {t['ms']:.4f} ms (f32 channels in torch "
-            f"{t['f32_ms']:.4f} ms, plain {t['plain_ms']:.2f} ms), bound "
-            f"{t['bound_ms']:.4f} ms")
+        res["quantize_pack"] = q1_times(grad, hess, member, tag, reps,
+                                        plain_reps)
 
     lid0 = torch.zeros(npad, dtype=torch.int32, device=dev)
     none = np.zeros(8, np.uint32)
@@ -5352,6 +5558,7 @@ def main() -> int:
     t_start = time.perf_counter()
     build = build_phase()
     card = card_line()
+    q1_device_ops_phase()
 
     t0 = time.perf_counter()
     X, y = higgs_like(HIGGS_ROWS + HOLDOUT_ROWS, 42)
@@ -5623,6 +5830,7 @@ def main() -> int:
                 "(lightgbm_tpu/models/device_predict.py:99-149)")
             rec["predict_bins"] = {"higgs": predict_higgs["p1"],
                                    "goss_regression": predict_goss["p1"]}
+            rec["multiclass_cat"] = mc_stats["p1"]
         if name in expo_kernels:
             # on the Expo rows' bundled columns (phase 24)
             rec["expo"] = expo_kernels[name]

@@ -3,11 +3,14 @@
 Counterpart of lightgbm_tpu/models/device_predict.py (``stack_trees_host``
 :40, ``stack_trees`` :87, ``predict_binned_ensemble`` :152,
 ``predict_binned_leaves`` :176).  Every tree's flat arrays are stacked
-into [T, ...] tensors; P1 (ops/predict.py ``route_trees``) routes every
-row through every tree and adds the leaf values in float64, in tree
-order, into the score of each tree's class: the host walk's bits.  The
-JAX package fetched [T, N] leaf indices and gathered on the host; the
-kernel adds where it routes, so nothing of size [T, N] is written.
+into [T, ...] arrays on the host, and ``TreeStack`` folds each node with
+the feature tables of the bins it will route into one 16-byte record
+(ops/predict.py ``pack_route_records``), uploaded as one buffer; P1
+(ops/predict.py ``route_trees``) routes every row through every tree and
+adds the leaf values in float64, in tree order, into the score of each
+tree's class: the host walk's bits.  The JAX package fetched [T, N] leaf
+indices and gathered on the host; the kernel adds where it routes, so
+nothing of size [T, N] is written.
 
 Users (models/gbdt.py): ``GBDT.predict`` under ``predict_device`` (on
 i16 bins of raw rows, ``bin_rows``, one column a feature: P1 gets
@@ -20,13 +23,14 @@ EFB column layout: P1 reads feature f out of column ``feat_group[f]`` at
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..core.binning import MISSING_NAN
 from ..core.dataset import TorchDataset, _per_feature
+from ..ops.predict import RouteTables, pack_route_records, route_tables
 from ..utils.log import LightGBMError
 from .tree import Tree
 
@@ -54,15 +58,9 @@ def tree_depth(tree: Tree) -> int:
     return int(leaf_depths(tree).max())
 
 
-def stack_trees_host(trees: Sequence[Tree], num_features: int = -1):
-    """(split_feature, threshold_bin, decision_type, left_child,
-    right_child, cat_bitset, leaf_value, num_leaves, max_depth) of
-    ``trees``: [T, M] i32 arrays (M = the most internal nodes, at least 1),
-    [T, M, 8] u32 inner bitsets, [T, L] float64 leaf values, [T] i32 leaf
-    counts.  The JAX package's ``stack_trees_host`` with float64 leaf
-    values (its are float32).  Raises on a tree whose bin thresholds are
-    not aligned with a dataset, and, given ``num_features``, on a split of
-    a feature outside the bin matrix."""
+def _stack_arrays(trees: Sequence[Tree], num_features: int):
+    """stack_trees_host's arrays, with each tree's depth ([T] i64, 0 for
+    a single leaf) in place of their maximum."""
     T = len(trees)
     for i, t in enumerate(trees):
         if not t.bins_aligned:
@@ -80,7 +78,7 @@ def stack_trees_host(trees: Sequence[Tree], num_features: int = -1):
     cb = np.zeros((T, M, 8), dtype=np.uint32)
     lv = np.zeros((T, L), dtype=np.float64)
     nl = np.ones(T, dtype=np.int32)
-    depth = 1
+    depths = np.zeros(T, dtype=np.int64)
     for i, t in enumerate(trees):
         n = t.num_leaves - 1
         nl[i] = t.num_leaves
@@ -102,34 +100,101 @@ def stack_trees_host(trees: Sequence[Tree], num_features: int = -1):
                 words = t.cat_threshold_inner[int(t.threshold_in_bin[node])]
                 cb[i, node, :min(len(words), 8)] = words[:8]
                 tb[i, node] = 0
-        depth = max(depth, tree_depth(t))
-    return sf, tb, dt, lc, rc, cb, lv, nl, int(depth)
+        depths[i] = tree_depth(t)
+    return sf, tb, dt, lc, rc, cb, lv, nl, depths
+
+
+def stack_trees_host(trees: Sequence[Tree], num_features: int = -1):
+    """(split_feature, threshold_bin, decision_type, left_child,
+    right_child, cat_bitset, leaf_value, num_leaves, max_depth) of
+    ``trees``: [T, M] i32 arrays (M = the most internal nodes, at least 1),
+    [T, M, 8] u32 inner bitsets, [T, L] float64 leaf values, [T] i32 leaf
+    counts.  The JAX package's ``stack_trees_host`` with float64 leaf
+    values (its are float32).  Raises on a tree whose bin thresholds are
+    not aligned with a dataset, and, given ``num_features``, on a split of
+    a feature outside the bin matrix."""
+    *arrays, depths = _stack_arrays(trees, num_features)
+    return (*arrays, int(max(1, depths.max(initial=0))))
+
+
+# the plain version's fields of a TreeStack, uploaded at first use
+_PLAIN_FIELDS = ("split_feature", "threshold_bin", "decision_type",
+                 "left_child", "right_child", "cat_bitset", "leaf_value",
+                 "num_leaves", "tree_class")
 
 
 class TreeStack:
-    """An ensemble as device tensors (``stack_trees_host``'s arrays; the
-    bitsets as int32 bit patterns), each tree's class (``tree_class``: the
-    score row P1 adds it into) and the routing bound ``max_depth``."""
+    """An ensemble for P1: each tree's class (``classes``, host; the score
+    row P1 adds it into), the routing bound ``max_depth``, and two device
+    forms, each made at first use.  ``records(F)``: the kernel's buffer
+    (ops/predict.py ``pack_route_records``: the trees' nodes folded with
+    ``tables``, the per-feature RouteTables of the bins they will route,
+    into 16-byte records), one upload.  The plain version's tensors
+    (``stack_trees_host``'s arrays, the bitsets as int32 bit patterns, and
+    ``tree_class``) as attributes of those names."""
 
     def __init__(self, trees: Sequence[Tree], classes: Sequence[int],
-                 num_features: int, device: torch.device):
-        sf, tb, dt, lc, rc, cb, lv, nl, depth = stack_trees_host(
-            trees, num_features)
-
-        def up(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-        self.split_feature = up(sf)
-        self.threshold_bin = up(tb)
-        self.decision_type = up(dt)
-        self.left_child = up(lc)
-        self.right_child = up(rc)
-        self.cat_bitset = up(cb.view(np.int32))
-        self.leaf_value = up(lv)
-        self.num_leaves = up(nl)
-        self.tree_class = up(np.asarray(classes, dtype=np.int32))
+                 num_features: int, device: torch.device,
+                 tables: Optional[RouteTables] = None):
+        *arrays, self._depths = _stack_arrays(trees, num_features)
+        self.classes = np.asarray(classes, dtype=np.int64)
+        if self.classes.shape != (len(trees),):
+            raise ValueError(f"{len(self.classes)} classes for "
+                             f"{len(trees)} trees")
+        self._host = dict(zip(_PLAIN_FIELDS, arrays),
+                          tree_class=self.classes.astype(np.int32))
         self.num_trees = len(trees)
-        self.max_depth = depth
+        self.max_depth = int(max(1, self._depths.max(initial=0)))
+        self.device = device
+        self.tables = tables
+        self._records = None
+
+    def __getattr__(self, name):
+        if name in _PLAIN_FIELDS:
+            a = self._host[name]
+            if name == "cat_bitset":
+                a = a.view(np.int32)
+            t = torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+            setattr(self, name, t)
+            return t
+        raise AttributeError(name)
+
+    def records(self, num_features: int):
+        """(int32 buffer on the device, RecordLayout): the stack packed
+        with its tables, which must cover ``num_features`` features."""
+        if self.tables is None:
+            raise ValueError("the stack was built without its feature "
+                             "tables (TreeStack(..., tables=)): P1 cannot "
+                             "route it on the card")
+        if self.tables.num_bin.shape[0] != num_features:
+            raise ValueError(f"the stack's tables cover "
+                             f"{self.tables.num_bin.shape[0]} features, "
+                             f"the call {num_features}")
+        if self._records is None:
+            h = self._host
+            buf, layout = pack_route_records(
+                h["split_feature"], h["threshold_bin"], h["decision_type"],
+                h["left_child"], h["right_child"], h["cat_bitset"],
+                h["leaf_value"],
+                h["num_leaves"], self._depths, self.classes, self.tables)
+            self._records = (torch.from_numpy(buf).to(self.device), layout)
+        return self._records
+
+
+def dataset_tables(dataset: TorchDataset):
+    """The RouteTables of ``dataset``'s bins: (its EFB columns and
+    offsets, for the device bins of the set and of valid sets in its
+    layout; one column a feature, for predict-time ``bin_rows``)."""
+    infos = dataset.feature_infos()
+
+    def col(name):
+        return np.array([getattr(i, name) for i in infos], dtype=np.int64)
+
+    nb, db = col("num_bin"), col("default_bin")
+    own = route_tables(nb, db)
+    if dataset.bundle is None:
+        return own, own
+    return route_tables(nb, db, col("group"), col("offset")), own
 
 
 def bin_rows(dataset: TorchDataset, X: np.ndarray) -> np.ndarray:

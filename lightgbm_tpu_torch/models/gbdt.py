@@ -41,7 +41,7 @@ from ..ops.score import score_gather_add
 from ..ops.split import FeatureMeta, SplitParams
 from ..utils import random
 from ..utils.log import LightGBMError, log_warning
-from .device_predict import TreeStack, bin_rows
+from .device_predict import TreeStack, bin_rows, dataset_tables
 from .grower import GrowerParams
 from .grower_frontier import FrontierGrower
 from .grower_seg import SegmentGrower
@@ -341,6 +341,10 @@ class GBDT(TreeEnsemble):
             self.objective.init(train_set.metadata, self.num_data,
                                 self.device)
         self.fmeta = build_feature_meta(train_set, self.device)
+        # P1's feature tables on the host: the training set's column
+        # layout (its device bins and valid sets'), one column a feature
+        # (predict-time bins)
+        self.route_tables = dataset_tables(train_set)
         # the kernels' bin axis: the widest column (an EFB group's bins)
         self.num_bins = _round_up_pow2(max(train_set.max_column_bin, 2))
         # 4-bit packing: two columns a byte where the bin axis is <= 16
@@ -460,13 +464,15 @@ class GBDT(TreeEnsemble):
             return out
         tables = (None, None)
         packed4 = False
+        host_tables = self.route_tables[1]
         if bins is None:
             packed4 = self.packed4 and dataset is self.train_set
             bins = (self.bins if dataset is self.train_set
                     else dataset.device_bins(1, self.device))
             tables = (self.fmeta.feat_group, self.fmeta.feat_offset)
+            host_tables = self.route_tables[0]
         stack = TreeStack(trees, classes, dataset.num_used_features,
-                          self.device)
+                          self.device, host_tables)
         return route_trees(bins, stack, self.fmeta.num_bin,
                            self.fmeta.default_bin, out, *tables,
                            packed4=packed4)
@@ -538,7 +544,8 @@ class GBDT(TreeEnsemble):
         out = torch.from_numpy(self._init_raw(X.shape[0])).to(dev)
         route_trees(bins, TreeStack([self.models[i] for i in trees],
                                     [i % C for i in trees],
-                                    self.train_set.num_used_features, dev),
+                                    self.train_set.num_used_features, dev,
+                                    self.route_tables[1]),
                     self.fmeta.num_bin, self.fmeta.default_bin, out)
         return out.cpu().numpy()
 

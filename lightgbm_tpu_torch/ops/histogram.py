@@ -173,14 +173,17 @@ def quantize_inputs(grad: torch.Tensor, hess: torch.Tensor,
                     member: torch.Tensor, bits: int):
     """The quantizer's scales and seed, by torch reductions on the
     tensors' device (no value on the host): ``(scales [2] f32, seed [1]
-    int64)``.  scales = max(max |x * member|, 1e-30) / qmax for the
-    gradient and the hessian; seed the uint32 sum of the bits of (grad *
-    member)[:8] (pallas_histogram.py:206-216)."""
+    int64)``, the plain path's (Q1 on a card computes them in its first
+    kernel).  scales = max(max |x * member|, 1e-30) / qmax for the
+    gradient and the hessian, an IEEE f32 division on every device (a
+    tensor divisor: ATen on a card multiplies by the reciprocal of a
+    Python number, which can differ by an ulp); seed the uint32 sum of
+    the bits of (grad * member)[:8] (pallas_histogram.py:206-216)."""
     qmax = float(2 ** (bits - 1) - 1)
     gm = grad * member
     hm = hess * member
     mags = torch.stack([gm.abs().max(), hm.abs().max()])
-    scales = torch.clamp(mags, min=1e-30) / qmax
+    scales = torch.clamp(mags, min=1e-30) / torch.full_like(mags, qmax)
     bits8 = gm[:8].contiguous().view(torch.int32).to(torch.int64) & _MASK32
     return scales, (bits8.sum() & _MASK32).reshape(1)
 
@@ -222,12 +225,13 @@ def quantize_pack(grad: torch.Tensor, hess: torch.Tensor,
     kernels, bit for bit the JAX package's quantize_pack_channels(grad,
     hess, member, bits=bits) on the same inputs.  Pad and out-of-bag rows
     (member 0) quantize to zero.  ``clips`` counts the values quantized to
-    +-qmax (the JAX growers' quant_clips).  On a card, the scales and seed
-    come from torch reductions and the rest is one kernel launch; nothing
-    is read on the host."""
+    +-qmax (the JAX growers' quant_clips).  On a card: two kernel launches
+    (the scales, seed and keys, then the stream) and no other operation;
+    ``scales`` and ``clips`` are views of one parameter block the kernels
+    write, and nothing is read on the host."""
     bits = check_packed_acc_bits(bits)
-    scales, seed = quantize_inputs(grad, hess, member, bits)
     if _device_kind(grad) == "cpu":
+        scales, seed = quantize_inputs(grad, hess, member, bits)
         w2, clips = quantize_pack_plain(grad, hess, member, scales, seed,
                                         bits)
         return w2, scales, clips.reshape(())
@@ -235,16 +239,31 @@ def quantize_pack(grad: torch.Tensor, hess: torch.Tensor,
     n = grad.shape[0]
     _check_cuda(dev, grad=(grad, torch.float32), hess=(hess, torch.float32),
                 member=(member, torch.float32))
-    if grad.dim() != 1 or hess.shape != (n,) or member.shape != (n,):
-        raise ValueError("grad, hess and member must be [N]")
+    if grad.dim() != 1 or hess.shape != (n,) or member.shape != (n,) \
+            or n == 0:
+        raise ValueError("grad, hess and member must be [N], N > 0")
     w2 = torch.empty((2, n), dtype=torch.int32, device=dev)
-    clips = torch.zeros(1, dtype=torch.int32, device=dev)
+    params = torch.empty(8, dtype=torch.int32, device=dev)
     rc = kernels.library().lgbt_quantize_pack(
-        grad.data_ptr(), hess.data_ptr(), member.data_ptr(), n,
-        scales.data_ptr(), seed.data_ptr(), bits, w2.data_ptr(),
-        clips.data_ptr(), kernels.stream_ptr(dev))
+        grad.data_ptr(), hess.data_ptr(), member.data_ptr(), n, bits,
+        _quant_scratch(dev).data_ptr(), params.data_ptr(), w2.data_ptr(),
+        kernels.stream_ptr(dev))
     kernels.check_launch("quantize_pack", rc)
-    return w2, scales, clips.reshape(())
+    return w2, params[:2].view(torch.float32), params[6]
+
+
+# Q1's persistent scratch a device (csrc/quantize.cu: two maxima and an
+# arrival counter), zeroed once; each call leaves it zero
+_QUANT_SCRATCH = {}
+
+
+def _quant_scratch(device: torch.device) -> torch.Tensor:
+    key = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if key not in _QUANT_SCRATCH:
+        _QUANT_SCRATCH[key] = torch.zeros(4, dtype=torch.int32,
+                                          device=device)
+    return _QUANT_SCRATCH[key]
 
 
 def unpack_hist_packed(out: torch.Tensor, scales: torch.Tensor

@@ -105,9 +105,9 @@ _SIGNATURES = {
                                 _LL, _P, _P, _P, _I, _I, _P],
     "lgbt_frontier_tiling": [_I, _I, _I, _I, _I, _I, _I, _P],
     "lgbt_segment_tiling": [_I, _I, _I, _I, _P],
-    "lgbt_quantize_pack": [_P, _P, _P, _LL, _P, _P, _I, _P, _P, _P],
-    "lgbt_route_trees": [_P, _I, _LL, _LL] + [_P] * 9 + [_I] * 4
-    + [_P, _P, _P, _P, _I, _P, _I, _P],
+    "lgbt_quantize_pack": [_P, _P, _P, _LL, _I, _P, _P, _P, _P],
+    "lgbt_route_trees": [_P, _I, _I, _LL, _LL, _P, _I, _P, _P, _I, _I, _I,
+                         _I, _I, _P, _I, _P],
 }
 
 

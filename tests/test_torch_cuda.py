@@ -33,7 +33,12 @@ plain versions; int32 planes exact when every row of 20M carries the
 largest value into one bin; growers fed the same gradients = the CPU's
 trees; packed_acc boosters (segment fused and unfused, the frontier's
 three tiers, 3-class) launch only the ``_packed_acc`` histogram kernels,
-their first iteration = the CPU's splits.
+their first iteration = the CPU's splits.  P1's node records in both of
+its modes (a tile of u8 bins in shared memory, bins read in place: wide
+matrices and i16 bins) on u8, i16, 4-bit and EFB bins with C = 5, a
+stack of several stages and an in-place chunk; Q1 at every width, at a
+row count the vector width divides and one it does not, with an
+all-zero member and non-finite gradients, two kernels a call.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips where
 ``torch.cuda.is_available()`` is false.  The file imports neither JAX nor
@@ -1793,10 +1798,10 @@ def test_route_trees_equals_plain(dev, bins_of):
         assert bool((cat[:60] == -1).all()) and zero >= 0
         assert bool((cat[60:70] == zero).all())
     trees = bst.gbdt.models
-    stack = TreeStack(trees, [i % 3 for i in range(len(trees))],
-                      ds.num_used_features, dev)
     nb, db = bst.gbdt.fmeta.num_bin.to(dev), bst.gbdt.fmeta.default_bin.to(
         dev)
+    stack = TreeStack(trees, [i % 3 for i in range(len(trees))],
+                      ds.num_used_features, dev, tp.route_tables(nb, db))
     n = bins.shape[1] - 3     # fewer rows than the matrix's stride
     start = torch.randn((3, n), dtype=torch.float64, device=dev)
     want = tp.route_trees_plain(bins, stack, nb, db, start.clone())
@@ -2080,10 +2085,10 @@ def test_route_trees_with_group_tables_equals_plain(dev):
     ds = g.train_set
     assert g.fmeta.feat_group is not None
     bins = torch.from_numpy(ds.bins_t).to(dev)
-    stack = TreeStack(g.models, [0] * len(g.models), ds.num_used_features,
-                      dev)
     tables = [t.to(dev) for t in (g.fmeta.num_bin, g.fmeta.default_bin,
                                   g.fmeta.feat_group, g.fmeta.feat_offset)]
+    stack = TreeStack(g.models, [0] * len(g.models), ds.num_used_features,
+                      dev, tp.route_tables(*tables))
     start = torch.zeros((1, ds.num_data), dtype=torch.float64, device=dev)
     want = tp.route_trees_plain(bins, stack, tables[0], tables[1],
                                 start.clone(), *tables[2:])
@@ -2334,11 +2339,11 @@ def test_route_trees_on_packed_bins_equals_unpacked(dev, bundled):
     g = bst.gbdt
     ds = g.train_set
     assert g.packed4 and (g.fmeta.feat_group is not None) == bundled
-    stack = TreeStack(g.models, [0] * len(g.models), ds.num_used_features,
-                      dev)
     tables = [None if t is None else t.to(dev) for t in (
         g.fmeta.num_bin, g.fmeta.default_bin, g.fmeta.feat_group,
         g.fmeta.feat_offset)]
+    stack = TreeStack(g.models, [0] * len(g.models), ds.num_used_features,
+                      dev, tp.route_tables(*tables))
     unpacked = torch.from_numpy(ds.bins_t).to(dev)
     packed = torch.from_numpy(th.pack_bins_4bit(ds.bins_t)).to(dev)
     start = torch.zeros((1, ds.num_data), dtype=torch.float64, device=dev)
@@ -2722,3 +2727,206 @@ def test_packed_acc_boosters_on_card_equal_cpu(dev, case):
     assert out["cuda"].grower.last_stats["quant_clips"] >= 0
     assert _same_splits(out["cuda"].models[:C], out["cpu"].models[:C]) >= 20
     np.testing.assert_allclose(preds["cuda"], preds["cpu"], atol=0.12)
+
+
+# ------------------------------------------ P1's node records and modes
+def _random_tree(rng, leaves, num_bin, cat_features=(), chain=False):
+    """A tree of ``leaves`` leaves in LightGBM's numbering, random splits
+    (thresholds inside each feature's bins, missing types, default
+    directions, bitsets on ``cat_features``); ``chain``: each split takes
+    the newest leaf at threshold 0, so rows that never hold bin 0 walk
+    all ``leaves - 1`` steps."""
+    from lightgbm_tpu_torch.models.tree import Tree
+    t = Tree(leaves)
+    t.leaf_value = rng.normal(size=max(leaves, 1))
+    hang = {0: (-1, 0)}
+    for i in range(leaves - 1):
+        leaf = i if chain else int(rng.randint(0, i + 1))
+        parent, side = hang[leaf]
+        if parent >= 0:
+            (t.left_child if side == 0 else t.right_child)[parent] = i
+        t.left_child[i], t.right_child[i] = ~leaf, ~(i + 1)
+        hang[leaf], hang[i + 1] = (i, 0), (i, 1)
+        f = int(rng.randint(0, len(num_bin)))
+        t.split_feature_inner[i] = f
+        if f in cat_features and not chain:
+            t.decision_type[i] = 1
+            t.threshold_in_bin[i] = len(t.cat_threshold_inner)
+            t.cat_threshold_inner.append(rng.randint(
+                0, 2**32, size=8, dtype=np.uint64).astype(np.uint32))
+        elif chain:
+            t.threshold_in_bin[i] = 0
+        else:
+            t.decision_type[i] = (int(rng.randint(0, 3)) << 2) | (
+                2 * int(rng.randint(0, 2)))
+            t.threshold_in_bin[i] = int(rng.randint(0, num_bin[f]))
+    return t
+
+
+# 5 classes, interleaved: single leaves, 255 leaves, a chain of 100 (99
+# steps, the stack's max_depth + 1 bound of the plain route is 100), a tree
+# larger than a stage (read in place); about 60 KB of records and leaves,
+# four stages
+P1_LEAVES = (15, 1, 255, 31, 7, 255, 3, 63, 255, 1200, 2, 100)
+P1_CHAIN = 11
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,mode", [
+    ("u8", "tiled"), ("u8", "direct"), ("i16", "direct"),
+    ("i16", "direct_wide"), ("packed4", "tiled"), ("packed4", "direct"),
+    ("efb", "tiled"), ("efb", "direct")])
+def test_route_trees_modes_equal_plain(dev, kind, mode):
+    """P1 = its plain version bit for bit in the tiled mode (a row tile of
+    u8 bins in shared memory) and the direct mode (bins read in place,
+    where the matrix's columns are too many for a tile, and i16 bins: the
+    shapes pick it), on u8, i16 (with the -1 sentinel), 4-bit packed and
+    EFB-bundled bins, at
+    5003 rows (not a multiple of a tile or of the rows a thread) of a
+    matrix of 5100 (stride > n), C = 5 with interleaved classes and a
+    stack of four stages and an in-place chunk; one launch a call."""
+    from lightgbm_tpu_torch.models.device_predict import TreeStack
+    from lightgbm_tpu_torch.ops import predict as tp
+    rng = np.random.RandomState(11)
+    n, S, F, C = 5003, 5100, 24, 5
+    packed4 = kind == "packed4"
+    num_bin = rng.randint(2, 17 if packed4 else 64, size=F)
+    if kind == "efb":
+        num_bin[12:] = rng.randint(2, 40, size=F - 12)   # 6 a column
+    cat = () if packed4 else (3, 9)
+    trees = [_random_tree(rng, L, num_bin, cat, chain=i == P1_CHAIN)
+             for i, L in enumerate(P1_LEAVES)]
+    default_bin = np.array([int(rng.randint(0, b)) for b in num_bin])
+    # the direct mode: the features' columns spread over a matrix whose
+    # tile would not fit; else the features own columns 0..F-1 (EFB: the
+    # last 12 share two columns at offsets)
+    wide = mode == "direct_wide" or (mode == "direct" and kind != "i16")
+    G = 7000 if wide else F
+    group = rng.choice(G, F, replace=False) if wide else np.arange(F)
+    offset = np.zeros(F, dtype=np.int64)
+    if kind == "efb":
+        for j, g in enumerate(range(12, F)):
+            group[g] = group[12 + j % 2]
+        for c in set(group[12:]):
+            at = 1
+            for j in np.nonzero(group == c)[0]:
+                offset[j], at = at, at + num_bin[j]
+    col_bins = np.full(G, 2)
+    for j in range(F):
+        col_bins[group[j]] = max(col_bins[group[j]],
+                                 offset[j] + num_bin[j] + (kind == "efb"))
+    bins = (rng.rand(G, S) * col_bins[:, None]).astype(np.int64)
+    if kind == "i16":
+        bins[:, rng.rand(S) < 0.1] = -1
+        bins = torch.from_numpy(bins.astype(np.int16))
+    elif packed4:
+        bins = torch.from_numpy(th.pack_bins_4bit(bins.astype(np.uint8)))
+    else:
+        bins = torch.from_numpy(bins.astype(np.uint8))
+    bins = bins.to(dev)
+    assert tp.route_plan(bins.shape[0], bins.element_size())[1] == (
+        mode == "tiled")
+    tables = tp.route_tables(num_bin, default_bin, group, offset)
+    dtab = [torch.from_numpy(a).int().to(dev) for a in tables]
+    stack = TreeStack(trees, [i % C for i in range(len(trees))], F, dev,
+                      tables)
+    buf, layout = stack.records(F)
+    assert layout.num_chunks >= 4
+    start = torch.randn((C, n), dtype=torch.float64, device=dev)
+    want = tp.route_trees_plain(bins, stack, dtab[0], dtab[1],
+                                start.clone(), dtab[2], dtab[3], packed4)
+    kernels.reset_launches()
+    got = tp.route_trees(bins, stack, dtab[0], dtab[1], start.clone(),
+                         dtab[2], dtab[3], packed4)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[kernels.variant("route_trees", packed4)] == 1
+    assert torch.equal(got, want)
+    assert not torch.equal(got, start)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", list(range(2, 16)))
+def test_quantize_pack_every_width_equals_plain(dev, bits):
+    """Q1 at every width = its plain version bit for bit (stream, scales,
+    clips), at a row count that is a multiple of the vector width (even
+    widths: 16-byte loads and stores) and one that is not (odd widths),
+    with gradients of both signs tied at the largest magnitude."""
+    n = 1_000_004 if bits % 2 == 0 else 1_000_003
+    gen = torch.Generator(device=dev).manual_seed(100 + bits)
+    grad = torch.randn(n, generator=gen, device=dev)
+    hess = torch.rand(n, generator=gen, device=dev) * 0.25
+    member = (torch.rand(n, generator=gen, device=dev) > 0.3).float()
+    grad[[7, 500_001, n - 1]] = torch.tensor([9.5, -9.5, 9.5], device=dev)
+    hess[[3, n - 2]] = 0.75
+    member[[7, 500_001, n - 1, 3, n - 2]] = 1.0
+    grad[11], member[11] = 50.0, 0.0          # out of the bag: not the max
+    kernels.reset_launches()
+    w2, scales, clips = th.quantize_pack(grad, hess, member, bits)
+    sc, seed = th.quantize_inputs(grad, hess, member, bits)
+    want, want_clips = th.quantize_pack_plain(grad, hess, member, sc, seed,
+                                              bits)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["quantize_pack"] == 1
+    qmax = 2 ** (bits - 1) - 1
+    assert float(scales[0]) == np.float32(np.float32(9.5) / np.float32(qmax))
+    assert torch.equal(w2, want) and torch.equal(scales, sc)
+    assert int(clips) == int(want_clips) >= 3
+
+
+@pytest.mark.cuda
+def test_quantize_pack_zero_member_and_nonfinite_scales(dev):
+    """An all-zero member gives the scales' 1e-30 floor and a zero stream
+    (= the plain version); an inf gradient and a NaN hessian give
+    non-finite scales exactly where the plain version does."""
+    n = 100_003
+    gen = torch.Generator(device=dev).manual_seed(3)
+    grad = torch.randn(n, generator=gen, device=dev)
+    hess = torch.rand(n, generator=gen, device=dev)
+    zero = torch.zeros(n, device=dev)
+    w2, scales, clips = th.quantize_pack(grad, hess, zero, 8)
+    sc, seed = th.quantize_inputs(grad, hess, zero, 8)
+    want, _ = th.quantize_pack_plain(grad, hess, zero, sc, seed, 8)
+    assert torch.equal(w2, want) and torch.equal(scales, sc)
+    assert float(scales[0]) == np.float32(np.float32(1e-30) / np.float32(127))
+    assert int(clips) == 0 and not w2[0].any()
+    one = torch.ones(n, device=dev)
+    for g_bad, h_bad in ((float("inf"), None), (None, float("nan")),
+                         (float("-inf"), float("nan"))):
+        g, h = grad.clone(), hess.clone()
+        if g_bad is not None:
+            g[n // 2] = g_bad
+        if h_bad is not None:
+            h[17] = h_bad
+        _, scales, _ = th.quantize_pack(g, h, one, 8)
+        sc, _ = th.quantize_inputs(g, h, one, 8)
+        assert torch.equal(torch.isfinite(scales), torch.isfinite(sc))
+        assert torch.equal(torch.isnan(scales), torch.isnan(sc))
+        assert not bool(torch.isfinite(scales).all())
+
+
+@pytest.mark.cuda
+def test_quantize_pack_is_two_kernels_a_call(dev):
+    """Q1 puts two kernels and no copy or memset on the stream a call
+    (chip_smoke.device_ops_per_call, after a warm-up call); the scratch it
+    shares across calls is left zero, so calls back to back at other
+    sizes give the plain version's bits."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), os.pardir))
+    import chip_smoke
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for n in (4_000_000, 123, 1):
+        grad = torch.randn(n, generator=gen, device=dev)
+        hess = torch.rand(n, generator=gen, device=dev)
+        member = torch.ones(n, device=dev)
+        ops = chip_smoke.device_ops_per_call(
+            lambda: th.quantize_pack(grad, hess, member))
+        if ops is not None:
+            assert (ops["kernel"], ops["memcpy"], ops["memset"]) == (2, 0, 0)
+        w2, scales, clips = th.quantize_pack(grad, hess, member)
+        sc, seed = th.quantize_inputs(grad, hess, member, 8)
+        want, want_clips = th.quantize_pack_plain(grad, hess, member, sc,
+                                                  seed, 8)
+        assert torch.equal(w2, want) and torch.equal(scales, sc)
+        assert int(clips) == int(want_clips)
+    assert not th._QUANT_SCRATCH[torch.cuda.current_device()].any()

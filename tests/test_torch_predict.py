@@ -32,6 +32,17 @@ from lightgbm_tpu_torch.models.device_predict import (TreeStack, bin_rows,
                                                       stack_trees_host)
 from lightgbm_tpu_torch.ops.predict import route_leaves_plain
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch intra-op thread for this module's tests: the CPU tests
+    share the cores with other pytest workers, and torch's parallel
+    regions on oversubscribed cores slow them many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 N, NF, CAT = 2000, 6, 5
 BASE = dict(num_leaves=15, learning_rate=0.3, verbosity=-1,
             min_data_per_group=5, cat_smooth=1.0)
