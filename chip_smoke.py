@@ -6,7 +6,7 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``lightgbm_tpu_torch/csrc`` and runs
-twenty-six phases; any failure exits non-zero:
+twenty-seven phases; any failure exits non-zero:
 
   1. build    nvcc for sm_90a; prints ptxas's register/shared-memory lines
               and the card's name and power limit, and for the K1/K3,
@@ -160,7 +160,7 @@ twenty-six phases; any failure exits non-zero:
               launches.
  19. metadata parity  weighted L1 with init scores at 200k rows,
               lambdarank at 100k documents and weighted multiclassova at
-              200k rows (31 leaves, 3 iterations) on the card and on the
+              200k rows (31 leaves, 2 iterations) on the card and on the
               CPU: the same splits at gain > 1e-2 up to a near-tie (gains
               within 1e-4), raw predictions within 1e-3; a weighted and an
               unweighted booster updated in turns on the card grow their
@@ -189,8 +189,10 @@ twenty-six phases; any failure exits non-zero:
               start) with by-node masks and without.
  22. modes parity  200k rows, 31 leaves, on the card and on the CPU:
               bagging + feature_fraction + bynode (fused, unfused,
-              frontier width 4 tiers "off" and "k1"), GOSS (lr 0.5), DART,
-              RF and multiclass with bagging (K5): the same splits up to a
+              frontier width 4 tiers "off" and "k1"), RF and multiclass
+              with bagging (K5), 2 iterations each, GOSS (lr 0.5: two
+              warm-up iterations, one selection) and DART, 3 each: the
+              same splits up to a
               near-tie, raw predictions within 1e-3 and the same bag (GOSS:
               within 1e-4 of the rows) where no near-tie was met; the
               bagged model's refit on both devices; threefry bits and
@@ -269,6 +271,23 @@ twenty-six phases; any failure exits non-zero:
               multiclass_cat rows 5-class training (K5 roots on the f32
               channels, the splits on the stream, holdout multi_logloss
               within 1% of the f32 run's).
+ 27. split features  on phase 3's HIGGS bins, 3 iterations each of (a)
+              the segment grower and (b) the frontier grower (K = 16)
+              with monotone constraints of both signs on 9 features,
+              feature_contri, cegb_penalty_split and
+              cegb_penalty_feature_coupled, and (c) the fused grower,
+              reached as the JAX package reaches it (auto with a forced
+              plan of three levels, written to a temp directory), with
+              CEGB-lazy and the constraints; each beside the same run
+              without the features, in turns (median iter_seconds, peak
+              device memory, holdout AUC with no gate): predictions
+              monotone over 1000-value sweeps of every constrained
+              feature, at least one split off the run without the
+              features; (c) K5 once for each tree's root and once a split,
+              the plan heading every tree, the share of its iteration
+              CEGB-lazy's bookkeeping takes (a split's timed),
+              and K5 as its leaf histogram against its plain version,
+              timed; at 200k rows card = CPU for (a), (b) and (c).
 
 Launch counts: a kernel captured into a CUDA graph counts at each replay
 (ops/kernels.py count_replay), when the card runs it.
@@ -289,7 +308,9 @@ the path whose P1 launches the kernels line reports), an
 own, named with "_packed4"), a ``{"packed_acc": ...}`` line (phase 26;
 its runs are the "packed_acc_*" and "leaf_histogram*" paths, each
 kernel's packed-accumulator mode a row named with "_packed_acc", and Q1
-the row "quantize_pack"), one
+the row "quantize_pack"), a ``{"split_features": ...}`` line (phase 27;
+its runs are the "split_features_*" paths, and K5's row holds its
+fused-grower measurement under ``"fused_leaf"``), one
 ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Without a
 card, or run from a directory that does not hold the package, it exits
@@ -383,6 +404,8 @@ SESSION_ROUNDS = 40
 SESSION_STOP = 2
 # cv rounds at 200k rows (the CPU's share of the session phase's wall)
 SESSION_PARITY_CV_ROUNDS = 2
+# phase 19's card = CPU runs (cut from 3 in PR 16 to make room for phase 27)
+META_PARITY_ITERS = 2
 FRONTIER_TIER_KERNEL = {"off": "histogram_frontier",
                         "k1": "histogram_frontier_routed",
                         "fusedk": "histogram_frontier_fusedk"}
@@ -3089,16 +3112,23 @@ def lambdarank_phase():
 
 
 # --------------------------------------------------------------- phase 19
-def _same_splits_near_tie(a_trees, b_trees, tag):
+def _same_splits_near_tie(a_trees, b_trees, tag, forced=0):
     """Card = CPU: the same split feature and bin at gain > 1e-2, up to a
     near-tie (two gains within 1e-4: the rest of that model is not
-    compared, its scores differ from there).  Returns (splits compared,
-    near-ties met)."""
+    compared, its scores differ from there).  The first ``forced`` splits
+    of each tree (a forced plan's, whatever their gains) must be the same.
+    Returns (splits compared, near-ties met)."""
     require(len(a_trees) == len(b_trees), f"{tag}: {len(a_trees)} against "
             f"{len(b_trees)} trees")
     compared = 0
     for i, (a, b) in enumerate(zip(a_trees, b_trees)):
         for k in range(min(a.num_leaves, b.num_leaves) - 1):
+            if k < forced:
+                require((a.split_feature[k], a.threshold_in_bin[k]) == (
+                    b.split_feature[k], b.threshold_in_bin[k]),
+                    f"{tag}: tree {i} forced split {k} differs")
+                compared += 1
+                continue
             ga, gb = float(a.split_gain[k]), float(b.split_gain[k])
             if ga <= 1e-2 or gb <= 1e-2:
                 break
@@ -3147,7 +3177,7 @@ def meta_parity_phase():
             t0 = time.perf_counter()
             p = dict(params, num_leaves=31, verbosity=-1, device_type=dev)
             bst = lt.Booster(p, ds)
-            for _ in range(3):
+            for _ in range(META_PARITY_ITERS):
                 bst.update()
             out[dev] = bst
             times[dev] = time.perf_counter() - t0
@@ -3498,26 +3528,27 @@ def modes_parity_phase():
     Xm, ym = multiclass_cat(PARITY_ROWS, 33)
     binary = dict(objective="binary")
     cases = {
-        "bag_ff_bynode_fused": ("b", dict(binary, **MODES_PARITY_SEG), 3,
+        "bag_ff_bynode_fused": ("b", dict(binary, **MODES_PARITY_SEG), 2,
                                 {}),
-        "bag_ff_bynode_unfused": ("b", dict(binary, **MODES_PARITY_SEG), 3,
+        "bag_ff_bynode_unfused": ("b", dict(binary, **MODES_PARITY_SEG), 2,
                                   {"fused_route": False}),
         "bag_ff_bynode_frontier_off": (
             "b", dict(binary, tpu_tree_impl="frontier", tpu_frontier_width=4,
-                      **MODES_PARITY_SEG), 3, {"frontier_tier": "off"}),
+                      **MODES_PARITY_SEG), 2, {"frontier_tier": "off"}),
         "bag_ff_bynode_frontier_k1": (
             "b", dict(binary, tpu_tree_impl="frontier", tpu_frontier_width=4,
-                      **MODES_PARITY_SEG), 3, {"frontier_tier": "k1"}),
+                      **MODES_PARITY_SEG), 2, {"frontier_tier": "k1"}),
+        # two warm-up iterations at lr 0.5, then one of GOSS's selection
         "goss": ("g", dict(objective="regression", boosting="goss",
-                           learning_rate=0.5), 5, {}),
+                           learning_rate=0.5), 3, {}),
         "dart": ("b", dict(binary, boosting="dart", drop_rate=0.5,
-                           skip_drop=0.0), 5, {}),
+                           skip_drop=0.0), 3, {}),
         "rf": ("b", dict(binary, boosting="rf", bagging_fraction=0.632,
-                         bagging_freq=1), 3, {}),
+                         bagging_freq=1), 2, {}),
         "multiclass_bagging": ("m", dict(objective="multiclass",
                                          num_class=MC_CLASSES,
                                          bagging_fraction=0.7,
-                                         bagging_freq=1), 3, {}),
+                                         bagging_freq=1), 2, {}),
     }
     data = {"b": (Xb, yb, {}), "g": (Xg, yg, {}),
             "m": (Xm, ym, {"categorical_feature": MC_CAT})}
@@ -5530,6 +5561,273 @@ def packed_acc_mc_phase(ds, Xh, yh):
             f"packed_acc multiclass_cat: K5 roots or Q1 launches {run}")
     return {"packed_acc_multiclass_cat": run}, rec["multiclass_cat"]
 
+# ---------------------------------------------------------------- phase 27
+SF_ITERS = 3
+SF_PARITY_ITERS = 2
+SF_SWEEP_ROWS = 1000
+# monotone constraints on 9 of the 28 features, both signs: higgs_like's
+# coefficients give +1 to X0 (2 X0) and X1 (+X1); X2-X4 enter without a
+# sign (-X2 X3, sin 3 X4); the noise columns 5-11 alternate -1, +1
+SF_MONOTONE = [1, 1, 0, 0, 0, -1, 1, -1, 1, -1, 1, -1] + [0] * 16
+SF_CONTRI = [1.0, 0.9, 1.0, 0.7, 0.8] + [0.6, 1.0] * 11 + [1.0]
+# runs (a) and (b): every split feature of the segment and frontier growers
+SF_FEATURES = dict(monotone_constraints=SF_MONOTONE, feature_contri=SF_CONTRI,
+                   cegb_penalty_split=2e-6,
+                   cegb_penalty_feature_coupled=[5.0] * 5 + [20.0] * 23)
+# run (c): a forced plan of three levels, CEGB-lazy and the constraints,
+# reached as the JAX package reaches its fused grower (auto + a plan)
+SF_PLAN = {"feature": 0, "threshold": 0.0,
+           "left": {"feature": 1, "threshold": 0.0,
+                    "left": {"feature": 2, "threshold": 0.0},
+                    "right": {"feature": 4, "threshold": 0.0}},
+           "right": {"feature": 1, "threshold": 0.5,
+                     "left": {"feature": 3, "threshold": 0.0},
+                     "right": {"feature": 2, "threshold": -0.5}}}
+SF_LAZY = [1e-3] * 5 + [5e-3] * 23
+# (name, the run without the features, the features' parameters); the
+# two of a run go in turns, without then with
+SF_RUNS = (
+    ("segment", {}, SF_FEATURES),
+    ("frontier", {"tpu_tree_impl": "frontier", "tpu_frontier_width": 16},
+     SF_FEATURES),
+    ("fused", {"tpu_tree_impl": "fused"},
+     {"monotone_constraints": SF_MONOTONE,
+      "cegb_penalty_feature_lazy": SF_LAZY}))
+SF_GROWER = {"segment": "SegmentGrower", "frontier": "FrontierGrower",
+             "fused": "FusedGrower"}
+
+
+def monotone_sweep_violation(bst, X, monotone, rows=SF_SWEEP_ROWS):
+    """The largest step against its constraint of ``bst``'s raw prediction
+    over a sweep of ``rows`` values of each constrained feature (its 0.1%
+    to 99.9% quantiles), the other features at X[0]'s values; 0.0 when
+    every sweep is monotone."""
+    import numpy as np
+    worst = 0.0
+    for f, sign in enumerate(monotone):
+        if sign == 0:
+            continue
+        lo, hi = np.quantile(X[:100_000, f], [0.001, 0.999])
+        Xs = np.repeat(X[:1].astype(np.float64), rows, axis=0)
+        Xs[:, f] = np.linspace(lo, hi, rows)
+        pred = bst.predict(Xs, raw_score=True)
+        worst = max(worst, float(np.max(-sign * np.diff(pred))))
+    return worst
+
+
+def seen_share_ms(gb, splits):
+    """CEGB-lazy's bookkeeping a split on the fused grower at this booster's
+    shape, timed with CUDA events (FusedGrower._mark_seen: the children's
+    path features, and the left child's rows counted from the routed leaf
+    ids), on random leaf ids.  Returns (ms a split, ms a tree = splits x
+    that)."""
+    import torch
+    g = gb.grower
+    F, npad = gb.fmeta.num_bin.shape[0], gb.bins.shape[1]
+    L = g.p.num_leaves
+    g._path = torch.zeros((L, F), dtype=torch.bool, device=gb.device)
+    g._leaf_rows = torch.full((L,), npad, dtype=torch.int64,
+                              device=gb.device)
+    lid = torch.randint(0, 2, (npad,), dtype=torch.int32, device=gb.device)
+    ms = time_ms(lambda i: g._mark_seen(lid, 0, 1, i % F), 20)
+    g._path = g._leaf_rows = None
+    return ms, ms * splits
+
+
+def fused_k5_measure(gb, reps=20):
+    """K5 as the fused grower launches it on booster ``gb``'s bins: one
+    channel set whose member channel holds a leaf's rows (every other row:
+    the most a smaller child holds), against its plain version (counts
+    exact, sums in tolerance), timed alone and as ``leaf_histogram`` calls
+    it (the channels packed, then K5), beside its bound by (G + 10) B a
+    row and one index_add_.  Returns the measurement."""
+    import torch
+    from lightgbm_tpu_torch.ops import histogram as th
+    grad, hess, member = acc_gradients(gb)
+    bins, B = gb.bins, gb.num_bins
+    W = bins.shape[1]
+    F = th.logical_columns(bins, gb.packed4)
+    leaf = member * (torch.arange(W, device=bins.device) % 2 == 0).float()
+    w8 = th.pack_channels(grad, hess, leaf)
+    scales = th.class_scales(w8)
+    got = th.histogram_all(bins, w8, B, scales)[0]
+    want = th.histogram_all_plain(bins, w8, B)[0]
+    abs_sums = th.histogram_all_plain(bins, abs_channel_sets(w8), B)[0]
+    t = {"max_abs_err": check_hist("histogram_all fused leaf", got, want,
+                                   abs_sums)}
+    t["ms"] = time_ms(lambda i: th.histogram_all(bins, w8, B, scales), reps)
+    t["leaf_histogram_ms"] = time_ms(lambda i: th.leaf_histogram(
+        bins, grad, hess, leaf, B), reps)
+    t["plain_ms"] = time_ms(lambda i: th.histogram_all_plain(bins, w8, B), 1)
+    t["bound_ms"], t["bound_by"] = bound_ms(W * (F + 10) + F * B * 12,
+                                            W * F * 3)
+    t["library_ms"] = library_hist_ms(bins, [w8], torch.arange(
+        W, device=bins.device), B, reps)
+    t["shape"] = f"{W} rows x {F} features x 1 set, {B} bins"
+    log(f"histogram_all as the fused grower's leaf histogram: {t['ms']:.4f} "
+        f"ms (leaf_histogram {t['leaf_histogram_ms']:.4f} ms), bound "
+        f"{t['bound_ms']:.4f} ms ({t['bound_by']}), plain "
+        f"{t['plain_ms']:.2f} ms, index_add_ {t['library_ms']:.3f} ms, max "
+        f"|diff| {t['max_abs_err']:.3g}")
+    return t
+
+
+def split_features_phase(ds, X, y, Xh, yh):
+    """Phase 27 at HIGGS (phase 3's binned rows, their raw X and y for
+    the card = CPU runs): runs (a) segment, (b) frontier K = 16 and (c)
+    fused (SF_RUNS), SF_ITERS iterations each beside the same run without
+    the features, in turns: iteration walls, peak device memory, holdout
+    AUC (no gate); each feature run monotone over SF_SWEEP_ROWS-value
+    sweeps of every constrained feature, at least one split off the run
+    without the features, its grower's kernels launched; the fused run K5
+    once for each tree's root and once a split, and the share of its
+    iteration CEGB-lazy's bookkeeping takes.  The constraints and gain
+    multipliers are a dataset's settings, set on a copy of phase 3's
+    dataset (the bins and their device copy shared).  Then at
+    PARITY_ROWS rows the three feature runs on the card and the CPU: the
+    same splits up to a near-tie.  Returns ({path: launches}, record)."""
+    import copy
+    import numpy as np
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import kernels
+    plan_dir = tempfile.mkdtemp(prefix="split_features_")
+    plan_path = os.path.join(plan_dir, "forced_splits.json")
+    with open(plan_path, "w") as fh:
+        json.dump(SF_PLAN, fh)
+    handle = copy.copy(ds._handle)
+    handle.set_feature_settings(SF_MONOTONE, SF_CONTRI)
+    feat_ds = lt.Dataset(handle)
+    va = {False: ds.create_valid(Xh, yh),
+          True: feat_ds.create_valid(Xh, yh)}
+    launches, rec = {}, {}
+    for name, base_extra, feat_extra in SF_RUNS:
+        r, split_sets = {}, {}
+        for with_features in (False, True):
+            params = dict(TRAIN_PARAMS, **(
+                dict(feat_extra, forcedsplits_filename=plan_path)
+                if with_features and name == "fused"
+                else feat_extra if with_features else base_extra))
+            if with_features and name == "frontier":
+                params.update(base_extra)
+            kernels.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            bst = lt.Booster(params, feat_ds if with_features else ds)
+            bst.add_valid(va[with_features], "holdout")
+            auc = []
+            for _ in range(SF_ITERS):
+                bst.update()
+                auc.append(bst.eval_valid()[0][2])
+            torch.cuda.synchronize()
+            gb = bst.gbdt
+            require(type(gb.grower).__name__ == SF_GROWER[name],
+                    f"split features {name}: grew with "
+                    f"{type(gb.grower).__name__}")
+            key = "features" if with_features else "plain"
+            r[key] = {"iter_seconds": list(gb.iter_seconds),
+                      "median_iter_s": float(np.median(gb.iter_seconds)),
+                      "peak_device_bytes": int(
+                          torch.cuda.max_memory_allocated()),
+                      "holdout_auc": auc,
+                      "leaves": [t.num_leaves for t in gb.models]}
+            split_sets[key] = [
+                list(zip(t.split_feature_inner[:t.num_leaves - 1].tolist(),
+                         t.threshold_in_bin[:t.num_leaves - 1].tolist()))
+                for t in gb.models]
+            if with_features:
+                run = dict(kernels.LAUNCHES)
+                r["launches"] = {k: v for k, v in run.items() if v}
+                worst = monotone_sweep_violation(bst, X, SF_MONOTONE)
+                r["monotone_worst_step"] = worst
+                require(worst <= 0.0, f"split features {name}: a sweep "
+                        f"steps {worst} against its constraint")
+                if name == "fused":
+                    nodes = sum(t.num_leaves for t in gb.models)
+                    forced = len(gb.grower.p.forced_plan)
+                    require(forced == 7 and all(
+                        s[:forced] == [(f, t) for _, f, t in
+                                       gb.grower.p.forced_plan]
+                        for s in split_sets[key]),
+                        f"split features fused: the plan {forced} splits "
+                        "do not head every tree")
+                    require(run["histogram_all"] == nodes,
+                            f"split features fused: {run['histogram_all']} "
+                            f"K5 launches for {nodes} roots and splits")
+                    splits = gb.grower.last_stats["splits"]
+                    ms, tree_ms = seen_share_ms(gb, splits)
+                    r["k5_launches_a_tree"] = nodes / len(gb.models)
+                    r["lazy_ms_a_split"] = ms
+                    r["lazy_share_of_iteration"] = tree_ms / (
+                        1e3 * r["features"]["median_iter_s"])
+                    r["k5"] = fused_k5_measure(gb)
+                else:
+                    kname = {"segment": "histogram_segment_routed_step",
+                             "frontier": "histogram_frontier"}[name]
+                    require(run[kname] > 0 and run["score_gather_add"] > 0,
+                            f"split features {name}: {kname} or K4 not "
+                            f"launched: {r['launches']}")
+                launches[f"split_features_{name}"] = run
+            del bst, gb
+            torch.cuda.empty_cache()
+        moved = sum(a != b for a, b in zip(split_sets["plain"],
+                                           split_sets["features"]))
+        require(moved > 0, f"split features {name}: every tree split as "
+                "without the features")
+        r["trees_changed"] = moved
+        f, p = r["features"], r["plain"]
+        log(f"split features {name}: median iteration "
+            f"{f['median_iter_s']:.4f} s (without {p['median_iter_s']:.4f} "
+            f"s), peak {f['peak_device_bytes'] / 1e9:.2f} GB (without "
+            f"{p['peak_device_bytes'] / 1e9:.2f} GB), holdout AUC "
+            f"{f['holdout_auc'][-1]:.5f} (without "
+            f"{p['holdout_auc'][-1]:.5f}), {moved} of {SF_ITERS} trees "
+            f"changed, worst sweep step {r['monotone_worst_step']}"
+            + (f", K5 {r['k5_launches_a_tree']:.1f} a tree, CEGB-lazy "
+               f"{r['lazy_ms_a_split']:.4f} ms a split "
+               f"({r['lazy_share_of_iteration']:.4f} of the iteration)"
+               if name == "fused" else ""))
+        rec[name] = r
+    del feat_ds, handle, va
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rec["card_cpu"] = split_features_parity(X[:PARITY_ROWS], y[:PARITY_ROWS],
+                                            plan_path)
+    rec["card_cpu"]["wall_s"] = time.perf_counter() - t0
+    return launches, rec
+
+
+def split_features_parity(X, y, plan_path):
+    """Phase 27's card = CPU: the three feature runs at 31 leaves, through
+    lt.Dataset (the settings from the parameters), SF_PARITY_ITERS
+    iterations on each device: the same splits up to a near-tie."""
+    import lightgbm_tpu_torch as lt
+    out = {}
+    for name, base_extra, feat_extra in SF_RUNS:
+        extra = dict(feat_extra)
+        if name == "fused":
+            extra["forcedsplits_filename"] = plan_path
+        if name == "frontier":
+            extra.update(base_extra)
+        trees = {}
+        for dev in ("cuda", "cpu"):
+            params = dict(TRAIN_PARAMS, num_leaves=31, device_type=dev,
+                          **extra)
+            bst = lt.train(params, lt.Dataset(X, y), SF_PARITY_ITERS)
+            require(type(bst.gbdt.grower).__name__ == SF_GROWER[name],
+                    f"split features parity {name} on {dev}: "
+                    f"{type(bst.gbdt.grower).__name__}")
+            trees[dev] = bst.gbdt.models
+            forced = len(bst.gbdt.grower.p.forced_plan)
+        n, ties = _same_splits_near_tie(trees["cuda"], trees["cpu"],
+                                        f"split features {name} card/CPU",
+                                        forced)
+        require(n >= 20, f"split features {name} card/CPU: {n} splits "
+                "compared")
+        out[name] = {"splits_compared": n, "near_ties": ties}
+        log(f"split features {name}: card = CPU at {X.shape[0]} rows on "
+            f"{n} splits (near ties {ties})")
+    return out
+
 
 def main() -> int:
     import numpy as np
@@ -5622,6 +5920,10 @@ def main() -> int:
     t_acc = time.perf_counter()
     acc_launches, packed_acc, acc_kernels = packed_acc_phase(ds, Xh, yh)
     t_acc = time.perf_counter() - t_acc
+    t0 = time.perf_counter()
+    sf_launches, split_features = split_features_phase(ds, X, y, Xh, yh)
+    split_features["phase_wall_s"] = time.perf_counter() - t0
+    log(f"split features: phase took {split_features['phase_wall_s']:.1f} s")
     del ds, X, y, Xh, yh
     torch.cuda.empty_cache()
 
@@ -5734,6 +6036,7 @@ def main() -> int:
              "expo": expo_launches, "sparse_at_scale": sparse_launches}
     paths.update({f"packed4_{k}": v for k, v in p4_launches.items()})
     paths.update(acc_launches)
+    paths.update(sf_launches)
     records = []
     for name in kernels.KERNEL_NAMES:
         if (name.endswith(kernels.PACKED_ACC_SUFFIX)
@@ -5816,6 +6119,8 @@ def main() -> int:
         rec.update(r)
         if name == "histogram_all":
             rec["higgs"] = results["histogram_all_higgs"]
+            # the fused grower's leaf histogram (phase 27)
+            rec["fused_leaf"] = split_features["fused"]["k5"]
         if name in ("histogram_segment", "histogram_segment_routed",
                     "histogram_segment_step", "histogram_segment_routed_step",
                     "route_window", "route_window_step"):
@@ -5858,6 +6163,7 @@ def main() -> int:
     log(json.dumps({"expo_onehot": expo}))
     log(json.dumps({"packed4": packed4}))
     log(json.dumps({"packed_acc": packed_acc}))
+    log(json.dumps({"split_features": split_features}))
     log(json.dumps({"kernels": records}))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(card)

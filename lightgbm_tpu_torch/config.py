@@ -6,8 +6,10 @@ one path — boosting (gbdt, goss, dart or rf, with bagging and feature
 fraction by tree and by node) with any of the JAX package's fifteen
 objectives (L2 regression the default, as there) or a caller's own
 gradients (objective "none", ``train(fobj=...)``), with the serial
-segment or frontier grower on dense data, numeric or categorical,
-weighted or not, with query groups and init scores — so the registry
+segment, frontier or fused grower on dense data, numeric or categorical,
+weighted or not, with query groups and init scores, and the split
+features (monotone constraints, feature_contri, forced splits, CEGB's
+penalties) — so the registry
 holds only the parameters that path honours.  A
 parameter of a feature the port does not have raises NotImplementedError
 unless it is given at the value that switches the feature off; an
@@ -18,7 +20,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
-from .utils.log import LightGBMError
+from .utils.log import LightGBMError, log_warning
 
 
 class _P:
@@ -125,6 +127,21 @@ _PARAMS: Dict[str, _P] = {
     "other_rate": _P(0.1),
     # Booster.refit's blend of old and new leaf values (models/refit.py)
     "refit_decay_rate": _P(0.9),
+    # split features (lightgbm_tpu/config.py:85-94): per-feature monotone
+    # constraints (-1, 0, +1) and gain multipliers, a JSON file of splits
+    # forced at the top of every tree, and cost-efficient gradient
+    # boosting's penalties (a split's cost per row, a feature's first use
+    # in the model, a feature's first use on each row)
+    "monotone_constraints": _P([], ["mc", "monotone_constraint"],
+                               ptype=list),
+    "feature_contri": _P([], ["feature_contrib", "fc", "fp",
+                              "feature_penalty"], ptype=list),
+    "forcedsplits_filename": _P("", ["fs", "forced_splits_filename",
+                                     "forced_splits_file", "forced_splits"]),
+    "cegb_tradeoff": _P(1.0),
+    "cegb_penalty_split": _P(0.0),
+    "cegb_penalty_feature_lazy": _P([], ptype=list),
+    "cegb_penalty_feature_coupled": _P([], ptype=list),
     # exclusive feature bundling (core/bundle.py): the grouping is
     # computed; a multi-feature group raises until its histogram expansion
     # is ported
@@ -146,10 +163,11 @@ _PARAMS: Dict[str, _P] = {
     # row block: the granularity of the growers' confinement intervals
     # (0 = DEFAULT_BLOCK_ROWS, capped at the row count)
     "tpu_row_chunk": _P(0),
-    # tree grower: "auto" (= "segment", as the JAX package grows on an
-    # accelerator), "segment" (strict best-first) or "frontier" (the
-    # top-K leaves a round); the JAX package's "fused" grower is not
-    # ported
+    # tree grower: "auto" (the segment grower, as the JAX package grows on
+    # an accelerator, or the fused grower where forced splits or CEGB-lazy
+    # need it: models/gbdt.py resolve_tree_impl), "segment" (strict
+    # best-first), "frontier" (the top-K leaves a round) or "fused" (a K5
+    # histogram a split over every row, models/grower.py FusedGrower)
     "tpu_tree_impl": _P("auto"),
     # frontier width K (0 = auto: models/gbdt.py _auto_frontier_k)
     "tpu_frontier_width": _P(0),
@@ -164,12 +182,6 @@ _OFF_VALUES: Dict[str, Any] = {
     "tree_learner": "serial",
     "num_machines": 1,
     "num_threads": 0,
-    "monotone_constraints": [],
-    "feature_contri": [],
-    "forcedsplits_filename": "",
-    "cegb_penalty_split": 0.0,
-    "cegb_penalty_feature_lazy": [],
-    "cegb_penalty_feature_coupled": [],
     "max_bin_by_feature": [],
     "tpu_double_precision": False,
     "gpu_use_dp": False,
@@ -181,9 +193,6 @@ _OFF_ALIASES = {
     "num_machine": "num_machines",
     "num_thread": "num_threads", "nthread": "num_threads",
     "nthreads": "num_threads", "n_jobs": "num_threads",
-    "mc": "monotone_constraints", "monotone_constraint": "monotone_constraints",
-    "feature_contrib": "feature_contri", "fc": "feature_contri",
-    "fp": "feature_contri", "feature_penalty": "feature_contri",
 }
 
 ALIAS_TABLE: Dict[str, str] = dict(_OFF_ALIASES)
@@ -199,8 +208,7 @@ PREDICT_PARAMS = ("predict_device", "predict_contrib", "pred_early_stop",
 # lightgbm_tpu/models/boosting_factory.py's names
 BOOSTING_TYPES = {"gbdt": "gbdt", "gbrt": "gbdt", "goss": "goss",
                   "dart": "dart", "rf": "rf", "random_forest": "rf"}
-TREE_IMPLS = {"auto": "segment", "segment": "segment",
-              "frontier": "frontier"}
+TREE_IMPLS = ("auto", "segment", "frontier", "fused")
 # lightgbm_tpu/config.py OBJECTIVE_ALIASES
 OBJECTIVE_ALIASES = {
     "regression": "regression", "regression_l2": "regression",
@@ -273,7 +281,7 @@ def _coerce(name: str, value: Any, ptype: type) -> Any:
         if isinstance(value, (list, tuple)):
             return list(value)
         if isinstance(value, str):
-            return [v.strip() for v in value.replace(";", ",").split(",")
+            return [_maybe_num(v) for v in value.replace(";", ",").split(",")
                     if v.strip()]
         return [value]
     if ptype is bool:
@@ -290,6 +298,18 @@ def _coerce(name: str, value: Any, ptype: type) -> Any:
     if ptype is float:
         return float(value)
     return str(value)
+
+
+def _maybe_num(s: str) -> Any:
+    """A list entry as an int or a float where it reads as one (the JAX
+    Config's _maybe_num), else the stripped string."""
+    s = s.strip()
+    for kind in (int, float):
+        try:
+            return kind(s)
+        except ValueError:
+            pass
+    return s
 
 
 def _is_off(name: str, value: Any) -> bool:
@@ -320,20 +340,30 @@ class Config:
         return cls(**merged)
 
     def update(self, params: Dict[str, Any]) -> None:
+        """Apply ``params``; ``raw`` keeps each under its canonical name,
+        an alias given later overriding an earlier value (the JAX
+        Config's rule, which the model text's parameter lines follow)."""
+        resolved: Dict[str, Any] = {}
         for k, v in params.items():
             name = resolve_alias(k)
+            if name in resolved and resolved[name] != v:
+                log_warning(f"{name} is set with {resolved[name]}, "
+                            f"will be overridden by {v}")
+            resolved[name] = v
+        for name, v in resolved.items():
             if name in _OFF_VALUES:
                 if not _is_off(name, v):
                     raise NotImplementedError(
-                        f"parameter {k}={v!r} is not supported by "
+                        f"parameter {name}={v!r} is not supported by "
                         f"lightgbm_tpu_torch (only {name}="
                         f"{_OFF_VALUES[name]!r})")
             elif name in _PARAMS:
                 setattr(self, name, _coerce(name, v, _PARAMS[name].ptype))
             else:
                 raise NotImplementedError(
-                    f"parameter {k!r} is not supported by lightgbm_tpu_torch")
-            self.raw[k] = v
+                    f"parameter {name!r} is not supported by "
+                    "lightgbm_tpu_torch")
+            self.raw[name] = v
         self._post_process()
 
     def _post_process(self) -> None:
@@ -381,16 +411,10 @@ class Config:
         if self.tpu_row_chunk < 0:
             raise LightGBMError("tpu_row_chunk must be >= 0")
         impl = str(self.tpu_tree_impl).strip().lower()
-        if impl == "fused":
-            raise NotImplementedError(
-                "tpu_tree_impl='fused' is not supported by lightgbm_tpu_torch "
-                "(only auto, segment and frontier)")
         if impl not in TREE_IMPLS:
             raise LightGBMError(f"tpu_tree_impl must be one of "
                                 f"{sorted(TREE_IMPLS)}, got {impl!r}")
-        # "auto" resolves to the grower it names, so the model text and
-        # the growers see one spelling
-        self.tpu_tree_impl = TREE_IMPLS[impl]
+        self.tpu_tree_impl = impl
         pd = str(self.predict_device).strip().lower() or "auto"
         if pd not in ("auto", "on", "off"):
             raise ValueError("predict_device must be one of auto, on, off "

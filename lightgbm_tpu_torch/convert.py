@@ -6,7 +6,8 @@ inputs:
   * ``dataset_from_arrays``: a binned dataset (the row-major ``binned``
     matrix of its columns, each BinMapper in its ``to_dict()`` form, the
     labels, the metadata: weights, query group sizes, init scores, and
-    the EFB groups of a bundled one, ``bundle.groups``) -> a port Dataset
+    the EFB groups of a bundled one, ``bundle.groups``, and its
+    ``monotone_constraints`` and ``feature_penalty``) -> a port Dataset
     over the same bins;
   * ``trees_from_arrays``: trained trees, each given as its numpy fields
     (``vars(tree)``) -> port Trees.
@@ -32,13 +33,17 @@ def dataset_from_arrays(binned: np.ndarray, bin_mappers: Sequence[Dict],
                         weights: Optional[np.ndarray] = None,
                         group: Optional[np.ndarray] = None,
                         init_score: Optional[np.ndarray] = None,
-                        bundle_groups: Optional[List[List[int]]] = None
+                        bundle_groups: Optional[List[List[int]]] = None,
+                        monotone_constraints: Optional[Sequence[int]] = None,
+                        feature_penalty: Optional[Sequence[float]] = None
                         ) -> Dataset:
     mappers = [BinMapper.from_dict(d) for d in bin_mappers]
     ds = TorchDataset.from_bins(np.asarray(binned).T, mappers, label,
                                 feature_names, weights=weights, group=group,
                                 init_score=init_score,
-                                bundle_groups=bundle_groups)
+                                bundle_groups=bundle_groups,
+                                monotone_constraints=monotone_constraints,
+                                feature_penalty=feature_penalty)
     return Dataset(ds)
 
 

@@ -13,7 +13,12 @@ offset.  A scipy sparse matrix is binned from its per-column nonzeros and
 written column by column (``from_scipy``), never densified.  Categorical
 columns are named at construction (``categorical_features``) and binned
 by category (core/binning.py).  The metadata (core/metadata.py) holds
-labels, sample weights, query groups and init scores.
+labels, sample weights, query groups and init scores.  The split
+features' per-feature settings, ``monotone_constraints`` and
+``feature_penalty`` (feature_contri), are taken from the configuration
+the dataset is built with, one value an original feature, as the JAX
+dataset takes them (lightgbm_tpu/core/dataset.py:194-202), and follow it
+into valid sets and subsets.
 """
 
 from __future__ import annotations
@@ -47,19 +52,23 @@ def _per_feature(fn, features, num_rows: int) -> list:
 class FeatureInfo:
     """Per-used-feature metadata consumed by the tree learner.  The
     feature's bins are in column ``group`` of the bin matrix, at
-    ``offset + bin`` (offset 0: the column is the feature's own)."""
+    ``offset + bin`` (offset 0: the column is the feature's own);
+    ``monotone`` is its constraint (-1, 0, +1) and ``penalty`` its gain
+    multiplier (feature_contri)."""
 
     __slots__ = ("num_bin", "missing_type", "default_bin", "is_cat",
-                 "group", "offset")
+                 "group", "offset", "monotone", "penalty")
 
     def __init__(self, num_bin, missing_type, default_bin, is_cat=False,
-                 group=0, offset=0):
+                 group=0, offset=0, monotone=0, penalty=1.0):
         self.num_bin = num_bin
         self.missing_type = missing_type
         self.default_bin = default_bin
         self.is_cat = is_cat
         self.group = group
         self.offset = offset
+        self.monotone = monotone
+        self.penalty = penalty
 
 
 class TorchDataset:
@@ -76,6 +85,9 @@ class TorchDataset:
         self.metadata = Metadata()
         self.feature_names: List[str] = []
         self.max_num_bin: int = 0
+        # one value an original feature, or None (all 0 / all 1.0)
+        self.monotone_constraints: Optional[List[int]] = None
+        self.feature_penalty: Optional[List[float]] = None
         self._device_cache: Dict[Tuple, torch.Tensor] = {}
 
     @classmethod
@@ -108,6 +120,7 @@ class TorchDataset:
                 cfg, set(int(c) for c in categorical_features),
                 lambda f: np.ascontiguousarray(sample[:, f]),
                 len(sample_idx))
+            ds._set_feature_settings(cfg)
             mappers = [ds.bin_mappers[f] for f in ds.used_feature_indices]
             ds._build_bundle(cfg, len(sample_idx), lambda j: (
                 mappers[j].value_to_bin(sample[:, ds.used_feature_indices[j]])
@@ -156,6 +169,7 @@ class TorchDataset:
 
             ds._fit_bin_mappers(cfg, set(int(c) for c in categorical_features),
                                 lambda f: nonzeros(f)[1], S)
+            ds._set_feature_settings(cfg)
 
             def nonzero_mask(j):
                 f = ds.used_feature_indices[j]
@@ -195,7 +209,28 @@ class TorchDataset:
             ds.max_num_bin = reference.max_num_bin
             ds.feature_names = list(reference.feature_names)
             ds.bundle = reference.bundle
+            ds.monotone_constraints = reference.monotone_constraints
+            ds.feature_penalty = reference.feature_penalty
         return ds
+
+    def _set_feature_settings(self, cfg: Config) -> None:
+        """``monotone_constraints`` and ``feature_penalty`` from the
+        configuration's lists, which name every original feature."""
+        self.set_feature_settings(cfg.monotone_constraints or None,
+                                  cfg.feature_contri or None)
+
+    def set_feature_settings(self, monotone=None, penalty=None) -> None:
+        """Each original feature's monotone constraint and gain
+        multiplier (None: 0 and 1.0 for every feature)."""
+        if monotone is not None:
+            check(len(monotone) == self.num_total_features,
+                  "monotone_constraints length must equal number of "
+                  "features")
+            self.monotone_constraints = [int(x) for x in monotone]
+        if penalty is not None:
+            check(len(penalty) == self.num_total_features,
+                  "feature_contri length must equal number of features")
+            self.feature_penalty = [float(x) for x in penalty]
 
     def _set_metadata(self, label, weights, group, init_score) -> None:
         md = self.metadata
@@ -296,13 +331,16 @@ class TorchDataset:
                   weights: Optional[np.ndarray] = None,
                   group: Optional[np.ndarray] = None,
                   init_score: Optional[np.ndarray] = None,
-                  bundle_groups: Optional[List[List[int]]] = None
+                  bundle_groups: Optional[List[List[int]]] = None,
+                  monotone_constraints: Optional[Sequence[int]] = None,
+                  feature_penalty: Optional[Sequence[float]] = None
                   ) -> "TorchDataset":
         """A dataset from an already-binned column-major matrix of the
         non-trivial features of ``bin_mappers``, packed by
         ``bundle_groups`` (lists of used-feature indices, as
         BundleSpec.groups; None: one column a feature), with from_numpy's
-        metadata."""
+        metadata and each original feature's monotone constraint and gain
+        multiplier (``set_feature_settings``)."""
         ds = cls()
         ds.bin_mappers = list(bin_mappers)
         ds.num_total_features = len(bin_mappers)
@@ -316,6 +354,7 @@ class TorchDataset:
         ds.num_data = bins_t.shape[1]
         ds.feature_names = (list(feature_names) if feature_names else
                             [f"Column_{i}" for i in range(len(bin_mappers))])
+        ds.set_feature_settings(monotone_constraints, feature_penalty)
         ds._set_metadata(label, weights, group, init_score)
         return ds
 
@@ -343,12 +382,15 @@ class TorchDataset:
 
     def feature_infos(self) -> List[FeatureInfo]:
         layout = self._layout()
+        mono, pen = self.monotone_constraints, self.feature_penalty
         return [FeatureInfo(self.bin_mappers[f].num_bin,
                             self.bin_mappers[f].missing_type,
                             self.bin_mappers[f].default_bin,
                             self.bin_mappers[f].is_categorical,
                             int(layout.feat_group[j]),
-                            int(layout.feat_offset[j]))
+                            int(layout.feat_offset[j]),
+                            0 if mono is None else mono[f],
+                            1.0 if pen is None else pen[f])
                 for j, f in enumerate(self.used_feature_indices)]
 
     @property
@@ -376,6 +418,8 @@ class TorchDataset:
         sub.max_num_bin = self.max_num_bin
         sub.feature_names = self.feature_names
         sub.bundle = self.bundle
+        sub.monotone_constraints = self.monotone_constraints
+        sub.feature_penalty = self.feature_penalty
         sub.bins_t = np.ascontiguousarray(self.bins_t[:, indices])
         sub.metadata = self.metadata.subset(indices)
         return sub

@@ -44,6 +44,7 @@ from ..utils.log import LightGBMError, log_warning
 from .device_predict import TreeStack, bin_rows, dataset_tables
 from .grower import GrowerParams
 from .grower_frontier import FrontierGrower
+from .grower_fused import FusedGrower
 from .grower_seg import SegmentGrower
 from .tree import Tree
 
@@ -91,13 +92,79 @@ def _auto_frontier_k(config: Config, num_columns: int, num_bins: int) -> int:
                max(1, -(-max(2, config.num_leaves) // 16)))
 
 
-def build_feature_meta(dataset: TorchDataset,
-                       device: torch.device) -> FeatureMeta:
+def build_forced_plan(dataset: TorchDataset, filename: str,
+                      num_leaves: int) -> tuple:
+    """``forcedsplits_filename``'s JSON -> the breadth-first plan of
+    (leaf, used feature, threshold bin) splits (ForceSplits,
+    serial_tree_learner.cpp:642; lightgbm_tpu/models/gbdt.py
+    _build_forced_plan :131-176): a node's left child keeps its leaf id,
+    its right child takes the next one; a split on an unused feature is
+    skipped with its subtree; at most num_leaves - 1 splits."""
+    import json
+    from collections import deque
+    with open(filename) as fh:
+        root = json.load(fh)
+    plan = []
+    q = deque([(root, 0)])
+    while q and len(plan) < num_leaves - 1:
+        node, leaf = q.popleft()
+        if not isinstance(node, dict) or "feature" not in node:
+            continue
+        real_f = int(node["feature"])
+        inner = dataset.inner_feature_index(real_f)
+        if inner < 0:
+            log_warning(f"forced split on unused feature {real_f}; skipped")
+            continue
+        t_bin = int(np.asarray(dataset.bin_mappers[real_f].value_to_bin(
+            np.asarray([float(node["threshold"])], dtype=np.float64)))[0])
+        step = len(plan)
+        plan.append((int(leaf), int(inner), t_bin))
+        if isinstance(node.get("left"), dict):
+            q.append((node["left"], leaf))
+        if isinstance(node.get("right"), dict):
+            q.append((node["right"], step + 1))
+    return tuple(plan)
+
+
+def resolve_tree_impl(config: Config, forced_plan: tuple) -> str:
+    """The grower ``tpu_tree_impl`` gets (lightgbm_tpu/models/gbdt.py
+    :637-648): "fused" when named, or when a forced plan or CEGB-lazy
+    needs it (with the JAX package's warning where segment or frontier was
+    named); else "frontier" when named, and the segment grower for
+    "auto"."""
+    impl = config.tpu_tree_impl
+    if impl == "fused" or forced_plan or config.cegb_penalty_feature_lazy:
+        if impl in ("segment", "frontier"):
+            log_warning(f"tpu_tree_impl={impl} requires the pallas "
+                        "histogram backend (and no forced splits / "
+                        "CEGB-lazy); using the fused grower")
+        return "fused"
+    return "frontier" if impl == "frontier" else "segment"
+
+
+def build_feature_meta(dataset: TorchDataset, device: torch.device,
+                       config: Optional[Config] = None,
+                       used_in_split: Optional[np.ndarray] = None
+                       ) -> FeatureMeta:
+    """The growers' FeatureMeta of ``dataset`` on ``device``; the split
+    features' fields where they are used (lightgbm_tpu/models/gbdt.py
+    build_feature_meta :178-211): the monotone constraints where one is
+    set, the gain multipliers where one is not 1, and with ``config``'s
+    CEGB feature costs their [F] arrays (indexed by original feature; a
+    shorter list leaves 0) and ``cegb_used0``, the features
+    ``used_in_split``."""
     infos = dataset.feature_infos()
 
-    def col(name):
-        return torch.tensor([getattr(i, name) for i in infos],
-                            dtype=torch.int32, device=device)
+    def col(name, dtype=torch.int32):
+        return torch.tensor([getattr(i, name) for i in infos], dtype=dtype,
+                            device=device)
+
+    def per_feature(vals):
+        out = np.zeros(len(infos), dtype=np.float64)
+        for j, real in enumerate(dataset.used_feature_indices):
+            if int(real) < len(vals):
+                out[j] = float(vals[int(real)])
+        return torch.tensor(out, dtype=torch.float32, device=device)
 
     is_cat = None
     if dataset.has_categorical:
@@ -116,11 +183,25 @@ def build_feature_meta(dataset: TorchDataset,
                                     + np.arange(info.num_bin))
         feat_group, feat_offset = col("group"), col("offset")
         gather_idx = torch.from_numpy(gi).to(device)
+    monotone = penalty = coupled = lazy = used0 = None
+    if any(i.monotone != 0 for i in infos):
+        monotone = col("monotone")
+    if any(i.penalty != 1.0 for i in infos):
+        penalty = col("penalty", torch.float32)
+    if config is not None and (config.cegb_penalty_feature_coupled
+                               or config.cegb_penalty_feature_lazy):
+        coupled = per_feature(config.cegb_penalty_feature_coupled)
+        lazy = per_feature(config.cegb_penalty_feature_lazy)
+        used0 = torch.tensor(np.zeros(len(infos)) if used_in_split is None
+                             else used_in_split, dtype=torch.float32,
+                             device=device)
     return FeatureMeta(num_bin=col("num_bin"),
                        missing_type=col("missing_type"),
                        default_bin=col("default_bin"), is_cat=is_cat,
                        feat_group=feat_group, feat_offset=feat_offset,
-                       gather_idx=gather_idx)
+                       gather_idx=gather_idx, monotone=monotone,
+                       penalty=penalty, cegb_coupled=coupled,
+                       cegb_lazy=lazy, cegb_used0=used0)
 
 
 class TreeEnsemble:
@@ -340,7 +421,11 @@ class GBDT(TreeEnsemble):
         if self.objective is not None:
             self.objective.init(train_set.metadata, self.num_data,
                                 self.device)
-        self.fmeta = build_feature_meta(train_set, self.device)
+        # the features the model has split on (CEGB's coupled cost), from
+        # the first tree on these rows (lightgbm_tpu/models/gbdt.py:478)
+        self._cegb_used = np.zeros(train_set.num_used_features)
+        self.fmeta = build_feature_meta(train_set, self.device, config,
+                                        self._cegb_used)
         # P1's feature tables on the host: the training set's column
         # layout (its device bins and valid sets'), one column a feature
         # (predict-time bins)
@@ -368,6 +453,12 @@ class GBDT(TreeEnsemble):
         self._key = random.prng_key(config.seed)
         self._masked = (config.feature_fraction < 1.0
                         or config.feature_fraction_bynode < 1.0)
+        forced_plan = ()
+        if config.forcedsplits_filename:
+            forced_plan = build_forced_plan(train_set,
+                                            config.forcedsplits_filename,
+                                            config.num_leaves)
+        self.tree_impl = resolve_tree_impl(config, forced_plan)
         params = GrowerParams(
             num_leaves=config.num_leaves, max_depth=config.max_depth,
             feature_fraction_bynode=config.feature_fraction_bynode,
@@ -384,8 +475,16 @@ class GBDT(TreeEnsemble):
                 has_cat=train_set.has_categorical),
             packed4=self.packed4, num_columns=train_set.num_columns,
             packed_acc=self.packed_acc,
-            packed_acc_bits=self.packed_acc_bits)
-        if config.tpu_tree_impl == "frontier":
+            packed_acc_bits=self.packed_acc_bits,
+            use_monotone=self.fmeta.monotone is not None,
+            cegb_tradeoff=float(config.cegb_tradeoff),
+            cegb_penalty_split=float(config.cegb_penalty_split),
+            use_cegb_coupled=bool(config.cegb_penalty_feature_coupled),
+            use_cegb_lazy=bool(config.cegb_penalty_feature_lazy),
+            forced_plan=forced_plan)
+        if self.tree_impl == "fused":
+            self.grower = FusedGrower(self.num_bins, params, rb)
+        elif self.tree_impl == "frontier":
             self.grower = FrontierGrower(
                 self.num_bins, params, rb,
                 _auto_frontier_k(config, train_set.num_columns,
@@ -686,7 +785,7 @@ class GBDT(TreeEnsemble):
             grad, hess = self._gradients()
         grad, hess = self._bagging(self.iter_, grad, hess)
         roots = [None] * C
-        if C > 1:
+        if C > 1 and self.tree_impl != "fused":
             # every class tree's root histogram in one K5 launch; each
             # class's packed channels and fixed-point scales go on to its
             # tree's kernels, so the root and the splits share one scale
@@ -725,10 +824,30 @@ class GBDT(TreeEnsemble):
             return True
         self._add_valid_trees(trees)
         self.models.extend(trees)
+        self._note_trees(trees)
         self.iter_ += 1
         self._sync()
         self.iter_seconds.append(time.perf_counter() - t0)
         return False
+
+    def _note_trees(self, trees: List[Tree]) -> None:
+        """Mark the features the iteration's trees split on, which the
+        next tree's CEGB coupled cost waives (is_feature_used_in_split_,
+        serial_tree_learner.h:169; lightgbm_tpu/models/gbdt.py _note_trees
+        :1433-1448).  Written into ``fmeta.cegb_used0`` in place: the
+        segment grower copies it into its graphs' state a tree."""
+        if self.fmeta.cegb_used0 is None or \
+                not self.config.cegb_penalty_feature_coupled:
+            return
+        changed = False
+        for t in trees:
+            for f in np.unique(t.split_feature_inner[:t.num_leaves - 1]):
+                if not self._cegb_used[f]:
+                    self._cegb_used[f] = 1.0
+                    changed = True
+        if changed:
+            self.fmeta.cegb_used0.copy_(torch.from_numpy(
+                self._cegb_used.astype(np.float32)))
 
     def _sync(self) -> None:
         """Wait for the device's queued work (a wall clock's end)."""

@@ -39,9 +39,14 @@ removes an XLA carry copy that a host-driven loop does not make.
 The round loop is driven from the host: the best-split records of every
 leaf are kept on the host (one device-to-host fetch a round), and each
 round's targets and routes go to the kernels by value
-(``frontier_params``).  The per-tree state (``_SegState``), a split's host
-bookkeeping (``record_split``) and the batched scan (``HostGrower``) are
-this loop's; the segment grower grows on the device (grower_seg.py).
+(``frontier_params``).  The split features ride the same host records
+(JAX grower_frontier.py:214-234, :357-367): a round applies its K splits,
+handing each leaf's monotone bounds to its children and marking CEGB's
+used features, then scans its 2K children with those bounds and costs.
+The per-tree state (``_SegState``), a split's host bookkeeping
+(``record_split``) and the batched scan (``HostGrower``) are this loop's
+(and the fused grower's, grower_fused.py); the segment grower grows on
+the device (grower_seg.py).
 """
 
 from __future__ import annotations
@@ -58,8 +63,8 @@ from ..ops.histogram import (fixed_point_scales, histogram_frontier,
                              null_route, pack_channels, pack_route,
                              quantize_pack, route_window, union_block_list)
 from ..ops.split import NEG_INF, FeatureMeta, best_split, expand_group_hist
-from .grower import (GrowerParams, TreeArrays, grower_columns,
-                     node_feature_mask)
+from .grower import (GrowerParams, TreeArrays, cegb_split_coupled_adjust,
+                     grower_columns, mono_handoff, node_feature_mask)
 from .grower_seg import COMPACT_WASTE, _check_key, _unpermute
 
 TIERS = ("off", "k1", "fusedk")
@@ -70,7 +75,7 @@ class _SegState:
     row order, host bookkeeping of windows, leaf sums and best splits."""
 
     def __init__(self, binsT, w8, L: int, max_blocks: int, G0, H0, C0,
-                 B: int, H: int):
+                 B: int, H: int, feat_used: np.ndarray):
         dev = binsT.device
         n = binsT.shape[1]
         self.binsT = binsT                      # [G, Npad] u8, permuted
@@ -106,6 +111,11 @@ class _SegState:
         self.tree = TreeArrays(L)
         self.tree.leaf_weight[0] = H0
         self.tree.leaf_count[0] = C0
+        # the split features: each leaf's monotone output bounds, and the
+        # features split on so far (CEGB's coupled cost), [F] 0/1
+        self.mono_lo = np.full(L, -np.inf, f32)
+        self.mono_hi = np.full(L, np.inf, f32)
+        self.feat_used = feat_used
 
 
 def compact_state(st: _SegState, L: int, rb: int) -> None:
@@ -139,10 +149,22 @@ def split_route(st: _SegState, leaf: int, new_leaf: int,
                       fm_host, packed4)
 
 
-def record_split(st: _SegState, leaf: int, new_leaf: int, node: int) -> None:
+def record_split(st: _SegState, leaf: int, new_leaf: int, node: int,
+                 p: GrowerParams, fm_host: FeatureMeta) -> None:
     """Host bookkeeping of the cached best split of ``leaf`` (Tree::Split,
     tree.h:407-445): the new leaf inherits the parent's window (routing
-    touches only it), the tree arrays and the two children's sums."""
+    touches only it), the tree arrays and the two children's sums; the
+    children's monotone bounds (``mono_handoff``) and the split's feature
+    marked used (CEGB's coupled cost)."""
+    f = int(st.best_feature[leaf])
+    if p.use_monotone:
+        lo_l, hi_l, lo_r, hi_r = mono_handoff(
+            st.mono_lo[leaf], st.mono_hi[leaf], st.best_out[leaf, 0],
+            st.best_out[leaf, 1], fm_host.monotone[f], st.best_is_cat[leaf])
+        st.mono_lo[leaf], st.mono_hi[leaf] = lo_l, hi_l
+        st.mono_lo[new_leaf], st.mono_hi[new_leaf] = lo_r, hi_r
+    if p.use_cegb_coupled:
+        st.feat_used[f] = 1.0
     st.leaf_lo[new_leaf], st.leaf_hi[new_leaf] = (st.leaf_lo[leaf],
                                                   st.leaf_hi[leaf])
     Gl, Hl, Cl = st.best_left[leaf]
@@ -178,6 +200,16 @@ def record_split(st: _SegState, leaf: int, new_leaf: int, node: int) -> None:
     st.leaf_c[leaf], st.leaf_c[new_leaf] = Cl, Cr
 
 
+def host_meta(fmeta: FeatureMeta) -> FeatureMeta:
+    """What the host loop reads of ``fmeta`` as numpy: the route words'
+    metadata and EFB tables (pack_route), and the monotone constraints."""
+    return FeatureMeta(*(
+        None if t is None else t.cpu().numpy()
+        for t in fmeta._replace(is_cat=None, gather_idx=None, penalty=None,
+                                cegb_coupled=None, cegb_lazy=None,
+                                cegb_used0=None)))
+
+
 class HostGrower:
     """The host-driven loop's pieces: the per-tree state, the batched
     best-split scan into the host cache, the stop rule.
@@ -207,7 +239,7 @@ class HostGrower:
         self.rb = block_rows
         self.last_stats = {}
 
-    def _start(self, binsT, grad, hess, member, root):
+    def _start(self, binsT, grad, hess, member, fmeta, root):
         """-> (state, scales, root histogram or None); the quantizer's
         clip count goes to ``last_stats``."""
         n = binsT.shape[1]
@@ -224,12 +256,22 @@ class HostGrower:
             scales = fixed_point_scales(w8)
         else:
             w8, scales, _ = root
+        return self._state(binsT, w8, grad, hess, member, fmeta), scales, \
+            root_hist
+
+    def _state(self, binsT, w8, grad, hess, member,
+               fmeta: FeatureMeta) -> _SegState:
+        """A tree's state over ``binsT`` and the weights ``w8``: the
+        root's sums, and CEGB's used features from the model's."""
         G0, H0, C0 = torch.stack([torch.sum(grad * member),
                                   torch.sum(hess * member),
                                   torch.sum(member)]).cpu().numpy()
-        st = _SegState(binsT, w8, self.p.num_leaves, n // self.rb, G0, H0,
-                       C0, self.B, logical_columns(binsT, self.p.packed4))
-        return st, scales, root_hist
+        F = fmeta.num_bin.shape[0]
+        used0 = (np.zeros(F, np.float32) if fmeta.cegb_used0 is None
+                 else fmeta.cegb_used0.cpu().numpy().astype(np.float32))
+        return _SegState(binsT, w8, self.p.num_leaves,
+                         binsT.shape[1] // self.rb, G0, H0, C0, self.B,
+                         logical_columns(binsT, self.p.packed4), used0)
 
     def _scan(self, st: _SegState, leaves, hists, fmeta: FeatureMeta,
               masks=None) -> None:
@@ -243,8 +285,13 @@ class HostGrower:
         g, h, c = (torch.from_numpy(v[leaves]).to(dev)
                    for v in (st.leaf_g, st.leaf_h, st.leaf_c))
         G = grower_columns(self.p, st.binsT)
+        lo = hi = None
+        if self.p.use_monotone:
+            lo, hi = (torch.from_numpy(v[leaves]).to(dev)
+                      for v in (st.mono_lo, st.mono_hi))
         info = best_split(expand_group_hist(hists[:, :G], fmeta, g, h, c),
-                          g, h, c, fmeta, self.p.split, masks)
+                          g, h, c, fmeta, self.p.split, masks, lo, hi,
+                          self._gain_adjust(st, leaves, c, fmeta))
         cols = [info.gain, info.feature, info.threshold, info.default_left,
                 info.left_g, info.left_h, info.left_c, info.left_out,
                 info.right_out]
@@ -267,6 +314,15 @@ class HostGrower:
             if info.is_cat is not None:
                 st.best_is_cat[leaf] = bool(rec[k, 9])
                 st.best_bitset[leaf] = rec[k, 10:18].astype(np.uint32)
+
+    def _gain_adjust(self, st: _SegState, leaves, c: torch.Tensor,
+                     fmeta: FeatureMeta) -> Optional[torch.Tensor]:
+        """[len(leaves), F] CEGB costs of the leaves' scans (split and
+        coupled), None when unused."""
+        if not self.p.cegb_adjusts:
+            return None
+        return cegb_split_coupled_adjust(
+            torch.from_numpy(st.feat_used).to(c.device), c, fmeta, self.p)
 
     def _node_masks(self, feature_mask, key, dev):
         """The masks of the tree's node numbers 0 .. 2L
@@ -383,7 +439,8 @@ class FrontierGrower(HostGrower):
                 lo, hi = st.leaf_lo[leaves[j]], st.leaf_hi[leaves[j]]
                 route_window(st.binsT, st.leaf_id, lo, hi - lo, routes[j],
                              self.rb, self.p.packed4)
-            record_split(st, leaves[j], new[j], base - 1 + j)
+            record_split(st, leaves[j], new[j], base - 1 + j, self.p,
+                         fm_host)
         windows = [(st.leaf_lo[x], st.leaf_hi[x]) for x in leaves]
         if self.tier == "fusedk":
             # left children keep the parents' ids, right ones take the new
@@ -415,13 +472,11 @@ class FrontierGrower(HostGrower):
              key: Optional[torch.Tensor] = None
              ) -> Tuple[TreeArrays, torch.Tensor]:
         L, rb = self.p.num_leaves, self.rb
-        st, scales, root_hist = self._start(binsT, grad, hess, member, root)
+        st, scales, root_hist = self._start(binsT, grad, hess, member, fmeta,
+                                            root)
         masks = self._node_masks(feature_mask, key, binsT.device)
         max_blocks = binsT.shape[1] // rb
-        # what pack_route reads: the route words' metadata and EFB tables
-        fm_host = FeatureMeta(*(
-            None if t is None else t.cpu().numpy()
-            for t in fmeta._replace(is_cat=None, gather_idx=None)))
+        fm_host = host_meta(fmeta)
         if root_hist is None:
             # the round kernel with one target (and a null route on the
             # fused tiers) over every block

@@ -59,7 +59,15 @@ does (the epoch loop at :802-830):
     to the host in one fetch.  A tree's start (the state reset, the
     root's pass and its best split) is a second graph, replayed after the
     tree's inputs are copied into the state's buffers.  On the CPU the
-    same start and steps run eagerly through the kernels' plain versions.
+    same start and steps run eagerly through the kernels' plain versions;
+  * the split features (JAX grower_seg.py:426-429, :534-541, :680-692)
+    live in the state too: each leaf's monotone output bounds
+    (``mono_lo``/``mono_hi`` [L]), handed to the children by
+    ``mono_handoff`` in the step, and CEGB's ``feat_used`` [F], the
+    features split on so far, which a tree starts from the model's
+    (``fmeta.cegb_used0``) and each step marks; the scans take the bounds
+    and CEGB's split and coupled costs (``cegb_split_coupled_adjust``).
+    All of it is tensors the graphs hold, written in place.
 """
 
 from __future__ import annotations
@@ -79,8 +87,8 @@ from ..ops.histogram import (STEP_WORDS, SPLIT_WORDS, fixed_point_scales,
                              pack_step, quantize_pack, route_window_step)
 from ..ops.split import (NEG_INF, FeatureMeta, SplitInfo, best_split,
                          expand_group_hist)
-from .grower import (GrowerParams, TreeArrays, grower_columns,
-                     node_feature_mask)
+from .grower import (GrowerParams, TreeArrays, cegb_split_coupled_adjust,
+                     grower_columns, mono_handoff, node_feature_mask)
 
 # Re-sort the layout once the histogram kernels have scanned more than
 # COMPACT_WASTE x N rows of confinement windows since the last sort
@@ -181,6 +189,13 @@ class _DeviceState:
         self.step = zeros(STEP_WORDS, dtype=torch.int32)
         self.hist_small = zeros(H, B, 3)
         self.status = zeros(_STATUS, dtype=torch.int64)
+        # the split features: each leaf's monotone output bounds, and the
+        # features split on so far (CEGB's coupled cost)
+        self.mono_lo = torch.full((L,), NEG_INF, dtype=torch.float32,
+                                  device=dev)
+        self.mono_hi = torch.full((L,), float("inf"), dtype=torch.float32,
+                                  device=dev)
+        self.feat_used = zeros(F)
         # feature fraction: the tree's mask and key, and the masks of the
         # node numbers 0 .. 2L drawn from them at the tree's start
         if masked:
@@ -237,6 +252,12 @@ class _DeviceState:
         self.counters.fill_(max_blocks)
         self.counters[:1].fill_(1)
         self.counters[3:].zero_()
+        self.mono_lo.fill_(NEG_INF)
+        self.mono_hi.fill_(float("inf"))
+        if self.fmeta.cegb_used0 is None:
+            self.feat_used.zero_()
+        else:
+            self.feat_used.copy_(self.fmeta.cegb_used0)
 
     def tree(self) -> Tuple[TreeArrays, dict]:
         """The tree arrays and the counters, in one device-to-host fetch."""
@@ -347,6 +368,7 @@ class SegmentGrower:
         self._start_graphs = {}
         self._capture_s = 0.0
         self._child_cols = None
+        self._root = None
         self._src = None
         self.G = 0
         self.limit = 1
@@ -415,6 +437,16 @@ class SegmentGrower:
                                          ).expand(2, 2), active)
         s.counters.add_(torch.cat([active.long(), n_blk, n_blk,
                                    torch.zeros_like(n_blk)]))
+        f = split[:1].clamp(min=0).long()
+        if p.use_monotone:
+            lo_l, hi_l, lo_r, hi_r = mono_handoff(
+                s.mono_lo.index_select(0, leaf),
+                s.mono_hi.index_select(0, leaf), best[4:5], best[5:6],
+                s.fmeta.monotone.index_select(0, f), split[3:4] != 0)
+            _put(s.mono_lo, pair, torch.cat([lo_l, lo_r]), active)
+            _put(s.mono_hi, pair, torch.cat([hi_l, hi_r]), active)
+        if p.use_cegb_coupled:
+            _put(s.feat_used, f, torch.ones(1, device=f.device), active)
         # both children's best splits (under their node masks, numbered 2s
         # and 2s + 1 for split s), from their per-feature histograms; a
         # child at max_depth gets -inf
@@ -425,13 +457,25 @@ class SegmentGrower:
         g, h, c = sums[:, 0], sums[:, 1], sums[:, 2]
         info = best_split(expand_group_hist(hists[:, :self.G], s.fmeta, g, h,
                                             c), g, h, c, s.fmeta, p.split,
-                          mask)
+                          mask, *self._scan_extras(pair, c))
         gain2 = info.gain
         if p.max_depth > 0:
             gain2 = torch.where(depth >= p.max_depth, NEG_INF, gain2)
         f32, i32 = _cache_rows(info, gain2)
         _put(s.best_f32, pair, f32, active)
         _put(s.best_i32, pair, i32, active)
+
+    def _scan_extras(self, leaves: torch.Tensor, c: torch.Tensor):
+        """The scan's split-feature arguments for ``leaves`` of counts
+        ``c``: (mono_lo, mono_hi, gain_adjust), each None when unused."""
+        s, p = self.s, self.p
+        lo = hi = adjust = None
+        if p.use_monotone:
+            lo = s.mono_lo.index_select(0, leaves)
+            hi = s.mono_hi.index_select(0, leaves)
+        if p.cegb_adjusts:
+            adjust = cegb_split_coupled_adjust(s.feat_used, c, s.fmeta, p)
+        return lo, hi, adjust
 
     def _write_status(self) -> None:
         s, L = self.s, self.p.num_leaves
@@ -488,8 +532,7 @@ class SegmentGrower:
         rows, npad = binsT.shape
         L = self.p.num_leaves
         key = (rows, fmeta.num_bin.shape[0], npad, L, binsT.device,
-               fmeta.is_cat is not None, fmeta.gather_idx is not None,
-               self.steps, masked)
+               tuple(t is None for t in fmeta), self.steps, masked)
         if key != self._key:
             # the key is kept only once the state is whole: after a capture
             # that raised, the next grow captures (and raises) again
@@ -503,6 +546,8 @@ class SegmentGrower:
                                   masked, self.p.packed_acc)
             self._child_cols = torch.arange(
                 _NODE_WORDS, device=binsT.device) >= SPLIT_WORDS
+            self._root = torch.zeros(1, dtype=torch.int64,
+                                     device=binsT.device)
             self.limit = min(max(1, int(COMPACT_WASTE * (npad // self.rb))),
                              2**31 - 1)
             if binsT.device.type == "cuda":
@@ -585,7 +630,8 @@ class SegmentGrower:
         g, h, c = s.leaf_sum[:1, 0], s.leaf_sum[:1, 1], s.leaf_sum[:1, 2]
         info = best_split(expand_group_hist(s.leaf_hist[:1, :self.G],
                                             s.fmeta, g, h, c), g, h, c,
-                          s.fmeta, self.p.split, mask)
+                          s.fmeta, self.p.split, mask,
+                          *self._scan_extras(self._root, c))
         f32, i32 = _cache_rows(info, info.gain)
         s.best_f32[:1].copy_(f32)
         s.best_i32[:1].copy_(i32)

@@ -31,6 +31,15 @@ Under EFB (core/bundle.py) the kernels histogram bin columns, [K, G, Bg,
 3]; ``expand_group_hist`` turns that into the per-feature [K, F, Bf, 3]
 the scan reads.  Every function takes a batch of K leaves: hist
 ``[K, F, B, 3]``.
+
+The split features (lightgbm_tpu/ops/split.py:158-166, :359, :382,
+:398-420): each leaf's monotone bounds ``[mono_lo, mono_hi]`` clamp every
+candidate's two outputs, and a numerical candidate whose outputs break
+its feature's constraint gets the gain 0.0 (not -inf: it still loses to
+``min_gain_shift``); categorical candidates are clamped but keep no
+direction.  A feature's ``penalty`` (feature_contri) multiplies its gain
+over ``min_gain_shift``, and ``gain_adjust`` ([K, F], CEGB's costs) is
+subtracted from it before the argmax.
 """
 
 from __future__ import annotations
@@ -60,6 +69,16 @@ class FeatureMeta(NamedTuple):
     feat_group: torch.Tensor = None
     feat_offset: torch.Tensor = None
     gather_idx: torch.Tensor = None
+    # the split features (lightgbm_tpu/ops/split.py:41-49), each None when
+    # unused: ``monotone`` int32 (-1, 0, +1), ``penalty`` float32
+    # (feature_contri); CEGB's per-feature costs ``cegb_coupled`` and
+    # ``cegb_lazy`` float32, and ``cegb_used0`` float32 0/1, the features
+    # the model's earlier trees split on (the coupled cost is waived)
+    monotone: torch.Tensor = None
+    penalty: torch.Tensor = None
+    cegb_coupled: torch.Tensor = None
+    cegb_lazy: torch.Tensor = None
+    cegb_used0: torch.Tensor = None
 
 
 class SplitParams(NamedTuple):
@@ -166,16 +185,43 @@ def leaf_gain(G, H, l1: float, l2: float, max_delta_step: float):
                                   leaf_output(G, H, l1, l2, max_delta_step))
 
 
-def _split_gain(Gl, Hl, Gr, Hr, p: SplitParams, extra_l2: float = 0.0):
+def clip_output(out, lo, hi):
+    """``out`` clamped to the leaves' monotone bounds ``[lo, hi]``
+    (jnp.clip's minimum of a maximum); the identity when ``lo`` is None."""
+    if lo is None:
+        return out
+    return torch.minimum(torch.maximum(out, lo), hi)
+
+
+def _bounds(lo, hi, ndim: int):
+    """[K] bounds shaped to broadcast over a [K, ...] candidate tensor of
+    ``ndim`` dimensions (None stays None)."""
+    if lo is None:
+        return None, None
+    shape = (-1,) + (1,) * (ndim - 1)
+    return lo.reshape(shape), hi.reshape(shape)
+
+
+def _split_gain(Gl, Hl, Gr, Hr, p: SplitParams, extra_l2: float = 0.0,
+                mono=None, lo=None, hi=None):
+    """Both children's gain; with bounds each output is clamped first,
+    and with ``mono`` a candidate whose outputs break the constraint has
+    gain 0.0 (lightgbm_tpu/ops/split.py:_split_gain :158-166)."""
     l2 = p.lambda_l2 + extra_l2
-    out_l = leaf_output(Gl, Hl, p.lambda_l1, l2, p.max_delta_step)
-    out_r = leaf_output(Gr, Hr, p.lambda_l1, l2, p.max_delta_step)
-    return (leaf_gain_given_output(Gl, Hl, p.lambda_l1, l2, out_l)
+    out_l = clip_output(leaf_output(Gl, Hl, p.lambda_l1, l2,
+                                    p.max_delta_step), lo, hi)
+    out_r = clip_output(leaf_output(Gr, Hr, p.lambda_l1, l2,
+                                    p.max_delta_step), lo, hi)
+    gain = (leaf_gain_given_output(Gl, Hl, p.lambda_l1, l2, out_l)
             + leaf_gain_given_output(Gr, Hr, p.lambda_l1, l2, out_r))
+    if mono is None:
+        return gain
+    bad = ((mono > 0) & (out_l > out_r)) | ((mono < 0) & (out_l < out_r))
+    return torch.where(bad, torch.zeros_like(gain), gain)
 
 
 def _numerical_candidates(hist, parent, fmeta: FeatureMeta,
-                          p: SplitParams):
+                          p: SplitParams, lo=None, hi=None):
     """Gains for every (leaf, feature, threshold, direction) candidate.
 
     Returns (gain [K, F, T, 2], left [K, F, T, 2, 3]) with T = B-1
@@ -210,7 +256,9 @@ def _numerical_candidates(hist, parent, fmeta: FeatureMeta,
 
     Gl, Hl, Cl = left[..., 0], left[..., 1] + K_EPSILON, left[..., 2]
     Gr, Hr, Cr = right[..., 0], right[..., 1] + K_EPSILON, right[..., 2]
-    gain = _split_gain(Gl, Hl, Gr, Hr, p)
+    mono = (None if fmeta.monotone is None
+            else fmeta.monotone[None, :, None, None])
+    gain = _split_gain(Gl, Hl, Gr, Hr, p, 0.0, mono, *_bounds(lo, hi, 4))
 
     t_idx = torch.arange(B - 1, dtype=torch.int32, device=dev)[None, :, None]
     nb3, mt3 = nb[:, :, None], mt[:, :, None]
@@ -248,14 +296,15 @@ def _cat_used_bin_mask(B: int, fmeta: FeatureMeta):
 
 
 def _categorical_onehot_candidates(hist, parent, fmeta: FeatureMeta,
-                                   p: SplitParams, used_mask):
+                                   p: SplitParams, used_mask, lo=None,
+                                   hi=None):
     """One-hot candidates: bin b alone goes left (feature_histogram.hpp:
     139-170, plain lambda_l2).  Returns (gain [K, F, B], left = hist)."""
     left = hist
     right = parent[:, None, None, :] - left
     Gl, Hl, Cl = left[..., 0], left[..., 1] + K_EPSILON, left[..., 2]
     Gr, Hr, Cr = right[..., 0], right[..., 1] + K_EPSILON, right[..., 2]
-    gain = _split_gain(Gr, Hr, Gl, Hl, p)
+    gain = _split_gain(Gr, Hr, Gl, Hl, p, 0.0, None, *_bounds(lo, hi, 3))
     valid = ((fmeta.is_cat[:, None] & used_mask)[None]
              & (Cl >= p.min_data_in_leaf) & (Cr >= p.min_data_in_leaf)
              & (Hl >= p.min_sum_hessian_in_leaf)
@@ -264,7 +313,8 @@ def _categorical_onehot_candidates(hist, parent, fmeta: FeatureMeta,
 
 
 def _categorical_sorted_candidates(hist, parent, fmeta: FeatureMeta,
-                                   p: SplitParams, used_mask):
+                                   p: SplitParams, used_mask, lo=None,
+                                   hi=None):
     """Sorted-subset scan (feature_histogram.hpp:118-300): bins with at
     least cat_smooth rows ordered by G/(H + cat_smooth); a prefix (d=0)
     or a suffix (d=1) of the order goes left, cat_l2 added to lambda_l2.
@@ -299,7 +349,10 @@ def _categorical_sorted_candidates(hist, parent, fmeta: FeatureMeta,
     right = torch.stack([parent_b - pre, right_suf], dim=3)
     Gl, Hl, Cl = left[..., 0], left[..., 1] + K_EPSILON, left[..., 2]
     Gr, Hr, Cr = right[..., 0], right[..., 1] + K_EPSILON, right[..., 2]
-    gain = _split_gain(Gl, Hl, Gr, Hr, p, extra_l2=p.cat_l2)
+    # categorical splits ignore monotone constraints (GetSplitGains with
+    # monotone_type 0, feature_histogram.hpp:226), but are clamped
+    gain = _split_gain(Gl, Hl, Gr, Hr, p, p.cat_l2, None,
+                       *_bounds(lo, hi, 4))
 
     num_valid = sorted_valid.sum(dim=2)[:, :, None, None]      # [K, F, 1, 1]
     j_idx = torch.arange(B, device=dev)[None, None, :, None]
@@ -337,7 +390,10 @@ def build_cat_bitset(mask: torch.Tensor) -> torch.Tensor:
 def best_split(hist: torch.Tensor, parent_g: torch.Tensor,
                parent_h: torch.Tensor, parent_c: torch.Tensor,
                fmeta: FeatureMeta, p: SplitParams,
-               feature_mask: Optional[torch.Tensor] = None) -> SplitInfo:
+               feature_mask: Optional[torch.Tensor] = None,
+               mono_lo: Optional[torch.Tensor] = None,
+               mono_hi: Optional[torch.Tensor] = None,
+               gain_adjust: Optional[torch.Tensor] = None) -> SplitInfo:
     """Best split of each of K leaves from their [K, F, B, 3] histograms
     and [K] parent sums (SerialTreeLearner::FindBestSplitsFromHistograms,
     serial_tree_learner.cpp:549-640): per-feature best candidate of each
@@ -345,7 +401,10 @@ def best_split(hist: torch.Tensor, parent_g: torch.Tensor,
     the per-leaf argmax over features.  ``feature_mask`` ([K, F] or [1,
     F], nonzero = usable; feature fraction by tree and by node) gives a
     masked feature the gain -inf before that argmax
-    (lightgbm_tpu/ops/split.py:420)."""
+    (lightgbm_tpu/ops/split.py:420).  ``mono_lo``/``mono_hi`` ([K], both
+    or neither) are the leaves' monotone output bounds, and
+    ``gain_adjust`` ([K, F]) a cost subtracted from each usable feature's
+    gain (CEGB; :421-423)."""
     K, F, B, _ = hist.shape
     kk = torch.arange(K, device=hist.device)
     parent = torch.stack([parent_g, parent_h, parent_c], dim=1).to(
@@ -354,16 +413,17 @@ def best_split(hist: torch.Tensor, parent_g: torch.Tensor,
                            p.lambda_l1, p.lambda_l2, p.max_delta_step)
     min_gain_shift = (gain_shift + p.min_gain_to_split)[:, None]
 
-    num_gain, num_left = _numerical_candidates(hist, parent, fmeta, p)
+    num_gain, num_left = _numerical_candidates(hist, parent, fmeta, p,
+                                               mono_lo, mono_hi)
     flat = num_gain.reshape(K, F, -1)
     ni = torch.argmax(flat, dim=2)                            # [K, F]
     ng = torch.gather(flat, 2, ni[..., None])[..., 0]
     if p.has_cat:
         used_mask = _cat_used_bin_mask(B, fmeta)              # [F, B]
         oh_gain, oh_left = _categorical_onehot_candidates(
-            hist, parent, fmeta, p, used_mask)
+            hist, parent, fmeta, p, used_mask, mono_lo, mono_hi)
         so_gain, so_left, so_order = _categorical_sorted_candidates(
-            hist, parent, fmeta, p, used_mask)
+            hist, parent, fmeta, p, used_mask, mono_lo, mono_hi)
         use_onehot = (fmeta.num_bin <= int(p.max_cat_to_onehot))[None, :,
                                                                  None]
         oh_gain = torch.where(use_onehot, oh_gain,
@@ -378,10 +438,16 @@ def best_split(hist: torch.Tensor, parent_g: torch.Tensor,
         fam_gains = torch.stack([ng, og, sg], dim=2)          # [K, F, 3]
         fam = torch.argmax(fam_gains, dim=2)
         ng = torch.amax(fam_gains, dim=2)
-    fgain = torch.where(ng > min_gain_shift, ng - min_gain_shift,
+    over = ng - min_gain_shift
+    if fmeta.penalty is not None:
+        over = over * fmeta.penalty[None, :]
+    fgain = torch.where(ng > min_gain_shift, over,
                         torch.full_like(ng, NEG_INF))
     if feature_mask is not None:
         fgain = torch.where(feature_mask > 0, fgain,
+                            torch.full_like(fgain, NEG_INF))
+    if gain_adjust is not None:
+        fgain = torch.where(fgain > NEG_INF, fgain - gain_adjust,
                             torch.full_like(fgain, NEG_INF))
 
     best_f = torch.argmax(fgain, dim=1)                       # [K]
@@ -431,8 +497,12 @@ def best_split(hist: torch.Tensor, parent_g: torch.Tensor,
 
     Gl, Hl, Cl = left_stats[:, 0], left_stats[:, 1], left_stats[:, 2]
     Gr, Hr, Cr = parent[:, 0] - Gl, parent[:, 1] - Hl, parent[:, 2] - Cl
-    out_l = leaf_output(Gl, Hl, p.lambda_l1, l2, p.max_delta_step)
-    out_r = leaf_output(Gr, Hr, p.lambda_l1, l2, p.max_delta_step)
+    # the same clamp as the candidates' (max_delta_step inside, then the
+    # bounds)
+    out_l = clip_output(leaf_output(Gl, Hl, p.lambda_l1, l2,
+                                    p.max_delta_step), mono_lo, mono_hi)
+    out_r = clip_output(leaf_output(Gr, Hr, p.lambda_l1, l2,
+                                    p.max_delta_step), mono_lo, mono_hi)
     return SplitInfo(
         gain=torch.where(has_split, best_gain,
                          torch.full_like(best_gain, NEG_INF)),

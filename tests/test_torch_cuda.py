@@ -38,7 +38,12 @@ its modes (a tile of u8 bins in shared memory, bins read in place: wide
 matrices and i16 bins) on u8, i16, 4-bit and EFB bins with C = 5, a
 stack of several stages and an in-place chunk; Q1 at every width, at a
 row count the vector width divides and one it does not, with an
-all-zero member and non-finite gradients, two kernels a call.
+all-zero member and non-finite gradients, two kernels a call.  The split
+features (monotone constraints, feature_contri, CEGB's costs, a forced
+plan, CEGB-lazy) on the segment, frontier and fused growers: the card's
+splits = the CPU's at 40k rows, predictions monotone, the segment
+grower's graph grows one model text at steps 1 and 4, and the fused
+grower launches K5 once for each root and split and K2 once a split.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips where
 ``torch.cuda.is_available()`` is false.  The file imports neither JAX nor
@@ -2930,3 +2935,92 @@ def test_quantize_pack_is_two_kernels_a_call(dev):
         assert torch.equal(w2, want) and torch.equal(scales, sc)
         assert int(clips) == int(want_clips)
     assert not th._QUANT_SCRATCH[torch.cuda.current_device()].any()
+
+
+# the split features: monotone constraints of both signs, feature_contri
+# and CEGB's costs on the segment and frontier growers; a forced plan and
+# CEGB-lazy on the fused grower (models/grower_fused.py)
+SF_MONO = [1, -1, 0, 0, 1, 0, -1, 0]
+SF_FEATURES = {
+    "segment_monotone": ({}, {"monotone_constraints": SF_MONO}),
+    "segment_contri_cegb": ({}, {
+        "feature_contri": [1.0, 0.5, 1.0, 0.8, 1.0, 0.3, 1.0, 1.0],
+        "cegb_penalty_split": 1e-4,
+        "cegb_penalty_feature_coupled": [2.0] * 8}),
+    "frontier_monotone": ({"tpu_tree_impl": "frontier",
+                           "tpu_frontier_width": 4},
+                          {"monotone_constraints": SF_MONO}),
+    "frontier_contri_cegb": ({"tpu_tree_impl": "frontier",
+                              "tpu_frontier_width": 4}, {
+        "feature_contri": [0.6, 1.0, 1.0, 0.8, 1.0, 0.3, 1.0, 1.0],
+        "cegb_penalty_split": 1e-4,
+        "cegb_penalty_feature_coupled": [2.0] * 8}),
+    "fused_forced": ({}, {"forcedsplits_filename": "PLAN",
+                          "monotone_constraints": SF_MONO}),
+    "fused_lazy": ({}, {"cegb_penalty_feature_lazy": [1e-3] * 8}),
+}
+SF_PLAN = {"feature": 0, "threshold": 0.0,
+           "left": {"feature": 1, "threshold": 0.0,
+                    "left": {"feature": 2, "threshold": 0.3}},
+           "right": {"feature": 2, "threshold": -0.2}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(SF_FEATURES))
+def test_split_features_on_card_equal_cpu(dev, case, tmp_path):
+    """Each split feature on its grower, on the card and the CPU at 40k
+    rows: the same splits up to a near-tie, predictions monotone in every
+    constrained feature; the segment grower's graph holds the bounds and
+    the used features (one model text for steps 1 and 4 on the card); the
+    fused grower launches K5 once for each tree's root and once a split,
+    K2 once a split, and no other histogram kernel."""
+    import json
+    plan = tmp_path / "plan.json"
+    plan.write_text(json.dumps(SF_PLAN))
+    X, y = _session_data(40_000, 27)
+    base, feats = SF_FEATURES[case]
+    feats = {k: (str(plan) if v == "PLAN" else v) for k, v in feats.items()}
+    params = dict(objective="binary", num_leaves=31, max_bin=63,
+                  min_data_in_leaf=20, verbosity=-1, **base, **feats)
+    models, texts = {}, {}
+    for device in ("cuda", "cpu"):
+        bst = lt.Booster(dict(params, device_type=device), lt.Dataset(X, y))
+        kernels.reset_launches()
+        for _ in range(3):
+            bst.update()
+        models[device] = bst.gbdt.models
+        if device == "cuda":
+            run = dict(kernels.LAUNCHES)
+            card = bst
+    assert _same_splits(models["cuda"], models["cpu"]) >= 30
+    grower = type(card.gbdt.grower).__name__
+    assert grower == {"segment": "SegmentGrower",
+                      "frontier": "FrontierGrower",
+                      "fused": "FusedGrower"}[case.split("_")[0]]
+    if "monotone_constraints" in feats:
+        grid = np.linspace(-3, 3, 200)
+        for f, sign in enumerate(SF_MONO):
+            if sign:
+                Xs = np.repeat(X[:5], 200, axis=0)
+                Xs[:, f] = np.tile(grid, 5)
+                pred = card.predict(Xs, raw_score=True).reshape(5, 200)
+                assert (sign * np.diff(pred, axis=1)).min() >= 0.0
+    if grower == "FusedGrower":
+        nodes = sum(t.num_leaves for t in card.gbdt.models)
+        splits = nodes - len(card.gbdt.models)
+        assert run["histogram_all"] == nodes
+        assert run["route_window"] == splits
+        assert not any(run[k] for k in (
+            "histogram_segment", "histogram_segment_routed",
+            "histogram_segment_step", "histogram_segment_routed_step",
+            "histogram_frontier", "histogram_frontier_routed"))
+    if grower == "SegmentGrower":
+        assert card.gbdt.grower.last_stats["graph"]
+        for steps in (1, 4):
+            b = lt.Booster(dict(params, device_type="cuda"),
+                           lt.Dataset(X, y))
+            b.gbdt.grower.steps = steps
+            for _ in range(3):
+                b.update()
+            texts[steps] = b.model_to_string()
+        assert texts[1] == texts[4] == card.model_to_string()

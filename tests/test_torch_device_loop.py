@@ -47,6 +47,16 @@ DEFAULT_BIN = np.array([0, 7, 5, 0, 0], dtype=np.int32)
 IS_CAT = np.array([False, False, False, False, True])
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch intra-op thread for this module's tests (the CPU tests
+    share the cores with other pytest workers)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(autouse=True)
 def _no_jax_env(monkeypatch):
     """The JAX package's kernel-choice variables unset: its defaults."""

@@ -14,6 +14,7 @@ it) and C7 (early_stopping_round accepted, as JAX accepts it).
 
 import numpy as np
 import pytest
+import torch
 
 import lightgbm_tpu as lgb
 import lightgbm_tpu_torch as lt
@@ -26,6 +27,16 @@ JAX_PARAMS = dict(PARAMS, tpu_histogram_backend="pallas",
                   tpu_tree_impl="segment")
 PORT_PARAMS = dict(PARAMS, device_type="cpu")
 ROUNDS = 20
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch intra-op thread for this module's tests (the CPU tests
+    share the cores with other pytest workers)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _data(seed=42, nan_share=0.05):

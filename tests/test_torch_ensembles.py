@@ -19,6 +19,7 @@ interpret mode.
 
 import numpy as np
 import pytest
+import torch
 
 import lightgbm_tpu as lgb
 import lightgbm_tpu_torch as lt
@@ -35,6 +36,16 @@ from lightgbm_tpu_torch.models.refit import (restore_leaf_values,
 N, NF = 3000, 8
 TRAIN = dict(num_leaves=15, max_bin=63, tpu_row_chunk=256, learning_rate=0.3,
              verbosity=-1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch intra-op thread for this module's tests (the CPU tests
+    share the cores with other pytest workers)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _data(objective, seed=7, n=N):

@@ -34,6 +34,16 @@ MISSING = np.array([0, 2, 1, 2, 0], dtype=np.int32)     # none/nan/zero
 DEFAULT_BIN = np.array([0, 7, 5, 0, 1], dtype=np.int32)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch intra-op thread for this module's tests (the CPU tests
+    share the cores with other pytest workers)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(seed=0):
     rng = np.random.RandomState(seed)
     bins = np.stack([rng.randint(0, nb, size=NPAD) for nb in NUM_BIN]

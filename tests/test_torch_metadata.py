@@ -13,6 +13,7 @@ against the JAX package's on the CPU.
 
 import numpy as np
 import pytest
+import torch
 
 import lightgbm_tpu as lgb
 import lightgbm_tpu_torch as lt
@@ -21,6 +22,16 @@ from lightgbm_tpu_torch.core.metadata import Metadata
 
 N, NF = 600, 5
 SIZES = [10, 40, 50, 100, 200, 200]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch intra-op thread for this module's tests (the CPU tests
+    share the cores with other pytest workers)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _data(seed=0):

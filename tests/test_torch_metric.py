@@ -11,6 +11,7 @@ from types import SimpleNamespace
 
 import numpy as np
 import pytest
+import torch
 
 import lightgbm_tpu_torch as lt
 from lightgbm_tpu import metric as jax_metric
@@ -35,6 +36,16 @@ METRICS = {
 }
 PARAMS = dict(alpha=0.7, fair_c=1.3, tweedie_variance_power=1.2,
               multi_error_top_k=2)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch intra-op thread for this module's tests (the CPU tests
+    share the cores with other pytest workers)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _case(kind, seed=3):

@@ -51,6 +51,16 @@ PARAMS = dict(objective="multiclass", num_class=C, num_leaves=15,
               max_bin=63, tpu_row_chunk=256, verbosity=-1)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch intra-op thread for this module's tests (the CPU tests
+    share the cores with other pytest workers)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _data(seed=42):
     """Numeric columns 0-3 with NaN; column 4 categorical with 12
     categories (sorted-subset splits) plus NaN and negative values;

@@ -46,6 +46,16 @@ TRAIN_PARAMS = dict(num_leaves=15, max_bin=63, tpu_row_chunk=256,
 CPU = torch.device("cpu")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch intra-op thread for this module's tests (the CPU tests
+    share the cores with other pytest workers)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _features(seed=0, n=N):
     rng = np.random.RandomState(seed)
     X = rng.normal(size=(n, NF))

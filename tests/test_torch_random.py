@@ -23,6 +23,16 @@ SEEDS = [0, 1, 2**31 - 1, 2, 3, 4, 2**31, 2**32 + 7, -1, -2**31]
 LENGTHS = [1, 2, 7, 28, 255, 1001]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch intra-op thread for this module's tests (the CPU tests
+    share the cores with other pytest workers)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _words(a) -> np.ndarray:
     return np.asarray(a).astype(np.int64)
 

@@ -36,6 +36,16 @@ CPU = torch.device("cpu")
 SIZES = [1, 2, 7, 8, 9, 16, 17, 31, 33, 64, 65, 100, 128] + [5, 40, 12] * 12
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch intra-op thread for this module's tests (the CPU tests
+    share the cores with other pytest workers)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _metadata(sizes, seed=0, weights=False, max_label=4):
     """(JAX metadata, port metadata) of the same labels, groups and
     weights."""

@@ -30,6 +30,16 @@ PARAMS = dict(objective="binary", num_leaves=15, max_bin=63,
               tpu_row_chunk=256, verbosity=-1)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch intra-op thread for this module's tests (the CPU tests
+    share the cores with other pytest workers)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _data(seed=42):
     rng = np.random.RandomState(seed)
     X = rng.normal(size=(N, NF))
@@ -240,14 +250,14 @@ def test_default_device_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("params", [
-    {"cegb_penalty_split": 0.5},
-    {"forcedsplits_filename": "splits.json"},
+    {"num_machines": 2},
+    {"tpu_double_precision": True},
     {"max_bin_by_feature": [3, 4]},
-    {"feature_contri": [1.0, 0.5]},
+    {"gpu_use_dp": True},
     {"tree_learner": "data"},
-    {"tpu_tree_impl": "fused"},
+    {"tree": "voting"},
     {"no_such_parameter": 1},
-    {"monotone_constraints": [1, 0]},
+    {"nthread": 4},
 ])
 def test_unsupported_parameter_raises(params):
     with pytest.raises(NotImplementedError):
