@@ -6,7 +6,7 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``lightgbm_tpu_torch/csrc`` and runs
-twenty-seven phases; any failure exits non-zero:
+twenty-eight phases; any failure exits non-zero:
 
   1. build    nvcc for sm_90a; prints ptxas's register/shared-memory lines
               and the card's name and power limit, and for the K1/K3,
@@ -234,8 +234,9 @@ twenty-seven phases; any failure exits non-zero:
               multiclass; the JAX package's sparse-at-scale gates
               (10,000 x 100,000 block one-hot, at most 6500 columns and
               80 MB of bins, log loss under 0.6915 after 4 rounds).
- 25. packed4  HIGGS at max_bin 15 (16 bins) on the 4-bit packed layout:
-              10.5M x 28 generated, binned, packed on the host and
+ 25. packed4  HIGGS at max_bin 15 (16 bins) on the 4-bit packed layout
+              (run after phase 28, on phase 3's rows):
+              10.5M x 28 binned, packed on the host and
               uploaded as [14, Npad] bytes (walls and bytes against the
               unpacked 28 rows logged), byte for byte the host's packing;
               3 iterations each of the segment grower fused (then a
@@ -288,6 +289,30 @@ twenty-seven phases; any failure exits non-zero:
               CEGB-lazy's bookkeeping takes (a split's timed),
               and K5 as its leaf histogram against its plain version,
               timed; at 200k rows card = CPU for (a), (b) and (c).
+ 28. wide bins and file input  the second histogram path, B3
+              (``histogram_chunked``, csrc/wide_hist.cu) on the fused
+              grower: (a) HIGGS at max_bin 1023 (two-byte bins), 255
+              leaves, 3 iterations in turns with the max_bin 63 run
+              (63, 1023, 1023, 63): iteration walls, B3-u16 once a node
+              and K2-u16 once a split, peak memory, holdout AUC (no gate),
+              a tree's splits timed part by part (the scan's share); B3
+              at the root and at half the rows, K2-u16 at the first split
+              and P1-u16 over the training bins against their plain
+              versions bit for bit, timed beside their bounds and one
+              index_add_; B3 at 64-65,536 bins on one- and two-byte random
+              bins (the global-atomic mode at 65,536); (b) multiclass_cat
+              with its 8 categorical columns re-drawn from 1,000
+              Zipf-like categories (more than 256 bins each), 3
+              iterations; (c) gpu_use_dp on phase 3's max_bin 63 bins (B3
+              on one-byte bins), 3 iterations; (d) the first 1M HIGGS
+              rows as a CSV (header, named label, a .weight side file)
+              and as LibSVM: lt.Dataset(path), two_round off and on, bins
+              byte for byte the parsed matrix's, the native tokenizers and
+              binner run, models from the files, from the matrix and from
+              save_binary's .bin one model, predict(path) =
+              predict(matrix), parse MB/s and binning seconds native
+              against Python; at 200k rows card = CPU for max_bin 1023,
+              max_bin_by_feature and (b)'s categoricals.
 
 Launch counts: a kernel captured into a CUDA graph counts at each replay
 (ops/kernels.py count_replay), when the card runs it.
@@ -310,8 +335,12 @@ its runs are the "packed_acc_*" and "leaf_histogram*" paths, each
 kernel's packed-accumulator mode a row named with "_packed_acc", and Q1
 the row "quantize_pack"), a ``{"split_features": ...}`` line (phase 27;
 its runs are the "split_features_*" paths, and K5's row holds its
-fused-grower measurement under ``"fused_leaf"``), one
-``{"kernels": [...]}`` line, the
+fused-grower measurement under ``"fused_leaf"``), a
+``{"wide_bins": ...}`` line (phase 28; its runs are the "wide_bins",
+"wide_categoricals", "gpu_use_dp" and "file_input" paths, and B3 and the
+u16 modes of K2 and P1 rows of their own), a ``{"phase_walls_s": ...}``
+line (each phase's wall on the host clock, also logged as a ``wall:``
+line as the phase ends), one ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Without a
 card, or run from a directory that does not hold the package, it exits
 non-zero and prints no result.
@@ -392,6 +421,9 @@ SOURCES = {
     # no Pallas site: the JAX quantizer is XLA (quantize_pack_channels)
     "quantize_pack": ("lightgbm_tpu_torch/csrc/quantize.cu",
                       "lightgbm_tpu/ops/pallas_histogram.py:188"),
+    # no Pallas site: the JAX onehot path's histogram is XLA
+    "histogram_chunked": ("lightgbm_tpu_torch/csrc/wide_hist.cu",
+                          "lightgbm_tpu/ops/histogram.py:32"),
 }
 FRONTIER_PARAMS = dict(TRAIN_PARAMS, tpu_tree_impl="frontier")
 # the session phase: a learning rate and stop at which the holdout's
@@ -422,6 +454,20 @@ def require(cond, msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+# each phase's wall on the host clock, summed over its parts in main's
+# order: mark(name) books the time since the previous mark to name
+PHASE_WALLS: dict = {}
+_MARK = [0.0, 0.0]
+
+
+def mark(name: str) -> None:
+    now = time.perf_counter()
+    PHASE_WALLS[name] = PHASE_WALLS.get(name, 0.0) + now - _MARK[1]
+    _MARK[1] = now
+    log(f"wall: {name} {PHASE_WALLS[name]:.1f} s, {now - _MARK[0]:.1f} s "
+        "since the start")
 
 
 def higgs_like(n: int, seed: int):
@@ -570,7 +616,7 @@ def build_phase():
             ("frontier_hist_kernel", ("K6", "K7"),
              ("routed", "packed4", "acc")),
             ("all_hist_kernel", ("K5",), ("packed4", "acc")),
-            ("route_window_kernel", ("K2",), ("table", "packed4")),
+            ("route_window_kernel", ("K2",), ("table", "packed4", "wide")),
             ("route_step_kernel", ("K2 step",), ("table", "packed4"))):
         ptxas = kernels.ptxas_lines(body)
         sass = kernels.sass_opcodes(body)
@@ -581,7 +627,8 @@ def build_phase():
                                   re.findall(r"Lb([01])E", fn))))
             name = (names[1 if on.get("routed") else 0]
                     + (" packed4" if on.get("packed4") else "")
-                    + (" packed_acc" if on.get("acc") else ""))
+                    + (" packed_acc" if on.get("acc") else "")
+                    + (" u16" if on.get("wide") else ""))
             part[name] = {
                 "ptxas": ptxas.get(fn, []),
                 "atomics": {k: v for k, v in sorted(ops.items())
@@ -592,6 +639,9 @@ def build_phase():
         want = {n + p + a for n in names
                 for p in (("", " packed4") if "packed4" in flags else ("",))
                 for a in (("", " packed_acc") if "acc" in flags else ("",))}
+        if "wide" in flags:
+            # K2's u16 mode: one instantiation, neither table nor packed
+            want.add(names[0] + " u16")
         require(set(part) == want and len(ptxas) == len(want),
                 f"{body}'s instantiations are missing from the build: "
                 f"{sorted(part)}")
@@ -600,13 +650,43 @@ def build_phase():
                     f"{rec['atoms_cas']} ATOMS.CAS loops")
         report.update(part)
     report.update(p1_q1_build_report(kernels))
+    report.update(b3_build_report(kernels))
     return report
 
 
+def b3_build_report(kernels):
+    """B3's four instantiations (u8 or u16 bins, shared planes or
+    global-atomic): ptxas's lines and the atomic SASS opcodes; the
+    shared-plane bodies must have no ATOMS.CAS loop."""
+    part = {}
+    ptxas = kernels.ptxas_lines("chunked_hist_kernel")
+    sass = kernels.sass_opcodes("chunked_hist_kernel")
+    for fn in sorted(set(ptxas) | set(sass)):
+        m = re.search(r"chunked_hist_kernelI([ht])Lb([01])E", fn)
+        name = ("B3 " + ("u16" if m and m.group(1) == "t" else "u8")
+                + (" global" if m and m.group(2) == "1" else ""))
+        ops = sass.get(fn, {})
+        part[name] = {
+            "ptxas": ptxas.get(fn, []),
+            "atomics": {k: v for k, v in sorted(ops.items())
+                        if k.startswith(("ATOMS", "ATOM", "RED"))},
+            "atoms_cas": sum(v for k, v in ops.items()
+                             if k.startswith("ATOMS.CAS"))}
+    log(f"chunked_hist_kernel build: {json.dumps(part)}")
+    require(set(part) == {f"B3 {b}{g}" for b in ("u8", "u16")
+                          for g in ("", " global")},
+            f"B3's instantiations are missing from the build: "
+            f"{sorted(part)}")
+    for name, rec in part.items():
+        require(rec["atoms_cas"] == 0, f"{name} has {rec['atoms_cas']} "
+                "ATOMS.CAS loops")
+    return part
+
+
 def p1_q1_build_report(kernels):
-    """P1's five instantiations (u8 bins tiled or read in place, 4-bit
-    packed or not; i16 bins read in place) and Q1's two kernels (16-byte
-    access or not, two instantiations each): ptxas's lines and SASS
+    """P1's six instantiations (u8 bins tiled or read in place, 4-bit
+    packed or not; i16 and u16 bins read in place) and Q1's two kernels
+    (16-byte access or not, two instantiations each): ptxas's lines and SASS
     opcode counts.  Q1's rotations must be funnel shifts: each
     quantize_pack_kernel holds at least 40 SHF a row (two hashes of 20
     rounds) for its four rows."""
@@ -619,8 +699,9 @@ def p1_q1_build_report(kernels):
         for fn in sorted(set(ptxas) | set(sass)):
             flags = [b == "1" for b in re.findall(r"Lb([01])E", fn)]
             if body == "route_trees_kernel":
-                m = re.search(r"route_trees_kernelI([hs])", fn)
-                name = (f"P1 {'i16' if m and m.group(1) == 's' else 'u8'}"
+                m = re.search(r"route_trees_kernelI([hst])", fn)
+                kind = {"s": "i16", "t": "u16"}.get(m and m.group(1), "u8")
+                name = (f"P1 {kind}"
                         + (" packed4" if flags[0] else "")
                         + (" tiled" if flags[1] else ""))
             else:
@@ -630,7 +711,7 @@ def p1_q1_build_report(kernels):
                 "ptxas": ptxas.get(fn, []),
                 "shf": sum(v for k, v in ops.items() if k.startswith("SHF")),
                 "sass_instructions": sum(ops.values())}
-    want = {"P1 i16"} | {f"P1 u8{p}{t}" for p in ("", " packed4")
+    want = {"P1 i16", "P1 u16"} | {f"P1 u8{p}{t}" for p in ("", " packed4")
                          for t in ("", " tiled")} | {
         f"Q1 {k}{v}" for k in ("reduce", "pack") for v in ("", " vec")}
     log(f"P1 / Q1 build: {json.dumps(part)}")
@@ -3662,7 +3743,7 @@ WALKS_PARAMS = dict(TRAIN_PARAMS, num_leaves=31, boosting="dart",
 
 
 def route_bytes(bins, stack, trees, num_bin, default_bin, n, C,
-                tables=(None, None), packed4=False):
+                tables=(None, None), packed4=False, wide=False):
     """The bytes P1 must move on these inputs, by the lesser of two counts
     of the bins: each tree's bins along each row's path (the rows' leaves
     by the plain route; a byte a read, packed or not, two for i16) or each
@@ -3677,7 +3758,7 @@ def route_bytes(bins, stack, trees, num_bin, default_bin, n, C,
     reads = 0
     for t, tree in enumerate(trees):
         leaves = route_leaves_plain(bins, stack, t, num_bin, default_bin, n,
-                                    *tables, packed4=packed4)
+                                    *tables, packed4=packed4, wide=wide)
         depth = torch.from_numpy(leaf_depths(tree)).to(leaves.device)
         reads += int(depth[leaves].sum().item())
     records, _ = stack.records(num_bin.shape[0])
@@ -4687,9 +4768,10 @@ def packed4_kernel_phase(gb, reps=20, plain_reps=1):
     return res
 
 
-def packed4_phase():
-    """Phase 25: HIGGS at max_bin 15 (16 bins) on the 4-bit packed layout.
-    Returns ({run: launches}, record, the kernel measurements)."""
+def packed4_phase(X, y, Xh, yh):
+    """Phase 25: HIGGS at max_bin 15 (16 bins) on the 4-bit packed layout,
+    on phase 3's rows.  Returns ({run: launches}, record, the kernel
+    measurements)."""
     import numpy as np
     import torch
     import lightgbm_tpu_torch as lt
@@ -4697,11 +4779,6 @@ def packed4_phase():
     from lightgbm_tpu_torch.ops import histogram as th
     from lightgbm_tpu_torch.ops import kernels
     rec = {}
-    t0 = time.perf_counter()
-    X, y = higgs_like(HIGGS_ROWS + HOLDOUT_ROWS, 42)
-    Xh, yh = X[HIGGS_ROWS:], y[HIGGS_ROWS:]
-    X, y = X[:HIGGS_ROWS], y[:HIGGS_ROWS]
-    rec["generate_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     config = lt.Config.from_params(P4_PARAMS)
     ds = lt.Dataset(X, y)
@@ -4727,8 +4804,8 @@ def packed4_phase():
     rec.update(rows=HIGGS_ROWS, columns=G, npad=npad,
                packed_bytes=int(dev_bins.numel()), unpacked_bytes=G * npad)
     del host_packed
-    log(f"packed4: {HIGGS_ROWS} x {G} at max_bin 15 generated in "
-        f"{rec['generate_s']:.1f} s, binned in {rec['bin_s']:.1f} s, packed "
+    log(f"packed4: {HIGGS_ROWS} x {G} at max_bin 15 binned in "
+        f"{rec['bin_s']:.1f} s, packed "
         f"in {rec['pack_s']:.2f} s ({rec['pack_and_upload_s']:.2f} s packed "
         f"and uploaded): {rec['packed_bytes'] / 1e6:.1f} MB of bins against "
         f"{rec['unpacked_bytes'] / 1e6:.1f} MB unpacked")
@@ -5829,6 +5906,747 @@ def split_features_parity(X, y, plan_path):
     return out
 
 
+# --------------------------------------------------------------- phase 28
+# the second histogram path (B3 on the fused grower) and file input
+WIDE_MAX_BIN = 1023
+WIDE_ITERS = 3
+WIDE_PARAMS = dict(TRAIN_PARAMS, max_bin=WIDE_MAX_BIN)
+# (b): multiclass_cat's categorical columns re-drawn from this many
+# categories, Zipf-like (p ~ 1 / rank), so each holds more than 256 bins
+WIDE_CATEGORIES = 1000
+# (d): the file's rows, cut from the 10.5M for the run's time limit
+FILE_ROWS = 1_000_000
+# the Python tokenizer and binner are timed on this many of the rows
+FILE_PY_ROWS = 20_000
+WIDE_PARITY_ITERS = 2
+# max_bin_by_feature of the card = CPU run: wide, narrow and default
+WIDE_BY_FEATURE = [1023, 15, 300, 63] * 7
+B3_SWEEP = ((64, False), (256, False), (64, True), (256, True), (1024, True),
+            (65536, True))
+B3_SWEEP_ROWS = 1_000_000
+
+
+def wide_multiclass_cat(n: int, seed: int):
+    """multiclass_cat's rows (bench_suite.py:95-112) with columns 20-27
+    re-drawn from WIDE_CATEGORIES Zipf-like categories each (merchant,
+    product or ZIP-code columns), the label from the first of them as
+    before."""
+    import numpy as np
+    X, _ = multiclass_cat(n, seed)
+    rng = np.random.RandomState(seed + 1)
+    p = 1.0 / np.arange(1, WIDE_CATEGORIES + 1)
+    cats = rng.choice(WIDE_CATEGORIES, size=(n, 8), p=p / p.sum())
+    X[:, 20:28] = cats
+    logits = np.stack([
+        X[:, 0] + (cats[:, 0] % 5 == k) * 1.5
+        + 0.5 * X[:, k % 4] * (1 if k % 2 else -1)
+        for k in range(MC_CLASSES)], axis=1)
+    y = np.argmax(2.0 * logits + rng.gumbel(size=(n, MC_CLASSES)), axis=1)
+    return X, y.astype(np.float64)
+
+
+def _holdout_auc(bst):
+    return float(bst.eval_valid()[0][2])
+
+
+def wide_runs_phase(ds63, X, y, Xh, yh):
+    """(a) HIGGS at max_bin 1023 (two-byte bins, B3 on the fused grower)
+    in turns with phase 3's max_bin 63 run (63, 1023, 1023, 63), WIDE_ITERS
+    iterations each: iteration walls, B3 launches a tree, peak device
+    memory, holdout AUC (no gate); then one more 1023 tree timed split by
+    split (a synchronize around each part) for the scan's share of a
+    split.  Returns (launches of the 1023 runs, record, the 1023
+    booster)."""
+    import numpy as np
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.core import native
+    from lightgbm_tpu_torch.ops import kernels
+    t0 = time.perf_counter()
+    used0 = dict(native.USED)
+    ds = lt.Dataset(X, y, params=WIDE_PARAMS)
+    ds.construct(lt.Config.from_params(WIDE_PARAMS))
+    bin_s = time.perf_counter() - t0
+    require(ds._handle.wide and ds._handle.max_num_bin > 256,
+            f"max_bin {WIDE_MAX_BIN}: {ds._handle.bins_t.dtype} bins, "
+            f"{ds._handle.max_num_bin} the most a feature holds")
+    require(native.USED["fastbin"] > used0["fastbin"],
+            "the native binner did not run")
+    va = {63: ds63.create_valid(Xh, yh), WIDE_MAX_BIN: ds.create_valid(
+        Xh, yh)}
+    rec = {"binning_s": bin_s, "max_num_bin": int(ds._handle.max_num_bin),
+           "runs": []}
+    launches, wide_bst = {}, None
+    for mb in (63, WIDE_MAX_BIN, WIDE_MAX_BIN, 63):
+        params = WIDE_PARAMS if mb == WIDE_MAX_BIN else TRAIN_PARAMS
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        bst = lt.Booster(params, ds if mb == WIDE_MAX_BIN else ds63)
+        bst.add_valid(va[mb], "holdout")
+        auc = []
+        for _ in range(WIDE_ITERS):
+            bst.update()
+            auc.append(_holdout_auc(bst))
+        torch.cuda.synchronize()
+        gb = bst.gbdt
+        run = dict(kernels.LAUNCHES)
+        r = {"max_bin": mb, "hist_backend": gb.hist_backend,
+             "grower": type(gb.grower).__name__,
+             "iter_seconds": list(gb.iter_seconds),
+             "median_iter_s": float(np.median(gb.iter_seconds)),
+             "peak_device_bytes": int(torch.cuda.max_memory_allocated()),
+             "holdout_auc": auc}
+        if mb == WIDE_MAX_BIN:
+            nodes = sum(t.num_leaves for t in gb.models)
+            splits = nodes - len(gb.models)
+            require(gb.hist_backend == "onehot"
+                    and r["grower"] == "FusedGrower",
+                    f"max_bin {mb}: {gb.hist_backend}, {r['grower']}")
+            require(run["histogram_chunked_u16"] == nodes
+                    and run["route_window_u16"] == splits,
+                    f"max_bin {mb}: B3 {run['histogram_chunked_u16']} "
+                    f"launches for {nodes} nodes, K2-u16 "
+                    f"{run['route_window_u16']} for {splits} splits")
+            require(not any(run[k] for k in (
+                "histogram_all", "histogram_segment_routed_step",
+                "histogram_chunked", "route_window")),
+                f"max_bin {mb}: a one-byte kernel ran: "
+                f"{ {k: v for k, v in run.items() if v} }")
+            r["b3_launches_a_tree"] = nodes / len(gb.models)
+            launches = run
+            wide_bst = bst
+        else:
+            require(gb.hist_backend == "pallas",
+                    f"max_bin 63 took {gb.hist_backend}")
+        r["launches"] = {k: v for k, v in run.items() if v}
+        rec["runs"].append(r)
+        log(f"wide bins: max_bin {mb} ({r['grower']}, {gb.hist_backend}) "
+            f"median iteration {r['median_iter_s']:.4f} s, peak "
+            f"{r['peak_device_bytes'] / 1e9:.2f} GB, holdout AUC "
+            f"{auc[-1]:.5f}")
+        if bst is not wide_bst:
+            del bst
+        del gb
+        torch.cuda.empty_cache()
+    rec["split_breakdown"] = split_breakdown(wide_bst)
+    return launches, rec, wide_bst
+
+
+def split_breakdown(bst):
+    """One more tree of ``bst`` (the fused grower on the onehot path),
+    each part of a split synchronized and timed on the host clock: the
+    route (K2), the histogram (the channels and B3), and the scan (the
+    best splits of both children, HostGrower._scan, host fetch included).
+    The synchronizes lengthen the tree; the shares are of the timed
+    parts.  Returns {ms a split of each part, the scan's share}."""
+    import torch
+    from lightgbm_tpu_torch.models import grower_fused
+    g = bst.gbdt.grower
+    parts = collections.defaultdict(float)
+    orig_hist, orig_scan = g._hist, g._scan
+    orig_route = grower_fused.route_window
+
+    def timed(name, fn):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            parts[name] += time.perf_counter() - t0
+            return out
+        return call
+
+    g._hist = timed("hist", orig_hist)
+    g._scan = timed("scan", orig_scan)
+    grower_fused.route_window = timed("route", orig_route)
+    try:
+        bst.update()
+    finally:
+        g._hist, g._scan = orig_hist, orig_scan
+        grower_fused.route_window = orig_route
+    splits = g.last_stats["splits"]
+    total = sum(parts.values())
+    rec = {f"{k}_ms_a_split": 1e3 * v / splits for k, v in parts.items()}
+    rec["scan_share_of_split"] = parts["scan"] / total
+    rec["splits"] = splits
+    log(f"wide bins: a split's parts (synchronized) "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in rec.items()
+                    if k.endswith("_ms_a_split"))
+        + f"; the scan's share {rec['scan_share_of_split']:.3f}")
+    return rec
+
+
+def b3_check(bins, w3, B, tag, reps=10, plain_reps=1, library=True):
+    """B3 against its plain version bit for bit, a relaunch bit for bit,
+    one launch a call; its time, the plain version's, its bound by bytes
+    (each channel row once, each member row's bins once; and with the
+    tiling's re-read of the channels by each column tile) and by its
+    operations (three adds a (row, column) pair), and one index_add_ of
+    the three channels into [G * B, 3]."""
+    import torch
+    from lightgbm_tpu_torch.ops import histogram as th
+    from lightgbm_tpu_torch.ops import kernels
+    G, W = bins.shape
+    wide = bins.dtype == torch.int16
+    name = kernels.variant("histogram_chunked", wide=wide)
+    scales = th.channel_scales(w3)
+    want = th.histogram_chunked_plain(bins, w3, B, scales)
+    before = kernels.LAUNCHES[name]
+    got = th.histogram_chunked(bins, w3, B, scales)
+    again = th.histogram_chunked(bins, w3, B, scales)
+    torch.cuda.synchronize()
+    calls = kernels.LAUNCHES[name] - before
+    require(calls == 2, f"B3 {tag}: {calls} launches for two calls")
+    require(torch.equal(got, want), f"B3 {tag}: differs from the plain "
+            "version")
+    require(torch.equal(again, got), f"B3 {tag}: a relaunch differs")
+    tiling = th.chunked_tiling(G, B)
+    members = int((w3[2] != 0).sum().item())
+    es = bins.element_size()
+    nbytes = 12 * W + es * G * members + 12 * G * B
+    reread = 12 * W * (1 if tiling["global"] else tiling["column_tiles"]) \
+        + es * G * members + 12 * G * B
+    rec = {"max_abs_err": float((got - want).abs().max().item()),
+           "ms": time_ms(lambda i: th.histogram_chunked(bins, w3, B, scales),
+                         reps),
+           "plain_ms": time_ms(lambda i: th.histogram_chunked_plain(
+               bins, w3, B, scales), plain_reps),
+           "tiling": tiling, "member_rows": members,
+           "shape": f"{tag}: {W} rows ({members} members) x {G} columns "
+                    f"({bins.dtype}), {B} bins"}
+    rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, 3.0 * members * G)
+    rec["bound_with_rereads_ms"] = bound_ms(reread, 3.0 * members * G)[0]
+    rec["library_ms"] = (library_b3_ms(bins, w3, B, reps) if library
+                         else None)
+    log(f"B3 {tag}: bit for bit the plain version, {rec['ms']:.4f} ms, "
+        f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}; with the "
+        f"{tiling['column_tiles']} tiles' re-reads "
+        f"{rec['bound_with_rereads_ms']:.4f} ms), plain "
+        f"{rec['plain_ms']:.2f} ms, index_add_ "
+        + (f"{rec['library_ms']:.3f} ms" if library else "not timed"))
+    return rec
+
+
+def library_b3_ms(bins, w3, B, reps):
+    """One torch index_add_ of the three channels of the member rows into
+    [G * B, 3]: what B3 computes, its flat keys and values made before
+    the clock starts."""
+    import torch
+    from lightgbm_tpu_torch.ops import histogram as th
+    G = bins.shape[0]
+    rows = torch.nonzero(w3[2] != 0).squeeze(1)
+    b = th.widen_bins(bins[:, rows]).long()
+    keys = (b + torch.arange(G, device=b.device)[:, None] * B).reshape(-1)
+    del b
+    vals = w3[:, rows].t().contiguous()[None].expand(G, -1, -1).reshape(
+        -1, 3)
+    out = torch.zeros((G * B, 3), dtype=torch.float32, device=bins.device)
+    ms = time_ms(lambda i: out.index_add_(0, keys, vals), reps)
+    del keys, vals, out
+    torch.cuda.empty_cache()
+    return ms
+
+
+def wide_kernel_phase(bst):
+    """B3, K2-u16 and P1-u16 at the main path's shapes on the max_bin 1023
+    booster's device bins: B3 at the root (every row) and at a smaller
+    child (every other row); K2-u16 with the first tree's first split over
+    every row; P1-u16 over the bins with the booster's trees; then B3 at
+    B_SWEEP_ROWS random rows for each B of B3_SWEEP.  Each against its
+    plain version bit for bit, timed beside its bound.  Returns
+    {kernel name: record}."""
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.models.device_predict import TreeStack
+    from lightgbm_tpu_torch.models.grower_frontier import host_meta
+    from lightgbm_tpu_torch.ops import histogram as th
+    from lightgbm_tpu_torch.ops import kernels
+    from lightgbm_tpu_torch.ops import predict as tp
+    gb = bst.gbdt
+    bins, B = gb.bins, gb.num_bins
+    G, W = bins.shape
+    grad, hess, member = acc_gradients(gb)
+    out = {}
+    b3 = b3_check(bins, th.chunked_channels(grad, hess, member), B,
+                  "HIGGS root, max_bin 1023")
+    half = member * (torch.arange(W, device=bins.device) % 2 == 0).float()
+    b3["smaller_child"] = b3_check(
+        bins, th.chunked_channels(grad, hess, half), B,
+        "HIGGS half the rows, max_bin 1023", library=False)
+    sweep = []
+    g = torch.Generator(device=bins.device).manual_seed(28)
+    n = B3_SWEEP_ROWS
+    gs = torch.randn(n, device=bins.device, generator=g)
+    hs = torch.rand(n, device=bins.device, generator=g) * 0.25
+    ms = (torch.rand(n, device=bins.device, generator=g) < 0.8).float()
+    w3 = th.chunked_channels(gs, hs, ms)
+    for nb, wide in B3_SWEEP:
+        raw = torch.randint(0, nb, (G, n), device=bins.device, generator=g)
+        sb = (raw.to(torch.int32).to(torch.int16) if wide
+              else raw.to(torch.uint8))
+        del raw
+        r = b3_check(sb, w3, nb, f"{n} random rows, B {nb}",
+                     reps=3 if nb > 8192 else 10,
+                     library=nb <= 8192)
+        r.update(B=nb, u16=wide)
+        sweep.append(r)
+        del sb
+    b3["sweep"] = sweep
+    out["histogram_chunked_u16"] = b3
+    # K2-u16: the first tree's first split, every row in leaf 0
+    t = gb.models[0]
+    f = int(t.split_feature_inner[0])
+    fm = host_meta(gb.fmeta)
+    route = th.pack_route(0, 1, f, int(t.threshold_in_bin[0]),
+                          bool(t.decision_type[0] & 2),
+                          bool(t.decision_type[0] & 1),
+                          np.zeros(8, np.uint32), fm)
+    rb = gb.grower.rb
+    lid0 = torch.zeros(W, dtype=torch.int32, device=bins.device)
+    want = th.route_window_plain(bins, lid0.clone(), 0, W // rb, route, rb)
+    before = kernels.LAUNCHES["route_window_u16"]
+    got = th.route_window(bins, lid0.clone(), 0, W // rb, route, rb)
+    torch.cuda.synchronize()
+    require(kernels.LAUNCHES["route_window_u16"] - before == 1,
+            "K2-u16: not one launch a call")
+    require(torch.equal(got, want), "K2-u16: differs from the plain "
+            "version")
+    moved = int((want == 1).sum().item())
+    ids = [lid0.clone() for _ in range(11)]
+    k2 = {"max_abs_err": 0.0,
+          "ms": time_ms(lambda i: th.route_window(bins, ids[i], 0, W // rb,
+                                                  route, rb), 10),
+          "plain_ms": time_ms(lambda i: th.route_window_plain(
+              bins, lid0.clone(), 0, W // rb, route, rb), 1),
+          "library_ms": None, "moved_rows": moved,
+          "shape": f"first split: {W} rows, {moved} routed, u16 bins"}
+    k2["bound_ms"], k2["bound_by"] = bound_ms(W * (2 + 4) + moved * 4, W)
+    log(f"K2-u16: bit for bit the plain version, {k2['ms']:.4f} ms, bound "
+        f"{k2['bound_ms']:.4f} ms, plain {k2['plain_ms']:.2f} ms")
+    out["route_window_u16"] = k2
+    # P1-u16 over the training bins with the booster's trees
+    trees = gb.models
+    stack = TreeStack(trees, [0] * len(trees),
+                      gb.train_set.num_used_features, gb.device,
+                      gb.route_tables[0])
+    start = gb.train_score.to(torch.float64).reshape(1, -1).contiguous()
+    nb_, db_ = gb.fmeta.num_bin, gb.fmeta.default_bin
+    want = tp.route_trees_plain(bins, stack, nb_, db_, start.clone(),
+                                wide=True)
+    before = kernels.LAUNCHES["route_trees_u16"]
+    got = tp.route_trees(bins, stack, nb_, db_, start.clone(), wide=True)
+    torch.cuda.synchronize()
+    require(kernels.LAUNCHES["route_trees_u16"] - before == 1,
+            "P1-u16: not one launch a call")
+    require(torch.equal(got, want), "P1-u16: differs from the plain version")
+    scratch = start.clone()
+    nbytes, parts = route_bytes(bins, stack, trees, nb_, db_,
+                                start.shape[1], 1, wide=True)
+    p1 = {"max_abs_err": 0.0,
+          "ms": time_ms(lambda i: tp.route_trees(bins, stack, nb_, db_,
+                                                 scratch, wide=True), 10),
+          "plain_ms": time_ms(lambda i: tp.route_trees_plain(
+              bins, stack, nb_, db_, scratch, wide=True), 1),
+          "library_ms": None, **parts,
+          "shape": f"{start.shape[1]} rows x {G} u16 columns, "
+                   f"{len(trees)} trees of 255 leaves"}
+    p1["bound_ms"], p1["bound_by"] = bound_ms(nbytes,
+                                              float(W) * len(trees))
+    log(f"P1-u16: bit for bit the plain version, {p1['ms']:.4f} ms, bound "
+        f"{p1['bound_ms']:.4f} ms ({p1['bound_by']}), plain "
+        f"{p1['plain_ms']:.2f} ms")
+    out["route_trees_u16"] = p1
+    return out
+
+
+def wide_cat_phase():
+    """(b) multiclass_cat's 1M rows with 8 categorical columns of
+    WIDE_CATEGORIES Zipf-like categories (more than 256 bins each), 5
+    classes, 31 leaves, WIDE_ITERS iterations on the onehot path: B3-u16
+    once a node, holdout multi_logloss (no gate).  Returns (launches,
+    record)."""
+    import numpy as np
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import kernels
+    X, y = wide_multiclass_cat(MC_ROWS + HOLDOUT_ROWS, 70)
+    Xh, yh = X[MC_ROWS:], y[MC_ROWS:]
+    X, y = X[:MC_ROWS], y[:MC_ROWS]
+    t0 = time.perf_counter()
+    ds = lt.Dataset(X, y, categorical_feature=MC_CAT)
+    ds.construct(lt.Config.from_params(MC_PARAMS))
+    bin_s = time.perf_counter() - t0
+    h = ds._handle
+    cat_bins = [int(h.bin_mappers[f].num_bin) for f in MC_CAT]
+    require(min(cat_bins) > 256, f"the wide categoricals hold {cat_bins} "
+            "bins")
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    bst = lt.Booster(MC_PARAMS, ds)
+    bst.add_valid(ds.create_valid(Xh, yh), "holdout")
+    loss = []
+    for _ in range(WIDE_ITERS):
+        bst.update()
+        loss.append(float(bst.eval_valid()[0][2]))
+    torch.cuda.synchronize()
+    run = dict(kernels.LAUNCHES)
+    gb = bst.gbdt
+    nodes = sum(t.num_leaves for t in gb.models)
+    require(gb.hist_backend == "onehot"
+            and run["histogram_chunked_u16"] == nodes,
+            f"wide categoricals: {gb.hist_backend}, B3-u16 "
+            f"{run['histogram_chunked_u16']} launches for {nodes} nodes")
+    cat_nodes = sum(int(t.num_cat) for t in gb.models)
+    rec = {"binning_s": bin_s, "categorical_bins": cat_bins,
+           "iter_seconds": list(gb.iter_seconds),
+           "median_iter_s": float(np.median(gb.iter_seconds)),
+           "peak_device_bytes": int(torch.cuda.max_memory_allocated()),
+           "holdout_multi_logloss": loss, "categorical_nodes": cat_nodes,
+           "launches": {k: v for k, v in run.items() if v}}
+    log(f"wide categoricals: {cat_bins} bins, median iteration "
+        f"{rec['median_iter_s']:.4f} s, holdout multi_logloss {loss[-1]:.5f}"
+        f", {cat_nodes} categorical nodes")
+    del bst, gb, ds
+    torch.cuda.empty_cache()
+    return run, rec, (X[:PARITY_ROWS], y[:PARITY_ROWS])
+
+
+def gpu_use_dp_phase(ds63, Xh, yh, auc63):
+    """(c) gpu_use_dp=True on phase 3's max_bin 63 bins: one-byte bins
+    through B3 on the fused grower, WIDE_ITERS iterations: B3 once a node,
+    holdout AUC beside the max_bin 63 run's.  Returns (launches, record)."""
+    import numpy as np
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import kernels
+    params = dict(TRAIN_PARAMS, gpu_use_dp=True)
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    bst = lt.Booster(params, ds63)
+    bst.add_valid(ds63.create_valid(Xh, yh), "holdout")
+    auc = []
+    for _ in range(WIDE_ITERS):
+        bst.update()
+        auc.append(_holdout_auc(bst))
+    torch.cuda.synchronize()
+    run = dict(kernels.LAUNCHES)
+    gb = bst.gbdt
+    nodes = sum(t.num_leaves for t in gb.models)
+    require(gb.hist_backend == "onehot" and not gb.train_set.wide
+            and run["histogram_chunked"] == nodes
+            and run["route_window"] == nodes - len(gb.models),
+            f"gpu_use_dp: {gb.hist_backend}, B3 {run['histogram_chunked']} "
+            f"launches for {nodes} nodes")
+    rec = {"iter_seconds": list(gb.iter_seconds),
+           "median_iter_s": float(np.median(gb.iter_seconds)),
+           "peak_device_bytes": int(torch.cuda.max_memory_allocated()),
+           "holdout_auc": auc, "holdout_auc_max_bin_63_run": auc63,
+           "launches": {k: v for k, v in run.items() if v}}
+    from lightgbm_tpu_torch.ops import histogram as th
+    grad, hess, member = acc_gradients(gb)
+    rec["b3_root"] = b3_check(gb.bins, th.chunked_channels(grad, hess,
+                                                           member),
+                              gb.num_bins, "HIGGS root, max_bin 63 (u8)")
+    log(f"gpu_use_dp: median iteration {rec['median_iter_s']:.4f} s, "
+        f"holdout AUC {auc[-1]:.5f} (the max_bin 63 run {auc63:.5f})")
+    del bst, gb
+    torch.cuda.empty_cache()
+    return run, rec
+
+
+def _format_rows(args):
+    """One block of rows as text (a process of file_phase's pool):
+    ("csv", label, weight-free features) or ("svm", ...)."""
+    import io
+    import numpy as np
+    kind, y, X = args
+    buf = io.BytesIO()
+    if kind == "csv":
+        np.savetxt(buf, np.column_stack([y, X]), fmt="%.9g", delimiter=",")
+    else:
+        fmt = " ".join(["%d"] + [f"{i}:%.9g" for i in range(X.shape[1])])
+        np.savetxt(buf, np.column_stack([y, X]), fmt=fmt)
+    return buf.getvalue()
+
+
+def write_text_files(X, y, w, directory):
+    """The rows as a CSV with a header (label column "label") and a
+    ``.weight`` side file, and as LibSVM; formatted by processes, one
+    block of rows each, which stop before this returns.  Returns
+    (csv path, libsvm path)."""
+    import multiprocessing
+    import numpy as np
+    from concurrent.futures import ProcessPoolExecutor
+    n = X.shape[0]
+    blocks = [(s, min(s + 65536, n)) for s in range(0, n, 65536)]
+    paths = {}
+    # spawned, not forked: the parent holds a CUDA context and threads
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1),
+                             mp_context=ctx) as pool:
+        for kind in ("csv", "svm"):
+            path = os.path.join(directory, f"higgs.{kind}")
+            with open(path, "wb") as fh:
+                if kind == "csv":
+                    fh.write((",".join(["label"] + [
+                        f"f{i}" for i in range(X.shape[1])]) + "\n").encode())
+                for part in pool.map(_format_rows, [
+                        (kind, y[a:b], X[a:b]) for a, b in blocks]):
+                    fh.write(part)
+            paths[kind] = path
+    np.savetxt(paths["csv"] + ".weight", w, fmt="%.6g")
+    return paths["csv"], paths["svm"]
+
+
+def model_body(text, names=True):
+    """A model text without its parameters section (the dataset's file
+    parameters print there), and without the feature_names line unless
+    ``names``."""
+    body = text.split("\nparameters:")[0]
+    if not names:
+        body = "\n".join(line for line in body.splitlines()
+                          if not line.startswith("feature_names="))
+    return body
+
+
+def file_phase(X, y):
+    """(d) file input on the first FILE_ROWS HIGGS rows: written as a CSV
+    (header, named label column, ``.weight`` side file) and as LibSVM;
+    each loaded with lt.Dataset(path), the CSV with two_round off and on:
+    the bins byte for byte lt.Dataset(matrix) of the parsed values (with
+    two_round, binned on its dataset's bounds, which its reservoir sample
+    sets: the JAX loader's), the native tokenizer and binner run;
+    WIDE_ITERS iterations from each file = the matrix's model text;
+    save_binary then the .bin's model = it too; predict(path) =
+    predict(matrix).  Parse MB/s and binning seconds,
+    native against the Python versions (on FILE_PY_ROWS rows).  Returns
+    (launches, record)."""
+    import numpy as np
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.core import binning, native, parser
+    from lightgbm_tpu_torch.ops import kernels
+    d = tempfile.mkdtemp(prefix="file_input_")
+    n = min(FILE_ROWS, X.shape[0])
+    Xf, yf = X[:n], y[:n]
+    w = np.round(np.random.RandomState(9).uniform(0.5, 1.5, n), 3)
+    t0 = time.perf_counter()
+    csv, svm = write_text_files(Xf, yf, w, d)
+    rec = {"rows": n, "write_s": time.perf_counter() - t0,
+           "csv_mb": os.path.getsize(csv) / 1e6,
+           "libsvm_mb": os.path.getsize(svm) / 1e6}
+    base = dict(TRAIN_PARAMS, num_leaves=63)
+    csv_params = dict(base, header=True, label_column="name:label")
+    used0 = dict(native.USED)
+    loads = {}
+    for name, path, params in (
+            ("csv", csv, csv_params),
+            ("csv_two_round", csv, dict(csv_params, two_round=True)),
+            ("libsvm", svm, base)):
+        t0 = time.perf_counter()
+        ds = lt.Dataset(path, params=params)
+        ds.construct(lt.Config.from_params(params))
+        loads[name] = (ds, params, time.perf_counter() - t0)
+    require(native.USED["densetext"] > used0["densetext"]
+            and native.USED["textparse"] > used0["textparse"]
+            and native.USED["fastbin"] > used0["fastbin"],
+            f"the native tokenizers and binner did not all run: "
+            f"{native.USED} (before {used0})")
+    # the parsed values, as a matrix
+    mat = parser._read_dense_matrix(csv, ",", 1)
+    Xm = np.ascontiguousarray(mat[:, 1:])
+    require(np.array_equal(mat[:, 0], yf), "the CSV's labels differ")
+    t0 = time.perf_counter()
+    mds = lt.Dataset(Xm, yf, weight=w, feature_name=[
+        f"f{i}" for i in range(Xm.shape[1])])
+    mds.construct(lt.Config.from_params(base))
+    rec["matrix_binning_s"] = time.perf_counter() - t0
+    # two_round bins on its reservoir sample's bounds (the JAX loader's):
+    # the parsed matrix binned on those bounds
+    tds = lt.Dataset(Xm, yf, weight=w, reference=loads["csv_two_round"][0])
+    tds.construct(lt.Config.from_params(base))
+    for name, (ds, params, wall) in loads.items():
+        h = ds._handle
+        ref = tds if name == "csv_two_round" else mds
+        require(np.array_equal(h.bins_t, ref._handle.bins_t),
+                f"file input {name}: bins differ from the parsed matrix's")
+        if name != "libsvm":
+            require(np.array_equal(h.metadata.weights,
+                                   mds._handle.metadata.weights),
+                    f"file input {name}: the .weight side file differs")
+        rec[f"{name}_load_s"] = wall
+    kernels.reset_launches()
+    models = {}
+    for name, ds in (("matrix", mds), ("csv", loads["csv"][0]),
+                     ("matrix_two_round", tds),
+                     ("csv_two_round", loads["csv_two_round"][0])):
+        bst = lt.train(base, ds, WIDE_ITERS)
+        models[name] = bst.model_to_string()
+        if name == "matrix":
+            mbst = bst
+    run = dict(kernels.LAUNCHES)
+    for name, ref in (("csv", "matrix"), ("csv_two_round",
+                                          "matrix_two_round")):
+        require(model_body(models[name]) == model_body(models[ref]),
+                f"file input {name}: the model differs from the matrix's")
+    # LibSVM has no weights: its model is the unweighted matrix's
+    svm_model = lt.train(base, loads["libsvm"][0], WIDE_ITERS)
+    plain = lt.train(base, lt.Dataset(Xm, yf), WIDE_ITERS)
+    require(model_body(svm_model.model_to_string(), False)
+            == model_body(plain.model_to_string(), False),
+            "file input libsvm: the model differs from the matrix's")
+    binp = os.path.join(d, "higgs.bin")
+    loads["csv"][0].save_binary(binp)
+    again = lt.train(base, lt.Dataset(binp), WIDE_ITERS).model_to_string()
+    require(model_body(again) == model_body(models["matrix"]),
+            "file input: the binary dataset's model differs")
+    pred_file = mbst.predict(csv, data_has_header=True, raw_score=True)
+    pred_mat = mbst.predict(Xm, raw_score=True)
+    require(np.array_equal(pred_file, pred_mat),
+            "file input: predict(path) differs from predict(matrix)")
+    # parse rates: the native readers as lt.Dataset(path) runs them (a
+    # piece of the file a thread) over the whole file, and on one thread
+    # and the Python readers over FILE_PY_ROWS rows
+    with open(csv, "rb") as fh:
+        data = fh.read()
+    body = data.split(b"\n", 1)[1]
+    with open(svm, "rb") as fh:
+        sdata = fh.read()
+    for kind, text, threads, one, python in (
+            ("csv", body, lambda b: parser._dense_block(b, ","),
+             lambda b: native.parse_dense_native(b, ","),
+             lambda b: parser._parse_dense(b.decode().splitlines(), ",")),
+            ("libsvm", sdata, parser._libsvm_native,
+             native.parse_libsvm_native,
+             lambda b: parser._parse_libsvm(b.decode().splitlines()))):
+        head = text[:text.find(b"\n", len(text) * FILE_PY_ROWS // n) + 1]
+        for name, fn, part in (("native", threads, text),
+                               ("native_1_thread", one, head),
+                               ("python", python, head)):
+            t0 = time.perf_counter()
+            fn(part)
+            rec[f"{kind}_parse_{name}_mb_s"] = len(part) / 1e6 / (
+                time.perf_counter() - t0)
+    # binning: the bounds of every feature, native and Python
+    sample = Xm[:200_000]
+    t_nat = t_py = 0.0
+    for f in range(Xm.shape[1]):
+        v = np.sort(sample[:, f])
+        dv, cnt = np.unique(v, return_counts=True)
+        t0 = time.perf_counter()
+        a = binning.greedy_find_bin(dv, cnt, 63, len(v), 3)
+        t1 = time.perf_counter()
+        b = binning.greedy_find_bin_py(dv, cnt, 63, len(v), 3)
+        t_py += time.perf_counter() - t1
+        t_nat += t1 - t0
+        require(a == b, f"feature {f}: native bounds differ from Python's")
+    rec["bin_bounds_native_s"], rec["bin_bounds_python_s"] = t_nat, t_py
+    ms = mds._handle.bin_mappers
+    used = list(range(Xm.shape[1]))
+    t0 = time.perf_counter()
+    q = native.quantize_rows_native(Xm, used, ms, np.uint8)
+    rec["quantize_native_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for f in used:
+        require(np.array_equal(q[:, f], ms[f].value_to_bin(Xm[:, f])),
+                f"feature {f}: native bins differ from value_to_bin")
+    rec["quantize_python_s"] = time.perf_counter() - t0
+    log(f"file input: {n} rows, CSV {rec['csv_mb']:.1f} MB (load "
+        f"{rec['csv_load_s']:.2f} s, two-round "
+        f"{rec['csv_two_round_load_s']:.2f} s), LibSVM "
+        f"{rec['libsvm_mb']:.1f} MB (load {rec['libsvm_load_s']:.2f} s); "
+        f"parse CSV "
+        f"{rec['csv_parse_native_mb_s']:.1f} MB/s native "
+        f"({rec['csv_parse_native_1_thread_mb_s']:.1f} on one thread), "
+        f"{rec['csv_parse_python_mb_s']:.1f} Python; LibSVM "
+        f"{rec['libsvm_parse_native_mb_s']:.1f} native "
+        f"({rec['libsvm_parse_native_1_thread_mb_s']:.1f} on one thread), "
+        f"{rec['libsvm_parse_python_mb_s']:.1f} Python; bounds "
+        f"{t_nat:.3f} s native, {t_py:.3f} Python; quantize "
+        f"{rec['quantize_native_s']:.2f} s native, "
+        f"{rec['quantize_python_s']:.2f} Python; the models of both files "
+        f"and the .bin = the matrix's, predict(path) = predict(matrix)")
+    import shutil
+    shutil.rmtree(d, ignore_errors=True)
+    del loads, mds, mbst
+    torch.cuda.empty_cache()
+    return run, rec
+
+
+def wide_parity_phase(X, y, Xc, yc):
+    """Card = CPU at PARITY_ROWS rows and 31 leaves, WIDE_PARITY_ITERS
+    iterations: max_bin 1023, max_bin_by_feature, and (b)'s categoricals
+    (5 classes, one iteration): the same splits up to a near-tie;
+    whether the model texts are equal is recorded."""
+    import lightgbm_tpu_torch as lt
+    out = {}
+    runs = (("max_bin_1023", X, y, dict(WIDE_PARAMS, num_leaves=31), None),
+            ("max_bin_by_feature", X, y,
+             dict(TRAIN_PARAMS, num_leaves=31,
+                  max_bin_by_feature=WIDE_BY_FEATURE), None),
+            ("wide_categoricals", Xc, yc, MC_PARAMS, MC_CAT))
+    for name, Xr, yr, params, cats in runs:
+        trees, texts = {}, {}
+        # the 5-class run one iteration: the CPU's B3 twin is its wall
+        iters = 1 if cats else WIDE_PARITY_ITERS
+        for dev in ("cuda", "cpu"):
+            p = dict(params, device_type=dev)
+            ds = lt.Dataset(Xr, yr, categorical_feature=cats or "auto")
+            bst = lt.train(p, ds, iters)
+            require(bst.gbdt.hist_backend == "onehot",
+                    f"wide parity {name} on {dev}: {bst.gbdt.hist_backend}")
+            trees[dev] = bst.gbdt.models
+            texts[dev] = bst.model_to_string()
+        n, ties = _same_splits_near_tie(trees["cuda"], trees["cpu"],
+                                        f"wide parity {name} card/CPU")
+        require(n >= 20, f"wide parity {name}: {n} splits compared")
+        out[name] = {"splits_compared": n, "near_ties": ties,
+                     "model_text_equal": model_body(texts["cuda"])
+                     == model_body(texts["cpu"])}
+        log(f"wide parity {name}: card = CPU on {n} splits (near ties "
+            f"{ties}), model text equal: {out[name]['model_text_equal']}")
+    return out
+
+
+def wide_phase(ds63, X, y, Xh, yh):
+    """Phase 28: (a) wide_runs_phase and wide_kernel_phase, (b)
+    wide_cat_phase, (c) gpu_use_dp_phase, (d) file_phase, card = CPU
+    (wide_parity_phase).  Returns ({path: launches}, record, {kernel:
+    record})."""
+    import torch
+    t0 = time.perf_counter()
+    walls = {}
+
+    def lap(name, t):
+        walls[name] = time.perf_counter() - t
+        return time.perf_counter()
+
+    a_launches, rec, wbst = wide_runs_phase(ds63, X, y, Xh, yh)
+    t = lap("wide_runs", t0)
+    kern = wide_kernel_phase(wbst)
+    auc63 = rec["runs"][0]["holdout_auc"][-1]
+    del wbst
+    torch.cuda.empty_cache()
+    t = lap("kernels", t)
+    b_launches, rec["wide_categoricals"], (Xc, yc) = wide_cat_phase()
+    t = lap("wide_categoricals", t)
+    c_launches, rec["gpu_use_dp"] = gpu_use_dp_phase(ds63, Xh, yh, auc63)
+    kern["histogram_chunked"] = rec["gpu_use_dp"]["b3_root"]
+    t = lap("gpu_use_dp", t)
+    d_launches, rec["file_input"] = file_phase(X, y)
+    t = lap("file_input", t)
+    rec["card_cpu"] = wide_parity_phase(X[:PARITY_ROWS], y[:PARITY_ROWS],
+                                        Xc, yc)
+    lap("card_cpu", t)
+    rec["walls_s"] = walls
+    rec["phase_wall_s"] = time.perf_counter() - t0
+    log(f"wide bins and file input: phase took {rec['phase_wall_s']:.1f} s "
+        + json.dumps({k: round(v, 1) for k, v in walls.items()}))
+    return ({"wide_bins": a_launches, "wide_categoricals": b_launches,
+             "gpu_use_dp": c_launches, "file_input": d_launches},
+            rec, kern)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -5854,9 +6672,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
     t_start = time.perf_counter()
+    _MARK[:] = [t_start, t_start]
     build = build_phase()
     card = card_line()
+    mark("1 build")
     q1_device_ops_phase()
+    mark("1 q1 device ops")
 
     t0 = time.perf_counter()
     X, y = higgs_like(HIGGS_ROWS + HOLDOUT_ROWS, 42)
@@ -5866,21 +6687,26 @@ def main() -> int:
     ds.construct(Config.from_params(TRAIN_PARAMS))
     log(f"data: {HIGGS_ROWS} x {N_FEATURES} generated and binned in "
         f"{time.perf_counter() - t0:.1f} s")
+    mark("higgs data")
 
     t0 = time.perf_counter()
     results = kernel_phase(ds._handle, Config.from_params(TRAIN_PARAMS),
                            device)
     torch.cuda.empty_cache()
     log(f"kernels: phase took {time.perf_counter() - t0:.1f} s")
+    mark("2 kernels")
 
     t0 = time.perf_counter()
     fk_results = frontier_kernel_phase(
         ds._handle, Config.from_params(TRAIN_PARAMS), device, "HIGGS",
         ((16, 5, True),))
     log(f"frontier kernels: HIGGS took {time.perf_counter() - t0:.1f} s")
+    mark("9 frontier kernels")
 
     main_launches, train_stats, bst = train_phase(ds, Xh, yh)
+    mark("3 train")
     late = late_split_phase(bst)
+    mark("3b late split")
     results["histogram_segment_routed"]["late_split"] = late["by_value"]
     results["histogram_segment_routed_step"]["late_split"] = late["step"]
     # phase 23 at HIGGS: the in-training valid scores (P1 each iteration)
@@ -5896,36 +6722,57 @@ def main() -> int:
     predict_launches, predict_higgs = predict_phase("HIGGS", bst, Xp)
     t_predict = time.perf_counter() - t_predict
     del bst, Xp
+    mark("23 predict")
     fr_launches, fr_stats, bst = frontier_train_phase(ds, Xh, yh,
                                                       train_stats)
     results["route_window"]["late_window"] = route_late_phase(bst)
     del bst
+    mark("10 frontier train")
     unfused_launches, ds_1m, unfused_loop = unfused_phase()
+    mark("4 unfused")
     tier_launches = frontier_tiers_phase(ds_1m)
     del ds_1m
+    mark("11 frontier tiers")
     seg_text = parity_phase()
+    mark("5 parity")
     fr_parity = frontier_parity_phase(seg_text)
+    mark("12-13 frontier parity")
     t_session = time.perf_counter()
     session_launches, session = session_phase(ds, Xh, yh)
+    mark("14 session")
     session["parity"] = session_parity_phase()
+    mark("15 session parity")
     t_session = time.perf_counter() - t_session
     t_obj = time.perf_counter()
     weighted_kernels = weighted_kernel_phase(ds._handle, X)
     obj_launches, objectives = objectives_phase(ds, X, Xh, yh)
     objectives["weighted_kernels"] = weighted_kernels
     t_obj = time.perf_counter() - t_obj
+    mark("17 objectives")
     t_modes = time.perf_counter()
     modes_launches, modes = modes_phase(ds, Xh, yh)
     t_modes = time.perf_counter() - t_modes
+    mark("21 modes")
     t_acc = time.perf_counter()
     acc_launches, packed_acc, acc_kernels = packed_acc_phase(ds, Xh, yh)
     t_acc = time.perf_counter() - t_acc
+    mark("26 packed_acc")
     t0 = time.perf_counter()
     sf_launches, split_features = split_features_phase(ds, X, y, Xh, yh)
     split_features["phase_wall_s"] = time.perf_counter() - t0
     log(f"split features: phase took {split_features['phase_wall_s']:.1f} s")
-    del ds, X, y, Xh, yh
+    mark("27 split features")
+    wide_launches, wide, wide_kernels = wide_phase(ds, X, y, Xh, yh)
+    del ds
     torch.cuda.empty_cache()
+    mark("28 wide bins")
+    t0 = time.perf_counter()
+    p4_launches, packed4, p4_kernels = packed4_phase(X, y, Xh, yh)
+    packed4["phase_wall_s"] = time.perf_counter() - t0
+    log(f"packed4: phase took {packed4['phase_wall_s']:.1f} s")
+    del X, y, Xh, yh
+    torch.cuda.empty_cache()
+    mark("25 packed4")
 
     t0 = time.perf_counter()
     X, y = multiclass_cat(MC_ROWS + HOLDOUT_ROWS, 7)
@@ -5936,30 +6783,37 @@ def main() -> int:
     ds.construct(mc_config)
     log(f"mc data: {MC_ROWS} x {N_FEATURES} generated and binned in "
         f"{time.perf_counter() - t0:.1f} s")
+    mark("mc data")
     t0 = time.perf_counter()
     mc_results = mc_kernel_phase(ds._handle, mc_config, device)
     torch.cuda.empty_cache()
     log(f"mc kernels: phase took {time.perf_counter() - t0:.1f} s")
+    mark("6 mc kernels")
     t0 = time.perf_counter()
     fk_mc = frontier_kernel_phase(ds._handle, mc_config, device,
                                   "multiclass_cat",
                                   ((2, 5, True), (16, 5, False)))
     log(f"frontier kernels: multiclass_cat took "
         f"{time.perf_counter() - t0:.1f} s")
+    mark("9 frontier kernels")
     mc_launches, mc_stats = mc_train_phase(ds, Xh, yh)
+    mark("7 mc train")
     mc_parity_phase()
+    mark("8 mc parity")
     t0 = time.perf_counter()
     mc_acc_launches, packed_acc["multiclass_cat"] = packed_acc_mc_phase(
         ds, Xh, yh)
     acc_launches.update(mc_acc_launches)
     packed_acc["phase_wall_s"] = t_acc + time.perf_counter() - t0
     log(f"packed_acc: phase took {packed_acc['phase_wall_s']:.1f} s")
+    mark("26 packed_acc")
     t0 = time.perf_counter()
     mc_session_launches, session["multiclass_cat"] = session_mc_phase(
         ds, Xh, yh)
     t_session += time.perf_counter() - t0
     for k, v in mc_session_launches.items():
         session_launches[k] += v
+    mark("16 session mc")
     t0 = time.perf_counter()
     ova_launches, objectives["multiclassova"] = ova_phase(ds, Xh, yh)
     t_obj += time.perf_counter() - t0
@@ -5971,27 +6825,34 @@ def main() -> int:
             f"the objectives did not run the path's kernels: {obj_launches}")
     del ds, X, y, Xh, yh
     torch.cuda.empty_cache()
+    mark("17 objectives")
     t0 = time.perf_counter()
     rank_launches, rank = lambdarank_phase()
     rank["phase_wall_s"] = time.perf_counter() - t0
+    mark("18 lambdarank")
     require(rank_launches["histogram_segment_routed_step"] > 0,
             "lambdarank did not launch the K3 step entry")
     t0 = time.perf_counter()
     meta_parity = meta_parity_phase()
     meta_parity["phase_wall_s"] = time.perf_counter() - t0
+    mark("19 meta parity")
     t0 = time.perf_counter()
     goss_launches, goss, goss_bst, goss_X = goss_phase()
     goss["phase_wall_s"] = time.perf_counter() - t0
+    mark("20 goss")
     t0 = time.perf_counter()
     parity_launches, modes["parity"] = modes_parity_phase()
     modes["phase_wall_s"] = t_modes + time.perf_counter() - t0
+    mark("22 modes parity")
     t0 = time.perf_counter()
     goss_predict_launches, predict_goss = predict_phase(
         "goss_regression", goss_bst, goss_X)
     del goss_bst, goss_X
     torch.cuda.empty_cache()
+    mark("23 predict")
     walks = walks_parity_phase()
     t_predict += time.perf_counter() - t0
+    mark("23 walks parity")
     predict_launches = {k: predict_launches[k] + goss_predict_launches[k]
                         for k in predict_launches}
     predict = {"higgs": predict_higgs, "goss_regression": predict_goss,
@@ -6010,15 +6871,15 @@ def main() -> int:
         f"the modes did not run the path's kernels: {modes_launches}")
     t0 = time.perf_counter()
     expo_launches, expo, expo_kernels = expo_phase()
+    mark("24 expo")
     expo["bundle_parity"] = expo_bundle_parity_phase()
+    mark("24 expo bundle parity")
     expo["cpu_parity"] = expo_cpu_parity_phase()
+    mark("24 expo cpu parity")
     sparse_launches, expo["sparse_at_scale"] = sparse_at_scale_phase()
+    mark("24 sparse at scale")
     expo["phase_wall_s"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    p4_launches, packed4, p4_kernels = packed4_phase()
-    packed4["phase_wall_s"] = time.perf_counter() - t0
-    log(f"packed4: phase took {packed4['phase_wall_s']:.1f} s")
     session["launches"] = session_launches
     session["phase_wall_s"] = t_session
     require(session_launches["histogram_segment_routed_step"] > 0
@@ -6037,8 +6898,34 @@ def main() -> int:
     paths.update({f"packed4_{k}": v for k, v in p4_launches.items()})
     paths.update(acc_launches)
     paths.update(sf_launches)
+    paths.update(wide_launches)
     records = []
     for name in kernels.KERNEL_NAMES:
+        if name.endswith(kernels.WIDE_SUFFIX) or name == "histogram_chunked":
+            # phase 28's rows: B3 (one-byte bins under gpu_use_dp, two-byte
+            # at max_bin 1023) and the u16 modes of K2 and P1
+            base = name.replace(kernels.WIDE_SUFFIX, "")
+            path = "gpu_use_dp" if name == "histogram_chunked" \
+                else "wide_bins"
+            src, replaces = SOURCES[base]
+            rec = {"name": name, "route": "cuda", "source": src,
+                   "replaces": replaces,
+                   "variant": "u16" if name != base else "u8",
+                   "launches": paths[path][name], "path": path,
+                   "launches_by_path": {k: v[name] for k, v in paths.items()
+                                        if v[name]}}
+            if base in ("histogram_chunked", "route_trees"):
+                rec["no_pallas_site"] = (
+                    "the JAX package computes this with XLA "
+                    + ("(lightgbm_tpu/ops/histogram.py:32-97)"
+                       if base == "histogram_chunked" else
+                       "(lightgbm_tpu/models/device_predict.py:99-149)"))
+            rec.update(wide_kernels[name])
+            records.append(rec)
+            require(rec["launches"] > 0,
+                    f"{name} was not launched on its path")
+            log(json.dumps({k: v for k, v in rec.items() if k != "sweep"}))
+            continue
         if (name.endswith(kernels.PACKED_ACC_SUFFIX)
                 or name == "quantize_pack"):
             # phase 26's row: the packed-accumulator mode, and Q1
@@ -6164,6 +7051,9 @@ def main() -> int:
     log(json.dumps({"packed4": packed4}))
     log(json.dumps({"packed_acc": packed_acc}))
     log(json.dumps({"split_features": split_features}))
+    log(json.dumps({"wide_bins": wide}))
+    mark("report")
+    log(json.dumps({"phase_walls_s": PHASE_WALLS}))
     log(json.dumps({"kernels": records}))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(card)

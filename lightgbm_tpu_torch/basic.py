@@ -21,6 +21,7 @@ import numpy as np
 from .config import PREDICT_PARAMS, Config, resolve_alias
 from .core.dataset import TorchDataset
 from .core.metadata import Metadata
+from .core.parser import load_file_to_dataset, parse_file_to_matrix
 from .models.boosting_factory import create_boosting
 from .models.gbdt import GBDT, resolve_device
 from .models.refit import refit_model
@@ -123,7 +124,14 @@ class Dataset:
     as the JAX Dataset keeps it; the raw matrix is only read at
     construction.  A scipy sparse matrix (CSR, CSC, ...) is binned from
     its nonzeros without densifying it (TorchDataset.from_scipy;
-    lightgbm_tpu/basic.py:143-147)."""
+    lightgbm_tpu/basic.py:143-147).  A path is a data file: CSV, TSV or
+    LibSVM text, read as the ``header``, ``label_column``,
+    ``weight_column``, ``group_column``, ``ignore_column`` and
+    ``two_round`` parameters say, or a binary dataset (``save_binary``)
+    (core/parser.py; lightgbm_tpu/basic.py:134-141); with ``reference``
+    it is binned by the reference's bin mappers, and with the
+    ``save_binary`` parameter a text file's dataset is also written to
+    ``<path>.bin``."""
 
     def __init__(self, data, label=None,
                  reference: Optional["Dataset"] = None,
@@ -164,6 +172,15 @@ class Dataset:
         ref = None
         if self.reference is not None:
             ref = self.reference.construct(cfg)._handle
+        if isinstance(self.data, (str, os.PathLike)):
+            path = os.fspath(self.data)
+            self._handle = load_file_to_dataset(path, cfg, reference=ref)
+            if cfg.save_binary and not path.endswith(".bin"):
+                self._handle.save_binary(path + ".bin")
+            for field in ("label", "weight", "group", "init_score"):
+                if getattr(self, field) is not None:
+                    self.set_field(field, getattr(self, field))
+            return self
         self.pandas_categorical = (
             self.reference.pandas_categorical
             if self.reference is not None
@@ -301,6 +318,20 @@ class Dataset:
 
     def num_data(self) -> int:
         return self.construct()._handle.num_data
+
+    def save_binary(self, filename: str) -> "Dataset":
+        """The constructed dataset as the JAX package's binary cache
+        (TorchDataset.save_binary), which ``Dataset(filename)`` reads."""
+        self.construct()._handle.save_binary(filename)
+        return self
+
+    def add_features_from(self, other: "Dataset") -> "Dataset":
+        """``other``'s features appended to this dataset's, on the same
+        rows (TorchDataset.add_features_from); both are constructed
+        first."""
+        self.construct()._handle.add_features_from(
+            other.construct()._handle)
+        return self
 
     def num_feature(self) -> int:
         return self.construct()._handle.num_total_features
@@ -478,7 +509,7 @@ class Booster:
     def predict(self, data, num_iteration: Optional[int] = -1,
                 raw_score: bool = False, pred_leaf: bool = False,
                 pred_contrib: bool = False, start_iteration: int = 0,
-                **kwargs) -> np.ndarray:
+                data_has_header: bool = False, **kwargs) -> np.ndarray:
         """Raw scores, the objective's output, (``pred_leaf``) leaf
         indices, or (``pred_contrib``) SHAP contributions ([N, F + 1] a
         class, models/shap.py) of a feature matrix — an array, a
@@ -492,11 +523,18 @@ class Booster:
         ``pred_early_stop_freq``, ``pred_early_stop_margin``,
         ``predict_contrib``); any other raises.  A booster's predict
         routes as ``predict_device`` says (GBDT.predict); the route taken
-        is ``gbdt.last_predict_route``."""
+        is ``gbdt.last_predict_route``.  A path is a data file, read as
+        the JAX package's file predict reads it (core/parser.py
+        parse_file_to_matrix: its label column dropped, a header line
+        where ``data_has_header``)."""
         if num_iteration is None or num_iteration < 0:
             num_iteration = (self.best_iteration if self.best_iteration > 0
                              else -1)
         n_feat = self.gbdt.max_feature_idx + 1
+        if isinstance(data, (str, os.PathLike)):
+            data, _ = parse_file_to_matrix(
+                os.fspath(data), data_has_header, n_feat,
+                str(self.config.label_column or ""))
         X = _as_2d_float(data, n_feat,
                          pandas_categorical=self.pandas_categorical)
         if X.shape[1] != n_feat:

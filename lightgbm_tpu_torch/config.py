@@ -9,7 +9,8 @@ gradients (objective "none", ``train(fobj=...)``), with the serial
 segment, frontier or fused grower on dense data, numeric or categorical,
 weighted or not, with query groups and init scores, and the split
 features (monotone constraints, feature_contri, forced splits, CEGB's
-penalties) — so the registry
+penalties), from arrays or from a text or binary data file, with one or
+two bytes a bin — so the registry
 holds only the parameters that path honours.  A
 parameter of a feature the port does not have raises NotImplementedError
 unless it is given at the value that switches the feature off; an
@@ -60,6 +61,9 @@ _PARAMS: Dict[str, _P] = {
     "min_gain_to_split": _P(0.0, ["min_split_gain"]),
     "verbosity": _P(1, ["verbose"]),
     "max_bin": _P(255),
+    # one max_bin an original feature (a shorter list: max_bin for the
+    # rest; lightgbm_tpu/core/dataset.py:161-166)
+    "max_bin_by_feature": _P([], ptype=list),
     "min_data_in_bin": _P(3),
     "bin_construct_sample_cnt": _P(200000, ["subsample_for_bin"]),
     "data_random_seed": _P(1, ["data_seed"]),
@@ -149,6 +153,25 @@ _PARAMS: Dict[str, _P] = {
     "max_conflict_rate": _P(0.0),
     "sparse_threshold": _P(0.8),
     "metric": _P([], ["metrics", "metric_types"], ptype=list),
+    # data files (core/parser.py; lightgbm_tpu/config.py:120-126): a
+    # header line, the label, weight, query and ignored columns (an index,
+    # or name:<header name>), two-pass loading, and the binary cache
+    "header": _P(False, ["has_header"]),
+    "label_column": _P("", ["label"]),
+    "weight_column": _P("", ["weight"]),
+    "group_column": _P("", ["group", "group_id", "query_column", "query",
+                            "query_id"]),
+    "ignore_column": _P("", ["ignore_feature", "blacklist"]),
+    "two_round": _P(False, ["two_round_loading", "use_two_round_loading"]),
+    "save_binary": _P(False, ["is_save_binary", "is_save_binary_file"]),
+    # the histogram path (lightgbm_tpu/config.py:185-212): "pallas" names
+    # the K1-K7 kernels, "onehot" B3 (ops/histogram.py histogram_chunked)
+    # on the fused grower; "auto" takes B3 where a column holds more than
+    # 256 bins or double precision is asked for (gpu_use_dp,
+    # tpu_double_precision: f32 gradients summed in 64-bit fixed point)
+    "tpu_histogram_backend": _P("auto"),
+    "gpu_use_dp": _P(False),
+    "tpu_double_precision": _P(False),
     # prediction (lightgbm_tpu/config.py:131-135, :283): "auto" = the
     # stacked-tree route (kernel P1) on a card booster, the host walk on a
     # CPU one; "on" = that route on the booster's device (on the CPU its
@@ -182,9 +205,6 @@ _OFF_VALUES: Dict[str, Any] = {
     "tree_learner": "serial",
     "num_machines": 1,
     "num_threads": 0,
-    "max_bin_by_feature": [],
-    "tpu_double_precision": False,
-    "gpu_use_dp": False,
 }
 
 _OFF_ALIASES = {
@@ -209,6 +229,7 @@ PREDICT_PARAMS = ("predict_device", "predict_contrib", "pred_early_stop",
 BOOSTING_TYPES = {"gbdt": "gbdt", "gbrt": "gbdt", "goss": "goss",
                   "dart": "dart", "rf": "rf", "random_forest": "rf"}
 TREE_IMPLS = ("auto", "segment", "frontier", "fused")
+HIST_BACKENDS = ("auto", "onehot", "pallas")
 # lightgbm_tpu/config.py OBJECTIVE_ALIASES
 OBJECTIVE_ALIASES = {
     "regression": "regression", "regression_l2": "regression",
@@ -406,8 +427,16 @@ class Config:
             raise ValueError("feature_fraction must be in (0, 1]")
         if self.num_leaves < 2:
             raise LightGBMError("num_leaves must be >= 2")
-        if not 2 <= self.max_bin <= 256:
-            raise LightGBMError("max_bin must be in [2, 256] (one byte a bin)")
+        # lightgbm_tpu/config.py:556-557; a column of more than 256 bins
+        # is stored in two bytes a bin
+        if self.max_bin < 2:
+            raise ValueError("max_bin should be >= 2")
+        self.max_bin_by_feature = [int(x) for x in self.max_bin_by_feature]
+        backend = str(self.tpu_histogram_backend).strip().lower()
+        if backend not in HIST_BACKENDS:
+            raise LightGBMError(f"tpu_histogram_backend must be one of "
+                                f"{list(HIST_BACKENDS)}, got {backend!r}")
+        self.tpu_histogram_backend = backend
         if self.tpu_row_chunk < 0:
             raise LightGBMError("tpu_row_chunk must be >= 0")
         impl = str(self.tpu_tree_impl).strip().lower()

@@ -8,7 +8,9 @@ range (``FindBinWithZeroAsOneBin`` bin.cpp:152) and missing handling
 descending category count with a 99% mass cutoff (bin.cpp:310-375), where
 negative values, NaN and unseen categories share the last bin.  Bin
 assignment (``ValueToBin`` bin.h:496-549) is one ``np.searchsorted`` per
-column.
+column.  ``greedy_find_bin`` runs in C++ where the native library builds
+(core/native.py, src/native/fastbin.cpp), as the JAX package's does; the
+Python walk here is its plain version, and the two give the same bounds.
 """
 
 from __future__ import annotations
@@ -47,7 +49,22 @@ _SEQUENTIAL_DISTINCT = 256
 def greedy_find_bin(distinct_values: np.ndarray, counts: np.ndarray,
                     max_bin: int, total_cnt: int,
                     min_data_in_bin: int) -> List[float]:
-    """Greedy equal-frequency-ish bin upper bounds (bin.cpp:74-150)."""
+    """Greedy equal-frequency-ish bin upper bounds (bin.cpp:74-150): the
+    native walk, or greedy_find_bin_py where it does not build."""
+    check(max_bin > 0, "max_bin must be positive")
+    from .native import greedy_find_bin_native
+    bounds = greedy_find_bin_native(distinct_values, counts, max_bin,
+                                    total_cnt, min_data_in_bin)
+    if bounds is not None:
+        return bounds
+    return greedy_find_bin_py(distinct_values, counts, max_bin, total_cnt,
+                              min_data_in_bin)
+
+
+def greedy_find_bin_py(distinct_values: np.ndarray, counts: np.ndarray,
+                       max_bin: int, total_cnt: int,
+                       min_data_in_bin: int) -> List[float]:
+    """greedy_find_bin's plain version, in Python."""
     check(max_bin > 0, "max_bin must be positive")
     num_distinct = len(distinct_values)
     bounds: List[float] = []
@@ -462,6 +479,7 @@ class BinMapper:
             "missing_type": self.missing_type,
             "bin_type": self.bin_type,
             "is_trivial": self.is_trivial,
+            "sparse_rate": self.sparse_rate,
             "bin_upper_bound": [float(x) for x in self.bin_upper_bound],
             "bin_2_categorical": list(self.bin_2_categorical),
             "min_val": self.min_val,
@@ -483,4 +501,5 @@ class BinMapper:
         m.min_val = float(d["min_val"])
         m.max_val = float(d["max_val"])
         m.default_bin = int(d["default_bin"])
+        m.sparse_rate = float(d.get("sparse_rate", 1.0))
         return m

@@ -2,10 +2,12 @@
 
 Reference: include/LightGBM/dataset.h:283-637 + src/io/dataset_loader.cpp
 (sample -> FindBin -> quantize all rows).  The port keeps ONE dense bin
-matrix, stored column-major ``[G, N]`` uint8 on the host: each bin column
-is a contiguous row, which is the layout the histogram kernels read on the
-card.  Exclusive feature bundling (EFB, core/bundle.py) packs features
-that are rarely off their default bin together into one column, as the
+matrix, stored column-major ``[G, N]`` on the host, uint8, or uint16
+where a column holds more than 256 bins (the JAX package's dtype rule,
+lightgbm_tpu/core/dataset.py:283, :365): each bin column is a contiguous
+row, which is the layout the histogram kernels read on the card.
+Exclusive feature bundling (EFB, core/bundle.py) packs features that are
+rarely off their default bin together into one column, as the
 JAX package does (lightgbm_tpu/core/dataset.py): ``bundle`` holds the
 packing (None: every used feature is its own column), and
 ``feature_infos`` gives each feature its column (``group``) and bin
@@ -13,7 +15,10 @@ offset.  A scipy sparse matrix is binned from its per-column nonzeros and
 written column by column (``from_scipy``), never densified.  Categorical
 columns are named at construction (``categorical_features``) and binned
 by category (core/binning.py).  The metadata (core/metadata.py) holds
-labels, sample weights, query groups and init scores.  The split
+labels, sample weights, query groups and init scores.  ``save_binary``
+and ``load_binary`` write and read the JAX package's binary cache, byte
+for byte (its row-major matrix: the port transposes on the way), so each
+package loads the other's ``.bin``.  The split
 features' per-feature settings, ``monotone_constraints`` and
 ``feature_penalty`` (feature_contri), are taken from the configuration
 the dataset is built with, one value an original feature, as the JAX
@@ -23,6 +28,8 @@ into valid sets and subsets.
 
 from __future__ import annotations
 
+import json
+import struct
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -36,6 +43,11 @@ from ..utils.log import LightGBMError, check, log_warning
 from .binning import BIN_TYPE_CATEGORICAL, BIN_TYPE_NUMERICAL, BinMapper
 from .bundle import BundleSpec, build_bundle, quantize_bundled
 from .metadata import Metadata
+from .native import lib as native_lib
+from .native import quantize_rows_native
+
+# the JAX package's binary dataset cache (lightgbm_tpu/core/dataset.py:32)
+BINARY_MAGIC = b"lightgbm_tpu.dataset.v1\x00"
 
 
 def _per_feature(fn, features, num_rows: int) -> list:
@@ -126,12 +138,7 @@ class TorchDataset:
                 mappers[j].value_to_bin(sample[:, ds.used_feature_indices[j]])
                 != mappers[j].default_bin))
 
-        def member_bins(j):
-            f = ds.used_feature_indices[j]
-            return None, ds.bin_mappers[f].value_to_bin(
-                np.asarray(data[:, f], dtype=np.float64))
-
-        ds._quantize(member_bins)
+        ds.bins_t = ds._bin_matrix(data)
         ds._set_metadata(label, weights, group, init_score)
         return ds
 
@@ -187,7 +194,7 @@ class TorchDataset:
             return csc.indices[sl], ds.bin_mappers[f].value_to_bin(
                 np.asarray(csc.data[sl], dtype=np.float64))
 
-        ds._quantize(member_bins)
+        ds.bins_t = ds._quantize(member_bins, ds.num_data)
         ds._set_metadata(label, weights, group, init_score)
         return ds
 
@@ -257,11 +264,16 @@ class TorchDataset:
                          total_sample_cnt: int) -> None:
         """One BinMapper a feature from ``sample_col(f)``, its sampled
         values (for sparse input only the nonzeros: the rest of the
-        ``total_sample_cnt`` are zeros)."""
+        ``total_sample_cnt`` are zeros), at its ``max_bin_by_feature``
+        entry, or ``max_bin`` past the list's end
+        (lightgbm_tpu/core/dataset.py:161-166)."""
+        by_feature = list(cfg.max_bin_by_feature or [])
         self.bin_mappers = _per_feature(
             lambda f: BinMapper().find_bin(
                 sample_col(f), total_sample_cnt=total_sample_cnt,
-                max_bin=cfg.max_bin, min_data_in_bin=cfg.min_data_in_bin,
+                max_bin=(by_feature[f] if f < len(by_feature)
+                         else cfg.max_bin),
+                min_data_in_bin=cfg.min_data_in_bin,
                 min_split_data=cfg.min_data_in_leaf,
                 bin_type=(BIN_TYPE_CATEGORICAL if f in categorical
                           else BIN_TYPE_NUMERICAL),
@@ -278,11 +290,6 @@ class TorchDataset:
         self.used_feature_indices = np.asarray(used, dtype=np.int32)
         self.max_num_bin = max((self.bin_mappers[f].num_bin for f in used),
                                default=1)
-        # a categorical feature may hold more bins than max_bin (99% mass
-        # rule); the port's bins are one byte
-        check(self.max_num_bin <= 256,
-              f"a feature has {self.max_num_bin} bins; lightgbm_tpu_torch "
-              "stores one byte a bin (at most 256 bins)")
 
     def _used_num_bins(self) -> np.ndarray:
         return np.asarray([self.bin_mappers[f].num_bin
@@ -311,18 +318,57 @@ class TorchDataset:
         return BundleSpec([[j] for j in range(self.num_used_features)],
                           self._used_num_bins())
 
-    def _quantize(self, member_bins) -> None:
-        """The [G, N] bin matrix from ``member_bins(j)``: (rows, bins) of
-        used feature j (core/bundle.quantize_bundled), one column a thread
-        past PARALLEL_ROWS rows."""
-        layout = self._layout()
+    def _quantize(self, member_bins, num_rows: int) -> np.ndarray:
+        """The [G, num_rows] bin matrix from ``member_bins(j)``: (rows,
+        bins) of used feature j (core/bundle.quantize_bundled), one column
+        a thread past PARALLEL_ROWS rows."""
         defaults = np.asarray([self.bin_mappers[f].default_bin
                                for f in self.used_feature_indices],
                               dtype=np.int64)
-        self.bins_t = quantize_bundled(
-            member_bins, layout, defaults, self.num_data,
-            workers=lambda fn, cols: _per_feature(fn, cols, self.num_data))
-        self._device_cache = {}
+        return quantize_bundled(
+            member_bins, self._layout(), defaults, num_rows,
+            workers=lambda fn, cols: _per_feature(fn, cols, num_rows))
+
+    def _bin_matrix(self, data) -> np.ndarray:
+        """The [G, N] bin matrix of a dense [N, F] float matrix: unbundled,
+        the numerical columns by the native one-pass quantizer
+        (core/native.py), a row range a thread, and the rest (categorical
+        columns, or everything where the library does not build) a column
+        at a time by BinMapper.value_to_bin, as bundled data always is
+        (_quantize); the same bins either way."""
+        used = self.used_feature_indices
+        n = data.shape[0]
+
+        def member_bins(j):
+            f = used[j]
+            return None, self.bin_mappers[f].value_to_bin(
+                np.asarray(data[:, f], dtype=np.float64))
+
+        num = [j for j, f in enumerate(used)
+               if not self.bin_mappers[f].is_categorical]
+        dtype = self._bins_dtype()
+        if (self.bundle is not None or not num
+                or not isinstance(data, np.ndarray)
+                or data.dtype not in (np.float32, np.float64)
+                or native_lib("fastbin") is None):
+            return self._quantize(member_bins, n)
+        out = np.empty((len(used), n), dtype=dtype)
+        step = max(-(-n // _walk_workers()), 1 << 16)
+
+        def rows(r0):
+            part = quantize_rows_native(data[r0:r0 + step],
+                                        [used[j] for j in num],
+                                        self.bin_mappers, dtype)
+            out[num, r0:r0 + step] = part.T
+
+        _per_feature(rows, range(0, n, step), n)
+        for j in sorted(set(range(len(used))) - set(num)):
+            out[j] = member_bins(j)[1]
+        return out
+
+    def _bins_dtype(self):
+        """uint8, or uint16 where a column holds more than 256 bins."""
+        return np.uint8 if self.max_column_bin <= 256 else np.uint16
 
     @classmethod
     def from_bins(cls, bins_t: np.ndarray, bin_mappers: List[BinMapper],
@@ -347,7 +393,7 @@ class TorchDataset:
         ds._set_used_features()
         if bundle_groups is not None:
             ds.bundle = BundleSpec(bundle_groups, ds._used_num_bins())
-        bins_t = np.ascontiguousarray(bins_t, dtype=np.uint8)
+        bins_t = np.ascontiguousarray(bins_t, dtype=ds._bins_dtype())
         check(bins_t.shape[0] == ds.num_columns,
               "bin matrix rows != the dataset's bin columns")
         ds.bins_t = bins_t
@@ -374,6 +420,11 @@ class TorchDataset:
         """The most bins of any column (the histograms' bin axis)."""
         return (int(self.bundle.group_num_bin.max(initial=1))
                 if self.bundle is not None else self.max_num_bin)
+
+    @property
+    def wide(self) -> bool:
+        """Whether the bins take two bytes (a column of more than 256)."""
+        return self.bins_t is not None and self.bins_t.dtype == np.uint16
 
     @property
     def column_bins(self) -> np.ndarray:
@@ -460,9 +511,12 @@ class TorchDataset:
 
     def device_bins(self, row_multiple: int, device: torch.device,
                     packed4: bool = False) -> torch.Tensor:
-        """Column-major [G, Npad] uint8 on ``device``, rows padded with
-        bin 0 to a multiple of ``row_multiple`` (the grower gives pad rows
-        zero weight); ``packed4``: [ceil(G / 2), Npad], two <= 16-bin
+        """Column-major [G, Npad] on ``device``, rows padded with bin 0 to
+        a multiple of ``row_multiple`` (the grower gives pad rows zero
+        weight): uint8, or for two-byte bins int16 holding the uint16
+        bits (torch has few uint16 operators; the kernels read the bits
+        unsigned and the plain versions widen them, ops/histogram.py
+        widen_bins); ``packed4``: [ceil(G / 2), Npad] uint8, two <= 16-bin
         columns a byte, packed on the host (ops/histogram.py
         pack_bins_4bit), byte for byte the JAX package's
         ``host_binned_T(row_multiple, packed4=True)``, so the card never
@@ -475,8 +529,140 @@ class TorchDataset:
             host = self.bins_t
             if packed4:
                 host = pack_bins_4bit(host)
-            t = torch.zeros((host.shape[0], npad), dtype=torch.uint8,
+            if host.dtype == np.uint16:
+                host = host.view(np.int16)
+            t = torch.zeros((host.shape[0], npad),
+                            dtype=torch.from_numpy(host[:, :0]).dtype,
                             device=device)
             t[:, :self.num_data] = torch.from_numpy(host).to(device)
             self._device_cache = {key: t}
         return t
+
+    # ------------------------------------------------------------ merging
+    def add_features_from(self, other: "TorchDataset") -> None:
+        """Append ``other``'s features, on the same rows, to this dataset
+        (Dataset::AddFeaturesFrom; lightgbm_tpu/core/dataset.py
+        add_features_from :546-586): its bin mappers, used features and
+        bin columns after this one's, a name already here suffixed
+        "_dup", the per-feature settings padded with their defaults;
+        ``other``'s metadata is dropped, as in the reference."""
+        check(self.num_data == other.num_data,
+              "Cannot add features from other Dataset with a different "
+              "number of rows")
+        check(self.bundle is None and other.bundle is None,
+              "add_features_from does not support EFB-bundled datasets; "
+              "construct with enable_bundle=false")
+        offset = self.num_total_features
+        self.bin_mappers = list(self.bin_mappers) + list(other.bin_mappers)
+        self.used_feature_indices = np.concatenate([
+            self.used_feature_indices,
+            np.asarray(other.used_feature_indices, dtype=np.int32) + offset,
+        ]).astype(np.int32)
+        self.num_total_features += other.num_total_features
+        self.feature_names = list(self.feature_names) + [
+            (n if n not in self.feature_names else f"{n}_dup")
+            for n in other.feature_names]
+        if self.monotone_constraints is not None \
+                or other.monotone_constraints is not None:
+            self.monotone_constraints = (
+                list(self.monotone_constraints or [0] * offset)
+                + list(other.monotone_constraints
+                       or [0] * other.num_total_features))
+        if self.feature_penalty is not None \
+                or other.feature_penalty is not None:
+            self.feature_penalty = (
+                list(self.feature_penalty or [1.0] * offset)
+                + list(other.feature_penalty
+                       or [1.0] * other.num_total_features))
+        dtype = (np.uint16 if np.uint16 in (self.bins_t.dtype,
+                                            other.bins_t.dtype)
+                 else np.uint8)
+        self.bins_t = np.concatenate([self.bins_t.astype(dtype),
+                                      other.bins_t.astype(dtype)])
+        self.max_num_bin = max(self.max_num_bin, other.max_num_bin)
+        self._device_cache = {}
+
+    # ------------------------------------------------------- binary cache
+    def save_binary(self, filename: str) -> None:
+        """The JAX package's binary dataset cache (TpuDataset.save_binary,
+        lightgbm_tpu/core/dataset.py:588-622; the reference's
+        Dataset::SaveBinaryFile, dataset.cpp:624): the magic, a JSON
+        header, the row-major bin matrix, f32 labels, then f32 weights,
+        i32 query boundaries and f64 init scores where there are some, the
+        same bytes for the same dataset."""
+        from ..utils.file_io import open_file
+        md = self.metadata
+        meta = {
+            "num_data": self.num_data,
+            "num_total_features": self.num_total_features,
+            "feature_names": self.feature_names,
+            "used_feature_indices": self.used_feature_indices.tolist(),
+            "max_num_bin": self.max_num_bin,
+            "bin_mappers": [m.to_dict() for m in self.bin_mappers],
+            "has_weights": md.weights is not None,
+            "has_query": md.query_boundaries is not None,
+            "has_init_score": md.init_score is not None,
+            "binned_dtype": str(self.bins_t.dtype),
+            "bundle": (self.bundle.to_dict() if self.bundle is not None
+                       else None),
+        }
+        blob = json.dumps(meta).encode()
+        with open_file(filename, "wb") as fh:
+            fh.write(BINARY_MAGIC)
+            fh.write(struct.pack("<q", len(blob)))
+            fh.write(blob)
+            fh.write(np.ascontiguousarray(self.bins_t.T).tobytes())
+            fh.write(md.label.astype(np.float32).tobytes())
+            if md.weights is not None:
+                fh.write(md.weights.astype(np.float32).tobytes())
+            if md.query_boundaries is not None:
+                fh.write(struct.pack("<q", len(md.query_boundaries)))
+                fh.write(md.query_boundaries.astype(np.int32).tobytes())
+            if md.init_score is not None:
+                fh.write(struct.pack("<q", len(md.init_score)))
+                fh.write(md.init_score.astype(np.float64).tobytes())
+
+    @classmethod
+    def load_binary(cls, filename: str) -> "TorchDataset":
+        """A dataset from save_binary's file, or the JAX package's
+        (TpuDataset.load_binary, lightgbm_tpu/core/dataset.py:625-667)."""
+        from ..utils.file_io import open_file
+        from ..utils.log import log_fatal
+        with open_file(filename, "rb") as fh:
+            if fh.read(len(BINARY_MAGIC)) != BINARY_MAGIC:
+                log_fatal(f"{filename} is not a lightgbm_tpu binary dataset")
+            (blob_len,) = struct.unpack("<q", fh.read(8))
+            meta = json.loads(fh.read(blob_len).decode())
+            ds = cls()
+            ds.num_data = int(meta["num_data"])
+            ds.num_total_features = int(meta["num_total_features"])
+            ds.feature_names = list(meta["feature_names"])
+            ds.bin_mappers = [BinMapper.from_dict(d)
+                              for d in meta["bin_mappers"]]
+            ds.used_feature_indices = np.asarray(
+                meta["used_feature_indices"], dtype=np.int32)
+            ds.max_num_bin = int(meta["max_num_bin"])
+            if meta.get("bundle") is not None:
+                ds.bundle = BundleSpec.from_dict(meta["bundle"],
+                                                 ds._used_num_bins())
+            dtype = np.dtype(meta["binned_dtype"])
+            n, G = ds.num_data, ds.num_columns
+            binned = np.frombuffer(fh.read(n * G * dtype.itemsize),
+                                   dtype=dtype).reshape(n, G)
+            ds.bins_t = np.ascontiguousarray(binned.T)
+            md = ds.metadata
+            md.init(n)
+            md.label = np.frombuffer(fh.read(4 * n), dtype=np.float32).copy()
+            if meta["has_weights"]:
+                md.weights = np.frombuffer(fh.read(4 * n),
+                                           dtype=np.float32).copy()
+            if meta["has_query"]:
+                (qlen,) = struct.unpack("<q", fh.read(8))
+                md.query_boundaries = np.frombuffer(
+                    fh.read(4 * qlen), dtype=np.int32).copy()
+            if meta["has_init_score"]:
+                (slen,) = struct.unpack("<q", fh.read(8))
+                md.init_score = np.frombuffer(fh.read(8 * slen),
+                                              dtype=np.float64).copy()
+            md._update_query_weights()
+        return ds

@@ -9,7 +9,11 @@
 //       pallas_histogram.py:histogram_segment_routed
 //       (_kernel_segment_routed);
 //   lgbt_route_window       — K2, replaces pallas_histogram.py:route_window
-//       (_kernel_route_window / _route_block_ids);
+//       (_kernel_route_window / _route_block_ids); lgbt_route_window_u16
+//       is its mode for two-byte bins (a column of more than 256 bins),
+//       which the fused grower routes with on the B3 path (the JAX
+//       package routes those with XLA, lightgbm_tpu/models/grower.py:
+//       515-536);
 //   lgbt_histogram_segment_step, lgbt_route_window_step — K1/K3 and K2
 //       with their window, target and route read from a step block in
 //       device memory, as the TPU kernels read their scalar-prefetch
@@ -278,11 +282,12 @@ __device__ __forceinline__ int goes_right(const RouteDesc& r, int g) {
   const int miss_n = int(mt == kMissingNan) * int(fcol == nbf - 1);
   const int is_missing = min(miss_z + miss_n, 1);
   const int num_left = is_missing * dl + (1 - is_missing) * int(fcol <= thr);
+  // a bin of 256 or more is in no 8-word bitset: it goes right
   const int idx = min(max(fcol, 0), 255);
   int word = 0;
 #pragma unroll
   for (int k = 0; k < 8; ++k) word = (idx / 32 == k) ? r.w[11 + k] : word;
-  const int cat_left = (word >> (idx % 32)) & 1;
+  const int cat_left = ((word >> (idx % 32)) & 1) * int(fcol < 256);
   const int go_left = cat * cat_left + (1 - cat) * num_left;
   return 1 - go_left;
 }
@@ -1011,13 +1016,44 @@ all_hist_kernel(const uint8_t* __restrict__ bins,
 // together) are routed one a thread.  kPacked4: frow holds two columns a
 // byte, and a row's bin is the nibble of the route's column (route_bin);
 // the table is over the 256 byte values, each with its nibble picked.
-template <int kRows, bool kTable, bool kPacked4>
+// kWide: frow holds two-byte bins (uint16, up to 65,536 bins), too many
+// values for the table: each row takes routed_leaf, four rows a step
+// with their bins in one 8-byte load.
+template <int kRows, bool kTable, bool kPacked4, bool kWide = false>
 __device__ __forceinline__ void
 route_window(const uint8_t* __restrict__ frow, int* __restrict__ leaf_id,
              long long row_lo, long long row_hi, long long vec_lo,
              long long vec_hi, const RouteDesc& route) {
   static_assert(kRouteThreads == 256, "one route-table entry a thread");
   static_assert(kRows == 1 || kRows == 4 || kRows == 16, "rows a thread");
+  if constexpr (kWide) {
+    static_assert(kRows == 4 && !kTable && !kPacked4, "the u16 mode");
+    const uint16_t* f16 = reinterpret_cast<const uint16_t*>(frow);
+    const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    const long long steps = (vec_hi - vec_lo) / kRows;
+    for (long long q = first; q < steps; q += stride) {
+      const long long r0 = vec_lo + q * kRows;
+      const uint2 v = *reinterpret_cast<const uint2*>(f16 + r0);
+      const int4 ids = *reinterpret_cast<const int4*>(leaf_id + r0);
+      // row r0 + k has half k of the 8 bytes (little-endian)
+      const int4 n = make_int4(routed_leaf(route, (int)(v.x & 0xFFFFu), ids.x),
+                               routed_leaf(route, (int)(v.x >> 16), ids.y),
+                               routed_leaf(route, (int)(v.y & 0xFFFFu), ids.z),
+                               routed_leaf(route, (int)(v.y >> 16), ids.w));
+      if (n.x != ids.x || n.y != ids.y || n.z != ids.z || n.w != ids.w)
+        *reinterpret_cast<int4*>(leaf_id + r0) = n;
+    }
+    const long long head = vec_lo - row_lo;
+    const long long edge = head + (row_hi - vec_hi);
+    for (long long e = first; e < edge; e += stride) {
+      const long long i = e < head ? row_lo + e : vec_hi + (e - head);
+      const int lid = leaf_id[i];
+      const int moved = routed_leaf(route, (int)f16[i], lid);
+      if (moved != lid) leaf_id[i] = moved;
+    }
+    return;
+  }
   __shared__ unsigned s_right[8];
   if (kTable) {
     const unsigned word = __ballot_sync(
@@ -1083,10 +1119,11 @@ route_window(const uint8_t* __restrict__ frow, int* __restrict__ leaf_id,
 }
 
 // The aligned span [vec_lo, vec_hi) of K2's window for kRows rows a step:
-// from the first row at or after row_lo where frow is kRows-byte aligned
-// and leaf_id 16-byte aligned (kRows >= 4), a whole number of steps.
-// Where the two cannot be aligned together the span is empty.
-template <int kRows>
+// from the first row at or after row_lo where frow's kRows bins (of
+// kBinBytes bytes each) are aligned together and leaf_id is 16-byte
+// aligned (kRows >= 4), a whole number of steps.  Where the two cannot be
+// aligned together the span is empty.
+template <int kRows, int kBinBytes = 1>
 __host__ __device__ inline void route_span(const uint8_t* frow,
                                            const int* leaf_id,
                                            long long row_lo, long long row_hi,
@@ -1095,8 +1132,9 @@ __host__ __device__ inline void route_span(const uint8_t* frow,
   *vec_lo = *vec_hi = row_hi;
   long long lo = row_lo;
   if (kRows > 1) {
-    const long long fa = (long long)(reinterpret_cast<uintptr_t>(frow + lo)
-                                     % kRows);
+    const uintptr_t at = reinterpret_cast<uintptr_t>(frow) + lo * kBinBytes;
+    if (at % kBinBytes != 0) return;
+    const long long fa = (long long)(at % (kRows * kBinBytes) / kBinBytes);
     lo += (kRows - fa) % kRows;
     if (reinterpret_cast<uintptr_t>(leaf_id + lo) % 16 != 0) return;
   }
@@ -1109,14 +1147,14 @@ __host__ __device__ inline void route_span(const uint8_t* frow,
 // span picked by the host (route_window_kernel), or read by every block at
 // entry from a split's step block in device memory, the span computed from
 // the row_lo read there (route_step_kernel).
-template <int kRows, bool kTable, bool kPacked4>
+template <int kRows, bool kTable, bool kPacked4, bool kWide>
 __global__ void __launch_bounds__(kRouteThreads)
 route_window_kernel(const uint8_t* __restrict__ frow,
                     int* __restrict__ leaf_id, long long row_lo,
                     long long row_hi, long long vec_lo, long long vec_hi,
                     RouteDesc route) {
-  route_window<kRows, kTable, kPacked4>(frow, leaf_id, row_lo, row_hi,
-                                        vec_lo, vec_hi, route);
+  route_window<kRows, kTable, kPacked4, kWide>(frow, leaf_id, row_lo, row_hi,
+                                               vec_lo, vec_hi, route);
 }
 
 // bin_rows: the bin matrix's byte rows (the columns, or half the logical
@@ -1252,27 +1290,29 @@ int launch_segment(int tiles, int ft, size_t smem, cudaStream_t s,
 // one wave (the blocks an SM that fit, once asked, on every SM), and one
 // block for an empty window, so a call is always one launch.  Makes no
 // call that a CUDA graph's capture refuses.  Returns a CUDA error.
-template <int kRows, bool kTable, bool kPacked4>
+template <int kRows, bool kTable, bool kPacked4, bool kWide = false>
 int launch_route(const uint8_t* frow, int* leaf_id, long long row_lo,
                  long long row_hi, const RouteDesc& route, cudaStream_t s) {
   static int per_sm = 0;
   if (per_sm == 0) {
     const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, route_window_kernel<kRows, kTable, kPacked4>,
+        &per_sm, route_window_kernel<kRows, kTable, kPacked4, kWide>,
         kRouteThreads, 0);
     if (e != cudaSuccess) return (int)e;
     if (per_sm < 1) per_sm = 1;
   }
   long long vec_lo, vec_hi;
-  route_span<kRows>(frow, leaf_id, row_lo, row_hi, &vec_lo, &vec_hi);
+  route_span<kRows, kWide ? 2 : 1>(frow, leaf_id, row_lo, row_hi, &vec_lo,
+                                   &vec_hi);
   const long long steps = (vec_hi - vec_lo) / kRows;
   const long long edge = (vec_lo - row_lo) + (row_hi - vec_hi);
   long long blocks = div_up(steps > edge ? steps : edge, kRouteThreads);
   const long long wave = (long long)per_sm * sm_count();
   if (blocks > wave) blocks = wave;
   if (blocks < 1) blocks = 1;
-  route_window_kernel<kRows, kTable, kPacked4><<<(unsigned)blocks,
-                                                 kRouteThreads, 0, s>>>(
+  route_window_kernel<kRows, kTable, kPacked4, kWide><<<(unsigned)blocks,
+                                                        kRouteThreads, 0,
+                                                        s>>>(
       frow, leaf_id, row_lo, row_hi, vec_lo, vec_hi, route);
   return 0;
 }
@@ -1665,6 +1705,24 @@ int lgbt_route_window(const uint8_t* bins, int* leaf_id, long long npad,
                                                     row_hi, desc, s)
       : launch_route<kRouteRows, kRouteTable, false>(frow, leaf_id, row_lo,
                                                      row_hi, desc, s);
+  if (e != 0) return e;
+  return (int)cudaGetLastError();
+}
+
+// K2's u16 mode: bins [G, npad] uint16 (two-byte bins), the rest as
+// lgbt_route_window's (route w[2] = w[3], the column).  Returns a CUDA
+// error code (0 on success).
+int lgbt_route_window_u16(const uint16_t* bins, int* leaf_id, long long npad,
+                          long long row_lo, long long row_hi,
+                          const int* route, void* stream) {
+  if (row_lo < 0 || row_hi > npad) return (int)cudaErrorInvalidValue;
+  if (row_hi < row_lo) row_hi = row_lo;
+  RouteDesc desc;
+  for (int k = 0; k < kRouteWords; ++k) desc.w[k] = route[k];
+  const uint8_t* frow = reinterpret_cast<const uint8_t*>(
+      bins + (long long)desc.w[2] * npad);
+  const int e = launch_route<4, false, false, true>(
+      frow, leaf_id, row_lo, row_hi, desc, (cudaStream_t)stream);
   if (e != 0) return e;
   return (int)cudaGetLastError();
 }

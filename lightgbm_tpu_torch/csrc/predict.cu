@@ -22,9 +22,10 @@
 // numerical node sends a bin left when it is <= its threshold bin, except
 // a missing bin (the default bin under missing-zero, the last bin under
 // missing-NaN), which takes the node's default direction; a categorical
-// node looks the bin up in at most 8 words of its bitset (bins are at
-// most 256), and a negative bin (predict-time binning's sentinel for a
-// category training never saw) goes right.  A single-leaf tree starts at
+// node looks the bin up in at most 8 words of its bitset, and a bin of
+// 256 or more (which no bitset holds: the host walk's FindInBitset) or a
+// negative bin (predict-time binning's sentinel for a category training
+// never saw) goes right.  A single-leaf tree starts at
 // node -1, i.e. leaf 0.
 //
 // Exactness: each class's trees are added one after the other in tree
@@ -85,8 +86,11 @@
 // Bins are column-major [P, stride]: u8 (the training and valid sets'
 // device bins, G EFB columns; kPacked4: two columns a byte, column 2i in
 // the low nibble of byte row i and 2i + 1 in the high one,
-// ops/histogram.py:pack_bins_4bit) or i16 (predict-time bins, one column
-// a feature, which carry the -1 sentinel).
+// ops/histogram.py:pack_bins_4bit), i16 (predict-time bins, one column
+// a feature, which carry the -1 sentinel) or u16 (two-byte bins: the
+// device bins of a dataset with a column of more than 256 bins, and
+// predict-time bins for its model, whose sentinel 0xFFFF is a bin of 256
+// or more, so an unseen category still goes right).
 //
 // The stack (one device buffer, ops/predict.py pack_route_records):
 //   chunks [C, 8] i32: offset and size in 16-byte units into data, first
@@ -241,12 +245,9 @@ __device__ __forceinline__ int step(const uint2* recs, int node,
     }
     const bool is_cat = (flags & kFlagCat) != 0;
     unsigned word = 0u;
-    if (is_cat && inside) {
-      // a u8 bin's word is at most 7; a wider bin reads word 7 (the
-      // plain route's clamp)
-      const int w = sizeof(BinT) == 1 || (x >> 5) < kCatWords - 1
-                        ? (x >> 5) : kCatWords - 1;
-      const unsigned* at = bits + thr * kCatWords + w;
+    if (is_cat && inside && x < 32 * kCatWords) {
+      // a bin of 256 or more is in no bitset (word 0: right)
+      const unsigned* at = bits + thr * kCatWords + (x >> 5);
       if constexpr (kStaged) word = *at;
       else word = __ldg(at);
     }
@@ -429,7 +430,8 @@ int launch(const void* bins, long long stride, long long n, int byte_rows,
 }  // namespace
 
 // P1, one kernel launch.  bins [byte_rows, stride] (bin_bytes 1 or 2;
-// packed4: u8, two columns a byte); out [C, n] float64 in place; the
+// packed4: u8, two columns a byte; wide: the two bytes unsigned, else
+// signed); out [C, n] float64 in place; the
 // stack's sections (chunks, trees, data) as the header describes them;
 // rows_per_block (128, 256, 512 or 1024) and tiled (u8 bins only) as
 // ops/predict.py route_plan chose them; stage_bytes, tile_budget and
@@ -442,8 +444,9 @@ extern "C" int lgbt_route_trees(const void* bins, int bin_bytes,
                                 int rows_per_block, int tiled,
                                 int stage_bytes, int tile_budget,
                                 int rows_per_thread, double* out,
-                                int packed4, void* stream) {
+                                int packed4, int wide, void* stream) {
   if ((bin_bytes != 1 && bin_bytes != 2) || (packed4 != 0 && bin_bytes != 1)
+      || (wide != 0 && bin_bytes != 2)
       || (tiled != 0 && bin_bytes != 1)
       || stage_bytes != kStageBytes || tile_budget != kMaxTileBytes
       || rows_per_thread != kRowsPerThread || n > stride
@@ -458,7 +461,9 @@ extern "C" int lgbt_route_trees(const void* bins, int bin_bytes,
     return f(bins, stride, n, byte_rows, rows_per_block, chunks, num_chunks,
              trees, data, out, st);
   };
-  if (bin_bytes == 2) return args(launch<int16_t, false, false>);
+  if (bin_bytes == 2)
+    return wide ? args(launch<uint16_t, false, false>)
+                : args(launch<int16_t, false, false>);
   if (packed4 != 0)
     return tiled ? args(launch<uint8_t, true, true>)
                  : args(launch<uint8_t, true, false>);

@@ -204,8 +204,10 @@ def bin_rows(dataset: TorchDataset, X: np.ndarray) -> np.ndarray:
     host's raw walk does (lightgbm_tpu/models/gbdt.py:2170-2186).  A NaN
     category is category 0, as the raw walk reads it, unless the feature
     is NaN-missing (then -1); the JAX package's route sends every NaN
-    category right, and so differs from its own host walk there.
-    Past PARALLEL_ROWS rows, one feature a thread."""
+    category right, and so differs from its own host walk there.  For a
+    dataset of two-byte bins the int16 holds the uint16 bits (P1's u16
+    mode), -1 reading as 0xFFFF, a bin no bitset holds, so it still goes
+    right.  Past PARALLEL_ROWS rows, one feature a thread."""
     used = dataset.used_feature_indices
     out = np.empty((len(used), X.shape[0]), dtype=np.int16)
 
@@ -226,7 +228,8 @@ def bin_rows(dataset: TorchDataset, X: np.ndarray) -> np.ndarray:
             else:
                 seen = np.zeros(len(iv), dtype=bool)
             b = np.where(seen, b, -1)
-        out[j] = b
+        out[j] = (np.asarray(b, dtype=np.int64) & 0xFFFF).astype(
+            np.uint16).view(np.int16)
 
     _per_feature(bin_feature, range(len(used)), X.shape[0])
     return out

@@ -6,7 +6,10 @@ iteration grows C trees (C = num_class for multiclass softmax, else 1):
 gradients [C, N] on the device; for C > 1 the C class roots' histograms
 in one K5 launch (``histogram_all``, as the JAX loop does, gbdt.py:
 1116-1154); then per class one tree grown from its root by the segment
-grower or, with ``tpu_tree_impl=frontier``, the frontier grower, the
+grower or, with ``tpu_tree_impl=frontier``, the frontier grower (the
+fused grower for forced splits, CEGB-lazy and the onehot histogram path:
+B3 where a column holds more than 256 bins or under gpu_use_dp,
+``resolve_hist_backend``), the
 class's training score updated through the score kernel (K4), the tree
 finalized on the host.  Trees are kept class by class within
 each iteration (tree i is class i % C).  The training score starts from
@@ -126,14 +129,35 @@ def build_forced_plan(dataset: TorchDataset, filename: str,
     return tuple(plan)
 
 
-def resolve_tree_impl(config: Config, forced_plan: tuple) -> str:
+def resolve_hist_backend(config: Config, dataset: TorchDataset) -> str:
+    """The histogram path (lightgbm_tpu/models/gbdt.py
+    _resolve_hist_backend :436-462): "onehot" (B3 on the fused grower)
+    when named, where a column holds more than 256 bins, or under
+    gpu_use_dp / tpu_double_precision; else "pallas" (K1-K7), with the
+    JAX package's warning where "pallas" was named but cannot serve.  The
+    port's "auto" is "pallas" wherever that serves, on the card and on the
+    CPU (JAX takes it only on a TPU)."""
+    choice = config.tpu_histogram_backend
+    if choice == "onehot":
+        return "onehot"
+    ok = (not config.gpu_use_dp and not config.tpu_double_precision
+          and dataset.max_column_bin <= 256)
+    if choice == "pallas" and not ok:
+        log_warning("tpu_histogram_backend=pallas unsupported for this "
+                    "dataset/learner; falling back to onehot")
+    return "pallas" if ok else "onehot"
+
+
+def resolve_tree_impl(config: Config, forced_plan: tuple,
+                      backend: str = "pallas") -> str:
     """The grower ``tpu_tree_impl`` gets (lightgbm_tpu/models/gbdt.py
-    :637-648): "fused" when named, or when a forced plan or CEGB-lazy
-    needs it (with the JAX package's warning where segment or frontier was
-    named); else "frontier" when named, and the segment grower for
-    "auto"."""
+    :637-648): "fused" when named, on the onehot histogram path, or when
+    a forced plan or CEGB-lazy needs it (with the JAX package's warning
+    where segment or frontier was named); else "frontier" when named, and
+    the segment grower for "auto"."""
     impl = config.tpu_tree_impl
-    if impl == "fused" or forced_plan or config.cegb_penalty_feature_lazy:
+    if (impl == "fused" or backend == "onehot" or forced_plan
+            or config.cegb_penalty_feature_lazy):
         if impl in ("segment", "frontier"):
             log_warning(f"tpu_tree_impl={impl} requires the pallas "
                         "histogram backend (and no forced splits / "
@@ -432,12 +456,17 @@ class GBDT(TreeEnsemble):
         self.route_tables = dataset_tables(train_set)
         # the kernels' bin axis: the widest column (an EFB group's bins)
         self.num_bins = _round_up_pow2(max(train_set.max_column_bin, 2))
-        # 4-bit packing: two columns a byte where the bin axis is <= 16
-        self.packed4 = (self.num_bins <= 16 if self._packed4 is None
-                        else bool(self._packed4))
-        if self.packed4 and self.num_bins > 16:
-            raise LightGBMError(f"packed4 needs a bin axis of at most 16, "
-                                f"this dataset's is {self.num_bins}")
+        self.hist_backend = resolve_hist_backend(config, train_set)
+        onehot = self.hist_backend == "onehot"
+        # 4-bit packing: two columns a byte where the bin axis is <= 16;
+        # never on the onehot path (lightgbm_tpu/models/gbdt.py:558-565)
+        self.packed4 = (self.num_bins <= 16 and not onehot
+                        if self._packed4 is None else bool(self._packed4))
+        if self.packed4 and (self.num_bins > 16 or onehot):
+            raise LightGBMError(f"packed4 needs a bin axis of at most 16 "
+                                f"and the pallas histogram path, this "
+                                f"dataset's is {self.num_bins} on "
+                                f"{self.hist_backend}")
         rb = block_rows(config, self.num_data)
         self.bins = train_set.device_bins(rb, self.device, self.packed4)
         npad = self.bins.shape[1]
@@ -458,7 +487,8 @@ class GBDT(TreeEnsemble):
             forced_plan = build_forced_plan(train_set,
                                             config.forcedsplits_filename,
                                             config.num_leaves)
-        self.tree_impl = resolve_tree_impl(config, forced_plan)
+        self.tree_impl = resolve_tree_impl(config, forced_plan,
+                                           self.hist_backend)
         params = GrowerParams(
             num_leaves=config.num_leaves, max_depth=config.max_depth,
             feature_fraction_bynode=config.feature_fraction_bynode,
@@ -474,8 +504,11 @@ class GBDT(TreeEnsemble):
                 min_data_per_group=config.min_data_per_group,
                 has_cat=train_set.has_categorical),
             packed4=self.packed4, num_columns=train_set.num_columns,
-            packed_acc=self.packed_acc,
+            # the onehot path has no packed accumulator
+            # (lightgbm_tpu/models/grower.py:405-407)
+            packed_acc=self.packed_acc and not onehot,
             packed_acc_bits=self.packed_acc_bits,
+            onehot=onehot,
             use_monotone=self.fmeta.monotone is not None,
             cegb_tradeoff=float(config.cegb_tradeoff),
             cegb_penalty_split=float(config.cegb_penalty_split),
@@ -574,7 +607,7 @@ class GBDT(TreeEnsemble):
                           self.device, host_tables)
         return route_trees(bins, stack, self.fmeta.num_bin,
                            self.fmeta.default_bin, out, *tables,
-                           packed4=packed4)
+                           packed4=packed4, wide=self.train_set.wide)
 
     def _card_delta(self, dataset: TorchDataset, trees: List[Tree],
                     classes: List[int]) -> torch.Tensor:
@@ -645,7 +678,8 @@ class GBDT(TreeEnsemble):
                                     [i % C for i in trees],
                                     self.train_set.num_used_features, dev,
                                     self.route_tables[1]),
-                    self.fmeta.num_bin, self.fmeta.default_bin, out)
+                    self.fmeta.num_bin, self.fmeta.default_bin, out,
+                    wide=self.train_set.wide)
         return out.cpu().numpy()
 
     # -------------------------------------------------------------- train

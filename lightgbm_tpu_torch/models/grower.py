@@ -31,7 +31,9 @@ class GrowerParams(NamedTuple):
     read the packed-accumulator stream, quantized once a tree at
     ``packed_acc_bits`` (ops/histogram.py quantize_pack), in place of the
     fixed-point channels (the JAX package's LIGHTGBM_TPU_PACKED_ACC=force
-    and LIGHTGBM_TPU_PACKED_BITS).
+    and LIGHTGBM_TPU_PACKED_BITS).  ``onehot``: the fused grower's
+    histograms are B3 (ops/histogram.py histogram_chunked, the JAX
+    package's onehot path) in place of K5.
 
     The split features (lightgbm_tpu/models/grower.py:59-73):
     ``use_monotone``, some feature carries a monotone constraint, so each
@@ -56,6 +58,7 @@ class GrowerParams(NamedTuple):
     use_cegb_coupled: bool = False
     use_cegb_lazy: bool = False
     forced_plan: tuple = ()
+    onehot: bool = False
 
     @property
     def cegb_adjusts(self) -> bool:
@@ -183,7 +186,9 @@ def routed_left(fcol: torch.Tensor, threshold: int, default_left: bool,
                 default_bin: int, num_bin: int) -> torch.Tensor:
     """Which side each row goes: numerical ``<= threshold`` with missing
     routing, or categorical bitset membership (``cat_bitset``: 8 words of
-    32 bits as an int64 tensor)."""
+    32 bits as an int64 tensor; a bin of 256 or more is in none, and goes
+    right, as the host walk sends it: the JAX package reads bit 255 for
+    it, but cannot write such a split into its tree, ROADMAP C)."""
     fcol = fcol.to(torch.int64)
     is_missing = (((missing_type == MISSING_ZERO) & (fcol == default_bin))
                   | ((missing_type == MISSING_NAN) & (fcol == num_bin - 1)))
@@ -194,4 +199,4 @@ def routed_left(fcol: torch.Tensor, threshold: int, default_left: bool,
         return num_left
     idx = torch.clamp(fcol, 0, 255)
     word = cat_bitset[idx // 32]
-    return ((word >> (idx % 32)) & 1).to(torch.bool)
+    return ((word >> (idx % 32)) & 1).to(torch.bool) & (fcol < 256)

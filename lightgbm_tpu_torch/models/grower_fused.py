@@ -8,12 +8,15 @@ Rows never move: ``leaf_id`` [Npad] stays in row order, and
   * the root's histogram and each split's smaller child's are K5
     (``leaf_histogram``: histogram_all over every row, the member channel
     selecting the leaf's rows; with ``packed_acc`` quantized for that
-    leaf, so each leaf has its own scales, grower.py:370-385); the larger
-    child is its parent minus the smaller;
+    leaf, so each leaf has its own scales, grower.py:370-385), or on the
+    onehot path (``GrowerParams.onehot``: a column of more than 256 bins,
+    gpu_use_dp) B3 (``histogram_chunked`` over the f32 channels
+    [grad * m, hess * m, m], grower.py:405-407), whose bin axis may be up
+    to 65,536; the larger child is its parent minus the smaller;
   * a split's partition is K2 (``route_window``) over the whole block
     range with the split's route descriptor: JAX's ``routed_left``
     partition (grower.py:515-536), K2 folding EFB columns, 4-bit bins and
-    category bitsets;
+    category bitsets, and reading two-byte bins in its u16 mode;
   * a tree starts with the forced plan (``GrowerParams.forced_plan``,
     breadth-first), each forced split's sums read off its leaf's retained
     histogram (grower.py:473-512), then grows best-first while a leaf has
@@ -45,7 +48,8 @@ import numpy as np
 import torch
 
 from ..core.binning import MISSING_ZERO
-from ..ops.histogram import leaf_histogram, pack_route, route_window
+from ..ops.histogram import (chunked_channels, histogram_chunked,
+                             leaf_histogram, pack_route, route_window)
 from ..ops.split import (FeatureMeta, clip_output, expand_group_hist,
                          leaf_gain, leaf_output)
 from .grower import (GrowerParams, TreeArrays, cegb_split_coupled_adjust,
@@ -67,8 +71,12 @@ class FusedGrower(HostGrower):
         self._leaf_rows = None
 
     def _hist(self, binsT, grad, hess, member) -> torch.Tensor:
-        """K5 over every row, ``member`` selecting a leaf's rows."""
+        """K5 (or on the onehot path B3) over every row, ``member``
+        selecting a leaf's rows."""
         p = self.p
+        if p.onehot:
+            return histogram_chunked(binsT, chunked_channels(grad, hess,
+                                                             member), self.B)
         return leaf_histogram(binsT, grad, hess, member, self.B, p.packed4,
                               p.packed_acc, p.packed_acc_bits)
 

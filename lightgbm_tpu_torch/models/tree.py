@@ -140,7 +140,10 @@ class Tree:
             dt = 0
             if is_cat[i]:
                 dt |= K_CATEGORICAL_MASK
-                bins = [b for b in range(int(info.num_bin))
+                # the 8-word bitset holds bins below 256 (a wider
+                # categorical's other bins never go left; the JAX package
+                # reads past the words here and raises)
+                bins = [b for b in range(min(int(info.num_bin), 256))
                         if bitsets[i][b // 32] >> (b % 32) & 1]
                 mapper = dataset.bin_mappers[int(used[sf[i]])]
                 cats = [mapper.bin_2_categorical[b] for b in bins

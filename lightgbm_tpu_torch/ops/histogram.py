@@ -1,5 +1,5 @@
-"""Histograms and split routing of the growers: kernels K1, K2, K3, K5, K6
-and K7, their plain PyTorch versions, and the host-side helpers.
+"""Histograms and split routing of the growers: kernels K1, K2, K3, K5, K6,
+K7 and B3, their plain PyTorch versions, and the host-side helpers.
 
 Counterpart of lightgbm_tpu/ops/pallas_histogram.py.  The TPU kernels
 there become hand-written CUDA kernels in ``csrc/histogram.cu``:
@@ -75,6 +75,18 @@ holds member as f32 bits.  The kernels add the halves as 32-bit integers
 float64 and dequantize in the same order (``unpack_hist_packed``), so a
 sum below 2^24 is, bit for bit, the JAX kernels' f32 sum.  Such a launch
 counts under ``kernels.variant(name, packed4, True)``.
+
+The second histogram path (the JAX package's XLA one-hot path,
+lightgbm_tpu/ops/histogram.py histogram_chunked, ROADMAP B3), which the
+fused grower takes where a column holds more than 256 bins or double
+precision is asked for: ``histogram_chunked`` (B3, csrc/wide_hist.cu)
+sums three f32 channels ``[grad * m, hess * m, m]`` (``chunked_channels``)
+per (column, bin) over every row, in the same 64-bit fixed point as the
+kernels above at ``channel_scales``' scale, from [G, Npad] bins of one
+byte, or of two (a dataset with a column of more than 256 bins): int16
+tensors holding the uint16 bits, which the kernels read unsigned and the
+plain versions widen (``widen_bins``).  K2 ``route_window`` takes such
+bins too (its u16 mode, counted as ``route_window_u16``).
 """
 
 from __future__ import annotations
@@ -365,6 +377,13 @@ def logical_columns(binsT: torch.Tensor, packed4: bool) -> int:
     return 2 * binsT.shape[0] if packed4 else binsT.shape[0]
 
 
+def widen_bins(bins: torch.Tensor) -> torch.Tensor:
+    """Bins as int32: a two-byte matrix's int16 storage read as uint16
+    (``& 0xFFFF``), one byte as it is."""
+    b = bins.to(torch.int32)
+    return b & 0xFFFF if bins.dtype == torch.int16 else b
+
+
 def pack_route(leaf: int, new_leaf: int, f: int, t: int, dl: bool,
                cat: bool, bitset, fmeta,
                packed4: bool = False) -> torch.Tensor:
@@ -541,9 +560,9 @@ def routed_ids_plain(fcol_raw: torch.Tensor, lid: torch.Tensor,
 def _route_column(binsT, r, rows, packed4: bool) -> torch.Tensor:
     """The split column's bins at ``rows`` (a slice or an index tensor)
     from the route words ``r``: its bin row r[2], and packed the nibble of
-    its column r[3]."""
+    its column r[3] (two-byte bins widened)."""
     byte = binsT[r[2], rows]
-    return unpack_nibble(byte, r[3]) if packed4 else byte
+    return unpack_nibble(byte, r[3]) if packed4 else widen_bins(byte)
 
 
 def route_window_plain(binsT, leaf_id, start_block, n_blocks, route,
@@ -628,9 +647,9 @@ def histogram_segment_plain(binsT, w8, leaf_id, start_block, n_blocks,
     """Plain K1 -> [F, B, 3] float32 (``w8`` a packed-accumulator stream:
     dequantized at its ``scales``)."""
     lo, hi = _window(leaf_id.shape[0], start_block, n_blocks, block_rows)
-    sel = (leaf_id[lo:hi] == int(target)).to(torch.float64)
-    return _finish(_plain_sums(binsT[:, lo:hi],
-                               _weight_channels(w8, slice(lo, hi)) * sel,
+    # the window's rows in the leaf: the rows out of it would add zeros
+    rows = torch.nonzero(leaf_id[lo:hi] == int(target)).squeeze(1) + lo
+    return _finish(_plain_sums(binsT[:, rows], _weight_channels(w8, rows),
                                num_bins, packed4=packed4), w8, scales)
 
 
@@ -683,6 +702,9 @@ def histogram_frontier_plain(binsT, w8, leaf_id, block_list, n_blocks,
         t = int(targets[k])
         if t >= 0:
             slot = torch.where(lid == t, k, slot)
+    # the rows of no slot would add to none
+    hit = slot >= 0
+    rows, slot = rows[hit], slot[hit]
     return _finish(_plain_sums(binsT[:, rows], _weight_channels(w8, rows),
                                num_bins, slot, KT, packed4), w8, scales)
 
@@ -991,22 +1013,34 @@ def route_window(binsT: torch.Tensor, leaf_id: torch.Tensor,
                  start_block: int, n_blocks: int, route: torch.Tensor,
                  block_rows: int, packed4: bool = False) -> torch.Tensor:
     """K2: apply one split's route to ``leaf_id`` in place over the
-    parent's window; returns ``leaf_id``."""
+    parent's window; returns ``leaf_id``.  ``binsT`` int16 holds two-byte
+    bins (K2's u16 mode)."""
     if _device_kind(binsT) == "cpu":
         return route_window_plain(binsT, leaf_id, start_block, n_blocks,
                                   route, block_rows, packed4)
     F, npad = binsT.shape
-    _check_cuda(binsT.device, binsT=(binsT, torch.uint8),
+    wide = binsT.dtype == torch.int16
+    if wide and packed4:
+        raise ValueError("two-byte bins are never 4-bit packed")
+    _check_cuda(binsT.device,
+                binsT=(binsT, torch.int16 if wide else torch.uint8),
                 leaf_id=(leaf_id, torch.int32))
     _check_route(route)
     if leaf_id.shape != (npad,) or not 0 <= int(route[2]) < F:
         raise ValueError("leaf_id must be [Npad] and the route's bin row "
                          "inside binsT")
     lo, hi = _window(npad, start_block, n_blocks, block_rows)
-    rc = kernels.library().lgbt_route_window(
-        binsT.data_ptr(), leaf_id.data_ptr(), npad, lo, hi,
-        route.data_ptr(), int(packed4), kernels.stream_ptr(binsT.device))
-    kernels.check_launch(kernels.variant("route_window", packed4), rc)
+    stream = kernels.stream_ptr(binsT.device)
+    if wide:
+        rc = kernels.library().lgbt_route_window_u16(
+            binsT.data_ptr(), leaf_id.data_ptr(), npad, lo, hi,
+            route.data_ptr(), stream)
+    else:
+        rc = kernels.library().lgbt_route_window(
+            binsT.data_ptr(), leaf_id.data_ptr(), npad, lo, hi,
+            route.data_ptr(), int(packed4), stream)
+    kernels.check_launch(kernels.variant("route_window", packed4, wide=wide),
+                         rc)
     return leaf_id
 
 
@@ -1226,3 +1260,110 @@ def _frontier_routed(name, binsT, w8, leaf_id, block_list, n_blocks,
                             targets, routes, num_bins, block_rows, scales,
                             packed4)
     return leaf_id, hist
+
+
+# ------------------------------------------------------------------- B3
+def chunked_channels(grad: torch.Tensor, hess: torch.Tensor,
+                     member: torch.Tensor) -> torch.Tensor:
+    """[3, N] f32 ``[grad * member, hess * member, member]``, B3's weight
+    channels (the JAX onehot path's, lightgbm_tpu/models/grower.py:407)."""
+    return torch.stack([grad * member, hess * member, member])
+
+
+def channel_scales(w3: torch.Tensor) -> torch.Tensor:
+    """[2] f32 powers of two (gradient, hessian) for B3's 64-bit fixed
+    point, fixed_point_scales' rule on the f32 channels: the largest scale
+    at which the whole array's absolute sum stays below 2^62.  Computed on
+    ``w3``'s device; no value is read on the host."""
+    n = max(int(w3.shape[1]), 1)
+    mags = torch.stack([w3[0].abs().max(), w3[1].abs().max()])
+    mags = torch.clamp(mags.double() * n, min=1e-30)
+    exps = torch.clamp(61.0 - torch.ceil(torch.log2(mags)), -126.0, 126.0)
+    return torch.exp2(exps).float()
+
+
+def histogram_chunked_plain(binsT: torch.Tensor, w3: torch.Tensor,
+                            num_bins: int,
+                            scales: torch.Tensor) -> torch.Tensor:
+    """Plain B3 -> [G, B, 3] f32, in the kernel's arithmetic: each row
+    with m != 0 adds round(grad * m * scale) and round(hess * m * scale)
+    (f64 products, to the nearest integer, ties to even) as int64, and 1
+    to the count, into its bin of each column; a bin >= num_bins adds to
+    none (the JAX one-hot drops it); the sums over their scales in f64,
+    then f32.  Integer sums do not depend on the order of the rows, so the
+    result is the kernel's bit for bit.  A column at a time."""
+    G, npad = binsT.shape
+    dev = binsT.device
+    # the rows with m != 0: the others add to no bin
+    rows = torch.nonzero(w3[2] != 0).squeeze(1)
+    sc = scales.to(dev).double()
+    vals = [torch.round(w3[c, rows].double() * sc[c]).to(torch.int64)
+            for c in range(2)] + [torch.ones_like(rows)]
+    out = torch.empty((G, num_bins, 3), dtype=torch.float32, device=dev)
+    for g in range(G):
+        b = widen_bins(binsT[g, rows]).to(torch.int64)
+        key = torch.where(b < num_bins, b, torch.full_like(b, num_bins))
+        sums = [torch.zeros(num_bins + 1, dtype=torch.int64,
+                            device=dev).scatter_add_(0, key, v)[:num_bins]
+                for v in vals]
+        out[g, :, 0] = (sums[0].double() / sc[0]).float()
+        out[g, :, 1] = (sums[1].double() / sc[1]).float()
+        out[g, :, 2] = sums[2].float()
+    return out
+
+
+def chunked_tiling(num_columns: int, num_bins: int) -> dict:
+    """B3's tiling at this shape (csrc/wide_hist.cu lgbt_chunked_tiling):
+    the columns a block's shared histogram holds, its shared memory, the
+    column tiles of the grid, and ``global``: no column fits a block, so
+    the rows add into device memory with 64-bit atomics."""
+    tc, smem, glob = _chunked_tiling(int(num_columns), int(num_bins))
+    return {"tile_columns": tc, "smem_bytes": smem, "global": bool(glob),
+            "column_tiles": -(-num_columns // tc)}
+
+
+@functools.lru_cache(maxsize=64)
+def _chunked_tiling(num_columns, num_bins):
+    out = (ctypes.c_int * 3)()
+    rc = kernels.library().lgbt_chunked_tiling(num_columns, num_bins,
+                                               ctypes.addressof(out))
+    if rc != 0:
+        raise ValueError(f"B3 takes no {num_columns} x {num_bins} shape")
+    return tuple(out)
+
+
+def histogram_chunked(binsT: torch.Tensor, w3: torch.Tensor, num_bins: int,
+                      scales: torch.Tensor = None) -> torch.Tensor:
+    """B3: per (column, bin) sums of the three channels of ``w3`` ([3,
+    Npad] f32, chunked_channels) over every row -> [G, B, 3] f32
+    (sum_grad, sum_hess, count), from ``binsT`` [G, Npad] uint8 or int16
+    (two-byte bins, read unsigned), B = ``num_bins`` up to 65,536.
+    ``scales`` defaults to channel_scales(w3).  A CPU tensor takes the
+    plain version; a CUDA one launches the kernel (counted as
+    ``histogram_chunked``, or ``histogram_chunked_u16`` on two-byte bins)
+    or raises.  Replaces lightgbm_tpu/ops/histogram.py histogram_chunked
+    (:32, an XLA one-hot contraction, not a Pallas kernel)."""
+    if scales is None:
+        scales = channel_scales(w3)
+    if not 1 <= num_bins <= 65536:
+        raise ValueError("num_bins must be in [1, 65536]")
+    if _device_kind(binsT) == "cpu":
+        return histogram_chunked_plain(binsT, w3, num_bins, scales)
+    G, npad = binsT.shape
+    dev = binsT.device
+    wide = binsT.dtype == torch.int16
+    _check_cuda(dev, binsT=(binsT, torch.int16 if wide else torch.uint8),
+                w3=(w3, torch.float32), scales=(scales, torch.float32))
+    if w3.shape != (3, npad) or scales.shape != (2,):
+        raise ValueError("w3 must be [3, Npad] and scales [2]")
+    tiles = chunked_tiling(G, num_bins)["column_tiles"]
+    # the cells' i64 sums, then one u32 arrival counter a tile
+    scratch = _kernel_scratch(dev, G * num_bins * 3 + (tiles + 1) // 2)
+    out = torch.empty((G, num_bins, 3), dtype=torch.float32, device=dev)
+    rc = kernels.library().lgbt_histogram_chunked(
+        binsT.data_ptr(), binsT.element_size(), w3.data_ptr(), npad, G,
+        num_bins, scales.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+        kernels.stream_ptr(dev))
+    kernels.check_launch(kernels.variant("histogram_chunked", wide=wide),
+                         rc)
+    return out

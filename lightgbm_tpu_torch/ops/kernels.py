@@ -14,7 +14,10 @@ kernels a path went through.  A kernel's 4-bit packed input mode (two bin
 columns a byte) counts under its own name, ``variant(name, True)``, and so
 does a histogram kernel's packed-accumulator mode (the int32 quantized
 weight stream), ``variant(name, packed4, True)``: ``<name>_packed_acc``,
-``<name>_packed4_packed_acc`` with both.  A
+``<name>_packed4_packed_acc`` with both.  A kernel's mode for
+two-byte bins (a column of more than 256) counts as
+``variant(name, wide=True)``, ``<name>_u16``: B3 ``histogram_chunked``
+(csrc/wide_hist.cu), K2 and P1.  A
 call made while a CUDA graph is being captured launches nothing then: it
 is counted in ``CAPTURED``, which the capturing code keeps as the graph's
 launches and adds to ``LAUNCHES`` at every replay (``count_replay``),
@@ -26,6 +29,7 @@ without a compiler or a card.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -51,10 +55,11 @@ BASE_KERNEL_NAMES = ("histogram_segment", "route_window",
                      "score_gather_add", "histogram_all",
                      "histogram_frontier", "histogram_frontier_routed",
                      "histogram_frontier_fusedk", "route_trees",
-                     "quantize_pack")
+                     "quantize_pack", "histogram_chunked")
 # the kernels that read training bins, and so have a packed4 input mode
 PACKED4_KERNELS = tuple(k for k in BASE_KERNEL_NAMES
-                        if k not in ("score_gather_add", "quantize_pack"))
+                        if k not in ("score_gather_add", "quantize_pack",
+                                     "histogram_chunked"))
 PACKED4_SUFFIX = "_packed4"
 # the histogram kernels, which read weights, and so have a
 # packed-accumulator input mode
@@ -64,20 +69,26 @@ PACKED_ACC_KERNELS = ("histogram_segment", "histogram_segment_routed",
                       "histogram_frontier", "histogram_frontier_routed",
                       "histogram_frontier_fusedk")
 PACKED_ACC_SUFFIX = "_packed_acc"
+# the kernels with a mode for two-byte bins
+WIDE_KERNELS = ("histogram_chunked", "route_window", "route_trees")
+WIDE_SUFFIX = "_u16"
 
 
-def variant(name: str, packed4: bool, packed_acc: bool = False) -> str:
+def variant(name: str, packed4: bool = False, packed_acc: bool = False,
+            wide: bool = False) -> str:
     """The launch-count name of kernel ``name`` in its packed4 input mode
-    (two bin columns a byte) and its packed-accumulator mode, or
-    ``name``."""
+    (two bin columns a byte), its packed-accumulator mode and its mode
+    for two-byte bins, or ``name``."""
     return (name + (PACKED4_SUFFIX if packed4 else "")
-            + (PACKED_ACC_SUFFIX if packed_acc else ""))
+            + (PACKED_ACC_SUFFIX if packed_acc else "")
+            + (WIDE_SUFFIX if wide else ""))
 
 
 KERNEL_NAMES = (BASE_KERNEL_NAMES
                 + tuple(variant(k, True) for k in PACKED4_KERNELS)
                 + tuple(variant(k, p4, True) for p4 in (False, True)
-                        for k in PACKED_ACC_KERNELS))
+                        for k in PACKED_ACC_KERNELS)
+                + tuple(variant(k, wide=True) for k in WIDE_KERNELS))
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNEL_NAMES}
 # the launches recorded into the CUDA graph under capture, by kernel
 CAPTURED: Dict[str, int] = {}
@@ -107,7 +118,10 @@ _SIGNATURES = {
     "lgbt_segment_tiling": [_I, _I, _I, _I, _P],
     "lgbt_quantize_pack": [_P, _P, _P, _LL, _I, _P, _P, _P, _P],
     "lgbt_route_trees": [_P, _I, _I, _LL, _LL, _P, _I, _P, _P, _I, _I, _I,
-                         _I, _I, _P, _I, _P],
+                         _I, _I, _P, _I, _I, _P],
+    "lgbt_route_window_u16": [_P, _P, _LL, _LL, _LL, _P, _P],
+    "lgbt_histogram_chunked": [_P, _I, _P, _LL, _I, _I, _P, _P, _P, _P],
+    "lgbt_chunked_tiling": [_I, _I, _P],
 }
 
 
@@ -217,22 +231,29 @@ def sass_opcodes(name_part: str, lib: Optional[Path] = None
     contains ``name_part``: how often each SASS opcode occurs, from
     ``cuobjdump -sass`` (the toolkit beside nvcc)."""
     lib = Path(lib) if lib is not None else build_library()
+    counts = _sass_counts(str(lib), lib.stat().st_mtime_ns)
+    return {fn: dict(ops) for fn, ops in counts.items() if name_part in fn}
+
+
+@functools.lru_cache(maxsize=8)
+def _sass_counts(lib: str, mtime_ns: int) -> Dict[str, Dict[str, int]]:
+    """Every function's SASS opcode counts from one ``cuobjdump -sass`` of
+    ``lib`` (a dump of the whole library takes seconds: one per file and
+    modification time)."""
     dump = subprocess.run(
-        [str(Path(_nvcc()).parent / "cuobjdump"), "-sass", str(lib)],
+        [str(Path(_nvcc()).parent / "cuobjdump"), "-sass", lib],
         capture_output=True, text=True, check=True).stdout
     counts: Dict[str, Dict[str, int]] = {}
     cur = None
     for line in dump.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
-            cur = m.group(1) if name_part in m.group(1) else None
-            if cur is not None:
-                counts[cur] = {}
+            cur = counts[m.group(1)] = {}
             continue
         m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)",
                      line)
         if cur is not None and m:
-            counts[cur][m.group(1)] = counts[cur].get(m.group(1), 0) + 1
+            cur[m.group(1)] = cur.get(m.group(1), 0) + 1
     return counts
 
 

@@ -17,6 +17,14 @@ leaf value into the row of the tree's class (``TreeStack.tree_class``),
 in place.  The additions are the host walk's, in its order, so the
 result has the host walk's bits.
 
+A dataset with a column of more than 256 bins holds two-byte bins
+(``wide``): its device bins and its model's predict-time bins are int16
+tensors of the uint16 bits (core/dataset.py device_bins), which P1 reads
+unsigned in its u16 mode and the plain version widens (``widen_bins``); a
+predict-time sentinel -1 reads as 0xFFFF there.  A categorical node sends
+a bin of 256 or more right (no bitset holds one: the host walk's
+FindInBitset), so the sentinel routes as it does in i16.
+
 The training set's u8 bins may be 4-bit packed (``packed4``: two columns
 a byte, ops/histogram.py pack_bins_4bit, the layout of a dataset whose bin
 axis is at most 16): feature f is then the nibble of column
@@ -42,7 +50,7 @@ import numpy as np
 import torch
 
 from . import kernels
-from .histogram import unpack_nibble
+from .histogram import unpack_nibble, widen_bins
 
 MISSING_ZERO = 1
 MISSING_NAN = 2
@@ -306,11 +314,14 @@ def route_leaves_plain(bins: torch.Tensor, stack, t: int,
                        num_bin: torch.Tensor, default_bin: torch.Tensor,
                        n: int, feat_group: torch.Tensor = None,
                        feat_offset: torch.Tensor = None,
-                       packed4: bool = False) -> torch.Tensor:
+                       packed4: bool = False,
+                       wide: bool = False) -> torch.Tensor:
     """Leaf index of each of the first ``n`` rows under tree ``t`` of
     ``stack``: [n] int64 (the JAX route's ``_tree_leaves``, with its
     ``feat_group`` / ``feat_offset`` reconstruction; None: one column a
-    feature; ``packed4``: two columns a byte)."""
+    feature; ``packed4``: two columns a byte; ``wide``: int16 bins holding
+    uint16 bits).  A categorical node sends a bin of 256 or more right,
+    as the host walk does."""
     if feat_group is None:
         feat_group, feat_offset = identity_tables(num_bin.shape[0],
                                                   bins.device)
@@ -330,6 +341,8 @@ def route_leaves_plain(bins: torch.Tensor, stack, t: int,
         col = feat_group[f].long()
         if packed4:
             fv = unpack_nibble(bins[col >> 1, rows], col)
+        elif wide:
+            fv = widen_bins(bins[col, rows])
         else:
             fv = bins[col, rows].to(torch.int32)
         off = feat_offset[f]
@@ -345,7 +358,8 @@ def route_leaves_plain(bins: torch.Tensor, stack, t: int,
         # a negative bin (an unseen category) goes right
         word = cb[safe, torch.div(fv, 32, rounding_mode="floor")
                   .clamp(0, CAT_WORDS - 1).long()]
-        cat_left = (((word >> torch.remainder(fv, 32)) & 1) > 0) & (fv >= 0)
+        cat_left = ((((word >> torch.remainder(fv, 32)) & 1) > 0)
+                    & (fv >= 0) & (fv < 32 * CAT_WORDS))
         go_left = torch.where(is_cat, cat_left, num_left)
         nxt = torch.where(go_left, lc[safe], rc[safe])
         node = torch.where(internal, nxt, node)
@@ -356,11 +370,12 @@ def route_trees_plain(bins: torch.Tensor, stack, num_bin: torch.Tensor,
                       default_bin: torch.Tensor, out: torch.Tensor,
                       feat_group: torch.Tensor = None,
                       feat_offset: torch.Tensor = None,
-                      packed4: bool = False) -> torch.Tensor:
+                      packed4: bool = False,
+                      wide: bool = False) -> torch.Tensor:
     n = out.shape[1]
     for t in range(stack.num_trees):
         leaf = route_leaves_plain(bins, stack, t, num_bin, default_bin, n,
-                                  feat_group, feat_offset, packed4)
+                                  feat_group, feat_offset, packed4, wide)
         k = int(stack.tree_class[t])
         out[k] += stack.leaf_value[t][leaf]
     return out
@@ -370,11 +385,13 @@ def route_trees(bins: torch.Tensor, stack, num_bin: torch.Tensor,
                 default_bin: torch.Tensor, out: torch.Tensor,
                 feat_group: torch.Tensor = None,
                 feat_offset: torch.Tensor = None,
-                packed4: bool = False) -> torch.Tensor:
+                packed4: bool = False, wide: bool = False) -> torch.Tensor:
     """P1: ``out[tree_class[t]][row] += leaf_value[t][leaf_t(row)]`` for
     every tree t of ``stack`` in order and every row < out.shape[1] of the
     column-major ``bins`` [G, S] (u8 or i16; ``packed4``: u8 [ceil(G /
-    2), S], two columns a byte), each feature read out of its column by
+    2), S], two columns a byte; ``wide``: i16 holding uint16 bits, the
+    kernel's u16 mode, launched as ``route_trees_u16``), each feature read
+    out of its column by
     the [F] tables ``feat_group`` / ``feat_offset`` (None: one column a
     feature, G = F); ``out`` [C, n] float64, updated in place and
     returned.  On the card the kernel reads the stack's node records
@@ -382,15 +399,17 @@ def route_trees(bins: torch.Tensor, stack, num_bin: torch.Tensor,
     with: they must be these tables."""
     if out.device.type == "cpu":
         return route_trees_plain(bins, stack, num_bin, default_bin, out,
-                                 feat_group, feat_offset, packed4)
+                                 feat_group, feat_offset, packed4, wide)
     if out.device.type != "cuda":
         raise ValueError(f"unsupported device {out.device}")
     dev = out.device
     if bins.dtype not in (torch.uint8, torch.int16) or bins.dim() != 2 \
             or not bins.is_contiguous() or bins.device != dev \
-            or (packed4 and bins.dtype != torch.uint8):
+            or (packed4 and bins.dtype != torch.uint8) \
+            or (wide and bins.dtype != torch.int16):
         raise ValueError(f"bins must be a contiguous [F, S] uint8 or int16 "
-                         f"tensor on {dev} (uint8 when packed4)")
+                         f"tensor on {dev} (uint8 when packed4, int16 when "
+                         f"wide)")
     C, n = out.shape
     if out.dtype != torch.float64 or not out.is_contiguous() \
             or n > bins.shape[1]:
@@ -420,6 +439,7 @@ def route_trees(bins: torch.Tensor, stack, num_bin: torch.Tensor,
         n, base, layout.num_chunks,
         base + 4 * layout.trees, base + 4 * layout.data, rows, int(tiled),
         STAGE_BYTES, TILE_BUDGET, ROWS_PER_THREAD, out.data_ptr(),
-        int(packed4), kernels.stream_ptr(dev))
-    kernels.check_launch(kernels.variant("route_trees", packed4), rc)
+        int(packed4), int(wide), kernels.stream_ptr(dev))
+    kernels.check_launch(kernels.variant("route_trees", packed4, wide=wide),
+                         rc)
     return out

@@ -286,13 +286,15 @@ def _numerical_candidates(hist, parent, fmeta: FeatureMeta,
 def _cat_used_bin_mask(B: int, fmeta: FeatureMeta):
     """[F, B] bins a categorical scan may use: in range, and not the
     trailing NaN bin (used_bin = num_bin - 1 + is_full_categorical,
-    feature_histogram.hpp:130-131)."""
+    feature_histogram.hpp:130-131), and below 256: the split's bitset has
+    8 words (build_cat_bitset), so a categorical of more bins keeps the
+    rest on the right, in the sums as in the routing."""
     b_idx = torch.arange(B, dtype=torch.int32,
                          device=fmeta.num_bin.device)[None, :]
     nb = fmeta.num_bin[:, None]
     used = torch.where(fmeta.missing_type[:, None] == MISSING_NAN, nb - 1,
                        nb)
-    return b_idx < used
+    return (b_idx < used) & (b_idx < 32 * 8)
 
 
 def _categorical_onehot_candidates(hist, parent, fmeta: FeatureMeta,
@@ -375,7 +377,8 @@ def _categorical_sorted_candidates(hist, parent, fmeta: FeatureMeta,
 
 
 def build_cat_bitset(mask: torch.Tensor) -> torch.Tensor:
-    """[K, B] bool (B <= 256) -> [K, 8] int64 words of 32 bits each."""
+    """[K, B] bool -> [K, 8] int64 words of 32 bits each (bins below 256;
+    the scans offer no other to the left set)."""
     K, B = mask.shape
     m = torch.nn.functional.pad(mask.to(torch.int64), (0, (-B) % 32))
     weights = torch.bitwise_left_shift(

@@ -44,6 +44,13 @@ plan, CEGB-lazy) on the segment, frontier and fused growers: the card's
 splits = the CPU's at 40k rows, predictions monotone, the segment
 grower's graph grows one model text at steps 1 and 4, and the fused
 grower launches K5 once for each root and split and K2 once a split.
+The second histogram path (two-byte bins, gpu_use_dp): B3
+(``histogram_chunked``) bit for bit its plain version (the same fixed
+point) on u8 and u16 bins at B 64 to 65,536, with pad rows and a member
+channel, and the same bits on a second launch; K2's and P1's u16 modes
+against their plain versions on bins past 32,767; a booster at max_bin
+511 on the card launches B3 once a node and K2-u16 once a split, and
+grows the CPU's splits.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips where
 ``torch.cuda.is_available()`` is false.  The file imports neither JAX nor
@@ -3024,3 +3031,158 @@ def test_split_features_on_card_equal_cpu(dev, case, tmp_path):
                 b.update()
             texts[steps] = b.model_to_string()
         assert texts[1] == texts[4] == card.model_to_string()
+
+
+# ------------------------------------------------------------ wide bins
+def _wide_inputs(G, B, npad, n, wide, seed):
+    """[G, npad] bins (int16 holding uint16 bits when ``wide``, bins up to
+    B - 1 and some past B, which no cell takes), [3, npad] f32 channels
+    with a member channel of 0/1 and pad rows past n at member 0."""
+    g = torch.Generator().manual_seed(seed)
+    top = min(B + B // 8 + 1, 65536 if wide else 256)
+    b = torch.randint(0, top, (G, npad), generator=g, dtype=torch.int64)
+    bins = (b.to(torch.int32).to(torch.int16) if wide
+            else b.to(torch.uint8))
+    grad = torch.randn(npad, generator=g)
+    hess = torch.rand(npad, generator=g) * 0.25
+    member = (torch.rand(npad, generator=g) < 0.7).float()
+    member[n:] = 0.0
+    return bins, th.chunked_channels(grad, hess, member)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,wide", [(64, False), (256, False), (64, True),
+                                    (1024, True), (65536, True)])
+def test_histogram_chunked_matches_plain(dev, B, wide):
+    """B3 = its plain version bit for bit (the same 64-bit fixed point), at
+    28 columns (several column tiles at 1,024 bins, the global-atomic
+    mode at 65,536), with pad rows and a member channel; a second launch
+    gives the same bits; one launch a call, counted under its mode."""
+    G, npad, n = 28, 40_000, 39_000
+    bins, w3 = _wide_inputs(G, B, npad, n, wide, B)
+    scales = th.channel_scales(w3)
+    want = th.histogram_chunked_plain(bins, w3, B, scales)
+    kernels.reset_launches()
+    got = th.histogram_chunked(bins.to(dev), w3.to(dev), B,
+                               scales.to(dev))
+    again = th.histogram_chunked(bins.to(dev), w3.to(dev), B,
+                                 scales.to(dev))
+    torch.cuda.synchronize()
+    name = kernels.variant("histogram_chunked", wide=wide)
+    assert kernels.LAUNCHES[name] == 2
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(again, got)
+    assert int(want[..., 2].sum()) > 0
+
+
+@pytest.mark.cuda
+def test_route_window_u16_matches_plain(dev):
+    """K2's u16 mode on bins past 32,767 (a numerical route at a high
+    threshold, a categorical route whose bitset names bins below 256, and
+    a missing-NaN route) over windows whose starts do and do not align =
+    its plain version bit for bit, one launch a call."""
+    G, npad = 4, 64 * RB
+    g = torch.Generator().manual_seed(11)
+    bins = torch.randint(0, 60_000, (G, npad), generator=g).to(
+        torch.int32).to(torch.int16)
+    bins[1] = torch.randint(0, 300, (npad,), generator=g).to(torch.int16)
+    lid = torch.randint(0, 3, (npad,), generator=g, dtype=torch.int32)
+    fm = FeatureMeta(
+        num_bin=torch.tensor([60_000, 300, 60_000, 60_000],
+                             dtype=torch.int32),
+        missing_type=torch.tensor([0, 0, 2, 0], dtype=torch.int32),
+        default_bin=torch.tensor([0, 0, 0, 0], dtype=torch.int32))
+    bitset = np.zeros(8, dtype=np.uint32)
+    bitset[[0, 3, 7]] = 0x0F0F00F1
+    routes = [th.pack_route(1, 3, 0, 40_000, False, False, bitset, fm),
+              th.pack_route(2, 3, 1, 0, False, True, bitset, fm),
+              th.pack_route(0, 3, 2, 35_000, True, False, bitset, fm)]
+    for route in routes:
+        for lo, nblk in ((0, 64), (1, 5), (3, 7)):
+            want = th.route_window_plain(bins, lid.clone(), lo, nblk, route,
+                                         RB)
+            kernels.reset_launches()
+            got = th.route_window(bins.to(dev), lid.to(dev), lo, nblk,
+                                  route, RB).cpu()
+            assert kernels.LAUNCHES["route_window_u16"] == 1
+            assert torch.equal(got, want)
+
+
+def _wide_data(n=30_000, seed=41):
+    """A 600-category column (Zipf-like, more than 256 frequent
+    categories) beside numerical columns."""
+    rng = np.random.RandomState(seed)
+    X = rng.normal(size=(n, 6))
+    X[:, 5] = np.minimum(rng.zipf(1.05, size=n), 600) - 1
+    y = (X[:, 0] + 0.5 * X[:, 1] + (X[:, 5] % 5 == 2)
+         + 0.3 * rng.normal(size=n) > 0.4).astype(np.float64)
+    return X, y
+
+
+WIDE_PARAMS = dict(objective="binary", num_leaves=31, max_bin=511,
+                   min_data_per_group=5, cat_smooth=1.0, verbosity=-1)
+
+
+@pytest.mark.cuda
+def test_route_trees_u16_equals_plain(dev):
+    """P1's u16 mode on a wide model's training bins and on its
+    predict-time bins (unseen categories as 0xFFFF) = its plain version
+    bit for bit, one launch a call."""
+    from lightgbm_tpu_torch.models.device_predict import (TreeStack,
+                                                          bin_rows)
+    from lightgbm_tpu_torch.ops import predict as tp
+    X, y = _wide_data()
+    bst = lt.train(dict(WIDE_PARAMS, device_type="cpu"),
+                   lt.Dataset(X, y, categorical_feature=[5]), 4)
+    ds = bst.train_set._handle
+    assert ds.wide
+    Xq = X.copy()
+    Xq[:40, 5] = 5000.0
+    nb, db = bst.gbdt.fmeta.num_bin.to(dev), bst.gbdt.fmeta.default_bin.to(
+        dev)
+    stack = TreeStack(bst.gbdt.models, [0] * len(bst.gbdt.models),
+                      ds.num_used_features, dev, tp.route_tables(nb, db))
+    for host in (ds.bins_t.view(np.int16), bin_rows(ds, Xq)):
+        bins = torch.from_numpy(np.ascontiguousarray(host)).to(dev)
+        start = torch.randn((1, bins.shape[1]), dtype=torch.float64,
+                            device=dev)
+        want = tp.route_trees_plain(bins, stack, nb, db, start.clone(),
+                                    wide=True)
+        kernels.reset_launches()
+        got = tp.route_trees(bins, stack, nb, db, start.clone(), wide=True)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["route_trees_u16"] == 1
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_wide_booster_on_card_equals_cpu(dev):
+    """A booster at max_bin 511 with a 600-category column: on the card
+    B3 (u16) once a tree's root and once a split, K2-u16 once a split, no
+    K-path histogram; the CPU's splits up to a near-tie; predict on the
+    card (P1-u16) = the host walk bit for bit."""
+    X, y = _wide_data()
+    models = {}
+    for device in ("cuda", "cpu"):
+        bst = lt.Booster(dict(WIDE_PARAMS, device_type=device),
+                         lt.Dataset(X, y, categorical_feature=[5]))
+        kernels.reset_launches()
+        for _ in range(3):
+            bst.update()
+        models[device] = bst.gbdt.models
+        if device == "cuda":
+            run = dict(kernels.LAUNCHES)
+            card = bst
+    assert card.gbdt.hist_backend == "onehot"
+    nodes = sum(t.num_leaves for t in card.gbdt.models)
+    splits = nodes - len(card.gbdt.models)
+    assert run["histogram_chunked_u16"] == nodes
+    assert run["route_window_u16"] == splits
+    assert not any(run[k] for k in ("histogram_all", "histogram_segment",
+                                    "histogram_segment_routed_step",
+                                    "histogram_chunked"))
+    assert _same_splits(models["cuda"], models["cpu"]) >= 20
+    on = card.predict(X, raw_score=True, predict_device="on")
+    assert card.gbdt.last_predict_route == "device"
+    off = card.predict(X, raw_score=True, predict_device="off")
+    assert np.array_equal(on, off)

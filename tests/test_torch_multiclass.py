@@ -200,14 +200,18 @@ def test_categorical_binning_matches_jax():
 
 
 def test_more_than_256_bins_raises():
-    """Categories are not capped at max_bin (bin.cpp's 99% mass rule);
-    the port's bins are one byte, so a feature of more bins raises."""
+    """Categories are not capped at max_bin (bin.cpp's 99% mass rule): a
+    feature of more than 256 bins no longer raises; its bins take two
+    bytes, as the JAX package stores them, bin for bin its matrix."""
     X = np.random.RandomState(0).randint(0, 400, size=(5000, 1)).astype(
         np.float64)
-    with pytest.raises(lt.LightGBMError, match="256"):
-        TorchDataset.from_numpy(X, np.zeros(len(X)),
-                                config=lt.Config(device_type="cpu"),
+    pds = TorchDataset.from_numpy(X, np.zeros(len(X)),
+                                  config=lt.Config(device_type="cpu"),
+                                  categorical_features=[0])
+    jds = TpuDataset.from_numpy(X, np.zeros(len(X)), config=JaxConfig(),
                                 categorical_features=[0])
+    assert pds.max_num_bin > 256 and pds.bins_t.dtype == np.uint16
+    np.testing.assert_array_equal(pds.bins_t, jds.binned.T)
 
 
 def test_categorical_value_to_bin_matches_jax():

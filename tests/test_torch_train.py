@@ -251,9 +251,9 @@ def test_default_device_without_cuda_raises(monkeypatch):
 
 @pytest.mark.parametrize("params", [
     {"num_machines": 2},
-    {"tpu_double_precision": True},
-    {"max_bin_by_feature": [3, 4]},
-    {"gpu_use_dp": True},
+    {"tpu_boost_chunk": 4},
+    {"snapshot_freq": 5},
+    {"pre_partition": True},
     {"tree_learner": "data"},
     {"tree": "voting"},
     {"no_such_parameter": 1},
