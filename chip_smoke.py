@@ -421,9 +421,12 @@ SOURCES = {
     # no Pallas site: the JAX quantizer is XLA (quantize_pack_channels)
     "quantize_pack": ("lightgbm_tpu_torch/csrc/quantize.cu",
                       "lightgbm_tpu/ops/pallas_histogram.py:188"),
-    # no Pallas site: the JAX onehot path's histogram is XLA
+    # no Pallas site: the JAX onehot path's histogram is XLA; B3 is two
+    # kernels, the leaf's row list (pass 1) and the histogram (pass 2)
     "histogram_chunked": ("lightgbm_tpu_torch/csrc/wide_hist.cu",
                           "lightgbm_tpu/ops/histogram.py:32"),
+    "histogram_chunked_select": ("lightgbm_tpu_torch/csrc/wide_hist.cu",
+                                 "lightgbm_tpu/ops/histogram.py:32"),
 }
 FRONTIER_PARAMS = dict(TRAIN_PARAMS, tpu_tree_impl="frontier")
 # the session phase: a learning rate and stop at which the holdout's
@@ -655,31 +658,54 @@ def build_phase():
 
 
 def b3_build_report(kernels):
-    """B3's four instantiations (u8 or u16 bins, shared planes or
-    global-atomic): ptxas's lines and the atomic SASS opcodes; the
-    shared-plane bodies must have no ATOMS.CAS loop."""
+    """B3's instantiations (pass 1, chunked_select_kernel; pass 2 on u8 or
+    u16 bins, shared planes or global-atomic): ptxas's lines and the
+    atomic SASS opcodes; no body may hold an ATOMS.CAS loop, nor a
+    returning shared atomic (an ATOMS whose result feeds a later add shows
+    as no other opcode, so the report lists them all).  Then
+    tools/b3_atomics_probe.cu (tools/p1_time.py b3_probe): whether a 64-bit
+    shared add is native on this card (its variant compiles to an
+    ATOMS.ADD.64, not an ATOMS.CAS loop) and each way of adding a pair's
+    rate over random cells."""
     part = {}
-    ptxas = kernels.ptxas_lines("chunked_hist_kernel")
-    sass = kernels.sass_opcodes("chunked_hist_kernel")
-    for fn in sorted(set(ptxas) | set(sass)):
-        m = re.search(r"chunked_hist_kernelI([ht])Lb([01])E", fn)
-        name = ("B3 " + ("u16" if m and m.group(1) == "t" else "u8")
-                + (" global" if m and m.group(2) == "1" else ""))
-        ops = sass.get(fn, {})
-        part[name] = {
-            "ptxas": ptxas.get(fn, []),
-            "atomics": {k: v for k, v in sorted(ops.items())
-                        if k.startswith(("ATOMS", "ATOM", "RED"))},
-            "atoms_cas": sum(v for k, v in ops.items()
-                             if k.startswith("ATOMS.CAS"))}
-    log(f"chunked_hist_kernel build: {json.dumps(part)}")
+    for body in ("chunked_hist_kernel", "chunked_select_kernel"):
+        ptxas = kernels.ptxas_lines(body)
+        sass = kernels.sass_opcodes(body)
+        for fn in sorted(set(ptxas) | set(sass)):
+            m = re.search(r"chunked_hist_kernelI([ht])Lb([01])E", fn)
+            name = ("B3 select" if body == "chunked_select_kernel" else
+                    "B3 " + ("u16" if m and m.group(1) == "t" else "u8")
+                    + (" global" if m and m.group(2) == "1" else ""))
+            ops = sass.get(fn, {})
+            part[name] = {
+                "ptxas": ptxas.get(fn, []),
+                "atomics": {k: v for k, v in sorted(ops.items())
+                            if k.startswith(("ATOMS", "ATOM", "RED"))},
+                "atoms_cas": sum(v for k, v in ops.items()
+                                 if k.startswith("ATOMS.CAS"))}
+    log(f"B3 build: {json.dumps(part)}")
     require(set(part) == {f"B3 {b}{g}" for b in ("u8", "u16")
-                          for g in ("", " global")},
+                          for g in ("", " global")} | {"B3 select"},
             f"B3's instantiations are missing from the build: "
             f"{sorted(part)}")
     for name, rec in part.items():
         require(rec["atoms_cas"] == 0, f"{name} has {rec['atoms_cas']} "
                 "ATOMS.CAS loops")
+    probe = prev_designs().b3_probe()
+    u64 = [ops for fn, ops in probe["sass"].items()
+           if "probe_kernelILi4E" in fn]
+    require(len(u64) == 1, "the probe's 64-bit variant is missing")
+    part["shared_add64"] = {
+        "native": any(k.startswith("ATOMS.ADD.64") for k in u64[0])
+        and not any(k.startswith("ATOMS.CAS") for k in u64[0]),
+        "sass": u64[0]}
+    part["atomics_probe"] = probe["rates"]
+    log(f"B3 shared atomics: a 64-bit shared add is "
+        f"{'native' if part['shared_add64']['native'] else 'a CAS loop'} "
+        f"({u64[0]}); " + "; ".join(
+            f"{r['variant']} {'skewed' if r['skewed'] else 'uniform'} "
+            f"{r['cells']} cells: {r['pairs_per_clock_sm']} pairs a clock "
+            f"an SM" for r in probe["rates"]))
     return part
 
 
@@ -6003,6 +6029,7 @@ def wide_runs_phase(ds63, X, y, Xh, yh):
                     and r["grower"] == "FusedGrower",
                     f"max_bin {mb}: {gb.hist_backend}, {r['grower']}")
             require(run["histogram_chunked_u16"] == nodes
+                    and run["histogram_chunked_select"] == nodes
                     and run["route_window_u16"] == splits,
                     f"max_bin {mb}: B3 {run['histogram_chunked_u16']} "
                     f"launches for {nodes} nodes, K2-u16 "
@@ -6076,55 +6103,187 @@ def split_breakdown(bst):
     return rec
 
 
-def b3_check(bins, w3, B, tag, reps=10, plain_reps=1, library=True):
-    """B3 against its plain version bit for bit, a relaunch bit for bit,
-    one launch a call; its time, the plain version's, its bound by bytes
-    (each channel row once, each member row's bins once; and with the
-    tiling's re-read of the channels by each column tile) and by its
-    operations (three adds a (row, column) pair), and one index_add_ of
-    the three channels into [G * B, 3]."""
+def b3_check(bins, rows, B, tag, grad, hess, member, lid=None, leaf=-1,
+             w3=None, reps=10, plain_reps=1):
+    """B3 at one shape: the leaf entry (histogram_chunked_leaf: the rows of
+    leaf ``leaf`` of ``lid``, every member row without ``lid``), or with
+    ``w3`` the entry on channels (histogram_chunked at channel_scales(w3)),
+    over the row-major bins ``rows``.  Against its plain version bit for
+    bit, a relaunch bit for bit, one launch of each kernel a call; its time
+    in turns with the previous design (tools/p1_time.py
+    prev_histogram_chunked on the [3, Npad] channels of the same rows at
+    channel_scales: previous, shipped, shipped, previous), pass 1's alone,
+    the plain version's; the bound under the channels' count (12 B of
+    [3, Npad] channels a row, each member row's bins, the output: the
+    previous design's inputs) and under what the inputs need (the leaf id
+    and member a row, the channels and bins a member row, the output), and
+    by its operations (three adds a (member row, column) pair); one
+    index_add_ of the member rows' three channels into [G * B, 3]."""
     import torch
     from lightgbm_tpu_torch.ops import histogram as th
     from lightgbm_tpu_torch.ops import kernels
+    prev = prev_designs()
     G, W = bins.shape
     wide = bins.dtype == torch.int16
     name = kernels.variant("histogram_chunked", wide=wide)
-    scales = th.channel_scales(w3)
-    want = th.histogram_chunked_plain(bins, w3, B, scales)
-    before = kernels.LAUNCHES[name]
-    got = th.histogram_chunked(bins, w3, B, scales)
-    again = th.histogram_chunked(bins, w3, B, scales)
+    if w3 is None:
+        m = member if lid is None else (lid == leaf).to(grad.dtype) * member
+        chan = th.chunked_channels(grad, hess, m)
+        scales = th.channel_scales(chan)
+        want = th.histogram_chunked_leaf_plain(bins, grad, hess, member, B,
+                                               lid, leaf)
+
+        def call(i=0):
+            return th.histogram_chunked_leaf(bins, grad, hess, member, B, lid,
+                                             leaf, rows=rows)
+
+        def plain(i=0):
+            return th.histogram_chunked_leaf_plain(bins, grad, hess, member,
+                                                   B, lid, leaf)
+
+        def select(i=0):
+            return th._launch_select(grad, hess, member, lid, leaf, False,
+                                     None)
+    else:
+        chan, scales = w3, th.channel_scales(w3)
+        want = th.histogram_chunked_plain(bins, w3, B, scales)
+
+        def call(i=0):
+            return th.histogram_chunked(bins, w3, B, scales, rows=rows)
+
+        def plain(i=0):
+            return th.histogram_chunked_plain(bins, w3, B, scales)
+
+        def select(i=0):
+            return th._launch_select(w3[0], w3[1], w3[2], None, -1, True,
+                                     scales)
+    before = (kernels.LAUNCHES[name], kernels.LAUNCHES[
+        "histogram_chunked_select"])
+    got = call()
+    again = call()
+    old = prev.prev_histogram_chunked(bins, chan, B, scales)
     torch.cuda.synchronize()
-    calls = kernels.LAUNCHES[name] - before
-    require(calls == 2, f"B3 {tag}: {calls} launches for two calls")
+    calls = (kernels.LAUNCHES[name] - before[0],
+             kernels.LAUNCHES["histogram_chunked_select"] - before[1])
+    require(calls == (2, 2), f"B3 {tag}: {calls} launches (histogram, "
+            "pass 1) for two calls")
     require(torch.equal(got, want), f"B3 {tag}: differs from the plain "
             "version")
     require(torch.equal(again, got), f"B3 {tag}: a relaunch differs")
+    require(torch.equal(old, want), f"B3 {tag}: the previous design "
+            "differs from the plain version")
     tiling = th.chunked_tiling(G, B)
-    members = int((w3[2] != 0).sum().item())
+    members = int((chan[2] != 0).sum().item())
     es = bins.element_size()
-    nbytes = 12 * W + es * G * members + 12 * G * B
-    reread = 12 * W * (1 if tiling["global"] else tiling["column_tiles"]) \
-        + es * G * members + 12 * G * B
+    out_bytes = 12 * G * B
+    channel_bytes = 12 * W + es * G * members + out_bytes
+    reread = 12 * W * (1 if tiling["global"] else
+                       -(-G // prev.prev_tile_columns(G, B))) \
+        + es * G * members + out_bytes
+    need_bytes = (4 if lid is not None else 0) * W + 4 * W \
+        + members * (8 + es * G) + out_bytes
+    ops = 3.0 * members * G
+
+    def shipped():
+        return time_ms(call, reps)
+
+    def previous():
+        return time_ms(lambda i: prev.prev_histogram_chunked(
+            bins, chan, B, scales), reps)
+
+    turns = [previous(), shipped(), shipped(), previous()]
     rec = {"max_abs_err": float((got - want).abs().max().item()),
-           "ms": time_ms(lambda i: th.histogram_chunked(bins, w3, B, scales),
-                         reps),
-           "plain_ms": time_ms(lambda i: th.histogram_chunked_plain(
-               bins, w3, B, scales), plain_reps),
+           "ms": (turns[1] + turns[2]) / 2,
+           "prev_ms": (turns[0] + turns[3]) / 2, "turns_ms": turns,
+           "select_ms": time_ms(select, reps),
+           "plain_ms": time_ms(plain, plain_reps),
            "tiling": tiling, "member_rows": members,
            "shape": f"{tag}: {W} rows ({members} members) x {G} columns "
                     f"({bins.dtype}), {B} bins"}
-    rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, 3.0 * members * G)
-    rec["bound_with_rereads_ms"] = bound_ms(reread, 3.0 * members * G)[0]
-    rec["library_ms"] = (library_b3_ms(bins, w3, B, reps) if library
+    rec["bound_ms"], rec["bound_by"] = bound_ms(need_bytes, ops)
+    rec["bound_channels_ms"], rec["bound_channels_by"] = bound_ms(
+        channel_bytes, ops)
+    rec["bound_with_rereads_ms"] = bound_ms(reread, ops)[0]
+    rec["library_ms"] = (library_b3_ms(bins, chan, B, reps) if B <= 8192
                          else None)
-    log(f"B3 {tag}: bit for bit the plain version, {rec['ms']:.4f} ms, "
-        f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}; with the "
-        f"{tiling['column_tiles']} tiles' re-reads "
+    log(f"B3 {tag}: bit for bit the plain version, {rec['ms']:.4f} ms "
+        f"(previous design {rec['prev_ms']:.4f} ms; pass 1 "
+        f"{rec['select_ms']:.4f} ms), bound {rec['bound_ms']:.4f} ms "
+        f"({rec['bound_by']}; the channels' count "
+        f"{rec['bound_channels_ms']:.4f} ms, with its re-reads "
         f"{rec['bound_with_rereads_ms']:.4f} ms), plain "
         f"{rec['plain_ms']:.2f} ms, index_add_ "
-        + (f"{rec['library_ms']:.3f} ms" if library else "not timed"))
+        + (f"{rec['library_ms']:.3f} ms" if rec["library_ms"] is not None
+           else "not timed"))
     return rec
+
+
+def b3_split_ops(bins, rows, B, grad, hess, member, lid, leaf):
+    """The device operations of one onehot split's histogram before (PR
+    17's: the member mask, the [3, Npad] channels, their scales, the
+    previous kernel) and after (histogram_chunked_leaf: two kernels), from
+    device_ops_per_call; the shipped call must be two kernels, no copy, no
+    memset."""
+    from lightgbm_tpu_torch.ops import histogram as th
+    prev = prev_designs()
+
+    def before():
+        m = (lid == leaf).to(grad.dtype) * member
+        w3 = th.chunked_channels(grad, hess, m)
+        return prev.prev_histogram_chunked(bins, w3, B, th.channel_scales(w3))
+
+    rec = {"before": device_ops_per_call(before),
+           "after": device_ops_per_call(
+               lambda: th.histogram_chunked_leaf(bins, grad, hess, member, B,
+                                                 lid, leaf, rows=rows))}
+    ops = rec["after"]
+    require(ops is None or (ops["kernel"] == 2 and ops["memcpy"] == 0
+                            and ops["memset"] == 0),
+            f"B3: device operations a split {ops}")
+    log("B3: device operations of a split's histogram, before "
+        + json.dumps({k: v for k, v in (rec["before"] or {}).items()
+                      if k != "names"})
+        + ", after " + json.dumps({k: v for k, v in (ops or {}).items()
+                                   if k != "names"}))
+    return rec
+
+
+def b3_tree_check(bst):
+    """One more tree of ``bst`` (the fused grower on the onehot path) with
+    every B3 call held to its plain version bit for bit (the grower's
+    _hist hooked as split_breakdown hooks it).  Returns (record, the
+    tree's gradients, hessians, member and final leaf ids)."""
+    import torch
+    from lightgbm_tpu_torch.ops import histogram as th
+    g = bst.gbdt.grower
+    orig = g._hist
+    seen = {"calls": 0, "member_rows": []}
+
+    def hooked(binsT, grad, hess, member, leaf_id=None, leaf=-1):
+        out = orig(binsT, grad, hess, member, leaf_id, leaf)
+        want = th.histogram_chunked_leaf_plain(binsT, grad, hess, member,
+                                               g.B, leaf_id, leaf)
+        require(torch.equal(out, want), f"B3 call {seen['calls']} of the "
+                "checked tree differs from its plain version")
+        seen["calls"] += 1
+        m = member if leaf_id is None else (leaf_id == leaf) * member
+        seen["member_rows"].append(int((m != 0).sum().item()))
+        seen["inputs"] = (grad, hess, member, leaf_id)
+        return out
+
+    g._hist = hooked
+    try:
+        bst.update()
+    finally:
+        g._hist = orig
+    grad, hess, member, lid = seen.pop("inputs")
+    rows = seen.pop("member_rows")
+    rec = {"calls": seen["calls"], "rows_summed": int(sum(rows)),
+           "root_rows": rows[0], "rows_over_root": sum(rows) / rows[0]}
+    log(f"B3: every call of one more tree = its plain version "
+        f"({rec['calls']} calls; their member rows {rec['rows_over_root']:.2f}"
+        f" x the root's)")
+    return rec, (grad, hess, member, lid.clone())
 
 
 def library_b3_ms(bins, w3, B, reps):
@@ -6149,12 +6308,17 @@ def library_b3_ms(bins, w3, B, reps):
 
 def wide_kernel_phase(bst):
     """B3, K2-u16 and P1-u16 at the main path's shapes on the max_bin 1023
-    booster's device bins: B3 at the root (every row) and at a smaller
-    child (every other row); K2-u16 with the first tree's first split over
-    every row; P1-u16 over the bins with the booster's trees; then B3 at
-    B_SWEEP_ROWS random rows for each B of B3_SWEEP.  Each against its
-    plain version bit for bit, timed beside its bound.  Returns
-    {kernel name: record}."""
+    booster's device bins.  B3: one more tree with every call held to its
+    plain version (b3_tree_check), then with that tree's gradients its
+    root, every other row, the tree's leaves nearest 5% and 0.5% of the
+    rows, one row and no row (b3_check, in turns with the previous
+    design), the device operations of a split (b3_split_ops), pass 1
+    alone against its plain version (the list and the scales) at the root
+    and the 5% leaf, then B3 at B3_SWEEP_ROWS random rows for each B of
+    B3_SWEEP through the entry on channels; K2-u16 with the first tree's
+    first split over every row; P1-u16 over the bins with the booster's
+    trees.  Each against its plain version bit for bit, timed beside its
+    bound.  Returns {kernel name: record}."""
     import numpy as np
     import torch
     from lightgbm_tpu_torch.models.device_predict import TreeStack
@@ -6165,34 +6329,81 @@ def wide_kernel_phase(bst):
     gb = bst.gbdt
     bins, B = gb.bins, gb.num_bins
     G, W = bins.shape
-    grad, hess, member = acc_gradients(gb)
+    dev = bins.device
+    tree, (grad, hess, member, lid) = b3_tree_check(bst)
+    rows = th.chunked_rows(bins)
+    n = int((member != 0).sum().item())
+    sizes = torch.bincount(lid[member != 0].long()).float()
+    near = {f: int((sizes - f * n).abs().argmin().item())
+            for f in (0.05, 0.005)}
+    half = (torch.arange(W, device=dev) % 2).to(torch.int32)
+    one = torch.full_like(lid, -1)
+    one[n // 2] = 0
     out = {}
-    b3 = b3_check(bins, th.chunked_channels(grad, hess, member), B,
-                  "HIGGS root, max_bin 1023")
-    half = member * (torch.arange(W, device=bins.device) % 2 == 0).float()
-    b3["smaller_child"] = b3_check(
-        bins, th.chunked_channels(grad, hess, half), B,
-        "HIGGS half the rows, max_bin 1023", library=False)
+    tag = "HIGGS max_bin 1023, "
+    b3 = b3_check(bins, rows, B, tag + "root", grad, hess, member)
+    for key, shape, L, leaf in (
+            ("half_rows", "every other row", half, 0),
+            ("leaf_5pct", f"the tree's leaf {near[0.05]}", lid, near[0.05]),
+            ("leaf_0_5pct", f"the tree's leaf {near[0.005]}", lid,
+             near[0.005]),
+            ("one_row", "one row", one, 0),
+            ("empty_leaf", "no row", lid, int(sizes.numel()) + 7)):
+        b3[key] = b3_check(bins, rows, B, tag + shape, grad, hess, member,
+                           L, leaf)
+    b3["tree"] = tree
+    b3["split_device_ops"] = b3_split_ops(bins, rows, B, grad, hess, member,
+                                          lid, near[0.05])
+    # pass 1 alone: the list and the scales against its plain version
+    sel = None
+    for key, L, leaf in (("root", None, -1), ("leaf_5pct", lid, near[0.05])):
+        want = th.chunked_select_plain(grad, hess, member, L, leaf)
+        got = th.chunked_select(grad, hess, member, L, leaf)
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                f"B3 pass 1 ({key}): differs from its plain version")
+        members = int(want[0].numel())
+        r = {"max_abs_err": 0.0, "member_rows": members,
+             "ms": time_ms(lambda i: th._launch_select(
+                 grad, hess, member, L, leaf, False, None), 10),
+             "plain_ms": time_ms(lambda i: th.chunked_select_plain(
+                 grad, hess, member, L, leaf), 1),
+             "library_ms": None,
+             "shape": f"{tag}{key}: {W} rows, {members} members"}
+        # member (and leaf id) a row, a member's channels, its list entry
+        r["bound_ms"], r["bound_by"] = bound_ms(
+            (4 if L is not None else 0) * W + 4 * W + members * (8 + 12),
+            0.0)
+        log(f"B3 pass 1 {key}: bit for bit its plain version, "
+            f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.2f} ms")
+        if sel is None:
+            sel = r
+        else:
+            sel[key] = r
+    out["histogram_chunked_select"] = sel
     sweep = []
-    g = torch.Generator(device=bins.device).manual_seed(28)
+    g = torch.Generator(device=dev).manual_seed(28)
     n = B3_SWEEP_ROWS
-    gs = torch.randn(n, device=bins.device, generator=g)
-    hs = torch.rand(n, device=bins.device, generator=g) * 0.25
-    ms = (torch.rand(n, device=bins.device, generator=g) < 0.8).float()
+    gs = torch.randn(n, device=dev, generator=g)
+    hs = torch.rand(n, device=dev, generator=g) * 0.25
+    ms = (torch.rand(n, device=dev, generator=g) < 0.8).float()
     w3 = th.chunked_channels(gs, hs, ms)
     for nb, wide in B3_SWEEP:
-        raw = torch.randint(0, nb, (G, n), device=bins.device, generator=g)
+        raw = torch.randint(0, nb, (G, n), device=dev, generator=g)
         sb = (raw.to(torch.int32).to(torch.int16) if wide
               else raw.to(torch.uint8))
         del raw
-        r = b3_check(sb, w3, nb, f"{n} random rows, B {nb}",
-                     reps=3 if nb > 8192 else 10,
-                     library=nb <= 8192)
+        r = b3_check(sb, th.chunked_rows(sb), nb,
+                     f"{n} random rows, B {nb}", gs, hs, ms, w3=w3,
+                     reps=3 if nb > 8192 else 10)
         r.update(B=nb, u16=wide)
         sweep.append(r)
         del sb
     b3["sweep"] = sweep
     out["histogram_chunked_u16"] = b3
+    del rows
+    torch.cuda.empty_cache()
     # K2-u16: the first tree's first split, every row in leaf 0
     t = gb.models[0]
     f = int(t.split_feature_inner[0])
@@ -6293,7 +6504,8 @@ def wide_cat_phase():
     gb = bst.gbdt
     nodes = sum(t.num_leaves for t in gb.models)
     require(gb.hist_backend == "onehot"
-            and run["histogram_chunked_u16"] == nodes,
+            and run["histogram_chunked_u16"] == nodes
+            and run["histogram_chunked_select"] == nodes,
             f"wide categoricals: {gb.hist_backend}, B3-u16 "
             f"{run['histogram_chunked_u16']} launches for {nodes} nodes")
     cat_nodes = sum(int(t.num_cat) for t in gb.models)
@@ -6334,6 +6546,7 @@ def gpu_use_dp_phase(ds63, Xh, yh, auc63):
     nodes = sum(t.num_leaves for t in gb.models)
     require(gb.hist_backend == "onehot" and not gb.train_set.wide
             and run["histogram_chunked"] == nodes
+            and run["histogram_chunked_select"] == nodes
             and run["route_window"] == nodes - len(gb.models),
             f"gpu_use_dp: {gb.hist_backend}, B3 {run['histogram_chunked']} "
             f"launches for {nodes} nodes")
@@ -6344,9 +6557,9 @@ def gpu_use_dp_phase(ds63, Xh, yh, auc63):
            "launches": {k: v for k, v in run.items() if v}}
     from lightgbm_tpu_torch.ops import histogram as th
     grad, hess, member = acc_gradients(gb)
-    rec["b3_root"] = b3_check(gb.bins, th.chunked_channels(grad, hess,
-                                                           member),
-                              gb.num_bins, "HIGGS root, max_bin 63 (u8)")
+    rec["b3_root"] = b3_check(gb.bins, th.chunked_rows(gb.bins),
+                              gb.num_bins, "HIGGS root, max_bin 63 (u8)",
+                              grad, hess, member)
     log(f"gpu_use_dp: median iteration {rec['median_iter_s']:.4f} s, "
         f"holdout AUC {auc[-1]:.5f} (the max_bin 63 run {auc63:.5f})")
     del bst, gb
@@ -6901,25 +7114,29 @@ def main() -> int:
     paths.update(wide_launches)
     records = []
     for name in kernels.KERNEL_NAMES:
-        if name.endswith(kernels.WIDE_SUFFIX) or name == "histogram_chunked":
-            # phase 28's rows: B3 (one-byte bins under gpu_use_dp, two-byte
-            # at max_bin 1023) and the u16 modes of K2 and P1
+        if name.endswith(kernels.WIDE_SUFFIX) or name in (
+                "histogram_chunked", "histogram_chunked_select"):
+            # phase 28's rows: B3's two kernels (pass 1; the histogram on
+            # one-byte bins under gpu_use_dp, two-byte at max_bin 1023)
+            # and the u16 modes of K2 and P1
             base = name.replace(kernels.WIDE_SUFFIX, "")
             path = "gpu_use_dp" if name == "histogram_chunked" \
                 else "wide_bins"
             src, replaces = SOURCES[base]
             rec = {"name": name, "route": "cuda", "source": src,
                    "replaces": replaces,
-                   "variant": "u16" if name != base else "u8",
+                   "variant": ("pass 1" if name == "histogram_chunked_select"
+                               else "u16" if name != base else "u8"),
                    "launches": paths[path][name], "path": path,
                    "launches_by_path": {k: v[name] for k, v in paths.items()
                                         if v[name]}}
-            if base in ("histogram_chunked", "route_trees"):
+            if base in ("histogram_chunked", "histogram_chunked_select",
+                        "route_trees"):
                 rec["no_pallas_site"] = (
                     "the JAX package computes this with XLA "
-                    + ("(lightgbm_tpu/ops/histogram.py:32-97)"
-                       if base == "histogram_chunked" else
-                       "(lightgbm_tpu/models/device_predict.py:99-149)"))
+                    + ("(lightgbm_tpu/models/device_predict.py:99-149)"
+                       if base == "route_trees" else
+                       "(lightgbm_tpu/ops/histogram.py:32-97)"))
             rec.update(wide_kernels[name])
             records.append(rec)
             require(rec["launches"] > 0,

@@ -10,9 +10,11 @@ Rows never move: ``leaf_id`` [Npad] stays in row order, and
     selecting the leaf's rows; with ``packed_acc`` quantized for that
     leaf, so each leaf has its own scales, grower.py:370-385), or on the
     onehot path (``GrowerParams.onehot``: a column of more than 256 bins,
-    gpu_use_dp) B3 (``histogram_chunked`` over the f32 channels
-    [grad * m, hess * m, m], grower.py:405-407), whose bin axis may be up
-    to 65,536; the larger child is its parent minus the smaller;
+    gpu_use_dp) B3 (``histogram_chunked_leaf``: the sums of the f32
+    channels [grad * m, hess * m, m] of grower.py:405-407, from grad,
+    hess, member and leaf_id with the leaf, no channel tensor; on the card
+    over the tree's row-major bins, ``chunked_rows``), whose bin axis may
+    be up to 65,536; the larger child is its parent minus the smaller;
   * a split's partition is K2 (``route_window``) over the whole block
     range with the split's route descriptor: JAX's ``routed_left``
     partition (grower.py:515-536), K2 folding EFB columns, 4-bit bins and
@@ -48,7 +50,7 @@ import numpy as np
 import torch
 
 from ..core.binning import MISSING_ZERO
-from ..ops.histogram import (chunked_channels, histogram_chunked,
+from ..ops.histogram import (chunked_rows, histogram_chunked_leaf,
                              leaf_histogram, pack_route, route_window)
 from ..ops.split import (FeatureMeta, clip_output, expand_group_hist,
                          leaf_gain, leaf_output)
@@ -69,14 +71,22 @@ class FusedGrower(HostGrower):
         # CEGB-lazy: each leaf's path features [L, F] and rows [L]
         self._path = None
         self._leaf_rows = None
+        # B3's row-major bins on the card, for the tree being grown
+        self._bins_rows = None
 
-    def _hist(self, binsT, grad, hess, member) -> torch.Tensor:
-        """K5 (or on the onehot path B3) over every row, ``member``
-        selecting a leaf's rows."""
+    def _hist(self, binsT, grad, hess, member, leaf_id=None,
+              leaf: int = -1) -> torch.Tensor:
+        """The histogram of leaf ``leaf`` (every row's ``member`` without
+        ``leaf_id``: the root): K5 over every row with the member channel
+        (leaf_id == leaf) * member, or on the onehot path B3 on the leaf's
+        rows alone."""
         p = self.p
         if p.onehot:
-            return histogram_chunked(binsT, chunked_channels(grad, hess,
-                                                             member), self.B)
+            return histogram_chunked_leaf(binsT, grad, hess, member, self.B,
+                                          leaf_id, leaf,
+                                          rows=self._bins_rows)
+        if leaf_id is not None:
+            member = (leaf_id == leaf).to(grad.dtype) * member
         return leaf_histogram(binsT, grad, hess, member, self.B, p.packed4,
                               p.packed_acc, p.packed_acc_bits)
 
@@ -170,8 +180,8 @@ class FusedGrower(HostGrower):
         if p.use_cegb_lazy:
             self._mark_seen(st.leaf_id, leaf, new_leaf, f)
         smaller = leaf if smaller_is_left else new_leaf
-        small = self._hist(st.binsT, grad, hess,
-                           (st.leaf_id == smaller).to(grad.dtype) * member)
+        small = self._hist(st.binsT, grad, hess, member, st.leaf_id,
+                           smaller)
         large = st.leaf_hist[leaf] - small
         left, right = (small, large) if smaller_is_left else (large, small)
         st.leaf_hist[leaf] = left
@@ -194,6 +204,8 @@ class FusedGrower(HostGrower):
         p, L, dev = self.p, self.p.num_leaves, binsT.device
         self.last_stats = {"quant_clips": 0, "k5_launches": 1}
         st = self._state(binsT, None, grad, hess, member, fmeta)
+        if p.onehot and binsT.device.type == "cuda":
+            self._bins_rows = chunked_rows(binsT)
         masks = self._node_masks(feature_mask, key, dev)
         fm_host = host_meta(fmeta)
         if p.use_cegb_lazy:
@@ -213,5 +225,5 @@ class FusedGrower(HostGrower):
             self._split(st, leaf, grad, hess, member, fmeta, fm_host, masks)
         self.last_stats.update(splits=st.num_leaves - 1, forced=len(plan),
                                max_blocks=n // self.rb)
-        self._path = self._leaf_rows = None
+        self._path = self._leaf_rows = self._bins_rows = None
         return st.tree, st.leaf_id

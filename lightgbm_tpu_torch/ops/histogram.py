@@ -79,14 +79,17 @@ counts under ``kernels.variant(name, packed4, True)``.
 The second histogram path (the JAX package's XLA one-hot path,
 lightgbm_tpu/ops/histogram.py histogram_chunked, ROADMAP B3), which the
 fused grower takes where a column holds more than 256 bins or double
-precision is asked for: ``histogram_chunked`` (B3, csrc/wide_hist.cu)
-sums three f32 channels ``[grad * m, hess * m, m]`` (``chunked_channels``)
-per (column, bin) over every row, in the same 64-bit fixed point as the
-kernels above at ``channel_scales``' scale, from [G, Npad] bins of one
-byte, or of two (a dataset with a column of more than 256 bins): int16
-tensors holding the uint16 bits, which the kernels read unsigned and the
-plain versions widen (``widen_bins``).  K2 ``route_window`` takes such
-bins too (its u16 mode, counted as ``route_window_u16``).
+precision is asked for: B3 (csrc/wide_hist.cu) sums, per (column, bin),
+the three f32 channels ``[grad * m, hess * m, m]`` of a leaf's rows
+(``histogram_chunked_leaf``: m = member where leaf_id is the leaf; or
+``histogram_chunked`` on a [3, Npad] ``chunked_channels`` tensor), in the
+same 64-bit fixed point as the kernels above at ``channel_scales``'
+scale, from [G, Npad] bins of one byte, or of two (a dataset with a
+column of more than 256 bins): int16 tensors holding the uint16 bits,
+which the kernels read unsigned and the plain versions widen
+(``widen_bins``).  The card reads them as a row-major copy
+(``chunked_rows``).  K2 ``route_window`` takes such bins too (its u16
+mode, counted as ``route_window_u16``).
 """
 
 from __future__ import annotations
@@ -1270,61 +1273,121 @@ def chunked_channels(grad: torch.Tensor, hess: torch.Tensor,
     return torch.stack([grad * member, hess * member, member])
 
 
+def _scales_rule(mag_g: torch.Tensor, mag_h: torch.Tensor,
+                 n: int) -> torch.Tensor:
+    """fixed_point_scales' rule on f32 channels whose largest |value| are
+    ``mag_g`` and ``mag_h`` (0-d f32) over ``n`` rows: the largest power
+    of two at which |max| x n stays below 2^62, clamped to 2^[-126, 126]
+    (csrc/wide_hist.cu b3_scale computes it on the card)."""
+    mags = torch.stack([mag_g, mag_h])
+    mags = torch.clamp(mags.double() * max(int(n), 1), min=1e-30)
+    exps = torch.clamp(61.0 - torch.ceil(torch.log2(mags)), -126.0, 126.0)
+    return torch.exp2(exps).float()
+
+
 def channel_scales(w3: torch.Tensor) -> torch.Tensor:
     """[2] f32 powers of two (gradient, hessian) for B3's 64-bit fixed
     point, fixed_point_scales' rule on the f32 channels: the largest scale
     at which the whole array's absolute sum stays below 2^62.  Computed on
     ``w3``'s device; no value is read on the host."""
-    n = max(int(w3.shape[1]), 1)
-    mags = torch.stack([w3[0].abs().max(), w3[1].abs().max()])
-    mags = torch.clamp(mags.double() * n, min=1e-30)
-    exps = torch.clamp(61.0 - torch.ceil(torch.log2(mags)), -126.0, 126.0)
-    return torch.exp2(exps).float()
+    return _scales_rule(w3[0].abs().max(), w3[1].abs().max(), w3.shape[1])
+
+
+def chunked_select_plain(grad: torch.Tensor, hess: torch.Tensor,
+                         member: torch.Tensor, leaf_id=None, leaf: int = -1):
+    """Plain B3 pass 1 -> (rows, g, h, scales): the rows of the leaf with
+    m != 0 in row order (int64), their ``grad * m`` and ``hess * m`` (f32),
+    and the scales, ``channel_scales(chunked_channels(grad, hess, m))``
+    bit for bit without the [3, N] tensor: a row out of the leaf adds 0 to
+    neither max (finite gradients)."""
+    m = member if leaf_id is None else \
+        (leaf_id == int(leaf)).to(member.dtype) * member
+    rows = torch.nonzero(m != 0).squeeze(1)
+    g = grad[rows] * m[rows]
+    h = hess[rows] * m[rows]
+    zero = torch.zeros((), dtype=torch.float32, device=grad.device)
+    mags = [v.abs().max() if v.numel() else zero for v in (g, h)]
+    return rows, g, h, _scales_rule(mags[0], mags[1], grad.shape[0])
+
+
+def _chunked_sums_plain(binsT, rows, g, h, num_bins, scales):
+    """Plain B3 pass 2 -> [G, B, 3] f32, in the kernel's arithmetic: each
+    listed row adds round(g * scale) and round(h * scale) (f64 products,
+    to the nearest integer, ties to even) as int64, and 1 to the count,
+    into its bin of each column; a bin >= num_bins adds to none (the JAX
+    one-hot drops it); the sums over their scales in f64, then f32.
+    Integer sums do not depend on the order of the rows, so the result is
+    the kernel's bit for bit.  A column at a time."""
+    G = binsT.shape[0]
+    dev = binsT.device
+    sc = scales.to(dev).double()
+    vals = [torch.round(v.to(dev).double() * sc[c]).to(torch.int64)
+            for c, v in enumerate((g, h))] + [torch.ones_like(rows)]
+    out = torch.empty((G, num_bins, 3), dtype=torch.float32, device=dev)
+    for col in range(G):
+        b = widen_bins(binsT[col, rows]).to(torch.int64)
+        key = torch.where(b < num_bins, b, torch.full_like(b, num_bins))
+        sums = [torch.zeros(num_bins + 1, dtype=torch.int64,
+                            device=dev).scatter_add_(0, key, v)[:num_bins]
+                for v in vals]
+        out[col, :, 0] = (sums[0].double() / sc[0]).float()
+        out[col, :, 1] = (sums[1].double() / sc[1]).float()
+        out[col, :, 2] = sums[2].float()
+    return out
 
 
 def histogram_chunked_plain(binsT: torch.Tensor, w3: torch.Tensor,
                             num_bins: int,
                             scales: torch.Tensor) -> torch.Tensor:
-    """Plain B3 -> [G, B, 3] f32, in the kernel's arithmetic: each row
-    with m != 0 adds round(grad * m * scale) and round(hess * m * scale)
-    (f64 products, to the nearest integer, ties to even) as int64, and 1
-    to the count, into its bin of each column; a bin >= num_bins adds to
-    none (the JAX one-hot drops it); the sums over their scales in f64,
-    then f32.  Integer sums do not depend on the order of the rows, so the
-    result is the kernel's bit for bit.  A column at a time."""
-    G, npad = binsT.shape
-    dev = binsT.device
-    # the rows with m != 0: the others add to no bin
+    """Plain B3 on the channels ``w3`` -> [G, B, 3] f32: the rows with m
+    != 0 (m = w3[2]) add w3[0] and w3[1] at ``scales``
+    (_chunked_sums_plain)."""
     rows = torch.nonzero(w3[2] != 0).squeeze(1)
-    sc = scales.to(dev).double()
-    vals = [torch.round(w3[c, rows].double() * sc[c]).to(torch.int64)
-            for c in range(2)] + [torch.ones_like(rows)]
-    out = torch.empty((G, num_bins, 3), dtype=torch.float32, device=dev)
-    for g in range(G):
-        b = widen_bins(binsT[g, rows]).to(torch.int64)
-        key = torch.where(b < num_bins, b, torch.full_like(b, num_bins))
-        sums = [torch.zeros(num_bins + 1, dtype=torch.int64,
-                            device=dev).scatter_add_(0, key, v)[:num_bins]
-                for v in vals]
-        out[g, :, 0] = (sums[0].double() / sc[0]).float()
-        out[g, :, 1] = (sums[1].double() / sc[1]).float()
-        out[g, :, 2] = sums[2].float()
+    return _chunked_sums_plain(binsT, rows, w3[0, rows], w3[1, rows],
+                               num_bins, scales)
+
+
+def histogram_chunked_leaf_plain(binsT: torch.Tensor, grad: torch.Tensor,
+                                 hess: torch.Tensor, member: torch.Tensor,
+                                 num_bins: int, leaf_id=None,
+                                 leaf: int = -1) -> torch.Tensor:
+    """Plain B3 of a leaf -> [G, B, 3] f32: chunked_select_plain, then
+    its rows' sums at its scales; bit for bit
+    ``histogram_chunked_plain(binsT, w3, num_bins, channel_scales(w3))``
+    with w3 = chunked_channels(grad, hess, (leaf_id == leaf) * member)."""
+    rows, g, h, scales = chunked_select_plain(grad, hess, member, leaf_id,
+                                              leaf)
+    return _chunked_sums_plain(binsT, rows, g, h, num_bins, scales)
+
+
+def chunked_rows(binsT: torch.Tensor) -> torch.Tensor:
+    """B3's row-major bins on the card: [Npad, G'] of ``binsT``'s dtype, a
+    row's G bins then zeros up to G' (a multiple of 16 bytes), so the
+    kernel reads a row's bins in 16-byte loads.  Made once per tree (the
+    fused grower)."""
+    G, npad = binsT.shape
+    per_load = 16 // binsT.element_size()
+    out = torch.zeros((npad, -(-G // per_load) * per_load),
+                      dtype=binsT.dtype, device=binsT.device)
+    out[:, :G] = binsT.t()
     return out
 
 
 def chunked_tiling(num_columns: int, num_bins: int) -> dict:
     """B3's tiling at this shape (csrc/wide_hist.cu lgbt_chunked_tiling):
     the columns a block's shared histogram holds, its shared memory, the
-    column tiles of the grid, and ``global``: no column fits a block, so
-    the rows add into device memory with 64-bit atomics."""
-    tc, smem, glob = _chunked_tiling(int(num_columns), int(num_bins))
+    column tiles of the grid, the copies of the planes (lane l adds into
+    copy l mod copies) and ``global``: no column fits a block, so the rows
+    add into device memory with 64-bit atomics."""
+    tc, smem, glob, copies, tiles = _chunked_tiling(int(num_columns),
+                                                    int(num_bins))
     return {"tile_columns": tc, "smem_bytes": smem, "global": bool(glob),
-            "column_tiles": -(-num_columns // tc)}
+            "copies": copies, "column_tiles": tiles}
 
 
 @functools.lru_cache(maxsize=64)
 def _chunked_tiling(num_columns, num_bins):
-    out = (ctypes.c_int * 3)()
+    out = (ctypes.c_int * 5)()
     rc = kernels.library().lgbt_chunked_tiling(num_columns, num_bins,
                                                ctypes.addressof(out))
     if rc != 0:
@@ -1332,38 +1395,159 @@ def _chunked_tiling(num_columns, num_bins):
     return tuple(out)
 
 
-def histogram_chunked(binsT: torch.Tensor, w3: torch.Tensor, num_bins: int,
-                      scales: torch.Tensor = None) -> torch.Tensor:
-    """B3: per (column, bin) sums of the three channels of ``w3`` ([3,
-    Npad] f32, chunked_channels) over every row -> [G, B, 3] f32
-    (sum_grad, sum_hess, count), from ``binsT`` [G, Npad] uint8 or int16
-    (two-byte bins, read unsigned), B = ``num_bins`` up to 65,536.
-    ``scales`` defaults to channel_scales(w3).  A CPU tensor takes the
-    plain version; a CUDA one launches the kernel (counted as
-    ``histogram_chunked``, or ``histogram_chunked_u16`` on two-byte bins)
-    or raises.  Replaces lightgbm_tpu/ops/histogram.py histogram_chunked
-    (:32, an XLA one-hot contraction, not a Pallas kernel)."""
-    if scales is None:
-        scales = channel_scales(w3)
-    if not 1 <= num_bins <= 65536:
-        raise ValueError("num_bins must be in [1, 65536]")
-    if _device_kind(binsT) == "cpu":
-        return histogram_chunked_plain(binsT, w3, num_bins, scales)
-    G, npad = binsT.shape
-    dev = binsT.device
-    wide = binsT.dtype == torch.int16
-    _check_cuda(dev, binsT=(binsT, torch.int16 if wide else torch.uint8),
-                w3=(w3, torch.float32), scales=(scales, torch.float32))
-    if w3.shape != (3, npad) or scales.shape != (2,):
-        raise ValueError("w3 must be [3, Npad] and scales [2]")
-    tiles = chunked_tiling(G, num_bins)["column_tiles"]
+# B3's state (csrc/wide_hist.cu B3State: pass 1's scratch and output) and
+# member list ([3, Npad] words), one of each a device; the state's words
+# (int64): the scales, the members, a segment's rows, the segments, and
+# from _B3_COUNT each segment's members
+_CHUNKED_STATE = {}
+_CHUNKED_LIST = {}
+_B3_SCALES, _B3_MEMBERS, _B3_PER, _B3_NSEG, _B3_COUNT = 2, 3, 4, 5, 6
+
+
+def _chunked_buffers(dev, npad: int):
+    state = _CHUNKED_STATE.get(dev)
+    if state is None:
+        state = _CHUNKED_STATE[dev] = torch.zeros(2048, dtype=torch.int64,
+                                                  device=dev)
+    lst = _CHUNKED_LIST.get(dev)
+    if lst is None or lst.numel() < 3 * npad:
+        lst = _CHUNKED_LIST[dev] = torch.empty(max(3 * npad, 3 << 16),
+                                               dtype=torch.int32,
+                                               device=dev)
+    return state, lst
+
+
+def _launch_select(grad, hess, member, leaf_id, leaf, premultiplied,
+                   scales):
+    """B3's pass 1 on the card (counted as ``histogram_chunked_select``):
+    the leaf's rows into the device's list and the scales into its state
+    (given ``scales``, or channel_scales' rule).  Returns (state, list)."""
+    npad = grad.shape[0]
+    dev = grad.device
+    _check_cuda(dev, grad=(grad, torch.float32), hess=(hess, torch.float32),
+                member=(member, torch.float32))
+    if leaf_id is not None:
+        _check_cuda(dev, leaf_id=(leaf_id, torch.int32))
+    if scales is not None:
+        _check_cuda(dev, scales=(scales, torch.float32))
+        if scales.shape != (2,):
+            raise ValueError("scales must be [2]")
+    if any(t is not None and t.shape != (npad,)
+           for t in (hess, member, leaf_id)):
+        raise ValueError("grad, hess, member and leaf_id must be [Npad]")
+    state, lst = _chunked_buffers(dev, npad)
+    rc = kernels.library().lgbt_chunked_select(
+        grad.data_ptr(), hess.data_ptr(), member.data_ptr(),
+        None if leaf_id is None else leaf_id.data_ptr(), int(leaf),
+        int(premultiplied), npad,
+        None if scales is None else scales.data_ptr(), state.data_ptr(),
+        lst.data_ptr(), kernels.stream_ptr(dev))
+    kernels.check_launch("histogram_chunked_select", rc)
+    return state, lst
+
+
+def chunked_select(grad: torch.Tensor, hess: torch.Tensor,
+                   member: torch.Tensor, leaf_id=None, leaf: int = -1):
+    """B3's pass 1 alone -> (rows, g, h, scales), as chunked_select_plain:
+    on a CUDA tensor it launches the kernel and reads the list back from
+    the card in row order (a host synchronisation: for checks; the
+    histogram reads the list where it lies)."""
+    if _device_kind(grad) == "cpu":
+        return chunked_select_plain(grad, hess, member, leaf_id, leaf)
+    npad = grad.shape[0]
+    state, lst = _launch_select(grad, hess, member, leaf_id, leaf, False,
+                                None)
+    head = state[:_B3_COUNT].cpu()
+    per, nseg = int(head[_B3_PER]), int(head[_B3_NSEG]) & 0xFFFFFFFF
+    counts = state[_B3_COUNT:_B3_COUNT + nseg].cpu().tolist()
+    pos = torch.cat([torch.arange(b * per, b * per + c)
+                     for b, c in enumerate(counts)] + [
+        torch.zeros(0, dtype=torch.int64)]).to(grad.device)
+    rows = lst[pos].to(torch.int64)
+    g = lst[npad:2 * npad].view(torch.float32)[pos]
+    h = lst[2 * npad:3 * npad].view(torch.float32)[pos]
+    scales = state[_B3_SCALES:_B3_SCALES + 1].view(torch.float32).clone()
+    return rows, g, h, scales
+
+
+def _launch_chunked(rows, num_cols, grad, hess, member, leaf_id, leaf,
+                    premultiplied, scales, num_bins):
+    """B3 on the card: pass 1 (_launch_select), then pass 2 (counted as
+    ``histogram_chunked`` / ``histogram_chunked_u16``)."""
+    npad, stride = rows.shape
+    dev = rows.device
+    wide = rows.dtype == torch.int16
+    _check_cuda(dev, rows=(rows, torch.int16 if wide else torch.uint8))
+    if grad.shape != (npad,):
+        raise ValueError("grad, hess, member and leaf_id must be [Npad]")
+    if stride < num_cols or (stride * rows.element_size()) % 16:
+        raise ValueError("rows must be chunked_rows(binsT)")
+    tiles = chunked_tiling(num_cols, num_bins)["column_tiles"]
+    state, lst = _launch_select(grad, hess, member, leaf_id, leaf,
+                                premultiplied, scales)
     # the cells' i64 sums, then one u32 arrival counter a tile
-    scratch = _kernel_scratch(dev, G * num_bins * 3 + (tiles + 1) // 2)
-    out = torch.empty((G, num_bins, 3), dtype=torch.float32, device=dev)
+    scratch = _kernel_scratch(dev, num_cols * num_bins * 3 + (tiles + 1) // 2)
+    out = torch.empty((num_cols, num_bins, 3), dtype=torch.float32,
+                      device=dev)
     rc = kernels.library().lgbt_histogram_chunked(
-        binsT.data_ptr(), binsT.element_size(), w3.data_ptr(), npad, G,
-        num_bins, scales.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-        kernels.stream_ptr(dev))
+        rows.data_ptr(), rows.element_size(), stride, npad, num_cols,
+        num_bins, state.data_ptr(), lst.data_ptr(), scratch.data_ptr(),
+        out.data_ptr(), kernels.stream_ptr(dev))
     kernels.check_launch(kernels.variant("histogram_chunked", wide=wide),
                          rc)
     return out
+
+
+def _check_num_bins(num_bins: int) -> None:
+    if not 1 <= num_bins <= 65536:
+        raise ValueError("num_bins must be in [1, 65536]")
+
+
+def histogram_chunked(binsT: torch.Tensor, w3: torch.Tensor, num_bins: int,
+                      scales: torch.Tensor = None,
+                      rows: torch.Tensor = None) -> torch.Tensor:
+    """B3 on channels: per (column, bin) sums of the three channels of
+    ``w3`` ([3, Npad] f32, chunked_channels) over the rows with w3[2] != 0
+    -> [G, B, 3] f32 (sum_grad, sum_hess, count), from ``binsT`` [G, Npad]
+    uint8 or int16 (two-byte bins, read unsigned), B = ``num_bins`` up to
+    65,536.  ``scales`` defaults to channel_scales(w3); ``rows`` is
+    chunked_rows(binsT), made for the call when not given.  A CPU tensor
+    takes the plain version; a CUDA one launches B3's two kernels (the
+    list of rows, then the histogram) or raises.  Replaces
+    lightgbm_tpu/ops/histogram.py histogram_chunked (:32, an XLA one-hot
+    contraction, not a Pallas kernel)."""
+    if scales is None:
+        scales = channel_scales(w3)
+    _check_num_bins(num_bins)
+    if _device_kind(binsT) == "cpu":
+        return histogram_chunked_plain(binsT, w3, num_bins, scales)
+    if w3.shape != (3, binsT.shape[1]):
+        raise ValueError("w3 must be [3, Npad]")
+    _check_cuda(binsT.device, w3=(w3, torch.float32))
+    if rows is None:
+        rows = chunked_rows(binsT)
+    return _launch_chunked(rows, binsT.shape[0], w3[0], w3[1], w3[2], None,
+                           -1, True, scales, num_bins)
+
+
+def histogram_chunked_leaf(binsT: torch.Tensor, grad: torch.Tensor,
+                           hess: torch.Tensor, member: torch.Tensor,
+                           num_bins: int, leaf_id: torch.Tensor = None,
+                           leaf: int = -1,
+                           rows: torch.Tensor = None) -> torch.Tensor:
+    """B3 of one leaf, as the fused grower calls it: the sums over the rows
+    where ``leaf_id`` is ``leaf`` (every row when ``leaf_id`` is None, the
+    root) with m = member != 0, of grad * m, hess * m and 1 -> [G, B, 3]
+    f32, at channel_scales' scales of those channels, computed on the card:
+    bit for bit ``histogram_chunked(binsT, chunked_channels(grad, hess,
+    (leaf_id == leaf) * member), num_bins)`` without the channel tensor.
+    ``rows`` as in histogram_chunked.  A CPU tensor takes the plain
+    version (histogram_chunked_leaf_plain)."""
+    _check_num_bins(num_bins)
+    if _device_kind(binsT) == "cpu":
+        return histogram_chunked_leaf_plain(binsT, grad, hess, member,
+                                            num_bins, leaf_id, leaf)
+    if rows is None:
+        rows = chunked_rows(binsT)
+    return _launch_chunked(rows, binsT.shape[0], grad, hess, member,
+                           leaf_id, leaf, False, None, num_bins)

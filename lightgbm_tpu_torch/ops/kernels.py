@@ -17,7 +17,10 @@ weight stream), ``variant(name, packed4, True)``: ``<name>_packed_acc``,
 ``<name>_packed4_packed_acc`` with both.  A kernel's mode for
 two-byte bins (a column of more than 256) counts as
 ``variant(name, wide=True)``, ``<name>_u16``: B3 ``histogram_chunked``
-(csrc/wide_hist.cu), K2 and P1.  A
+(csrc/wide_hist.cu), K2 and P1.  B3 is two launches a call: its first
+pass, which lists the leaf's rows and computes the scales, counts as
+``histogram_chunked_select`` (it reads no bins, so it has one name), its
+histogram as ``histogram_chunked`` or ``histogram_chunked_u16``.  A
 call made while a CUDA graph is being captured launches nothing then: it
 is counted in ``CAPTURED``, which the capturing code keeps as the graph's
 launches and adds to ``LAUNCHES`` at every replay (``count_replay``),
@@ -55,10 +58,12 @@ BASE_KERNEL_NAMES = ("histogram_segment", "route_window",
                      "score_gather_add", "histogram_all",
                      "histogram_frontier", "histogram_frontier_routed",
                      "histogram_frontier_fusedk", "route_trees",
-                     "quantize_pack", "histogram_chunked")
+                     "quantize_pack", "histogram_chunked_select",
+                     "histogram_chunked")
 # the kernels that read training bins, and so have a packed4 input mode
 PACKED4_KERNELS = tuple(k for k in BASE_KERNEL_NAMES
                         if k not in ("score_gather_add", "quantize_pack",
+                                     "histogram_chunked_select",
                                      "histogram_chunked"))
 PACKED4_SUFFIX = "_packed4"
 # the histogram kernels, which read weights, and so have a
@@ -120,7 +125,9 @@ _SIGNATURES = {
     "lgbt_route_trees": [_P, _I, _I, _LL, _LL, _P, _I, _P, _P, _I, _I, _I,
                          _I, _I, _P, _I, _I, _P],
     "lgbt_route_window_u16": [_P, _P, _LL, _LL, _LL, _P, _P],
-    "lgbt_histogram_chunked": [_P, _I, _P, _LL, _I, _I, _P, _P, _P, _P],
+    "lgbt_chunked_select": [_P, _P, _P, _P, _I, _I, _LL, _P, _P, _P, _P],
+    "lgbt_histogram_chunked": [_P, _I, _I, _LL, _I, _I, _P, _P, _P, _P,
+                               _P],
     "lgbt_chunked_tiling": [_I, _I, _P],
 }
 

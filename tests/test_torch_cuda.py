@@ -47,10 +47,14 @@ grower launches K5 once for each root and split and K2 once a split.
 The second histogram path (two-byte bins, gpu_use_dp): B3
 (``histogram_chunked``) bit for bit its plain version (the same fixed
 point) on u8 and u16 bins at B 64 to 65,536, with pad rows and a member
-channel, and the same bits on a second launch; K2's and P1's u16 modes
-against their plain versions on bins past 32,767; a booster at max_bin
-511 on the card launches B3 once a node and K2-u16 once a split, and
-grows the CPU's splits.
+channel, and the same bits on a second launch; B3's leaf entry (pass 1's
+list of the leaf's rows and its scales on the card, then the histogram of
+the listed rows) bit for bit its plain version at the root, every other
+row, 5%, one row and no row, and pass 1 alone (its list and scales); K2's
+and P1's u16 modes against their plain versions on bins past 32,767; a
+booster at max_bin 511 on the card launches B3 once a node and K2-u16
+once a split, and grows the CPU's splits; under gpu_use_dp the fused
+grower builds no [3, Npad] channel tensor.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips where
 ``torch.cuda.is_available()`` is false.  The file imports neither JAX nor
@@ -3186,3 +3190,106 @@ def test_wide_booster_on_card_equals_cpu(dev):
     assert card.gbdt.last_predict_route == "device"
     off = card.predict(X, raw_score=True, predict_device="off")
     assert np.array_equal(on, off)
+
+
+# ------------------------------------------------ B3 on a leaf's rows
+def _leaf_inputs(G, B, npad, wide, frac, seed):
+    """_wide_inputs' bins with gradients, hessians, a member channel with
+    zeros and leaf ids whose leaf 0 holds ``frac`` of the rows: "half"
+    every other row, "one" a single row, "empty" none, 1.0 the root (no
+    leaf ids)."""
+    bins, w3 = _wide_inputs(G, B, npad, npad - 3, wide, B + 7)
+    g = torch.Generator().manual_seed(B + 11)
+    grad, hess = w3[0].clone(), w3[1].clone()
+    member = (torch.rand(npad, generator=g) < 0.9).float()
+    if frac == 1.0:
+        return bins, grad, hess, member, None
+    lid = torch.randint(1, 5, (npad,), generator=g, dtype=torch.int32)
+    if frac == "half":
+        lid[::2] = 0
+    elif frac == "one":
+        lid[npad // 2] = 0
+        member[npad // 2] = 1.0
+    elif frac != "empty":
+        lid[torch.rand(npad, generator=g) < frac] = 0
+    return bins, grad, hess, member, lid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,wide", [(64, False), (256, False), (64, True),
+                                    (1024, True), (65536, True)])
+@pytest.mark.parametrize("frac", [1.0, "half", 0.05, "one", "empty"])
+def test_histogram_chunked_leaf_matches_plain(dev, B, wide, frac):
+    """B3's leaf entry (the list of the leaf's rows and the scales on the
+    card, then the histogram of the listed rows) = its plain version bit
+    for bit at 28 columns, Npad 39,997 (no multiple of a block), the root,
+    every other row, 5%, one row and no row; a relaunch gives the same
+    bits; a call is one launch of each kernel, counted under
+    ``histogram_chunked_select`` and the histogram's mode."""
+    G, npad = 28, 39_997
+    bins, grad, hess, member, lid = _leaf_inputs(G, B, npad, wide, frac, B)
+    want = th.histogram_chunked_leaf_plain(bins, grad, hess, member, B, lid,
+                                           0)
+    on = [t.to(dev) if t is not None else None
+          for t in (bins, grad, hess, member, lid)]
+    rows = th.chunked_rows(on[0])
+    kernels.reset_launches()
+    got = th.histogram_chunked_leaf(*on[:4], B, on[4], 0, rows=rows)
+    again = th.histogram_chunked_leaf(*on[:4], B, on[4], 0)
+    torch.cuda.synchronize()
+    name = kernels.variant("histogram_chunked", wide=wide)
+    assert kernels.LAUNCHES[name] == 2
+    assert kernels.LAUNCHES["histogram_chunked_select"] == 2
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(again, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frac", [1.0, "half", 0.05, "one", "empty"])
+def test_chunked_select_matches_plain(dev, frac):
+    """B3's pass 1 alone: the leaf's rows in row order, their g * m and h *
+    m, and the scales computed on the card = chunked_select_plain bit for
+    bit (the scales = channel_scales of the channels), one launch."""
+    _, grad, hess, member, lid = _leaf_inputs(4, 64, 39_997, False, frac,
+                                              3)
+    want = th.chunked_select_plain(grad, hess, member, lid, 0)
+    kernels.reset_launches()
+    got = th.chunked_select(*(t.to(dev) if t is not None else None
+                              for t in (grad, hess, member, lid)), 0)
+    assert kernels.LAUNCHES["histogram_chunked_select"] == 1
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_fused_onehot_grower_builds_no_channel_tensor(dev, monkeypatch):
+    """gpu_use_dp on the card: the fused grower launches B3 (both
+    kernels) once a node and K2 once a split, and never builds the [3,
+    Npad] channel tensor (chunked_channels) nor the channel scales; its
+    trees = the CPU's splits."""
+    calls = []
+    for name in ("chunked_channels", "channel_scales"):
+        real = getattr(th, name)
+        monkeypatch.setattr(th, name, lambda *a, _r=real, _n=name, **k:
+                            calls.append(_n) or _r(*a, **k))
+    X, y = _wide_data()
+    params = dict(WIDE_PARAMS, max_bin=63, gpu_use_dp=True)
+    models = {}
+    for device in ("cuda", "cpu"):
+        bst = lt.Booster(dict(params, device_type=device),
+                         lt.Dataset(X, y))
+        kernels.reset_launches()
+        for _ in range(3):
+            bst.update()
+        models[device] = bst.gbdt.models
+        if device == "cuda":
+            run = dict(kernels.LAUNCHES)
+            card = bst
+    assert card.gbdt.hist_backend == "onehot"
+    assert not card.gbdt.train_set.wide
+    nodes = sum(t.num_leaves for t in card.gbdt.models)
+    assert run["histogram_chunked"] == run["histogram_chunked_select"] \
+        == nodes
+    assert run["route_window"] == nodes - len(card.gbdt.models)
+    assert calls == []
+    assert _same_splits(models["cuda"], models["cpu"]) >= 20

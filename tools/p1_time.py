@@ -1,23 +1,26 @@
 #!/usr/bin/env python3
-"""P1 (``route_trees``, lightgbm_tpu_torch/csrc/predict.cu) and Q1
-(``quantize_pack``, csrc/quantize.cu) on one NVIDIA card, beside their
-previous designs.
+"""P1 (``route_trees``, lightgbm_tpu_torch/csrc/predict.cu), Q1
+(``quantize_pack``, csrc/quantize.cu) and B3 (``histogram_chunked``,
+csrc/wide_hist.cu) on one NVIDIA card, beside their previous designs.
 
     python3 tools/p1_time.py alone  [--rounds N] [--out FILE]
     python3 tools/p1_time.py prefix [--rounds N] [--out FILE]
     python3 tools/p1_time.py turns  [--out FILE]
     python3 tools/p1_time.py candidates [--out FILE]
+    python3 tools/p1_time.py b3_probe [--out FILE]
 
 Run from the root of a checkout; it imports that checkout's
 ``chip_smoke.py`` and package.  The previous designs, P1 before its
-node records (one row a thread, nine dependent loads a step) and Q1
-before its reduction kernel (torch reductions, then one kernel), are
-kept as they were under
+node records (one row a thread, nine dependent loads a step), Q1
+before its reduction kernel (torch reductions, then one kernel) and B3
+before its leaf list (a lane a row over every row, carry-returning
+shared atomics), are kept as they were under
 ``tools/prev_kernels/`` and built here into a library of their own
-(``prev_library``); ``prev_route_trees`` and ``prev_quantize_pack`` call
-them as the package called them, so ``chip_smoke.py`` and this script can
-time each previous design in turns with the shipped one in one process
-(previous, shipped, shipped, previous).
+(``prev_library``); ``prev_route_trees``, ``prev_quantize_pack`` and
+``prev_histogram_chunked`` call them as the package called them, so
+``chip_smoke.py`` and this script can time each previous design in turns
+with the shipped one in one process (previous, shipped, shipped,
+previous).
 
 ``alone`` and ``prefix`` generate and bin chip_smoke's HIGGS rows (10.5M
 x 28), train its main path (3 iterations, then the late split's fourth
@@ -34,7 +37,10 @@ of csrc/predict.cu, built with nvcc; and the shipped kernel in its
 direct mode and at smaller blocks) on the HIGGS training bins, on 1M
 rows' i16 predict bins and on multiclass_cat's training bins with its
 125 trees (chip_smoke's MC_PARAMS, 25 iterations), each checked bit for
-bit against the shipped kernel, in turns with it.
+bit against the shipped kernel, in turns with it.  ``b3_probe`` builds
+and runs tools/b3_atomics_probe.cu (no data, no package): the SASS atomic
+opcodes of each way of adding into a shared histogram and their rate
+over random cells, which bound B3.
 Prints one JSON line: the card, the mode and the times in ms.
 """
 
@@ -48,7 +54,8 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PREV_SOURCES = ("predict_previous.cu", "quantize_previous.cu")
+PREV_SOURCES = ("predict_previous.cu", "quantize_previous.cu",
+                "wide_hist_previous.cu")
 _PREV = None
 
 _P = ctypes.c_void_p
@@ -58,7 +65,10 @@ _PREV_SIGNATURES = {
     "lgbt_route_trees": [_P, _I, _LL, _LL] + [_P] * 9 + [_I] * 4
     + [_P, _P, _P, _P, _I, _P, _I, _P],
     "lgbt_quantize_pack": [_P, _P, _P, _LL, _P, _P, _I, _P, _P, _P],
+    "lgbt_histogram_chunked": [_P, _I, _P, _LL, _I, _I, _P, _P, _P, _P],
+    "lgbt_chunked_tiling": [_I, _I, _P],
 }
+_PREV_SCRATCH = {}
 
 
 def prev_build_start():
@@ -168,6 +178,58 @@ def prev_quantize_pack(grad, hess, member, bits=8):
         scales.data_ptr(), seed.data_ptr(), bits, w2.data_ptr(),
         clips.data_ptr(), kernels.stream_ptr(grad.device)))
     return w2, scales, clips.reshape(())
+
+
+def prev_tile_columns(num_cols, num_bins):
+    """The previous B3 design's columns a tile (its lgbt_chunked_tiling)."""
+    tiling = (ctypes.c_int * 3)()
+    _check("chunked_tiling", prev_library().lgbt_chunked_tiling(
+        num_cols, num_bins, ctypes.addressof(tiling)))
+    return tiling[0]
+
+
+def prev_histogram_chunked(binsT, w3, num_bins, scales):
+    """The previous B3 design: one launch over every row of the
+    column-major bins ``binsT`` [G, npad] and the channels ``w3`` [3,
+    npad] at ``scales``, into a zeroed i64 scratch of its own, as the
+    package called it -> [G, B, 3] f32."""
+    import torch
+    from lightgbm_tpu_torch.ops import kernels
+    G, npad = binsT.shape
+    dev = binsT.device
+    need = G * num_bins * 3 + (-(-G // prev_tile_columns(G, num_bins))
+                               + 1) // 2
+    scratch = _PREV_SCRATCH.get(dev)
+    if scratch is None or scratch.numel() < need:
+        scratch = _PREV_SCRATCH[dev] = torch.zeros(
+            max(need, 1 << 16), dtype=torch.int64, device=dev)
+    out = torch.empty((G, num_bins, 3), dtype=torch.float32, device=dev)
+    _check("histogram_chunked", prev_library().lgbt_histogram_chunked(
+        binsT.data_ptr(), binsT.element_size(), w3.data_ptr(), npad, G,
+        num_bins, scales.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+        kernels.stream_ptr(dev)))
+    return out
+
+
+def b3_probe():
+    """Builds tools/b3_atomics_probe.cu with nvcc and runs it: {"sass":
+    {variant: {opcode: count}}, "rates": [its JSON lines]}."""
+    sys.path.insert(0, ROOT)
+    from lightgbm_tpu_torch.ops import kernels
+    out = os.path.join(str(kernels.BUILD_ROOT), "b3-probe")
+    os.makedirs(out, exist_ok=True)
+    exe = os.path.join(out, "b3_atomics_probe")
+    subprocess.run([kernels._nvcc(), *kernels.ARCH_FLAGS, "-O3",
+                    "-std=c++17", "-o", exe,
+                    os.path.join(ROOT, "tools", "b3_atomics_probe.cu")],
+                   check=True, capture_output=True, text=True)
+    sass = kernels.sass_opcodes("probe_kernel", lib=exe)
+    ops = {fn: {k: v for k, v in sorted(o.items())
+                if k.startswith(("ATOMS", "ATOM", "RED"))}
+           for fn, o in sass.items()}
+    run = subprocess.run([exe], check=True, capture_output=True, text=True)
+    return {"sass": ops, "rates": [json.loads(line) for line in
+                                   run.stdout.splitlines() if line]}
 
 
 # P1 designs tried beside the shipped one: textual edits of
@@ -308,7 +370,7 @@ def p1_candidates(cs, cases, reps):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("mode", choices=("alone", "prefix", "turns",
-                                     "candidates"))
+                                     "candidates", "b3_probe"))
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
@@ -326,6 +388,15 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=False).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
+    if args.mode == "b3_probe":
+        rec = {"card": card, "mode": args.mode, **b3_probe(),
+               "wall_s": time.perf_counter() - t0}
+        line = json.dumps(rec)
+        print(line)
+        if args.out:
+            with open(args.out, "a") as f:
+                f.write(line + "\n")
+        return 0
     X, y = cs.higgs_like(cs.HIGGS_ROWS + cs.HOLDOUT_ROWS, 42)
     Xh, yh = X[cs.HIGGS_ROWS:], y[cs.HIGGS_ROWS:]
     X, y = X[:cs.HIGGS_ROWS], y[:cs.HIGGS_ROWS]
